@@ -1,0 +1,37 @@
+"""pwn_tpu_torch — the PyTorch / CUDA port of pwn_tpu, for NVIDIA Hopper.
+
+The JAX package `pwn_tpu` is the reference; this package mirrors its
+module names (`ops/conv.py`, `models/student.py`, `generate.py`, ...) so
+each piece has an obvious counterpart.  Public functions keep JAX's
+channels-last `(B, T, C)` layout so tests compare like with like.
+
+What is ported: student IAF synthesis (mel -> waveform in one parallel
+pass) through `generate_student` and `vocode_many`.  The flow stack runs
+in a hand-written CUDA C++ kernel (`csrc/flow_stack.cu`) on a CUDA tensor
+and in its plain PyTorch version (`ops/flow_stack.py`) on a CPU tensor.
+
+This package imports `torch` and never `jax`.  The configuration
+dataclasses are shared with the reference: `pwn_tpu.config` is plain
+Python and `import pwn_tpu` loads nothing else.
+"""
+
+from pwn_tpu.config import Config, get_config, override  # noqa: F401
+
+__version__ = "0.1.0"
+
+# entry points load torch model code on first touch only
+_LAZY = {
+    "generate_student": "pwn_tpu_torch.generate",
+    "vocode_many": "pwn_tpu_torch.generate",
+    "mel_from_wav": "pwn_tpu_torch.generate",
+    "init_student": "pwn_tpu_torch.models.student",
+    "require_cuda": "pwn_tpu_torch.utils.platform",
+}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module 'pwn_tpu_torch' has no attribute {name!r}")

@@ -1,0 +1,204 @@
+"""Building blocks of the student IAF (counterpart of
+`pwn_tpu/models/modules.py`).
+
+Parameters keep the flax tree's names and shapes, channels-last
+(`front/kernel (1, Cin, C)`, `layer_i/w_dilated (2, C, G)`, ...,
+`upsample/kernel_i (K, Cin, Cout)`), so a state_dict key is the flax path
+with "." for "/" (`convert.py`).  Parameters are float32; compute runs in
+the configured dtype, and the stack head returns float32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from pwn_tpu_torch.ops.conv import causal_conv1d, conv_transpose1d
+from pwn_tpu_torch.ops.flow_stack import flow_stack
+
+# flax's variance_scaling(1.0, "fan_in", "truncated_normal"): the normal
+# truncated at +-2 std, rescaled to unit variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def fan_in_init_(t: torch.Tensor, fan_in: int,
+                 generator: torch.Generator) -> None:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
+
+
+def _param(*shape, device=None) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, device=device))
+
+
+class CausalConv1d(nn.Module):
+    """1x1 conv with kernel (1, Cin, Cout): the stack's front and heads (the
+    dilated K=2 convs live inside the stack)."""
+
+    def __init__(self, in_channels: int, features: int,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = _param(1, in_channels, features, device=device)
+        self.bias = _param(features, device=device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        fan_in_init_(self.kernel, self.kernel.shape[1], generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return causal_conv1d(x.to(dt), self.kernel.to(dt), 1,
+                             self.bias.to(dt))
+
+
+class GatedLayer(nn.Module):
+    """Parameters of one gated residual layer:
+        w_dilated (2, C, G), b_dilated, w_cond (M, G), b_cond,
+        w_res (G/2, C), b_res, w_skip (G/2, S), b_skip
+    The compute lives in the stack (`ops/flow_stack.py`)."""
+
+    def __init__(self, residual_channels: int, gate_channels: int,
+                 skip_channels: int, cond_channels: int, device=None):
+        super().__init__()
+        C, G, S, M = (residual_channels, gate_channels, skip_channels,
+                      cond_channels)
+        self.w_dilated = _param(2, C, G, device=device)
+        self.b_dilated = _param(G, device=device)
+        self.w_cond = _param(M, G, device=device)
+        self.b_cond = _param(G, device=device)
+        self.w_res = _param(G // 2, C, device=device)
+        self.b_res = _param(C, device=device)
+        self.w_skip = _param(G // 2, S, device=device)
+        self.b_skip = _param(S, device=device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        fan_in_init_(self.w_dilated, 2 * self.w_dilated.shape[1], generator)
+        fan_in_init_(self.w_cond, self.w_cond.shape[0], generator)
+        fan_in_init_(self.w_res, self.w_res.shape[0], generator)
+        fan_in_init_(self.w_skip, self.w_skip.shape[0], generator)
+        for b in (self.b_dilated, self.b_cond, self.b_res, self.b_skip):
+            nn.init.zeros_(b)
+
+
+class WaveNetStack(nn.Module):
+    """Front 1x1 -> dilated gated layers (skip sum) -> relu/1x1/relu/1x1.
+
+    One student IAF flow (input: the shifted z, one channel; out_dim = 2:
+    mu, log_s).  The gated layers run as one `flow_stack` call over the
+    stacked layout of `stacked()`.
+    """
+
+    def __init__(self, dilations: Sequence[int], residual_channels: int,
+                 gate_channels: int, skip_channels: int, out_dim: int,
+                 cond_channels: int, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        C, S = residual_channels, skip_channels
+        self.dilations = tuple(dilations)
+        self.dtype = dtype
+        self.front = CausalConv1d(1, C, dtype=dtype, device=device)
+        for i in range(len(self.dilations)):
+            self.add_module(f"layer_{i}", GatedLayer(
+                C, gate_channels, S, cond_channels, device=device))
+        self.head1 = CausalConv1d(S, S, dtype=dtype, device=device)
+        self.head2 = CausalConv1d(S, out_dim, dtype=dtype, device=device)
+        self._stacked_key, self._stacked_cache = None, None
+
+    @property
+    def layers(self) -> list:
+        return [getattr(self, f"layer_{i}")
+                for i in range(len(self.dilations))]
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.front.reset_parameters(generator)
+        for lp in self.layers:
+            lp.reset_parameters(generator)
+        self.head1.reset_parameters(generator)
+        self.head2.reset_parameters(generator)
+
+    def stacked(self):
+        """(w_in, b_g, w_out, b_rs) in the layout `flow_stack` reads, each
+        weight stored (out, in) like `nn.Linear.weight`:
+        w_in (L, G, 2C+M) = [w_dilated[1]; w_dilated[0]; w_cond] transposed
+        and w_out (L, C+S, G/2) = [w_res | w_skip] transposed, in the
+        compute dtype; the biases rounded to the compute dtype, then held in
+        float32.
+
+        With grad off the result is built once and reused until a layer
+        parameter moves or changes in place (its `_version` counts that;
+        writes through `.data` bypass it)."""
+        params = [p for lp in self.layers for p in lp.parameters()]
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        if not torch.is_grad_enabled() and self._stacked_key == key:
+            return self._stacked_cache
+        dt = self.dtype
+
+        def stk(name):
+            return torch.stack([getattr(lp, name) for lp in self.layers])
+
+        w_dil = stk("w_dilated")
+        w_in = torch.cat([w_dil[:, 1], w_dil[:, 0], stk("w_cond")],
+                         dim=1).to(dt)
+        b_g = (stk("b_dilated") + stk("b_cond")).to(dt).float()
+        w_out = torch.cat([stk("w_res"), stk("w_skip")], dim=2).to(dt)
+        b_rs = torch.cat([stk("b_res").to(dt), stk("b_skip").to(dt)],
+                         dim=1).float()
+        out = (w_in.transpose(1, 2).contiguous(), b_g.contiguous(),
+               w_out.transpose(1, 2).contiguous(), b_rs.contiguous())
+        if not torch.is_grad_enabled():
+            self._stacked_key, self._stacked_cache = key, out
+        return out
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        x = self.front(x).contiguous()
+        cond = cond.to(self.dtype).contiguous()
+        skip = flow_stack(x, cond, *self.stacked(), dilations=self.dilations)
+        h = F.relu(skip)
+        h = F.relu(self.head1(h))
+        return self.head2(h).float()
+
+
+class UpsampleNet(nn.Module):
+    """Mel-frame -> sample-rate conditioning: transposed convs, each followed
+    by leaky_relu(0.4); the product of `strides` is the hop length, so
+    (B, F, n_mels) -> (B, F*hop, n_mels)."""
+
+    def __init__(self, strides: Sequence[int], channels: int,
+                 in_channels: int, kernel_mult: int = 2,
+                 dtype: torch.dtype = torch.float32, weight_norm: bool = False,
+                 device=None):
+        super().__init__()
+        if weight_norm:
+            raise NotImplementedError(
+                "the weight-normalized upsampler is not ported yet")
+        self.strides = tuple(strides)
+        self.dtype = dtype
+        cin = in_channels
+        for i, stride in enumerate(self.strides):
+            self.register_parameter(f"kernel_{i}", _param(
+                stride * kernel_mult, cin, channels, device=device))
+            self.register_parameter(f"bias_{i}", _param(channels,
+                                                        device=device))
+            cin = channels
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for i in range(len(self.strides)):
+            k = getattr(self, f"kernel_{i}")
+            fan_in_init_(k, k.shape[0] * k.shape[1], generator)
+            nn.init.zeros_(getattr(self, f"bias_{i}"))
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x = mel.to(dt)
+        for i, stride in enumerate(self.strides):
+            x = conv_transpose1d(x, getattr(self, f"kernel_{i}").to(dt),
+                                 stride, getattr(self, f"bias_{i}").to(dt))
+            x = F.leaky_relu(x, 0.4)
+        return x

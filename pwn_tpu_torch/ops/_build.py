@@ -1,0 +1,91 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in `pwn_tpu_torch/csrc/` have a plain C interface and are
+compiled with nvcc into one shared library, loaded with ctypes (no
+PyTorch headers, so a build takes seconds, not minutes).  The library
+goes into `pwn_tpu_torch/build/`, named by a hash of the sources and
+flags, and is built at first use.  Importing this module builds
+nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCES = (_PKG / "csrc" / "flow_stack.cu",)
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+def nvcc_path() -> str:
+    """nvcc from $CUDA_HOME, else PATH, else the toolkit's default prefix."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands.append(shutil.which("nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+        "kernels are compiled on the machine with the card"
+    )
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"pwn_kernels-{h.hexdigest()[:16]}.so"
+
+
+def compile_library(out: Path) -> str:
+    """Compile SOURCES into `out`; returns nvcc's output (ptxas -v report).
+    Raises RuntimeError with the compiler's output if the build fails."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    out.with_suffix(".log").write_text(log)
+    return log
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, compiled first if it is not built."""
+    path = library_path()
+    if not path.exists():
+        compile_library(path)
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pwn_flow_stack_bf16.argtypes = [
+        p, p, p, p, p, p, p,           # x0, cond, w_in_t, b_g, w_out_t, b_rs, skip
+        i, i, i, i, i, i, i,           # B, T, L, C, G, S, M
+        ctypes.POINTER(ctypes.c_int),  # dilations
+        i, p,                          # segment length, stream
+    ]
+    lib.pwn_flow_stack_bf16.restype = i
+    lib.pwn_flow_stack_tile_rows.argtypes = []
+    lib.pwn_flow_stack_tile_rows.restype = i
+    lib.pwn_flow_stack_smem_bytes.argtypes = [i]
+    lib.pwn_flow_stack_smem_bytes.restype = ctypes.c_longlong
+    lib.pwn_cuda_error_string.argtypes = [i]
+    lib.pwn_cuda_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,67 @@
+"""The port stands without JAX, and its chip smoke refuses to run without a
+card or without the repository.
+
+The machine with the card has no JAX, so every module of `pwn_tpu_torch`
+(and `chip_smoke.py`) must import with `jax` blocked.
+"""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import pwn_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(pwn_tpu_torch.__path__,
+                                               "pwn_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+print(len(names), loaded)
+"""
+
+
+def _run(code_or_script, cwd, *args):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, *code_or_script, *args], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=240)
+
+
+def test_every_port_module_imports_without_jax():
+    proc = _run(["-c", _IMPORT_ALL], ROOT)
+    assert proc.returncode == 0, proc.stderr
+    n, loaded = proc.stdout.strip().split(" ", 1)
+    assert int(n) >= 14  # the slice's modules, __init__s included
+    assert loaded == "['jax']", loaded  # only the blocking sentinel
+    # the smoke and the profiler lean on the port's own surface (its config
+    # re-export), never on how the reference package is laid out
+    for script in ["chip_smoke.py", *sorted(
+            str(p.relative_to(ROOT)) for p in ROOT.glob("tools/torch_*.py"))]:
+        text = (ROOT / script).read_text()
+        assert not re.search(r"^\s*(from|import)\s+pwn_tpu\b",
+                             text, re.M), script
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = _run(["chip_smoke.py"], ROOT)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert "no CUDA device" in proc.stderr
+
+
+def test_chip_smoke_fails_outside_the_repository(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run(["chip_smoke.py"], tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert "ModuleNotFoundError" in proc.stderr
