@@ -6,9 +6,12 @@ each piece has an obvious counterpart.  Public functions keep JAX's
 channels-last `(B, T, C)` layout so tests compare like with like.
 
 What is ported: student IAF synthesis (mel -> waveform in one parallel
-pass) through `generate_student` and `vocode_many`.  The flow stack runs
-in a hand-written CUDA C++ kernel (`csrc/flow_stack.cu`) on a CUDA tensor
-and in its plain PyTorch version (`ops/flow_stack.py`) on a CPU tensor.
+pass) through `generate_student` and `vocode_many`, and teacher training
+on the synthetic corpus through `run_teacher_training`.  The flow stack
+runs in hand-written CUDA C++ kernels on a CUDA tensor (`csrc/flow_stack.cu`
+for inference, `csrc/flow_stack_train.cu` for the training forward and
+backward) and in its plain PyTorch versions (`ops/flow_stack.py`) on a
+CPU tensor.
 
 This package imports `torch` and never `jax`.  The configuration
 dataclasses are shared with the reference: `pwn_tpu.config` is plain
@@ -25,6 +28,8 @@ _LAZY = {
     "vocode_many": "pwn_tpu_torch.generate",
     "mel_from_wav": "pwn_tpu_torch.generate",
     "init_student": "pwn_tpu_torch.models.student",
+    "init_teacher": "pwn_tpu_torch.models.teacher",
+    "run_teacher_training": "pwn_tpu_torch.training.loop",
     "require_cuda": "pwn_tpu_torch.utils.platform",
 }
 

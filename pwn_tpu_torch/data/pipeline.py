@@ -1,0 +1,288 @@
+"""Input pipeline for training on the synthetic corpora (counterpart of
+`pwn_tpu/data/pipeline.py`).
+
+The classes and functions here are copies of the reference's, numpy only:
+importing `pwn_tpu.data` would load JAX (its pipeline imports
+`pwn_tpu.utils.audio_io`, and `pwn_tpu/utils/__init__.py` imports the JAX
+DSP).  Batches equal the reference's bit for bit for the same seed and
+step.  Hosts produce raw fixed-length float32 crops; the mel is computed
+on the device (`training/teacher.py::prepare_batch`).  Not ported yet:
+the wav-directory corpus (`WavCropDataset`, `corpus_split`) and the
+native and grain engines.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+from collections import OrderedDict
+from typing import Callable, Iterator
+
+import numpy as np
+
+from pwn_tpu.config import Config
+
+
+class _CachedSynthCorpus:
+    """Byte-capped LRU clip cache shared by the synthetic corpora.
+
+    Clip i is a pure function of (seed, i), but synthesizing it is host
+    work on the training hot path — SyntheticSpeech's cascaded formant
+    filters cost ~12 ms/clip, which at batch 8 made the REAL train-step
+    wall ~112 ms against an 18 ms device step (measured during the r2
+    speech demo: the loop was host-data-bound).  Same cap/eviction policy
+    as WavCropDataset (PWN_TPU_CACHE_BYTES, default 4 GiB)."""
+
+    def _cache_init(self):
+        self._cache: "OrderedDict[int, np.ndarray]" = OrderedDict()
+        self._cache_size = 0
+        self.cache_bytes = int(
+            os.environ.get("PWN_TPU_CACHE_BYTES", str(4 << 30))
+        )
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        hit = self._cache.get(i)
+        if hit is not None:
+            self._cache.move_to_end(i)
+            return hit
+        wav = self._synth(i)
+        if wav.nbytes <= self.cache_bytes:
+            self._cache[i] = wav
+            self._cache_size += wav.nbytes
+            while self._cache_size > self.cache_bytes:
+                _, old = self._cache.popitem(last=False)
+                self._cache_size -= old.nbytes
+        return wav
+
+
+class SyntheticTones(_CachedSynthCorpus):
+    """Deterministic corpus of random harmonic clips (tests/bench: no
+    LJSpeech download in this environment — zero egress)."""
+
+    def __init__(self, n_clips: int, n_samples: int, sample_rate: int,
+                 seed: int = 0):
+        self.n_clips = n_clips
+        self.n_samples = n_samples
+        self.sample_rate = sample_rate
+        self.seed = seed
+        self._cache_init()
+
+    def __len__(self) -> int:
+        return self.n_clips
+
+    def _synth(self, i: int) -> np.ndarray:
+        rng = np.random.default_rng(self.seed * 100003 + i)
+        t = np.arange(self.n_samples) / self.sample_rate
+        wav = np.zeros_like(t, dtype=np.float32)
+        f0 = rng.uniform(80.0, 400.0)
+        for h in range(1, 6):
+            amp = rng.uniform(0.05, 0.5) / h
+            wav += (amp * np.sin(2 * np.pi * f0 * h * t
+                                 + rng.uniform(0, 2 * np.pi))).astype(
+                np.float32
+            )
+        env = 0.5 * (1 + np.sin(2 * np.pi * rng.uniform(0.5, 3.0) * t))
+        wav *= env.astype(np.float32)
+        peak = np.abs(wav).max()
+        return (wav / max(peak, 1e-3) * 0.7).astype(np.float32)
+
+
+class SyntheticSpeech(_CachedSynthCorpus):
+    """Speech-like deterministic corpus (no real data in this zero-egress
+    env — VERDICT r1 missing item 4): each clip is a random sequence of
+    phone-like segments that stress what harmonic tones cannot —
+
+    * voiced segments: pitch-glided, vibrato-modulated harmonic source
+      shaped by 2-3 gliding formant resonators (vowel transitions);
+    * fricatives: band-passed noise bursts (2-8 kHz energy);
+    * plosives: broadband transients after closure silence;
+    * silences/pauses.
+
+    Same contract as SyntheticTones: __len__/__getitem__, clip i depends
+    only on (seed, i).
+    """
+
+    def __init__(self, n_clips: int, n_samples: int, sample_rate: int,
+                 seed: int = 0):
+        self.n_clips = n_clips
+        self.n_samples = n_samples
+        self.sample_rate = sample_rate
+        self.seed = seed
+        self._cache_init()
+
+    def __len__(self) -> int:
+        return self.n_clips
+
+    def _voiced(self, rng, n, sr):
+        t = np.arange(n) / sr
+        f0a, f0b = rng.uniform(80, 280, size=2)
+        f0 = np.linspace(f0a, f0b, n) * (
+            1.0 + 0.02 * np.sin(2 * np.pi * rng.uniform(4, 7) * t)
+        )
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        src = np.zeros(n)
+        max_h = max(1, int((sr / 2 - 1) / max(f0a, f0b)))
+        for h in range(1, min(max_h, 40) + 1):
+            src += np.sin(h * phase) / h  # harmonic-rich glottal-ish source
+        # 3 gliding formants as cascaded resonators, piecewise-constant
+        # coefficients over 4 sub-segments (cheap time-varying filter)
+        from scipy.signal import lfilter
+
+        vowels = [(730, 1090, 2440), (270, 2290, 3010), (530, 1840, 2480),
+                  (570, 840, 2410), (440, 1020, 2240)]
+        fa = np.array(vowels[rng.integers(len(vowels))], float)
+        fb = np.array(vowels[rng.integers(len(vowels))], float)
+        out = np.zeros(n)
+        n_seg = 4
+        for s in range(n_seg):
+            lo, hi = s * n // n_seg, (s + 1) * n // n_seg
+            frac = (s + 0.5) / n_seg
+            y = src[lo:hi]
+            for fc in fa + (fb - fa) * frac:
+                fc = min(fc, 0.45 * sr)
+                bw = rng.uniform(60, 120)
+                r = np.exp(-np.pi * bw / sr)
+                theta = 2 * np.pi * fc / sr
+                b = [1 - r]
+                a = [1.0, -2 * r * np.cos(theta), r * r]
+                y = lfilter(b, a, y)
+            out[lo:hi] = y
+        env = np.minimum(1.0, np.minimum(np.arange(n), n - np.arange(n))
+                         / (0.02 * sr + 1))
+        return out * env
+
+    def _fricative(self, rng, n, sr):
+        from scipy.signal import butter, lfilter
+
+        lo = rng.uniform(2000, 4000)
+        hi = min(rng.uniform(5000, 8000), 0.45 * sr)
+        if lo >= hi:
+            lo = hi / 2
+        b, a = butter(2, [lo / (sr / 2), hi / (sr / 2)], btype="band")
+        noise = lfilter(b, a, rng.normal(size=n))
+        env = np.minimum(1.0, np.minimum(np.arange(n), n - np.arange(n))
+                         / (0.01 * sr + 1))
+        return 0.3 * noise * env
+
+    def _plosive(self, rng, n, sr):
+        out = np.zeros(n)
+        burst = min(n, int(rng.uniform(0.005, 0.02) * sr))
+        start = n - burst  # closure silence then release burst
+        out[start:] = rng.normal(size=burst) * np.exp(
+            -np.arange(burst) / (0.004 * sr)
+        )
+        return out
+
+    def _synth(self, i: int) -> np.ndarray:
+        rng = np.random.default_rng(self.seed * 100003 + i + 1_000_003)
+        sr = self.sample_rate
+        n = self.n_samples
+        wav = np.zeros(n)
+        pos = 0
+        kinds = ["voiced", "voiced", "voiced", "fricative", "plosive",
+                 "silence"]
+        while pos < n:
+            kind = kinds[rng.integers(len(kinds))]
+            dur = {
+                "voiced": rng.uniform(0.08, 0.35),
+                "fricative": rng.uniform(0.04, 0.15),
+                "plosive": rng.uniform(0.02, 0.06),
+                "silence": rng.uniform(0.03, 0.15),
+            }[kind]
+            seg_n = min(n - pos, max(16, int(dur * sr)))
+            if kind == "voiced":
+                seg = self._voiced(rng, seg_n, sr)
+            elif kind == "fricative":
+                seg = self._fricative(rng, seg_n, sr)
+            elif kind == "plosive":
+                seg = self._plosive(rng, seg_n, sr)
+            else:
+                seg = np.zeros(seg_n)
+            wav[pos : pos + seg_n] = seg
+            pos += seg_n
+        peak = np.abs(wav).max()
+        return (wav / max(peak, 1e-3) * 0.7).astype(np.float32)
+
+
+def _crop(wav: np.ndarray, n: int, rng: np.random.Generator) -> np.ndarray:
+    """Random fixed-length crop, zero-padded if the clip is short
+    (reference `wav_random_crop` [R])."""
+    if len(wav) <= n:
+        out = np.zeros(n, np.float32)
+        out[: len(wav)] = wav
+        return out
+    start = int(rng.integers(0, len(wav) - n))
+    return wav[start : start + n]
+
+
+def make_train_iterator(
+    dataset,
+    cfg: Config,
+    local_batch_size: int,
+    seed: int = 0,
+    start_step: int = 0,
+) -> Iterator[np.ndarray]:
+    """Infinite deterministic iterator of (local_batch, crop_samples)
+    float32 batches.  Resumable: pass the saved step to fast-forward the
+    stream exactly (rng is derived from (seed, step), no hidden state)."""
+    n = len(dataset)
+    crop = cfg.train.crop_samples
+    step = start_step
+    while True:
+        rng = np.random.default_rng((seed << 20) ^ step)
+        idx = rng.integers(0, n, size=local_batch_size)
+        batch = np.stack([_crop(dataset[int(i)], crop, rng) for i in idx])
+        yield batch
+        step += 1
+
+
+def prefetch(
+    iterator: Iterator[np.ndarray],
+    put: Callable[[np.ndarray], object],
+    depth: int = 2,
+) -> Iterator[object]:
+    """Background-thread prefetch: overlap host batch assembly and
+    host->device transfer with the device step (replaces the reference's
+    ZMQ prefetch + FIFOQueue pair)."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def _put(item) -> bool:
+        # Bounded-queue put that re-checks `stop`: a plain q.put would block
+        # forever once the consumer stops iterating with the queue full,
+        # pinning device batch buffers for the rest of the process.
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterator:
+                if stop.is_set():
+                    return
+                if not _put(put(item)):
+                    return
+        except Exception as e:  # surface loader errors in the main thread
+            _put(e)
+
+    th = threading.Thread(target=worker, daemon=True)
+    th.start()
+    try:
+        while True:
+            item = q.get()
+            if isinstance(item, Exception):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
+def local_batch_size(global_batch: int) -> int:
+    """The batch of this process: the port trains on one process, so the
+    global batch."""
+    return global_batch

@@ -1,5 +1,5 @@
-"""Building blocks of the student IAF (counterpart of
-`pwn_tpu/models/modules.py`).
+"""Building blocks shared by the teacher and the student IAF (counterpart
+of `pwn_tpu/models/modules.py`).
 
 Parameters keep the flax tree's names and shapes, channels-last
 (`front/kernel (1, Cin, C)`, `layer_i/w_dilated (2, C, G)`, ...,
@@ -17,8 +17,46 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pwn_tpu_torch.ops.conv import causal_conv1d, conv_transpose1d
-from pwn_tpu_torch.ops.flow_stack import flow_stack
+from pwn_tpu_torch.ops.conv import causal_conv1d, conv_transpose1d, shift_right
+from pwn_tpu_torch.ops.flow_stack import (flow_stack, flow_stack_score,
+                                          flow_stack_train)
+
+# WaveNetStack's execution modes and the stack function each one runs:
+#   infer  inference forward (kernel 1 on the card; no backward there)
+#   train  forward saving the layer inputs + fused backward (kernels 2, 3)
+#   dx     the same forward; backward to the inputs only (a frozen stack)
+STACK_FNS = {"infer": flow_stack, "train": flow_stack_train,
+             "dx": flow_stack_score}
+
+
+def resolve_stack_mode(flag: str, auto: str) -> str:
+    """A config's `fused_layers` flag -> a WaveNetStack mode.  "auto" takes
+    the caller's default (`auto`): inference models "infer", the training
+    loops "train".  The reference's XLA and per-layer-kernel paths
+    ("off", "on", "layer") have no counterpart in the port."""
+    modes = {"auto": auto, "mega": "infer", "mega_train": "train",
+             "mega_dx": "dx"}
+    if flag not in modes:
+        raise NotImplementedError(
+            f"fused_layers={flag!r} is not ported (the port's stack modes "
+            f"are {sorted(STACK_FNS)})")
+    return modes[flag]
+
+
+def match_length(cond: torch.Tensor, T: int) -> torch.Tensor:
+    """Crop, or edge-pad, upsampled conditioning (B, Tc, M) to T samples."""
+    Tc = cond.shape[1]
+    if Tc >= T:
+        return cond[:, :T]
+    edge = cond[:, -1:].expand(-1, T - Tc, -1)
+    return torch.cat([cond, edge], dim=1)
+
+
+def shift_right_scalar(x: torch.Tensor) -> torch.Tensor:
+    """(B, T) waveform -> (B, T, 1) of previous samples (the AR input)."""
+    return shift_right(x[..., None], 1)
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # flax's variance_scaling(1.0, "fan_in", "truncated_normal"): the normal
 # truncated at +-2 std, rescaled to unit variance
@@ -90,19 +128,23 @@ class GatedLayer(nn.Module):
 class WaveNetStack(nn.Module):
     """Front 1x1 -> dilated gated layers (skip sum) -> relu/1x1/relu/1x1.
 
-    One student IAF flow (input: the shifted z, one channel; out_dim = 2:
-    mu, log_s).  The gated layers run as one `flow_stack` call over the
-    stacked layout of `stacked()`.
+    The trunk of the teacher (out_dim = the head's width) and of each
+    student IAF flow (out_dim = 2: mu, log_s).  The gated layers run as one
+    call of the mode's stack function (`STACK_FNS`) over the stacked
+    layout of `stacked()`.  The mode is fixed when the model is built.
     """
 
     def __init__(self, dilations: Sequence[int], residual_channels: int,
                  gate_channels: int, skip_channels: int, out_dim: int,
                  cond_channels: int, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 mode: str = "infer", device=None):
         super().__init__()
+        if mode not in STACK_FNS:
+            raise ValueError(f"stack mode {mode!r}; one of {sorted(STACK_FNS)}")
         C, S = residual_channels, skip_channels
         self.dilations = tuple(dilations)
         self.dtype = dtype
+        self.mode = mode
         self.front = CausalConv1d(1, C, dtype=dtype, device=device)
         for i in range(len(self.dilations)):
             self.add_module(f"layer_{i}", GatedLayer(
@@ -159,7 +201,8 @@ class WaveNetStack(nn.Module):
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         x = self.front(x).contiguous()
         cond = cond.to(self.dtype).contiguous()
-        skip = flow_stack(x, cond, *self.stacked(), dilations=self.dilations)
+        skip = STACK_FNS[self.mode](x, cond, *self.stacked(),
+                                    dilations=self.dilations)
         h = F.relu(skip)
         h = F.relu(self.head1(h))
         return self.head2(h).float()

@@ -18,20 +18,10 @@ import torch
 import torch.nn as nn
 
 from pwn_tpu.config import Config
-from pwn_tpu_torch.models.modules import UpsampleNet, WaveNetStack
+from pwn_tpu_torch.models.modules import (DTYPES, UpsampleNet, WaveNetStack,
+                                          match_length)
 from pwn_tpu_torch.ops import mol
 from pwn_tpu_torch.ops.conv import shift_right
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def match_length(cond: torch.Tensor, T: int) -> torch.Tensor:
-    """Crop, or edge-pad, upsampled conditioning (B, Tc, M) to T samples."""
-    Tc = cond.shape[1]
-    if Tc >= T:
-        return cond[:, :T]
-    edge = cond[:, -1:].expand(-1, T - Tc, -1)
-    return torch.cat([cond, edge], dim=1)
 
 
 def _check_base(cfg: Config) -> None:
@@ -62,7 +52,7 @@ class StudentIAF(nn.Module):
         _check_base(config)
         self.config = config
         sc, tc = config.student, config.teacher
-        dtype = _DTYPES[sc.compute_dtype]
+        dtype = DTYPES[sc.compute_dtype]
         self.upsample = UpsampleNet(
             strides=tc.upsample_strides, channels=config.dsp.n_mels,
             in_channels=config.dsp.n_mels,

@@ -1,0 +1,96 @@
+"""Teacher WaveNet: the autoregressive mel-conditioned density model with a
+discretized mixture-of-logistics head (counterpart of
+`pwn_tpu/models/teacher.py`).
+
+Training is one teacher-forcing pass over all time steps at once: the
+stack sees the waveform shifted right by one sample and predicts the MoL
+parameters of every sample.  Only the MoL head is ported; the Gaussian
+head (`teacher.output="gaussian"`) and AR sampling wait for later slices.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from pwn_tpu.config import Config
+from pwn_tpu_torch.models.modules import (DTYPES, UpsampleNet, WaveNetStack,
+                                          match_length, resolve_stack_mode,
+                                          shift_right_scalar)
+from pwn_tpu_torch.ops import mol
+
+
+class TeacherWaveNet(nn.Module):
+    """p(x_t | x_<t, mel).  `forward(wav, mel)` returns the per-step MoL
+    parameters (B, T, 3K); `condition(mel)` the upsampled conditioning.
+
+    `stack_mode` is the WaveNetStack mode ("infer", "train" or "dx"); by
+    default it follows `teacher.fused_layers`, whose "auto" means "infer"
+    here, as it means the inference kernel in the reference."""
+
+    def __init__(self, config: Config, stack_mode: str | None = None,
+                 device=None):
+        super().__init__()
+        tc = config.teacher
+        if tc.output != "mol":
+            raise NotImplementedError(
+                f"teacher output {tc.output!r} is not ported yet (only the "
+                "MoL head is)")
+        if tc.kernel_size != 2:
+            raise NotImplementedError("WaveNetStack uses kernel_size=2")
+        self.config = config
+        dtype = DTYPES[tc.compute_dtype]
+        n_mels = config.dsp.n_mels
+        self.upsample = UpsampleNet(
+            strides=tc.upsample_strides, channels=n_mels, in_channels=n_mels,
+            kernel_mult=tc.upsample_kernel_mult, dtype=dtype,
+            weight_norm=tc.upsample_weight_norm, device=device,
+        )
+        self.stack = WaveNetStack(
+            dilations=tc.dilations, residual_channels=tc.residual_channels,
+            gate_channels=tc.gate_channels, skip_channels=tc.skip_channels,
+            out_dim=tc.head_dim, cond_channels=n_mels, dtype=dtype,
+            mode=stack_mode or resolve_stack_mode(tc.fused_layers, "infer"),
+            device=device,
+        )
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.upsample.reset_parameters(generator)
+        self.stack.reset_parameters(generator)
+
+    def condition(self, mel: torch.Tensor) -> torch.Tensor:
+        """(B, F, n_mels) mel frames -> (B, F*hop, n_mels) per-sample cond."""
+        return self.upsample(mel)
+
+    def params_from_cond(self, wav: torch.Tensor,
+                         cond: torch.Tensor) -> torch.Tensor:
+        """Teacher forcing given the conditioning: wav (B, T) in [-1, 1],
+        cond (B, T, n_mels) -> MoL params (B, T, 3K) in fp32; params[t]
+        models wav[t] given wav[<t]."""
+        return self.stack(shift_right_scalar(wav), cond)
+
+    def forward(self, wav: torch.Tensor, mel: torch.Tensor) -> torch.Tensor:
+        cond = match_length(self.condition(mel), wav.shape[-1])
+        return self.params_from_cond(wav, cond)
+
+    def loss(self, wav: torch.Tensor, mel: torch.Tensor) -> torch.Tensor:
+        """Mean teacher-forcing NLL (nats per sample), fp32."""
+        return mol.discretized_mol_loss(
+            wav, self(wav, mel), log_scale_min=self.config.teacher.log_scale_min)
+
+
+def make_teacher(config: Config, stack_mode: str | None = None,
+                 device=None) -> TeacherWaveNet:
+    return TeacherWaveNet(config, stack_mode=stack_mode, device=device)
+
+
+def init_teacher(config: Config, generator: torch.Generator,
+                 stack_mode: str | None = None, device=None) -> TeacherWaveNet:
+    """A teacher with flax's initialisation scheme (truncated-normal fan-in
+    kernels, zero biases) drawn from `generator` on its device, then moved
+    to `device`: the shapes of `pwn_tpu.models.teacher.init_teacher`, not
+    its numbers."""
+    model = TeacherWaveNet(config, stack_mode=stack_mode,
+                           device=generator.device)
+    model.reset_parameters(generator)
+    return model.to(device) if device is not None else model

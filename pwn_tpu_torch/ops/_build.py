@@ -1,11 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-The sources in `pwn_tpu_torch/csrc/` have a plain C interface and are
-compiled with nvcc into one shared library, loaded with ctypes (no
-PyTorch headers, so a build takes seconds, not minutes).  The library
-goes into `pwn_tpu_torch/build/`, named by a hash of the sources and
-flags, and is built at first use.  Importing this module builds
-nothing.
+The sources in `pwn_tpu_torch/csrc/` have a plain C interface.  Each is
+compiled by its own nvcc process, all started together, and the objects
+are linked into one shared library, loaded with ctypes (no PyTorch
+headers, so a build takes seconds, not minutes).  The library goes into
+`pwn_tpu_torch/build/`, named by a hash of the sources and flags, and is
+built at first use.  Importing this module builds nothing.
 """
 
 from __future__ import annotations
@@ -19,13 +19,15 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "flow_stack.cu",)
+SOURCES = (_PKG / "csrc" / "flow_stack.cu",
+           _PKG / "csrc" / "flow_stack_train.cu")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared",)
 
 
 def nvcc_path() -> str:
@@ -45,24 +47,43 @@ def nvcc_path() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in SOURCES:
         h.update(src.read_bytes())
     return BUILD_DIR / f"pwn_kernels-{h.hexdigest()[:16]}.so"
 
 
 def compile_library(out: Path) -> str:
-    """Compile SOURCES into `out`; returns nvcc's output (ptxas -v report).
-    Raises RuntimeError with the compiler's output if the build fails."""
+    """Compile SOURCES into `out`: one nvcc per source, run in parallel,
+    then one link.  Returns nvcc's output (the ptxas -v reports).  Raises
+    RuntimeError with the compiler's output if the build fails."""
     out.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.parent / f"{tag}.{src.stem}.o" for src in SOURCES]
+    procs = [subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(SOURCES, objs)]
+    logs = [f"== {src.name}\n{proc.communicate()[0]}"
+            for src, proc in zip(SOURCES, procs)]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    try:
+        failed = [s.name for s, p in zip(SOURCES, procs) if p.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        link = subprocess.run(
+            [nvcc_path(), *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               + "\n".join(logs))
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    log = "\n".join(logs)
     out.with_suffix(".log").write_text(log)
     return log
 
@@ -86,6 +107,26 @@ def load_library() -> ctypes.CDLL:
     lib.pwn_flow_stack_tile_rows.restype = i
     lib.pwn_flow_stack_smem_bytes.argtypes = [i]
     lib.pwn_flow_stack_smem_bytes.restype = ctypes.c_longlong
+    lib.pwn_flow_stack_train_fwd_bf16.argtypes = [
+        p, p, p, p, p, p, p, p,        # acts, cond, w_in, b_g, w_out, b_rs,
+                                       # skip32, skip
+        i, i, i, i, i, i, i,           # B, T, L, C, G, S, M
+        ctypes.POINTER(ctypes.c_int),  # dilations
+        p,                             # stream
+    ]
+    lib.pwn_flow_stack_train_fwd_bf16.restype = i
+    lib.pwn_flow_stack_train_bwd_bf16.argtypes = [
+        p, p, p, p, p, p, p,           # acts, cond, dskip, w_in, w_in_kg,
+                                       # b_g, w_out_kn
+        p, p, p, p, p, p, p,           # dx, dcond, dw_in, db_g, dw_out,
+                                       # db_rs, workspace
+        i, i, i, i, i, i, i,           # B, T, L, C, G, S, M
+        ctypes.POINTER(ctypes.c_int),  # dilations
+        i, i, p,                       # want_wgrads, SM count, stream
+    ]
+    lib.pwn_flow_stack_train_bwd_bf16.restype = i
+    lib.pwn_flow_stack_train_bwd_workspace_bytes.argtypes = [i] * 8
+    lib.pwn_flow_stack_train_bwd_workspace_bytes.restype = ctypes.c_longlong
     lib.pwn_cuda_error_string.argtypes = [i]
     lib.pwn_cuda_error_string.restype = ctypes.c_char_p
     return lib

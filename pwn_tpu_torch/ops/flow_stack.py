@@ -1,6 +1,13 @@
-"""Whole-stack flow forward: the plain PyTorch version and the wrapper of
-its CUDA kernel (counterpart of `pwn_tpu/ops/pallas/flow_stack.py`'s
-`fused_flow_stack` inference path).
+"""Whole-stack WaveNet flow: plain PyTorch versions and the wrappers of the
+CUDA kernels (counterpart of `pwn_tpu/ops/pallas/flow_stack.py`).
+
+Inference (`fused_flow_stack`):  `flow_stack` -> `csrc/flow_stack.cu`.
+Training (`fused_flow_stack_train` / `fused_flow_stack_score`):
+`flow_stack_train` / `flow_stack_score`, a `torch.autograd.Function`
+whose forward is `flow_stack_train_forward` (kernel 2, which also saves
+every layer's input) and whose backward is `flow_stack_train_backward`
+(kernel 3, with or without the weight gradients), both in
+`csrc/flow_stack_train.cu`.
 
 `flow_stack` takes the stacked layout of `WaveNetStack.stacked()`:
     x0    (B, T, C)        compute dtype, the front 1x1 output
@@ -16,10 +23,19 @@ weights are the JAX kernel's `(L, 2C+M, G)` and `(L, G/2, C+S)` transposed,
 as `nn.Linear` stores them, which is also the order the CUDA kernel reads
 its mma B fragments in.
 
-A CPU tensor goes to `flow_stack_reference`; a CUDA tensor goes to the
-kernel in `csrc/flow_stack.cu` or raises.  There is no fallback between
-the two: the plain version is the CPU oracle of the tests and the
-on-card comparison of `chip_smoke.py`.
+A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
+or raises.  There is no fallback between the two: the plain versions are
+the CPU oracle of the tests and the on-card comparison of `chip_smoke.py`.
+
+Rounding points, kept by the kernels and their plain versions alike:
+forward as the Pallas kernel (GEMMs accumulate in fp32, bias and gates in
+fp32, z and x rounded to the compute dtype every layer, skip summed in
+fp32); backward as `_bwd_chunk_kernel` (dout = [dx | dskip] and dg rounded
+to the compute dtype before their GEMMs, z rounded for dW_out, dz, the
+gate derivatives and every sum in fp32).  Two roundings of the Pallas
+backward come from the TPU's tiles and layer chunks and are not kept:
+the tap cotangent and dx stay fp32 from layer to layer.  dx and dcond are
+returned in the compute dtype, the weight gradients in fp32.
 """
 
 from __future__ import annotations
@@ -31,8 +47,33 @@ import torch
 
 from pwn_tpu_torch.ops.conv import shift_right
 
-# the widths the kernel is compiled for (student_iaf): C, G, S, M
+# the widths the inference kernel is compiled for (student_iaf): C, G, S, M
 KERNEL_DIMS = (64, 128, 64, 80)
+# the widths the training kernels are compiled for (teacher_lj)
+TRAIN_KERNEL_DIMS = (128, 256, 128, 80)
+
+
+def _stack_reference(x0, cond, w_in, b_g, w_out, b_rs,
+                     dilations: Sequence[int], save_acts: bool):
+    dt = x0.dtype
+    f32 = torch.float32
+    C = x0.shape[-1]
+    x = x0
+    cond = cond.to(dt)
+    skip = torch.zeros(x0.shape[:-1] + (w_out.shape[1] - C,), dtype=f32,
+                       device=x0.device)
+    acts = []
+    for l, d in enumerate(dilations):
+        if save_acts:
+            acts.append(x)
+        cat = torch.cat([x, shift_right(x, d), cond], dim=-1)
+        g = cat.to(f32) @ w_in[l].to(dt).to(f32).mT + b_g[l].to(f32)
+        a, b = g.chunk(2, dim=-1)
+        z = (torch.tanh(a) * torch.sigmoid(b)).to(dt)
+        out = z.to(f32) @ w_out[l].to(dt).to(f32).mT + b_rs[l].to(f32)
+        x = x + out[..., :C].to(dt)
+        skip = skip + out[..., C:]
+    return skip.to(dt), (torch.stack(acts) if save_acts else None)
 
 
 def flow_stack_reference(x0, cond, w_in, b_g, w_out, b_rs,
@@ -41,64 +82,169 @@ def flow_stack_reference(x0, cond, w_in, b_g, w_out, b_rs,
     accumulate in fp32 (the operands are exact in fp32), bias and gates in
     fp32, z and x rounded to the compute dtype every layer, skip summed in
     fp32 and returned in the compute dtype."""
-    dt = x0.dtype
+    return _stack_reference(x0, cond, w_in, b_g, w_out, b_rs, dilations,
+                            save_acts=False)[0]
+
+
+def flow_stack_train_reference(x0, cond, w_in, b_g, w_out, b_rs,
+                               dilations: Sequence[int]):
+    """`flow_stack_reference` that also returns every layer's input:
+    (skip (B, T, S), acts (L, B, T, C)) in the compute dtype, acts[0] = x0
+    (the plain version of `_fwd_save_kernel`)."""
+    return _stack_reference(x0, cond, w_in, b_g, w_out, b_rs, dilations,
+                            save_acts=True)
+
+
+def _shift_left(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x[:, t + d], zero past the end (the adjoint of `shift_right`)."""
+    if d >= x.shape[1]:
+        return torch.zeros_like(x)
+    return torch.cat([x[:, d:], torch.zeros_like(x[:, :d])], dim=1)
+
+
+def flow_stack_backward_reference(acts, cond, w_in, b_g, w_out, dskip,
+                                  dilations: Sequence[int],
+                                  want_wgrads: bool = True):
+    """Plain version of `_bwd_chunk_kernel`'s math over the whole sequence
+    (no tiles, no layer chunks), in the module docstring's rounding order.
+
+    Returns (dx, dcond) in the compute dtype and, with `want_wgrads`, the
+    fp32 (dw_in (L, G, 2C+M), db_g (L, G), dw_out (L, C+S, G/2),
+    db_rs (L, C+S)) in the weights' (out, in) layout."""
+    dt = acts.dtype
     f32 = torch.float32
-    C = x0.shape[-1]
-    x = x0
-    cond = cond.to(dt)
-    skip = torch.zeros(x0.shape[:-1] + (w_out.shape[1] - C,), dtype=f32,
-                       device=x0.device)
-    for l, d in enumerate(dilations):
-        cat = torch.cat([x, shift_right(x, d), cond], dim=-1)
-        g = cat.to(f32) @ w_in[l].to(dt).to(f32).mT + b_g[l].to(f32)
-        a, b = g.chunk(2, dim=-1)
-        z = (torch.tanh(a) * torch.sigmoid(b)).to(dt)
-        out = z.to(f32) @ w_out[l].to(dt).to(f32).mT + b_rs[l].to(f32)
-        x = x + out[..., :C].to(dt)
-        skip = skip + out[..., C:]
-    return skip.to(dt)
-
-
-def check_kernel_args(x0, cond, w_in, b_g, w_out, b_rs,
-                      dilations: Sequence[int]) -> None:
-    """Raise ValueError on anything the CUDA kernel does not take."""
-    tensors = dict(x0=x0, cond=cond, w_in=w_in, b_g=b_g, w_out=w_out,
-                   b_rs=b_rs)
-    for name in ("x0", "cond", "w_in", "w_out"):
-        if tensors[name].dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be bfloat16, got "
-                             f"{tensors[name].dtype}")
-    for name in ("b_g", "b_rs"):
-        if tensors[name].dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got "
-                             f"{tensors[name].dtype}")
-    if x0.dim() != 3 or cond.dim() != 3:
-        raise ValueError("x0 and cond must be (B, T, channels)")
-    B, T, C = x0.shape
+    L, B, T, C = acts.shape
     M = cond.shape[-1]
-    L, G, _ = w_in.shape
-    S = w_out.shape[1] - C
-    if (C, G, S, M) != KERNEL_DIMS:
-        raise ValueError(f"kernel is built for (C, G, S, M) = {KERNEL_DIMS}, "
-                         f"got {(C, G, S, M)}")
-    want = {
-        "cond": (B, T, M), "w_in": (L, G, 2 * C + M), "b_g": (L, G),
-        "w_out": (L, C + S, G // 2), "b_rs": (L, C + S),
-    }
-    for name, shape in want.items():
+    cond = cond.to(dt)
+    dskip = dskip.to(dt)
+    grads = []
+    dx_part = dcs = None
+    d_prev = 0
+    dcond = torch.zeros((B, T, M), dtype=f32, device=acts.device)
+    for l in range(L - 1, -1, -1):
+        d = dilations[l]
+        x = acts[l]
+        cat = torch.cat([x, shift_right(x, d), cond], dim=-1).to(f32)
+        w_in_l = w_in[l].to(dt).to(f32)                  # (G, 2C+M)
+        g = cat @ w_in_l.mT + b_g[l].to(f32)
+        a, b = g.chunk(2, dim=-1)
+        ta, sb = torch.tanh(a), torch.sigmoid(b)
+        if dx_part is None:   # the top layer's residual output is unused
+            dx = torch.zeros((B, T, C), dtype=f32, device=acts.device)
+        else:
+            dx = dx_part + _shift_left(dcs, d_prev)
+        dout = torch.cat([dx.to(dt), dskip], dim=-1).to(f32)
+        dz = dout @ w_out[l].to(dt).to(f32)             # (.., G/2)
+        da = dz * sb * (1.0 - ta * ta)
+        db = dz * ta * sb * (1.0 - sb)
+        dg = torch.cat([da, db], dim=-1).to(dt).to(f32)
+        dcx, dcs, dcc = (dg @ w_in_l).split([C, C, M], dim=-1)
+        dx_part = dx + dcx
+        d_prev = d
+        dcond = dcond + dcc
+        if want_wgrads:
+            z = (ta * sb).to(dt).to(f32)
+            grads.append((
+                dg.reshape(-1, dg.shape[-1]).mT @ cat.reshape(-1, cat.shape[-1]),
+                dg.sum((0, 1)),
+                dout.reshape(-1, dout.shape[-1]).mT @ z.reshape(-1, z.shape[-1]),
+                dout.sum((0, 1)),
+            ))
+    dx = dx_part + _shift_left(dcs, d_prev)
+    if not want_wgrads:
+        return dx.to(dt), dcond.to(dt)
+    grads.reverse()
+    return (dx.to(dt), dcond.to(dt),
+            *(torch.stack(gs) for gs in zip(*grads)))
+
+
+def _check_operands(tensors: dict, fp32: Sequence[str], shapes: dict,
+                    dims, kernel_dims, dilations: Sequence[int], L: int,
+                    max_layers: int | None = None) -> None:
+    """The checks every kernel wrapper makes; the first tensor is the one
+    the others must share a CUDA device with."""
+    for name, t in tensors.items():
+        want = torch.float32 if name in fp32 else torch.bfloat16
+        if t.dtype != want:
+            raise ValueError(f"{name} must be {str(want)[6:]}, got {t.dtype}")
+    if dims != kernel_dims:
+        raise ValueError(f"kernel is built for (C, G, S, M) = {kernel_dims}, "
+                         f"got {dims}")
+    for name, shape in shapes.items():
         if tuple(tensors[name].shape) != shape:
             raise ValueError(f"{name} must be {shape}, got "
                              f"{tuple(tensors[name].shape)}")
     if len(dilations) != L or min(dilations) < 1:
         raise ValueError(f"need {L} dilations >= 1, got {tuple(dilations)}")
-    if not 1 <= B <= 65535 or T < 1 or L > 32:
+    B, T = shapes["cond"][:2]
+    if not 1 <= B <= 65535 or T < 1 or (max_layers and L > max_layers):
         raise ValueError(f"unsupported B={B}, T={T}, L={L}")
+    first, lead = next(iter(tensors.items()))
     for name, t in tensors.items():
-        if t.device.type != "cuda" or t.device != x0.device:
-            raise ValueError(f"{name} must be on x0's CUDA device, got "
-                             f"{t.device} (x0 on {x0.device})")
+        if t.device.type != "cuda" or t.device != lead.device:
+            raise ValueError(f"{name} must be on {first}'s CUDA device, got "
+                             f"{t.device} ({first} on {lead.device})")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _stack_dims(x0, cond, w_in, w_out):
+    if x0.dim() != 3 or cond.dim() != 3:
+        raise ValueError("x0 and cond must be (B, T, channels)")
+    B, T, C = x0.shape
+    L, G, _ = w_in.shape
+    return B, T, C, L, G, w_out.shape[1] - C, cond.shape[-1]
+
+
+def _weight_shapes(L, C, G, S, M) -> dict:
+    return {"w_in": (L, G, 2 * C + M), "b_g": (L, G),
+            "w_out": (L, C + S, G // 2)}
+
+
+def check_kernel_args(x0, cond, w_in, b_g, w_out, b_rs,
+                      dilations: Sequence[int],
+                      kernel_dims=KERNEL_DIMS) -> None:
+    """Raise ValueError on anything a forward kernel does not take: the
+    inference kernel (`kernel_dims=KERNEL_DIMS`, at most 32 layers) or
+    kernel 2 (`TRAIN_KERNEL_DIMS`)."""
+    B, T, C, L, G, S, M = _stack_dims(x0, cond, w_in, w_out)
+    _check_operands(
+        dict(x0=x0, cond=cond, w_in=w_in, b_g=b_g, w_out=w_out, b_rs=b_rs),
+        ("b_g", "b_rs"),
+        {"cond": (B, T, M), **_weight_shapes(L, C, G, S, M),
+         "b_rs": (L, C + S)},
+        (C, G, S, M), kernel_dims, dilations, L,
+        max_layers=32 if kernel_dims == KERNEL_DIMS else None)
+
+
+def check_train_backward_args(acts, cond, w_in, b_g, w_out, dskip,
+                              dilations: Sequence[int]) -> None:
+    """Raise ValueError on anything kernel 3 (the fused backward) does not
+    take."""
+    if acts.dim() != 4:
+        raise ValueError("acts must be (L, B, T, C)")
+    B, T, C, L, G, S, M = _stack_dims(acts[0], cond, w_in, w_out)
+    _check_operands(
+        dict(acts=acts, cond=cond, w_in=w_in, b_g=b_g, w_out=w_out,
+             dskip=dskip),
+        ("b_g",),
+        {"acts": (len(w_in), B, T, C), "cond": (B, T, M),
+         **_weight_shapes(L, C, G, S, M), "dskip": (B, T, S)},
+        (C, G, S, M), TRAIN_KERNEL_DIMS, dilations, L)
+
+
+def _device_call(fn_name: str, device, *args) -> None:
+    """Call one of the kernel library's entry points on `device`'s current
+    stream; raise if it reports a CUDA error."""
+    from pwn_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn_name)(*args, stream)
+    if err:
+        raise RuntimeError(f"{fn_name} failed: "
+                           + lib.pwn_cuda_error_string(err).decode())
 
 
 def segment_length(B: int, T: int, n_sm: int, tile: int) -> int:
@@ -141,20 +287,129 @@ def flow_stack(x0, cond, w_in, b_g, w_out, b_rs, dilations: Sequence[int],
         segment = segment_length(B, T, props.multi_processor_count,
                                  lib.pwn_flow_stack_tile_rows())
     skip = torch.empty((B, T, S), dtype=x0.dtype, device=x0.device)
-    dils = (ctypes.c_int * L)(*dilations)
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pwn_flow_stack_bf16(
-            x0.data_ptr(), cond.data_ptr(), w_in.data_ptr(),
-            b_g.data_ptr(), w_out.data_ptr(), b_rs.data_ptr(),
-            skip.data_ptr(), B, T, L, C, G, S, cond.shape[-1], dils, segment,
-            stream,
-        )
-    if err:
-        raise RuntimeError("flow_stack kernel launch failed: "
-                           + lib.pwn_cuda_error_string(err).decode())
+    _device_call(
+        "pwn_flow_stack_bf16", x0.device,
+        x0.data_ptr(), cond.data_ptr(), w_in.data_ptr(), b_g.data_ptr(),
+        w_out.data_ptr(), b_rs.data_ptr(), skip.data_ptr(), B, T, L, C, G, S,
+        cond.shape[-1], (ctypes.c_int * L)(*dilations), segment)
     flow_stack.launches += 1
     return skip
 
 
 flow_stack.launches = 0
+
+
+def flow_stack_train_forward(x0, cond, w_in, b_g, w_out, b_rs,
+                             dilations: Sequence[int]):
+    """Kernel 2: the stack forward that also saves every layer's input.
+    Returns (skip (B, T, S), acts (L, B, T, C)); on CPU tensors the plain
+    `flow_stack_train_reference`.  `flow_stack_train_forward.launches`
+    counts the kernel calls (one per call, whatever the layer count)."""
+    if x0.device.type == "cpu":
+        return flow_stack_train_reference(x0, cond, w_in, b_g, w_out, b_rs,
+                                          dilations)
+    check_kernel_args(x0, cond, w_in, b_g, w_out, b_rs, dilations,
+                      kernel_dims=TRAIN_KERNEL_DIMS)
+    B, T, C, L, G, S, M = _stack_dims(x0, cond, w_in, w_out)
+    acts = torch.empty((L, B, T, C), dtype=x0.dtype, device=x0.device)
+    acts[0].copy_(x0)
+    skip32 = torch.empty((B, T, S), dtype=torch.float32, device=x0.device)
+    skip = torch.empty((B, T, S), dtype=x0.dtype, device=x0.device)
+    _device_call(
+        "pwn_flow_stack_train_fwd_bf16", x0.device,
+        acts.data_ptr(), cond.data_ptr(), w_in.data_ptr(), b_g.data_ptr(),
+        w_out.data_ptr(), b_rs.data_ptr(), skip32.data_ptr(),
+        skip.data_ptr(), B, T, L, C, G, S, M, (ctypes.c_int * L)(*dilations))
+    flow_stack_train_forward.launches += 1
+    return skip, acts
+
+
+flow_stack_train_forward.launches = 0
+
+
+def flow_stack_train_backward(acts, cond, w_in, b_g, w_out, dskip,
+                              dilations: Sequence[int],
+                              want_wgrads: bool = True):
+    """Kernel 3: the fused backward, with the returns of
+    `flow_stack_backward_reference` (its plain version, taken for CPU
+    tensors).  `flow_stack_train_backward.launches` counts the kernel
+    calls (one per call)."""
+    if acts.device.type == "cpu":
+        return flow_stack_backward_reference(acts, cond, w_in, b_g, w_out,
+                                             dskip, dilations, want_wgrads)
+    check_train_backward_args(acts, cond, w_in, b_g, w_out, dskip, dilations)
+    from pwn_tpu_torch.ops import _build
+
+    L, B, T, C = acts.shape
+    G, S, M = w_in.shape[1], dskip.shape[-1], cond.shape[-1]
+    dev = acts.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    ws = torch.empty(_build.load_library().
+                     pwn_flow_stack_train_bwd_workspace_bytes(
+                         B, T, C, G, S, M, int(want_wgrads), n_sm),
+                     dtype=torch.uint8, device=dev)
+    # the backward's GEMMs read the weights transposed: (L, 2C+M, G) and
+    # (L, G/2, C+S), the JAX layout
+    w_in_kg = w_in.transpose(1, 2).contiguous()
+    w_out_kn = w_out.transpose(1, 2).contiguous()
+    dx = torch.empty((B, T, C), dtype=acts.dtype, device=dev)
+    dcond = torch.empty((B, T, M), dtype=acts.dtype, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    grads = ((torch.empty(w_in.shape, **f32), torch.empty(b_g.shape, **f32),
+              torch.empty(w_out.shape, **f32), torch.empty((L, C + S), **f32))
+             if want_wgrads else ())
+    ptrs = [g.data_ptr() for g in grads] or [None] * 4
+    _device_call(
+        "pwn_flow_stack_train_bwd_bf16", dev,
+        acts.data_ptr(), cond.data_ptr(), dskip.data_ptr(), w_in.data_ptr(),
+        w_in_kg.data_ptr(), b_g.data_ptr(), w_out_kn.data_ptr(),
+        dx.data_ptr(), dcond.data_ptr(), *ptrs, ws.data_ptr(),
+        B, T, L, C, G, S, M, (ctypes.c_int * L)(*dilations),
+        int(want_wgrads), n_sm)
+    flow_stack_train_backward.launches += 1
+    return (dx, dcond, *grads)
+
+
+flow_stack_train_backward.launches = 0
+
+
+class FlowStackTrain(torch.autograd.Function):
+    """Differentiable stack: forward `flow_stack_train_forward`, which
+    saves the per-layer inputs; backward `flow_stack_train_backward`.
+    With `want_wgrads=False` (scoring a frozen stack) the weights get no
+    gradient.  The weight gradients come back in fp32; autograd casts each
+    to its input's dtype, as the JAX VJP returns dW in the weights' dtype."""
+
+    @staticmethod
+    def forward(ctx, x0, cond, w_in, b_g, w_out, b_rs, dilations,
+                want_wgrads):
+        skip, acts = flow_stack_train_forward(x0, cond, w_in, b_g, w_out,
+                                              b_rs, dilations)
+        ctx.save_for_backward(acts, cond, w_in, b_g, w_out)
+        ctx.dilations, ctx.want_wgrads = tuple(dilations), want_wgrads
+        return skip
+
+    @staticmethod
+    def backward(ctx, dskip):
+        acts, cond, w_in, b_g, w_out = ctx.saved_tensors
+        dx, dcond, *grads = flow_stack_train_backward(
+            acts, cond, w_in, b_g, w_out, dskip.contiguous(), ctx.dilations,
+            ctx.want_wgrads)
+        return (dx, dcond, *(grads or [None] * 4), None, None)
+
+
+def flow_stack_train(x0, cond, w_in, b_g, w_out, b_rs,
+                     dilations: Sequence[int]) -> torch.Tensor:
+    """The training stack (counterpart of `fused_flow_stack_train`): the
+    skip sum, differentiable in every input."""
+    return FlowStackTrain.apply(x0, cond, w_in, b_g, w_out, b_rs,
+                                tuple(dilations), True)
+
+
+def flow_stack_score(x0, cond, w_in, b_g, w_out, b_rs,
+                     dilations: Sequence[int]) -> torch.Tensor:
+    """The frozen-stack scoring variant (counterpart of
+    `fused_flow_stack_score`): the backward computes dx and dcond only, and
+    the weights' gradients are None."""
+    return FlowStackTrain.apply(x0, cond, w_in, b_g, w_out, b_rs,
+                                tuple(dilations), False)

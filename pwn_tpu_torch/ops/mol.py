@@ -1,16 +1,70 @@
-"""The student's logistic base distribution (counterpart of the logistic
-pieces of `pwn_tpu/ops/mol.py`).
+"""Mixture-of-logistics ops (counterpart of `pwn_tpu/ops/mol.py`): the
+teacher's discretized MoL likelihood and the student's logistic base.
 
-The discretized mixture of logistics belongs to the teacher and is not
-ported yet.
+The likelihood runs in fp32 whatever the stack's compute dtype, with the
+reference's branches and clamps.  Parameter layout: `params[..., 3K]` is
+[logit_probs | means | log_scales].  Not ported yet: `mol_log_density`
+and `sample_from_mol` (distillation, teacher AR sampling).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 _U_MIN = 1e-5
+NUM_CLASSES = 65536  # 16-bit amplitude discretization
+
+
+def split_params(params: torch.Tensor):
+    """(logit_probs, means, log_scales), each (..., K) in fp32."""
+    k = params.shape[-1] // 3
+    p = params.float()
+    return p[..., :k], p[..., k:2 * k], p[..., 2 * k:]
+
+
+def discretized_mol_log_prob(x: torch.Tensor, params: torch.Tensor,
+                             num_classes: int = NUM_CLASSES,
+                             log_scale_min: float = -9.0) -> torch.Tensor:
+    """Log-probability (...,) of x in [-1, 1] under the discretized MoL
+    params (..., 3K): the bin's CDF mass, the logistic density at the bin
+    centre where that mass underflows, and the open-ended edge bins."""
+    logit_probs, means, log_scales = split_params(params)
+    log_scales = torch.clamp(log_scales, min=log_scale_min)
+    x = x.float()[..., None]
+
+    half_bin = 1.0 / (num_classes - 1)
+    centered = x - means
+    inv_s = torch.exp(-log_scales)
+    plus_in = inv_s * (centered + half_bin)
+    min_in = inv_s * (centered - half_bin)
+
+    cdf_delta = torch.sigmoid(plus_in) - torch.sigmoid(min_in)
+    log_cdf_plus = plus_in - F.softplus(plus_in)
+    log_one_minus_cdf_min = -F.softplus(min_in)
+    mid_in = inv_s * centered
+    log_pdf_mid = mid_in - log_scales - 2.0 * F.softplus(mid_in)
+
+    inner = torch.where(
+        cdf_delta > 1e-5,
+        torch.log(torch.clamp(cdf_delta, min=1e-12)),
+        log_pdf_mid + math.log(half_bin * 2.0),
+    )
+    log_probs = torch.where(
+        x < -0.999, log_cdf_plus,
+        torch.where(x > 0.999, log_one_minus_cdf_min, inner))
+    log_probs = log_probs + torch.log_softmax(logit_probs, dim=-1)
+    return torch.logsumexp(log_probs, dim=-1)
+
+
+def discretized_mol_loss(x: torch.Tensor, params: torch.Tensor,
+                         num_classes: int = NUM_CLASSES,
+                         log_scale_min: float = -9.0) -> torch.Tensor:
+    """Mean negative log-likelihood (nats per sample)."""
+    return -discretized_mol_log_prob(x, params, num_classes,
+                                     log_scale_min).mean()
 
 
 def logistic_log_density(

@@ -1,0 +1,121 @@
+"""Optimizer and train state (counterpart of `pwn_tpu/training/common.py`).
+
+The reference's optimizer is
+`optax.chain(clip_by_global_norm(clip), adam(exponential_decay(...)))`.
+`ClippedAdam` takes the same steps:
+  * clipping scales by max_norm / norm only when norm >= max_norm, with no
+    epsilon (unlike `torch.nn.utils.clip_grad_norm_`);
+  * Adam with b1, b2, eps = 1e-8, eps_root = 0 and bias correction;
+  * the learning rate is lr * rate ** (count / decay_steps), smooth, on
+    the count of updates before this one: the first step uses lr itself.
+Parameters are updated in place under no_grad, which bumps each tensor's
+`_version` (WaveNetStack's weight-layout cache keys on it).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import torch
+
+from pwn_tpu.config import TrainConfig
+
+EPS = 1e-8
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32."""
+    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+
+
+@dataclass
+class AdamState:
+    count: int                # updates applied so far
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+
+
+class ClippedAdam:
+    """Global-norm clipping, then Adam on an exponentially decaying learning
+    rate (see the module docstring)."""
+
+    def __init__(self, cfg: TrainConfig):
+        self.cfg = cfg
+
+    def init(self, params: List[torch.Tensor]) -> AdamState:
+        return AdamState(0, [torch.zeros_like(p) for p in params],
+                         [torch.zeros_like(p) for p in params])
+
+    def learning_rate(self, count: int) -> float:
+        c = self.cfg
+        return c.learning_rate * c.lr_decay_rate ** (count / c.lr_decay_steps)
+
+    @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+               state: AdamState) -> None:
+        c = self.cfg
+        norm = global_norm(grads)
+        keep = norm < c.grad_clip_norm
+        grads = [torch.where(keep, g, g / norm * c.grad_clip_norm)
+                 for g in grads]
+        b1, b2 = c.adam_b1, c.adam_b2
+        torch._foreach_mul_(state.mu, b1)
+        torch._foreach_add_(state.mu, grads, alpha=1 - b1)
+        torch._foreach_mul_(state.nu, b2)
+        torch._foreach_addcmul_(state.nu, grads, grads, value=1 - b2)
+        lr = self.learning_rate(state.count)
+        state.count += 1
+        denom = torch._foreach_div(state.nu, 1 - b2 ** state.count)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, EPS)
+        upd = torch._foreach_div(state.mu, 1 - b1 ** state.count)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(params, upd)
+
+
+@dataclass
+class TrainState:
+    """The parameters being trained (the model's own tensors, updated in
+    place), the optimizer and its state, the step, the seed of the step's
+    generator (for stochastic losses), and the EMA copy when
+    `train.ema_decay` > 0 (else None)."""
+
+    params: Dict[str, torch.Tensor]
+    tx: ClippedAdam
+    opt_state: AdamState
+    step: int = 0
+    seed: int = 0
+    ema_params: Optional[Dict[str, torch.Tensor]] = field(default=None)
+
+    def apply_gradients(self, grads: List[torch.Tensor]) -> "TrainState":
+        self.tx.update(list(self.params.values()), grads, self.opt_state)
+        self.step += 1
+        return self
+
+
+def create_train_state(params: Dict[str, torch.Tensor], cfg: TrainConfig,
+                       seed: Optional[int] = None) -> TrainState:
+    tx = ClippedAdam(cfg)
+    return TrainState(
+        params=params, tx=tx, opt_state=tx.init(list(params.values())),
+        seed=cfg.seed if seed is None else seed,
+        ema_params=({k: p.detach().float().clone() for k, p in params.items()}
+                    if cfg.ema_decay > 0 else None),
+    )
+
+
+@torch.no_grad()
+def update_ema(state: TrainState, decay: float) -> TrainState:
+    """ema <- ema * decay + params * (1 - decay)."""
+    ema = list(state.ema_params.values())
+    torch._foreach_mul_(ema, decay)
+    torch._foreach_add_(ema, [p.float() for p in state.params.values()],
+                        alpha=1.0 - decay)
+    return state
+
+
+def serving_params(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The params a consumer should run: the EMA when it is tracked."""
+    return state.params if state.ema_params is None else state.ema_params
