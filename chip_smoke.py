@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's student IAF synthesis and teacher training once
-on one CUDA card.
+"""Drive the PyTorch port's student IAF synthesis, teacher training and
+teacher AR sampling once on one CUDA card.
 
 Run from the repository root with no arguments:
 
@@ -16,15 +16,24 @@ Phases, each printing what it finds:
                (fused backward, with and without weight gradients) against
                their plain versions at teacher_lj widths, per batch row and
                per gradient, at the bench shape and edge shapes;
-  5. main    — `student_iaf` at full width through `vocode_many` and
+  5. AR kernel — the teacher AR sampler (kernel 4) against its plain
+               version on the card, per batch row: teacher_lj (MoL, pinned),
+               clarinet_gaussian, tiny_teacher in fp32, fp32-stored weights,
+               edge shapes, near-zero temperature, row isolation;
+  6. main    — `student_iaf` at full width through `vocode_many` and
                `generate_student`, with kernel 1's launch count;
-  6. teacher — `run_teacher_training` on `teacher_lj` at full width, with
+  7. teacher — `run_teacher_training` on `teacher_lj` at full width, with
                kernels 2 and 3's launch counts; the loss falling over 20
                steps on one batch; one step's loss and gradients on the card
                against the same model and batch in fp32 on the CPU;
-  7. times   — each kernel's and its plain version's ms per call, end-to-end
-               audio-seconds per second at batch 8 x 2 s, teacher train
-               step ms and utterances per second at batch 8 x 16,384.
+  8. AR main — `generate_teacher` on `teacher_lj` at full width from a
+               synthetic utterance's mel, and `fast_sample_kernel` at batch
+               8, with kernel 4's launch count;
+  9. times   — each kernel's and its plain version's ms per call beside its
+               bound, end-to-end audio-seconds per second at batch 8 x 2 s,
+               teacher train step ms and utterances per second at batch
+               8 x 16,384, AR us per step and samples per second at batch 8
+               and 1 x 0.25 s.
 Any failure raises and the script exits non-zero.  Only when every phase
 passed does it print, as its last line, {"ok": true, "device": {...}}.
 The script imports no JAX; the machine with the card need not have it.
@@ -41,13 +50,17 @@ import numpy as np
 import torch
 
 from pwn_tpu_torch import get_config, override
-from pwn_tpu_torch.generate import (generate_student, mel_from_wav,
-                                    vocode_many)
+from pwn_tpu_torch.generate import (generate_student, generate_teacher,
+                                    mel_from_wav, vocode_many)
+from pwn_tpu_torch.models import sampling
+from pwn_tpu_torch.models.modules import DTYPES
 from pwn_tpu_torch.models.student import (StudentIAF, init_student,
                                           sample_base_noise)
 from pwn_tpu_torch.ops import _build
 from pwn_tpu_torch.models.teacher import TeacherWaveNet, init_teacher
 from pwn_tpu_torch.ops import flow_stack as fs
+from pwn_tpu_torch.ops.ar_sampler import (ar_sample, ar_sample_reference,
+                                          stack_teacher_weights)
 from pwn_tpu_torch.ops.flow_stack import flow_stack, flow_stack_reference
 from pwn_tpu_torch.training.common import create_train_state
 from pwn_tpu_torch.training.loop import make_val_batch, run_teacher_training
@@ -105,6 +118,48 @@ TOL_STEP_LOSS = 0.01
 TOL_STEP_GRADS = 0.1
 WHY_STEP = ("bf16 compute through the upsampler, 24 layers and the head; "
             "the MoL gradient's fp32 noise alone is ~1e-3")
+
+AR_BATCH, AR_T = 8, 5376  # the reference's AR workload: 8 x 0.25 s at 22.05 kHz
+AR_CHECK_T = 512
+# +25 on the MoL head's component-0 logit bias.  On a random init the logits
+# are near-uniform, so any rounding difference flips a Gumbel-max choice and
+# two trajectories part by O(1); pinned, the comparison stays continuous.
+AR_PIN = 25.0
+# Kernel 4 vs its plain version on the same card tensors, max|diff| per
+# batch row.  Both compute in fp32 over the same stored weights; only the
+# summation order and libm ulps differ, but each sample is fed back, so the
+# gap grows with the steps.  On the first H100 runs (teacher_lj, pinned):
+# at most 3.7e-5 over the first 64 steps of any case, 3.6e-3 by step 512 and
+# 0.012 by step 1003 at temperature 1.  A wrong tap or queue slot shows as
+# O(0.1) within d steps.  So: 1e-3 over the first 64 steps (27x the worst
+# row), and 0.05 over a run of up to 1003 steps (4x the worst row, a third
+# of the reference's own 512-step AR canary bound, 0.15 in
+# pwn_tpu/benchmarks.py, where a miscompile showed as O(1)).  At near-zero
+# temperature the recurrence is deterministic and nothing lands on the clip
+# to reset the gap: it passed 1e-5 at step 12 and reached 0.64 by step 256,
+# so that case runs 64 steps.
+AR_EARLY, TOL_AR_EARLY = 64, 1e-3
+TOL_AR = 0.05
+WHY_AR = ("fp32 on both sides, other summation order and libm ulps, grown "
+          "by the feedback")
+
+# The published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
+# a kernel's bound is the larger of its bytes (each input read once, each
+# output written once) over the memory rate and its operations over the
+# peak for their type.
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12  # CUDA cores, outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(flop: float, nbytes: int, peak: float) -> dict:
+    ops_ms, bytes_ms = flop / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def _log(msg: str) -> None:
@@ -328,6 +383,97 @@ def phase_train_kernels(device) -> dict:
     return result
 
 
+def _ar_kw(cfg, temperature: float = 1.0) -> dict:
+    tc = cfg.teacher
+    return dict(dilations=tc.dilations, n_mixtures=tc.n_mixtures,
+                head=tc.output, log_scale_min=tc.log_scale_min,
+                temperature=temperature)
+
+
+def _ar_teacher(cfg, device, seed: int = SEED, pin: bool = True):
+    """A random-init teacher on the card; the MoL head pinned if asked."""
+    model = init_teacher(cfg, torch.Generator().manual_seed(seed),
+                         device=device)
+    if pin and cfg.teacher.output == "mol":
+        with torch.no_grad():
+            model.stack.head2.bias[0] += AR_PIN
+    return model
+
+
+def _ar_inputs(cfg, B: int, T: int, gen: torch.Generator):
+    """Conditioning in the compute dtype and the head's noise stream."""
+    cond = torch.randn((B, T, cfg.dsp.n_mels), generator=gen,
+                       device=gen.device) * 0.5
+    return (cond.to(DTYPES[cfg.teacher.compute_dtype]),
+            sampling.draw_noise(cfg, gen, T, B))
+
+
+def phase_ar_kernel(device) -> dict:
+    lj, gauss, tiny = (get_config(n) for n in
+                       ("teacher_lj", "clarinet_gaussian", "tiny_teacher"))
+    models = {c.name: _ar_teacher(c, device) for c in (lj, gauss, tiny)}
+    cases = [  # (config, weights dtype, B, T, temperature)
+        (lj, None, AR_BATCH, AR_CHECK_T, 1.0),
+        (gauss, None, AR_BATCH, AR_CHECK_T, 1.0),
+        (tiny, None, 2, AR_CHECK_T, 1.0),
+        (lj, "float32", 2, AR_CHECK_T, 1.0),
+        (lj, None, 1, 1, 1.0),
+        (lj, None, 3, 127, 1.0),  # shorter than the largest dilation
+        (lj, None, 2, 1003, 1.0),
+        (lj, None, 2, AR_EARLY, 1e-4),  # near zero: the selected mean
+    ]
+    before = ar_sample.launches
+    calls = 0
+    result = {}
+    gen = torch.Generator(device=device).manual_seed(300)
+    with torch.inference_mode():
+        for k, (cfg, wdt, B, T, temp) in enumerate(cases):
+            weights = stack_teacher_weights(
+                models[cfg.name].stack,
+                DTYPES[wdt or cfg.teacher.compute_dtype])
+            cond, noise = _ar_inputs(cfg, B, T, gen)
+            kw = _ar_kw(cfg, temp)
+            out = ar_sample(cond, noise, weights, **kw)
+            calls += 1
+            ref = ar_sample_reference(cond, noise, weights, **kw)
+            torch.cuda.synchronize()
+            _check(out.shape == (B, T) and torch.isfinite(out).all(),
+                   f"AR kernel output {tuple(out.shape)} or non-finite")
+            diff = (out - ref).abs()
+            err = diff.amax(1).cpu().numpy()
+            early = diff[:, :AR_EARLY].amax(1).cpu().numpy()
+            # the first step at which each row's gap passes 1e-5
+            grown = [int(np.argmax(r > 1e-5)) if (r > 1e-5).any() else None
+                     for r in diff.cpu().numpy()]
+            inside = float((ref.abs() < 1).float().mean())
+            _log(f"[ar] {cfg.name} ({cfg.teacher.output}, weights "
+                 f"{weights['w_in'].dtype}) B={B} T={T} temperature {temp:g}: "
+                 f"max abs diff per row vs plain "
+                 f"{np.array2string(err, precision=8)} (tol {TOL_AR}), over "
+                 f"the first {AR_EARLY} steps "
+                 f"{np.array2string(early, precision=8)} (tol {TOL_AR_EARLY}; "
+                 f"{WHY_AR}); first step past 1e-5 per row {grown}; "
+                 f"{inside:.3f} of the draws inside (-1, 1)")
+            _check((err <= TOL_AR).all() and (early <= TOL_AR_EARLY).all(),
+                   f"AR kernel off its plain version: {cfg.name} B={B} T={T}")
+            if k == 0:
+                result["max_abs_err"] = float(err.max())
+        # rows are independent: perturbing row 1's cond leaves row 0
+        weights = stack_teacher_weights(models[lj.name].stack, torch.bfloat16)
+        cond, noise = _ar_inputs(lj, 2, 300, gen)
+        a = ar_sample(cond, noise, weights, **_ar_kw(lj))
+        cond = cond.clone()
+        cond[1] += 1.0
+        b = ar_sample(cond, noise, weights, **_ar_kw(lj))
+        calls += 2
+    _check(torch.equal(a[0], b[0]), "AR row 1 leaked into row 0")
+    _check(not torch.equal(a[1], b[1]), "perturbing row 1 changed nothing")
+    _check(ar_sample.launches - before == calls,
+           "the AR kernel's counter did not count every call")
+    _log(f"[ar] batch rows isolated; {calls} launches counted")
+    return result
+
+
 def _bench_T() -> int:
     hop = CFG.dsp.hop_length
     return int(SECONDS * CFG.dsp.sample_rate) // hop * hop
@@ -480,6 +626,43 @@ def phase_teacher(device) -> dict:
     return {"launches": launches}
 
 
+def phase_ar_main(device) -> dict:
+    hop = TEACHER.dsp.hop_length
+    model = _ar_teacher(TEACHER, device, pin=False)
+    model.eval()
+    mel = mel_from_wav(TEACHER, _synthetic_wavs([0.5])[0], device)
+    frames = mel.shape[1]
+    gen = torch.Generator(device=device).manual_seed(1)
+    mel8 = mel.repeat(AR_BATCH, 1, 1)
+
+    ar_sample.launches = 0
+    wav = generate_teacher(TEACHER, model, mel, gen)
+    torch.cuda.synchronize()
+    one = ar_sample.launches
+    wav8 = sampling.fast_sample_kernel(model, gen, mel8)
+    torch.cuda.synchronize()
+    launches = ar_sample.launches
+    _log(f"[ar main] generate_teacher(teacher_lj) on {frames} frames: "
+         f"{wav.shape[0]} samples, ar_sample launches {one}; "
+         f"fast_sample_kernel at batch {AR_BATCH}: {tuple(wav8.shape)}, "
+         f"launches in all {launches}")
+    _check(one == 1 and launches == 2,
+           "expected one AR kernel launch per sampling call")
+    _check(wav.shape == (frames * hop,), f"length {wav.shape}")
+    _check(np.isfinite(wav).all(), "non-finite AR audio")
+    pre = wav.astype(np.float64) - TEACHER.dsp.preemphasis * np.concatenate(
+        [[0.0], wav[:-1]])
+    _check(np.abs(pre).max() <= 1.0 + 1e-4,
+           f"pre-deemphasis peak {np.abs(pre).max()}")
+    _check(wav8.shape == (AR_BATCH, frames * hop)
+           and torch.isfinite(wav8).all() and wav8.abs().max() <= 1.0,
+           "batch-8 AR samples off shape, non-finite or outside [-1, 1]")
+    _check(not torch.equal(wav8[0], wav8[1]), "rows drew the same noise")
+    _log(f"[ar main] finite; pre-deemphasis peak {np.abs(pre).max():.4f}; "
+         f"batch-8 rows within [-1, 1], rows differ")
+    return {"launches": launches}
+
+
 def _time_ms(fn, n: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -505,12 +688,18 @@ def phase_times(device, smi: str) -> dict:
         k1 = _time_ms(kernel, 20)
         k2 = _time_ms(kernel, 20)
         p2 = _time_ms(plain, 5)
+        out_bytes = _nbytes(kernel())
         flow_stack.launches = counted  # timing launches are not the main path's
     k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    flop = 2 * BATCH * T * len(dil) * ((2 * 64 + 80) * 128 + 64 * 128)
+    sc = CFG.student
+    flop = 2 * BATCH * T * len(dil) * (
+        (2 * sc.residual_channels + CFG.dsp.n_mels) * sc.gate_channels
+        + sc.gate_channels // 2 * (sc.residual_channels + sc.skip_channels))
+    bound = _bound(flop, _nbytes(*args.values()) + out_bytes, PEAK_BF16)
     _log(f"[times] {smi}: flow stack B={BATCH} T={T}: kernel {k1:.3f} / "
          f"{k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms per call "
-         f"(kernel {flop / k_ms / 1e9:.1f} TFLOP/s useful)")
+         f"(kernel {flop / k_ms / 1e9:.1f} TFLOP/s useful); bound "
+         f"{bound['bound_ms']:.3f} ms ({bound['bound_by']})")
 
     model = init_student(CFG, torch.Generator().manual_seed(SEED), device)
     model.eval()
@@ -530,7 +719,7 @@ def phase_times(device, smi: str) -> dict:
     rate = audio_s / (ms / 1e3)
     _log(f"[times] {smi}: generate batch {BATCH} x {SECONDS} s: {ms:.3f} ms "
          f"per call, {rate:.1f} audio-seconds/s")
-    return {"ms": k_ms, "plain_ms": p_ms}
+    return {"ms": k_ms, "plain_ms": p_ms, **bound}
 
 
 def phase_train_times(device, smi: str) -> dict:
@@ -571,9 +760,17 @@ def phase_train_times(device, smi: str) -> dict:
             # not recomputed)
             "kernel 3": 2 * rows_layers * (3 * K * G + 2 * GH * N),
             "kernel 3 dx-only": 2 * rows_layers * (2 * K * G + GH * N)}
+    with torch.no_grad():
+        grads = fns["kernel 3"]()
+        fs.flow_stack_train_forward.launches, fs.flow_stack_train_backward.launches = counted
+    nbytes = {"kernel 2": _nbytes(*fwd.values(), *fns["kernel 2"]()),
+              "kernel 3": _nbytes(*bargs, *grads),
+              "kernel 3 dx-only": _nbytes(*bargs, *grads[:2])}
+    bounds = {k: _bound(flop[k], nbytes[k], PEAK_BF16) for k in flop}
     for name, v in ms.items():
-        rate = (f" ({flop[name] / np.mean(v) / 1e9:.1f} TFLOP/s useful)"
-                if name in flop else "")
+        rate = (f" ({flop[name] / np.mean(v) / 1e9:.1f} TFLOP/s useful; "
+                f"bound {bounds[name]['bound_ms']:.3f} ms, "
+                f"{bounds[name]['bound_by']})" if name in flop else "")
         _log(f"[times] {smi}: {name} B={B} T={T}: "
              + " / ".join(f"{x:.3f}" for x in v) + f" ms per call{rate}")
 
@@ -588,8 +785,80 @@ def phase_train_times(device, smi: str) -> dict:
     _log(f"[times] {smi}: teacher_lj train step, batch {B} x {T}: {step_ms:.3f} "
          f"ms per step, {B / (step_ms / 1e3):.1f} utterances/s")
     mean = {k: float(np.mean(v)) for k, v in ms.items()}
-    return {"fwd_ms": mean["kernel 2"], "fwd_plain_ms": mean["kernel 2 plain"],
-            "bwd_ms": mean["kernel 3"], "bwd_plain_ms": mean["kernel 3 plain"]}
+    return {"fwd": {"ms": mean["kernel 2"], "plain_ms": mean["kernel 2 plain"],
+                    **bounds["kernel 2"]},
+            "bwd": {"ms": mean["kernel 3"], "plain_ms": mean["kernel 3 plain"],
+                    **bounds["kernel 3"]}}
+
+
+def phase_ar_times(device, smi: str) -> dict:
+    cfg = TEACHER
+    tc = cfg.teacher
+    model = _ar_teacher(cfg, device)
+    weights = stack_teacher_weights(model.stack, torch.bfloat16)
+    kw = _ar_kw(cfg)
+    gen = torch.Generator(device=device).manual_seed(3)
+    big = {B: _ar_inputs(cfg, B, AR_T, gen) for B in (AR_BATCH, 1)}
+    small = _ar_inputs(cfg, AR_BATCH, AR_CHECK_T, gen)
+    fns = {
+        "kernel": lambda: ar_sample(*big[AR_BATCH], weights, **kw),
+        "kernel one row": lambda: ar_sample(*big[1], weights, **kw),
+        "kernel short": lambda: ar_sample(*small, weights, **kw),
+        "plain short": lambda: ar_sample_reference(*small, weights, **kw),
+    }
+    counted = ar_sample.launches
+    ms: dict = {}
+    with torch.inference_mode():
+        for fn in fns.values():
+            fn()  # warm up
+        torch.cuda.synchronize()
+        # in turns, on one card
+        for k in ("plain short", "kernel", "kernel one row", "kernel short",
+                  "kernel short", "kernel one row", "kernel", "plain short"):
+            ms.setdefault(k, []).append(_time_ms(fns[k], 1))
+        mel = torch.rand((1, AR_T // cfg.dsp.hop_length, cfg.dsp.n_mels),
+                         generator=gen, device=device)
+        generate_teacher(cfg, model, mel, gen)
+        host = []
+        for _ in range(2):
+            t = time.perf_counter()
+            generate_teacher(cfg, model, mel, gen)
+            host.append((time.perf_counter() - t) * 1e3)
+    ar_sample.launches = counted
+    sr = cfg.dsp.sample_rate
+    steps = {"kernel": AR_T, "kernel one row": AR_T,
+             "kernel short": AR_CHECK_T, "plain short": AR_CHECK_T}
+    batch = {"kernel": AR_BATCH, "kernel one row": 1, "kernel short": AR_BATCH,
+             "plain short": AR_BATCH}
+    for name, v in ms.items():
+        m = float(np.mean(v))
+        rate = batch[name] * steps[name] / (m / 1e3)
+        _log(f"[times] {smi}: AR {name} B={batch[name]} T={steps[name]}: "
+             + " / ".join(f"{x:.3f}" for x in v)
+             + f" ms per call, {m * 1e3 / steps[name]:.3f} us per step, "
+             f"{rate:.1f} samples/s, {rate / sr:.4f} audio-seconds/s")
+    _log(f"[times] {smi}: generate_teacher(teacher_lj) 1 x {AR_T} samples: "
+         + " / ".join(f"{x:.3f}" for x in host) + " ms host clock, "
+         f"{AR_T / sr / (np.mean(host) / 1e3):.4f} audio-seconds/s")
+    cond, noise = big[AR_BATCH]
+    C, G, S = tc.residual_channels, tc.gate_channels, tc.skip_channels
+    hd = weights["head2_k"].shape[-1]
+    flop = 2 * AR_BATCH * AR_T * (
+        tc.n_layers * ((2 * C + cfg.dsp.n_mels) * G + G // 2 * (C + S))
+        + S * S + S * hd + C)
+    nbytes = _nbytes(cond, noise, *weights.values()) + AR_BATCH * AR_T * 4
+    bound = _bound(flop, nbytes, PEAK_FP32)
+    k_ms = float(np.mean(ms["kernel"]))
+    plain_ms = float(np.mean(ms["plain short"])) * AR_T / AR_CHECK_T
+    # each block (one row) reads every weight and bias from L2 every step
+    per_step = _nbytes(*weights.values())
+    _log(f"[times] {smi}: AR kernel B={AR_BATCH} T={AR_T}: {flop / 1e9:.1f} "
+         f"GFLOP fp32, {nbytes / 1e6:.2f} MB; bound {bound['bound_ms']:.3f} ms "
+         f"({bound['bound_by']}); kernel {k_ms:.3f} ms; plain version "
+         f"{plain_ms:.1f} ms, scaled per step from T={AR_CHECK_T}; weights "
+         f"streamed per row per step {per_step / 1e6:.3f} MB, "
+         f"{per_step * AR_T / (k_ms / 1e3) / 1e9:.1f} GB/s into each SM")
+    return {"ms": k_ms, "plain_ms": plain_ms, **bound}
 
 
 def main() -> int:
@@ -597,32 +866,41 @@ def main() -> int:
     phase_build()
     kern = phase_kernel(device)
     train_kern = phase_train_kernels(device)
+    ar_kern = phase_ar_kernel(device)
     main_path = phase_main(device)
     teacher = phase_teacher(device)
+    ar_main = phase_ar_main(device)
     times = phase_times(device, smi)
     train_times = phase_train_times(device, smi)
+    ar_times = phase_ar_times(device, smi)
     train_src = "pwn_tpu_torch/csrc/flow_stack_train.cu"
+    # no single PyTorch call computes any of these functions
     print(json.dumps({"kernels": [{
         "name": "flow_stack", "route": "cuda",
         "source": "pwn_tpu_torch/csrc/flow_stack.cu",
         "replaces": "pwn_tpu/ops/pallas/flow_stack.py:87",
         "launches": main_path["launches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": times["ms"], "plain_ms": times["plain_ms"],
+        "max_abs_err": kern["max_abs_err"], **times, "library_ms": None,
     }, {
         "name": "flow_stack_train_forward", "route": "cuda",
         "source": train_src,
         "replaces": "pwn_tpu/ops/pallas/flow_stack.py:373",
         "launches": teacher["launches"][0],
-        "max_abs_err": train_kern["fwd_max_abs_err"],
-        "ms": train_times["fwd_ms"], "plain_ms": train_times["fwd_plain_ms"],
+        "max_abs_err": train_kern["fwd_max_abs_err"], **train_times["fwd"],
+        "library_ms": None,
     }, {
         "name": "flow_stack_train_backward", "route": "cuda",
         "source": train_src,
         "replaces": "pwn_tpu/ops/pallas/flow_stack.py:420",
         "launches": teacher["launches"][1],
-        "max_abs_err": train_kern["bwd_max_abs_err"],
-        "ms": train_times["bwd_ms"], "plain_ms": train_times["bwd_plain_ms"],
+        "max_abs_err": train_kern["bwd_max_abs_err"], **train_times["bwd"],
+        "library_ms": None,
+    }, {
+        "name": "ar_sampler", "route": "cuda",
+        "source": "pwn_tpu_torch/csrc/ar_sampler.cu",
+        "replaces": "pwn_tpu/ops/pallas/ar_sampler.py:47",
+        "launches": ar_main["launches"],
+        "max_abs_err": ar_kern["max_abs_err"], **ar_times, "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,25 +6,28 @@ each piece has an obvious counterpart.  Public functions keep JAX's
 channels-last `(B, T, C)` layout so tests compare like with like.
 
 What is ported: student IAF synthesis (mel -> waveform in one parallel
-pass) through `generate_student` and `vocode_many`, and teacher training
-on the synthetic corpus through `run_teacher_training`.  The flow stack
-runs in hand-written CUDA C++ kernels on a CUDA tensor (`csrc/flow_stack.cu`
+pass) through `generate_student` and `vocode_many`, teacher training on
+the synthetic corpus through `run_teacher_training`, and teacher
+autoregressive sampling through `generate_teacher`.  The flow stack runs
+in hand-written CUDA C++ kernels on a CUDA tensor (`csrc/flow_stack.cu`
 for inference, `csrc/flow_stack_train.cu` for the training forward and
 backward) and in its plain PyTorch versions (`ops/flow_stack.py`) on a
-CPU tensor.
+CPU tensor; the AR sampling loop likewise (`csrc/ar_sampler.cu`,
+`ops/ar_sampler.py`).
 
-This package imports `torch` and never `jax`.  The configuration
-dataclasses are shared with the reference: `pwn_tpu.config` is plain
-Python and `import pwn_tpu` loads nothing else.
+This package imports `torch` and never `jax`, nor anything of the JAX
+package `pwn_tpu`: the configuration dataclasses are the port's own copy
+(`pwn_tpu_torch/config.py`).
 """
 
-from pwn_tpu.config import Config, get_config, override  # noqa: F401
+from pwn_tpu_torch.config import Config, get_config, override  # noqa: F401
 
 __version__ = "0.1.0"
 
 # entry points load torch model code on first touch only
 _LAZY = {
     "generate_student": "pwn_tpu_torch.generate",
+    "generate_teacher": "pwn_tpu_torch.generate",
     "vocode_many": "pwn_tpu_torch.generate",
     "mel_from_wav": "pwn_tpu_torch.generate",
     "init_student": "pwn_tpu_torch.models.student",

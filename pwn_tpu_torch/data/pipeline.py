@@ -21,7 +21,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 
-from pwn_tpu.config import Config
+from pwn_tpu_torch.config import Config
 
 
 class _CachedSynthCorpus:

@@ -1,11 +1,13 @@
-"""Student waveform generation (counterpart of the student paths of
-`pwn_tpu/generate.py`): mel -> waveform in one parallel pass, for one
-utterance (`generate_student`) or many of any lengths (`vocode_many`, the
-CLI's `generate --source-dir` path).
+"""Waveform generation (counterpart of the student and teacher paths of
+`pwn_tpu/generate.py`): the student's mel -> waveform in one parallel
+pass, for one utterance (`generate_student`) or many of any lengths
+(`vocode_many`, the CLI's `generate --source-dir` path), and the
+teacher's autoregressive synthesis (`generate_teacher`).
 
-Base noise comes from torch generators, so it differs from
-`jax.random`'s; every entry point also takes the noise `z` explicitly,
-which is how the tests hold the port against the reference.
+Noise comes from torch generators, so it differs from `jax.random`'s;
+the student entry points also take the noise `z` explicitly, and the
+sampling functions under `generate_teacher` take `noise=`, which is how
+the tests hold the port against the reference.
 """
 
 from __future__ import annotations
@@ -16,8 +18,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pwn_tpu.config import Config
+from pwn_tpu_torch.config import Config
+from pwn_tpu_torch.models import sampling
 from pwn_tpu_torch.models.student import StudentIAF, sample_base_noise
+from pwn_tpu_torch.models.teacher import TeacherWaveNet
 from pwn_tpu_torch.parallel.sp import sp_mega_geometry
 from pwn_tpu_torch.utils import dsp
 
@@ -72,7 +76,7 @@ def item_generator(seed: int, index: int, device) -> torch.Generator:
     return gen
 
 
-def _model_device(model: StudentIAF) -> torch.device:
+def _model_device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
@@ -175,3 +179,37 @@ def vocode_many(cfg: Config, model: StudentIAF, mels: Sequence,
             for row, i in enumerate(group):
                 out[i] = wav[row, : items[i].shape[0] * hop]
     return out
+
+
+AR_BACKENDS = ("auto", "kernel", "pallas", "scan")
+
+
+@torch.inference_mode()
+def generate_teacher(cfg: Config, teacher: TeacherWaveNet, mel,
+                     generator: torch.Generator, temperature: float = 1.0,
+                     ar_backend: str = "auto",
+                     ar_weights_dtype: str | None = None) -> np.ndarray:
+    """AR teacher synthesis of mel (B, F, n_mels); returns the first row's
+    deemphasized (F*hop,) float32 waveform, as the reference does.
+
+    ar_backend: "auto" and "kernel" (or the reference's name "pallas")
+    run the whole-loop sampler, `sampling.fast_sample_kernel`: the CUDA
+    kernel on a model on the card, its plain version on a CPU model;
+    "scan" runs the eager conv-queue loop `sampling.fast_sample`, only when
+    asked for.  ar_weights_dtype ("float32" or "bfloat16") overrides the
+    whole-loop sampler's weight storage (compute is fp32 either way);
+    None keeps the compute dtype.  Noise is drawn from `generator`, which
+    lives on the model's device.
+    """
+    if ar_backend not in AR_BACKENDS:
+        raise ValueError(f"ar_backend {ar_backend!r}; one of {AR_BACKENDS}")
+    mel = torch.as_tensor(mel, dtype=torch.float32,
+                          device=_model_device(teacher))
+    if ar_backend == "scan":
+        wav = sampling.fast_sample(teacher, generator, mel,
+                                   temperature=temperature)
+    else:
+        wav = sampling.fast_sample_kernel(teacher, generator, mel,
+                                          temperature=temperature,
+                                          weights_dtype=ar_weights_dtype)
+    return _host_deemphasis(wav.cpu().numpy(), cfg.dsp.preemphasis)[0]

@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 import torch.nn as nn
 
-from pwn_tpu.config import Config
+from pwn_tpu_torch.config import Config
 from pwn_tpu_torch.models.modules import (DTYPES, UpsampleNet, WaveNetStack,
                                           match_length)
 from pwn_tpu_torch.ops import mol

@@ -1,11 +1,11 @@
 """Teacher WaveNet: the autoregressive mel-conditioned density model with a
-discretized mixture-of-logistics head (counterpart of
-`pwn_tpu/models/teacher.py`).
+discretized mixture-of-logistics head, or a single-Gaussian head with
+`teacher.output="gaussian"` (counterpart of `pwn_tpu/models/teacher.py`).
 
 Training is one teacher-forcing pass over all time steps at once: the
-stack sees the waveform shifted right by one sample and predicts the MoL
-parameters of every sample.  Only the MoL head is ported; the Gaussian
-head (`teacher.output="gaussian"`) and AR sampling wait for later slices.
+stack sees the waveform shifted right by one sample and predicts the head
+parameters of every sample.  Sampling is sequential and lives in
+`models/sampling.py`.
 """
 
 from __future__ import annotations
@@ -13,16 +13,17 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from pwn_tpu.config import Config
+from pwn_tpu_torch.config import Config
 from pwn_tpu_torch.models.modules import (DTYPES, UpsampleNet, WaveNetStack,
                                           match_length, resolve_stack_mode,
                                           shift_right_scalar)
-from pwn_tpu_torch.ops import mol
+from pwn_tpu_torch.ops import gaussian, mol
 
 
 class TeacherWaveNet(nn.Module):
-    """p(x_t | x_<t, mel).  `forward(wav, mel)` returns the per-step MoL
-    parameters (B, T, 3K); `condition(mel)` the upsampled conditioning.
+    """p(x_t | x_<t, mel).  `forward(wav, mel)` returns the per-step head
+    parameters (B, T, head_dim: 3K for the MoL head, 2 for the Gaussian
+    one); `condition(mel)` the upsampled conditioning.
 
     `stack_mode` is the WaveNetStack mode ("infer", "train" or "dx"); by
     default it follows `teacher.fused_layers`, whose "auto" means "infer"
@@ -32,10 +33,6 @@ class TeacherWaveNet(nn.Module):
                  device=None):
         super().__init__()
         tc = config.teacher
-        if tc.output != "mol":
-            raise NotImplementedError(
-                f"teacher output {tc.output!r} is not ported yet (only the "
-                "MoL head is)")
         if tc.kernel_size != 2:
             raise NotImplementedError("WaveNetStack uses kernel_size=2")
         self.config = config
@@ -65,7 +62,7 @@ class TeacherWaveNet(nn.Module):
     def params_from_cond(self, wav: torch.Tensor,
                          cond: torch.Tensor) -> torch.Tensor:
         """Teacher forcing given the conditioning: wav (B, T) in [-1, 1],
-        cond (B, T, n_mels) -> MoL params (B, T, 3K) in fp32; params[t]
+        cond (B, T, n_mels) -> head params (B, T, head_dim) in fp32; params[t]
         models wav[t] given wav[<t]."""
         return self.stack(shift_right_scalar(wav), cond)
 
@@ -74,9 +71,12 @@ class TeacherWaveNet(nn.Module):
         return self.params_from_cond(wav, cond)
 
     def loss(self, wav: torch.Tensor, mel: torch.Tensor) -> torch.Tensor:
-        """Mean teacher-forcing NLL (nats per sample), fp32."""
-        return mol.discretized_mol_loss(
-            wav, self(wav, mel), log_scale_min=self.config.teacher.log_scale_min)
+        """Mean teacher-forcing NLL (nats per sample), fp32: discretized MoL
+        or continuous single-Gaussian per `teacher.output`."""
+        tc = self.config.teacher
+        nll = (gaussian.gaussian_nll if tc.output == "gaussian"
+               else mol.discretized_mol_loss)
+        return nll(wav, self(wav, mel), log_scale_min=tc.log_scale_min)
 
 
 def make_teacher(config: Config, stack_mode: str | None = None,

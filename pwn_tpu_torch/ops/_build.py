@@ -20,7 +20,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "flow_stack.cu",
-           _PKG / "csrc" / "flow_stack_train.cu")
+           _PKG / "csrc" / "flow_stack_train.cu",
+           _PKG / "csrc" / "ar_sampler.cu")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -127,6 +128,18 @@ def load_library() -> ctypes.CDLL:
     lib.pwn_flow_stack_train_bwd_bf16.restype = i
     lib.pwn_flow_stack_train_bwd_workspace_bytes.argtypes = [i] * 8
     lib.pwn_flow_stack_train_bwd_workspace_bytes.restype = ctypes.c_longlong
+    lib.pwn_ar_sample.argtypes = [
+        p, p, p, p, p, p, p, p,        # cond, noise, front_k, front_b, w_in,
+                                       # b_g, w_out, b_rs
+        p, p, p, p, p, p,              # head1_k, head1_b, head2_k, head2_b,
+                                       # queue, wav
+        i, i, i, i, i, i, i, i, i, i,  # B, T, L, C, G, S, M, head_dim, K,
+                                       # gaussian
+        ctypes.POINTER(ctypes.c_int),  # dilations
+        ctypes.c_float, ctypes.c_float,  # log_scale_min, temperature
+        i, i, p,                       # weights_bf16, cond_bf16, stream
+    ]
+    lib.pwn_ar_sample.restype = i
     lib.pwn_cuda_error_string.argtypes = [i]
     lib.pwn_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,215 @@
+"""Whole-loop teacher AR sampler: the weight packing, the plain PyTorch
+version and the wrapper of the CUDA kernel (counterpart of
+`pwn_tpu/ops/pallas/ar_sampler.py`).
+
+Fast WaveNet over T steps: per step the front 1x1, then L layers that
+each pop and push a conv-queue slot `t % d_l`, run the gate GEMM on
+[x | tap | cond(t)], the gated unit and the out GEMM; then the
+relu/1x1/relu/1x1 head and the draw from pre-drawn noise, clipped to
+[-1, 1] and fed back.  Two heads share the loop: "mol" consumes
+(T, B, K+1) uniforms (K for the Gumbel-max choice, one for the logistic
+inverse CDF), "gaussian" (T, B, 1) standard normals.
+
+`ar_sample` takes the packed layout of `stack_teacher_weights`, which is
+the reference's:
+    front_k (1, C), w_in (L, 2C+M, G), w_out (L, G/2, C+S), head1_k (S, S),
+    head2_k (S, head_dim) in the storage dtype (bf16 or fp32);
+    front_b (1, C), b_g (L, G), b_rs (L, C+S), head1_b (1, S),
+    head2_b (1, head_dim) in fp32,
+with cond (B, T, M) in the compute dtype, and returns wav (B, T) fp32.
+Compute is fp32 over the stored weights, and the queues are fp32.
+
+A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
+(`csrc/ar_sampler.cu`) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from pwn_tpu_torch.ops.flow_stack import _device_call
+from pwn_tpu_torch.ops.gaussian import sample_from_normals
+from pwn_tpu_torch.ops.mol import mol_sample_from_uniforms
+
+# the widths (C, G, S, M) the kernel is compiled for: teacher_lj (and
+# clarinet_gaussian), tiny_teacher
+AR_KERNEL_DIMS = ((128, 256, 128, 80), (64, 128, 64, 40))
+AR_MAX_LAYERS = 64
+_WEIGHTS = ("front_k", "w_in", "w_out", "head1_k", "head2_k")
+_BIASES = ("front_b", "b_g", "b_rs", "head1_b", "head2_b")
+
+
+@torch.no_grad()
+def stack_teacher_weights(stack, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Pack a teacher `WaveNetStack`'s parameters into the kernel's layout
+    (module docstring), as the reference packs the flax tree: weights
+    rounded to `dtype`, biases summed and held in fp32 unrounded, gate
+    operand order [w_dilated[1]; w_dilated[0]; w_cond] to match the
+    concat [x_now, tap, cond]."""
+    layers = stack.layers
+
+    def stk(name):
+        return torch.stack([getattr(lp, name) for lp in layers])
+
+    w_dil = stk("w_dilated")
+    out = dict(
+        front_k=stack.front.kernel[0].to(dtype),
+        front_b=stack.front.bias[None].float(),
+        w_in=torch.cat([w_dil[:, 1], w_dil[:, 0], stk("w_cond")],
+                       dim=1).to(dtype),
+        b_g=(stk("b_dilated") + stk("b_cond")).float(),
+        w_out=torch.cat([stk("w_res"), stk("w_skip")], dim=2).to(dtype),
+        b_rs=torch.cat([stk("b_res"), stk("b_skip")], dim=1).float(),
+        head1_k=stack.head1.kernel[0].to(dtype),
+        head1_b=stack.head1.bias[None].float(),
+        head2_k=stack.head2.kernel[0].to(dtype),
+        head2_b=stack.head2.bias[None].float(),
+    )
+    return {k: v.detach().contiguous() for k, v in out.items()}
+
+
+def queue_offsets(dilations: Sequence[int]) -> list:
+    """First queue slot of each layer in the packed (sum(d), ...) queue."""
+    return np.cumsum([0, *dilations])[:-1].tolist()
+
+
+def ar_sample_reference(cond: torch.Tensor, noise: torch.Tensor,
+                        weights: dict, *, dilations: Sequence[int],
+                        n_mixtures: int, head: str = "mol",
+                        log_scale_min: float = -9.0,
+                        temperature: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch AR loop with the kernel's math: a Python loop over T,
+    fp32 compute over the stored weights, fp32 queues (sum(d), B, C), the
+    tap read before its slot is overwritten.  Returns wav (B, T) fp32."""
+    B, T, _ = cond.shape
+    w = {k: v.float() for k, v in weights.items()}
+    C = w["front_k"].shape[-1]
+    S = w["head1_k"].shape[0]
+    offsets = queue_offsets(dilations)
+    queue = torch.zeros((sum(dilations), B, C), dtype=torch.float32,
+                        device=cond.device)
+    x_prev = torch.zeros((B, 1), dtype=torch.float32, device=cond.device)
+    wav = torch.empty((T, B), dtype=torch.float32, device=cond.device)
+    for t in range(T):
+        cond_t = cond[:, t].float()
+        x = x_prev * w["front_k"] + w["front_b"]
+        skip = torch.zeros((B, S), dtype=torch.float32, device=cond.device)
+        for l, d in enumerate(dilations):
+            slot = offsets[l] + t % d
+            tap = queue[slot].clone()
+            queue[slot] = x
+            g = torch.cat([x, tap, cond_t], dim=-1) @ w["w_in"][l] + w["b_g"][l]
+            a, b = g.chunk(2, dim=-1)
+            out = (torch.tanh(a) * torch.sigmoid(b)) @ w["w_out"][l] + w["b_rs"][l]
+            x = x + out[:, :C]
+            skip = skip + out[:, C:]
+        h = torch.relu(skip)
+        h = torch.relu(h @ w["head1_k"] + w["head1_b"])
+        params_t = h @ w["head2_k"] + w["head2_b"]
+        if head == "gaussian":
+            x_t = sample_from_normals(params_t, noise[t, :, 0], log_scale_min,
+                                      temperature)
+        else:
+            x_t = mol_sample_from_uniforms(params_t, noise[t], log_scale_min,
+                                           temperature)
+        wav[t] = x_t
+        x_prev = x_t[:, None]
+    return wav.T.contiguous()
+
+
+def check_ar_args(cond, noise, weights: dict, dilations: Sequence[int],
+                  n_mixtures: int, head: str) -> None:
+    """Raise ValueError on anything the kernel does not take."""
+    if cond.dim() != 3:
+        raise ValueError("cond must be (B, T, M)")
+    B, T, M = cond.shape
+    missing = set(_WEIGHTS + _BIASES) - set(weights)
+    if missing:
+        raise ValueError(f"weights lack {sorted(missing)}")
+    wdt = weights["w_in"].dtype
+    L, K_in, G = weights["w_in"].shape
+    C = weights["front_k"].shape[-1]
+    S = weights["head1_k"].shape[0]
+    if (C, G, S, M) not in AR_KERNEL_DIMS:
+        raise ValueError(f"the AR kernel is built for (C, G, S, M) in "
+                         f"{AR_KERNEL_DIMS}, got {(C, G, S, M)}")
+    if head == "gaussian":
+        hd, nz = 2, 1
+    elif head == "mol":
+        hd, nz = 3 * n_mixtures, n_mixtures + 1
+        if not 1 <= n_mixtures <= 10:
+            raise ValueError(f"the AR kernel takes 1..10 mixtures, got "
+                             f"{n_mixtures}")
+    else:
+        raise ValueError(f"head {head!r}; one of 'mol', 'gaussian'")
+    shapes = {"front_k": (1, C), "front_b": (1, C),
+              "w_in": (L, 2 * C + M, G), "b_g": (L, G),
+              "w_out": (L, G // 2, C + S), "b_rs": (L, C + S),
+              "head1_k": (S, S), "head1_b": (1, S),
+              "head2_k": (S, hd), "head2_b": (1, hd)}
+    tensors = {"cond": cond, "noise": noise, **weights}
+    for name, shape in {"noise": (T, B, nz), **shapes}.items():
+        if tuple(tensors[name].shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(tensors[name].shape)}")
+    if wdt not in (torch.bfloat16, torch.float32) or any(
+            weights[n].dtype != wdt for n in _WEIGHTS):
+        raise ValueError("the weights must all be bf16 or all float32")
+    if cond.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"cond must be bf16 or float32, got {cond.dtype}")
+    for name in ("noise", *_BIASES):
+        if tensors[name].dtype != torch.float32:
+            raise ValueError(f"{name} must be float32")
+    if len(dilations) != L or min(dilations) < 1 or L > AR_MAX_LAYERS:
+        raise ValueError(f"need {L} dilations >= 1 (at most {AR_MAX_LAYERS} "
+                         f"layers), got {tuple(dilations)}")
+    if B < 1 or T < 1:
+        raise ValueError(f"unsupported B={B}, T={T}")
+    for name, t in tensors.items():
+        if t.device.type != "cuda" or t.device != cond.device:
+            raise ValueError(f"{name} must be on cond's CUDA device, got "
+                             f"{t.device} (cond on {cond.device})")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def ar_sample(cond: torch.Tensor, noise: torch.Tensor, weights: dict, *,
+              dilations: Sequence[int], n_mixtures: int, head: str = "mol",
+              log_scale_min: float = -9.0,
+              temperature: float = 1.0) -> torch.Tensor:
+    """The fused AR loop (counterpart of `ar_sample_pallas`); see the module
+    docstring.  Returns wav (B, T) fp32.  `ar_sample.launches` counts the
+    kernel launches (one per call)."""
+    if cond.device.type == "cpu":
+        return ar_sample_reference(
+            cond, noise, weights, dilations=dilations, n_mixtures=n_mixtures,
+            head=head, log_scale_min=log_scale_min, temperature=temperature)
+    check_ar_args(cond, noise, weights, dilations, n_mixtures, head)
+    B, T, M = cond.shape
+    L, _, G = weights["w_in"].shape
+    C = weights["front_k"].shape[-1]
+    S = weights["head1_k"].shape[0]
+    HD = weights["head2_k"].shape[-1]
+    dev = cond.device
+    queue = torch.zeros((B, sum(dilations), C), dtype=torch.float32,
+                        device=dev)
+    wav = torch.empty((B, T), dtype=torch.float32, device=dev)
+    _device_call(
+        "pwn_ar_sample", dev, cond.data_ptr(), noise.data_ptr(),
+        *(weights[n].data_ptr() for n in (
+            "front_k", "front_b", "w_in", "b_g", "w_out", "b_rs", "head1_k",
+            "head1_b", "head2_k", "head2_b")),
+        queue.data_ptr(), wav.data_ptr(), B, T, L, C, G, S, M, HD,
+        n_mixtures, int(head == "gaussian"), (ctypes.c_int * L)(*dilations),
+        float(log_scale_min), float(temperature),
+        int(weights["w_in"].dtype == torch.bfloat16),
+        int(cond.dtype == torch.bfloat16))
+    ar_sample.launches += 1
+    return wav
+
+
+ar_sample.launches = 0

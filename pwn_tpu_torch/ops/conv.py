@@ -46,6 +46,21 @@ def causal_conv1d(
     return out
 
 
+def conv1d_step(
+    x_tap: torch.Tensor,
+    x_now: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Single-timestep K=2 dilated conv for AR generation (Fast WaveNet):
+    given the queued x[t-d] (`x_tap`, (B, Cin)) and the current x[t]
+    (`x_now`, (B, Cin)), return y[t] (B, Cout)."""
+    out = x_now @ kernel[1] + x_tap @ kernel[0]
+    if bias is not None:
+        out = out + bias
+    return out
+
+
 def conv_transpose1d(
     x: torch.Tensor,
     kernel: torch.Tensor,

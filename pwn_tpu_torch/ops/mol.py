@@ -1,10 +1,11 @@
 """Mixture-of-logistics ops (counterpart of `pwn_tpu/ops/mol.py`): the
-teacher's discretized MoL likelihood and the student's logistic base.
+teacher's discretized MoL likelihood, its sampler (teacher AR sampling)
+and the student's logistic base.
 
 The likelihood runs in fp32 whatever the stack's compute dtype, with the
 reference's branches and clamps.  Parameter layout: `params[..., 3K]` is
 [logit_probs | means | log_scales].  Not ported yet: `mol_log_density`
-and `sample_from_mol` (distillation, teacher AR sampling).
+(distillation).
 """
 
 from __future__ import annotations
@@ -75,11 +76,58 @@ def logistic_log_density(
     return z - log_scale - 2.0 * F.softplus(z)
 
 
+def clipped_uniform(generator: torch.Generator, shape,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """u ~ U[1e-5, 1-1e-5] on the generator's device, the reference's
+    `jax.random.uniform(minval=1e-5, maxval=1-1e-5)`."""
+    u = torch.rand(shape, generator=generator, device=generator.device,
+                   dtype=dtype)
+    return _U_MIN + u * (1.0 - 2.0 * _U_MIN)
+
+
+def sample_from_mol(generator: torch.Generator, params: torch.Tensor,
+                    log_scale_min: float = -9.0,
+                    temperature: float = 1.0) -> torch.Tensor:
+    """One sample per leading position of params (..., 3K), in [-1, 1]:
+    Gumbel-max choice of the component, then the logistic's inverse CDF,
+    with uniforms drawn from `generator` (on the params' device)."""
+    logit_probs, means, log_scales = split_params(params)
+    log_scales = torch.clamp(log_scales, min=log_scale_min)
+    u_mix = clipped_uniform(generator, logit_probs.shape).to(params.device)
+    comp = torch.argmax(logit_probs - torch.log(-torch.log(u_mix)), dim=-1,
+                        keepdim=True)
+    mean = torch.gather(means, -1, comp)[..., 0]
+    log_scale = torch.gather(log_scales, -1, comp)[..., 0]
+    u = clipped_uniform(generator, mean.shape).to(params.device)
+    x = mean + torch.exp(log_scale) * temperature * (
+        torch.log(u) - torch.log1p(-u))
+    return torch.clamp(x, -1.0, 1.0)
+
+
+def mol_sample_from_uniforms(params_t: torch.Tensor, u: torch.Tensor,
+                             log_scale_min: float,
+                             temperature: float) -> torch.Tensor:
+    """Deterministic MoL sample from pre-drawn uniforms u (..., K+1): K for
+    the Gumbel-max choice, the last for the logistic's inverse CDF.  A tie
+    splits the one-hot evenly, as in the AR kernel; the result is clipped
+    to [-1, 1]."""
+    K = params_t.shape[-1] // 3
+    logits, means, log_s = split_params(params_t)
+    log_s = torch.clamp(log_s, min=log_scale_min)
+    u = u.float()
+    scores = logits - torch.log(-torch.log(u[..., :K]))
+    onehot = (scores >= scores.amax(-1, keepdim=True)).float()
+    onehot = onehot / onehot.sum(-1, keepdim=True)
+    mean = (means * onehot).sum(-1)
+    ls = (log_s * onehot).sum(-1)
+    ul = u[..., K]
+    x = mean + torch.exp(ls) * temperature * (torch.log(ul) - torch.log1p(-ul))
+    return torch.clamp(x, -1.0, 1.0)
+
+
 def sample_logistic(generator: torch.Generator, shape,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """z ~ Logistic(0, 1) on the generator's device: u ~ U[1e-5, 1-1e-5],
     z = log u - log1p(-u)."""
-    u = torch.rand(shape, generator=generator, device=generator.device,
-                   dtype=dtype)
-    u = _U_MIN + u * (1.0 - 2.0 * _U_MIN)
+    u = clipped_uniform(generator, shape, dtype)
     return torch.log(u) - torch.log1p(-u)

@@ -4,7 +4,7 @@ ported; `generate.vocode_many` needs the upsampler halo H from it."""
 
 from __future__ import annotations
 
-from pwn_tpu.config import Config
+from pwn_tpu_torch.config import Config
 
 
 def sp_mega_geometry(cfg: Config) -> tuple[int, int]:

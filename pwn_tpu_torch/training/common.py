@@ -19,7 +19,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from pwn_tpu.config import TrainConfig
+from pwn_tpu_torch.config import TrainConfig
 
 EPS = 1e-8
 

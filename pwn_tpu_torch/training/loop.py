@@ -17,7 +17,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from pwn_tpu.config import Config
+from pwn_tpu_torch.config import Config
 from pwn_tpu_torch.data.pipeline import (SyntheticSpeech, SyntheticTones,
                                         local_batch_size, make_train_iterator,
                                         prefetch)

@@ -13,7 +13,7 @@ from typing import Tuple
 
 import torch
 
-from pwn_tpu.config import Config
+from pwn_tpu_torch.config import Config
 from pwn_tpu_torch.models.teacher import TeacherWaveNet
 from pwn_tpu_torch.training.common import TrainState, global_norm, update_ema
 from pwn_tpu_torch.utils import dsp

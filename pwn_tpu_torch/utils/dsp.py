@@ -22,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from pwn_tpu.config import DSPConfig
+from pwn_tpu_torch.config import DSPConfig
 
 _AMP_FLOOR = 1e-5
 

@@ -12,17 +12,18 @@ import numpy as np
 import pytest
 import torch
 
-from pwn_tpu.config import get_config, override
 from pwn_tpu.generate import _host_deemphasis
 from pwn_tpu.generate import coerce_mel as jax_coerce_mel
 from pwn_tpu.generate import mel_from_wav as jax_mel_from_wav
 from pwn_tpu.models.student import init_student as jax_init_student
-from pwn_tpu_torch import convert
+from pwn_tpu_torch import convert, get_config, override
 from pwn_tpu_torch.generate import (coerce_mel, generate_student,
                                     mel_from_wav, vocode_many)
 from pwn_tpu_torch.models.student import StudentIAF
+from torch_parity import jax_config
 
 CFG = override(get_config("tiny_teacher"), "student.fused_layers", "off")
+JCFG = jax_config(CFG)
 HOP = CFG.dsp.hop_length
 # 8 frames is under W = 2H+4 = 16 (the per-item upsample path); 21 and 37
 # take the bucket-padded upsample + tail splice
@@ -45,7 +46,7 @@ def models():
     """JAX and port students sharing parameters, every parameter jittered:
     fresh inits have zero biases, which would make bucket-padded
     upsampling trivially exact and leave the tail splice untested."""
-    model, variables = jax_init_student(CFG, jax.random.PRNGKey(0))
+    model, variables = jax_init_student(JCFG, jax.random.PRNGKey(0))
     rng = np.random.default_rng(99)
     params = jax.tree.map(
         lambda p: np.asarray(p) + 0.05 * rng.standard_normal(p.shape).astype(
@@ -119,7 +120,7 @@ def test_mel_from_wav_matches_jax(rng):
     (tests/test_dsp.py)."""
     wav = np.clip(rng.standard_normal(3000) * 0.3, -1, 1).astype(np.float32)
     got = mel_from_wav(CFG, wav).numpy()
-    want = np.asarray(jax_mel_from_wav(CFG, wav))
+    want = np.asarray(jax_mel_from_wav(JCFG, wav))
     assert got.shape == want.shape == (1, 3000 // HOP, CFG.dsp.n_mels)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-5)
 
@@ -131,13 +132,13 @@ def test_coerce_mel_rejects_bad_shapes(shape):
     with pytest.raises(ValueError, match="mel must be"):
         coerce_mel(CFG, bad)
     with pytest.raises(ValueError, match="mel must be"):
-        jax_coerce_mel(CFG, bad)
+        jax_coerce_mel(JCFG, bad)
 
 
 def test_coerce_mel_accepts_and_rejects_like_jax():
     mel = np.random.default_rng(0).uniform(0, 1, (7, 40)).astype(np.float32)
     np.testing.assert_array_equal(coerce_mel(CFG, mel),
-                                  jax_coerce_mel(CFG, mel))
+                                  jax_coerce_mel(JCFG, mel))
     np.testing.assert_array_equal(coerce_mel(CFG, torch.from_numpy(mel)),
                                   mel[None])
     mel[3, 4] = np.nan

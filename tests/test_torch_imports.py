@@ -1,8 +1,10 @@
-"""The port stands without JAX, and its chip smoke refuses to run without a
-card or without the repository.
+"""The port stands without JAX and without the JAX package, and its chip
+smoke refuses to run without a card or without the repository.
 
-The machine with the card has no JAX, so every module of `pwn_tpu_torch`
-(and `chip_smoke.py`) must import with `jax` blocked.
+The machine with the card has no JAX, and the port keeps its own copy of
+everything it takes from `pwn_tpu` (the configuration included), so every
+module of `pwn_tpu_torch` (and `chip_smoke.py`) must import with both `jax`
+and `pwn_tpu` blocked.
 """
 
 import os
@@ -17,6 +19,7 @@ ROOT = Path(__file__).resolve().parents[1]
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["pwn_tpu"] = None  # and so does any import of the JAX package
 import pwn_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(pwn_tpu_torch.__path__,
                                                "pwn_tpu_torch.")]
@@ -24,7 +27,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "pwn_tpu"))
 print(len(names), loaded)
 """
 
@@ -42,13 +46,17 @@ def test_every_port_module_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     n, loaded = proc.stdout.strip().split(" ", 1)
     assert int(n) >= 14  # the slice's modules, __init__s included
-    assert loaded == "['jax']", loaded  # only the blocking sentinel
-    # the smoke and the profiler lean on the port's own surface (its config
-    # re-export), never on how the reference package is laid out
-    for script in ["chip_smoke.py", *sorted(
-            str(p.relative_to(ROOT)) for p in ROOT.glob("tools/torch_*.py"))]:
+    # only the blocking sentinels
+    assert loaded == "['jax', 'pwn_tpu']", loaded
+    # no module of the port, nor the smoke or the tools, names the JAX
+    # package in an import, even one a test run would not reach
+    sources = ["chip_smoke.py", *(
+        str(p.relative_to(ROOT)) for p in [
+            *ROOT.glob("pwn_tpu_torch/**/*.py"), *ROOT.glob("tools/torch_*.py")])]
+    assert len(sources) >= 25
+    for script in sorted(sources):
         text = (ROOT / script).read_text()
-        assert not re.search(r"^\s*(from|import)\s+pwn_tpu\b",
+        assert not re.search(r"^\s*(from|import)\s+(pwn_tpu|jax)\b",
                              text, re.M), script
 
 

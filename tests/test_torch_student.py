@@ -11,14 +11,15 @@ import numpy as np
 import pytest
 import torch
 
-from pwn_tpu.config import get_config, override
 from pwn_tpu.models.student import init_student as jax_init_student
 from pwn_tpu.models.student import make_student
-from pwn_tpu_torch import convert
+from pwn_tpu_torch import convert, get_config, override
 from pwn_tpu_torch.models.student import StudentIAF, init_student
+from torch_parity import jax_config
 
 GOLDEN = "tests/goldens/tiny_v1.npz"
 TINY = get_config("tiny_teacher")
+JTINY = jax_config(TINY)
 STUDENT_IAF_PARAMS = 1_835_432
 
 
@@ -37,7 +38,7 @@ def _one_torch_thread():
 def tiny_pair():
     """(JAX model, JAX variables, port model) at the tiny preset, whose
     student has student_iaf's widths (4 flows x 10 layers, C=64) in fp32."""
-    model, variables = jax_init_student(TINY, jax.random.PRNGKey(1))
+    model, variables = jax_init_student(JTINY, jax.random.PRNGKey(1))
     port = StudentIAF(TINY)
     port.load_state_dict(convert.params_from_flax(
         jax.tree.map(np.asarray, variables)))
@@ -138,7 +139,7 @@ def test_student_iaf_tree_round_trip():
     cfg = get_config("student_iaf")
     hop = cfg.dsp.hop_length
     shapes = jax.eval_shape(
-        make_student(cfg).init, jax.random.PRNGKey(0),
+        make_student(jax_config(cfg)).init, jax.random.PRNGKey(0),
         jnp.zeros((1, 4 * hop)), jnp.zeros((1, 4, cfg.dsp.n_mels)))
     rng = np.random.default_rng(0)
     tree = jax.tree.map(

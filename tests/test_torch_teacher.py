@@ -1,6 +1,7 @@
 """The port's teacher WaveNet against the JAX reference: the discretized
-MoL likelihood, the frozen goldens, live teacher forcing, the parameter
-bridge on the teacher tree, and the stack-mode choice.
+MoL likelihood, the frozen goldens of both heads (MoL and Gaussian), live
+teacher forcing, the parameter bridge on the teacher trees, and the
+stack-mode choice.
 
 Parameters come from JAX's `init_teacher` through
 `convert.params_from_flax`; inputs are the goldens' or come from a numpy
@@ -14,9 +15,13 @@ import torch
 from pwn_tpu_torch import convert, get_config, override
 from pwn_tpu_torch.models.teacher import TeacherWaveNet, init_teacher
 from pwn_tpu_torch.ops import mol
+from torch_parity import jax_config
 
 GOLDEN = "tests/goldens/tiny_v1.npz"
+GOLDEN_GAUSS = "tests/goldens/tiny_gaussian_v1.npz"
 TINY = get_config("tiny_teacher")
+TINY_GAUSS = override(override(TINY, "teacher.output", "gaussian"),
+                      "student.base", "gaussian")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -37,7 +42,7 @@ def jax_teacher():
     jax = pytest.importorskip("jax")
     from pwn_tpu.models.teacher import init_teacher as jax_init_teacher
 
-    model, variables = jax_init_teacher(TINY, jax.random.PRNGKey(0))
+    model, variables = jax_init_teacher(jax_config(TINY), jax.random.PRNGKey(0))
     port = TeacherWaveNet(TINY)
     port.load_state_dict(convert.params_from_flax(
         jax.tree.map(np.asarray, variables)))
@@ -105,6 +110,39 @@ def test_teacher_matches_goldens(jax_teacher):
                                rtol=1e-5)
 
 
+def test_gaussian_teacher_matches_goldens():
+    """The Gaussian head (teacher.output="gaussian", two units): the
+    goldens' (mean, log_scale) params and continuous NLL at their own gate
+    (tests/test_goldens.py: rtol 1e-4 / atol 1e-5, NLL 1e-5 relative),
+    from the same init key as the MoL goldens."""
+    import jax
+
+    from pwn_tpu.models.teacher import init_teacher as jax_init_teacher
+    from pwn_tpu_torch.ops import gaussian
+    from pwn_tpu_torch.utils import dsp
+
+    g, gg = np.load(GOLDEN), np.load(GOLDEN_GAUSS)
+    _, variables = jax_init_teacher(jax_config(TINY_GAUSS),
+                                    jax.random.PRNGKey(0))
+    port = TeacherWaveNet(TINY_GAUSS)
+    port.load_state_dict(convert.params_from_flax(
+        jax.tree.map(np.asarray, variables)))
+    assert port.stack.head2.kernel.shape[-1] == 2
+    wav = torch.from_numpy(g["clip"])[None]
+    x = torch.clamp(dsp.preemphasis(wav, TINY.dsp.preemphasis), -1, 1)
+    with torch.no_grad():
+        params = port(x, torch.from_numpy(g["mel"])[None])
+        nll = gaussian.gaussian_nll(
+            x, params, log_scale_min=TINY.teacher.log_scale_min)
+        loss = port.loss(x, torch.from_numpy(g["mel"])[None])
+    assert params.shape[-1] == 2
+    np.testing.assert_allclose(params[0, :512].numpy(), gg["teacher_gauss"],
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(float(nll), float(gg["teacher_nll"]),
+                               rtol=1e-5)
+    assert float(loss) == float(nll)
+
+
 def test_teacher_forcing_and_loss_match_live_jax(jax_teacher, rng):
     """A two-row batch with a ragged length (T not frames * hop: the
     conditioning is edge-padded), params and loss, fp32 within 1e-4."""
@@ -129,22 +167,32 @@ def test_teacher_lj_tree_round_trip():
     """The full teacher_lj flax tree (upsample/kernel_i, stack/front,
     stack/layer_0..23, stack/head1, stack/head2) maps flax -> port -> flax
     unchanged."""
+    _round_trip("teacher_lj", 30)
+
+
+def test_clarinet_gaussian_tree_round_trip():
+    """The same at clarinet_gaussian, whose teacher has the two-unit
+    Gaussian head at teacher_lj widths."""
+    _round_trip("clarinet_gaussian", 2)
+
+
+def _round_trip(name, head_dim):
     import jax
     import jax.numpy as jnp
 
     from pwn_tpu.models.teacher import make_teacher as jax_make_teacher
 
-    cfg = get_config("teacher_lj")
+    cfg = get_config(name)
     hop = cfg.dsp.hop_length
     shapes = jax.eval_shape(
-        jax_make_teacher(cfg).init, jax.random.PRNGKey(0),
+        jax_make_teacher(jax_config(cfg)).init, jax.random.PRNGKey(0),
         jnp.zeros((1, 4 * hop)), jnp.zeros((1, 4, cfg.dsp.n_mels)))
     rng = np.random.default_rng(0)
     tree = jax.tree.map(
         lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
     sd = convert.params_from_flax(tree)
     assert tuple(sd["stack.layer_23.w_dilated"].shape) == (2, 128, 256)
-    assert tuple(sd["stack.head2.kernel"].shape) == (1, 128, 30)
+    assert tuple(sd["stack.head2.kernel"].shape) == (1, 128, head_dim)
     port = TeacherWaveNet(cfg)
     port.load_state_dict(sd, strict=True)
     back = convert.params_to_flax(port.state_dict())
@@ -178,7 +226,6 @@ def test_stack_mode_follows_the_config(flag, mode):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("teacher.output", "gaussian"),
     ("teacher.upsample_weight_norm", True),
     ("teacher.fused_layers", "off"),
 ])

@@ -21,6 +21,7 @@ from pwn_tpu_torch.training.common import (ClippedAdam, create_train_state,
                                            global_norm)
 from pwn_tpu_torch.training.loop import make_val_batch, run_teacher_training
 from pwn_tpu_torch.training.teacher import make_teacher_train_step
+from torch_parity import jax_config
 
 TINY = override(get_config("tiny_teacher"), "train.crop_samples", 2048)
 
@@ -60,14 +61,14 @@ def test_batches_equal_the_reference_bit_for_bit(corpus):
     kw = dict(n_clips=5, n_samples=3000, sample_rate=16000, seed=3)
     ours = pipeline.make_train_iterator(cls(**kw), cfg, 3, seed=11,
                                         start_step=4)
-    ref = jax_data.make_train_iterator(jax_cls(**kw), cfg, 3, seed=11,
+    ref = jax_data.make_train_iterator(jax_cls(**kw), jax_config(cfg), 3, seed=11,
                                        start_step=4)
     for _ in range(3):
         a, b = next(ours), next(ref)
         assert a.dtype == b.dtype == np.float32
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(make_val_batch(cfg, None, 2),
-                                  jax_val_batch(cfg, None, 2))
+                                  jax_val_batch(jax_config(cfg), None, 2))
 
 
 def test_prefetch_stops_its_thread():
@@ -84,14 +85,15 @@ def test_optimizer_steps_equal_optax():
 
     from pwn_tpu.training.common import make_optimizer
 
-    cfg = override(TINY, "train.lr_decay_steps", 3).train
+    full = override(TINY, "train.lr_decay_steps", 3)
+    cfg = full.train
     rng = np.random.default_rng(0)
     shapes = {"a": (4, 3), "b": (7,)}
     params = {k: rng.standard_normal(s).astype(np.float32)
               for k, s in shapes.items()}
     grads = [{k: (rng.standard_normal(s) * scale).astype(np.float32)
               for k, s in shapes.items()} for scale in (0.5, 20.0, 0.1)]
-    tx = make_optimizer(cfg)
+    tx = make_optimizer(jax_config(full).train)
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     st = tx.init(jp)
     ours = ClippedAdam(cfg)
@@ -115,13 +117,14 @@ def _tiny_pair():
     from pwn_tpu.training.common import create_train_state as jax_state
     from pwn_tpu.training.teacher import make_teacher_train_step as jax_step
 
-    model, variables = jax_init_teacher(TINY, jax.random.PRNGKey(0),
+    jtiny = jax_config(TINY)
+    model, variables = jax_init_teacher(jtiny, jax.random.PRNGKey(0),
                                         use_scan=False)
     port = TeacherWaveNet(TINY, stack_mode="train")
     port.load_state_dict(convert.params_from_flax(
         jax.tree.map(np.asarray, variables)))
-    return (jax_state(variables["params"], TINY.train),
-            jax_step(model, TINY), port)
+    return (jax_state(variables["params"], jtiny.train),
+            jax_step(model, jtiny), port)
 
 
 def test_teacher_gradients_match_jax():
@@ -142,14 +145,15 @@ def test_teacher_gradients_match_jax():
 
     from pwn_tpu_torch.training.teacher import prepare_batch
 
-    model, variables = jax_init_teacher(TINY, jax.random.PRNGKey(0),
+    jtiny = jax_config(TINY)
+    model, variables = jax_init_teacher(jtiny, jax.random.PRNGKey(0),
                                         use_scan=False)
     port = TeacherWaveNet(TINY, stack_mode="train")
     port.load_state_dict(convert.params_from_flax(
         jax.tree.map(np.asarray, variables)))
     wav = np.random.default_rng(1).uniform(-0.6, 0.6, (2, 2048)).astype(
         np.float32)
-    x, mel = jax_prepare(jnp.asarray(wav), TINY)
+    x, mel = jax_prepare(jnp.asarray(wav), jtiny)
     loss, grads = jax.value_and_grad(lambda p: model.apply(
         {"params": p}, x, mel, method="loss"))(variables["params"])
     want = convert.params_from_flax(jax.tree.map(np.asarray, grads))
