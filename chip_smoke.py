@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's student IAF synthesis, teacher training and
-teacher AR sampling once on one CUDA card.
+"""Drive the PyTorch port's student IAF synthesis (student_iaf through
+the whole-stack kernel, large_student_sharded through the per-layer
+kernel), teacher training and teacher AR sampling once on one CUDA card.
 
 Run from the repository root with no arguments:
 
@@ -20,8 +21,21 @@ Phases, each printing what it finds:
                version on the card, per batch row: teacher_lj (MoL, pinned),
                clarinet_gaussian, tiny_teacher in fp32, fp32-stored weights,
                edge shapes, near-zero temperature, row isolation;
+  5b. layer kernel — the per-layer gated kernel (kernel 5) against its
+               plain version on the card, per batch row, at both widths it
+               is built for: the bench shapes (dilations 1 and 512) and edge
+               shapes; row isolation; the layer's gradient (kernel forward,
+               recompute backward) against autograd through the fp32 plain
+               version;
   6. main    — `student_iaf` at full width through `vocode_many` and
-               `generate_student`, with kernel 1's launch count;
+               `generate_student`, with kernel 1's launch count (kernel 5's
+               at 0);
+  6b. large main — `large_student_sharded` at full width (6 flows x 10
+               layers, C=128, 24 kHz) through `vocode_many` and
+               `generate_student`: every flow's stack mode, kernel 5's
+               launch count (60 per generate, kernel 1's at 0), the card's
+               bf16 output against fp32 on the CPU end to end and per flow
+               (teacher-forced), beside the CPU's own bf16 gap;
   7. teacher — `run_teacher_training` on `teacher_lj` at full width, with
                kernels 2 and 3's launch counts; the loss falling over 20
                steps on one batch; one step's loss and gradients on the card
@@ -30,7 +44,9 @@ Phases, each printing what it finds:
                synthetic utterance's mel, and `fast_sample_kernel` at batch
                8, with kernel 4's launch count;
   9. times   — each kernel's and its plain version's ms per call beside its
-               bound, end-to-end audio-seconds per second at batch 8 x 2 s,
+               bound (kernel 5 at both widths), end-to-end audio-seconds per
+               second at batch 8 x 2 s (student_iaf and
+               large_student_sharded),
                teacher train step ms and utterances per second at batch
                8 x 16,384, AR us per step and samples per second at batch 8
                and 1 x 0.25 s.
@@ -53,15 +69,19 @@ from pwn_tpu_torch import get_config, override
 from pwn_tpu_torch.generate import (generate_student, generate_teacher,
                                     mel_from_wav, vocode_many)
 from pwn_tpu_torch.models import sampling
-from pwn_tpu_torch.models.modules import DTYPES
+from pwn_tpu_torch.models.modules import DTYPES, match_length
 from pwn_tpu_torch.models.student import (StudentIAF, init_student,
                                           sample_base_noise)
 from pwn_tpu_torch.ops import _build
 from pwn_tpu_torch.models.teacher import TeacherWaveNet, init_teacher
 from pwn_tpu_torch.ops import flow_stack as fs
+from pwn_tpu_torch.ops.conv import shift_right
 from pwn_tpu_torch.ops.ar_sampler import (ar_sample, ar_sample_reference,
                                           stack_teacher_weights)
 from pwn_tpu_torch.ops.flow_stack import flow_stack, flow_stack_reference
+from pwn_tpu_torch.ops.gated_layer import (KERNEL_DIMS as LAYER_DIMS,
+                                           fused_gated_residual, gated_layer,
+                                           gated_layer_reference, pack_layer)
 from pwn_tpu_torch.training.common import create_train_state
 from pwn_tpu_torch.training.loop import make_val_batch, run_teacher_training
 from pwn_tpu_torch.training.teacher import (make_teacher_train_step,
@@ -92,6 +112,22 @@ TOL_BF16 = TOL_F32
 TOL_E2E = 0.05
 WHY_E2E = ("bf16 rounding through 40 layers; the bf16 plain path is 0.021 "
            "from fp32 on the CPU")
+# large_student_sharded end to end: with random weights 90% of its output
+# sits on the [-1, 1] clip and six flows of exp(log_s) amplify every ulp, so
+# bf16 alone leaves more: its own bf16 plain path on the CPU is 0.067 from
+# fp32 on this 1 s utterance (the H100 machine's CPU), and the card's
+# kernel path 0.068 (first H100 run).  0.15 allows 2x
+# the bf16 floor and still catches a wrong path, which is O(1).  The sharper
+# check is per flow, below.
+TOL_E2E_LARGE = 0.15
+WHY_E2E_LARGE = ("bf16 through 60 layers with 90% of the output on the clip; "
+                 "the CPU's own bf16 plain path is 0.067 from fp32")
+# Each flow teacher-forced (the same fp32 input chain and conditioning on
+# the card and the CPU): (mu, log_s) relative L2 against fp32.  bf16
+# rounding through one stack and its heads gave 0.007-0.026 on the first
+# H100 run (student_iaf and large_student_sharded); 0.05 is 2x the worst,
+# far below the O(1) of a wrong weight layout, bias or tap.
+TOL_FLOW = 0.05
 EDGE_SHAPES = [(1, 1000), (3, 5003), (2, 300), (5, 129), (1, 1)]
 
 TEACHER = get_config("teacher_lj")
@@ -142,6 +178,26 @@ AR_EARLY, TOL_AR_EARLY = 64, 1e-3
 TOL_AR = 0.05
 WHY_AR = ("fp32 on both sides, other summation order and libm ulps, grown "
           "by the feedback")
+
+LARGE = get_config("large_student_sharded")
+LARGE_DURATIONS = [1.0, 1.2, 2.3]  # two buckets, one batch of 2 ragged
+# Kernel 5 (bf16) vs its plain version on the same operands, max|diff| /
+# max|ref| per batch row, for res and for skip.  One layer: bf16 keeps 8
+# significant bits, and the kernel rounds z, out and res, each by up to 2^-9
+# of the value; a flipped rounding at the row max is 2^-8 of it.  0.02 is
+# 5x that, far below the O(1) error of a wrong tap, a missed mask or a
+# leak between rows.  The same bound against the bf16 plain version, which
+# rounds at the same points but sums in another order.
+TOL_LAYER = 0.02
+WHY_LAYER = ("one layer's bf16 rounding of z, out and res; a wrong tap or "
+             "mask is O(1)")
+LAYER_EDGE_SHAPES = [(1, 1, 1), (3, 700, 64), (2, 700, 512), (1, 300, 512),
+                     (2, 512, 512)]  # (B, T, dilation): d >= T in the last two
+# The layer's gradient, kernel forward and recompute backward, vs autograd
+# through the fp32 plain version, relative L2 per input and parameter: the
+# backward recomputes in fp32 from the same bf16 x and cond, and only the
+# cotangents of res and skip arrive rounded to bf16 (2^-9 relative).
+TOL_LAYER_GRAD = 0.02
 
 # The published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
 # a kernel's bound is the larger of its bytes (each input read once, each
@@ -222,6 +278,12 @@ def phase_build() -> None:
     _log(f"[build] {_build.library_path().name} in "
          f"{time.perf_counter() - t:.1f} s; tile rows "
          f"{lib.pwn_flow_stack_tile_rows()}")
+    # kernel1_takes decides eligibility from kernel 1's shared memory,
+    # computed in Python: it must be the library's own figure
+    for sum_d in (1, 1023, 1201):
+        _check(lib.pwn_flow_stack_smem_bytes(sum_d)
+               == fs._kernel1_smem_bytes(sum_d),
+               "kernel1_takes' shared-memory formula is not kernel 1's")
     log = _build.library_path().with_suffix(".log")
     for line in log.read_text().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
@@ -474,13 +536,117 @@ def phase_ar_kernel(device) -> dict:
     return result
 
 
-def _bench_T() -> int:
-    hop = CFG.dsp.hop_length
-    return int(SECONDS * CFG.dsp.sample_rate) // hop * hop
+def _layer_inputs(dims, B: int, T: int, device, seed: int):
+    """x, cond (bf16) and one layer's fp32 parameters at widths `dims` =
+    (C, G, S, M), fan-in scaled weights and biases of 0.1: the gate
+    pre-activations have variance ~0.5."""
+    C, G, S, M = dims
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def arr(shape, scale):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    params = dict(
+        w_dilated=arr((2, C, G), (2 * C) ** -0.5), b_dilated=arr((G,), 0.1),
+        w_cond=arr((M, G), M ** -0.5), b_cond=arr((G,), 0.1),
+        w_res=arr((G // 2, C), (G // 2) ** -0.5), b_res=arr((C,), 0.1),
+        w_skip=arr((G // 2, S), (G // 2) ** -0.5), b_skip=arr((S,), 0.1))
+    return (arr((B, T, C), 0.5).bfloat16(), arr((B, T, M), 0.5).bfloat16(),
+            params)
 
 
-def _synthetic_wavs(durations):
-    sr = CFG.dsp.sample_rate
+def phase_layer_kernel(device) -> dict:
+    before = gated_layer.launches
+    calls = 0
+    result = {}
+    for dims, cfg in zip(LAYER_DIMS, (CFG, LARGE)):
+        T_bench = _bench_T(cfg)
+        shapes = [(BATCH, T_bench, 1), (BATCH, T_bench, 512)] + LAYER_EDGE_SHAPES
+        for k, (B, T, d) in enumerate(shapes):
+            x, cond, params = _layer_inputs(dims, B, T, device, seed=400 + k)
+            packed = pack_layer(*params.values(), torch.bfloat16)
+            with torch.inference_mode():
+                out = gated_layer(x, cond, *packed, d)
+                calls += 1
+                ref32 = gated_layer_reference(
+                    x.float(), cond.float(), *(t.float() for t in packed), d)
+                ref16 = gated_layer_reference(x, cond, *packed, d)
+            torch.cuda.synchronize()
+            msg = []
+            for name, o, r32, r16 in zip(("res", "skip"), out, ref32, ref16):
+                _check(o.shape == r32.shape and o.dtype == torch.bfloat16,
+                       f"kernel 5 {name} shape {tuple(o.shape)} / {o.dtype}")
+                _check(torch.isfinite(o.float()).all(),
+                       f"non-finite kernel 5 {name}")
+                rel32, rel16 = _row_rel(o, r32), _row_rel(o, r16)
+                same = float((o == r16).float().mean())
+                msg.append(f"{name} per-row rel err vs fp32 plain "
+                           f"{np.array2string(rel32, precision=5)}, vs bf16 "
+                           f"plain {np.array2string(rel16, precision=5)} "
+                           f"({same:.4f} of elements bit-equal)")
+                _check((rel32 <= TOL_LAYER).all() and (rel16 <= TOL_LAYER).all(),
+                       f"kernel 5 {name} off its plain version at {dims} "
+                       f"B={B} T={T} d={d}")
+                if cfg is LARGE and k < 2:
+                    result["max_abs_err"] = max(
+                        result.get("max_abs_err", 0.0),
+                        float((o.float() - r32).abs().max()))
+            _log(f"[layer] (C, G, S, M) = {dims} B={B} T={T} d={d}: "
+                 + "; ".join(msg) + f" (tol {TOL_LAYER}: {WHY_LAYER})")
+    # rows are independent: perturbing row 1 leaves row 0 bit-identical
+    x, cond, params = _layer_inputs(LAYER_DIMS[1], 2, 3000, device, seed=7)
+    packed = pack_layer(*params.values(), torch.bfloat16)
+    with torch.inference_mode():
+        a = gated_layer(x, cond, *packed, 64)
+        x = x.clone()
+        x[1] += 3.0
+        b = gated_layer(x, cond, *packed, 64)
+    calls += 2
+    _check(all(torch.equal(u[0], v[0]) for u, v in zip(a, b)),
+           "kernel 5: row 1 leaked into row 0")
+    _check(not torch.equal(a[0][1], b[0][1]), "perturbing row 1 changed nothing")
+    # the layer's gradient: kernel forward + recompute backward vs autograd
+    # through the fp32 plain version, every input and parameter
+    x, cond, params = _layer_inputs(LAYER_DIMS[1], 2, 4096, device, seed=8)
+    gen = torch.Generator(device=device).manual_seed(9)
+    w_r = torch.randn(x.shape, generator=gen, device=device)
+    w_s = torch.randn(x.shape[:2] + (LAYER_DIMS[1][2],), generator=gen,
+                      device=device)
+    grads = []
+    for custom in (True, False):
+        xt, ct = ((x.clone(), cond.clone()) if custom
+                  else (x.float(), cond.float()))
+        xt.requires_grad_(True)
+        ct.requires_grad_(True)
+        pt = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        if custom:
+            res, skip = fused_gated_residual(xt, ct, **pt, dilation=64)
+            calls += 1
+        else:
+            res, skip = gated_layer_reference(
+                xt, ct, *pack_layer(*pt.values(), torch.float32), 64)
+        loss = (res.float() * w_r).sum() + (skip.float() * w_s).sum()
+        grads.append(torch.autograd.grad(loss, [xt, ct, *pt.values()]))
+    torch.cuda.synchronize()
+    rels = {n: float((a.float() - b).norm() / b.norm()) for n, a, b in
+            zip(("x", "cond", *params), *grads)}
+    _log("[layer] gradient, kernel forward + recompute backward vs autograd "
+         "of the fp32 plain version, rel L2: "
+         + ", ".join(f"{n} {e:.5f}" for n, e in rels.items())
+         + f" (tol {TOL_LAYER_GRAD})")
+    _check(max(rels.values()) <= TOL_LAYER_GRAD, "kernel 5's layer gradient off")
+    _check(gated_layer.launches - before == calls,
+           "kernel 5's counter did not count every call")
+    _log(f"[layer] batch rows isolated; {calls} launches counted")
+    return result
+
+
+def _bench_T(cfg=CFG) -> int:
+    hop = cfg.dsp.hop_length
+    return int(SECONDS * cfg.dsp.sample_rate) // hop * hop
+
+
+def _synthetic_wavs(durations, sr: int = CFG.dsp.sample_rate):
     rng = np.random.default_rng(SEED)
     wavs = []
     for sec in durations:
@@ -492,13 +658,23 @@ def _synthetic_wavs(durations):
     return wavs
 
 
-def phase_main(device) -> dict:
-    hop = CFG.dsp.hop_length
-    model = init_student(CFG, torch.Generator().manual_seed(SEED), device)
+def phase_main(device, cfg=CFG, mode: str = "infer",
+               durations=(1.0, 1.6, 2.3, 3.1, 4.0), batch: int = 8,
+               tol_e2e: float = TOL_E2E, why_e2e: str = WHY_E2E) -> dict:
+    """Synthesis at full width through `vocode_many` and
+    `generate_student`.  Every flow must run `mode`: "infer" is kernel 1
+    (one launch per flow per generate), "layer" kernel 5 (one per layer);
+    the other kernel must not launch."""
+    hop = cfg.dsp.hop_length
+    model = init_student(cfg, torch.Generator().manual_seed(SEED), device)
     model.eval()
-    wavs = _synthetic_wavs([1.0, 1.6, 2.3, 3.1, 4.0])
-    mels = [mel_from_wav(CFG, w, device)[0].cpu().numpy() for w in wavs]
-    bucket, batch = 64, 8
+    modes = [f.mode for f in model.flows]
+    _log(f"[main] {cfg.name}: stack mode of each flow {modes}")
+    _check(modes == [mode] * cfg.student.n_flows,
+           f"{cfg.name}'s flows should all run {mode!r}")
+    wavs = _synthetic_wavs(durations, cfg.dsp.sample_rate)
+    mels = [mel_from_wav(cfg, w, device)[0].cpu().numpy() for w in wavs]
+    bucket = 64
     buckets: dict = {}
     for m in mels:
         fb = -(-m.shape[0] // bucket) * bucket
@@ -508,20 +684,26 @@ def phase_main(device) -> dict:
            "the utterances must span two buckets and a ragged batch")
 
     flow_stack.launches = 0
-    outs = vocode_many(CFG, model, mels, seed=SEED, batch_size=batch,
+    gated_layer.launches = 0
+    outs = vocode_many(cfg, model, mels, seed=SEED, batch_size=batch,
                        bucket_frames=bucket)
-    one = generate_student(CFG, model, mels[0][None],
+    one = generate_student(cfg, model, mels[0][None],
                            torch.Generator(device=device).manual_seed(1))
     torch.cuda.synchronize()
-    launches = flow_stack.launches
-    n_flows = CFG.student.n_flows
-    _log(f"[main] vocode_many: {len(mels)} items in {len(buckets)} buckets, "
-         f"{n_batches} device batches; generate_student: 1 batch; "
-         f"flow_stack launches {launches}")
-    _check(launches == n_flows * (n_batches + 1),
-           f"expected {n_flows * (n_batches + 1)} kernel launches")
+    launches = {"flow_stack": flow_stack.launches,
+                "gated_layer": gated_layer.launches}
+    n_flows, n_layers = cfg.student.n_flows, cfg.student.layers_per_flow
+    per_generate = ({"flow_stack": n_flows, "gated_layer": 0}
+                    if mode == "infer" else
+                    {"flow_stack": 0, "gated_layer": n_flows * n_layers})
+    want = {k: v * (n_batches + 1) for k, v in per_generate.items()}
+    _log(f"[main] {cfg.name}: vocode_many: {len(mels)} items in "
+         f"{len(buckets)} buckets, {n_batches} device batches; "
+         f"generate_student: 1 batch; launches {launches} "
+         f"({per_generate} per generate)")
+    _check(launches == want, f"expected launches {want}")
 
-    coef = CFG.dsp.preemphasis
+    coef = cfg.dsp.preemphasis
     for m, w in zip(mels + [mels[0]], outs + [one]):
         _check(w.shape == (m.shape[0] * hop,), f"length {w.shape} for {m.shape}")
         _check(np.isfinite(w).all(), "non-finite audio")
@@ -529,24 +711,51 @@ def phase_main(device) -> dict:
         pre = w.astype(np.float64) - coef * np.concatenate([[0.0], w[:-1]])
         _check(np.abs(pre).max() <= 1.0 + 1e-4,
                f"pre-deemphasis peak {np.abs(pre).max()}")
-    _log(f"[main] lengths {[w.shape[0] for w in outs]} + {one.shape[0]}; "
-         "all finite; pre-deemphasis within [-1, 1]")
+    _log(f"[main] {cfg.name}: lengths {[w.shape[0] for w in outs]} + "
+         f"{one.shape[0]}; all finite; pre-deemphasis within [-1, 1]")
 
-    # the kernel path against the same model and z in fp32 on the CPU
+    # the kernel path against the same model and z in fp32 on the CPU, and
+    # the CPU's own bf16 plain path beside it (the floor bf16 alone leaves)
     mel = torch.from_numpy(mels[0])[None]
-    z = sample_base_noise(CFG, torch.Generator().manual_seed(2),
-                          (1, mel.shape[1] * hop))
-    cpu_model = StudentIAF(override(CFG, "student.compute_dtype", "float32"))
-    cpu_model.load_state_dict({k: v.cpu() for k, v in
-                               model.state_dict().items()})
+    T = mel.shape[1] * hop
+    z = sample_base_noise(cfg, torch.Generator().manual_seed(2), (1, T))
+    cpu_state = {k: v.cpu() for k, v in model.state_dict().items()}
+    cpu32 = StudentIAF(override(cfg, "student.compute_dtype", "float32"))
+    cpu16 = StudentIAF(cfg)
+    for m in (cpu32, cpu16):
+        m.load_state_dict(cpu_state)
+        m.eval()
+
+    def rel(a, b):
+        return float((a.float().cpu() - b).norm() / b.norm())
+
     with torch.inference_mode():
         w_gpu = model.generate_from_z(z.to(device), mel.to(device)).cpu()
-        w_cpu = cpu_model.generate_from_z(z, mel)
-    rel = float((w_gpu - w_cpu).norm() / w_cpu.norm())
-    _log(f"[main] 1 s utterance, card bf16 kernel path vs CPU fp32: rel L2 "
-         f"{rel:.5f}, max abs {float((w_gpu - w_cpu).abs().max()):.5f} "
-         f"(tol rel L2 {TOL_E2E}: {WHY_E2E})")
-    _check(rel <= TOL_E2E, "kernel path off the fp32 CPU path")
+        w_cpu = cpu32.generate_from_z(z, mel)
+        w_16 = cpu16.generate_from_z(z, mel)
+        # each flow teacher-forced on the fp32 chain
+        cond = match_length(cpu32.upsample_cond(mel), T)
+        zz, flows = z.float(), []
+        for fg, fc in zip(model.flows, cpu32.flows):
+            inp = shift_right(zz[..., None], 1)
+            out = fc(inp, cond)
+            flows.append(rel(fg(inp.to(device), cond.to(device)), out))
+            zz = (zz * torch.exp(torch.clamp(
+                out[..., 1], -cfg.student.log_scale_clamp,
+                cfg.student.log_scale_clamp)) + out[..., 0])
+    e2e = rel(w_gpu, w_cpu)
+    _log(f"[main] {cfg.name}: {durations[0]} s utterance, card bf16 kernel "
+         f"path vs CPU fp32: rel L2 {e2e:.5f}, max abs "
+         f"{float((w_gpu - w_cpu).abs().max()):.5f} (tol {tol_e2e}: "
+         f"{why_e2e}); CPU bf16 plain path vs CPU fp32 {rel(w_16, w_cpu):.5f}; "
+         f"card vs CPU bf16 {rel(w_gpu, w_16):.5f}; "
+         f"{float((w_cpu.abs() >= 0.999).float().mean()):.3f} of the fp32 "
+         f"output on the clip")
+    _log(f"[main] {cfg.name}: each flow teacher-forced, (mu, log_s) card vs "
+         f"CPU fp32 rel L2 {np.array2string(np.array(flows), precision=5)} "
+         f"(tol {TOL_FLOW})")
+    _check(e2e <= tol_e2e, "kernel path off the fp32 CPU path")
+    _check(max(flows) <= TOL_FLOW, "a flow on the card is off its fp32 CPU twin")
     return {"launches": launches}
 
 
@@ -722,6 +931,65 @@ def phase_times(device, smi: str) -> dict:
     return {"ms": k_ms, "plain_ms": p_ms, **bound}
 
 
+def phase_layer_times(device, smi: str) -> dict:
+    """Kernel 5 and its plain version at the bench shapes of both widths,
+    and large_student_sharded's generate end to end."""
+    counted = gated_layer.launches
+    result = {}
+    for dims, cfg in zip(LAYER_DIMS, (CFG, LARGE)):
+        T = _bench_T(cfg)
+        x, cond, params = _layer_inputs(dims, BATCH, T, device, seed=6)
+        packed = pack_layer(*params.values(), torch.bfloat16)
+        fns = {f"kernel d={d}": (lambda d=d: gated_layer(x, cond, *packed, d))
+               for d in (1, 512)}
+        fns["plain"] = lambda: gated_layer_reference(x, cond, *packed, 512)
+        ms: dict = {}
+        with torch.inference_mode():
+            for fn in fns.values():
+                fn()  # warm up
+            torch.cuda.synchronize()
+            for k in ("plain", "kernel d=1", "kernel d=512", "kernel d=512",
+                      "kernel d=1", "plain"):  # in turns, on one card
+                ms.setdefault(k, []).append(_time_ms(fns[k], 5 if k == "plain"
+                                                     else 20))
+            out = fns["kernel d=1"]()
+        C, G, S, M = dims
+        flop = 2 * BATCH * T * ((2 * C + M) * G + G // 2 * (C + S))
+        bound = _bound(flop, _nbytes(x, cond, *packed, *out), PEAK_BF16)
+        k_ms = float(np.mean(ms["kernel d=1"] + ms["kernel d=512"]))
+        _log(f"[times] {smi}: layer kernel (C, G, S, M) = {dims} B={BATCH} "
+             f"T={T}: " + "; ".join(
+                 f"{k} " + " / ".join(f"{v:.3f}" for v in vs)
+                 for k, vs in ms.items())
+             + f" ms per call (kernel {flop / k_ms / 1e9:.1f} TFLOP/s useful, "
+             f"{_nbytes(x, cond, *out) / k_ms / 1e6:.0f} GB/s of x, cond, res, "
+             f"skip); bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+             f"{flop / 1e9:.1f} GFLOP, {_nbytes(x, cond, *packed, *out) / 1e6:.1f} MB)")
+        result[dims] = {"ms": k_ms, "plain_ms": float(np.mean(ms["plain"])),
+                        **bound}
+    gated_layer.launches = counted  # timing launches are not the main path's
+
+    model = init_student(LARGE, torch.Generator().manual_seed(SEED), device)
+    model.eval()
+    T = _bench_T(LARGE)
+    mel = torch.rand((BATCH, T // LARGE.dsp.hop_length, LARGE.dsp.n_mels),
+                     generator=torch.Generator(device=device).manual_seed(0),
+                     device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    with torch.inference_mode():
+        for _ in range(2):
+            model.generate(gen, mel)
+        torch.cuda.synchronize()
+        ms = _time_ms(lambda: model.generate(gen, mel), 10)
+    gated_layer.launches = counted
+    rate = BATCH * T / LARGE.dsp.sample_rate / (ms / 1e3)
+    _log(f"[times] {smi}: large_student_sharded generate batch {BATCH} x "
+         f"{SECONDS} s (T={T} at {LARGE.dsp.sample_rate} Hz): {ms:.3f} ms per "
+         f"call, {rate:.1f} audio-seconds/s; kernel 5 bound for its 60 "
+         f"launches {60 * result[LAYER_DIMS[1]]['bound_ms']:.3f} ms")
+    return result[LAYER_DIMS[1]]
+
+
 def phase_train_times(device, smi: str) -> dict:
     dil = TEACHER.teacher.dilations
     B, T = TRAIN_BATCH, TRAIN_T
@@ -867,10 +1135,14 @@ def main() -> int:
     kern = phase_kernel(device)
     train_kern = phase_train_kernels(device)
     ar_kern = phase_ar_kernel(device)
+    layer_kern = phase_layer_kernel(device)
     main_path = phase_main(device)
+    large_path = phase_main(device, LARGE, "layer", LARGE_DURATIONS, batch=2,
+                            tol_e2e=TOL_E2E_LARGE, why_e2e=WHY_E2E_LARGE)
     teacher = phase_teacher(device)
     ar_main = phase_ar_main(device)
     times = phase_times(device, smi)
+    layer_times = phase_layer_times(device, smi)
     train_times = phase_train_times(device, smi)
     ar_times = phase_ar_times(device, smi)
     train_src = "pwn_tpu_torch/csrc/flow_stack_train.cu"
@@ -879,7 +1151,7 @@ def main() -> int:
         "name": "flow_stack", "route": "cuda",
         "source": "pwn_tpu_torch/csrc/flow_stack.cu",
         "replaces": "pwn_tpu/ops/pallas/flow_stack.py:87",
-        "launches": main_path["launches"],
+        "launches": main_path["launches"]["flow_stack"],
         "max_abs_err": kern["max_abs_err"], **times, "library_ms": None,
     }, {
         "name": "flow_stack_train_forward", "route": "cuda",
@@ -901,6 +1173,13 @@ def main() -> int:
         "replaces": "pwn_tpu/ops/pallas/ar_sampler.py:47",
         "launches": ar_main["launches"],
         "max_abs_err": ar_kern["max_abs_err"], **ar_times, "library_ms": None,
+    }, {
+        "name": "gated_layer", "route": "cuda",
+        "source": "pwn_tpu_torch/csrc/gated_layer.cu",
+        "replaces": "pwn_tpu/ops/pallas/gated_layer.py:42",
+        "launches": large_path["launches"]["gated_layer"],
+        "max_abs_err": layer_kern["max_abs_err"], **layer_times,
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,27 +19,34 @@ import torch.nn.functional as F
 
 from pwn_tpu_torch.ops.conv import causal_conv1d, conv_transpose1d, shift_right
 from pwn_tpu_torch.ops.flow_stack import (flow_stack, flow_stack_score,
-                                          flow_stack_train)
+                                          flow_stack_train, kernel1_takes)
+from pwn_tpu_torch.ops.gated_layer import (TIME_TILE, FusedGatedResidual,
+                                           pack_layer)
 
 # WaveNetStack's execution modes and the stack function each one runs:
 #   infer  inference forward (kernel 1 on the card; no backward there)
 #   train  forward saving the layer inputs + fused backward (kernels 2, 3)
 #   dx     the same forward; backward to the inputs only (a frozen stack)
+# and "layer": the layers one by one through `FusedGatedResidual` (kernel 5
+# on the card; its backward is plain fp32 matmuls).
 STACK_FNS = {"infer": flow_stack, "train": flow_stack_train,
              "dx": flow_stack_score}
+STACK_MODES = (*STACK_FNS, "layer")
 
 
 def resolve_stack_mode(flag: str, auto: str) -> str:
     """A config's `fused_layers` flag -> a WaveNetStack mode.  "auto" takes
     the caller's default (`auto`): inference models "infer", the training
-    loops "train".  The reference's XLA and per-layer-kernel paths
-    ("off", "on", "layer") have no counterpart in the port."""
+    loops "train".  "on" and "layer" are the per-layer kernel.  The
+    reference's XLA paths ("off") have no counterpart in the port.  An
+    "infer" stack that kernel 1 cannot take runs "layer" (WaveNetStack
+    decides, from its widths and dilations)."""
     modes = {"auto": auto, "mega": "infer", "mega_train": "train",
-             "mega_dx": "dx"}
+             "mega_dx": "dx", "on": "layer", "layer": "layer"}
     if flag not in modes:
         raise NotImplementedError(
             f"fused_layers={flag!r} is not ported (the port's stack modes "
-            f"are {sorted(STACK_FNS)})")
+            f"are {sorted(STACK_MODES)})")
     return modes[flag]
 
 
@@ -96,11 +103,17 @@ class CausalConv1d(nn.Module):
                              self.bias.to(dt))
 
 
+# a layer's parameters in `fused_gated_residual`'s argument order
+_LAYER_PARAMS = ("w_dilated", "b_dilated", "w_cond", "b_cond", "w_res",
+                 "b_res", "w_skip", "b_skip")
+
+
 class GatedLayer(nn.Module):
     """Parameters of one gated residual layer:
         w_dilated (2, C, G), b_dilated, w_cond (M, G), b_cond,
         w_res (G/2, C), b_res, w_skip (G/2, S), b_skip
-    The compute lives in the stack (`ops/flow_stack.py`)."""
+    The compute lives in the stack (`ops/flow_stack.py`,
+    `ops/gated_layer.py`)."""
 
     def __init__(self, residual_channels: int, gate_channels: int,
                  skip_channels: int, cond_channels: int, device=None):
@@ -129,9 +142,15 @@ class WaveNetStack(nn.Module):
     """Front 1x1 -> dilated gated layers (skip sum) -> relu/1x1/relu/1x1.
 
     The trunk of the teacher (out_dim = the head's width) and of each
-    student IAF flow (out_dim = 2: mu, log_s).  The gated layers run as one
-    call of the mode's stack function (`STACK_FNS`) over the stacked
-    layout of `stacked()`.  The mode is fixed when the model is built.
+    student IAF flow (out_dim = 2: mu, log_s).  In the modes of `STACK_FNS`
+    the gated layers run as one call of the mode's stack function over the
+    stacked layout of `stacked()`; in "layer" they run one by one through
+    `FusedGatedResidual` over the per-layer layout of `layer_weights()`.
+    The mode is fixed when the model is built.  An "infer" stack that
+    kernel 1 cannot take (`kernel1_takes`: other widths, more than 32
+    layers, a dilation above 512, rings past shared memory) runs "layer",
+    as the reference's whole-stack gate sends such a stack to its
+    per-layer kernel.
     """
 
     def __init__(self, dilations: Sequence[int], residual_channels: int,
@@ -139,19 +158,28 @@ class WaveNetStack(nn.Module):
                  cond_channels: int, dtype: torch.dtype = torch.float32,
                  mode: str = "infer", device=None):
         super().__init__()
-        if mode not in STACK_FNS:
-            raise ValueError(f"stack mode {mode!r}; one of {sorted(STACK_FNS)}")
+        if mode not in STACK_MODES:
+            raise ValueError(
+                f"stack mode {mode!r}; one of {sorted(STACK_MODES)}")
         C, S = residual_channels, skip_channels
         self.dilations = tuple(dilations)
+        if mode == "infer" and not kernel1_takes(
+                self.dilations, C, gate_channels, S, cond_channels):
+            mode = "layer"
+        if mode == "layer" and max(self.dilations) > TIME_TILE:
+            raise NotImplementedError(
+                f"a dilation above {TIME_TILE} needs the reference's XLA "
+                "stack, which is not ported")
         self.dtype = dtype
         self.mode = mode
+        self.skip_channels = S
         self.front = CausalConv1d(1, C, dtype=dtype, device=device)
         for i in range(len(self.dilations)):
             self.add_module(f"layer_{i}", GatedLayer(
                 C, gate_channels, S, cond_channels, device=device))
         self.head1 = CausalConv1d(S, S, dtype=dtype, device=device)
         self.head2 = CausalConv1d(S, out_dim, dtype=dtype, device=device)
-        self._stacked_key, self._stacked_cache = None, None
+        self._cache: dict = {}
 
     @property
     def layers(self) -> list:
@@ -165,21 +193,30 @@ class WaveNetStack(nn.Module):
         self.head1.reset_parameters(generator)
         self.head2.reset_parameters(generator)
 
+    def _cached(self, name: str, build):
+        """`build()`, kept while grad is off and reused until a layer
+        parameter moves or changes in place (its `_version` counts that;
+        writes through `.data` bypass it)."""
+        params = [p for lp in self.layers for p in lp.parameters()]
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        hit = self._cache.get(name)
+        if not torch.is_grad_enabled() and hit is not None and hit[0] == key:
+            return hit[1]
+        out = build()
+        if not torch.is_grad_enabled():
+            self._cache[name] = (key, out)
+        return out
+
     def stacked(self):
         """(w_in, b_g, w_out, b_rs) in the layout `flow_stack` reads, each
         weight stored (out, in) like `nn.Linear.weight`:
         w_in (L, G, 2C+M) = [w_dilated[1]; w_dilated[0]; w_cond] transposed
         and w_out (L, C+S, G/2) = [w_res | w_skip] transposed, in the
         compute dtype; the biases rounded to the compute dtype, then held in
-        float32.
+        float32.  Built once while grad is off (`_cached`)."""
+        return self._cached("stacked", self._build_stacked)
 
-        With grad off the result is built once and reused until a layer
-        parameter moves or changes in place (its `_version` counts that;
-        writes through `.data` bypass it)."""
-        params = [p for lp in self.layers for p in lp.parameters()]
-        key = tuple((p.data_ptr(), p._version) for p in params)
-        if not torch.is_grad_enabled() and self._stacked_key == key:
-            return self._stacked_cache
+    def _build_stacked(self):
         dt = self.dtype
 
         def stk(name):
@@ -192,17 +229,39 @@ class WaveNetStack(nn.Module):
         w_out = torch.cat([stk("w_res"), stk("w_skip")], dim=2).to(dt)
         b_rs = torch.cat([stk("b_res").to(dt), stk("b_skip").to(dt)],
                          dim=1).float()
-        out = (w_in.transpose(1, 2).contiguous(), b_g.contiguous(),
-               w_out.transpose(1, 2).contiguous(), b_rs.contiguous())
-        if not torch.is_grad_enabled():
-            self._stacked_key, self._stacked_cache = key, out
-        return out
+        return (w_in.transpose(1, 2).contiguous(), b_g.contiguous(),
+                w_out.transpose(1, 2).contiguous(), b_rs.contiguous())
+
+    def layer_weights(self) -> list:
+        """Each layer's (w_in, b_g, w_out, b_out) in the layout `gated_layer`
+        reads (`pack_layer`: the weights in the compute dtype, the biases
+        float32 and unrounded, as the reference's per-layer kernel takes
+        them).  Built without grad (the layer's backward differentiates the
+        raw parameters), once while grad is off (`_cached`)."""
+        def build():
+            with torch.no_grad():
+                return [pack_layer(*(getattr(lp, n) for n in _LAYER_PARAMS),
+                                   self.dtype) for lp in self.layers]
+
+        return self._cached("layer", build)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         x = self.front(x).contiguous()
         cond = cond.to(self.dtype).contiguous()
-        skip = STACK_FNS[self.mode](x, cond, *self.stacked(),
-                                    dilations=self.dilations)
+        if self.mode == "layer":
+            # the reference's per-layer path: skip summed in the compute
+            # dtype, layer by layer
+            skip = torch.zeros(x.shape[:-1] + (self.skip_channels,),
+                               dtype=self.dtype, device=x.device)
+            for lp, d, packed in zip(self.layers, self.dilations,
+                                     self.layer_weights()):
+                x, s = FusedGatedResidual.apply(
+                    x, cond, *(getattr(lp, n) for n in _LAYER_PARAMS), d,
+                    packed)
+                skip = skip + s
+        else:
+            skip = STACK_FNS[self.mode](x, cond, *self.stacked(),
+                                        dilations=self.dilations)
         h = F.relu(skip)
         h = F.relu(self.head1(h))
         return self.head2(h).float()

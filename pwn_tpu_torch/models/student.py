@@ -19,9 +19,10 @@ import torch.nn as nn
 
 from pwn_tpu_torch.config import Config
 from pwn_tpu_torch.models.modules import (DTYPES, UpsampleNet, WaveNetStack,
-                                          match_length)
+                                          match_length, resolve_stack_mode)
 from pwn_tpu_torch.ops import mol
 from pwn_tpu_torch.ops.conv import shift_right
+from pwn_tpu_torch.utils.platform import require_cuda
 
 
 def _check_base(cfg: Config) -> None:
@@ -65,7 +66,9 @@ class StudentIAF(nn.Module):
                 residual_channels=sc.residual_channels,
                 gate_channels=sc.gate_channels,
                 skip_channels=sc.skip_channels, out_dim=2,
-                cond_channels=config.dsp.n_mels, dtype=dtype, device=device,
+                cond_channels=config.dsp.n_mels, dtype=dtype,
+                mode=resolve_stack_mode(sc.fused_layers, "infer"),
+                device=device,
             ))
 
     @property
@@ -138,7 +141,8 @@ def init_student(config: Config, generator: torch.Generator,
     kernels and zero biases, drawn from `generator` (same shapes as
     `pwn_tpu.models.student.init_student`, not the same numbers).  The
     draw happens on the generator's device, then the model moves to
-    `device`, so one seed gives one model wherever it runs."""
+    `device` (default: the CUDA card; the CPU only when passed
+    explicitly), so one seed gives one model wherever it runs."""
     model = StudentIAF(config, device=generator.device)
     model.reset_parameters(generator)
-    return model.to(device) if device is not None else model
+    return model.to(require_cuda() if device is None else device)

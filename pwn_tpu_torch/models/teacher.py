@@ -18,6 +18,7 @@ from pwn_tpu_torch.models.modules import (DTYPES, UpsampleNet, WaveNetStack,
                                           match_length, resolve_stack_mode,
                                           shift_right_scalar)
 from pwn_tpu_torch.ops import gaussian, mol
+from pwn_tpu_torch.utils.platform import require_cuda
 
 
 class TeacherWaveNet(nn.Module):
@@ -25,9 +26,10 @@ class TeacherWaveNet(nn.Module):
     parameters (B, T, head_dim: 3K for the MoL head, 2 for the Gaussian
     one); `condition(mel)` the upsampled conditioning.
 
-    `stack_mode` is the WaveNetStack mode ("infer", "train" or "dx"); by
-    default it follows `teacher.fused_layers`, whose "auto" means "infer"
-    here, as it means the inference kernel in the reference."""
+    `stack_mode` is the WaveNetStack mode ("infer", "layer", "train" or
+    "dx"); by default it follows `teacher.fused_layers`, whose "auto" means
+    "infer" here, as it means the inference kernel in the reference (and
+    "layer" for a stack kernel 1 cannot take, such as teacher_lj's)."""
 
     def __init__(self, config: Config, stack_mode: str | None = None,
                  device=None):
@@ -88,9 +90,10 @@ def init_teacher(config: Config, generator: torch.Generator,
                  stack_mode: str | None = None, device=None) -> TeacherWaveNet:
     """A teacher with flax's initialisation scheme (truncated-normal fan-in
     kernels, zero biases) drawn from `generator` on its device, then moved
-    to `device`: the shapes of `pwn_tpu.models.teacher.init_teacher`, not
+    to `device` (default: the CUDA card; the CPU only when passed
+    explicitly): the shapes of `pwn_tpu.models.teacher.init_teacher`, not
     its numbers."""
     model = TeacherWaveNet(config, stack_mode=stack_mode,
                            device=generator.device)
     model.reset_parameters(generator)
-    return model.to(device) if device is not None else model
+    return model.to(require_cuda() if device is None else device)

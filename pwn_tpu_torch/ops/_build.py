@@ -21,7 +21,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "flow_stack.cu",
            _PKG / "csrc" / "flow_stack_train.cu",
-           _PKG / "csrc" / "ar_sampler.cu")
+           _PKG / "csrc" / "ar_sampler.cu",
+           _PKG / "csrc" / "gated_layer.cu")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -140,6 +141,12 @@ def load_library() -> ctypes.CDLL:
         i, i, p,                       # weights_bf16, cond_bf16, stream
     ]
     lib.pwn_ar_sample.restype = i
+    lib.pwn_gated_layer_bf16.argtypes = [
+        p, p, p, p, p, p, p, p,        # x, cond, w_in, b_g, w_out, b_out, res,
+                                       # skip
+        i, i, i, i, i, i, i, p,        # B, T, C, G, S, M, dilation, stream
+    ]
+    lib.pwn_gated_layer_bf16.restype = i
     lib.pwn_cuda_error_string.argtypes = [i]
     lib.pwn_cuda_error_string.restype = ctypes.c_char_p
     return lib

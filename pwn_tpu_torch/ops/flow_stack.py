@@ -51,6 +51,29 @@ from pwn_tpu_torch.ops.conv import shift_right
 KERNEL_DIMS = (64, 128, 64, 80)
 # the widths the training kernels are compiled for (teacher_lj)
 TRAIN_KERNEL_DIMS = (128, 256, 128, 80)
+# Shared memory a Hopper block may opt in to (H100 and H200), and kernel 1's
+# use of it (csrc/flow_stack.cu, pwn_flow_stack_smem_bytes): two tiles of
+# 128 rows and the per-layer rings of sum(d) rows, each row C + 8 bf16, beside
+# a 128-row cond tile of M + 8 bf16.
+SMEM_PER_BLOCK = 232_448
+
+
+def _kernel1_smem_bytes(sum_d: int) -> int:
+    C, _, _, M = KERNEL_DIMS
+    return (2 * 128 + sum_d) * (C + 8) * 2 + 128 * (M + 8) * 2
+
+
+def kernel1_takes(dilations: Sequence[int], C: int, G: int, S: int,
+                  M: int) -> bool:
+    """Whether kernel 1 takes a stack of these widths and dilations: its
+    compiled widths, at most 32 layers, a largest dilation of at most 512
+    (the reference's one-tile bound) and rings that fit a block's shared
+    memory.  The counterpart of the reference's `mega_ok` gate
+    (`mega_fits_vmem`); widths and dilations alone decide, so the answer is
+    the same on the CPU and on the card."""
+    return ((C, G, S, M) == KERNEL_DIMS and 1 <= len(dilations) <= 32
+            and max(dilations) <= 512
+            and _kernel1_smem_bytes(sum(dilations)) <= SMEM_PER_BLOCK)
 
 
 def _stack_reference(x0, cond, w_in, b_g, w_out, b_rs,
@@ -159,16 +182,17 @@ def flow_stack_backward_reference(acts, cond, w_in, b_g, w_out, dskip,
 
 
 def _check_operands(tensors: dict, fp32: Sequence[str], shapes: dict,
-                    dims, kernel_dims, dilations: Sequence[int], L: int,
-                    max_layers: int | None = None) -> None:
-    """The checks every kernel wrapper makes; the first tensor is the one
-    the others must share a CUDA device with."""
+                    dims, built: Sequence[tuple], dilations: Sequence[int],
+                    L: int, max_layers: int | None = None) -> None:
+    """The checks every kernel wrapper makes; `built` lists the (C, G, S, M)
+    the kernel is compiled for; the first tensor is the one the others must
+    share a CUDA device with."""
     for name, t in tensors.items():
         want = torch.float32 if name in fp32 else torch.bfloat16
         if t.dtype != want:
             raise ValueError(f"{name} must be {str(want)[6:]}, got {t.dtype}")
-    if dims != kernel_dims:
-        raise ValueError(f"kernel is built for (C, G, S, M) = {kernel_dims}, "
+    if dims not in built:
+        raise ValueError(f"kernel is built for (C, G, S, M) in {list(built)}, "
                          f"got {dims}")
     for name, shape in shapes.items():
         if tuple(tensors[name].shape) != shape:
@@ -213,7 +237,7 @@ def check_kernel_args(x0, cond, w_in, b_g, w_out, b_rs,
         ("b_g", "b_rs"),
         {"cond": (B, T, M), **_weight_shapes(L, C, G, S, M),
          "b_rs": (L, C + S)},
-        (C, G, S, M), kernel_dims, dilations, L,
+        (C, G, S, M), (kernel_dims,), dilations, L,
         max_layers=32 if kernel_dims == KERNEL_DIMS else None)
 
 
@@ -230,7 +254,7 @@ def check_train_backward_args(acts, cond, w_in, b_g, w_out, dskip,
         ("b_g",),
         {"acts": (len(w_in), B, T, C), "cond": (B, T, M),
          **_weight_shapes(L, C, G, S, M), "dskip": (B, T, S)},
-        (C, G, S, M), TRAIN_KERNEL_DIMS, dilations, L)
+        (C, G, S, M), (TRAIN_KERNEL_DIMS,), dilations, L)
 
 
 def _device_call(fn_name: str, device, *args) -> None:

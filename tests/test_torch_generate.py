@@ -22,8 +22,9 @@ from pwn_tpu_torch.generate import (coerce_mel, generate_student,
 from pwn_tpu_torch.models.student import StudentIAF
 from torch_parity import jax_config
 
-CFG = override(get_config("tiny_teacher"), "student.fused_layers", "off")
-JCFG = jax_config(CFG)
+CFG = get_config("tiny_teacher")
+# the reference's XLA stack ("off"; the port has no counterpart to it)
+JCFG = jax_config(override(CFG, "student.fused_layers", "off"))
 HOP = CFG.dsp.hop_length
 # 8 frames is under W = 2H+4 = 16 (the per-item upsample path); 21 and 37
 # take the bucket-padded upsample + tail splice

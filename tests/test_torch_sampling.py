@@ -223,7 +223,8 @@ def test_draw_noise_is_the_heads_stream(head):
 
 
 def _port_teacher(cfg, seed=0):
-    model = init_teacher(cfg, torch.Generator().manual_seed(seed))
+    model = init_teacher(cfg, torch.Generator().manual_seed(seed),
+                         device="cpu")
     if cfg.teacher.output == "mol":
         with torch.no_grad():
             model.stack.head2.bias[0] += PIN

@@ -115,7 +115,7 @@ def test_stacked_is_built_once_until_a_parameter_changes():
     """With grad off the stacked weights are reused; loading new weights
     rebuilds them; with grad on they are built fresh and keep the graph."""
     cfg = override(TINY, "student.n_flows", 1)
-    port = init_student(cfg, torch.Generator().manual_seed(0))
+    port = init_student(cfg, torch.Generator().manual_seed(0), device="cpu")
     stack = port.flow_0
     with torch.no_grad():
         a, b = stack.stacked(), stack.stacked()
@@ -162,7 +162,7 @@ def test_init_student_shapes_and_scale():
     """The port's own init: the flax shapes, zero biases, and fan-in
     truncated-normal kernels (std sqrt(1/fan_in))."""
     cfg = get_config("student_iaf")
-    port = init_student(cfg, torch.Generator().manual_seed(0))
+    port = init_student(cfg, torch.Generator().manual_seed(0), device="cpu")
     sd = port.state_dict()
     assert sum(v.numel() for v in sd.values()) == STUDENT_IAF_PARAMS
     for k, v in sd.items():
@@ -171,7 +171,7 @@ def test_init_student_shapes_and_scale():
     w = sd["flow_0.layer_0.w_dilated"]  # fan_in = 2 * 64
     assert abs(float(w.std()) * np.sqrt(128) - 1) < 0.05
     assert float(w.abs().max()) <= 2 / 0.87962566103423978 / np.sqrt(128)
-    again = init_student(cfg, torch.Generator().manual_seed(0))
+    again = init_student(cfg, torch.Generator().manual_seed(0), device="cpu")
     torch.testing.assert_close(again.state_dict(), sd, rtol=0, atol=0)
 
 
@@ -187,7 +187,21 @@ def test_npz_round_trip(tmp_path, tiny_pair):
 @pytest.mark.parametrize("key,value", [
     ("student.base", "gaussian"),
     ("teacher.upsample_weight_norm", True),
+    # the reference's XLA stack: refused, not run on another path
+    ("student.fused_layers", "off"),
 ])
 def test_unported_variants_raise(key, value):
     with pytest.raises(NotImplementedError):
         StudentIAF(override(TINY, key, value))
+
+
+@pytest.mark.parametrize("flag,mode", [
+    ("auto", "infer"), ("mega", "infer"), ("on", "layer"),
+    ("layer", "layer"), ("mega_train", "train"), ("mega_dx", "dx"),
+])
+def test_fused_layers_flag_reaches_every_flow(flag, mode):
+    """`student.fused_layers` sets every flow's stack mode, at student_iaf's
+    widths (which kernel 1 takes)."""
+    port = StudentIAF(override(get_config("student_iaf"),
+                               "student.fused_layers", flag))
+    assert [f.mode for f in port.flows] == [mode] * 4

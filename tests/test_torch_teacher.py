@@ -204,14 +204,14 @@ def _round_trip(name, head_dim):
 
 
 def test_init_teacher_is_seeded_and_fan_in_scaled():
-    port = init_teacher(TINY, torch.Generator().manual_seed(0))
+    port = init_teacher(TINY, torch.Generator().manual_seed(0), device="cpu")
     sd = port.state_dict()
     for k, v in sd.items():
         if k.split(".")[-1].startswith("b"):
             assert not v.any(), k
     w = sd["stack.layer_0.w_dilated"]  # fan_in = 2 * 64
     assert abs(float(w.std()) * np.sqrt(128) - 1) < 0.05
-    again = init_teacher(TINY, torch.Generator().manual_seed(0))
+    again = init_teacher(TINY, torch.Generator().manual_seed(0), device="cpu")
     torch.testing.assert_close(again.state_dict(), sd, rtol=0, atol=0)
 
 
@@ -220,9 +220,13 @@ def test_init_teacher_is_seeded_and_fan_in_scaled():
     ("mega_dx", "dx"),
 ])
 def test_stack_mode_follows_the_config(flag, mode):
-    port = TeacherWaveNet(override(TINY, "teacher.fused_layers", flag))
+    """At widths kernel 1 is built for (the tiny teacher with 80 mel bands;
+    with its own 40, "auto" and "mega" run the per-layer kernel, as
+    tests/test_torch_gated_layer.py checks)."""
+    cfg = override(TINY, "dsp.n_mels", 80)
+    port = TeacherWaveNet(override(cfg, "teacher.fused_layers", flag))
     assert port.stack.mode == mode
-    assert TeacherWaveNet(TINY, stack_mode="train").stack.mode == "train"
+    assert TeacherWaveNet(cfg, stack_mode="train").stack.mode == "train"
 
 
 @pytest.mark.parametrize("key,value", [

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the device time of the port's student synthesis goes.
 
-Profiles `StudentIAF.generate` for `student_iaf` at batch 8 x 2 s on one
-CUDA card with torch.profiler and prints, beside the card's name and
-power limit: the window's wall time per call, the device time per kernel
-name, the flow-stack kernel's share, and the device's idle share of the
-window.  Run from the repository root:
+Profiles `StudentIAF.generate` for a student preset (`student_iaf`, whose
+flows run the whole-stack kernel, or `large_student_sharded`, whose flows
+run the per-layer kernel) at batch 8 x 2 s on one CUDA card with
+torch.profiler and prints, beside the card's name and power limit: the
+window's wall time per call, the device time per kernel name, the stack
+kernels' share, and the device's idle share of the window.  Run from the
+repository root:
 
-    python3 tools/torch_profile_generate.py [--iters 5] [--trace out.json]
+    python3 tools/torch_profile_generate.py [--config student_iaf]
+        [--iters 5] [--trace out.json]
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from pwn_tpu_torch.utils.platform import require_cuda  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default="student_iaf",
+                    choices=("student_iaf", "large_student_sharded"))
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the window here")
@@ -40,7 +45,7 @@ def main() -> int:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    cfg = get_config("student_iaf")
+    cfg = get_config(args.config)
     hop, sr, B = cfg.dsp.hop_length, cfg.dsp.sample_rate, 8
     frames = int(2.0 * sr) // hop
     model = init_student(cfg, torch.Generator().manual_seed(0), device).eval()
@@ -79,7 +84,7 @@ def main() -> int:
     if total_us == 0:
         raise RuntimeError("the profiler recorded no device time")
     per_call_ms = wall / args.iters * 1e3
-    print(f"{smi}: generate B={B} x 2 s, {args.iters} calls: "
+    print(f"{smi}: {cfg.name} generate B={B} x 2 s, {args.iters} calls: "
           f"{per_call_ms:.3f} ms per call (host clock, profiler on), "
           f"device busy {total_us / 1e3 / args.iters:.3f} ms per call, "
           f"idle share {1 - total_us / 1e6 / wall:.3f}")
@@ -87,8 +92,9 @@ def main() -> int:
         print(f"  {dev_us / 1e3 / args.iters:8.3f} ms/call  "
               f"{100 * dev_us / total_us:5.1f}%  x{count // args.iters:<4d} "
               f"{key[:90]}")
-    stack = sum(r[0] for r in rows if "flow_stack_kernel" in r[2])
-    print(f"flow_stack kernel share of device time: {stack / total_us:.3f}")
+    for name in ("flow_stack_kernel", "gated_layer_kernel"):
+        share = sum(r[0] for r in rows if name in r[2]) / total_us
+        print(f"{name} share of device time: {share:.3f}")
     return 0
 
 
