@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's student IAF synthesis (student_iaf through
 the whole-stack kernel, large_student_sharded through the per-layer
-kernel), teacher training and teacher AR sampling once on one CUDA card.
+kernel's accumulate epilogue), teacher training and teacher AR sampling
+once on one CUDA card.
 
 Run from the repository root with no arguments:
 
@@ -23,30 +24,38 @@ Phases, each printing what it finds:
                edge shapes, near-zero temperature, row isolation;
   5b. layer kernel — the per-layer gated kernel (kernel 5) against its
                plain version on the card, per batch row, at both widths it
-               is built for: the bench shapes (dilations 1 and 512) and edge
-               shapes; row isolation; the layer's gradient (kernel forward,
-               recompute backward) against autograd through the fp32 plain
-               version;
+               is built for, in both epilogues: "layer" at the bench shapes
+               (dilations 1 and 512) and edge shapes, row isolation, the
+               layer's gradient (kernel forward, recompute backward) against
+               autograd through the fp32 plain version; "accumulate" at the
+               bench shapes and the edge shapes with the first / last layer
+               on and off, a 3-layer chain with skip_acc checked after each
+               layer, and `flow_stack` at C=128 (kernel 5 once per layer)
+               against `flow_stack_reference`;
   6. main    — `student_iaf` at full width through `vocode_many` and
                `generate_student`, with kernel 1's launch count (kernel 5's
                at 0);
   6b. large main — `large_student_sharded` at full width (6 flows x 10
                layers, C=128, 24 kHz) through `vocode_many` and
-               `generate_student`: every flow's stack mode, kernel 5's
-               launch count (60 per generate, kernel 1's at 0), the card's
-               bf16 output against fp32 on the CPU end to end and per flow
-               (teacher-forced), beside the CPU's own bf16 gap;
+               `generate_student` in its configured mode ("infer": kernel
+               5's accumulate epilogue, 60 launches per generate, kernel 1's
+               at 0), the card's bf16 output against fp32 on the CPU end to
+               end and per flow (teacher-forced), beside the CPU's own bf16
+               gap; then one `generate_student` with
+               `student.fused_layers="layer"` (kernel 5's "layer" epilogue);
   7. teacher — `run_teacher_training` on `teacher_lj` at full width, with
                kernels 2 and 3's launch counts; the loss falling over 20
                steps on one batch; one step's loss and gradients on the card
-               against the same model and batch in fp32 on the CPU;
+               against the same model and batch in fp32 on the CPU; one
+               training step of a C=64, M=80 teacher, which the training
+               kernels are not built for, through kernel 5 ("layer");
   8. AR main — `generate_teacher` on `teacher_lj` at full width from a
                synthetic utterance's mel, and `fast_sample_kernel` at batch
                8, with kernel 4's launch count;
   9. times   — each kernel's and its plain version's ms per call beside its
-               bound (kernel 5 at both widths), end-to-end audio-seconds per
-               second at batch 8 x 2 s (student_iaf and
-               large_student_sharded),
+               bound (kernel 5 in both epilogues at both widths), end-to-end
+               audio-seconds per second at batch 8 x 2 s (student_iaf, and
+               large_student_sharded in both stack modes),
                teacher train step ms and utterances per second at batch
                8 x 16,384, AR us per step and samples per second at batch 8
                and 1 x 0.25 s.
@@ -69,7 +78,8 @@ from pwn_tpu_torch import get_config, override
 from pwn_tpu_torch.generate import (generate_student, generate_teacher,
                                     mel_from_wav, vocode_many)
 from pwn_tpu_torch.models import sampling
-from pwn_tpu_torch.models.modules import DTYPES, match_length
+from pwn_tpu_torch.models.modules import (DTYPES, match_length,
+                                          resolve_stack_mode)
 from pwn_tpu_torch.models.student import (StudentIAF, init_student,
                                           sample_base_noise)
 from pwn_tpu_torch.ops import _build
@@ -78,10 +88,12 @@ from pwn_tpu_torch.ops import flow_stack as fs
 from pwn_tpu_torch.ops.conv import shift_right
 from pwn_tpu_torch.ops.ar_sampler import (ar_sample, ar_sample_reference,
                                           stack_teacher_weights)
-from pwn_tpu_torch.ops.flow_stack import flow_stack, flow_stack_reference
-from pwn_tpu_torch.ops.gated_layer import (KERNEL_DIMS as LAYER_DIMS,
-                                           fused_gated_residual, gated_layer,
-                                           gated_layer_reference, pack_layer)
+from pwn_tpu_torch.ops.flow_stack import (flow_stack, flow_stack_reference,
+                                          kernel1_takes)
+from pwn_tpu_torch.ops.gated_layer import (
+    KERNEL_DIMS as LAYER_DIMS, fused_gated_residual, gated_layer,
+    gated_layer_accumulate, gated_layer_accumulate_reference,
+    gated_layer_reference, pack_layer)
 from pwn_tpu_torch.training.common import create_train_state
 from pwn_tpu_torch.training.loop import make_val_batch, run_teacher_training
 from pwn_tpu_torch.training.teacher import (make_teacher_train_step,
@@ -114,14 +126,16 @@ WHY_E2E = ("bf16 rounding through 40 layers; the bf16 plain path is 0.021 "
            "from fp32 on the CPU")
 # large_student_sharded end to end: with random weights 90% of its output
 # sits on the [-1, 1] clip and six flows of exp(log_s) amplify every ulp, so
-# bf16 alone leaves more: its own bf16 plain path on the CPU is 0.067 from
-# fp32 on this 1 s utterance (the H100 machine's CPU), and the card's
-# kernel path 0.068 (first H100 run).  0.15 allows 2x
-# the bf16 floor and still catches a wrong path, which is O(1).  The sharper
-# check is per flow, below.
+# bf16 alone leaves more: on this 1 s utterance its own bf16 plain path on
+# the CPU (the H100 machine's) is 0.064 from fp32 in the whole-stack
+# rounding and was 0.067 in the per-layer one; the card's kernel path is
+# 0.063 ("infer"), and was 0.068 through the per-layer path.  0.15 allows
+# 2x the bf16 floor and still catches a wrong path, which is O(1).  The
+# sharper check is per flow, below.
 TOL_E2E_LARGE = 0.15
 WHY_E2E_LARGE = ("bf16 through 60 layers with 90% of the output on the clip; "
-                 "the CPU's own bf16 plain path is 0.067 from fp32")
+                 "the CPU's own bf16 plain path is 0.064 from fp32; the old "
+                 "per-layer path was 0.068 on the card")
 # Each flow teacher-forced (the same fp32 input chain and conditioning on
 # the card and the CPU): (mu, log_s) relative L2 against fp32.  bf16
 # rounding through one stack and its heads gave 0.007-0.026 on the first
@@ -641,6 +655,122 @@ def phase_layer_kernel(device) -> dict:
     return result
 
 
+def _acc_operands(dims, B: int, T: int, device, seed: int):
+    """x, cond and one layer's operands in the stacked layout (biases rounded
+    to bf16, held in fp32), and a prior fp32 skip sum of unit scale."""
+    x, cond, params = _layer_inputs(dims, B, T, device, seed)
+    w_in, b_g, w_out, b_rs = pack_layer(*params.values(), torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    acc = torch.randn((B, T, dims[2]), generator=gen, device=device)
+    return (x, cond, w_in, b_g.bfloat16().float(), w_out,
+            b_rs.bfloat16().float()), acc
+
+
+def _acc_check(ops, d: int, acc, first: bool, last: bool, what: str):
+    """One accumulate-epilogue launch against its plain version in fp32 and
+    in bf16 on the same operands, per batch row: the output, and skip_acc
+    after the layer (left as it was by the last layer).  Returns the output's
+    max abs error against fp32, and the output."""
+    x, cond, *w = ops
+    refs = {}
+    with torch.inference_mode():
+        acc_in = acc.clone()
+        out = gated_layer_accumulate(x, cond, *w, d, acc, first=first, last=last)
+        for name, cast in (("fp32", torch.Tensor.float), ("bf16", lambda t: t)):
+            a = acc_in.clone()
+            o = gated_layer_accumulate_reference(
+                cast(x), cast(cond), *(t if t.dtype == torch.float32 else cast(t)
+                                       for t in w), d, a, first=first, last=last)
+            refs[name] = (o, a)
+    torch.cuda.synchronize()
+    _check(out.dtype == torch.bfloat16 and out.shape == refs["fp32"][0].shape
+           and torch.isfinite(out.float()).all(),
+           f"kernel 5 accumulate output shape, dtype or values at {what}")
+    msg = []
+    for name, (o, a) in refs.items():
+        r_out = _row_rel(out, o)
+        r_acc = _row_rel(acc, a) if not last else np.zeros(1)
+        msg.append(f"vs {name} plain: out {np.array2string(r_out, precision=5)}"
+                   + ("" if last else
+                      f", skip_acc {np.array2string(r_acc, precision=5)}"))
+        _check((r_out <= TOL_LAYER).all() and (r_acc <= TOL_LAYER).all(),
+               f"kernel 5 accumulate off its {name} plain version at {what}")
+    if last:
+        _check(torch.equal(acc, acc_in), f"the last layer changed skip_acc at {what}")
+    _log(f"[layer] accumulate {what}: " + "; ".join(msg) + f" (tol {TOL_LAYER})")
+    return float((out.float() - refs["fp32"][0].float()).abs().max()), out
+
+
+def phase_acc_kernel(device) -> dict:
+    """Kernel 5's accumulate epilogue against its plain version, and the
+    C=128 `flow_stack` through it."""
+    before, k1 = gated_layer.launches, flow_stack.launches
+    calls = 0
+    result = {}
+    for dims, cfg in zip(LAYER_DIMS, (CFG, LARGE)):
+        T_bench = _bench_T(cfg)
+        cases = [(BATCH, T_bench, 1, False, False), (BATCH, T_bench, 512, False, False),
+                 (BATCH, T_bench, 512, True, False), (BATCH, T_bench, 512, False, True)]
+        cases += [(B, T, d, first, last) for B, T, d in LAYER_EDGE_SHAPES
+                  for first in (False, True) for last in (False, True)]
+        for k, (B, T, d, first, last) in enumerate(cases):
+            ops, acc = _acc_operands(dims, B, T, device, seed=500 + k)
+            err, _ = _acc_check(ops, d, acc, first, last, f"{dims} B={B} T={T} "
+                                f"d={d} first={first} last={last}")
+            calls += 1
+            if cfg is LARGE and k < 2:
+                result["max_abs_err"] = max(result.get("max_abs_err", 0.0), err)
+        # a 3-layer chain: each layer on the kernel's own output, skip_acc
+        # checked after every layer
+        x = None
+        acc = torch.empty((2, 3000, dims[2]), device=device)
+        for l, d in enumerate((1, 64, 512)):
+            ops, _ = _acc_operands(dims, 2, 3000, device, seed=600 + l)
+            if x is not None:
+                ops = (x,) + ops[1:]
+            _, x = _acc_check(ops, d, acc, l == 0, l == 2,
+                              f"{dims} chain layer {l} d={d}")
+            calls += 1
+    # the whole stack at C=128, which kernel 1 is not built for: flow_stack
+    # runs kernel 5 once per layer
+    sc = LARGE.student
+    dil = sc.flow_dilations
+    for k, (B, T) in enumerate([(BATCH, _bench_T(LARGE)), (1, 1), (3, 5003)]):
+        L, C, G, S, M = (len(dil), sc.residual_channels, sc.gate_channels,
+                         sc.skip_channels, LARGE.dsp.n_mels)
+        gen = torch.Generator(device=device).manual_seed(700 + k)
+
+        def arr(shape, scale):
+            return (torch.randn(shape, generator=gen, device=device) * scale
+                    ).bfloat16()
+
+        args = dict(x0=arr((B, T, C), 0.5), cond=arr((B, T, M), 0.5),
+                    w_in=arr((L, G, 2 * C + M), (2 * C + M) ** -0.5),
+                    b_g=arr((L, G), 0.1).float(),
+                    w_out=arr((L, C + S, G // 2), (G // 2) ** -0.5),
+                    b_rs=arr((L, C + S), 0.1).float())
+        with torch.inference_mode():
+            out = flow_stack(**args, dilations=dil)
+            ref32 = flow_stack_reference(*(a.float() for a in args.values()),
+                                         dilations=dil)
+            ref16 = flow_stack_reference(**args, dilations=dil)
+        torch.cuda.synchronize()
+        calls += L
+        _check(out.shape == (B, T, S) and torch.isfinite(out.float()).all(),
+               f"C=128 flow_stack output {tuple(out.shape)} or non-finite")
+        rel32, rel16 = _row_rel(out, ref32), _row_rel(out, ref16)
+        _log(f"[layer] flow_stack at C=128 (kernel 5 x {L}) B={B} T={T}: per-row "
+             f"rel err vs fp32 plain {np.array2string(rel32, precision=5)} (tol "
+             f"{TOL_F32}); vs bf16 plain {np.array2string(rel16, precision=5)} "
+             f"(tol {TOL_BF16}: {WHY_F32})")
+        _check((rel32 <= TOL_F32).all() and (rel16 <= TOL_BF16).all(),
+               f"C=128 flow_stack off its plain version at B={B} T={T}")
+    _check(gated_layer.launches - before == calls and flow_stack.launches == k1,
+           "kernel 5's counter did not count every accumulate call, or kernel 1 ran")
+    _log(f"[layer] accumulate epilogue: {calls} launches counted, kernel 1 none")
+    return result
+
+
 def _bench_T(cfg=CFG) -> int:
     hop = cfg.dsp.hop_length
     return int(SECONDS * cfg.dsp.sample_rate) // hop * hop
@@ -662,9 +792,11 @@ def phase_main(device, cfg=CFG, mode: str = "infer",
                durations=(1.0, 1.6, 2.3, 3.1, 4.0), batch: int = 8,
                tol_e2e: float = TOL_E2E, why_e2e: str = WHY_E2E) -> dict:
     """Synthesis at full width through `vocode_many` and
-    `generate_student`.  Every flow must run `mode`: "infer" is kernel 1
-    (one launch per flow per generate), "layer" kernel 5 (one per layer);
-    the other kernel must not launch."""
+    `generate_student`.  Every flow must run `mode`.  "infer" is kernel 1
+    (one launch per flow per generate) where `kernel1_takes` the flow, else
+    kernel 5's accumulate epilogue (one launch per layer); "layer" is kernel
+    5's "layer" epilogue (one per layer).  The other kernel must not
+    launch."""
     hop = cfg.dsp.hop_length
     model = init_student(cfg, torch.Generator().manual_seed(SEED), device)
     model.eval()
@@ -692,10 +824,13 @@ def phase_main(device, cfg=CFG, mode: str = "infer",
     torch.cuda.synchronize()
     launches = {"flow_stack": flow_stack.launches,
                 "gated_layer": gated_layer.launches}
-    n_flows, n_layers = cfg.student.n_flows, cfg.student.layers_per_flow
+    sc = cfg.student
+    n_flows, n_layers = sc.n_flows, sc.layers_per_flow
     per_generate = ({"flow_stack": n_flows, "gated_layer": 0}
-                    if mode == "infer" else
-                    {"flow_stack": 0, "gated_layer": n_flows * n_layers})
+                    if mode == "infer" and kernel1_takes(
+                        sc.flow_dilations, sc.residual_channels,
+                        sc.gate_channels, sc.skip_channels, cfg.dsp.n_mels)
+                    else {"flow_stack": 0, "gated_layer": n_flows * n_layers})
     want = {k: v * (n_batches + 1) for k, v in per_generate.items()}
     _log(f"[main] {cfg.name}: vocode_many: {len(mels)} items in "
          f"{len(buckets)} buckets, {n_batches} device batches; "
@@ -756,6 +891,67 @@ def phase_main(device, cfg=CFG, mode: str = "infer",
          f"(tol {TOL_FLOW})")
     _check(e2e <= tol_e2e, "kernel path off the fp32 CPU path")
     _check(max(flows) <= TOL_FLOW, "a flow on the card is off its fp32 CPU twin")
+    return {"launches": launches}
+
+
+def phase_layer_path(device) -> dict:
+    """`large_student_sharded` with `student.fused_layers="layer"`: one
+    `generate_student` at full width through kernel 5's "layer" epilogue
+    (the per-layer bf16 skip sum), 60 launches and kernel 1 at 0."""
+    cfg = override(LARGE, "student.fused_layers", "layer")
+    model = init_student(cfg, torch.Generator().manual_seed(SEED), device)
+    model.eval()
+    modes = [f.mode for f in model.flows]
+    _check(modes == ["layer"] * cfg.student.n_flows,
+           f"fused_layers='layer' should build every flow in 'layer': {modes}")
+    mel = mel_from_wav(cfg, _synthetic_wavs([1.0], cfg.dsp.sample_rate)[0],
+                       device)
+    flow_stack.launches = 0
+    gated_layer.launches = 0
+    wav = generate_student(cfg, model, mel[0].cpu().numpy()[None],
+                           torch.Generator(device=device).manual_seed(1))
+    torch.cuda.synchronize()
+    launches = {"flow_stack": flow_stack.launches,
+                "gated_layer": gated_layer.launches}
+    want = {"flow_stack": 0,
+            "gated_layer": cfg.student.n_flows * cfg.student.layers_per_flow}
+    _log(f"[main] {cfg.name} with fused_layers='layer': generate_student on "
+         f"{mel.shape[1]} frames -> {wav.shape[0]} samples; launches "
+         f"{launches} (want {want})")
+    _check(launches == want, f"expected launches {want}")
+    _check(wav.shape == (mel.shape[1] * cfg.dsp.hop_length,)
+           and np.isfinite(wav).all(), "layer-path audio off shape or non-finite")
+    return {"launches": launches}
+
+
+def phase_train_layer(device) -> dict:
+    """One training step of a teacher at student widths (C=64, G=128, S=64,
+    M=80), which kernels 2 and 3 are not built for: the training context
+    resolves it to "layer", so kernel 5 runs the forward (its backward is
+    the fp32 recompute) and kernels 2 and 3 do not launch."""
+    cfg = override(override(override(override(override(override(
+        TEACHER, "teacher.residual_channels", 64), "teacher.gate_channels",
+        128), "teacher.skip_channels", 64), "teacher.n_blocks", 1),
+        "train.crop_samples", 4096), "train.global_batch_size", 2)
+    mode = TeacherWaveNet(cfg, stack_mode=resolve_stack_mode(
+        cfg.teacher.fused_layers, "train")).stack.mode
+    counts = (fs.flow_stack_train_forward, fs.flow_stack_train_backward,
+              gated_layer)
+    for c in counts:
+        c.launches = 0
+    res = run_teacher_training(cfg, num_steps=1)
+    torch.cuda.synchronize()
+    launches = tuple(c.launches for c in counts)
+    _log(f"[teacher] C=64 M=80 teacher ({cfg.teacher.n_layers} layers), one "
+         f"step in a training context: stack mode {mode!r}; metrics "
+         f"{res.final_metrics}; launches kernel 2 {launches[0]}, kernel 3 "
+         f"{launches[1]}, kernel 5 {launches[2]}")
+    _check(mode == "layer", "a C=64 training stack should resolve to 'layer'")
+    _check(launches == (0, 0, 2 * cfg.teacher.n_layers),
+           "expected kernel 5 once per layer in the step and in the eval, "
+           "kernels 2 and 3 never")
+    _check(all(np.isfinite(v) for v in res.final_metrics.values()),
+           "non-finite metrics")
     return {"launches": launches}
 
 
@@ -932,62 +1128,94 @@ def phase_times(device, smi: str) -> dict:
 
 
 def phase_layer_times(device, smi: str) -> dict:
-    """Kernel 5 and its plain version at the bench shapes of both widths,
-    and large_student_sharded's generate end to end."""
+    """Kernel 5 in both epilogues and its plain versions at the bench shapes
+    of both widths, each beside its bound, and large_student_sharded's
+    generate end to end in both stack modes.  Returns the main path's
+    figures: the accumulate epilogue at C=128 averaged over one flow's
+    layers (one first, eight middle, one last)."""
     counted = gated_layer.launches
-    result = {}
+    per_launch = {}
     for dims, cfg in zip(LAYER_DIMS, (CFG, LARGE)):
         T = _bench_T(cfg)
-        x, cond, params = _layer_inputs(dims, BATCH, T, device, seed=6)
-        packed = pack_layer(*params.values(), torch.bfloat16)
-        fns = {f"kernel d={d}": (lambda d=d: gated_layer(x, cond, *packed, d))
-               for d in (1, 512)}
-        fns["plain"] = lambda: gated_layer_reference(x, cond, *packed, 512)
+        (x, cond, *w), acc = _acc_operands(dims, BATCH, T, device, seed=6)
+        res = torch.empty_like(x)
+        skip = torch.empty(acc.shape, dtype=torch.bfloat16, device=device)
+
+        def acc_fn(first, last, out):
+            return lambda: gated_layer_accumulate(x, cond, *w, 512, acc,
+                                                  first=first, last=last, out=out)
+
+        fns = {"layer d=1": lambda: gated_layer(x, cond, *w, 1),
+               "layer d=512": lambda: gated_layer(x, cond, *w, 512),
+               "acc first": acc_fn(True, False, res),
+               "acc middle": acc_fn(False, False, res),
+               "acc last": acc_fn(False, True, skip),
+               "layer plain": lambda: gated_layer_reference(x, cond, *w, 512),
+               "acc plain": lambda: gated_layer_accumulate_reference(
+                   x, cond, *w, 512, acc, first=False, last=False)}
+        order = ["layer plain", "acc plain", "layer d=1", "layer d=512",
+                 "acc first", "acc middle", "acc last"]
         ms: dict = {}
         with torch.inference_mode():
             for fn in fns.values():
                 fn()  # warm up
             torch.cuda.synchronize()
-            for k in ("plain", "kernel d=1", "kernel d=512", "kernel d=512",
-                      "kernel d=1", "plain"):  # in turns, on one card
-                ms.setdefault(k, []).append(_time_ms(fns[k], 5 if k == "plain"
-                                                     else 20))
-            out = fns["kernel d=1"]()
+            for k in order + order[::-1]:  # in turns, on one card
+                ms.setdefault(k, []).append(
+                    _time_ms(fns[k], 5 if "plain" in k else 20))
         C, G, S, M = dims
         flop = 2 * BATCH * T * ((2 * C + M) * G + G // 2 * (C + S))
-        bound = _bound(flop, _nbytes(x, cond, *packed, *out), PEAK_BF16)
-        k_ms = float(np.mean(ms["kernel d=1"] + ms["kernel d=512"]))
-        _log(f"[times] {smi}: layer kernel (C, G, S, M) = {dims} B={BATCH} "
-             f"T={T}: " + "; ".join(
-                 f"{k} " + " / ".join(f"{v:.3f}" for v in vs)
-                 for k, vs in ms.items())
-             + f" ms per call (kernel {flop / k_ms / 1e9:.1f} TFLOP/s useful, "
-             f"{_nbytes(x, cond, *out) / k_ms / 1e6:.0f} GB/s of x, cond, res, "
-             f"skip); bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
-             f"{flop / 1e9:.1f} GFLOP, {_nbytes(x, cond, *packed, *out) / 1e6:.1f} MB)")
-        result[dims] = {"ms": k_ms, "plain_ms": float(np.mean(ms["plain"])),
-                        **bound}
+        moved = {"layer d=1": (x, cond, *w, res, skip),
+                 "acc first": (x, cond, *w, res, acc),
+                 "acc middle": (x, cond, *w, res, acc, acc),
+                 "acc last": (x, cond, *w, acc, skip)}
+        moved["layer d=512"] = moved["layer d=1"]
+        moved["layer plain"], moved["acc plain"] = (moved["layer d=1"],
+                                                    moved["acc middle"])
+        bounds = {k: _bound(flop, _nbytes(*v), PEAK_BF16) for k, v in moved.items()}
+        mean = {k: float(np.mean(v)) for k, v in ms.items()}
+        for k in order:
+            _log(f"[times] {smi}: kernel 5 {k} (C, G, S, M) = {dims} B={BATCH} "
+                 f"T={T}: " + " / ".join(f"{v:.4f}" for v in ms[k])
+                 + f" ms per call ({flop / mean[k] / 1e9:.1f} TFLOP/s useful); "
+                 f"bound {bounds[k]['bound_ms']:.4f} ms ({bounds[k]['bound_by']}: "
+                 f"{flop / 1e9:.1f} GFLOP, {_nbytes(*moved[k]) / 1e6:.1f} MB)")
+        if cfg is LARGE:
+            def flow_mean(f):
+                return (f("acc first") + 8 * f("acc middle") + f("acc last")) / 10
+            per_launch = {
+                "ms": flow_mean(lambda k: mean[k]),
+                "plain_ms": mean["acc plain"],
+                "bound_ms": flow_mean(lambda k: bounds[k]["bound_ms"]),
+                "bound_by": bounds["acc middle"]["bound_by"]}
     gated_layer.launches = counted  # timing launches are not the main path's
 
-    model = init_student(LARGE, torch.Generator().manual_seed(SEED), device)
-    model.eval()
     T = _bench_T(LARGE)
     mel = torch.rand((BATCH, T // LARGE.dsp.hop_length, LARGE.dsp.n_mels),
                      generator=torch.Generator(device=device).manual_seed(0),
                      device=device)
-    gen = torch.Generator(device=device).manual_seed(1)
-    with torch.inference_mode():
-        for _ in range(2):
-            model.generate(gen, mel)
-        torch.cuda.synchronize()
-        ms = _time_ms(lambda: model.generate(gen, mel), 10)
+    for flag in ("auto", "layer"):
+        cfg = override(LARGE, "student.fused_layers", flag)
+        model = init_student(cfg, torch.Generator().manual_seed(SEED), device)
+        model.eval()
+        gen = torch.Generator(device=device).manual_seed(1)
+        with torch.inference_mode():
+            for _ in range(2):
+                model.generate(gen, mel)
+            torch.cuda.synchronize()
+            ms = _time_ms(lambda: model.generate(gen, mel), 10)
+        rate = BATCH * T / LARGE.dsp.sample_rate / (ms / 1e3)
+        _log(f"[times] {smi}: large_student_sharded generate ({model.flows[0].mode}"
+             f" stacks) batch {BATCH} x {SECONDS} s (T={T} at "
+             f"{LARGE.dsp.sample_rate} Hz): {ms:.3f} ms per call, {rate:.1f} "
+             f"audio-seconds/s")
     gated_layer.launches = counted
-    rate = BATCH * T / LARGE.dsp.sample_rate / (ms / 1e3)
-    _log(f"[times] {smi}: large_student_sharded generate batch {BATCH} x "
-         f"{SECONDS} s (T={T} at {LARGE.dsp.sample_rate} Hz): {ms:.3f} ms per "
-         f"call, {rate:.1f} audio-seconds/s; kernel 5 bound for its 60 "
-         f"launches {60 * result[LAYER_DIMS[1]]['bound_ms']:.3f} ms")
-    return result[LAYER_DIMS[1]]
+    _log(f"[times] {smi}: kernel 5 at C=128 on the main path (accumulate, "
+         f"mean over a flow's layers): {per_launch['ms']:.4f} ms per launch, "
+         f"bound {per_launch['bound_ms']:.4f} ms; for the 60 launches of a "
+         f"generate {60 * per_launch['ms']:.3f} ms against "
+         f"{60 * per_launch['bound_ms']:.3f} ms")
+    return per_launch
 
 
 def phase_train_times(device, smi: str) -> dict:
@@ -1135,11 +1363,14 @@ def main() -> int:
     kern = phase_kernel(device)
     train_kern = phase_train_kernels(device)
     ar_kern = phase_ar_kernel(device)
-    layer_kern = phase_layer_kernel(device)
+    phase_layer_kernel(device)
+    acc_kern = phase_acc_kernel(device)
     main_path = phase_main(device)
-    large_path = phase_main(device, LARGE, "layer", LARGE_DURATIONS, batch=2,
+    large_path = phase_main(device, LARGE, "infer", LARGE_DURATIONS, batch=2,
                             tol_e2e=TOL_E2E_LARGE, why_e2e=WHY_E2E_LARGE)
+    phase_layer_path(device)
     teacher = phase_teacher(device)
+    phase_train_layer(device)
     ar_main = phase_ar_main(device)
     times = phase_times(device, smi)
     layer_times = phase_layer_times(device, smi)
@@ -1178,7 +1409,7 @@ def main() -> int:
         "source": "pwn_tpu_torch/csrc/gated_layer.cu",
         "replaces": "pwn_tpu/ops/pallas/gated_layer.py:42",
         "launches": large_path["launches"]["gated_layer"],
-        "max_abs_err": layer_kern["max_abs_err"], **layer_times,
+        "max_abs_err": acc_kern["max_abs_err"], **layer_times,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

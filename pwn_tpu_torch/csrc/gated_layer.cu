@@ -1,49 +1,73 @@
-// One WaveNet gated residual layer for Hopper (sm_90a): its residual and skip
-// outputs, for the stacks the whole-stack kernel (flow_stack.cu) cannot take.
+// One WaveNet gated residual layer for Hopper (sm_90a), with two epilogues:
+// "layer" (the layer's residual and skip outputs) and "accumulate" (one layer
+// of the whole-stack forward, skip summed in fp32 across launches).
 //
 // Replaces: pwn_tpu/ops/pallas/gated_layer.py::_kernel (reached through
-// _fused_forward / fused_gated_residual), the per-layer kernel the reference
-// runs when its whole-stack kernel is ineligible.  For every batch row b and
-// time t, with dilation d:
-//     g    = [x(t) | x(t - d) | cond(t)] @ W_in + b_g     fp32 accumulate, b_g fp32
+// _fused_forward / fused_gated_residual), and, through the accumulate
+// epilogue run once per layer, pwn_tpu/ops/pallas/flow_stack.py::_kernel at
+// the widths the whole-stack kernel (flow_stack.cu) is not built for.  For
+// every batch row b and time t, with dilation d:
+//     g    = [x(t) | x(t - d) | cond(t)] @ W_in + b_g     fp32 accumulate
 //     z    = bf16(tanh(g[:G/2]) * sigmoid(g[G/2:]))
-//     out  = bf16(z @ W_out + b_out)                      fp32 accumulate, b_out fp32
-//     res  = bf16(x + out[:C]),   skip = out[C:]
-// with x(t - d) = 0 for t < d.  These are the Pallas kernel's rounding points;
-// the biases arrive unrounded in fp32, as `_fused_forward` passes them.
+//     out  = z @ W_out + b_out                            fp32 accumulate
+//     res  = bf16(x + bf16(out[:C]))
+// with x(t - d) = 0 for t < d.  Then
+//   layer:       skip = bf16(out[C:])      (the Pallas per-layer kernel)
+//   accumulate:  skip_acc = out[C:] (first layer) or skip_acc + out[C:] in
+//                fp32; the last layer writes bf16(skip_acc + out[C:]) and no
+//                res (the Pallas whole-stack kernel's rounding).
+// The biases arrive in fp32: unrounded for "layer", as `_fused_forward` passes
+// them; rounded to bf16 for "accumulate", as the stacked layout holds them.
 //
-// What bounds it on this card.  At C=128, G=256, S=128, M=80 a sample costs
-// 2*(336*256 + 128*256) = 237,568 FLOP against 928 bytes of device memory
-// (x and cond read, res and skip written): 256 FLOP per byte, just under the
-// H100's ~295 FLOP/byte ridge, so the bytes bound it (0.106 ms at batch
-// 8 x 47,872), with the operations close behind (0.092 ms).  At C=64 it is
-// 69,632 FLOP against 544 bytes, 128 FLOP per byte: bytes again.  So every
-// intermediate (g, z, out) stays on chip, x and cond are read once per block
-// and the tap x(t - d) comes from L2, and the GEMMs must run on the tensor
-// cores to keep up with the memory.
+// What bounds it on this card, per sample at C=128, G=256, S=128, M=80:
+// 2*(336*256 + 128*256) = 237,568 FLOP (91.0 GFLOP at batch 8 x 47,872:
+// 0.092 ms at 989 TFLOP/s) against, at 3.35 TB/s, 928 bytes for "layer" (x
+// and cond read, res and skip written: 0.106 ms), 1,696 for a middle
+// "accumulate" layer (skip_acc read and written in fp32: 0.194 ms) and 1,184
+// for its first and last.  At C=64 (S=64, G=128): 69,632 FLOP against 544,
+// 928 and 672 bytes.  Bytes bound every case, with the operations close
+// behind at C=128: so no intermediate (g, z, out) leaves the chip, x and cond
+// are read once, and both products run on the tensor cores.
 //
-// Design, and what it does about the TPU kernel's assumptions:
-// * The Pallas grid reads two BlockSpec views of x (time tile i and tile
-//   i - 1) to form the tap, so it needs d <= its 512-row tile, and it pads T
-//   to a tile multiple.  Here each layer is its own launch and x lies whole
-//   in device memory, so a block over (64-row time tile, batch row) loads the
-//   rows x(t - d) straight from it: no second view, no padding (rows before
-//   t = 0 and past T are masked), any dilation, and no order between blocks.
-// * The weights are 172 KB (W_in) + 64 KB (W_out) of bf16 per layer at C=128,
-//   more than a block's 227 KB of shared memory beside its tiles.  The warps
-//   read their mma B fragments from L1/L2, as flow_stack.cu and
-//   flow_stack_train.cu do; the weights come stored (out, in), so each
-//   fragment register is one 32-bit load, and every block of the launch reads
-//   the same 236 KB, which stays in L2.
-// * GEMMs use mma.sync m16n8k16 (bf16 in, fp32 accumulate).  8 warps: 4 row
-//   slices x 2 column halves.  In the gate GEMM a warp's half is the matching
-//   tanh and sigmoid columns, so z is formed in registers; in the out GEMM
-//   warps 0-3 own the residual columns and warps 4-7 the skip columns.
-// * Rows of the shared tiles are padded by 8 bf16 so that the fragment loads
-//   of the 8 rows of an m-tile fall in distinct banks.
+// Design:
+// * Persistent blocks, one per SM, walk the 128-row time tiles of all batch
+//   rows (374 per row at T = 47,872).  Each block has two consumer
+//   warpgroups of 64 rows each and one producer warpgroup whose single thread
+//   starts every load.  setmaxnreg lowers the producer to 40 registers and
+//   raises the consumers to 232; ptxas fits the whole kernel in the launch
+//   bound's 168, 128 of them a consumer's 64 x 256 fp32 accumulator.
+// * TMA brings the activations: one tensor map over x (B, T, C) and one over
+//   cond (B, T, M), 64-column boxes of 128 rows with the 128-byte swizzle that
+//   wgmma reads.  The tap is the x box at time t0 - d: TMA fills zeros for
+//   t < 0 and t >= T, so no row is masked on load and no row crosses a batch
+//   row.  cond's 80 columns are two boxes, the second zero past column 80.
+//   The activations have a barrier pair of their own: the consumers hand them
+//   back once the gate product is done and each thread holds its x(t) for the
+//   residual, so the next tile's activations load during this tile's out
+//   product and epilogue.
+// * The weights stream through a ring of three mbarrier-guarded stages, one
+//   64-column k-slice of W_in (G rows) or W_out (C+S rows) per stage: at
+//   C=128 that is 6 slices of the gate product's 336 columns (the last one 16
+//   wide) and 2 of the out product's 128, 32 KB each.  They arrive stored
+//   (out, in), which is the K-major B operand wgmma reads from shared memory.
+//   In the accumulate epilogue the ring also brings each warpgroup's 64 rows
+//   of the fp32 skip sum (unless first), two more slots per tile.
+// * wgmma m64nNk16 (bf16 in, fp32 sum) with A and B from shared memory.  The
+//   gate product is one m64n(G) accumulator per warpgroup whose tanh half
+//   [0, G/2) and sigmoid half [G/2, G) share one fragment layout, so z is
+//   formed elementwise in registers (`gate`: the hardware's exp2 and
+//   reciprocal), rounded to bf16 and stored in its own swizzled tile as the A
+//   operand of the out product, m64n(C+S).
+// * The epilogue stores from the accumulator's fragments.  Measured on the
+//   H100, the gates and the epilogue's stores take most of a tile's time, not
+//   the products or the loads: the two warpgroups' CUDA-core work is what a
+//   later design has to spread or overlap.
+// * Shared memory at C=128: x, tap and cond tiles 96 KB, z 32 KB, weight ring
+//   96 KB.
 // * Built at two widths: (C, G, S, M) = (64, 128, 64, 80) (student_iaf) and
 //   (128, 256, 128, 80) (large_student_sharded, teacher_lj).
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder comes from the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,35 +76,225 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int TT = 64;         // rows per block: 4 row slices of 16
-constexpr int NTHREADS = 256;  // 8 warps: 4 row slices x 2 column halves
+constexpr int TM = 128;        // rows per tile
+constexpr int WG_ROWS = 64;    // rows per consumer warpgroup
+constexpr int NCONS = TM / WG_ROWS;
+constexpr int NTHREADS = 128 * (NCONS + 1);  // + the producer warpgroup
+constexpr int KC = 64;         // bf16 columns per 128-byte swizzled row
+constexpr int ROW_BYTES = 128;
+constexpr int TILE_BYTES = TM * ROW_BYTES;   // one 64-column slice of 128 rows
+constexpr int SMEM_MAX = 232448;            // a block's opt-in shared memory
 
 template <int C_, int G_, int S_, int M_>
 struct Dims {
   static constexpr int C = C_, G = G_, S = S_, M = M_;
   static constexpr int GH = G / 2;        // tanh half, sigmoid half
-  static constexpr int K_IN = 2 * C + M;  // gate GEMM depth [x | shift | cond]
-  static constexpr int N_OUT = C + S;     // out GEMM width [residual | skip]
-  static constexpr int XS = C + 8;        // shared row strides (bf16), padded
-  static constexpr int CS = M + 8;
-  static constexpr int ZS = GH + 8;
-  static constexpr int NT_G = GH / 16;    // tanh n-tiles per warp (+ sigmoid)
-  static constexpr int NT_O = N_OUT / 16; // out n-tiles per warp
-  static_assert(C == S, "warp halves of the out GEMM are [residual | skip]");
-  static_assert(C % 16 == 0 && M % 16 == 0 && GH % 16 == 0, "mma depth");
-  static constexpr size_t SMEM = (size_t)TT * (2 * XS + CS + ZS) * 2;
+  static constexpr int K_IN = 2 * C + M;  // gate depth [x | tap | cond]
+  static constexpr int N_OUT = C + S;     // out width [residual | skip]
+  static constexpr int XCH = C / KC;      // slices of x, of the tap and of z
+  static constexpr int CCH = (M + KC - 1) / KC;
+  static constexpr int NCH_IN = 2 * XCH + CCH;  // k-slices of the gate product
+  static constexpr int NCH_OUT = GH / KC;       // k-slices of the out product
+  static constexpr int NCH = NCH_IN + NCH_OUT;
+  static constexpr int STAGE_BYTES = (G > N_OUT ? G : N_OUT) * ROW_BYTES;
+  static constexpr uint32_t A_BYTES = (2 * XCH + CCH) * TILE_BYTES;
+  // one consumer warpgroup's rows of the fp32 skip sum: one ring stage
+  static constexpr uint32_t ACC_BYTES = WG_ROWS * S * 4;
+  // shared memory: the x, tap and cond tiles (the activations, one tile at a
+  // time), z, the weight ring (three stages where they fit, else two), and
+  // the barriers
+  static constexpr int X_OFF = 0;
+  static constexpr int T_OFF = X_OFF + XCH * TILE_BYTES;
+  static constexpr int C_OFF = T_OFF + XCH * TILE_BYTES;
+  static constexpr int Z_OFF = C_OFF + CCH * TILE_BYTES;
+  static constexpr int W_OFF = Z_OFF + XCH * TILE_BYTES;
+  static constexpr int STAGES = W_OFF + 3 * STAGE_BYTES + 8 * 8 + 1024 <= SMEM_MAX ? 3 : 2;
+  static constexpr int BAR_OFF = W_OFF + STAGES * STAGE_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (2 + 2 * STAGES) + 1024;  // + alignment
+  static_assert(C % KC == 0 && GH % KC == 0 && M % 16 == 0, "slice widths");
+  static_assert(GH == C, "z has the tap's slices");
+  static_assert(G <= 256 && N_OUT <= 256 && S <= 256,
+                "one wgmma and one TMA box span a width");
+  static_assert(ACC_BYTES <= STAGE_BYTES, "skip_acc rows fit a ring stage");
+  static_assert(SMEM <= SMEM_MAX, "shared memory");
+  // k-steps of 16 in gate slice i: the last cond slice is M % 64 wide
+  __host__ __device__ static constexpr int steps(int i) {
+    return i < 2 * XCH ? KC / 16
+                       : ((M - (i - 2 * XCH) * KC) >= KC ? KC : M - (i - 2 * XCH) * KC) / 16;
+  }
 };
 
 using Narrow = Dims<64, 128, 64, 80>;
 using Wide = Dims<128, 256, 128, 80>;
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// With PWN_GATED_LAYER_PHASES defined (tools/torch_gated_layer_phases.py
+// builds it so), thread 0 of block 0 adds the clock cycles of each phase of
+// each tile into gl_phase_cycles: waiting for the activations, the gate
+// product, the gates and z, the out product, the epilogue; [5] counts tiles.
+#ifdef PWN_GATED_LAYER_PHASES
+__device__ unsigned long long gl_phase_cycles[6];
+#define PHASE(k)                                                \
+  do {                                                          \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {                  \
+      const unsigned long long now = clock64();                 \
+      gl_phase_cycles[k] += now - phase_t;                      \
+      phase_t = now;                                            \
+    }                                                           \
+  } while (0)
+#else
+#define PHASE(k)
+#endif
+
+// ---------------------------------------------------------------------------
+// PTX wrappers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
 }
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase with this parity has completed.  A wait
+// that outlives any launch of this kernel by far (2^26 polls, seconds) traps,
+// so that a fault in the pipeline ends the launch with an error instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0,
+                                            int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major operand in the 128-byte
+// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart.  Adding 2 moves
+// it 32 bytes (one k-step of 16 bf16) along K.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the accumulators in place across the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A(64 x 16) @ B(16 x N), both from shared memory, K-major.
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, 1, 1, 1, 0, 0;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, 1, 1, 1, 0, 0;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_n(float (&d)[N / 2], uint64_t da, uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_n<128>(float (&d)[64], uint64_t da, uint64_t db) {
+  wgmma_m64n128(d, da, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_n<256>(float (&d)[128], uint64_t da, uint64_t db) {
+  wgmma_m64n256(d, da, db);
+}
+
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -91,172 +305,344 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
-
-// d += a @ b for one 16x8x16 tile; a row-major, b column-major, fp32 sum.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float ex2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ float rcp_approx(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(v));
+  return r;
 }
 
-// A fragment of rows r0, r0 + 8 and columns col + [0, 16) of a shared tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int stride, int r0, int col, int q) {
-  const bf16* p0 = tile + r0 * stride + col + 2 * q;
-  const bf16* p1 = p0 + 8 * stride;
-  a[0] = lds32(p0);
-  a[1] = lds32(p1);
-  a[2] = lds32(p0 + 8);
-  a[3] = lds32(p1 + 8);
+// tanh(a) * sigmoid(b) = (e^2a - 1) / ((e^2a + 1) (1 + e^-b)) in fp32: two
+// hardware exp2 and one reciprocal (each within 2 ulp), exponents clamped to
+// +-30 nats, where tanh and sigmoid are 1 and 0 to fp32.  Absolute error below
+// 3e-7; libm's tanhf, expf and an IEEE division took three times the time,
+// and the gates were then the largest part of the kernel's.
+__device__ __forceinline__ float gate(float a, float b) {
+  constexpr float LOG2E = 1.44269504f, CLAMP = 43.28f;  // 30 nats in log2
+  const float ea = ex2_approx(fminf(fmaxf(2.f * LOG2E * a, -CLAMP), CLAMP));
+  const float eb = ex2_approx(fminf(fmaxf(-LOG2E * b, -CLAMP), CLAMP));
+  return (ea - 1.f) * rcp_approx((ea + 1.f) * (1.f + eb));
 }
 
-// Rows t0 + [0, TT) of one batch row's (T, W) matrix, each shifted back by
-// `shift` samples, into a shared tile; zero before t = 0 and past T.
-template <int W, int STRIDE>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int t0,
-                                          int shift, int T) {
-  for (int i = threadIdx.x; i < TT * (W / 8); i += NTHREADS) {
-    const int r = i / (W / 8), c8 = i % (W / 8);
-    const long long t = (long long)t0 + r - shift;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (t0 + r < T && t >= 0)
-      v = __ldg(reinterpret_cast<const uint4*>(src + (size_t)t * W) + c8);
-    *reinterpret_cast<uint4*>(dst + r * STRIDE + c8 * 8) = v;
-  }
+// Byte offset of (row, col) in a 128-row tile of 64-column slices, each in
+// the 128-byte swizzle TMA writes and wgmma reads: the 16-byte group index
+// XORed with row % 8.
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  return (col / KC) * TILE_BYTES + row * ROW_BYTES +
+         ((((col % KC) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
 }
 
-// One layer.  Block = (time tile, batch row), grid (tiles, B).
-//   x     (B, T, C)   bf16   the layer's input
-//   cond  (B, T, M)   bf16
-//   w_in  (G, K_IN)   bf16   W_in stored (out, in): input columns [x | shift | cond]
-//   b_g   (G)         fp32
-//   w_out (N_OUT, GH) bf16   W_out stored (out, in): output rows [residual | skip]
-//   b_out (N_OUT)     fp32
-//   res   (B, T, C), skip (B, T, S)  bf16 outputs
-template <class D>
-__global__ void __launch_bounds__(NTHREADS, 2)
-gated_layer_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cond,
-                   const bf16* __restrict__ w_in, const float* __restrict__ b_g,
-                   const bf16* __restrict__ w_out, const float* __restrict__ b_out,
-                   bf16* __restrict__ res, bf16* __restrict__ skip, int T, int d) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // TT x XS: x(t)
-  bf16* sh = xs + TT * D::XS;                     // TT x XS: x(t - d)
-  bf16* cs = sh + TT * D::XS;                     // TT x CS: cond(t)
-  bf16* zs = cs + TT * D::CS;                     // TT x ZS: z
+// One layer over all tiles.  A persistent block walks the 128-row time
+// tiles tile = blockIdx.x + k * gridDim.x (n_tt tiles per batch row, the
+// batch row major).  NTHREADS threads: warpgroups 0 and 1 compute rows
+// [64 wg, 64 wg + 64) of a tile, warpgroup 2 loads.
+//   tm_x    x (B, T, C) bf16, 64 x 128 boxes     tm_cond  cond (B, T, M)
+//   tm_win  W_in (G, K_IN), 64 x G boxes          tm_wout  W_out (N_OUT, GH)
+//   tm_acc  skip_acc (B, T, S) fp32, S x 64 boxes, unswizzled (ACC and not
+//           first only)
+//   b_g (G), b_out (N_OUT) fp32
+//   ACC = false: res (B, T, C), skip (B, T, S) bf16
+//   ACC = true:  res (unless last), skip_acc (written unless last), skip
+//                (B, T, S) bf16 (last only)
+// Ring order per tile: NCH_IN slices of W_in, NCH_OUT of W_out, then (ACC
+// and not first) the skip_acc rows of warpgroup 0 and of warpgroup 1.  The
+// activations have their own barrier pair: the consumers release them once
+// the gate product is done and each thread holds its x values for the
+// residual, so the next tile's activations load during this tile's out
+// product and epilogue.
+template <class D, bool ACC>
+__global__ void __launch_bounds__(NTHREADS, 1)
+gated_layer_kernel(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_cond,
+                   const __grid_constant__ CUtensorMap tm_win,
+                   const __grid_constant__ CUtensorMap tm_wout,
+                   const __grid_constant__ CUtensorMap tm_acc,
+                   const float* __restrict__ b_g, const float* __restrict__ b_out,
+                   bf16* __restrict__ res, bf16* __restrict__ skip,
+                   float* __restrict__ skip_acc, int T, int n_tt, int n_tiles, int d,
+                   int first, int last) {
+  constexpr int STAGES = D::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t base = smem_u32(smem);
+  const uint32_t xs = base + D::X_OFF, ts = base + D::T_OFF, cs = base + D::C_OFF;
+  const uint32_t zs = base + D::Z_OFF, ws = base + D::W_OFF;
+  const uint32_t a_full = base + D::BAR_OFF, a_empty = a_full + 8;
+  const uint32_t full = a_empty + 8, empty = full + 8 * STAGES;
+  const int n_acc = ACC && !first ? NCONS : 0;  // skip_acc ring slots per tile
+  const int wg = threadIdx.x / 128;
 
-  const int b = blockIdx.y, t0 = blockIdx.x * TT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;  // fragment row group, column pair
-  const int wm = warp & 3, wh = warp >> 2;
-  const size_t rb = (size_t)b * T;        // first row of this batch row
-
-  load_rows<D::C, D::XS>(xs, x + rb * D::C, t0, 0, T);
-  load_rows<D::C, D::XS>(sh, x + rb * D::C, t0, d, T);
-  load_rows<D::M, D::CS>(cs, cond + rb * D::M, t0, 0, T);
-  __syncthreads();
-
-  {
-    // gate GEMM: rows wm*16 + [0, 16) of [xs | sh | cs] times this warp's
-    // tanh columns wh*GH/2 + [0, GH/2) (acc[0, NT_G)) and the matching sigmoid
-    // columns (acc[NT_G, 2 NT_G))
-    float acc[2 * D::NT_G][4];
-#pragma unroll
-    for (int j = 0; j < 2 * D::NT_G; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D::K_IN / 16; ++ks) {
-      uint32_t a[4];
-      if (ks < D::C / 16)
-        load_a(a, xs, D::XS, wm * 16 + g, ks * 16, q);
-      else if (ks < 2 * D::C / 16)
-        load_a(a, sh, D::XS, wm * 16 + g, ks * 16 - D::C, q);
-      else
-        load_a(a, cs, D::CS, wm * 16 + g, ks * 16 - 2 * D::C, q);
-#pragma unroll
-      for (int j = 0; j < 2 * D::NT_G; ++j) {
-        const int n = (j < D::NT_G ? 0 : D::GH) + wh * (D::GH / 2) +
-                      (j % D::NT_G) * 8 + g;
-        const bf16* wp = w_in + (size_t)n * D::K_IN + ks * 16 + 2 * q;
-        mma_bf16(acc[j], a, ldg32(wp), ldg32(wp + 8));
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(a_full, 1);
+    mbar_init(a_empty, NCONS * 4);  // one arrival per consumer warp
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, NCONS * 4);
     }
-#pragma unroll
-    for (int j = 0; j < D::NT_G; ++j) {
-      const int col = wh * (D::GH / 2) + j * 8 + 2 * q;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = wm * 16 + g + 8 * hh;
-        float z[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          z[e] = tanhf(acc[j][2 * hh + e] + b_g[col + e]) *
-                 sigmoidf(acc[D::NT_G + j][2 * hh + e] + b_g[D::GH + col + e]);
-        *reinterpret_cast<uint32_t*>(zs + r * D::ZS + col) = pack(z[0], z[1]);
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // out GEMM: warps with wh == 0 own the residual columns, wh == 1 the skip
-  float acc[D::NT_O][4];
-#pragma unroll
-  for (int j = 0; j < D::NT_O; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < D::GH / 16; ++ks) {
-    uint32_t a[4];
-    load_a(a, zs, D::ZS, wm * 16 + g, ks * 16, q);
-#pragma unroll
-    for (int j = 0; j < D::NT_O; ++j) {
-      const bf16* wp = w_out + (size_t)(wh * (D::N_OUT / 2) + j * 8 + g) * D::GH +
-                       ks * 16 + 2 * q;
-      mma_bf16(acc[j], a, ldg32(wp), ldg32(wp + 8));
-    }
-  }
-
-  const float* bias = b_out + wh * D::C;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = wm * 16 + g + 8 * hh;
-    const int t = t0 + r;
-    if (t >= T) continue;
-    const size_t row = rb + t;
-#pragma unroll
-    for (int j = 0; j < D::NT_O; ++j) {
-      const int col = j * 8 + 2 * q;  // within the warp half's C (or S) columns
-      const float o0 = round_bf16(acc[j][2 * hh] + bias[col]);
-      const float o1 = round_bf16(acc[j][2 * hh + 1] + bias[col + 1]);
-      if (wh == 0) {
-        const float2 xo = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(xs + r * D::XS + col));
-        *reinterpret_cast<uint32_t*>(res + row * D::C + col) = pack(xo.x + o0, xo.y + o1);
-      } else {
-        *reinterpret_cast<uint32_t*>(skip + row * D::S + col) = pack(o0, o1);
+  if (wg == NCONS) {
+    // producer warpgroup: one thread starts every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == NCONS * 128) {
+      int c = 0;  // ring slot count
+      for (int tile = blockIdx.x, it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+        const int b = tile / n_tt, t0 = (tile % n_tt) * TM;
+        mbar_wait(a_empty, (it & 1) ^ 1);
+        mbar_expect_tx(a_full, D::A_BYTES);
+        for (int k = 0; k < D::XCH; ++k) {
+          tma_load_3d(xs + k * TILE_BYTES, &tm_x, k * KC, t0, b, a_full);
+          tma_load_3d(ts + k * TILE_BYTES, &tm_x, k * KC, t0 - d, b, a_full);
+        }
+        for (int k = 0; k < D::CCH; ++k)
+          tma_load_3d(cs + k * TILE_BYTES, &tm_cond, k * KC, t0, b, a_full);
+        for (int i = 0; i < D::NCH + n_acc; ++i, ++c) {
+          const int s = c % STAGES;
+          const uint32_t dst = ws + s * D::STAGE_BYTES, bar = full + 8 * s;
+          mbar_wait(empty + 8 * s, ((c / STAGES) & 1) ^ 1);
+          if (i < D::NCH_IN) {
+            mbar_expect_tx(bar, D::G * ROW_BYTES);
+            tma_load_2d(dst, &tm_win, i * KC, 0, bar);
+          } else if (i < D::NCH) {
+            mbar_expect_tx(bar, D::N_OUT * ROW_BYTES);
+            tma_load_2d(dst, &tm_wout, (i - D::NCH_IN) * KC, 0, bar);
+          } else {
+            mbar_expect_tx(bar, D::ACC_BYTES);
+            tma_load_3d(dst, &tm_acc, 0, t0 + (i - D::NCH) * WG_ROWS, b, bar);
+          }
+        }
       }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const uint32_t wg_rows = wg * WG_ROWS * ROW_BYTES;  // this warpgroup's A rows
+    // fragment rows of this thread within the tile's 128: r0 and r0 + 8
+    const int r0 = wg * WG_ROWS + warp * 16 + lane / 4;
+    const int q2 = 2 * (lane % 4);
+    int c = 0;  // ring slot count, as the producer's
+#ifdef PWN_GATED_LAYER_PHASES
+    unsigned long long phase_t = clock64();
+#endif
+    for (int tile = blockIdx.x, it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+      const int b = tile / n_tt, t0 = (tile % n_tt) * TM;
+      mbar_wait(a_full, it & 1);
+      PHASE(0);
+
+      // gate product over the k-slices [x | tap | cond]
+      float acc[D::G / 2];
+#pragma unroll
+      for (int i = 0; i < D::G / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < D::NCH_IN; ++i, ++c) {
+        const int s = c % STAGES;
+        const uint32_t a = (i < D::XCH ? xs + i * TILE_BYTES
+                            : i < 2 * D::XCH ? ts + (i - D::XCH) * TILE_BYTES
+                                             : cs + (i - 2 * D::XCH) * TILE_BYTES) + wg_rows;
+        mbar_wait(full + 8 * s, (c / STAGES) & 1);
+        const uint64_t da = desc_sw128(a), db = desc_sw128(ws + s * D::STAGE_BYTES);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < D::steps(i); ++k) wgmma_n<D::G>(acc, da + 2 * k, db + 2 * k);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+
+      PHASE(1);
+      // z = tanh(g[:GH]) * sigmoid(g[GH:]): fragment j (columns 8j + [0, 8))
+      // of the tanh half sits in acc[4j..4j+3], its sigmoid partner in
+      // acc[4(j + GH/8)..]
+#pragma unroll
+      for (int j = 0; j < D::GH / 8; ++j) {
+        const int col = 8 * j + q2;
+        const float2 bt = __ldg(reinterpret_cast<const float2*>(b_g + col));
+        const float2 bs = __ldg(reinterpret_cast<const float2*>(b_g + D::GH + col));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 4 * j + 2 * h, f = 4 * (j + D::GH / 8) + 2 * h;
+          *reinterpret_cast<uint32_t*>(smem + D::Z_OFF + swz(r0 + 8 * h, col)) =
+              pack(gate(acc[e] + bt.x, acc[f] + bs.x),
+                   gate(acc[e + 1] + bt.y, acc[f + 1] + bs.y));
+        }
+      }
+      // this thread's x(t) for the residual, then the activations go back to
+      // the producer for the next tile
+      uint32_t xr[D::C / 8][2];
+#pragma unroll
+      for (int j = 0; j < D::C / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          xr[j][h] = *reinterpret_cast<const uint32_t*>(smem + D::X_OFF +
+                                                        swz(r0 + 8 * h, 8 * j + q2));
+      __syncwarp();
+      if (lane == 0) mbar_arrive(a_empty);
+      // make z visible to wgmma (the async proxy), then to the whole warpgroup
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+
+      PHASE(2);
+      // out product over z's k-slices
+      float out[D::N_OUT / 2];
+#pragma unroll
+      for (int i = 0; i < D::N_OUT / 2; ++i) out[i] = 0.f;
+#pragma unroll
+      for (int o = 0; o < D::NCH_OUT; ++o, ++c) {
+        const int s = c % STAGES;
+        mbar_wait(full + 8 * s, (c / STAGES) & 1);
+        const uint64_t da = desc_sw128(zs + o * TILE_BYTES + wg_rows);
+        const uint64_t db = desc_sw128(ws + s * D::STAGE_BYTES);
+        fence_regs(out);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < KC / 16; ++k) wgmma_n<D::N_OUT>(out, da + 2 * k, db + 2 * k);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(out);
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+
+      PHASE(3);
+      // the skip_acc rows: every consumer warp waits for both slots (so that
+      // its releases count in the right phase) and reads its own
+      for (int k = 0; k < n_acc; ++k) {
+        const int s = (c + k) % STAGES;
+        mbar_wait(full + 8 * s, ((c + k) / STAGES) & 1);
+      }
+      const float* acc_s =
+          reinterpret_cast<const float*>(smem + D::W_OFF + ((c + wg) % STAGES) * D::STAGE_BYTES);
+
+      // epilogue: fragment j holds output columns 8j + q2 + {0, 1} of rows r0
+      // (h = 0) and r0 + 8 (h = 1); j < C/8 is the residual half
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h, t = t0 + r;
+        if (t >= T) continue;
+        const size_t row = static_cast<size_t>(b) * T + t;
+#pragma unroll
+        for (int j = 0; j < D::N_OUT / 8; ++j) {
+          const int col = 8 * j + q2;
+          const float2 bias = __ldg(reinterpret_cast<const float2*>(b_out + col));
+          const float o0 = out[4 * j + 2 * h] + bias.x;
+          const float o1 = out[4 * j + 2 * h + 1] + bias.y;
+          if (j < D::C / 8) {
+            if (ACC && last) continue;
+            __nv_bfloat162 xv;
+            *reinterpret_cast<uint32_t*>(&xv) = xr[j][h];
+            const float2 xo = __bfloat1622float2(xv);
+            *reinterpret_cast<uint32_t*>(res + row * D::C + col) =
+                pack(xo.x + round_bf16(o0), xo.y + round_bf16(o1));
+          } else if (!ACC) {
+            *reinterpret_cast<uint32_t*>(skip + row * D::S + col - D::C) = pack(o0, o1);
+          } else {
+            float2 v = make_float2(o0, o1);
+            if (!first) {
+              const float2 prev = *reinterpret_cast<const float2*>(
+                  acc_s + (r - wg * WG_ROWS) * D::S + col - D::C);
+              v = make_float2(prev.x + o0, prev.y + o1);
+            }
+            if (last)
+              *reinterpret_cast<uint32_t*>(skip + row * D::S + col - D::C) = pack(v.x, v.y);
+            else
+              *reinterpret_cast<float2*>(skip_acc + row * D::S + col - D::C) = v;
+          }
+        }
+      }
+      for (int k = 0; k < n_acc; ++k) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * ((c + k) % STAGES));
+      }
+      c += n_acc;
+      PHASE(4);
+#ifdef PWN_GATED_LAYER_PHASES
+      if (blockIdx.x == 0 && threadIdx.x == 0) ++gl_phase_cycles[5];
+#endif
     }
   }
 }
 
-template <class D>
+// cuTensorMapEncodeTiled lives in libcuda; the runtime's entry-point query
+// reaches it, so that the library links against nothing but cudart.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map over a row-major (batch, rows, inner) array (rank 3) or (rows,
+// inner) (rank 2), innermost first, with boxes of box_inner x box_rows:
+// bf16 in 64-column boxes with the 128-byte swizzle, or fp32 unswizzled in
+// boxes of whole rows.  Out-of-bounds elements load as zeros.
+bool make_map(CUtensorMap* map, const void* ptr, bool fp32, int rank, uint64_t inner,
+              uint64_t rows, uint64_t batch, uint32_t box_rows) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const uint64_t size = fp32 ? 4 : 2;
+  const cuuint64_t dims[3] = {inner, rows, batch};
+  const cuuint64_t strides[2] = {inner * size, inner * rows * size};
+  const cuuint32_t box[3] = {fp32 ? static_cast<cuuint32_t>(inner) : KC, box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             rank, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             fp32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <class D, bool ACC>
 int launch(const void* x, const void* cond, const void* w_in, const void* b_g,
-           const void* w_out, const void* b_out, void* res, void* skip, int B,
-           int T, int d, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gated_layer_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)D::SMEM);
+           const void* w_out, const void* b_out, void* res, void* skip, void* skip_acc,
+           int B, int T, int d, int first, int last, cudaStream_t st) {
+  CUtensorMap tm_x, tm_cond, tm_win, tm_wout, tm_acc = {};
+  if (!make_map(&tm_x, x, false, 3, D::C, T, B, TM) ||
+      !make_map(&tm_cond, cond, false, 3, D::M, T, B, TM) ||
+      !make_map(&tm_win, w_in, false, 2, D::K_IN, D::G, 1, D::G) ||
+      !make_map(&tm_wout, w_out, false, 2, D::GH, D::N_OUT, 1, D::N_OUT) ||
+      (ACC && !first && !make_map(&tm_acc, skip_acc, true, 3, D::S, T, B, WG_ROWS)))
+    return cudaErrorInvalidValue;
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gated_layer_kernel<D, ACC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, D::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((T + TT - 1) / TT), (unsigned)B);
-  gated_layer_kernel<D><<<grid, NTHREADS, D::SMEM, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(cond),
-      static_cast<const bf16*>(w_in), static_cast<const float*>(b_g),
-      static_cast<const bf16*>(w_out), static_cast<const float*>(b_out),
-      static_cast<bf16*>(res), static_cast<bf16*>(skip), T, d);
+  const int n_tt = (T + TM - 1) / TM, n_tiles = B * n_tt;
+  const int grid = n_tiles < n_sm ? n_tiles : n_sm;
+  gated_layer_kernel<D, ACC><<<grid, NTHREADS, D::SMEM, st>>>(
+      tm_x, tm_cond, tm_win, tm_wout, tm_acc, static_cast<const float*>(b_g),
+      static_cast<const float*>(b_out), static_cast<bf16*>(res), static_cast<bf16*>(skip),
+      static_cast<float*>(skip_acc), T, n_tt, n_tiles, d, first, last);
   return cudaGetLastError();
 }
 
@@ -265,23 +651,57 @@ bool is(int c, int g, int s, int m) {
   return c == D::C && g == D::G && s == D::S && m == D::M;
 }
 
+template <bool ACC>
+int dispatch(const void* x, const void* cond, const void* w_in, const void* b_g,
+             const void* w_out, const void* b_out, void* res, void* skip, void* skip_acc,
+             int B, int T, int c, int g, int s, int m, int d, int first, int last,
+             void* stream) {
+  if (B < 1 || B > 65535 || T < 1 || d < 1) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is<Narrow>(c, g, s, m))
+    return launch<Narrow, ACC>(x, cond, w_in, b_g, w_out, b_out, res, skip, skip_acc, B, T,
+                               d, first, last, st);
+  if (is<Wide>(c, g, s, m))
+    return launch<Wide, ACC>(x, cond, w_in, b_g, w_out, b_out, res, skip, skip_acc, B, T, d,
+                             first, last, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Kernel 5: one gated residual layer on `stream`.  Returns a cudaError_t (0 on
-// success); cudaErrorInvalidValue for widths it is not built for.
+#ifdef PWN_GATED_LAYER_PHASES
+// Copies the phase cycles since the last call into out[6] and clears them.
+int pwn_gated_layer_phases(unsigned long long* out) {
+  const unsigned long long zero[6] = {};
+  cudaError_t err = cudaMemcpyFromSymbol(out, gl_phase_cycles, sizeof(zero));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(gl_phase_cycles, zero, sizeof(zero));
+  return err;
+}
+#endif
+
+// Kernel 5, "layer" epilogue: one gated residual layer on `stream`, res and
+// skip out.  Returns a cudaError_t (0 on success); cudaErrorInvalidValue for
+// widths it is not built for.
 int pwn_gated_layer_bf16(const void* x, const void* cond, const void* w_in,
                          const void* b_g, const void* w_out, const void* b_out,
                          void* res, void* skip, int B, int T, int c, int g, int s,
                          int m, int dilation, void* stream) {
-  if (B < 1 || B > 65535 || T < 1 || dilation < 1) return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is<Narrow>(c, g, s, m))
-    return launch<Narrow>(x, cond, w_in, b_g, w_out, b_out, res, skip, B, T, dilation, st);
-  if (is<Wide>(c, g, s, m))
-    return launch<Wide>(x, cond, w_in, b_g, w_out, b_out, res, skip, B, T, dilation, st);
-  return cudaErrorInvalidValue;
+  return dispatch<false>(x, cond, w_in, b_g, w_out, b_out, res, skip, nullptr, B, T, c, g, s,
+                         m, dilation, 0, 0, stream);
+}
+
+// Kernel 5, "accumulate" epilogue: layer `first` / `last` of a stack.  The
+// fp32 skip_acc is written (first), read and written (middle) or read (last,
+// unless also first); res is written unless last; skip only by the last.
+int pwn_gated_layer_acc_bf16(const void* x, const void* cond, const void* w_in,
+                             const void* b_g, const void* w_out, const void* b_rs,
+                             void* res, void* skip_acc, void* skip, int B, int T, int c,
+                             int g, int s, int m, int dilation, int first, int last,
+                             void* stream) {
+  return dispatch<true>(x, cond, w_in, b_g, w_out, b_rs, res, skip, skip_acc, B, T, c, g, s,
+                        m, dilation, first, last, stream);
 }
 
 }  // extern "C"

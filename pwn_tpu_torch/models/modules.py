@@ -18,31 +18,38 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pwn_tpu_torch.ops.conv import causal_conv1d, conv_transpose1d, shift_right
-from pwn_tpu_torch.ops.flow_stack import (flow_stack, flow_stack_score,
-                                          flow_stack_train, kernel1_takes)
-from pwn_tpu_torch.ops.gated_layer import (TIME_TILE, FusedGatedResidual,
+from pwn_tpu_torch.ops.flow_stack import (TRAIN_KERNEL_DIMS, flow_stack,
+                                          flow_stack_score, flow_stack_train)
+from pwn_tpu_torch.ops.gated_layer import (KERNEL_DIMS as LAYER_KERNEL_DIMS,
+                                           TIME_TILE, FusedGatedResidual,
                                            pack_layer)
 
 # WaveNetStack's execution modes and the stack function each one runs:
-#   infer  inference forward (kernel 1 on the card; no backward there)
+#   infer  inference forward in the reference megakernel's rounding (fp32
+#          skip sum, biases rounded to the compute dtype): on the card kernel
+#          1 where `kernel1_takes` the stack, else kernel 5's accumulate
+#          epilogue once per layer; no backward there
 #   train  forward saving the layer inputs + fused backward (kernels 2, 3)
 #   dx     the same forward; backward to the inputs only (a frozen stack)
-# and "layer": the layers one by one through `FusedGatedResidual` (kernel 5
-# on the card; its backward is plain fp32 matmuls).
+# and "layer": the layers one by one through `FusedGatedResidual` (kernel 5's
+# "layer" epilogue on the card, skip summed in the compute dtype, biases
+# unrounded; its backward is plain fp32 matmuls).
 STACK_FNS = {"infer": flow_stack, "train": flow_stack_train,
              "dx": flow_stack_score}
 STACK_MODES = (*STACK_FNS, "layer")
 
 
 def resolve_stack_mode(flag: str, auto: str) -> str:
-    """A config's `fused_layers` flag -> a WaveNetStack mode.  "auto" takes
-    the caller's default (`auto`): inference models "infer", the training
-    loops "train".  "on" and "layer" are the per-layer kernel.  The
-    reference's XLA paths ("off") have no counterpart in the port.  An
-    "infer" stack that kernel 1 cannot take runs "layer" (WaveNetStack
-    decides, from its widths and dilations)."""
-    modes = {"auto": auto, "mega": "infer", "mega_train": "train",
-             "mega_dx": "dx", "on": "layer", "layer": "layer"}
+    """A config's `fused_layers` flag -> a WaveNetStack mode.  `auto` is the
+    caller's context: "infer" for inference models, "train" for the
+    training loops.  "auto" takes it; "mega" (the reference's whole-stack
+    kernel) is "train" in a training context and "infer" otherwise.  "on"
+    and "layer" are the per-layer kernel.  The reference's XLA paths
+    ("off") have no counterpart in the port.  WaveNetStack may still move a
+    "train" or "dx" stack to "layer" (from its widths and dilations)."""
+    modes = {"auto": auto, "mega": "train" if auto == "train" else "infer",
+             "mega_train": "train", "mega_dx": "dx", "on": "layer",
+             "layer": "layer"}
     if flag not in modes:
         raise NotImplementedError(
             f"fused_layers={flag!r} is not ported (the port's stack modes "
@@ -146,11 +153,19 @@ class WaveNetStack(nn.Module):
     the gated layers run as one call of the mode's stack function over the
     stacked layout of `stacked()`; in "layer" they run one by one through
     `FusedGatedResidual` over the per-layer layout of `layer_weights()`.
-    The mode is fixed when the model is built.  An "infer" stack that
-    kernel 1 cannot take (`kernel1_takes`: other widths, more than 32
-    layers, a dilation above 512, rings past shared memory) runs "layer",
-    as the reference's whole-stack gate sends such a stack to its
-    per-layer kernel.
+    The mode is fixed when the model is built, from widths and dilations
+    alone, as the reference's gates:
+    - "infer" stays "infer" at any width (`flow_stack` picks kernel 1 or
+      kernel 5's accumulate loop on the card; widths neither is built for
+      run the plain version on the CPU and raise on the card);
+    - a "train" or "dx" stack at widths kernels 2 and 3 are not built for
+      (`TRAIN_KERNEL_DIMS`) becomes "layer" where kernel 5 is built for them,
+      as the reference sends an ineligible mega_train / mega_dx stack to its
+      per-layer kernel; elsewhere it stays and raises on the card.  A frozen
+      stack ("dx") that becomes "layer" gets no weight gradients where its
+      parameters do not require grad (autograd drops them);
+    - a dilation above 512 raises in "infer" and "layer": the reference
+      runs such a stack in XLA, which is not ported.
     """
 
     def __init__(self, dilations: Sequence[int], residual_channels: int,
@@ -163,10 +178,12 @@ class WaveNetStack(nn.Module):
                 f"stack mode {mode!r}; one of {sorted(STACK_MODES)}")
         C, S = residual_channels, skip_channels
         self.dilations = tuple(dilations)
-        if mode == "infer" and not kernel1_takes(
-                self.dilations, C, gate_channels, S, cond_channels):
+        dims = (C, gate_channels, S, cond_channels)
+        if (mode in ("train", "dx") and dims != TRAIN_KERNEL_DIMS
+                and dims in LAYER_KERNEL_DIMS
+                and max(self.dilations) <= TIME_TILE):
             mode = "layer"
-        if mode == "layer" and max(self.dilations) > TIME_TILE:
+        if mode in ("infer", "layer") and max(self.dilations) > TIME_TILE:
             raise NotImplementedError(
                 f"a dilation above {TIME_TILE} needs the reference's XLA "
                 "stack, which is not ported")

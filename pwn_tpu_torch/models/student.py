@@ -51,8 +51,10 @@ class StudentIAF(nn.Module):
     def __init__(self, config: Config, device=None):
         super().__init__()
         _check_base(config)
-        self.config = config
         sc, tc = config.student, config.teacher
+        if sc.kernel_size != 2:
+            raise NotImplementedError("WaveNetStack uses kernel_size=2")
+        self.config = config
         dtype = DTYPES[sc.compute_dtype]
         self.upsample = UpsampleNet(
             strides=tc.upsample_strides, channels=config.dsp.n_mels,

@@ -28,8 +28,9 @@ class TeacherWaveNet(nn.Module):
 
     `stack_mode` is the WaveNetStack mode ("infer", "layer", "train" or
     "dx"); by default it follows `teacher.fused_layers`, whose "auto" means
-    "infer" here, as it means the inference kernel in the reference (and
-    "layer" for a stack kernel 1 cannot take, such as teacher_lj's)."""
+    "infer" here, as it means the whole-stack inference kernel in the
+    reference (kernel 1 or kernel 5's accumulate loop on the card).  The
+    training loop asks for "train" (`WaveNetStack` may make it "layer")."""
 
     def __init__(self, config: Config, stack_mode: str | None = None,
                  device=None):

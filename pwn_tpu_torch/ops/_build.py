@@ -147,6 +147,13 @@ def load_library() -> ctypes.CDLL:
         i, i, i, i, i, i, i, p,        # B, T, C, G, S, M, dilation, stream
     ]
     lib.pwn_gated_layer_bf16.restype = i
+    lib.pwn_gated_layer_acc_bf16.argtypes = [
+        p, p, p, p, p, p, p, p, p,     # x, cond, w_in, b_g, w_out, b_rs, res,
+                                       # skip_acc, skip
+        i, i, i, i, i, i, i, i, i, p,  # B, T, C, G, S, M, dilation, first,
+                                       # last, stream
+    ]
+    lib.pwn_gated_layer_acc_bf16.restype = i
     lib.pwn_cuda_error_string.argtypes = [i]
     lib.pwn_cuda_error_string.restype = ctypes.c_char_p
     return lib

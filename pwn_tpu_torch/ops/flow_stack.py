@@ -1,7 +1,10 @@
 """Whole-stack WaveNet flow: plain PyTorch versions and the wrappers of the
 CUDA kernels (counterpart of `pwn_tpu/ops/pallas/flow_stack.py`).
 
-Inference (`fused_flow_stack`):  `flow_stack` -> `csrc/flow_stack.cu`.
+Inference (`fused_flow_stack`):  `flow_stack` -> `csrc/flow_stack.cu`
+(kernel 1, student widths), or at the other widths kernel 5's accumulate
+epilogue once per layer (`csrc/gated_layer.cu`, through
+`ops/gated_layer.py::flow_stack_by_layers`).
 Training (`fused_flow_stack_train` / `fused_flow_stack_score`):
 `flow_stack_train` / `flow_stack_score`, a `torch.autograd.Function`
 whose forward is `flow_stack_train_forward` (kernel 2, which also saves
@@ -68,32 +71,42 @@ def kernel1_takes(dilations: Sequence[int], C: int, G: int, S: int,
     """Whether kernel 1 takes a stack of these widths and dilations: its
     compiled widths, at most 32 layers, a largest dilation of at most 512
     (the reference's one-tile bound) and rings that fit a block's shared
-    memory.  The counterpart of the reference's `mega_ok` gate
-    (`mega_fits_vmem`); widths and dilations alone decide, so the answer is
-    the same on the CPU and on the card."""
+    memory.  It picks the kernel of an inference stack, not its rounding:
+    where it does not hold, `flow_stack` runs kernel 5's accumulate loop.
+    Widths and dilations alone decide, so the answer is the same on the CPU
+    and on the card."""
     return ((C, G, S, M) == KERNEL_DIMS and 1 <= len(dilations) <= 32
             and max(dilations) <= 512
             and _kernel1_smem_bytes(sum(dilations)) <= SMEM_PER_BLOCK)
 
 
+def layer_out(x, cond, w_in, b, w_out, b_out, dilation: int) -> torch.Tensor:
+    """One layer's out = z @ W_out + b_out in fp32, z = tanh(g[:G/2]) *
+    sigmoid(g[G/2:]) rounded to x's dtype, g = [x | shift(x, d) | cond] @
+    W_in + b: the arithmetic and rounding points every plain version here
+    and in `ops/gated_layer.py` shares (operands in x's dtype, GEMM sums,
+    biases and gates in fp32; the operands are exact in fp32)."""
+    dt = x.dtype
+    f32 = torch.float32
+    cat = torch.cat([x, shift_right(x, dilation), cond.to(dt)], dim=-1)
+    g = cat.to(f32) @ w_in.to(dt).to(f32).mT + b.to(f32)
+    a, s = g.chunk(2, dim=-1)
+    z = (torch.tanh(a) * torch.sigmoid(s)).to(dt)
+    return z.to(f32) @ w_out.to(dt).to(f32).mT + b_out.to(f32)
+
+
 def _stack_reference(x0, cond, w_in, b_g, w_out, b_rs,
                      dilations: Sequence[int], save_acts: bool):
     dt = x0.dtype
-    f32 = torch.float32
     C = x0.shape[-1]
     x = x0
-    cond = cond.to(dt)
-    skip = torch.zeros(x0.shape[:-1] + (w_out.shape[1] - C,), dtype=f32,
-                       device=x0.device)
+    skip = torch.zeros(x0.shape[:-1] + (w_out.shape[1] - C,),
+                       dtype=torch.float32, device=x0.device)
     acts = []
     for l, d in enumerate(dilations):
         if save_acts:
             acts.append(x)
-        cat = torch.cat([x, shift_right(x, d), cond], dim=-1)
-        g = cat.to(f32) @ w_in[l].to(dt).to(f32).mT + b_g[l].to(f32)
-        a, b = g.chunk(2, dim=-1)
-        z = (torch.tanh(a) * torch.sigmoid(b)).to(dt)
-        out = z.to(f32) @ w_out[l].to(dt).to(f32).mT + b_rs[l].to(f32)
+        out = layer_out(x, cond, w_in[l], b_g[l], w_out[l], b_rs[l], d)
         x = x + out[..., :C].to(dt)
         skip = skip + out[..., C:]
     return skip.to(dt), (torch.stack(acts) if save_acts else None)
@@ -282,18 +295,28 @@ def segment_length(B: int, T: int, n_sm: int, tile: int) -> int:
 
 def flow_stack(x0, cond, w_in, b_g, w_out, b_rs, dilations: Sequence[int],
                *, segment: int | None = None) -> torch.Tensor:
-    """Whole-stack forward; see the module docstring.  `segment` overrides
-    the kernel's samples per block (default `segment_length`); the result
-    does not depend on it.
-    `flow_stack.launches` counts the kernel launches."""
+    """Whole-stack forward; see the module docstring.  On a CUDA tensor,
+    kernel 1 where `kernel1_takes` the stack, else kernel 5's accumulate
+    epilogue once per layer (`gated_layer.flow_stack_by_layers`), which
+    keeps the same rounding; a stack that neither kernel takes raises.
+    `segment` overrides kernel 1's samples per block (default
+    `segment_length`); the result does not depend on it.
+    `flow_stack.launches` counts kernel 1's launches (kernel 5's count on
+    `gated_layer.launches`)."""
     if x0.device.type == "cpu":
         return flow_stack_reference(x0, cond, w_in, b_g, w_out, b_rs,
                                     dilations)
-    check_kernel_args(x0, cond, w_in, b_g, w_out, b_rs, dilations)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x0, cond, w_in, b_g, w_out, b_rs)):
-        raise RuntimeError("the flow_stack kernel has no backward yet; "
-                           "call it under torch.no_grad()")
+        raise RuntimeError("the flow_stack kernels have no backward; "
+                           "call them under torch.no_grad()")
+    _, _, C, _, G, S, M = _stack_dims(x0, cond, w_in, w_out)
+    if not kernel1_takes(dilations, C, G, S, M):
+        from pwn_tpu_torch.ops.gated_layer import flow_stack_by_layers
+
+        return flow_stack_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
+                                    dilations)
+    check_kernel_args(x0, cond, w_in, b_g, w_out, b_rs, dilations)
     from pwn_tpu_torch.ops import _build
 
     lib = _build.load_library()

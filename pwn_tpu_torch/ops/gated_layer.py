@@ -1,6 +1,6 @@
-"""One gated residual layer: the plain PyTorch version, the wrapper of its
-CUDA kernel, and the differentiable layer (counterpart of
-`pwn_tpu/ops/pallas/gated_layer.py`).
+"""One gated residual layer: the plain PyTorch version, the wrappers of its
+CUDA kernel (kernel 5) in its two epilogues, and the differentiable layer
+(counterpart of `pwn_tpu/ops/pallas/gated_layer.py`).
 
     g    = [x | shift(x, d) | cond] @ W_in + b_g
     z    = tanh(g[..., :G/2]) * sigmoid(g[..., G/2:])
@@ -17,14 +17,22 @@ CUDA kernel, and the differentiable layer (counterpart of
                            [residual | skip]
     b_out (C+S,)           float32, [b_res | b_skip] unrounded
 and returns (res (B, T, C), skip (B, T, S)) in the compute dtype.  The
-weights are the reference's `(2C+M, G)` and `(G/2, C+S)` transposed, the
-order the CUDA kernel reads its mma B fragments in.
+weights are the reference's `(2C+M, G)` and `(G/2, C+S)` transposed: the
+K-major B operand the CUDA kernel's wgmma reads.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
 (`csrc/gated_layer.cu`, built for (C, G, S, M) = (64, 128, 64, 80) and
 (128, 256, 128, 80)) or raises.  Rounding points, kept by both: the GEMMs
 accumulate in fp32, the biases and the gates are fp32, z and out are
 rounded to the compute dtype, and res is the compute-dtype sum x + out.
+
+`gated_layer_accumulate` is the same layer in kernel 5's "accumulate"
+epilogue, one layer of the whole-stack forward with the reference
+megakernel's rounding (`pwn_tpu/ops/pallas/flow_stack.py::_kernel`): the
+skip half stays fp32 and is summed across layers in a (B, T, S) buffer,
+and only the last layer rounds it.  `flow_stack_by_layers` runs it over a
+stack; `ops/flow_stack.py::flow_stack` calls that at the widths kernel 1 is
+not built for.
 
 `fused_gated_residual` is the reference's differentiable layer on the raw
 layer parameters: `FusedGatedResidual`, whose forward is `gated_layer` and
@@ -34,11 +42,13 @@ which runs in XLA outside any Pallas kernel, so plain matmuls here).
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 from pwn_tpu_torch.ops.conv import shift_right
 from pwn_tpu_torch.ops.flow_stack import (_check_operands, _device_call,
-                                          _shift_left)
+                                          _shift_left, layer_out)
 
 # The reference's time tile: its kernel reaches the tap through the previous
 # tile, so it refuses a dilation above one tile.  The CUDA kernel has no
@@ -61,14 +71,8 @@ def pack_layer(w_dilated, b_dilated, w_cond, b_cond, w_res, b_res, w_skip,
 
 def gated_layer_reference(x, cond, w_in, b_g, w_out, b_out, dilation: int):
     """Plain PyTorch layer in the module docstring's rounding order."""
-    dt = x.dtype
-    f32 = torch.float32
     C = x.shape[-1]
-    cat = torch.cat([x, shift_right(x, dilation), cond.to(dt)], dim=-1)
-    g = cat.to(f32) @ w_in.to(dt).to(f32).mT + b_g.to(f32)
-    a, b = g.chunk(2, dim=-1)
-    z = (torch.tanh(a) * torch.sigmoid(b)).to(dt)
-    out = (z.to(f32) @ w_out.to(dt).to(f32).mT + b_out.to(f32)).to(dt)
+    out = layer_out(x, cond, w_in, b_g, w_out, b_out, dilation).to(x.dtype)
     return x + out[..., :C], out[..., C:]
 
 
@@ -113,6 +117,116 @@ def gated_layer(x, cond, w_in, b_g, w_out, b_out, dilation: int):
 
 
 gated_layer.launches = 0
+
+
+def gated_layer_accumulate_reference(x, cond, w_in, b_g, w_out, b_rs,
+                                     dilation: int, skip_acc, *, first: bool,
+                                     last: bool, out=None):
+    """Plain PyTorch accumulate epilogue, with `gated_layer_accumulate`'s
+    contract (skip_acc updated in place unless `last`)."""
+    C = x.shape[-1]
+    o = layer_out(x, cond, w_in, b_g, w_out, b_rs, dilation)
+    s = o[..., C:] if first else skip_acc + o[..., C:]
+    if last:
+        return _into(out, s.to(x.dtype))
+    skip_acc.copy_(s)
+    return _into(out, x + o[..., :C].to(x.dtype))
+
+
+def _into(out, value):
+    if out is None:
+        return value
+    out.copy_(value)
+    return out
+
+
+def check_accumulate_args(x, cond, w_in, b_g, w_out, b_rs, dilation: int,
+                          skip_acc, out, *, first: bool, last: bool) -> None:
+    """Raise ValueError on anything the accumulate epilogue does not take:
+    its buffers (`out`, and `skip_acc` unless the layer is both first and
+    last), then the layer's operands as `check_gated_layer_args`."""
+    if x.dim() != 3:
+        raise ValueError("x and cond must be (B, T, channels)")
+    B, T, C = x.shape
+    S = w_out.shape[0] - C
+    bufs = {"out": (out, x.dtype, (B, T, S) if last else (B, T, C))}
+    if not (first and last):
+        bufs["skip_acc"] = (skip_acc, torch.float32, (B, T, S))
+    for name, (t, dt, shape) in bufs.items():
+        if (t is None or t.dtype != dt or tuple(t.shape) != shape
+                or t.device != x.device or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"{shape} {dt} tensor on {x.device}")
+    if not last and out.data_ptr() == x.data_ptr():
+        raise ValueError("res must not overwrite x: other tiles read its taps")
+    check_gated_layer_args(x, cond, w_in, b_g, w_out, b_rs, dilation)
+
+
+def gated_layer_accumulate(x, cond, w_in, b_g, w_out, b_rs, dilation: int,
+                           skip_acc, *, first: bool, last: bool, out=None):
+    """Kernel 5's "accumulate" epilogue: layer `first` / `last` of the
+    whole-stack forward, in its rounding (`flow_stack_reference`).  The
+    operands are `gated_layer`'s, with `b_g` and `b_rs` from the stacked
+    layout (rounded to the compute dtype, held in fp32).  `skip_acc`
+    (B, T, S) fp32 holds the skip sum of the layers before: the first layer
+    sets it to its own skip, a middle layer adds to it in place, the last
+    leaves it (and it may be None where the layer is both).  Returns the
+    layer's res (B, T, C), or for the last layer the stack's output
+    bf16(skip_acc + skip) (B, T, S), written into `out` if given.  A CPU
+    tensor goes to the plain version; a CUDA tensor to the kernel or raises.
+    Each launch counts on `gated_layer.launches`."""
+    if dilation > TIME_TILE:
+        raise ValueError(f"dilation {dilation} > TIME_TILE {TIME_TILE}: the "
+                         "reference's per-layer kernel does not take it")
+    if x.device.type == "cpu":
+        return gated_layer_accumulate_reference(
+            x, cond, w_in, b_g, w_out, b_rs, dilation, skip_acc, first=first,
+            last=last, out=out)
+    if out is None:
+        B, T, C = x.shape
+        out = torch.empty((B, T, w_out.shape[0] - C) if last else x.shape,
+                          dtype=x.dtype, device=x.device)
+    check_accumulate_args(x, cond, w_in, b_g, w_out, b_rs, dilation,
+                          skip_acc, out, first=first, last=last)
+    B, T, C = x.shape
+    G, M, S = w_in.shape[0], cond.shape[-1], w_out.shape[0] - C
+    _device_call(
+        "pwn_gated_layer_acc_bf16", x.device,
+        x.data_ptr(), cond.data_ptr(), w_in.data_ptr(), b_g.data_ptr(),
+        w_out.data_ptr(), b_rs.data_ptr(),
+        None if last else out.data_ptr(),
+        None if first and last else skip_acc.data_ptr(),
+        out.data_ptr() if last else None,
+        B, T, C, G, S, M, dilation, int(first), int(last))
+    gated_layer.launches += 1
+    return out
+
+
+def flow_stack_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
+                         dilations: Sequence[int]) -> torch.Tensor:
+    """`flow_stack` on the stacked layout at widths kernel 1 is not built
+    for: `gated_layer_accumulate` once per layer over the per-layer views of
+    the stacked weights (nothing copied), the fp32 skip sum carried between
+    launches and rounded once, and the residual stream in two buffers
+    taken in turn.  Returns the skip sum (B, T, S) in the compute dtype."""
+    L = len(dilations)
+    if L < 1 or w_in.dim() != 3 or len(w_in) != L or len(w_out) != L:
+        raise ValueError(f"need one (w_in, w_out) per dilation, got "
+                         f"{tuple(w_in.shape)}, {tuple(w_out.shape)} for "
+                         f"{L} dilations")
+    B, T, C = x0.shape
+    S = w_out.shape[1] - C
+    skip_acc = (torch.empty((B, T, S), dtype=torch.float32, device=x0.device)
+                if L > 1 else None)
+    bufs = [torch.empty_like(x0) for _ in range(min(L - 1, 2))]
+    x = x0
+    for l, d in enumerate(dilations):
+        last = l == L - 1
+        x = gated_layer_accumulate(
+            x, cond, w_in[l], b_g[l], w_out[l], b_rs[l], d, skip_acc,
+            first=l == 0, last=last, out=None if last else bufs[l % 2])
+    return x
 
 
 class FusedGatedResidual(torch.autograd.Function):

@@ -96,8 +96,10 @@ def run_teacher_training(cfg: Config, workdir: Optional[str] = None,
                          device=None) -> RunResult:
     """Train the teacher for `num_steps` (default `train.total_steps`) on
     `device` (default: the CUDA card; the CPU only when passed
-    explicitly).  The stack runs in the "train" mode ("auto" maps to it,
-    as the reference maps it to mega_train), for the eval pass too."""
+    explicitly).  The stack runs in the "train" mode ("auto" and "mega" map
+    to it, as the reference trains them with mega_train), for the eval pass
+    too; at widths kernels 2 and 3 are not built for, `WaveNetStack` makes
+    it "layer" (kernel 5 forward, fp32 recompute backward)."""
     _refuse(workdir, data_dir)
     device = require_cuda() if device is None else torch.device(device)
     model = init_teacher(

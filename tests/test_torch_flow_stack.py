@@ -1,7 +1,8 @@
 """The port's flow stack: the plain PyTorch version against the JAX Pallas
 kernel (interpret mode, as the reference's own CPU tests run it) and its
 XLA scan, the wrapper's dispatch and argument checks, and — on a CUDA
-card only — the hand-written kernel against the plain version.
+card only — the hand-written kernels against the plain version: kernel 1
+at student widths, kernel 5's accumulate loop at C=128.
 
 JAX is imported inside the fixture that needs it, so the CUDA cases also
 run where JAX is absent:
@@ -14,9 +15,11 @@ import pytest
 import torch
 
 from pwn_tpu_torch.ops import _build
-from pwn_tpu_torch.ops.flow_stack import (KERNEL_DIMS, check_kernel_args,
-                                          flow_stack, flow_stack_reference,
+from pwn_tpu_torch.ops.flow_stack import (KERNEL_DIMS, TRAIN_KERNEL_DIMS,
+                                          check_kernel_args, flow_stack,
+                                          flow_stack_reference,
                                           segment_length)
+from pwn_tpu_torch.ops.gated_layer import gated_layer
 
 SMALL = dict(B=2, T=1024, C=16, M=8, G=32, S=16, dilations=(1, 2, 4, 512))
 STUDENT_DILATIONS = tuple(2 ** i for i in range(10))
@@ -232,6 +235,29 @@ def test_kernel_matches_reference_on_card(cuda, B, T):
                                    dilations=STUDENT_DILATIONS)
     torch.cuda.synchronize()
     assert flow_stack.launches == before + 1
+    err = (out.float() - ref).abs().reshape(B, -1).amax(1)
+    scale = ref.abs().reshape(B, -1).amax(1)
+    assert (err / scale <= 0.02).all(), (err / scale).tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T", [(2, 4096), (1, 1000), (3, 5003), (1, 1)])
+def test_wide_stack_runs_the_layer_kernel_on_card(cuda, B, T):
+    """At C=128 (large_student_sharded's widths, which kernel 1 is not built
+    for) `flow_stack` runs kernel 5's accumulate epilogue once per layer:
+    10 launches, none of kernel 1, and per batch row within 0.02 of the
+    plain version in fp32 (the bound chip_smoke.py states)."""
+    C, G, S, M = TRAIN_KERNEL_DIMS
+    args = _torch(_inputs(6, B, T, C, M, G, S, STUDENT_DILATIONS),
+                  torch.bfloat16, cuda)
+    k1, k5 = flow_stack.launches, gated_layer.launches
+    with torch.inference_mode():
+        out = flow_stack(**args, dilations=STUDENT_DILATIONS)
+        ref = flow_stack_reference(**{k: v.float() for k, v in args.items()},
+                                   dilations=STUDENT_DILATIONS)
+    torch.cuda.synchronize()
+    assert (flow_stack.launches - k1, gated_layer.launches - k5) == (0, 10)
+    assert out.dtype == torch.bfloat16 and out.shape == (B, T, S)
     err = (out.float() - ref).abs().reshape(B, -1).amax(1)
     scale = ref.abs().reshape(B, -1).amax(1)
     assert (err / scale <= 0.02).all(), (err / scale).tolist()

@@ -1,10 +1,12 @@
 """The port's per-layer gated residual layer (kernel 5's module) against the
 JAX reference: the layer's forward and custom-VJP gradients against the
 Pallas kernel in interpret mode (as tests/test_pallas_kernels.py runs it),
-the "layer" stack mode against the JAX stack with `fused=True`, student
-synthesis with `fused_layers="layer"`, the stack-mode choice, the
-`large_student_sharded` tree and mel, and — on a CUDA card only — the
-hand-written kernel against its plain version.
+the "layer" stack mode against the JAX stack with `fused=True`, the "infer"
+stack at `large_student_sharded` widths (kernel 5's accumulate epilogue on
+the card) against the JAX stack with `mega=True`, student synthesis with
+`fused_layers="layer"`, the stack-mode choice, the `large_student_sharded`
+tree and mel, and — on a CUDA card only — the hand-written kernel in both
+epilogues against its plain version.
 
 Inputs come from a numpy seed; parameters from JAX's initialisers through
 `convert.params_from_flax`.  JAX is imported inside the tests and fixtures
@@ -18,13 +20,17 @@ import pytest
 import torch
 
 from pwn_tpu_torch import convert, get_config, override
-from pwn_tpu_torch.models.modules import WaveNetStack
+from pwn_tpu_torch.models.modules import WaveNetStack, resolve_stack_mode
 from pwn_tpu_torch.models.student import StudentIAF, init_student
 from pwn_tpu_torch.models.teacher import TeacherWaveNet, init_teacher
-from pwn_tpu_torch.ops.flow_stack import kernel1_takes
+from pwn_tpu_torch.ops.flow_stack import (flow_stack_reference, kernel1_takes,
+                                          layer_out)
 from pwn_tpu_torch.ops.gated_layer import (KERNEL_DIMS, TIME_TILE,
+                                           check_accumulate_args,
                                            check_gated_layer_args,
+                                           flow_stack_by_layers,
                                            fused_gated_residual, gated_layer,
+                                           gated_layer_accumulate,
                                            gated_layer_reference, pack_layer)
 from torch_parity import jax_config
 
@@ -328,6 +334,179 @@ def test_layer_stack_matches_jax_fused_stack(jax_layer, dilations, C, G, S,
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_infer_stack_matches_jax_mega_stack(jax_layer, dtype, tol):
+    """An "infer" WaveNetStack at large_student_sharded's widths (10 layers,
+    dilations to 512, C=128, G=256, S=128, M=80; B=1, T=512) against the
+    JAX stack with mega=True, the Pallas whole-stack kernel in interpret
+    mode: both sum skip in fp32 and round it once, with b_g and b_rs rounded
+    to the compute dtype.  float32: rtol and atol 1e-4, only the summation
+    order differs (8e-7 of the output's max measured).  bfloat16: max|diff|
+    within 0.02 of max|want|: the summation order flips an occasional bf16
+    rounding of x or z, which ten layers and the bf16 heads carry (0.009
+    measured)."""
+    import jax
+    import jax.numpy as jnp
+
+    from pwn_tpu.models.modules import WaveNetStack as JaxStack
+
+    dilations, (C, G, S, M) = tuple(2 ** i for i in range(10)), KERNEL_DIMS[1]
+    port = WaveNetStack(dilations, C, G, S, 2, M, dtype=dtype)
+    assert port.mode == "infer"
+    params = _jitter(port, 0)
+    jstack = JaxStack(dilations=dilations, residual_channels=C,
+                      gate_channels=G, skip_channels=S, out_dim=2,
+                      dtype=jnp.float32 if dtype == torch.float32
+                      else jnp.bfloat16, mega=True)
+    rng = np.random.default_rng(11)
+    x = rng.uniform(-0.8, 0.8, (1, 512, 1)).astype(np.float32)
+    cond = rng.uniform(0, 1, (1, 512, M)).astype(np.float32)
+    want = np.asarray(jax.jit(jstack.apply)(
+        {"params": params}, jnp.asarray(x), jnp.asarray(cond)))
+    with torch.no_grad():
+        got = port(_t(x), _t(cond)).numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    else:
+        assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+def _stack_args(seed, L, dtype, B=2, T=500, C=16, G=32, S=16, M=8):
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape, s=0.2):
+        return torch.from_numpy((rng.standard_normal(shape) * s).astype(
+            np.float32))
+
+    return dict(x0=mk(B, T, C, s=1.0).to(dtype),
+                cond=mk(B, T, M, s=1.0).to(dtype),
+                w_in=mk(L, G, 2 * C + M).to(dtype), b_g=mk(L, G),
+                w_out=mk(L, C + S, G // 2).to(dtype), b_rs=mk(L, C + S))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dilations", [(1,), (1, 512), (1, 4, 64, 512)])
+def test_accumulate_layer_by_layer_is_the_stack_reference(dtype, dilations):
+    """The plain accumulate epilogue applied layer by layer over the stacked
+    layout's per-layer views (`flow_stack_by_layers` on CPU tensors) is
+    `flow_stack_reference` bit for bit: the same arithmetic in the same
+    order, for one layer (first and last at once), two (a tap past the
+    sequence) and four; the CPU path launches nothing."""
+    args = _stack_args(20, len(dilations), dtype)
+    before = gated_layer.launches
+    got = flow_stack_by_layers(**args, dilations=dilations)
+    assert gated_layer.launches == before
+    want = flow_stack_reference(**args, dilations=dilations)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_accumulate_keeps_the_skip_sum_in_fp32():
+    """One middle layer: skip_acc grows by the layer's unrounded fp32 skip
+    (out[C:] + b), res is bf16(x + bf16(out[:C])); the last layer returns
+    bf16(skip_acc + skip) and leaves skip_acc as it was."""
+    a = _stack_args(21, 1, torch.bfloat16)
+    layer = (a["x0"], a["cond"], a["w_in"][0], a["b_g"][0], a["w_out"][0],
+             a["b_rs"][0], 3)
+    C = a["x0"].shape[-1]
+    out = layer_out(*layer)
+    acc0 = torch.randn(out[..., C:].shape, generator=torch.Generator()
+                       .manual_seed(0))
+    acc = acc0.clone()
+    res = gated_layer_accumulate(*layer, acc, first=False, last=False)
+    torch.testing.assert_close(acc, acc0 + out[..., C:], rtol=0, atol=0)
+    torch.testing.assert_close(
+        res, a["x0"] + out[..., :C].bfloat16(), rtol=0, atol=0)
+    acc = acc0.clone()
+    skip = gated_layer_accumulate(*layer, acc, first=False, last=True)
+    assert torch.equal(acc, acc0) and skip.dtype == torch.bfloat16
+    torch.testing.assert_close(skip, (acc0 + out[..., C:]).bfloat16(),
+                               rtol=0, atol=0)
+
+
+def _acc_kernel_args(B=2, T=256, dims=KERNEL_DIMS[1]):
+    args = _kernel_args(B, T, dims)
+    args["b_rs"] = args.pop("b_out").bfloat16().float()
+    return dict(args, skip_acc=torch.zeros((B, T, dims[2])),
+                out=torch.empty((B, T, dims[0]), dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("change,match", [
+    (lambda a: a.update(skip_acc=a["skip_acc"].bfloat16()),
+     "skip_acc must be"),
+    (lambda a: a.update(skip_acc=None), "skip_acc must be"),
+    (lambda a: a.update(skip_acc=a["skip_acc"][:, :100]), "skip_acc must be"),
+    (lambda a: a.update(out=a["out"][..., :64]), "out must be"),
+    (lambda a: a.update(out=a["x"]), "must not overwrite x"),
+    (lambda a: a.update(x=a["x"][..., :96], w_in=a["w_in"][:, 32:],
+                        w_out=a["w_out"][32:], skip_acc=a["skip_acc"],
+                        out=a["out"][..., :96].contiguous()),
+     "kernel is built for"),
+    (lambda a: None, "CUDA device"),
+])
+def test_accumulate_argument_checks(change, match):
+    """What the accumulate epilogue does not take raises before any launch:
+    its fp32 skip_acc and its output buffer, then the layer's operands."""
+    args = _acc_kernel_args()
+    change(args)
+    with pytest.raises(ValueError, match=match):
+        check_accumulate_args(**args, dilation=4, first=False, last=False)
+
+
+@pytest.mark.parametrize("flag,context,mode", [
+    ("mega", "train", "train"), ("mega", "infer", "infer"),
+    ("auto", "train", "train"), ("auto", "infer", "infer"),
+    ("mega_dx", "infer", "dx"), ("layer", "train", "layer"),
+])
+def test_resolve_stack_mode_in_context(flag, context, mode):
+    """"mega" in a training context is the training stack, as the reference
+    trains it (`mega_train`); in an inference context the inference
+    stack."""
+    assert resolve_stack_mode(flag, context) == mode
+
+
+@pytest.mark.parametrize("dims,mode,want", [
+    ((64, 128, 64, 80), "train", "layer"),
+    ((64, 128, 64, 80), "dx", "layer"),
+    ((64, 128, 64, 80), "infer", "infer"),
+    ((128, 256, 128, 80), "train", "train"),
+    ((128, 256, 128, 80), "dx", "dx"),
+    ((128, 256, 128, 80), "infer", "infer"),
+    ((64, 128, 64, 40), "train", "train"),  # no kernel: raises on the card
+    ((64, 128, 64, 40), "infer", "infer"),
+])
+def test_training_stack_mode_from_widths(dims, mode, want):
+    """A "train" or "dx" stack at widths kernels 2 and 3 are not built for
+    runs "layer" where kernel 5 is built for them (the reference's
+    per-layer fallback for an ineligible mega_train / mega_dx stack), and
+    keeps its mode elsewhere; "infer" stays "infer" at every width."""
+    C, G, S, M = dims
+    stack = WaveNetStack(tuple(2 ** i for i in range(10)), C, G, S, 2, M,
+                         mode=mode)
+    assert stack.mode == want
+
+
+def test_tiny_teacher_keeps_train_in_a_training_context():
+    """tiny_teacher (40 mel bands, which no kernel is built for) in the
+    training loop's context builds in "train" for "auto" and "mega", and
+    its loss and gradients run on the CPU (the plain versions)."""
+    from pwn_tpu_torch.training.teacher import prepare_batch
+
+    for flag in ("auto", "mega"):
+        cfg = override(TINY, "teacher.fused_layers", flag)
+        port = init_teacher(cfg, torch.Generator().manual_seed(0),
+                            stack_mode=resolve_stack_mode(flag, "train"),
+                            device="cpu")
+        assert port.stack.mode == "train"
+    wav = torch.from_numpy(np.random.default_rng(3).uniform(
+        -0.5, 0.5, (1, 1024)).astype(np.float32))
+    loss = port.loss(*prepare_batch(wav, cfg))
+    grads = torch.autograd.grad(loss, list(port.parameters()))
+    assert np.isfinite(float(loss.detach()))
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
 def test_layer_weights_are_cached_and_unrounded():
     """With grad off the per-layer weights are built once and reused until
     a parameter changes; their gate bias is b_dilated + b_cond in fp32,
@@ -383,29 +562,32 @@ def test_student_generate_from_z_with_layer_flag_matches_jax(jax_layer):
 
 
 @pytest.mark.parametrize("name,flag,mode", [
-    ("large_student_sharded", "auto", "layer"),
-    ("large_student_sharded", "mega", "layer"),
+    ("large_student_sharded", "auto", "infer"),
+    ("large_student_sharded", "mega", "infer"),
+    ("large_student_sharded", "layer", "layer"),
     ("student_iaf", "auto", "infer"),
     ("student_iaf", "mega", "infer"),
     ("student_iaf", "on", "layer"),
     ("student_iaf", "layer", "layer"),
-    ("tiny_teacher", "auto", "layer"),  # 40 mel bands: not kernel 1's width
+    ("tiny_teacher", "auto", "infer"),  # 40 mel bands: the plain version
 ])
 def test_student_stack_mode(name, flag, mode):
-    """"auto" (and "mega") keep kernel 1 where it takes the stack and send
-    every other stack to the per-layer kernel; "on" and "layer" ask for the
-    per-layer kernel.  Decided from widths and dilations alone, on every
-    flow."""
+    """"auto" and "mega" are the whole-stack rounding at every width, as the
+    reference's `mega_ok` keeps every preset on its megakernel (kernel 1 or
+    kernel 5's accumulate loop on the card); "on" and "layer" ask for the
+    per-layer rounding.  The same on every flow."""
     port = StudentIAF(override(get_config(name), "student.fused_layers",
                                flag))
     assert [f.mode for f in port.flows] == [mode] * len(port.flows)
 
 
 @pytest.mark.parametrize("name,flag,mode", [
-    ("teacher_lj", "auto", "layer"),
+    ("teacher_lj", "auto", "infer"),
+    ("teacher_lj", "mega", "infer"),
     ("teacher_lj", "layer", "layer"),
     ("teacher_lj", "mega_train", "train"),
     ("tiny_teacher", "on", "layer"),
+    ("tiny_teacher", "auto", "infer"),
 ])
 def test_teacher_stack_mode(name, flag, mode):
     port = TeacherWaveNet(override(get_config(name), "teacher.fused_layers",
@@ -601,3 +783,46 @@ def test_layer_gradient_on_card(cuda):
     for name, a, b in zip(("x", "cond", *PARAM_NAMES), *grads):
         rel = float((a.float() - b).norm() / b.norm())
         assert rel <= 0.02, (name, rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", KERNEL_DIMS)
+@pytest.mark.parametrize("B,T", [(2, 4096), (1, 1), (3, 700), (1, 300)])
+def test_accumulate_matches_reference_on_card(cuda, dims, B, T):
+    """The accumulate epilogue over a 3-layer chain (d = 1, 64, 512), each
+    layer against the plain version in fp32 on the kernel's own inputs, per
+    batch row: max|diff| / max|ref| within 0.02 for the output and for
+    skip_acc after the layer; the last layer leaves skip_acc as it was."""
+    C, G, S, M = dims
+    x, cond, p = _layer_inputs(30, B, T, C, M, G, S, scale=5.0)
+    x = _t(x, torch.bfloat16).to(cuda)
+    cond = _t(cond, torch.bfloat16).to(cuda)
+    acc = torch.empty((B, T, S), device=cuda)
+    before = gated_layer.launches
+
+    def rel(o, r):
+        err = (o.float().cpu() - r).abs().reshape(B, -1).amax(1)
+        return err / (r.abs().reshape(B, -1).amax(1) + 1e-6)
+
+    for l, d in enumerate((1, 64, 512)):
+        first, last = l == 0, l == 2
+        w_in, b_g, w_out, b_rs = pack_layer(
+            *(_t(p[k]) * (1 + 0.1 * l) for k in PARAM_NAMES), torch.bfloat16)
+        ops = [w_in, b_g.bfloat16().float(), w_out, b_rs.bfloat16().float()]
+        acc_before = acc.cpu()
+        acc_ref = acc_before.clone()
+        with torch.inference_mode():
+            got = gated_layer_accumulate(
+                x, cond, *(t.to(cuda) for t in ops), d, acc, first=first,
+                last=last)
+            want = gated_layer_accumulate(
+                x.float().cpu(), cond.float().cpu(),
+                *(t.float() for t in ops), d, acc_ref, first=first, last=last)
+        torch.cuda.synchronize()
+        assert (rel(got, want) <= 0.02).all(), (l, rel(got, want).tolist())
+        if last:
+            assert torch.equal(acc.cpu(), acc_before)
+        else:
+            assert (rel(acc, acc_ref) <= 0.02).all(), (l, rel(acc, acc_ref))
+        x = got
+    assert gated_layer.launches == before + 3

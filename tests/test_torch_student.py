@@ -195,13 +195,24 @@ def test_unported_variants_raise(key, value):
         StudentIAF(override(TINY, key, value))
 
 
+@pytest.mark.parametrize("kernel_size", [1, 3])
+def test_kernel_size_other_than_two_raises(kernel_size):
+    """`student.kernel_size` reaches the flows, as the reference's
+    `WaveNetStack` takes it and refuses anything but 2: never run as K=2."""
+    with pytest.raises(NotImplementedError, match="kernel_size=2"):
+        StudentIAF(override(TINY, "student.kernel_size", kernel_size))
+    assert StudentIAF(override(TINY, "student.kernel_size", 2)).flows
+
+
 @pytest.mark.parametrize("flag,mode", [
     ("auto", "infer"), ("mega", "infer"), ("on", "layer"),
-    ("layer", "layer"), ("mega_train", "train"), ("mega_dx", "dx"),
+    ("layer", "layer"), ("mega_train", "layer"), ("mega_dx", "layer"),
 ])
 def test_fused_layers_flag_reaches_every_flow(flag, mode):
     """`student.fused_layers` sets every flow's stack mode, at student_iaf's
-    widths (which kernel 1 takes)."""
+    widths (which kernel 1 takes; kernels 2 and 3 are not built for them,
+    so a training stack runs the per-layer kernel, as the reference's
+    fallback for an ineligible mega_train / mega_dx stack)."""
     port = StudentIAF(override(get_config("student_iaf"),
                                "student.fused_layers", flag))
     assert [f.mode for f in port.flows] == [mode] * 4

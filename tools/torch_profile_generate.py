@@ -2,15 +2,17 @@
 """Where the device time of the port's student synthesis goes.
 
 Profiles `StudentIAF.generate` for a student preset (`student_iaf`, whose
-flows run the whole-stack kernel, or `large_student_sharded`, whose flows
-run the per-layer kernel) at batch 8 x 2 s on one CUDA card with
-torch.profiler and prints, beside the card's name and power limit: the
-window's wall time per call, the device time per kernel name, the stack
-kernels' share, and the device's idle share of the window.  Run from the
+flows run the whole-stack kernel 1, or `large_student_sharded`, whose flows
+run kernel 5's accumulate epilogue once per layer) at batch 8 x 2 s on one
+CUDA card with torch.profiler and prints, beside the card's name and power
+limit: the window's wall time per call, the device time per kernel name,
+the stack kernels' share, kernel 5's time split by epilogue, and the
+device's idle share of the window.  `--fused-layers layer` profiles the
+per-layer mode instead (kernel 5's "layer" epilogue).  Run from the
 repository root:
 
     python3 tools/torch_profile_generate.py [--config student_iaf]
-        [--iters 5] [--trace out.json]
+        [--fused-layers auto] [--iters 5] [--trace out.json]
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from pwn_tpu_torch import get_config  # noqa: E402
+from pwn_tpu_torch import get_config, override  # noqa: E402
 from pwn_tpu_torch.models.student import init_student  # noqa: E402
 from pwn_tpu_torch.utils.platform import require_cuda  # noqa: E402
 
@@ -34,6 +36,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="student_iaf",
                     choices=("student_iaf", "large_student_sharded"))
+    ap.add_argument("--fused-layers", default=None,
+                    choices=("auto", "mega", "layer"),
+                    help="override the preset's student.fused_layers")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the window here")
@@ -46,6 +51,8 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     cfg = get_config(args.config)
+    if args.fused_layers:
+        cfg = override(cfg, "student.fused_layers", args.fused_layers)
     hop, sr, B = cfg.dsp.hop_length, cfg.dsp.sample_rate, 8
     frames = int(2.0 * sr) // hop
     model = init_student(cfg, torch.Generator().manual_seed(0), device).eval()
@@ -84,7 +91,8 @@ def main() -> int:
     if total_us == 0:
         raise RuntimeError("the profiler recorded no device time")
     per_call_ms = wall / args.iters * 1e3
-    print(f"{smi}: {cfg.name} generate B={B} x 2 s, {args.iters} calls: "
+    print(f"{smi}: {cfg.name} generate B={B} x 2 s (stack modes "
+          f"{sorted({f.mode for f in model.flows})}), {args.iters} calls: "
           f"{per_call_ms:.3f} ms per call (host clock, profiler on), "
           f"device busy {total_us / 1e3 / args.iters:.3f} ms per call, "
           f"idle share {1 - total_us / 1e6 / wall:.3f}")
@@ -95,6 +103,14 @@ def main() -> int:
     for name in ("flow_stack_kernel", "gated_layer_kernel"):
         share = sum(r[0] for r in rows if name in r[2]) / total_us
         print(f"{name} share of device time: {share:.3f}")
+    # kernel 5's two epilogues are two instantiations, told apart by name
+    for epilogue, tag in (("layer", ", false>"), ("accumulate", ", true>")):
+        hits = [r for r in rows if "gated_layer_kernel" in r[2] and tag in r[2]]
+        if hits:
+            us, n = sum(r[0] for r in hits), sum(r[1] for r in hits)
+            print(f"gated_layer_kernel, {epilogue} epilogue: "
+                  f"{us / 1e3 / args.iters:.3f} ms/call over "
+                  f"{n // args.iters} launches ({us / n / 1e3:.3f} ms each)")
     return 0
 
 
