@@ -13,7 +13,9 @@ Phases, each printing what it finds:
   2. build   — compile the CUDA kernels from `pwn_tpu_torch/csrc/`;
   3. kernel  — the inference flow-stack kernel (kernel 1) against its plain
                PyTorch version on the card, per batch row, at the bench
-               shape and edge shapes;
+               shape and edge shapes, and against kernel 5's accumulate
+               epilogue run once per layer (`flow_stack_by_layers`, the
+               same rounding) on the same inputs;
   4. train kernels — kernels 2 (forward saving the layer inputs) and 3
                (fused backward, with and without weight gradients) against
                their plain versions at teacher_lj widths, per batch row and
@@ -53,7 +55,8 @@ Phases, each printing what it finds:
                synthetic utterance's mel, and `fast_sample_kernel` at batch
                8, with kernel 4's launch count;
   9. times   — each kernel's and its plain version's ms per call beside its
-               bound (kernel 5 in both epilogues at both widths), end-to-end
+               bound (kernel 1 beside the kernel-5 chain on the same
+               inputs; kernel 5 in both epilogues at both widths), end-to-end
                audio-seconds per second at batch 8 x 2 s (student_iaf, and
                large_student_sharded in both stack modes),
                teacher train step ms and utterances per second at batch
@@ -91,8 +94,8 @@ from pwn_tpu_torch.ops.ar_sampler import (ar_sample, ar_sample_reference,
 from pwn_tpu_torch.ops.flow_stack import (flow_stack, flow_stack_reference,
                                           kernel1_takes)
 from pwn_tpu_torch.ops.gated_layer import (
-    KERNEL_DIMS as LAYER_DIMS, fused_gated_residual, gated_layer,
-    gated_layer_accumulate, gated_layer_accumulate_reference,
+    KERNEL_DIMS as LAYER_DIMS, flow_stack_by_layers, fused_gated_residual,
+    gated_layer, gated_layer_accumulate, gated_layer_accumulate_reference,
     gated_layer_reference, pack_layer)
 from pwn_tpu_torch.training.common import create_train_state
 from pwn_tpu_torch.training.loop import make_val_batch, run_teacher_training
@@ -117,6 +120,11 @@ WHY_F32 = ("bf16 rounding of x and z every layer; the TPU kernel sat at "
 # gap is as large as the fp32 one (0.003-0.007 per row, first H100 run):
 # the same bound holds.
 TOL_BF16 = TOL_F32
+# Kernel 1 vs kernel 5's accumulate epilogue once per layer on the same
+# operands: both keep the reference megakernel's rounding (z and x in bf16
+# each layer, skip summed in fp32), so only their fp32 summation order could
+# part them, and a flipped rounding then carries as above: the same bound.
+TOL_CHAIN = TOL_F32
 # End-to-end, 4 flows of 10 layers in bf16 on the card vs the same model and
 # z in fp32 on the CPU: relative L2 error.  The port's own bf16 plain path is
 # 0.021 from fp32 on a 0.25 s clip (student_iaf, seed 0, CPU), the gap bf16
@@ -317,17 +325,24 @@ def phase_kernel(device) -> dict:
             ref32 = flow_stack_reference(
                 *(a.float() for a in args.values()), dilations=dil)
             ref16 = flow_stack_reference(**args, dilations=dil)
+            chain = flow_stack_by_layers(**args, dilations=dil)
         torch.cuda.synchronize()
         _check(out.shape == (B, T, CFG.student.skip_channels),
                f"kernel output shape {tuple(out.shape)}")
         _check(torch.isfinite(out.float()).all(), "non-finite kernel output")
         rel32, rel16 = _row_rel(out, ref32), _row_rel(out, ref16)
+        relc = _row_rel(out, chain)
         _log(f"[kernel] B={B} T={T}: per-row rel err vs fp32 plain "
              f"{np.array2string(rel32, precision=5)} (tol {TOL_F32}); "
              f"vs bf16 plain {np.array2string(rel16, precision=5)} "
-             f"(tol {TOL_BF16}: {WHY_F32})")
+             f"(tol {TOL_BF16}: {WHY_F32}); vs the kernel-5 chain "
+             f"{np.array2string(relc, precision=5)} (tol {TOL_CHAIN}; "
+             f"{float((out == chain).float().mean()):.4f} of elements "
+             f"bit-equal)")
         _check((rel32 <= TOL_F32).all(), f"kernel off fp32 plain at B={B} T={T}")
         _check((rel16 <= TOL_BF16).all(), f"kernel off bf16 plain at B={B} T={T}")
+        _check((relc <= TOL_CHAIN).all(),
+               f"kernel 1 off the kernel-5 chain at B={B} T={T}")
         if k == 0:
             result["max_abs_err"] = float(
                 (out.float() - ref32.float()).abs().max())
@@ -1083,28 +1098,37 @@ def phase_times(device, smi: str) -> dict:
     dil = CFG.student.flow_dilations
     T = _bench_T()
     args = _stack_inputs(BATCH, T, device, seed=3)
-    kernel = lambda: flow_stack(**args, dilations=dil)  # noqa: E731
-    plain = lambda: flow_stack_reference(**args, dilations=dil)  # noqa: E731
+    fns = {"kernel 1": lambda: flow_stack(**args, dilations=dil),
+           "kernel-5 chain": lambda: flow_stack_by_layers(**args, dilations=dil),
+           "plain": lambda: flow_stack_reference(**args, dilations=dil)}
+    ms: dict = {}
     with torch.inference_mode():
-        kernel(), plain()
+        for fn in fns.values():
+            fn()  # warm up
         torch.cuda.synchronize()
-        counted = flow_stack.launches
-        p1 = _time_ms(plain, 5)
-        k1 = _time_ms(kernel, 20)
-        k2 = _time_ms(kernel, 20)
-        p2 = _time_ms(plain, 5)
-        out_bytes = _nbytes(kernel())
-        flow_stack.launches = counted  # timing launches are not the main path's
-    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        counted = flow_stack.launches, gated_layer.launches
+        # in turns, on one card
+        for k in ("plain", "kernel 1", "kernel-5 chain", "kernel-5 chain",
+                  "kernel 1", "plain"):
+            ms.setdefault(k, []).append(_time_ms(fns[k], 5 if k == "plain" else 20))
+        out_bytes = _nbytes(fns["kernel 1"]())
+        # timing launches are not the main path's
+        flow_stack.launches, gated_layer.launches = counted
+    mean = {k: float(np.mean(v)) for k, v in ms.items()}
     sc = CFG.student
     flop = 2 * BATCH * T * len(dil) * (
         (2 * sc.residual_channels + CFG.dsp.n_mels) * sc.gate_channels
         + sc.gate_channels // 2 * (sc.residual_channels + sc.skip_channels))
     bound = _bound(flop, _nbytes(*args.values()) + out_bytes, PEAK_BF16)
-    _log(f"[times] {smi}: flow stack B={BATCH} T={T}: kernel {k1:.3f} / "
-         f"{k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms per call "
-         f"(kernel {flop / k_ms / 1e9:.1f} TFLOP/s useful); bound "
-         f"{bound['bound_ms']:.3f} ms ({bound['bound_by']})")
+    for k, v in ms.items():
+        _log(f"[times] {smi}: flow stack B={BATCH} T={T}, {k}: "
+             + " / ".join(f"{x:.4f}" for x in v) + f" ms per call "
+             f"({flop / mean[k] / 1e9:.1f} TFLOP/s useful); bound "
+             f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+             f"{flop / 1e9:.1f} GFLOP)")
+    _log(f"[times] {smi}: kernel 1 at {mean['kernel 1'] / mean['kernel-5 chain']:.3f}"
+         f" of the kernel-5 chain's time, {bound['bound_ms'] / mean['kernel 1']:.3f}"
+         f" of its bound")
 
     model = init_student(CFG, torch.Generator().manual_seed(SEED), device)
     model.eval()
@@ -1124,7 +1148,7 @@ def phase_times(device, smi: str) -> dict:
     rate = audio_s / (ms / 1e3)
     _log(f"[times] {smi}: generate batch {BATCH} x {SECONDS} s: {ms:.3f} ms "
          f"per call, {rate:.1f} audio-seconds/s")
-    return {"ms": k_ms, "plain_ms": p_ms, **bound}
+    return {"ms": mean["kernel 1"], "plain_ms": mean["plain"], **bound}
 
 
 def phase_layer_times(device, smi: str) -> dict:

@@ -24,11 +24,15 @@ from pwn_tpu_torch.models.student import StudentIAF, sample_base_noise
 from pwn_tpu_torch.models.teacher import TeacherWaveNet
 from pwn_tpu_torch.parallel.sp import sp_mega_geometry
 from pwn_tpu_torch.utils import dsp
+from pwn_tpu_torch.utils.platform import require_cuda
 
 
 def mel_from_wav(cfg: Config, wav: np.ndarray, device=None) -> torch.Tensor:
     """Host wav (T,) float32 -> conditioning mel (1, T//hop, n_mels) float32
-    on `device`: preemphasis, clip to [-1, 1], normalized log-mel."""
+    on `device` (default: the CUDA card; the CPU only when passed):
+    preemphasis, clip to [-1, 1], normalized log-mel."""
+    if device is None:
+        device = require_cuda()
     x = torch.as_tensor(np.asarray(wav, np.float32), device=device)[None]
     x = torch.clamp(dsp.preemphasis(x, cfg.dsp.preemphasis), -1.0, 1.0)
     mel = dsp.mel_spectrogram(x, cfg.dsp)

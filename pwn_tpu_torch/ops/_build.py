@@ -4,8 +4,9 @@ The sources in `pwn_tpu_torch/csrc/` have a plain C interface.  Each is
 compiled by its own nvcc process, all started together, and the objects
 are linked into one shared library, loaded with ctypes (no PyTorch
 headers, so a build takes seconds, not minutes).  The library goes into
-`pwn_tpu_torch/build/`, named by a hash of the sources and flags, and is
-built at first use.  Importing this module builds nothing.
+`pwn_tpu_torch/build/`, named by a hash of the flags and of every file
+under `csrc/` (the sources and the headers they include), and is built at
+first use.  Importing this module builds nothing.
 """
 
 from __future__ import annotations
@@ -19,10 +20,9 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "flow_stack.cu",
-           _PKG / "csrc" / "flow_stack_train.cu",
-           _PKG / "csrc" / "ar_sampler.cu",
-           _PKG / "csrc" / "gated_layer.cu")
+CSRC = _PKG / "csrc"
+SOURCES = (CSRC / "flow_stack.cu", CSRC / "flow_stack_train.cu",
+           CSRC / "ar_sampler.cu", CSRC / "gated_layer.cu")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,10 +48,13 @@ def nvcc_path() -> str:
     )
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC) -> Path:
+    """The library's path, named by a hash of the flags and of every file
+    under `csrc` (names and bytes), so that an edited header builds anew."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.read_bytes())
+    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(f.relative_to(csrc).as_posix().encode() + b"\0")
+        h.update(f.read_bytes())
     return BUILD_DIR / f"pwn_kernels-{h.hexdigest()[:16]}.so"
 
 

@@ -23,8 +23,8 @@ every layer's input) and whose backward is `flow_stack_train_backward`
     b_rs  (L, C+S)         float32
 and returns the summed skip output (B, T, S) in the compute dtype.  The
 weights are the JAX kernel's `(L, 2C+M, G)` and `(L, G/2, C+S)` transposed,
-as `nn.Linear` stores them, which is also the order the CUDA kernel reads
-its mma B fragments in.
+as `nn.Linear` stores them, which is also the K-major B operand kernel 1's
+wgmma reads from its TMA-filled weight ring.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
 or raises.  There is no fallback between the two: the plain versions are
@@ -55,15 +55,18 @@ KERNEL_DIMS = (64, 128, 64, 80)
 # the widths the training kernels are compiled for (teacher_lj)
 TRAIN_KERNEL_DIMS = (128, 256, 128, 80)
 # Shared memory a Hopper block may opt in to (H100 and H200), and kernel 1's
-# use of it (csrc/flow_stack.cu, pwn_flow_stack_smem_bytes): two tiles of
-# 128 rows and the per-layer rings of sum(d) rows, each row C + 8 bf16, beside
-# a 128-row cond tile of M + 8 bf16.
+# use of it (csrc/flow_stack.cu, pwn_flow_stack_smem_bytes): 1 KB of
+# alignment slack, a ring of three 16 KB weight stages, the 128-row x tile
+# and the per-layer rings of sum(d) rows in 128-byte rows (C bf16), a
+# 128-row cond tile of M + 8 bf16, and six 8-byte barriers.
 SMEM_PER_BLOCK = 232_448
 
 
 def _kernel1_smem_bytes(sum_d: int) -> int:
     C, _, _, M = KERNEL_DIMS
-    return (2 * 128 + sum_d) * (C + 8) * 2 + 128 * (M + 8) * 2
+    stages, tile = 3, 128
+    return (1024 + stages * 16_384 + (tile + sum_d) * C * 2
+            + tile * (M + 8) * 2 + stages * 16)
 
 
 def kernel1_takes(dilations: Sequence[int], C: int, G: int, S: int,

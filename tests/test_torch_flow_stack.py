@@ -19,7 +19,7 @@ from pwn_tpu_torch.ops.flow_stack import (KERNEL_DIMS, TRAIN_KERNEL_DIMS,
                                           check_kernel_args, flow_stack,
                                           flow_stack_reference,
                                           segment_length)
-from pwn_tpu_torch.ops.gated_layer import gated_layer
+from pwn_tpu_torch.ops.gated_layer import flow_stack_by_layers, gated_layer
 
 SMALL = dict(B=2, T=1024, C=16, M=8, G=32, S=16, dilations=(1, 2, 4, 512))
 STUDENT_DILATIONS = tuple(2 ** i for i in range(10))
@@ -220,6 +220,22 @@ def test_build_needs_nvcc(monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
+def test_library_name_follows_every_csrc_file(tmp_path):
+    """The library is named by a hash of every file under csrc/, the shared
+    header included: a copy with the same bytes gets the same name, and a
+    copy whose header differs by one byte another, so an edited header
+    never loads a library built from the old one."""
+    import shutil
+
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    assert _build.library_path(copy) == _build.library_path()
+    header = copy / "hopper.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    assert _build.library_path(copy) != _build.library_path()
+    assert _build.library_path(copy).parent == _build.BUILD_DIR
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,T", [(8, 4096), (1, 1000), (3, 5003), (2, 300),
                                  (1, 1)])
@@ -260,4 +276,25 @@ def test_wide_stack_runs_the_layer_kernel_on_card(cuda, B, T):
     assert out.dtype == torch.bfloat16 and out.shape == (B, T, S)
     err = (out.float() - ref).abs().reshape(B, -1).amax(1)
     scale = ref.abs().reshape(B, -1).amax(1)
+    assert (err / scale <= 0.02).all(), (err / scale).tolist()
+
+
+@pytest.mark.gpu
+def test_kernel_matches_the_layer_chain_on_card(cuda):
+    """Kernel 1 against kernel 5's accumulate epilogue once per layer
+    (`flow_stack_by_layers`) on the same operands at the headline shape,
+    batch 8 x 2 s at 22.05 kHz (T = 44,032): both keep the reference
+    megakernel's rounding, so per batch row max|diff| / max|ref| within
+    0.02 (the bound chip_smoke.py states)."""
+    B, T = 8, 44032
+    args = {k: v.to(cuda) for k, v in _kernel_shaped(B, T).items()}
+    k1, k5 = flow_stack.launches, gated_layer.launches
+    with torch.inference_mode():
+        out = flow_stack(**args, dilations=STUDENT_DILATIONS)
+        chain = flow_stack_by_layers(**args, dilations=STUDENT_DILATIONS)
+    torch.cuda.synchronize()
+    assert (flow_stack.launches - k1, gated_layer.launches - k5) == (1, 10)
+    assert out.shape == chain.shape == (B, T, KERNEL_DIMS[2])
+    err = (out.float() - chain.float()).abs().reshape(B, -1).amax(1)
+    scale = chain.float().abs().reshape(B, -1).amax(1)
     assert (err / scale <= 0.02).all(), (err / scale).tolist()

@@ -689,7 +689,7 @@ def test_mel_at_24khz_matches_jax(rng):
     from pwn_tpu_torch.generate import mel_from_wav
 
     wav = np.clip(rng.standard_normal(4000) * 0.3, -1, 1).astype(np.float32)
-    got = mel_from_wav(LARGE, wav).numpy()
+    got = mel_from_wav(LARGE, wav, device="cpu").numpy()
     want = np.asarray(jax_mel_from_wav(jax_config(LARGE), wav))
     assert got.shape == want.shape == (1, 4000 // LARGE.dsp.hop_length, 80)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-5)
@@ -707,6 +707,23 @@ def test_initialisers_default_to_the_card():
             init_student(cfg, gen)
     assert next(init_student(cfg, gen, device="cpu").parameters()).device \
         == torch.device("cpu")
+
+
+def test_mel_from_wav_defaults_to_the_card():
+    """`mel_from_wav` with no device computes on the CUDA card, as the
+    initialisers do, and raises where there is none: the CPU only when
+    asked for."""
+    from pwn_tpu_torch.generate import mel_from_wav
+
+    wav = np.zeros(4 * TINY.dsp.hop_length, np.float32)
+    if torch.cuda.is_available():
+        assert mel_from_wav(TINY, wav).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mel_from_wav(TINY, wav)
+    mel = mel_from_wav(TINY, wav, device="cpu")
+    assert mel.device == torch.device("cpu")
+    assert mel.shape == (1, 4, TINY.dsp.n_mels)
 
 
 @pytest.fixture
