@@ -20,10 +20,13 @@ Phases, each printing what it finds:
                (fused backward, with and without weight gradients) against
                their plain versions at teacher_lj widths, per batch row and
                per gradient, at the bench shape and edge shapes;
-  5. AR kernel — the teacher AR sampler (kernel 4) against its plain
-               version on the card, per batch row: teacher_lj (MoL, pinned),
+  5. AR kernel — the teacher AR sampler (kernel 4: one cluster of N
+               blocks per R batch rows) against its plain version on the
+               card, per batch row: teacher_lj (MoL, pinned),
                clarinet_gaussian, tiny_teacher in fp32, fp32-stored weights,
-               edge shapes, near-zero temperature, row isolation;
+               edge shapes, a batch of 9 (a ragged last wave of clusters),
+               near-zero temperature, row isolation; N, R and the clusters
+               of each case logged;
   5b. layer kernel — the per-layer gated kernel (kernel 5) against its
                plain version on the card, per batch row, at both widths it
                is built for, in both epilogues: "layer" at the bench shapes
@@ -61,7 +64,7 @@ Phases, each printing what it finds:
                large_student_sharded in both stack modes),
                teacher train step ms and utterances per second at batch
                8 x 16,384, AR us per step and samples per second at batch 8
-               and 1 x 0.25 s.
+               and 1 x 0.25 s, and the weight bytes each SM streams a step.
 Any failure raises and the script exits non-zero.  Only when every phase
 passed does it print, as its last line, {"ok": true, "device": {...}}.
 The script imports no JAX; the machine with the card need not have it.
@@ -89,8 +92,9 @@ from pwn_tpu_torch.ops import _build
 from pwn_tpu_torch.models.teacher import TeacherWaveNet, init_teacher
 from pwn_tpu_torch.ops import flow_stack as fs
 from pwn_tpu_torch.ops.conv import shift_right
-from pwn_tpu_torch.ops.ar_sampler import (ar_sample, ar_sample_reference,
-                                          stack_teacher_weights)
+from pwn_tpu_torch.ops.ar_sampler import (AR_RANKS, AR_ROWS, ar_max_clusters,
+                                          ar_sample, ar_sample_reference,
+                                          pack_ar_ranks, stack_teacher_weights)
 from pwn_tpu_torch.ops.flow_stack import (flow_stack, flow_stack_reference,
                                           kernel1_takes)
 from pwn_tpu_torch.ops.gated_layer import (
@@ -512,6 +516,7 @@ def phase_ar_kernel(device) -> dict:
         (lj, None, 3, 127, 1.0),  # shorter than the largest dilation
         (lj, None, 2, 1003, 1.0),
         (lj, None, 2, AR_EARLY, 1e-4),  # near zero: the selected mean
+        (lj, None, 9, AR_CHECK_T, 1.0),  # one cluster more than batch 8
     ]
     before = ar_sample.launches
     calls = 0
@@ -537,8 +542,12 @@ def phase_ar_kernel(device) -> dict:
             grown = [int(np.argmax(r > 1e-5)) if (r > 1e-5).any() else None
                      for r in diff.cpu().numpy()]
             inside = float((ref.abs() < 1).float().mean())
+            fit = ar_max_clusters(weights, n_mixtures=kw["n_mixtures"],
+                                  head=kw["head"], cond_dtype=cond.dtype)
             _log(f"[ar] {cfg.name} ({cfg.teacher.output}, weights "
-                 f"{weights['w_in'].dtype}) B={B} T={T} temperature {temp:g}: "
+                 f"{weights['w_in'].dtype}) B={B} T={T} temperature {temp:g}, "
+                 f"N={AR_RANKS} blocks x R={AR_ROWS} row per cluster, "
+                 f"{-(-B // AR_ROWS)} clusters ({fit} fit the card at once): "
                  f"max abs diff per row vs plain "
                  f"{np.array2string(err, precision=8)} (tol {TOL_AR}), over "
                  f"the first {AR_EARLY} steps "
@@ -1370,14 +1379,18 @@ def phase_ar_times(device, smi: str) -> dict:
     bound = _bound(flop, nbytes, PEAK_FP32)
     k_ms = float(np.mean(ms["kernel"]))
     plain_ms = float(np.mean(ms["plain short"])) * AR_T / AR_CHECK_T
-    # each block (one row) reads every weight and bias from L2 every step
-    per_step = _nbytes(*weights.values())
+    # each block (one rank of a row's cluster) reads its slice of every
+    # layer from L2 every step
+    per_sm = _nbytes(pack_ar_ranks(weights, AR_RANKS)["w"][0])
     _log(f"[times] {smi}: AR kernel B={AR_BATCH} T={AR_T}: {flop / 1e9:.1f} "
          f"GFLOP fp32, {nbytes / 1e6:.2f} MB; bound {bound['bound_ms']:.3f} ms "
-         f"({bound['bound_by']}); kernel {k_ms:.3f} ms; plain version "
+         f"({bound['bound_by']}); kernel {k_ms:.3f} ms, "
+         f"{k_ms * 1e3 / AR_T:.3f} us per step; plain version "
          f"{plain_ms:.1f} ms, scaled per step from T={AR_CHECK_T}; weights "
-         f"streamed per row per step {per_step / 1e6:.3f} MB, "
-         f"{per_step * AR_T / (k_ms / 1e3) / 1e9:.1f} GB/s into each SM")
+         f"streamed per SM per step {per_sm:,} B ({AR_RANKS} SMs per row), "
+         f"{per_sm * AR_T / (k_ms / 1e3) / 1e9:.1f} GB/s into each SM, "
+         f"{per_sm * AR_RANKS * AR_BATCH * AR_T / (k_ms / 1e3) / 1e12:.2f} "
+         f"TB/s from L2 in all")
     return {"ms": k_ms, "plain_ms": plain_ms, **bound}
 
 

@@ -1,5 +1,6 @@
 // Whole-loop teacher autoregressive sampler for Hopper (sm_90a): Fast
-// WaveNet with per-layer conv queues, all T steps in one launch.
+// WaveNet with per-layer conv queues, all T steps in one launch, each batch
+// row on one cluster of N = 8 thread blocks.
 //
 // Replaces: pwn_tpu/ops/pallas/ar_sampler.py::_kernel (reached through
 // ar_sample_pallas <- models/sampling.py::fast_sample_pallas <-
@@ -21,50 +22,67 @@
 //
 // What bounds it on this card.  A step is a chain of 2L + 2 small dependent
 // matrix-vector products per row.  At teacher_lj widths (C=128, G=256,
-// S=128, M=80, L=24) that is 5.9 MFLOP per row per step over 5.7 MB of bf16
+// S=128, M=80, L=24) that is 5.9 MFLOP per row per step over 5.79 MB of bf16
 // weights: by the roofline (67 TFLOP/s fp32, 3.35 TB/s), about 0.7 us per
-// step at batch 8.  But the chain is serial: every step streams all the
-// weights into one SM, so the real limit is one SM's read rate from L2
-// (the weights stay in the 50 MB L2 across steps) plus the block barriers
-// between the products.
+// step at batch 8.  But the chain is serial, and the weights (5.79 MB in
+// bf16, 11.6 MB in fp32) fit in no SM: they stay in the 50 MB L2 and are read
+// again every step, so what bounds a step is how fast the SMs that work on a
+// row take in its weights, plus one synchronisation per layer.
 //
-// Design, and what it does about the TPU kernel's assumptions:
-// * Grid order.  The TPU grid runs T steps in order on one core and carries
-//   the queues and x_prev in VMEM scratch.  Here one block owns one batch
-//   row and loops over all T steps itself: rows are independent, so blocks
-//   never synchronise with each other, and a row cannot leak into another.
-// * The queues (sum(d) x C fp32: 392 KB per row at teacher_lj) do not fit
-//   in shared memory.  They live in device memory, (B, sum(d), C), zeroed by
-//   the caller, and stay L2-resident.  At the start of a step the block
-//   reads every layer's tap into shared memory at once (a tap was written at
-//   least one step earlier, and layers use disjoint slots), so the L tap
-//   reads cost one latency, not L; the writes of this step go out as the
-//   layers run.  __syncthreads() orders a block's global writes before its
-//   later reads.
-// * The weights (5.7 MB bf16, 11.4 MB fp32) do not fit in one SM.  They are
-//   read from L2 every step, W_in[l] as (K, G) row-major: thread (column
-//   group, k slice) loads 16 bytes of a row (8 bf16 or 4 fp32 columns) for
-//   every NS-th row, up to 8 rows in flight, and keeps fp32 partial sums;
-//   neighbouring threads read neighbouring addresses.  The k slices are
-//   summed through shared memory in a fixed order.
+// Design:
+// * One cluster of N = 8 blocks (one per SM) per batch row: the row's weight
+//   stream is split eight ways.  Rank j owns gate columns [j GH/N, (j+1)
+//   GH/N) of the tanh half and the same of the sigmoid half (32 columns at
+//   GH = 128), and the same GH/N rows of W_out.  Per layer it reads its
+//   (2C+M) x 2GH/N slice of W_in and GH/N x (C+S) slice of W_out, 29,696 B
+//   in bf16: 712,704 B per step at L = 24, against 5.79 MB for one block.
+//   `pack_ar_ranks` (ops/ar_sampler.py) lays each rank's slices out as one
+//   contiguous run per layer.  Clusters own whole rows, so no cluster ever
+//   waits on another, and a batch larger than the card's clusters runs in
+//   waves.
+// * Rank j's gate columns are whole dot products over K = 2C+M, so its GH/N
+//   z values need no cross-SM sum.  Its out product gives a partial of all
+//   C+S outputs over its z rows.  The residual half (C floats) goes to every
+//   rank's shared memory (DSMEM, double-buffered by barrier parity), then one
+//   cluster barrier, then every rank sums the N partials in rank order 0..N-1
+//   and updates its own full copy of x: one barrier per layer.  The skip half
+//   stays in the rank across the layers; at the last layer the skip partials
+//   go out in place of the residual, which that layer does not need.
+// * Every rank holds the same x, skip, head output and sample, bit for bit:
+//   each reduces the same partials in the same order with the same code (no
+//   atomics, nothing rank-dependent).  The head (its weights in each block's
+//   shared memory) and the draw run in every rank; rank 0 writes wav.
+// * The queues (sum(d) x C fp32, 392 KB per row at teacher_lj) live in
+//   device memory, (B, sum(d), C), zeroed by the caller.  At the start of a
+//   step every rank reads every layer's tap (one latency for all L); rank j
+//   writes only its C/N columns of each layer's x.  Other ranks write the
+//   queue during the launch, so it is read with ld.global.cg (never the
+//   non-coherent path), and the cluster barrier's release / acquire orders the
+//   writes before the reads.  A slot is read at a step's start and written in
+//   the same step, so a rank writes the queue only after the step's first
+//   cluster barrier, when every rank has read its taps.
 // * Numerics are the reference's: fp32 FMAs on the CUDA cores, IEEE
-//   tanhf/expf/logf/log1pf (no fast-math), sigmoid as 1/(1+exp(-x)).
-//   Splitting one row's layers over a cluster of SMs, with the weights in
-//   distributed shared memory, is the redesign that lifts the L2 limit.
+//   tanhf/expf/logf/log1pf (no fast-math), sigmoid as 1/(1+exp(-x)).  Only
+//   the summation order differs from one block per row.
+//
+// With PWN_AR_SAMPLER_PHASES defined (tools/torch_ar_sampler_phases.py builds
+// it so), thread 0 of block 0 adds the clock cycles of each phase of each step
+// into ar_phase_cycles (PHASE_NAMES below), then counts the steps.  With
+// PWN_AR_SAMPLER_CHECK defined, every rank writes its samples to wav_ranks
+// (N, B, T), so that a tool can hold the ranks equal bit for bit.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int NTHREADS = 512;  // 16 warps
+constexpr int NTHREADS = 256;  // 8 warps
+constexpr int NWARPS = NTHREADS / 32;
 constexpr int MAX_L = 64;      // layers
-constexpr int MAX_HD = 32;     // head width: one warp per output column
-constexpr int UNROLL = 8;      // weight rows in flight per thread
+constexpr int MAX_HD = 32;     // head width
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Dilations {
   int d[MAX_L];    // dilation of layer l
@@ -76,9 +94,9 @@ struct Args {
   const float* noise;    // (T, B, NZ): K+1 uniforms (MoL) or 1 normal
   const void* front_k;   // (1, C)
   const float* front_b;  // (1, C)
-  const void* w_in;      // (L, 2C+M, G)
-  const float* b_g;      // (L, G)
-  const void* w_out;     // (L, G/2, C+S)
+  const void* w_rank;    // (N, L, LAYER_E): per rank and layer, its W_in columns
+                         // ((2C+M) x 2GH/N) then its W_out rows (GH/N x (C+S))
+  const float* b_rank;   // (N, L, 2GH/N): its gate biases
   const float* b_rs;     // (L, C+S)
   const void* head1_k;   // (S, S)
   const float* head1_b;  // (1, S)
@@ -86,14 +104,34 @@ struct Args {
   const float* head2_b;  // (1, HD)
   float* queue;          // (B, sum(d), C), zero on entry
   float* wav;            // (B, T)
+  float* wav_ranks;      // (N, B, T), written by the PWN_AR_SAMPLER_CHECK build only
   int B, T, L, HD, K, NZ, sum_d, gaussian;
   float log_scale_min, temperature;
 };
 
+#ifdef PWN_AR_SAMPLER_PHASES
+constexpr int NPHASES = 8;
+constexpr const char* PHASE_NAMES =
+    "step start (taps, cond, front);gate product;gates;out product;DSMEM push;"
+    "cluster barrier;x and queue update;head and draw";
+// the cycles of each phase, then the count of steps
+__device__ unsigned long long ar_phase_cycles[NPHASES + 1];
+#define PHASE(k)                                                               \
+  do {                                                                         \
+    if (phase_on) {                                                            \
+      const long long now = clock64();                                         \
+      phase_acc[k] += static_cast<unsigned long long>(now - phase_t);          \
+      phase_t = now;                                                           \
+    }                                                                          \
+  } while (0)
+#else
+#define PHASE(k)
+#endif
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
-// 16 bytes of weights: 8 bf16 or 4 fp32 columns.
+// 16 bytes of weights: 8 bf16 or 4 fp32 values.
 template <typename W> struct Vec;
 template <> struct Vec<bf16> {
   static constexpr int N = 8;
@@ -116,240 +154,394 @@ template <> struct Vec<float> {
   }
 };
 
-// part[s][n] = sum over rows k = s, s + NS, ... < K of in[k] * w[k][n], for
-// the NS = NTHREADS / (N / V) k slices; w is (K, N) row-major.
-template <typename W, int K, int N>
-__device__ __forceinline__ void gemv_partial(const float* __restrict__ in,
-                                             const W* __restrict__ w,
-                                             float* __restrict__ part) {
-  constexpr int V = Vec<W>::N;
-  constexpr int NG = N / V;
-  constexpr int NS = NTHREADS / NG;
-  static_assert(N % V == 0 && NTHREADS % NG == 0, "column groups");
-  using Raw = typename Vec<W>::Raw;
-  const int cg = threadIdx.x % NG;
-  const int s = threadIdx.x / NG;
-  float acc[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = 0.f;
-  const W* wp = w + cg * V;
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += UNROLL * NS) {
-    Raw r[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int k = k0 + u * NS + s;
-      if (k0 + u * NS < K && k < K)
-        r[u] = __ldg(reinterpret_cast<const Raw*>(wp + (size_t)k * N));
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int k = k0 + u * NS + s;
-      if (k0 + u * NS < K && k < K) {
-        float f[V];
-        Vec<W>::to_f32(r[u], f);
-        const float a = in[k];
-#pragma unroll
-        for (int i = 0; i < V; ++i) acc[i] = fmaf(a, f[i], acc[i]);
-      }
-    }
-  }
-  float* dst = part + s * N + cg * V;
-#pragma unroll
-  for (int i = 0; i < V; ++i) dst[i] = acc[i];
-}
-
-// Column n of the partial sums, over the k slices in order.
-template <typename W, int N>
-__device__ __forceinline__ float reduce_col(const float* __restrict__ part, int n) {
-  constexpr int NS = NTHREADS / (N / Vec<W>::N);
-  float v[NS];
-#pragma unroll
-  for (int s = 0; s < NS; ++s) v[s] = part[s * N + n];
-  float sum = 0.f;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) sum += v[s];
-  return sum;
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
-// The stack widths (C, G, S, M) are compile-time, so the products unroll.
-template <typename W, typename CT, int C, int G, int S, int M>
+constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+// The widths, the rank split and the thread maps of the two products.
+template <typename W, int C, int G, int S, int M, int N>
+struct Dims {
+  static constexpr int GH = G / 2, GN = GH / N, GC = 2 * GN, KIN = 2 * C + M, NO = C + S;
+  static constexpr int CN = C / N, C4 = C / 4;
+  static constexpr int WIN_E = KIN * GC, LAYER_E = WIN_E + GN * NO;
+  static constexpr int V = Vec<W>::N;
+  // gate product: thread (column group c1, k slice s1) sums rows s1, s1 + NS1, ...
+  static constexpr int NG1 = GC / V, NS1 = NTHREADS / NG1, R1 = (KIN + NS1 - 1) / NS1;
+  // out product: thread (column group c2, k slice s2) sums rows s2, s2 + NS2, ...
+  static constexpr int NG2 = NO / V, NS2 = NTHREADS / NG2, R2 = (GN + NS2 - 1) / NS2;
+  static constexpr int HP = NTHREADS / S;  // k parts of head1's product
+  // shared memory, in floats; the taps (L x C), then head1 and head2 follow
+  static constexpr int XBUF = 0;                   // exchange, 2 parities x N ranks x C
+  static constexpr int OPART = XBUF + 2 * N * C;   // out-product partials, NS2 x NO
+  static constexpr int XS = OPART + NS2 * NO;      // x (C)
+  static constexpr int CS = XS + C;                // cond(t) (M)
+  static constexpr int GPART = CS + round4(M);     // gate partials per warp, NWARPS x GC
+  static constexpr int ZS = GPART + NWARPS * GC;   // z (GN)
+  static constexpr int HS = ZS + round4(GN);       // the head's hidden (S)
+  static constexpr int HPART = HS + S;             // head1 partials, HP x S
+  static constexpr int HPO = HPART + HP * S;       // head outputs (MAX_HD)
+  static constexpr int TAPS = HPO + MAX_HD;
+  static_assert(GH % N == 0 && C % N == 0 && GC % V == 0 && 32 % NG1 == 0, "gate split");
+  static_assert(NO % V == 0 && NTHREADS % NG2 == 0, "out split");
+  static_assert(S == C && C % 4 == 0 && NTHREADS % C4 == 0, "exchange by float4");
+  static_assert(NTHREADS % S == 0 && M % 4 == 0, "head split");
+  static_assert((LAYER_E * sizeof(W)) % 16 == 0, "16-byte layer slices");
+};
+
+template <typename W, int C, int G, int S, int M, int N>
+size_t smem_bytes(int L, int HD) {
+  using D = Dims<W, C, G, S, M, N>;
+  return sizeof(float) * (size_t)(D::TAPS + L * C) + sizeof(W) * (size_t)S * (S + HD);
+}
+
+// The stack widths (C, G, S, M) and the ranks N are compile-time, so the
+// products unroll.
+template <typename W, typename CT, int C, int G, int S, int M, int N>
 __global__ void __launch_bounds__(NTHREADS, 1)
 ar_sampler_kernel(const Args a, const Dilations dl) {
-  constexpr int GH = G / 2, KIN = 2 * C + M, NO = C + S;
-  static_assert(C <= NTHREADS && NO <= NTHREADS && GH <= NTHREADS, "one pass");
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int L = a.L, HD = a.HD, K = a.K;
-  const CT* cond = static_cast<const CT*>(a.cond) + (size_t)b * a.T * M;
-  const W* front_k = static_cast<const W*>(a.front_k);
-  const W* w_in = static_cast<const W*>(a.w_in);
-  const W* w_out = static_cast<const W*>(a.w_out);
-  const W* head1_k = static_cast<const W*>(a.head1_k);
-  const W* head2_k = static_cast<const W*>(a.head2_k);
+  using D = Dims<W, C, G, S, M, N>;
+  using Raw = typename Vec<W>::Raw;
+  constexpr int V = D::V, GN = D::GN, GC = D::GC, NO = D::NO;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int b = blockIdx.x / N;
+  const int L = a.L, T = a.T, HD = a.HD, K = a.K;
+  const CT* cond = static_cast<const CT*>(a.cond) + (size_t)b * T * M;
+  const W* w_rank = static_cast<const W*>(a.w_rank) + (size_t)rank * L * D::LAYER_E;
+  const float* b_rank = a.b_rank + (size_t)rank * L * GC;
   float* queue = a.queue + (size_t)b * a.sum_d * C;
 
-  extern __shared__ float smem[];
-  float* cat = smem;                   // [x | tap | cond(t)], KIN
-  float* z = cat + KIN;                // GH
-  float* skip = z + GH;                // S
-  float* h = skip + S;                 // S
-  float* hp = h + S;                   // MAX_HD head outputs
-  float* part = hp + MAX_HD;           // k-slice partial sums, NTHREADS * 8
-  float* taps = part + NTHREADS * 8;   // this step's taps, L x C
-  __shared__ int slot[MAX_L];
+  extern __shared__ __align__(16) float smem[];
+  float* xbuf = smem + D::XBUF;
+  float* opart = smem + D::OPART;
+  float* xs = smem + D::XS;
+  float* cs = smem + D::CS;
+  float* gpart = smem + D::GPART;
+  float* zs = smem + D::ZS;
+  float* hs = smem + D::HS;
+  float* hpart = smem + D::HPART;
+  float* hp = smem + D::HPO;
+  float* taps = smem + D::TAPS;
+  W* head1 = reinterpret_cast<W*>(taps + L * C);
+  W* head2 = head1 + S * S;
+  __shared__ int dd[MAX_L], oo[MAX_L];
   __shared__ float x_prev;
 
+#ifdef PWN_AR_SAMPLER_PHASES
+  const bool phase_on = blockIdx.x == 0 && tid == 0;
+  unsigned long long phase_acc[NPHASES + 1] = {};
+  long long phase_t = clock64();
+#endif
+
+  // -- once: the dilations, the head's weights, per-thread constants
+  for (int l = tid; l < L; l += NTHREADS) {
+    dd[l] = dl.d[l];
+    oo[l] = dl.off[l];
+  }
+  {
+    const uint4* src1 = static_cast<const uint4*>(a.head1_k);
+    const uint4* src2 = static_cast<const uint4*>(a.head2_k);
+    uint4* dst1 = reinterpret_cast<uint4*>(head1);
+    uint4* dst2 = reinterpret_cast<uint4*>(head2);
+    const int n1 = S * S * (int)sizeof(W) / 16, n2 = S * HD * (int)sizeof(W) / 16;
+    for (int i = tid; i < n1; i += NTHREADS) dst1[i] = __ldg(src1 + i);
+    for (int i = tid; i < n2; i += NTHREADS) dst2[i] = __ldg(src2 + i);
+  }
+  float fk = 0.f, fb = 0.f, bsum = 0.f;
+  if (tid < C) {
+    fk = to_f32(static_cast<const W*>(a.front_k)[tid]);
+    fb = a.front_b[tid];
+  }
+  if (tid < S)
+    for (int l = 0; l < L; ++l) bsum += a.b_rs[l * NO + C + tid];
   if (tid == 0) x_prev = 0.f;
-  for (int t = 0; t < a.T; ++t) {
-    // -- step start: queue slots, every layer's tap, cond(t), the front 1x1
-    if (tid < L) slot[tid] = dl.off[tid] + t % dl.d[tid];
-    __syncthreads();
-    for (int i = tid; i < L * C; i += NTHREADS) {
-      const int l = i / C;
-      taps[i] = queue[(size_t)slot[l] * C + (i - l * C)];
+  __syncthreads();
+  // every block of the cluster has started before any writes into another's
+  // shared memory
+  cluster_arrive();
+  cluster_wait();
+
+  const int c1 = tid % D::NG1, s1 = tid / D::NG1;
+  const int c2 = tid % D::NG2, s2 = tid / D::NG2;
+  const int q = tid % D::C4;        // this thread's 4 columns of the exchange
+  const bool owner = tid < C && tid / D::CN == rank;  // writes queue column tid
+  float4 skip_part = make_float4(0.f, 0.f, 0.f, 0.f);  // this rank's skip, columns 4q..
+  int par = 0;                      // parity of the cluster barriers so far
+
+  for (int t = 0; t < T; ++t) {
+    // -- step start: the noise (warp 0), every layer's tap, cond(t), the front 1x1
+    float u = 0.f;
+    if (warp == 0 && lane < a.NZ) u = __ldg(a.noise + ((size_t)t * a.B + b) * a.NZ + lane);
+    for (int i = tid; i < L * D::C4; i += NTHREADS) {
+      const int l = i / D::C4;
+      const float4* src =
+          reinterpret_cast<const float4*>(queue + (size_t)(oo[l] + t % dd[l]) * C);
+      reinterpret_cast<float4*>(taps)[i] = __ldcg(src + (i - l * D::C4));
     }
-    for (int m = tid; m < M; m += NTHREADS) cat[2 * C + m] = to_f32(cond[(size_t)t * M + m]);
-    for (int n = tid; n < S; n += NTHREADS) skip[n] = 0.f;
+    for (int m = tid; m < M; m += NTHREADS) cs[m] = to_f32(cond[(size_t)t * M + m]);
+    if (tid < C) xs[tid] = __fadd_rn(__fmul_rn(x_prev, fk), fb);
     __syncthreads();
-    if (tid < C) {
-      const float x = __fadd_rn(__fmul_rn(x_prev, to_f32(front_k[tid])), a.front_b[tid]);
-      cat[tid] = x;
-      cat[C + tid] = taps[tid];
-      queue[(size_t)slot[0] * C + tid] = x;
-    }
-    __syncthreads();
+    PHASE(0);
 
     for (int l = 0; l < L; ++l) {
-      // gate GEMM and gated unit
-      gemv_partial<W, KIN, G>(cat, w_in + (size_t)l * KIN * G, part);
-      __syncthreads();
-      if (tid < GH) {
-        const float ga = a.b_g[l * G + tid] + reduce_col<W, G>(part, tid);
-        const float gb = a.b_g[l * G + GH + tid] + reduce_col<W, G>(part, GH + tid);
-        z[tid] = tanhf(ga) * (1.f / (1.f + expf(-gb)));
+      const W* wl = w_rank + (size_t)l * D::LAYER_E;
+      const float* tap = taps + l * C;
+      // both products' weights in flight at once
+      Raw w1[D::R1], w2[D::R2];
+#pragma unroll
+      for (int i = 0; i < D::R1; ++i) {
+        const int k = s1 + i * D::NS1;
+        if (k < D::KIN) w1[i] = __ldg(reinterpret_cast<const Raw*>(wl + k * GC + c1 * V));
       }
-      __syncthreads();
-      // out GEMM; the residual update also stages the next layer's input
-      gemv_partial<W, GH, NO>(z, w_out + (size_t)l * GH * NO, part);
-      __syncthreads();
-      if (tid < NO) {
-        const float o = a.b_rs[l * NO + tid] + reduce_col<W, NO>(part, tid);
-        if (tid < C) {
-          const float x = cat[tid] + o;
-          cat[tid] = x;
-          if (l + 1 < L) {
-            cat[C + tid] = taps[(l + 1) * C + tid];
-            queue[(size_t)slot[l + 1] * C + tid] = x;
-          }
-        } else {
-          skip[tid - C] += o;
+#pragma unroll
+      for (int i = 0; i < D::R2; ++i) {
+        const int k = s2 + i * D::NS2;
+        if (k < GN)
+          w2[i] = __ldg(reinterpret_cast<const Raw*>(wl + D::WIN_E + k * NO + c2 * V));
+      }
+      // gate product over [x | tap | cond], its k slices summed within the
+      // warp, then across the warps
+      float acc[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < D::R1; ++i) {
+        const int k = s1 + i * D::NS1;
+        if (k < D::KIN) {
+          const float v = k < C ? xs[k] : (k < 2 * C ? tap[k - C] : cs[k - 2 * C]);
+          float f[V];
+          Vec<W>::to_f32(w1[i], f);
+#pragma unroll
+          for (int j = 0; j < V; ++j) acc[j] = fmaf(v, f[j], acc[j]);
         }
       }
+#pragma unroll
+      for (int o = D::NG1; o < 32; o <<= 1)
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[j] += __shfl_xor_sync(FULL, acc[j], o);
+      if (lane < D::NG1)
+#pragma unroll
+        for (int j = 0; j < V; ++j) gpart[warp * GC + lane * V + j] = acc[j];
       __syncthreads();
+      PHASE(1);
+      if (tid < GN) {
+        float ga = 0.f, gb = 0.f;
+#pragma unroll
+        for (int w = 0; w < NWARPS; ++w) {
+          ga += gpart[w * GC + tid];
+          gb += gpart[w * GC + GN + tid];
+        }
+        ga = b_rank[l * GC + tid] + ga;
+        gb = b_rank[l * GC + GN + tid] + gb;
+        zs[tid] = tanhf(ga) * (1.f / (1.f + expf(-gb)));
+      }
+      __syncthreads();
+      PHASE(2);
+      // out product: this rank's partial of all C+S outputs over its z rows
+      float acc2[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc2[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < D::R2; ++i) {
+        const int k = s2 + i * D::NS2;
+        if (k < GN) {
+          float f[V];
+          Vec<W>::to_f32(w2[i], f);
+          const float zk = zs[k];
+#pragma unroll
+          for (int j = 0; j < V; ++j) acc2[j] = fmaf(zk, f[j], acc2[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) opart[s2 * NO + c2 * V + j] = acc2[j];
+      __syncthreads();
+      PHASE(3);
+      // the partial's residual columns 4q.. to every rank (the skip columns
+      // at the last layer, summed over the layers)
+      float4 res = make_float4(0.f, 0.f, 0.f, 0.f), sk = res;
+#pragma unroll
+      for (int s = 0; s < D::NS2; ++s) {
+        res = add4(res, reinterpret_cast<const float4*>(opart + s * NO)[q]);
+        sk = add4(sk, reinterpret_cast<const float4*>(opart + s * NO + C)[q]);
+      }
+      skip_part = add4(skip_part, sk);
+      const bool last = l + 1 == L;
+      const float4 val = last ? skip_part : res;
+      const uint32_t dst = smem_u32(xbuf + (par * N + rank) * C) + 16 * q;
+      for (int i = tid; i < N * D::C4; i += NTHREADS) st_cluster(mapa(dst, i / D::C4), val);
+      if (last) skip_part = make_float4(0.f, 0.f, 0.f, 0.f);
+      PHASE(4);
+      cluster_arrive();
+      cluster_wait();
+      PHASE(5);
+      // every rank sums the N partials in rank order
+      const float* xb = xbuf + par * N * C;
+      par ^= 1;
+      if (l == 0 && owner)  // the step's first barrier is behind: all taps are read
+        __stcg(queue + (size_t)(oo[0] + t % dd[0]) * C + tid, xs[tid]);
+      if (!last) {
+        if (tid < C) {
+          float o = 0.f;
+#pragma unroll
+          for (int r = 0; r < N; ++r) o += xb[r * C + tid];
+          const float x = xs[tid] + (a.b_rs[l * NO + tid] + o);
+          xs[tid] = x;
+          if (owner) __stcg(queue + (size_t)(oo[l + 1] + t % dd[l + 1]) * C + tid, x);
+        }
+      } else if (tid < S) {
+        float s = 0.f;
+#pragma unroll
+        for (int r = 0; r < N; ++r) s += xb[r * C + tid];
+        hs[tid] = fmaxf(bsum + s, 0.f);
+      }
+      __syncthreads();
+      PHASE(6);
     }
 
-    // -- head: relu, 1x1, relu, 1x1
-    if (tid < S) h[tid] = fmaxf(skip[tid], 0.f);
+    // -- head: relu (above), 1x1, relu, 1x1, in every rank
+    {
+      constexpr int KP = S / D::HP;
+      const int n = tid % S, p = tid / S;
+      float v = 0.f;
+#pragma unroll 8
+      for (int k = p * KP; k < (p + 1) * KP; ++k) v = fmaf(hs[k], to_f32(head1[k * S + n]), v);
+      hpart[p * S + n] = v;
+    }
     __syncthreads();
-    gemv_partial<W, S, S>(h, head1_k, part);
-    __syncthreads();
-    if (tid < S) h[tid] = fmaxf(a.head1_b[tid] + reduce_col<W, S>(part, tid), 0.f);
-    __syncthreads();
-    const int warp = tid >> 5, lane = tid & 31;
-    for (int n = warp; n < HD; n += NTHREADS / 32) {
+    if (tid < S) {
       float v = 0.f;
 #pragma unroll
-      for (int k = lane; k < S; k += 32) v = fmaf(h[k], to_f32(head2_k[k * HD + n]), v);
+      for (int p = 0; p < D::HP; ++p) v += hpart[p * S + tid];
+      hs[tid] = fmaxf(a.head1_b[tid] + v, 0.f);
+    }
+    __syncthreads();
+    for (int n = warp; n < HD; n += NWARPS) {
+      float v = 0.f;
+#pragma unroll
+      for (int k = lane; k < S; k += 32) v = fmaf(hs[k], to_f32(head2[k * HD + n]), v);
       v = warp_sum(v);
       if (lane == 0) hp[n] = a.head2_b[n] + v;
     }
     __syncthreads();
 
-    // -- the sample (warp 0)
+    // -- the sample (warp 0 of every rank)
     if (warp == 0) {
-      const float* u = a.noise + ((size_t)t * a.B + b) * a.NZ;
       float xt;
       if (a.gaussian) {
+        const float eps = __shfl_sync(FULL, u, 0);
         const float ls = fmaxf(hp[1], a.log_scale_min);
-        xt = hp[0] + expf(ls) * a.temperature * u[0];
+        xt = hp[0] + expf(ls) * a.temperature * eps;
       } else {
-        const float score = lane < K ? hp[lane] - logf(-logf(u[lane])) : -INFINITY;
+        const float score = lane < K ? hp[lane] - logf(-logf(u)) : -INFINITY;
         const float best = warp_max(score);
         const bool pick = lane < K && score >= best;
-        const int count = __popc(__ballot_sync(0xffffffffu, pick));
+        const int count = __popc(__ballot_sync(FULL, pick));
         const float wgt = pick ? 1.f / (float)count : 0.f;
         const float mean = warp_sum(lane < K ? hp[K + lane] * wgt : 0.f);
         const float ls = warp_sum(lane < K ? fmaxf(hp[2 * K + lane], a.log_scale_min) * wgt : 0.f);
-        const float ul = u[K];
+        const float ul = __shfl_sync(FULL, u, K);
         xt = mean + expf(ls) * a.temperature * (logf(ul) - log1pf(-ul));
       }
       xt = fminf(fmaxf(xt, -1.f), 1.f);
       if (lane == 0) {
-        a.wav[(size_t)b * a.T + t] = xt;
         x_prev = xt;
+        if (rank == 0) a.wav[(size_t)b * T + t] = xt;
+#ifdef PWN_AR_SAMPLER_CHECK
+        a.wav_ranks[((size_t)rank * a.B + b) * T + t] = xt;
+#endif
       }
     }
     __syncthreads();
+    PHASE(7);
+#ifdef PWN_AR_SAMPLER_PHASES
+    if (phase_on) ++phase_acc[NPHASES];
+#endif
   }
+  // no block leaves while another may still write into its shared memory
+  cluster_arrive();
+  cluster_wait();
+#ifdef PWN_AR_SAMPLER_PHASES
+  if (phase_on)
+    for (int k = 0; k <= NPHASES; ++k) atomicAdd(&ar_phase_cycles[k], phase_acc[k]);
+#endif
 }
 
-size_t smem_bytes(int C, int G, int S, int M, int L) {
-  return sizeof(float) *
-         (size_t)((2 * C + M) + G / 2 + 2 * S + MAX_HD + NTHREADS * 8 + L * C);
-}
-
-template <typename W, typename CT, int C, int G, int S, int M>
-int launch(const Args& a, const Dilations& dl, cudaStream_t stream) {
-  const size_t smem = smem_bytes(C, G, S, M, a.L);
-  auto kernel = ar_sampler_kernel<W, CT, C, G, S, M>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <typename W, typename CT, int C, int G, int S, int M, int N>
+cudaError_t launch_config(const Args& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                          cudaStream_t stream) {
+  const size_t smem = smem_bytes<W, C, G, S, M, N>(a.L, a.HD);
+  cudaError_t err = cudaFuncSetAttribute(ar_sampler_kernel<W, CT, C, G, S, M, N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<a.B, NTHREADS, smem, stream>>>(a, dl);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = N;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(a.B * N);
+  cfg->blockDim = dim3(NTHREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// Launches the kernel, or only reports in *clusters how many of its clusters
+// the card holds at once (when clusters is not null).
+template <typename W, typename CT, int C, int G, int S, int M, int N>
+int launch(const Args& a, const Dilations& dl, cudaStream_t stream, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = launch_config<W, CT, C, G, S, M, N>(a, &cfg, &attr, stream);
+  if (err != cudaSuccess) return err;
+  int fit = 0;
+  err = cudaOccupancyMaxActiveClusters(&fit, ar_sampler_kernel<W, CT, C, G, S, M, N>, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters) {
+    *clusters = fit;
+    return cudaSuccess;
+  }
+  if (fit < 1) return cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, ar_sampler_kernel<W, CT, C, G, S, M, N>, a, dl);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <int C, int G, int S, int M>
+template <int C, int G, int S, int M, int N>
 int launch_dims(const Args& a, const Dilations& dl, int weights_bf16, int cond_bf16,
-                cudaStream_t st) {
+                cudaStream_t st, int* clusters) {
   if (weights_bf16)
-    return cond_bf16 ? launch<bf16, bf16, C, G, S, M>(a, dl, st)
-                     : launch<bf16, float, C, G, S, M>(a, dl, st);
-  return cond_bf16 ? launch<float, bf16, C, G, S, M>(a, dl, st)
-                   : launch<float, float, C, G, S, M>(a, dl, st);
+    return cond_bf16 ? launch<bf16, bf16, C, G, S, M, N>(a, dl, st, clusters)
+                     : launch<bf16, float, C, G, S, M, N>(a, dl, st, clusters);
+  return cond_bf16 ? launch<float, bf16, C, G, S, M, N>(a, dl, st, clusters)
+                   : launch<float, float, C, G, S, M, N>(a, dl, st, clusters);
 }
 
-}  // namespace
+constexpr int RANKS = 8;  // blocks per cluster
 
-extern "C" {
-
-// Runs the sampler on `stream`; returns a cudaError_t (0 on success).
-// weights_bf16 / cond_bf16 select the storage type (else fp32) of the
-// weights (front_k, w_in, w_out, head1_k, head2_k) and of cond.
-int pwn_ar_sample(const void* cond, const void* noise, const void* front_k,
-                  const void* front_b, const void* w_in, const void* b_g,
-                  const void* w_out, const void* b_rs, const void* head1_k,
-                  const void* head1_b, const void* head2_k, const void* head2_b,
-                  void* queue, void* wav, int B, int T, int L, int c, int g, int s,
-                  int m, int hd, int k, int gaussian, const int* dilations,
-                  float log_scale_min, float temperature, int weights_bf16,
-                  int cond_bf16, void* stream) {
+int run(const Args& a, const int* dilations, int c, int g, int s, int m, int hd, int k,
+        int gaussian, int weights_bf16, int cond_bf16, int n_ranks, cudaStream_t st,
+        int* clusters) {
   const bool teacher_lj = c == 128 && g == 256 && s == 128 && m == 80;
   const bool tiny = c == 64 && g == 128 && s == 64 && m == 40;
-  if (!(teacher_lj || tiny) || B < 1 || T < 1 || L < 1 || L > MAX_L)
+  if (!(teacher_lj || tiny) || n_ranks != RANKS || a.B < 1 || a.T < 1 || a.L < 1 ||
+      a.L > MAX_L)
     return cudaErrorInvalidValue;
   if (gaussian ? hd != 2 : (k < 1 || hd != 3 * k || hd > MAX_HD))
     return cudaErrorInvalidValue;
@@ -359,20 +551,59 @@ int pwn_ar_sample(const void* cond, const void* noise, const void* front_k,
     dl.d[l] = 1;
     dl.off[l] = 0;
   }
-  for (int l = 0; l < L; ++l) {
+  for (int l = 0; l < a.L; ++l) {
     if (dilations[l] < 1) return cudaErrorInvalidValue;
     dl.d[l] = dilations[l];
     dl.off[l] = sum_d;
     sum_d += dilations[l];
   }
+  Args args = a;
+  args.sum_d = sum_d;
+  if (teacher_lj)
+    return launch_dims<128, 256, 128, 80, RANKS>(args, dl, weights_bf16, cond_bf16, st,
+                                                 clusters);
+  return launch_dims<64, 128, 64, 40, RANKS>(args, dl, weights_bf16, cond_bf16, st,
+                                             clusters);
+}
+
+}  // namespace
+
+extern "C" {
+
+#ifdef PWN_AR_SAMPLER_PHASES
+// The phases' names, separated by ';'.
+const char* pwn_ar_sampler_phase_names() { return PHASE_NAMES; }
+
+// Copies the phase cycles since the last call, then the count of steps, into
+// out[NPHASES + 1] and clears them.
+int pwn_ar_sampler_phases(unsigned long long* out) {
+  const unsigned long long zero[NPHASES + 1] = {};
+  cudaError_t err = cudaMemcpyFromSymbol(out, ar_phase_cycles, sizeof(zero));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(ar_phase_cycles, zero, sizeof(zero));
+  return err;
+}
+#endif
+
+// Runs the sampler on `stream`; returns a cudaError_t (0 on success).
+// weights_bf16 / cond_bf16 select the storage type (else fp32) of the
+// weights (front_k, w_rank, head1_k, head2_k) and of cond.  w_rank / b_rank
+// are `pack_ar_ranks`' layout for n_ranks blocks per cluster (8).  wav_ranks
+// may be null; only a PWN_AR_SAMPLER_CHECK build writes it.
+int pwn_ar_sample(const void* cond, const void* noise, const void* front_k,
+                  const void* front_b, const void* w_rank, const void* b_rank,
+                  const void* b_rs, const void* head1_k, const void* head1_b,
+                  const void* head2_k, const void* head2_b, void* queue, void* wav,
+                  void* wav_ranks, int B, int T, int L, int c, int g, int s, int m, int hd,
+                  int k, int gaussian, const int* dilations, float log_scale_min,
+                  float temperature, int weights_bf16, int cond_bf16, int n_ranks,
+                  void* stream) {
   Args a;
   a.cond = cond;
   a.noise = static_cast<const float*>(noise);
   a.front_k = front_k;
   a.front_b = static_cast<const float*>(front_b);
-  a.w_in = w_in;
-  a.b_g = static_cast<const float*>(b_g);
-  a.w_out = w_out;
+  a.w_rank = w_rank;
+  a.b_rank = static_cast<const float*>(b_rank);
   a.b_rs = static_cast<const float*>(b_rs);
   a.head1_k = head1_k;
   a.head1_b = static_cast<const float*>(head1_b);
@@ -380,14 +611,28 @@ int pwn_ar_sample(const void* cond, const void* noise, const void* front_k,
   a.head2_b = static_cast<const float*>(head2_b);
   a.queue = static_cast<float*>(queue);
   a.wav = static_cast<float*>(wav);
+  a.wav_ranks = static_cast<float*>(wav_ranks);
   a.B = B; a.T = T; a.L = L;
   a.HD = hd; a.K = gaussian ? 0 : k; a.NZ = gaussian ? 1 : k + 1;
-  a.sum_d = sum_d; a.gaussian = gaussian;
+  a.sum_d = 0; a.gaussian = gaussian;
   a.log_scale_min = log_scale_min;
   a.temperature = temperature;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (teacher_lj) return launch_dims<128, 256, 128, 80>(a, dl, weights_bf16, cond_bf16, st);
-  return launch_dims<64, 128, 64, 40>(a, dl, weights_bf16, cond_bf16, st);
+  return run(a, dilations, c, g, s, m, hd, k, gaussian, weights_bf16, cond_bf16, n_ranks,
+             static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// How many of the sampler's clusters (one per batch row) the card holds at
+// once for these widths and types; returns a cudaError_t.
+int pwn_ar_sample_max_clusters(int L, int c, int g, int s, int m, int hd, int k,
+                               int gaussian, int weights_bf16, int cond_bf16, int n_ranks,
+                               int* clusters) {
+  Args a = {};
+  a.B = 1; a.T = 1; a.L = L; a.HD = hd;
+  int dil[MAX_L];
+  for (int l = 0; l < MAX_L; ++l) dil[l] = 1;
+  if (L < 1 || L > MAX_L) return cudaErrorInvalidValue;
+  return run(a, dil, c, g, s, m, hd, k, gaussian, weights_bf16, cond_bf16, n_ranks, nullptr,
+             clusters);
 }
 
 }  // extern "C"

@@ -30,6 +30,18 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 LINK_FLAGS = ("-shared",)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+AR_SAMPLE_ARGTYPES = [   # pwn_ar_sample, also in the tools' own builds
+    _P, _P, _P, _P, _P, _P, _P,     # cond, noise, front_k, front_b, w_rank,
+                                    # b_rank, b_rs
+    _P, _P, _P, _P, _P, _P, _P,     # head1_k, head1_b, head2_k, head2_b,
+                                    # queue, wav, wav_ranks
+    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # B, T, L, C, G, S, M,
+                                             # head_dim, K, gaussian
+    ctypes.POINTER(ctypes.c_int),   # dilations
+    ctypes.c_float, ctypes.c_float,  # log_scale_min, temperature
+    _I, _I, _I, _P,                 # weights_bf16, cond_bf16, n_ranks, stream
+]
 
 
 def nvcc_path() -> str:
@@ -132,18 +144,14 @@ def load_library() -> ctypes.CDLL:
     lib.pwn_flow_stack_train_bwd_bf16.restype = i
     lib.pwn_flow_stack_train_bwd_workspace_bytes.argtypes = [i] * 8
     lib.pwn_flow_stack_train_bwd_workspace_bytes.restype = ctypes.c_longlong
-    lib.pwn_ar_sample.argtypes = [
-        p, p, p, p, p, p, p, p,        # cond, noise, front_k, front_b, w_in,
-                                       # b_g, w_out, b_rs
-        p, p, p, p, p, p,              # head1_k, head1_b, head2_k, head2_b,
-                                       # queue, wav
-        i, i, i, i, i, i, i, i, i, i,  # B, T, L, C, G, S, M, head_dim, K,
-                                       # gaussian
-        ctypes.POINTER(ctypes.c_int),  # dilations
-        ctypes.c_float, ctypes.c_float,  # log_scale_min, temperature
-        i, i, p,                       # weights_bf16, cond_bf16, stream
-    ]
+    lib.pwn_ar_sample.argtypes = AR_SAMPLE_ARGTYPES
     lib.pwn_ar_sample.restype = i
+    lib.pwn_ar_sample_max_clusters.argtypes = [
+        i, i, i, i, i, i, i, i, i, i, i,  # L, C, G, S, M, head_dim, K, gaussian,
+                                          # weights_bf16, cond_bf16, n_ranks
+        ctypes.POINTER(ctypes.c_int),     # out: clusters
+    ]
+    lib.pwn_ar_sample_max_clusters.restype = i
     lib.pwn_gated_layer_bf16.argtypes = [
         p, p, p, p, p, p, p, p,        # x, cond, w_in, b_g, w_out, b_out, res,
                                        # skip

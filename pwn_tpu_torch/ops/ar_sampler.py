@@ -20,7 +20,9 @@ with cond (B, T, M) in the compute dtype, and returns wav (B, T) fp32.
 Compute is fp32 over the stored weights, and the queues are fp32.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
-(`csrc/ar_sampler.cu`) or raises.
+(`csrc/ar_sampler.cu`) or raises.  The kernel runs each batch row on a
+cluster of `AR_RANKS` blocks, each of which owns 1/AR_RANKS of every
+layer's gate columns; `pack_ar_ranks` lays the weights out for it.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ from pwn_tpu_torch.ops.mol import mol_sample_from_uniforms
 # clarinet_gaussian), tiny_teacher
 AR_KERNEL_DIMS = ((128, 256, 128, 80), (64, 128, 64, 40))
 AR_MAX_LAYERS = 64
+AR_RANKS = 8  # blocks per cluster: the kernel's split of every layer
+AR_ROWS = 1   # batch rows per cluster
 _WEIGHTS = ("front_k", "w_in", "w_out", "head1_k", "head2_k")
 _BIASES = ("front_b", "b_g", "b_rs", "head1_b", "head2_b")
 
@@ -70,6 +74,31 @@ def stack_teacher_weights(stack, dtype: torch.dtype = torch.bfloat16) -> dict:
         head2_b=stack.head2.bias[None].float(),
     )
     return {k: v.detach().contiguous() for k, v in out.items()}
+
+
+def pack_ar_ranks(weights: dict, n_ranks: int) -> dict:
+    """Split `stack_teacher_weights`' gate layers among `n_ranks` blocks:
+    rank j owns gate columns [j*GH/n, (j+1)*GH/n) of the tanh half and the
+    same of the sigmoid half (GH = G/2), and those rows of W_out.  Returns
+    `w`, (n_ranks, L, (2C+M)*2GH/n + GH/n*(C+S)) in the storage dtype: per
+    rank and layer its W_in columns ((2C+M) x 2GH/n, tanh then sigmoid,
+    row-major), then its W_out rows (GH/n x (C+S)), one contiguous run;
+    and `b_g`, (n_ranks, L, 2GH/n) fp32, its gate biases in the same
+    column order.  Plain torch, on the weights' device."""
+    w_in, w_out, b_g = weights["w_in"], weights["w_out"], weights["b_g"]
+    L, K, G = w_in.shape
+    gh = G // 2
+    if gh % n_ranks:
+        raise ValueError(f"{gh} gate columns do not split into {n_ranks} ranks")
+    gn = gh // n_ranks
+    # w_in[l, k, h*GH + j*gn + c] -> [j, l, k, h, c]
+    win = w_in.reshape(L, K, 2, n_ranks, gn).permute(3, 0, 1, 2, 4)
+    # w_out[l, j*gn + i, n] -> [j, l, i, n]
+    wout = w_out.reshape(L, n_ranks, gn, -1).permute(1, 0, 2, 3)
+    bg = b_g.reshape(L, 2, n_ranks, gn).permute(2, 0, 1, 3)
+    return {"w": torch.cat([win.reshape(n_ranks, L, -1),
+                            wout.reshape(n_ranks, L, -1)], dim=2).contiguous(),
+            "b_g": bg.reshape(n_ranks, L, 2 * gn).contiguous()}
 
 
 def queue_offsets(dilations: Sequence[int]) -> list:
@@ -189,27 +218,63 @@ def ar_sample(cond: torch.Tensor, noise: torch.Tensor, weights: dict, *,
             cond, noise, weights, dilations=dilations, n_mixtures=n_mixtures,
             head=head, log_scale_min=log_scale_min, temperature=temperature)
     check_ar_args(cond, noise, weights, dilations, n_mixtures, head)
+    args, held = ar_launch_args(cond, noise, weights, dilations, n_mixtures,
+                                head, log_scale_min, temperature)
+    _device_call("pwn_ar_sample", cond.device, *args)
+    ar_sample.launches += 1
+    return held[0]
+
+
+def ar_launch_args(cond, noise, weights: dict, dilations: Sequence[int],
+                   n_mixtures: int, head: str, log_scale_min: float,
+                   temperature: float, wav_ranks: torch.Tensor | None = None):
+    """The arguments of the library's `pwn_ar_sample` but the stream, for
+    arguments `check_ar_args` passed, and the tensors they point into that
+    the caller must hold until the launch: (wav (B, T), the packed
+    weights, the zeroed queues)."""
     B, T, M = cond.shape
     L, _, G = weights["w_in"].shape
     C = weights["front_k"].shape[-1]
     S = weights["head1_k"].shape[0]
     HD = weights["head2_k"].shape[-1]
-    dev = cond.device
+    ranks = pack_ar_ranks(weights, AR_RANKS)
     queue = torch.zeros((B, sum(dilations), C), dtype=torch.float32,
-                        device=dev)
-    wav = torch.empty((B, T), dtype=torch.float32, device=dev)
-    _device_call(
-        "pwn_ar_sample", dev, cond.data_ptr(), noise.data_ptr(),
-        *(weights[n].data_ptr() for n in (
-            "front_k", "front_b", "w_in", "b_g", "w_out", "b_rs", "head1_k",
-            "head1_b", "head2_k", "head2_b")),
-        queue.data_ptr(), wav.data_ptr(), B, T, L, C, G, S, M, HD,
-        n_mixtures, int(head == "gaussian"), (ctypes.c_int * L)(*dilations),
-        float(log_scale_min), float(temperature),
-        int(weights["w_in"].dtype == torch.bfloat16),
-        int(cond.dtype == torch.bfloat16))
-    ar_sample.launches += 1
-    return wav
+                        device=cond.device)
+    wav = torch.empty((B, T), dtype=torch.float32, device=cond.device)
+    args = (cond.data_ptr(), noise.data_ptr(),
+            weights["front_k"].data_ptr(), weights["front_b"].data_ptr(),
+            ranks["w"].data_ptr(), ranks["b_g"].data_ptr(),
+            *(weights[n].data_ptr() for n in (
+                "b_rs", "head1_k", "head1_b", "head2_k", "head2_b")),
+            queue.data_ptr(), wav.data_ptr(),
+            None if wav_ranks is None else wav_ranks.data_ptr(),
+            B, T, L, C, G, S, M, HD, n_mixtures, int(head == "gaussian"),
+            (ctypes.c_int * L)(*dilations), float(log_scale_min),
+            float(temperature), int(weights["w_in"].dtype == torch.bfloat16),
+            int(cond.dtype == torch.bfloat16), AR_RANKS)
+    return args, (wav, ranks, queue)
+
+
+def ar_max_clusters(weights: dict, *, n_mixtures: int, head: str,
+                    cond_dtype: torch.dtype) -> int:
+    """How many of the kernel's clusters (AR_ROWS batch rows each) the
+    current card holds at once for these weights: a larger batch runs in
+    waves."""
+    from pwn_tpu_torch.ops import _build
+
+    L, K, G = weights["w_in"].shape
+    C = weights["front_k"].shape[-1]
+    S = weights["head1_k"].shape[0]
+    out = ctypes.c_int(0)
+    lib = _build.load_library()
+    err = lib.pwn_ar_sample_max_clusters(
+        L, C, G, S, K - 2 * C, weights["head2_k"].shape[-1], n_mixtures,
+        int(head == "gaussian"), int(weights["w_in"].dtype == torch.bfloat16),
+        int(cond_dtype == torch.bfloat16), AR_RANKS, ctypes.byref(out))
+    if err:
+        raise RuntimeError("pwn_ar_sample_max_clusters failed: "
+                           + lib.pwn_cuda_error_string(err).decode())
+    return out.value
 
 
 ar_sample.launches = 0

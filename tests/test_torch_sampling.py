@@ -26,7 +26,8 @@ from pwn_tpu_torch.models import sampling
 from pwn_tpu_torch.models.modules import DTYPES
 from pwn_tpu_torch.models.teacher import TeacherWaveNet, init_teacher
 from pwn_tpu_torch.ops import ar_sampler
-from pwn_tpu_torch.ops.ar_sampler import (ar_sample, ar_sample_reference,
+from pwn_tpu_torch.ops.ar_sampler import (AR_KERNEL_DIMS, ar_sample,
+                                          ar_sample_reference, pack_ar_ranks,
                                           stack_teacher_weights)
 from pwn_tpu_torch.ops.mol import mol_sample_from_uniforms
 from torch_parity import jax_config
@@ -273,6 +274,98 @@ def test_generate_teacher_scan_backend_and_options():
         generate_teacher(TINY, model, mel, torch.Generator(), ar_backend="xla")
 
 
+def _stacked(dims, L, dtype, seed):
+    """Random gate-layer weights at widths `dims` = (C, G, S, M) in
+    `stack_teacher_weights`' layout, from numpy."""
+    C, G, S, M = dims
+    rng = np.random.default_rng(seed)
+
+    def arr(shape, scale):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32))
+
+    return dict(w_in=arr((L, 2 * C + M, G), (2 * C + M) ** -0.5).to(dtype),
+                b_g=arr((L, G), 0.1),
+                w_out=arr((L, G // 2, C + S), (G // 2) ** -0.5).to(dtype),
+                b_rs=arr((L, C + S), 0.1))
+
+
+def _rank_columns(G, n_ranks, j):
+    """Rank j's gate columns: its tanh slice, then the sigmoid partners."""
+    gn = G // 2 // n_ranks
+    return [*range(j * gn, (j + 1) * gn),
+            *range(G // 2 + j * gn, G // 2 + (j + 1) * gn)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", AR_KERNEL_DIMS)
+@pytest.mark.parametrize("n_ranks", [8, 16])
+def test_pack_ar_ranks_unpacks_to_the_stacked_layout(n_ranks, dims, dtype):
+    """Each rank's run per layer is its W_in columns (tanh slice, then the
+    sigmoid partners), row-major, then its W_out rows, in the storage
+    dtype, a multiple of 16 bytes; its gate biases follow the same column
+    order.  Read back slice by slice, the runs give the stacked weights
+    exactly."""
+    C, G, S, M = dims
+    L, kin, no, gn = 3, 2 * C + M, C + S, G // 2 // n_ranks
+    w = _stacked(dims, L, DTYPES[dtype], seed=11)
+    packed = pack_ar_ranks(w, n_ranks)
+    assert packed["w"].shape == (n_ranks, L, kin * 2 * gn + gn * no)
+    assert packed["w"].dtype == DTYPES[dtype] and packed["w"].is_contiguous()
+    assert packed["w"].shape[-1] * packed["w"].element_size() % 16 == 0
+    assert packed["b_g"].shape == (n_ranks, L, 2 * gn)
+    assert packed["b_g"].dtype == torch.float32
+    w_in, w_out = torch.zeros_like(w["w_in"]), torch.zeros_like(w["w_out"])
+    b_g = torch.zeros_like(w["b_g"])
+    for j in range(n_ranks):
+        cols = _rank_columns(G, n_ranks, j)
+        for l in range(L):
+            run = packed["w"][j, l]
+            w_in[l][:, cols] = run[:kin * 2 * gn].reshape(kin, 2 * gn)
+            w_out[l][j * gn:(j + 1) * gn] = run[kin * 2 * gn:].reshape(gn, no)
+            b_g[l][cols] = packed["b_g"][j, l]
+    assert torch.equal(w_in, w["w_in"])
+    assert torch.equal(w_out, w["w_out"])
+    assert torch.equal(b_g, w["b_g"])
+
+
+@pytest.mark.parametrize("dims", AR_KERNEL_DIMS)
+@pytest.mark.parametrize("n_ranks", [8, 16])
+def test_layer_from_rank_slices_equals_the_unsplit_layer(n_ranks, dims):
+    """The kernel's split of one gated layer, in fp32 from the packed
+    slices: per rank its gate columns and z, its partial out product; the
+    residual partials summed in rank order, the skip partials kept per
+    rank and summed at the end.  Against the unsplit layer within 1e-6 of
+    the largest output (only the summation order differs)."""
+    C, G, S, M = dims
+    L, B, kin, gn = 2, 3, 2 * C + M, G // 2 // n_ranks
+    w = _stacked(dims, L, torch.float32, seed=12)
+    packed = pack_ar_ranks(w, n_ranks)
+    rng = np.random.default_rng(13)
+    x, tap, cond = (torch.from_numpy(
+        (rng.standard_normal((B, n)) * 0.5).astype(np.float32))
+        for n in (C, C, M))
+    cat = torch.cat([x, tap, cond], dim=1)
+    for l in range(L):
+        g = cat @ w["w_in"][l] + w["b_g"][l]
+        out = (torch.tanh(g[:, :G // 2]) * torch.sigmoid(g[:, G // 2:])
+               @ w["w_out"][l] + w["b_rs"][l])
+        want_res, want_skip = x + out[:, :C], out[:, C:]
+        res, skips = torch.zeros((B, C)), []
+        for j in range(n_ranks):
+            run = packed["w"][j, l]
+            gj = cat @ run[:kin * 2 * gn].reshape(kin, 2 * gn) + packed["b_g"][j, l]
+            zj = torch.tanh(gj[:, :gn]) * torch.sigmoid(gj[:, gn:])
+            part = zj @ run[kin * 2 * gn:].reshape(gn, C + S)
+            res = res + part[:, :C]
+            skips.append(part[:, C:])
+        got_res = x + (w["b_rs"][l, :C] + res)
+        got_skip = w["b_rs"][l, C:] + sum(skips)
+        for got, want in ((got_res, want_res), (got_skip, want_skip)):
+            rel = (got - want).abs().max() / want.abs().max()
+            assert rel <= 1e-6, (l, float(rel))
+
+
 def test_cpu_tensors_take_the_plain_version():
     """No launch is counted on the CPU: the wrapper hands a CPU tensor to
     `ar_sample_reference` and nothing else."""
@@ -348,6 +441,33 @@ def test_kernel_rows_are_isolated(cuda):
     b = ar_sample(cond, noise, weights, **_kw(cfg))
     assert torch.equal(a[0], b[0])
     assert not torch.equal(a[1], b[1])
+
+
+def _assert_kernel_matches_plain(cfg, cond, noise, weights):
+    """The kernel against the plain version per row, at the gates of
+    `test_kernel_matches_plain_on_the_card`."""
+    out = ar_sample(cond, noise, weights, **_kw(cfg))
+    ref = ar_sample_reference(cond, noise, weights, **_kw(cfg))
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    diff = (out - ref).abs()
+    assert (diff[:, :64].amax(1) <= 1e-3).all(), diff[:, :64].amax(1)
+    assert (diff.amax(1) <= 0.05).all(), diff.amax(1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_kernel_matches_plain_at_each_batch(cuda, B):
+    """One cluster per batch row: 1, 3 and 8 clusters at teacher_lj."""
+    _assert_kernel_matches_plain(*_card_case("teacher_lj", cuda, B, 200, seed=B))
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_with_fp32_weights(cuda):
+    """teacher_lj with fp32-stored weights (twice the bytes per slice)."""
+    cfg, cond, noise, weights = _card_case("teacher_lj", cuda, 2, 200)
+    model = _port_teacher(cfg).to(cuda)
+    _assert_kernel_matches_plain(
+        cfg, cond, noise, stack_teacher_weights(model.stack, torch.float32))
 
 
 @pytest.mark.gpu
