@@ -24,46 +24,74 @@
 // matrix-vector products per row.  At teacher_lj widths (C=128, G=256,
 // S=128, M=80, L=24) that is 5.9 MFLOP per row per step over 5.79 MB of bf16
 // weights: by the roofline (67 TFLOP/s fp32, 3.35 TB/s), about 0.7 us per
-// step at batch 8.  But the chain is serial, and the weights (5.79 MB in
-// bf16, 11.6 MB in fp32) fit in no SM: they stay in the 50 MB L2 and are read
-// again every step, so what bounds a step is how fast the SMs that work on a
-// row take in its weights, plus one synchronisation per layer.
+// step at batch 8.  The weights (5.79 MB in bf16, 11.6 MB in fp32) fit in no
+// SM, so they stay in the 50 MB L2 and are read again every step; split over
+// a row's 8 SMs that is 712,704 B per SM per step, which L2 delivers faster
+// than the layers consume it.  What bounds a step is latency: each of its 24
+// layers is a chain of dependent shared-memory passes, shuffle sums,
+// libm calls, two block barriers and one exchange between SMs
+// (tools/torch_ar_sampler_phases.py splits it).
 //
 // Design:
-// * One cluster of N = 8 blocks (one per SM) per batch row: the row's weight
-//   stream is split eight ways.  Rank j owns gate columns [j GH/N, (j+1)
-//   GH/N) of the tanh half and the same of the sigmoid half (32 columns at
-//   GH = 128), and the same GH/N rows of W_out.  Per layer it reads its
-//   (2C+M) x 2GH/N slice of W_in and GH/N x (C+S) slice of W_out, 29,696 B
-//   in bf16: 712,704 B per step at L = 24, against 5.79 MB for one block.
-//   `pack_ar_ranks` (ops/ar_sampler.py) lays each rank's slices out as one
-//   contiguous run per layer.  Clusters own whole rows, so no cluster ever
-//   waits on another, and a batch larger than the card's clusters runs in
-//   waves.
-// * Rank j's gate columns are whole dot products over K = 2C+M, so its GH/N
-//   z values need no cross-SM sum.  Its out product gives a partial of all
-//   C+S outputs over its z rows.  The residual half (C floats) goes to every
-//   rank's shared memory (DSMEM, double-buffered by barrier parity), then one
-//   cluster barrier, then every rank sums the N partials in rank order 0..N-1
-//   and updates its own full copy of x: one barrier per layer.  The skip half
-//   stays in the rank across the layers; at the last layer the skip partials
-//   go out in place of the residual, which that layer does not need.
+// * One cluster of N = 8 blocks (one per SM) per batch row.  Rank j owns
+//   gate columns [j GH/N, (j+1) GH/N) of the tanh half and the same of the
+//   sigmoid half (32 columns at GH = 128), and the same GH/N rows of W_out.
+//   Per layer it reads its 2GH/N x (2C+M) slice of W_in (column-major) and
+//   GH/N x (C+S) slice of W_out: 29,696 B in bf16, 712,704 B per step at
+//   L = 24, against 5.79 MB for one block.  `pack_ar_ranks`
+//   (ops/ar_sampler.py) lays each rank's slices out as one contiguous run per
+//   layer.  Clusters own whole rows and never wait on each other, so a batch
+//   larger than the card's clusters runs in waves.
+// * The stream.  One thread brings each layer's run into a ring of STAGES
+//   shared-memory stages with one 1-D bulk copy (cp.async.bulk, completion
+//   counted on the stage's mbarrier); the ring cycles through the layers
+//   across the steps.  A stage is refilled at the block barrier after the
+//   layer that used it, STAGES - 1 layers ahead of its use.
+// * The gate.  Warp w owns GH/(8N) tanh columns and their sigmoid partners,
+//   so each gate column is one whole K = 2C+M dot product inside one warp
+//   (lanes over k pairs, then a shuffle sum): no sum across warps or SMs
+//   before the gated unit.  Then one block barrier, and thread n computes
+//   output n's partial z @ W_out over this rank's z rows.
+// * One exchange per layer.  The residual half of the partial (C floats)
+//   goes to every rank's shared memory by st.async (16 bytes a store),
+//   double-buffered by layer parity and counted on the receiving rank's
+//   mbarrier for that parity: a rank waits only until all N partials have
+//   landed in its own shared memory, not for the other ranks to reach a
+//   barrier.  While it waits, every warp computes the next layer's gate
+//   product over its tap and cond rows (C+M of the 2C+M), which do not
+//   depend on x.  Then every warp of every rank sums the N partials in rank
+//   order 0..N-1 into its own copy of x (lane i holds rows 2i, 2i+1, 2i+64,
+//   2i+65 at C = 128), so the gate product follows with no block barrier.
+//   A buffer is written again two layers later only by a rank that has
+//   received this rank's next partial, which this rank sends after reading
+//   the buffer.  The skip half stays in the rank across the layers; at the
+//   last layer the skip partials go out in place of the residual, which that
+//   layer does not need.
 // * Every rank holds the same x, skip, head output and sample, bit for bit:
 //   each reduces the same partials in the same order with the same code (no
 //   atomics, nothing rank-dependent).  The head (its weights in each block's
 //   shared memory) and the draw run in every rank; rank 0 writes wav.
 // * The queues (sum(d) x C fp32, 392 KB per row at teacher_lj) live in
-//   device memory, (B, sum(d), C), zeroed by the caller.  At the start of a
-//   step every rank reads every layer's tap (one latency for all L); rank j
-//   writes only its C/N columns of each layer's x.  Other ranks write the
-//   queue during the launch, so it is read with ld.global.cg (never the
-//   non-coherent path), and the cluster barrier's release / acquire orders the
-//   writes before the reads.  A slot is read at a step's start and written in
-//   the same step, so a rank writes the queue only after the step's first
-//   cluster barrier, when every rank has read its taps.
+//   device memory, (B, sum(d), C), zeroed by the caller.  Rank j writes only
+//   its C/N columns of each layer's x, and only for layers with d > 1.  Every
+//   rank keeps all L taps of the step in shared memory and fills them for the
+//   next step while this one runs: a layer with d = 1 takes this step's x, a
+//   layer with d > 1 its queue slot for step t+1, written at step t+1-d or
+//   earlier, read after the layer's gate product with ld.global.cg (never
+//   the non-coherent path: other SMs write the queue during the launch).
+//   One cluster barrier per step orders the queue: its arrive (release)
+//   ends a step, its wait (acquire) comes before the next step's first
+//   queue access, so every write of a step is seen by the reads of the next,
+//   and every read of a slot comes before the step that writes it again.
 // * Numerics are the reference's: fp32 FMAs on the CUDA cores, IEEE
 //   tanhf/expf/logf/log1pf (no fast-math), sigmoid as 1/(1+exp(-x)).  Only
-//   the summation order differs from one block per row.
+//   the summation order differs from the plain version.
+// * Shared memory at teacher_lj, bf16 weights: the ring 89 KB (3 stages),
+//   the head's weights 40 KB, the taps 12 KB, the exchange 8 KB.  fp32
+//   weights take 2 stages (116 KB; the refill then meets its use) and 79 KB
+//   of head weights.
+// * A pipeline fault traps (2^26 polls of an mbarrier) instead of hanging
+//   the card.
 //
 // With PWN_AR_SAMPLER_PHASES defined (tools/torch_ar_sampler_phases.py builds
 // it so), thread 0 of block 0 adds the clock cycles of each phase of each step
@@ -83,6 +111,7 @@ constexpr int NWARPS = NTHREADS / 32;
 constexpr int MAX_L = 64;      // layers
 constexpr int MAX_HD = 32;     // head width
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int REFILL = NTHREADS - 32;  // lane 0 of the last warp feeds the ring
 
 struct Dilations {
   int d[MAX_L];    // dilation of layer l
@@ -95,7 +124,7 @@ struct Args {
   const void* front_k;   // (1, C)
   const float* front_b;  // (1, C)
   const void* w_rank;    // (N, L, LAYER_E): per rank and layer, its W_in columns
-                         // ((2C+M) x 2GH/N) then its W_out rows (GH/N x (C+S))
+                         // (2GH/N x (2C+M)) then its W_out rows (GH/N x (C+S))
   const float* b_rank;   // (N, L, 2GH/N): its gate biases
   const float* b_rs;     // (L, C+S)
   const void* head1_k;   // (S, S)
@@ -110,10 +139,10 @@ struct Args {
 };
 
 #ifdef PWN_AR_SAMPLER_PHASES
-constexpr int NPHASES = 8;
+constexpr int NPHASES = 9;
 constexpr const char* PHASE_NAMES =
-    "step start (taps, cond, front);gate product;gates;out product;DSMEM push;"
-    "cluster barrier;x and queue update;head and draw";
+    "step start;waiting for a slice;tap and cond product;x update;"
+    "x product and gates;out product;DSMEM push;exchange wait;head and draw";
 // the cycles of each phase, then the count of steps
 __device__ unsigned long long ar_phase_cycles[NPHASES + 1];
 #define PHASE(k)                                                               \
@@ -131,12 +160,19 @@ __device__ unsigned long long ar_phase_cycles[NPHASES + 1];
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
-// 16 bytes of weights: 8 bf16 or 4 fp32 values.
-template <typename W> struct Vec;
+// Two consecutive weights as fp32.
+__device__ __forceinline__ float2 pair_f32(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 pair_f32(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// 16 bytes of cond: 8 bf16 or 4 fp32 values.
+template <typename T> struct Vec;
 template <> struct Vec<bf16> {
   static constexpr int N = 8;
-  using Raw = uint4;
-  __device__ static void to_f32(const Raw& r, float (&f)[N]) {
+  __device__ static void to_f32(const uint4& r, float* f) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -148,15 +184,11 @@ template <> struct Vec<bf16> {
 };
 template <> struct Vec<float> {
   static constexpr int N = 4;
-  using Raw = float4;
-  __device__ static void to_f32(const Raw& r, float (&f)[N]) {
-    f[0] = r.x; f[1] = r.y; f[2] = r.z; f[3] = r.w;
+  __device__ static void to_f32(const uint4& r, float* f) {
+    const float4 v = *reinterpret_cast<const float4*>(&r);
+    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
   }
 };
-
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -172,40 +204,81 @@ __device__ __forceinline__ float warp_max(float v) {
 
 constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 
-// The widths, the rank split and the thread maps of the two products.
-template <typename W, int C, int G, int S, int M, int N>
+// The widths, the rank split, the thread maps and the shared memory.
+template <typename W, typename CT, int C, int G, int S, int M, int N>
 struct Dims {
   static constexpr int GH = G / 2, GN = GH / N, GC = 2 * GN, KIN = 2 * C + M, NO = C + S;
-  static constexpr int CN = C / N, C4 = C / 4;
-  static constexpr int WIN_E = KIN * GC, LAYER_E = WIN_E + GN * NO;
-  static constexpr int V = Vec<W>::N;
-  // gate product: thread (column group c1, k slice s1) sums rows s1, s1 + NS1, ...
-  static constexpr int NG1 = GC / V, NS1 = NTHREADS / NG1, R1 = (KIN + NS1 - 1) / NS1;
-  // out product: thread (column group c2, k slice s2) sums rows s2, s2 + NS2, ...
-  static constexpr int NG2 = NO / V, NS2 = NTHREADS / NG2, R2 = (GN + NS2 - 1) / NS2;
-  static constexpr int HP = NTHREADS / S;  // k parts of head1's product
-  // shared memory, in floats; the taps (L x C), then head1 and head2 follow
-  static constexpr int XBUF = 0;                   // exchange, 2 parities x N ranks x C
-  static constexpr int OPART = XBUF + 2 * N * C;   // out-product partials, NS2 x NO
-  static constexpr int XS = OPART + NS2 * NO;      // x (C)
-  static constexpr int CS = XS + C;                // cond(t) (M)
-  static constexpr int GPART = CS + round4(M);     // gate partials per warp, NWARPS x GC
-  static constexpr int ZS = GPART + NWARPS * GC;   // z (GN)
-  static constexpr int HS = ZS + round4(GN);       // the head's hidden (S)
+  static constexpr int WIN_E = GC * KIN, LAYER_E = WIN_E + GN * NO;
+  static constexpr int LAYER_BYTES = LAYER_E * sizeof(W);
+  static constexpr int STAGES = sizeof(W) == 2 ? 3 : 2;
+  // gate: warp w owns z values [w ZW, (w+1) ZW), so 2 ZW columns; lanes
+  // over k pairs: XP pairs a lane over x (k < C), RP over tap and cond
+  static constexpr int ZW = GN / NWARPS, ZC = 2 * ZW;
+  static constexpr int KP = KIN / 2, XP = C / 64, RP = (KP - C / 2 + 31) / 32;
+  static constexpr int HP = NTHREADS / S;                  // k parts of head1's product
+  static constexpr int CH = M * (int)sizeof(CT) / 16;      // 16-byte chunks of cond(t)
+  // shared memory, in bytes: the ring, then floats, then the head's weights
+  static constexpr int RING = 0;
+  static constexpr int F0 = STAGES * LAYER_BYTES;          // floats from here
+  static constexpr int XBUF = 0;    // the exchange: 2 parities x N ranks x C (= S)
+  static constexpr int CS = XBUF + 2 * N * C;      // cond(t) (M)
+  static constexpr int ZP = round4(GN);
+  static constexpr int ZS = CS + round4(M);        // z (GN), 2 parities
+  static constexpr int HS = ZS + 2 * ZP;           // the head's hidden (S)
   static constexpr int HPART = HS + S;             // head1 partials, HP x S
   static constexpr int HPO = HPART + HP * S;       // head outputs (MAX_HD)
-  static constexpr int TAPS = HPO + MAX_HD;
-  static_assert(GH % N == 0 && C % N == 0 && GC % V == 0 && 32 % NG1 == 0, "gate split");
-  static_assert(NO % V == 0 && NTHREADS % NG2 == 0, "out split");
-  static_assert(S == C && C % 4 == 0 && NTHREADS % C4 == 0, "exchange by float4");
-  static_assert(NTHREADS % S == 0 && M % 4 == 0, "head split");
-  static_assert((LAYER_E * sizeof(W)) % 16 == 0, "16-byte layer slices");
+  static constexpr int TAPS = HPO + MAX_HD;        // then the taps, L x C
+  static_assert(GH % N == 0 && C % N == 0 && GN % NWARPS == 0, "gate split");
+  static_assert(C % 64 == 0 && M % 2 == 0 && NO % 32 == 0 && NO <= NTHREADS, "thread maps");
+  static_assert(S == C && NTHREADS % S == 0 && (S / HP) % 2 == 0, "head split");
+  static_assert(M * sizeof(CT) % 16 == 0 && C + CH <= NTHREADS, "cond chunks");
+  static_assert(LAYER_BYTES % 16 == 0 && F0 % 16 == 0, "16-byte bulk copies");
 };
 
-template <typename W, int C, int G, int S, int M, int N>
+template <typename W, typename CT, int C, int G, int S, int M, int N>
 size_t smem_bytes(int L, int HD) {
-  using D = Dims<W, C, G, S, M, N>;
-  return sizeof(float) * (size_t)(D::TAPS + L * C) + sizeof(W) * (size_t)S * (S + HD);
+  using D = Dims<W, CT, C, G, S, M, N>;
+  return D::F0 + sizeof(float) * (size_t)(D::TAPS + L * C) + sizeof(W) * (size_t)S * (S + HD);
+}
+
+// The gate product of warp `warp`'s columns over the tap and cond rows of
+// [x | tap | cond] (k pairs C/2 .. KP-1), into acc: lanes over the pairs.
+template <typename W, typename CT, int C, int G, int S, int M, int N>
+__device__ __forceinline__ void gate_tap_cond(float (&acc)[Dims<W, CT, C, G, S, M, N>::ZC],
+                                              const W* win, const float* tap, const float* cs,
+                                              int warp, int lane) {
+  using D = Dims<W, CT, C, G, S, M, N>;
+#pragma unroll
+  for (int i = 0; i < D::ZC; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int m = 0; m < D::RP; ++m) {
+    const int p = C / 2 + lane + 32 * m;
+    if (p < D::KP) {
+      const float2 in = p < C ? *reinterpret_cast<const float2*>(tap + 2 * p - C)
+                              : *reinterpret_cast<const float2*>(cs + 2 * p - 2 * C);
+#pragma unroll
+      for (int c = 0; c < D::ZC; ++c) {
+        const int col = c < D::ZW ? warp * D::ZW + c : D::GN + warp * D::ZW + (c - D::ZW);
+        const float2 w = pair_f32(win + col * D::KIN + 2 * p);
+        acc[c] = fmaf(in.x, w.x, acc[c]);
+        acc[c] = fmaf(in.y, w.y, acc[c]);
+      }
+    }
+  }
+}
+
+// Rank `rank`'s C/N columns of x (lane's rows 2p, 2p + 1, p = lane + 32m)
+// into queue slot `slot`.
+template <int C, int N, int XP>
+__device__ __forceinline__ void queue_store(float* queue, int slot, const float (&xv)[2 * XP],
+                                            int rank, int lane) {
+#pragma unroll
+  for (int m = 0; m < XP; ++m) {
+    const int p = lane + 32 * m;
+    if (2 * p / (C / N) == rank)
+      __stcg(reinterpret_cast<float2*>(queue + (size_t)slot * C) + p,
+             make_float2(xv[2 * m], xv[2 * m + 1]));
+  }
 }
 
 // The stack widths (C, G, S, M) and the ranks N are compile-time, so the
@@ -213,33 +286,34 @@ size_t smem_bytes(int L, int HD) {
 template <typename W, typename CT, int C, int G, int S, int M, int N>
 __global__ void __launch_bounds__(NTHREADS, 1)
 ar_sampler_kernel(const Args a, const Dilations dl) {
-  using D = Dims<W, C, G, S, M, N>;
-  using Raw = typename Vec<W>::Raw;
-  constexpr int V = D::V, GN = D::GN, GC = D::GC, NO = D::NO;
+  using D = Dims<W, CT, C, G, S, M, N>;
+  constexpr int GN = D::GN, GC = D::GC, NO = D::NO, ZW = D::ZW, ZC = D::ZC;
+  constexpr int STAGES = D::STAGES;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rank = static_cast<int>(cluster_ctarank());
   const int b = blockIdx.x / N;
   const int L = a.L, T = a.T, HD = a.HD, K = a.K;
-  const CT* cond = static_cast<const CT*>(a.cond) + (size_t)b * T * M;
+  const char* cond = static_cast<const char*>(a.cond) + (size_t)b * T * M * sizeof(CT);
   const W* w_rank = static_cast<const W*>(a.w_rank) + (size_t)rank * L * D::LAYER_E;
   const float* b_rank = a.b_rank + (size_t)rank * L * GC;
   float* queue = a.queue + (size_t)b * a.sum_d * C;
 
-  extern __shared__ __align__(16) float smem[];
-  float* xbuf = smem + D::XBUF;
-  float* opart = smem + D::OPART;
-  float* xs = smem + D::XS;
-  float* cs = smem + D::CS;
-  float* gpart = smem + D::GPART;
-  float* zs = smem + D::ZS;
-  float* hs = smem + D::HS;
-  float* hpart = smem + D::HPART;
-  float* hp = smem + D::HPO;
-  float* taps = smem + D::TAPS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const W* ring = reinterpret_cast<const W*>(smem + D::RING);
+  float* fsm = reinterpret_cast<float*>(smem + D::F0);
+  float* xbuf = fsm + D::XBUF;
+  float* cs = fsm + D::CS;
+  float* zs = fsm + D::ZS;
+  float* hs = fsm + D::HS;
+  float* hpart = fsm + D::HPART;
+  float* hp = fsm + D::HPO;
+  float* taps = fsm + D::TAPS;
   W* head1 = reinterpret_cast<W*>(taps + L * C);
   W* head2 = head1 + S * S;
-  __shared__ int dd[MAX_L], oo[MAX_L];
+  __shared__ int dd[MAX_L], oo[MAX_L], slot_now[MAX_L], slot_next[MAX_L];
   __shared__ float x_prev;
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t xbar[2];  // the exchange's arrivals, by parity
 
 #ifdef PWN_AR_SAMPLER_PHASES
   const bool phase_on = blockIdx.x == 0 && tid == 0;
@@ -247,7 +321,23 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
   long long phase_t = clock64();
 #endif
 
-  // -- once: the dilations, the head's weights, per-thread constants
+  // -- once: the ring's first layers, the dilations, the head's weights,
+  //    zero taps, cond(0), per-thread constants
+  const long long n_layers = (long long)T * L;  // layers over all steps
+  constexpr uint32_t XBYTES = N * C * sizeof(float);  // one layer's exchange
+  if (tid == REFILL) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(smem_u32(&full[s]), 1);
+    for (int p = 0; p < 2; ++p) {
+      mbar_init(smem_u32(&xbar[p]), 1);
+      mbar_expect_tx(smem_u32(&xbar[p]), XBYTES);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < STAGES && s < n_layers; ++s) {
+      mbar_expect_tx(smem_u32(&full[s]), D::LAYER_BYTES);
+      bulk_load(smem_u32(ring + s * D::LAYER_E), w_rank + (size_t)(s % L) * D::LAYER_E,
+                D::LAYER_BYTES, smem_u32(&full[s]));
+    }
+  }
   for (int l = tid; l < L; l += NTHREADS) {
     dd[l] = dl.d[l];
     oo[l] = dl.off[l];
@@ -261,11 +351,19 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
     for (int i = tid; i < n1; i += NTHREADS) dst1[i] = __ldg(src1 + i);
     for (int i = tid; i < n2; i += NTHREADS) dst2[i] = __ldg(src2 + i);
   }
-  float fk = 0.f, fb = 0.f, bsum = 0.f;
-  if (tid < C) {
-    fk = to_f32(static_cast<const W*>(a.front_k)[tid]);
-    fb = a.front_b[tid];
+  for (int i = tid; i < L * C; i += NTHREADS) taps[i] = 0.f;
+  for (int m = tid; m < M; m += NTHREADS)
+    cs[m] = to_f32(reinterpret_cast<const CT*>(cond)[m]);
+  // every warp holds all of x: lane `lane` rows 2p, 2p + 1 for p = lane + 32m
+  constexpr int XP = D::XP;
+  float fk[2 * XP], fb[2 * XP], xv[2 * XP];
+#pragma unroll
+  for (int e = 0; e < 2 * XP; ++e) {
+    const int row = 2 * (lane + 32 * (e / 2)) + e % 2;
+    fk[e] = to_f32(static_cast<const W*>(a.front_k)[row]);
+    fb[e] = a.front_b[row];
   }
+  float bsum = 0.f;
   if (tid < S)
     for (int l = 0; l < L; ++l) bsum += a.b_rs[l * NO + C + tid];
   if (tid == 0) x_prev = 0.f;
@@ -275,170 +373,230 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
   cluster_arrive();
   cluster_wait();
 
-  const int c1 = tid % D::NG1, s1 = tid / D::NG1;
-  const int c2 = tid % D::NG2, s2 = tid / D::NG2;
-  const int q = tid % D::C4;        // this thread's 4 columns of the exchange
-  const bool owner = tid < C && tid / D::CN == rank;  // writes queue column tid
-  float4 skip_part = make_float4(0.f, 0.f, 0.f, 0.f);  // this rank's skip, columns 4q..
-  int par = 0;                      // parity of the cluster barriers so far
+  const bool res_warp = warp < C / 32;                // outputs [0, C): residual
+  const bool skip_warp = !res_warp && warp < NO / 32; // outputs [C, C+S): skip
+  // the exchange buffer and its barriers in ranks lane / 8 + 4i, where this
+  // lane's pushes go
+  uint32_t xbuf_at[N / 4], xbar_at[N / 4];
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    xbuf_at[i] = mapa(smem_u32(xbuf), (lane >> 3) + 4 * i);
+    xbar_at[i] = mapa(smem_u32(&xbar[0]), (lane >> 3) + 4 * i);
+  }
+  float skip_part = 0.f;  // this rank's skip partial of output tid (skip warps)
+  float2 pend[XP];        // the next step's tap of the layer before (warp 0)
+  bool pending = false;
+  int par = 0;            // parity of the layers so far: the exchange's and z's buffer
+  long long c = 0;        // layers so far, over all steps: the ring's counter
 
   for (int t = 0; t < T; ++t) {
-    // -- step start: the noise (warp 0), every layer's tap, cond(t), the front 1x1
+    // -- step start: the queue slots, the front 1x1 (in every warp), layer 0's
+    //    gate product over its tap and cond rows
     float u = 0.f;
-    if (warp == 0 && lane < a.NZ) u = __ldg(a.noise + ((size_t)t * a.B + b) * a.NZ + lane);
-    for (int i = tid; i < L * D::C4; i += NTHREADS) {
-      const int l = i / D::C4;
-      const float4* src =
-          reinterpret_cast<const float4*>(queue + (size_t)(oo[l] + t % dd[l]) * C);
-      reinterpret_cast<float4*>(taps)[i] = __ldcg(src + (i - l * D::C4));
+    uint4 cond_next = make_uint4(0u, 0u, 0u, 0u);
+    for (int l = tid; l < L; l += NTHREADS) {
+      slot_now[l] = oo[l] + t % dd[l];
+      slot_next[l] = oo[l] + (t + 1) % dd[l];
     }
-    for (int m = tid; m < M; m += NTHREADS) cs[m] = to_f32(cond[(size_t)t * M + m]);
-    if (tid < C) xs[tid] = __fadd_rn(__fmul_rn(x_prev, fk), fb);
-    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < 2 * XP; ++e) xv[e] = __fadd_rn(__fmul_rn(x_prev, fk[e]), fb[e]);
+    float acc[ZC];
     PHASE(0);
+    mbar_spin(smem_u32(&full[c % STAGES]), (uint32_t)((c / STAGES) & 1));
+    PHASE(1);
+    gate_tap_cond<W, CT, C, G, S, M, N>(acc, ring + (c % STAGES) * D::LAYER_E, taps, cs, warp,
+                                        lane);
+    PHASE(2);
 
-    for (int l = 0; l < L; ++l) {
-      const W* wl = w_rank + (size_t)l * D::LAYER_E;
-      const float* tap = taps + l * C;
-      // both products' weights in flight at once
-      Raw w1[D::R1], w2[D::R2];
-#pragma unroll
-      for (int i = 0; i < D::R1; ++i) {
-        const int k = s1 + i * D::NS1;
-        if (k < D::KIN) w1[i] = __ldg(reinterpret_cast<const Raw*>(wl + k * GC + c1 * V));
-      }
-#pragma unroll
-      for (int i = 0; i < D::R2; ++i) {
-        const int k = s2 + i * D::NS2;
-        if (k < GN)
-          w2[i] = __ldg(reinterpret_cast<const Raw*>(wl + D::WIN_E + k * NO + c2 * V));
-      }
-      // gate product over [x | tap | cond], its k slices summed within the
-      // warp, then across the warps
-      float acc[V];
-#pragma unroll
-      for (int j = 0; j < V; ++j) acc[j] = 0.f;
-#pragma unroll
-      for (int i = 0; i < D::R1; ++i) {
-        const int k = s1 + i * D::NS1;
-        if (k < D::KIN) {
-          const float v = k < C ? xs[k] : (k < 2 * C ? tap[k - C] : cs[k - 2 * C]);
-          float f[V];
-          Vec<W>::to_f32(w1[i], f);
-#pragma unroll
-          for (int j = 0; j < V; ++j) acc[j] = fmaf(v, f[j], acc[j]);
-        }
-      }
-#pragma unroll
-      for (int o = D::NG1; o < 32; o <<= 1)
-#pragma unroll
-        for (int j = 0; j < V; ++j) acc[j] += __shfl_xor_sync(FULL, acc[j], o);
-      if (lane < D::NG1)
-#pragma unroll
-        for (int j = 0; j < V; ++j) gpart[warp * GC + lane * V + j] = acc[j];
-      __syncthreads();
-      PHASE(1);
-      if (tid < GN) {
-        float ga = 0.f, gb = 0.f;
-#pragma unroll
-        for (int w = 0; w < NWARPS; ++w) {
-          ga += gpart[w * GC + tid];
-          gb += gpart[w * GC + GN + tid];
-        }
-        ga = b_rank[l * GC + tid] + ga;
-        gb = b_rank[l * GC + GN + tid] + gb;
-        zs[tid] = tanhf(ga) * (1.f / (1.f + expf(-gb)));
-      }
-      __syncthreads();
-      PHASE(2);
-      // out product: this rank's partial of all C+S outputs over its z rows
-      float acc2[V];
-#pragma unroll
-      for (int j = 0; j < V; ++j) acc2[j] = 0.f;
-#pragma unroll
-      for (int i = 0; i < D::R2; ++i) {
-        const int k = s2 + i * D::NS2;
-        if (k < GN) {
-          float f[V];
-          Vec<W>::to_f32(w2[i], f);
-          const float zk = zs[k];
-#pragma unroll
-          for (int j = 0; j < V; ++j) acc2[j] = fmaf(zk, f[j], acc2[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < V; ++j) opart[s2 * NO + c2 * V + j] = acc2[j];
-      __syncthreads();
-      PHASE(3);
-      // the partial's residual columns 4q.. to every rank (the skip columns
-      // at the last layer, summed over the layers)
-      float4 res = make_float4(0.f, 0.f, 0.f, 0.f), sk = res;
-#pragma unroll
-      for (int s = 0; s < D::NS2; ++s) {
-        res = add4(res, reinterpret_cast<const float4*>(opart + s * NO)[q]);
-        sk = add4(sk, reinterpret_cast<const float4*>(opart + s * NO + C)[q]);
-      }
-      skip_part = add4(skip_part, sk);
+    for (int l = 0; l < L; ++l, ++c) {
+      const W* stage = ring + (c % STAGES) * D::LAYER_E;
       const bool last = l + 1 == L;
-      const float4 val = last ? skip_part : res;
-      const uint32_t dst = smem_u32(xbuf + (par * N + rank) * C) + 16 * q;
-      for (int i = tid; i < N * D::C4; i += NTHREADS) st_cluster(mapa(dst, i / D::C4), val);
-      if (last) skip_part = make_float4(0.f, 0.f, 0.f, 0.f);
+      float* z = zs + par * D::ZP;
+      const int zi = warp * ZW + lane % ZW;  // lanes 0..ZW-1: z value zi
+      const float bga = __ldg(b_rank + l * GC + zi), bgb = __ldg(b_rank + l * GC + GN + zi);
+      // gate product over the x rows (in registers); the gated unit in lanes
+      // 0..ZW-1
+#pragma unroll
+      for (int m = 0; m < XP; ++m) {
+        const int p = lane + 32 * m;
+#pragma unroll
+        for (int i = 0; i < ZC; ++i) {
+          const int col = i < ZW ? warp * ZW + i : GN + warp * ZW + (i - ZW);
+          const float2 w = pair_f32(stage + col * D::KIN + 2 * p);
+          acc[i] = fmaf(xv[2 * m], w.x, acc[i]);
+          acc[i] = fmaf(xv[2 * m + 1], w.y, acc[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < ZC; ++i) acc[i] = warp_sum(acc[i]);
+      if (lane < ZW) {
+        float ga = acc[0], gb = acc[ZW];
+#pragma unroll
+        for (int i = 1; i < ZW; ++i)
+          if (lane == i) {
+            ga = acc[i];
+            gb = acc[ZW + i];
+          }
+        ga = bga + ga;
+        gb = bgb + gb;
+        z[zi] = tanhf(ga) * (1.f / (1.f + expf(-gb)));
+      }
+      __syncthreads();
+      // every thread is past the layer before's products: refill its stage
+      if (tid == REFILL && c >= 1 && c - 1 + STAGES < n_layers) {
+        const uint32_t bar = smem_u32(&full[(c - 1) % STAGES]);
+        mbar_expect_tx(bar, D::LAYER_BYTES);
+        bulk_load(smem_u32(ring + ((c - 1) % STAGES) * D::LAYER_E),
+                  w_rank + (size_t)((c - 1 + STAGES) % L) * D::LAYER_E, D::LAYER_BYTES, bar);
+      }
       PHASE(4);
-      cluster_arrive();
-      cluster_wait();
+      // the queue's writes of the step before are visible from here on
+      if (l == 0 && t > 0) cluster_wait();
+      // the taps of step t+1: this layer's (read above by every warp) from x
+      // if d = 1, else from its queue slot; the layer before's lands now
+      if (warp == 0) {
+        const bool was = pending;
+        pending = dd[l] > 1;
+#pragma unroll
+        for (int m = 0; m < XP; ++m) {
+          const int p = lane + 32 * m;
+          if (was) reinterpret_cast<float2*>(taps + (l - 1) * C)[p] = pend[m];
+          if (!pending)
+            reinterpret_cast<float2*>(taps + l * C)[p] = make_float2(xv[2 * m], xv[2 * m + 1]);
+        }
+      }
+      // out product: output tid's partial over this rank's z rows
+      float p = 0.f;
+      if (tid < NO) {
+        const W* wout = stage + D::WIN_E;
+#pragma unroll
+        for (int i = 0; i < GN; ++i) p = fmaf(z[i], to_f32(wout[i * NO + tid]), p);
+      }
       PHASE(5);
-      // every rank sums the N partials in rank order
+      // the residual partials to every rank (the skip partials, summed over
+      // the layers, at the last layer): 4 columns a lane, gathered by shuffles
+      if (skip_warp) skip_part += p;
+      if (last ? skip_warp : res_warp) {
+        const float val = last ? skip_part : p;
+        const int f = lane & 7;
+        const float4 v = make_float4(__shfl_sync(FULL, val, 4 * f), __shfl_sync(FULL, val, 4 * f + 1),
+                                     __shfl_sync(FULL, val, 4 * f + 2),
+                                     __shfl_sync(FULL, val, 4 * f + 3));
+        const int col = 32 * (last ? warp - C / 32 : warp) + 4 * f;
+        const uint32_t off = 4 * ((par * N + rank) * C + col);
+#pragma unroll
+        for (int i = 0; i < N / 4; ++i) st_async(xbuf_at[i] + off, v, xbar_at[i] + 8 * par);
+      }
+      if (last && skip_warp) skip_part = 0.f;
+      if (warp == 0 && pending)
+#pragma unroll
+        for (int m = 0; m < XP; ++m)
+          pend[m] = __ldcg(reinterpret_cast<const float2*>(queue + (size_t)slot_next[l] * C) +
+                           lane + 32 * m);
+      if (l == 0) {
+        if (warp == 0 && lane < a.NZ) u = __ldg(a.noise + ((size_t)t * a.B + b) * a.NZ + lane);
+        if (tid >= C && tid < C + D::CH && t + 1 < T)
+          cond_next = __ldg(
+              reinterpret_cast<const uint4*>(cond + (size_t)(t + 1) * M * sizeof(CT)) + (tid - C));
+      }
+      PHASE(6);
+      // while the other ranks catch up: the next layer's tap and cond rows
+      if (!last) {
+        mbar_spin(smem_u32(&full[(c + 1) % STAGES]), (uint32_t)(((c + 1) / STAGES) & 1));
+        PHASE(1);
+        gate_tap_cond<W, CT, C, G, S, M, N>(acc, ring + ((c + 1) % STAGES) * D::LAYER_E,
+                                            taps + (l + 1) * C, cs, warp, lane);
+        PHASE(2);
+      }
+      float2 brs[XP];
+#pragma unroll
+      for (int m = 0; m < XP; ++m)
+        brs[m] = last ? make_float2(0.f, 0.f)
+                      : __ldg(reinterpret_cast<const float2*>(a.b_rs + l * NO) + lane + 32 * m);
+      // every rank's partials have landed here: arm this parity's next use
+      mbar_spin_cluster(smem_u32(&xbar[par]), (uint32_t)((c >> 1) & 1));
+      if (tid == REFILL && c + 2 < n_layers) mbar_expect_tx(smem_u32(&xbar[par]), XBYTES);
+      PHASE(7);
+      // every rank, and in it every warp, sums the N partials in rank order
       const float* xb = xbuf + par * N * C;
       par ^= 1;
-      if (l == 0 && owner)  // the step's first barrier is behind: all taps are read
-        __stcg(queue + (size_t)(oo[0] + t % dd[0]) * C + tid, xs[tid]);
+      // warp 0 writes rank j's C/N columns of x into the queue (layers with
+      // d > 1), after the step's cluster barrier: x_0 here, x_{l+1} below
+      if (l == 0 && warp == 0 && dd[0] > 1) queue_store<C, N, XP>(queue, slot_now[0], xv, rank, lane);
       if (!last) {
-        if (tid < C) {
-          float o = 0.f;
+        // every warp: its lanes' rows of x
 #pragma unroll
-          for (int r = 0; r < N; ++r) o += xb[r * C + tid];
-          const float x = xs[tid] + (a.b_rs[l * NO + tid] + o);
-          xs[tid] = x;
-          if (owner) __stcg(queue + (size_t)(oo[l + 1] + t % dd[l + 1]) * C + tid, x);
+        for (int m = 0; m < XP; ++m) {
+          float ox = 0.f, oy = 0.f;
+#pragma unroll
+          for (int r = 0; r < N; ++r) {
+            const float2 v = reinterpret_cast<const float2*>(xb + r * C)[lane + 32 * m];
+            ox += v.x;
+            oy += v.y;
+          }
+          xv[2 * m] = xv[2 * m] + (brs[m].x + ox);
+          xv[2 * m + 1] = xv[2 * m + 1] + (brs[m].y + oy);
         }
-      } else if (tid < S) {
-        float s = 0.f;
+        if (warp == 0 && dd[l + 1] > 1) queue_store<C, N, XP>(queue, slot_now[l + 1], xv, rank, lane);
+      } else {
+        if (tid < S) {
+          float s = 0.f;
 #pragma unroll
-        for (int r = 0; r < N; ++r) s += xb[r * C + tid];
-        hs[tid] = fmaxf(bsum + s, 0.f);
+          for (int r = 0; r < N; ++r) s += xb[r * C + tid];
+          hs[tid] = fmaxf(bsum + s, 0.f);
+        }
+        __syncthreads();
       }
-      __syncthreads();
-      PHASE(6);
+      PHASE(3);
     }
 
     // -- head: relu (above), 1x1, relu, 1x1, in every rank
     {
-      constexpr int KP = S / D::HP;
-      const int n = tid % S, p = tid / S;
-      float v = 0.f;
+      constexpr int KH = S / D::HP;
+      const int n = tid % S, part = tid / S;
+      float v0 = 0.f, v1 = 0.f;
 #pragma unroll 8
-      for (int k = p * KP; k < (p + 1) * KP; ++k) v = fmaf(hs[k], to_f32(head1[k * S + n]), v);
-      hpart[p * S + n] = v;
+      for (int k = part * KH; k < (part + 1) * KH; k += 2) {
+        v0 = fmaf(hs[k], to_f32(head1[k * S + n]), v0);
+        v1 = fmaf(hs[k + 1], to_f32(head1[(k + 1) * S + n]), v1);
+      }
+      hpart[part * S + n] = v0 + v1;
     }
     __syncthreads();
     if (tid < S) {
       float v = 0.f;
 #pragma unroll
-      for (int p = 0; p < D::HP; ++p) v += hpart[p * S + tid];
+      for (int part = 0; part < D::HP; ++part) v += hpart[part * S + tid];
       hs[tid] = fmaxf(a.head1_b[tid] + v, 0.f);
     }
     __syncthreads();
-    for (int n = warp; n < HD; n += NWARPS) {
-      float v = 0.f;
+    {
+      constexpr int NJ = MAX_HD / NWARPS;  // columns warp, warp + NWARPS, ...
+      float v[NJ];
 #pragma unroll
-      for (int k = lane; k < S; k += 32) v = fmaf(hs[k], to_f32(head2[k * HD + n]), v);
-      v = warp_sum(v);
-      if (lane == 0) hp[n] = a.head2_b[n] + v;
+      for (int j = 0; j < NJ; ++j) v[j] = 0.f;
+#pragma unroll
+      for (int k = lane; k < S; k += 32) {
+        const float h = hs[k];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int n = warp + NWARPS * j;
+          if (n < HD) v[j] = fmaf(h, to_f32(head2[k * HD + n]), v[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int n = warp + NWARPS * j;
+        if (n < HD) {  // warp-uniform
+          const float s = warp_sum(v[j]);
+          if (lane == 0) hp[n] = a.head2_b[n] + s;
+        }
+      }
     }
     __syncthreads();
 
-    // -- the sample (warp 0 of every rank)
+    // -- the sample (warp 0 of every rank); the last layer's tap and cond(t+1)
+    //    land
     if (warp == 0) {
       float xt;
       if (a.gaussian) {
@@ -465,14 +623,21 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
 #endif
       }
     }
+    if (warp == 0 && pending)
+#pragma unroll
+      for (int m = 0; m < XP; ++m)
+        reinterpret_cast<float2*>(taps + (L - 1) * C)[lane + 32 * m] = pend[m];
+    pending = false;
+    if (tid >= C && tid < C + D::CH)
+      Vec<CT>::to_f32(cond_next, cs + (tid - C) * Vec<CT>::N);
+    // this step's queue reads and writes are done (release)
+    cluster_arrive();
     __syncthreads();
-    PHASE(7);
+    PHASE(8);
 #ifdef PWN_AR_SAMPLER_PHASES
     if (phase_on) ++phase_acc[NPHASES];
 #endif
   }
-  // no block leaves while another may still write into its shared memory
-  cluster_arrive();
   cluster_wait();
 #ifdef PWN_AR_SAMPLER_PHASES
   if (phase_on)
@@ -483,7 +648,7 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
 template <typename W, typename CT, int C, int G, int S, int M, int N>
 cudaError_t launch_config(const Args& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
                           cudaStream_t stream) {
-  const size_t smem = smem_bytes<W, C, G, S, M, N>(a.L, a.HD);
+  const size_t smem = smem_bytes<W, CT, C, G, S, M, N>(a.L, a.HD);
   cudaError_t err = cudaFuncSetAttribute(ar_sampler_kernel<W, CT, C, G, S, M, N>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);

@@ -80,19 +80,20 @@ def pack_ar_ranks(weights: dict, n_ranks: int) -> dict:
     """Split `stack_teacher_weights`' gate layers among `n_ranks` blocks:
     rank j owns gate columns [j*GH/n, (j+1)*GH/n) of the tanh half and the
     same of the sigmoid half (GH = G/2), and those rows of W_out.  Returns
-    `w`, (n_ranks, L, (2C+M)*2GH/n + GH/n*(C+S)) in the storage dtype: per
-    rank and layer its W_in columns ((2C+M) x 2GH/n, tanh then sigmoid,
-    row-major), then its W_out rows (GH/n x (C+S)), one contiguous run;
-    and `b_g`, (n_ranks, L, 2GH/n) fp32, its gate biases in the same
-    column order.  Plain torch, on the weights' device."""
+    `w`, (n_ranks, L, 2GH/n*(2C+M) + GH/n*(C+S)) in the storage dtype: per
+    rank and layer its W_in columns (2GH/n x (2C+M): column by column,
+    tanh then sigmoid, each column's 2C+M weights contiguous), then its
+    W_out rows (GH/n x (C+S)), one contiguous run; and `b_g`,
+    (n_ranks, L, 2GH/n) fp32, its gate biases in the same column order.
+    Plain torch, on the weights' device."""
     w_in, w_out, b_g = weights["w_in"], weights["w_out"], weights["b_g"]
     L, K, G = w_in.shape
     gh = G // 2
     if gh % n_ranks:
         raise ValueError(f"{gh} gate columns do not split into {n_ranks} ranks")
     gn = gh // n_ranks
-    # w_in[l, k, h*GH + j*gn + c] -> [j, l, k, h, c]
-    win = w_in.reshape(L, K, 2, n_ranks, gn).permute(3, 0, 1, 2, 4)
+    # w_in[l, k, h*GH + j*gn + c] -> [j, l, h, c, k]
+    win = w_in.reshape(L, K, 2, n_ranks, gn).permute(3, 0, 2, 4, 1)
     # w_out[l, j*gn + i, n] -> [j, l, i, n]
     wout = w_out.reshape(L, n_ranks, gn, -1).permute(1, 0, 2, 3)
     bg = b_g.reshape(L, 2, n_ranks, gn).permute(2, 0, 1, 3)

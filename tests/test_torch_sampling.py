@@ -302,10 +302,10 @@ def _rank_columns(G, n_ranks, j):
 @pytest.mark.parametrize("n_ranks", [8, 16])
 def test_pack_ar_ranks_unpacks_to_the_stacked_layout(n_ranks, dims, dtype):
     """Each rank's run per layer is its W_in columns (tanh slice, then the
-    sigmoid partners), row-major, then its W_out rows, in the storage
-    dtype, a multiple of 16 bytes; its gate biases follow the same column
-    order.  Read back slice by slice, the runs give the stacked weights
-    exactly."""
+    sigmoid partners), each column's 2C+M weights contiguous, then its W_out
+    rows, in the storage dtype, a multiple of 16 bytes; its gate biases
+    follow the same column order.  Read back slice by slice, the runs give
+    the stacked weights exactly."""
     C, G, S, M = dims
     L, kin, no, gn = 3, 2 * C + M, C + S, G // 2 // n_ranks
     w = _stacked(dims, L, DTYPES[dtype], seed=11)
@@ -321,7 +321,7 @@ def test_pack_ar_ranks_unpacks_to_the_stacked_layout(n_ranks, dims, dtype):
         cols = _rank_columns(G, n_ranks, j)
         for l in range(L):
             run = packed["w"][j, l]
-            w_in[l][:, cols] = run[:kin * 2 * gn].reshape(kin, 2 * gn)
+            w_in[l][:, cols] = run[:kin * 2 * gn].reshape(2 * gn, kin).T
             w_out[l][j * gn:(j + 1) * gn] = run[kin * 2 * gn:].reshape(gn, no)
             b_g[l][cols] = packed["b_g"][j, l]
     assert torch.equal(w_in, w["w_in"])
@@ -354,7 +354,7 @@ def test_layer_from_rank_slices_equals_the_unsplit_layer(n_ranks, dims):
         res, skips = torch.zeros((B, C)), []
         for j in range(n_ranks):
             run = packed["w"][j, l]
-            gj = cat @ run[:kin * 2 * gn].reshape(kin, 2 * gn) + packed["b_g"][j, l]
+            gj = cat @ run[:kin * 2 * gn].reshape(2 * gn, kin).T + packed["b_g"][j, l]
             zj = torch.tanh(gj[:, :gn]) * torch.sigmoid(gj[:, gn:])
             part = zj @ run[kin * 2 * gn:].reshape(gn, C + S)
             res = res + part[:, :C]
