@@ -45,8 +45,9 @@
 // * The stream.  One thread brings each layer's run into a ring of STAGES
 //   shared-memory stages with one 1-D bulk copy (cp.async.bulk, completion
 //   counted on the stage's mbarrier); the ring cycles through the layers
-//   across the steps.  A stage is refilled at the block barrier after the
-//   layer that used it, STAGES - 1 layers ahead of its use.
+//   across the steps.  A stage is refilled at the block barrier of the layer
+//   after the one that used it, so a copy has about STAGES - 2 layers to
+//   land (4 stages ran faster than 3 on the H100; the tool below times both).
 // * The gate.  Warp w owns GH/(8N) tanh columns and their sigmoid partners,
 //   so each gate column is one whole K = 2C+M dot product inside one warp
 //   (lanes over k pairs, then a shuffle sum): no sum across warps or SMs
@@ -86,10 +87,10 @@
 // * Numerics are the reference's: fp32 FMAs on the CUDA cores, IEEE
 //   tanhf/expf/logf/log1pf (no fast-math), sigmoid as 1/(1+exp(-x)).  Only
 //   the summation order differs from the plain version.
-// * Shared memory at teacher_lj, bf16 weights: the ring 89 KB (3 stages),
-//   the head's weights 40 KB, the taps 12 KB, the exchange 8 KB.  fp32
-//   weights take 2 stages (116 KB; the refill then meets its use) and 79 KB
-//   of head weights.
+// * Shared memory at teacher_lj, bf16 weights: the ring 119 KB (4 stages),
+//   the head's weights 40 KB, the taps 12 KB, the exchange 8 KB: 178 KB.
+//   fp32 weights take 2 stages (116 KB; a refill then meets its use) and
+//   79 KB of head weights.
 // * A pipeline fault traps (2^26 polls of an mbarrier) instead of hanging
 //   the card.
 //
@@ -210,7 +211,7 @@ struct Dims {
   static constexpr int GH = G / 2, GN = GH / N, GC = 2 * GN, KIN = 2 * C + M, NO = C + S;
   static constexpr int WIN_E = GC * KIN, LAYER_E = WIN_E + GN * NO;
   static constexpr int LAYER_BYTES = LAYER_E * sizeof(W);
-  static constexpr int STAGES = sizeof(W) == 2 ? 3 : 2;
+  static constexpr int STAGES = sizeof(W) == 2 ? 4 : 2;
   // gate: warp w owns z values [w ZW, (w+1) ZW), so 2 ZW columns; lanes
   // over k pairs: XP pairs a lane over x (k < C), RP over tap and cond
   static constexpr int ZW = GN / NWARPS, ZC = 2 * ZW;

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: TMA tensor
-// maps and loads, mbarriers, wgmma descriptors, products and fences, and the
-// gated unit in the exp2 / reciprocal form.  Everything here has internal
+// maps and loads, 1-D bulk copies, mbarriers, cluster barriers and stores into
+// another block's shared memory, wgmma descriptors, products and fences, and
+// the gated unit in the exp2 / reciprocal form.  Everything here has internal
 // linkage, so each kernel source includes it on its own.
 
 #pragma once
@@ -87,12 +88,6 @@ __device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
   return r;
 }
 
-__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
-  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
-               : "memory");
-}
-
 // 16 bytes into another block's shared memory, counted on that block's
 // mbarrier `bar` (addr and bar both mapped with mapa).
 __device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) {
@@ -103,26 +98,8 @@ __device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) 
       : "memory");
 }
 
-// mbar_wait with acquire at cluster scope: for data that other blocks of
-// the cluster wrote and counted on this block's barrier.
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 26)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// The same waits polling with test_wait, which never suspends the thread:
-// for waits on the critical path that are short.  2^26 polls trap.
+// mbar_wait polling with test_wait, which never suspends the thread: for
+// short waits on the critical path.  2^26 polls trap.
 __device__ __forceinline__ void mbar_spin(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
   for (uint32_t polls = 0; !done; ++polls) {
@@ -138,6 +115,8 @@ __device__ __forceinline__ void mbar_spin(uint32_t bar, uint32_t parity) {
         : "memory");
   }
 }
+// The same with acquire at cluster scope: for data that other blocks of the
+// cluster wrote and counted on this block's barrier.
 __device__ __forceinline__ void mbar_spin_cluster(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
   for (uint32_t polls = 0; !done; ++polls) {

@@ -8,7 +8,8 @@ pinned as in chip_smoke.py) on one CUDA card, in builds of the kernel made
 for this tool, and prints beside the card's name and power limit:
 
 * us per step at batch 8 x 5,376 steps (CUDA events, one call each, in
-  turns, twice) of the kernel as it is and of the phase-counter build;
+  turns, twice) of the kernel as it is, of the phase-counter build and of
+  a copy with a 3-stage weight ring in place of 4 (bf16);
 * the clock cycles per step in each phase, from a build with
   PWN_AR_SAMPLER_PHASES: thread 0 of block 0 (rank 0 of row 0) adds them
   up.  The counting slows the kernel (its us per step is printed too), so
@@ -44,19 +45,31 @@ from pwn_tpu_torch.ops.ar_sampler import (AR_RANKS, ar_launch_args,  # noqa: E40
 from pwn_tpu_torch.utils.platform import require_cuda  # noqa: E402
 
 SOURCE = _build.CSRC / "ar_sampler.cu"
+# (text in the source, its replacement) for each copy with one choice changed
+CHANGED = {"3-stage ring": [("STAGES = sizeof(W) == 2 ? 4 : 2;",
+                             "STAGES = sizeof(W) == 2 ? 3 : 2;")]}
 PIN = 25.0   # chip_smoke.py's AR_PIN: the MoL mixture pinned to component 0
 B, T, T_CHECK = 8, 5376, 1003
 
 
-def build(name: str, defines=()) -> tuple:
-    """Start compiling ar_sampler.cu with `defines` into a library of its
-    own; returns the compiler's process and the library's path (the caller
-    starts every build before it waits for any)."""
-    out = _build.BUILD_DIR / f"ar_tool_{name.replace(' ', '_')}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
+def build(name: str, defines=(), subs=()) -> tuple:
+    """Start compiling a copy of ar_sampler.cu, with `subs` applied and
+    `defines` set, into a library of its own; returns the compiler's
+    process and the library's path (the caller starts every build before
+    it waits for any)."""
+    text = SOURCE.read_text()
+    for old, new in subs:
+        if old not in text:
+            raise RuntimeError(f"{name}: the source no longer holds {old!r}")
+        text = text.replace(old, new)
+    stem = "ar_tool_" + name.replace(" ", "_").replace("-", "_")
+    cu = _build.BUILD_DIR / f"{stem}.cu"
+    cu.parent.mkdir(parents=True, exist_ok=True)
+    cu.write_text(text)
+    out = cu.with_suffix(".so")
     return subprocess.Popen(
         [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-         "-shared", *[f"-D{d}" for d in defines], "-o", str(out), str(SOURCE)],
+         "-shared", *[f"-D{d}" for d in defines], "-o", str(out), str(cu)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out
 
 
@@ -80,6 +93,7 @@ def main() -> int:
     jobs = {"kernel": build("kernel"),
             "phase counters": build("phase counters", ("PWN_AR_SAMPLER_PHASES",)),
             "check": build("check", ("PWN_AR_SAMPLER_CHECK",))}
+    jobs.update({k: build(k, subs=subs) for k, subs in CHANGED.items()})
     libs = {k: load(*job) for k, job in jobs.items()}
     counters = libs["phase counters"]
     counters.pwn_ar_sampler_phase_names.restype = ctypes.c_char_p
@@ -122,7 +136,7 @@ def main() -> int:
         return start.elapsed_time(end)
 
     cond, noise = inputs(T)
-    timed = ("kernel", "phase counters")
+    timed = ("kernel", "phase counters", *CHANGED)
     with torch.inference_mode():
         for k in timed:
             run(libs[k], cond, noise)  # warm up
