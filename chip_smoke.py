@@ -16,10 +16,13 @@ Phases, each printing what it finds:
                shape and edge shapes, and against kernel 5's accumulate
                epilogue run once per layer (`flow_stack_by_layers`, the
                same rounding) on the same inputs;
-  4. train kernels — kernels 2 (forward saving the layer inputs) and 3
-               (fused backward, with and without weight gradients) against
-               their plain versions at teacher_lj widths, per batch row and
-               per gradient, at the bench shape and edge shapes;
+  4. train kernels — kernels 2 (forward saving the layer inputs: kernel
+               5's accumulate epilogue once per layer) and 3 (fused
+               backward, with and without weight gradients) against their
+               plain versions at teacher_lj widths, per batch row and per
+               gradient, at the bench shape and edge shapes; kernel 3's
+               weight-gradient GEMM alone against torch.matmul on the same
+               bf16 operands at those shapes;
   5. AR kernel — the teacher AR sampler (kernel 4: one cluster of N
                blocks per R batch rows) against its plain version on the
                card, per batch row: teacher_lj (MoL, pinned),
@@ -49,7 +52,7 @@ Phases, each printing what it finds:
                gap; then one `generate_student` with
                `student.fused_layers="layer"` (kernel 5's "layer" epilogue);
   7. teacher — `run_teacher_training` on `teacher_lj` at full width, with
-               kernels 2 and 3's launch counts; the loss falling over 20
+               kernels 2 and 3's launch counts and kernel 5's under kernel 2; the loss falling over 20
                steps on one batch; one step's loss and gradients on the card
                against the same model and batch in fp32 on the CPU; one
                training step of a C=64, M=80 teacher, which the training
@@ -62,8 +65,9 @@ Phases, each printing what it finds:
                inputs; kernel 5 in both epilogues at both widths), end-to-end
                audio-seconds per second at batch 8 x 2 s (student_iaf, and
                large_student_sharded in both stack modes),
-               teacher train step ms and utterances per second at batch
-               8 x 16,384, AR us per step and samples per second at batch 8
+               kernel 3's weight-gradient GEMM alone beside torch.matmul on
+               the same operands, teacher train step ms and utterances per
+               second at batch 8 x 16,384, AR us per step and samples per second at batch 8
                and 1 x 0.25 s, and the weight bytes each SM streams a step.
 Any failure raises and the script exits non-zero.  Only when every phase
 passed does it print, as its last line, {"ok": true, "device": {...}}.
@@ -173,6 +177,11 @@ WHY_TRAIN = ("bf16 rounding of x, z, dout and dg through 24 layers; "
 # rounding points): an early flipped rounding of x is carried by the later
 # layers, 0.015-0.018 of the row max on the first H100 runs.
 TOL_ACTS = 0.04
+# Kernel 3's weight-gradient GEMM vs torch.matmul in fp32 on the same bf16
+# operands, per gradient, max|diff| / max|ref|: both sum exact bf16
+# products in fp32, in another order, over up to 131,072 rows (~1e-5 of
+# the largest value expected); a wrong descriptor, box or tap is O(1).
+TOL_WGRAD = 1e-3
 # One train step, teacher_lj at 2 x 4096 samples: the bf16 kernel path on
 # the card vs the same parameters and batch in fp32 on the CPU, relative
 # error of the loss and relative L2 error of all gradients together.
@@ -401,11 +410,43 @@ def _rel(out: torch.Tensor, ref: torch.Tensor) -> float:
                  / (ref.float().abs().max() + 1e-12))
 
 
+def _wgrad_operands(B: int, T: int, device, seed: int) -> tuple:
+    """x, cond, dg, dout, z for one layer's weight-gradient GEMM at
+    teacher_lj widths, bf16."""
+    tc = TEACHER.teacher
+    C, G, S, M = (tc.residual_channels, tc.gate_channels, tc.skip_channels,
+                  TEACHER.dsp.n_mels)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn((B, T, w), generator=gen, device=device).bfloat16()
+                 for w in (C, M, G, C + S, G // 2))
+
+
 def phase_train_kernels(device) -> dict:
     dil = TEACHER.teacher.dilations
     f0, b0 = fs.flow_stack_train_forward.launches, fs.flow_stack_train_backward.launches
-    fwd_calls = bwd_calls = 0
+    g0, w0 = gated_layer.launches, fs.flow_stack_train_wgrads.launches
+    fwd_calls = bwd_calls = wgrad_calls = 0
     result = {}
+    # kernel 3's weight-gradient GEMM alone: rows not a multiple of its
+    # 64-row stage, rows with t < d (all rows where d >= T), B = 1 with T = 1
+    for k, (B, T) in enumerate([(TRAIN_BATCH, TRAIN_T)] + TRAIN_EDGE_SHAPES):
+        for d in ((64,) if k == 0 else (1, 128, T + 3)):
+            ops = _wgrad_operands(B, T, device, seed=300 + 7 * k + d % 5)
+            got = fs.flow_stack_train_wgrads(*ops, d)
+            again = fs.flow_stack_train_wgrads(*ops, d)
+            wgrad_calls += 2
+            # the plain version: torch.matmul in fp32 on the same bf16 operands
+            want = fs.flow_stack_wgrads_reference(*ops, d)
+            torch.cuda.synchronize()
+            errs = [_rel(g, w) for g, w in zip(got, want)]
+            _log(f"[train] weight-gradient GEMM B={B} T={T} d={d}: rel err vs "
+                 f"torch.matmul fp32 (dW_in, db_g, dW_out, db_rs) "
+                 + ", ".join(f"{e:.2e}" for e in errs) + f" (tol {TOL_WGRAD})")
+            _check(all(g.shape == w.shape for g, w in zip(got, want))
+                   and max(errs) <= TOL_WGRAD,
+                   f"weight-gradient GEMM off torch.matmul at B={B} T={T} d={d}")
+            _check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                   "the weight-gradient GEMM is not bit-identical across runs")
     for k, (B, T) in enumerate([(TRAIN_BATCH, TRAIN_T)] + TRAIN_EDGE_SHAPES):
         a = _train_inputs(B, T, device, seed=200 + k)
         fwd = {n: a[n] for n in _FWD}
@@ -471,10 +512,16 @@ def phase_train_kernels(device) -> dict:
     fwd_calls, bwd_calls = fwd_calls + 1, bwd_calls + 2
     _check(torch.equal(dx_a[0], dx_b[0]), "row 1 leaked into row 0's dx")
     _check(not torch.equal(dx_a[1], dx_b[1]), "changing row 1 changed nothing")
+    L = len(dil)
     _check((fs.flow_stack_train_forward.launches - f0,
-            fs.flow_stack_train_backward.launches - b0) == (fwd_calls, bwd_calls),
+            gated_layer.launches - g0,
+            fs.flow_stack_train_backward.launches - b0,
+            fs.flow_stack_train_wgrads.launches - w0)
+           == (fwd_calls, L * fwd_calls, bwd_calls, wgrad_calls),
            "the training kernels' counters did not count every call")
-    _log(f"[train] dx rows isolated; {fwd_calls} + {bwd_calls} calls counted")
+    _log(f"[train] dx rows isolated; {fwd_calls} kernel-2 calls ({L * fwd_calls} "
+         f"kernel-5 launches), {bwd_calls} kernel-3 calls, {wgrad_calls} "
+         f"weight-gradient GEMM calls counted")
     return result
 
 
@@ -990,20 +1037,23 @@ def _teacher_step(device, seed: int):
 
 def phase_teacher(device) -> dict:
     n_steps = 3
+    L = TEACHER.teacher.n_layers
     fs.flow_stack_train_forward.launches = 0
     fs.flow_stack_train_backward.launches = 0
+    gated_layer.launches = 0
     res = run_teacher_training(TEACHER, num_steps=n_steps)
     torch.cuda.synchronize()
     launches = (fs.flow_stack_train_forward.launches,
-                fs.flow_stack_train_backward.launches)
+                fs.flow_stack_train_backward.launches, gated_layer.launches)
     _log(f"[teacher] run_teacher_training(teacher_lj, num_steps={n_steps}): "
-         f"{res.final_metrics}; kernel 2 launches {launches[0]}, kernel 3 "
-         f"launches {launches[1]}")
+         f"{res.final_metrics}; kernel 2 launches {launches[0]} (kernel 5 "
+         f"{launches[2]}), kernel 3 launches {launches[1]}")
     _check(all(np.isfinite(v) for v in res.final_metrics.values()),
            "non-finite training metrics")
-    _check(launches == (n_steps + 1, n_steps),
-           f"expected {n_steps + 1} forward and {n_steps} backward launches "
-           f"({n_steps} train steps and one eval)")
+    _check(launches == (n_steps + 1, n_steps, L * (n_steps + 1)),
+           f"expected {n_steps + 1} forward calls ({L} kernel-5 launches "
+           f"each) and {n_steps} backward launches ({n_steps} train steps "
+           f"and one eval)")
 
     # 20 steps on one fixed batch.  At the configured lr (1e-3) the loss is
     # not monotone: the reference does the same (fp32 on the CPU, teacher_lj
@@ -1101,6 +1151,20 @@ def _time_ms(fn, n: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def _graph_ms(fn, n: int) -> float:
+    """Device ms per call of `fn`: n calls captured in one CUDA graph and
+    replayed, so that the host's work between launches (argument checks,
+    tensor maps) is not counted where it outlasts a short kernel."""
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: the kernel wrappers set function attributes while capturing
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return _time_ms(graph.replay, 1) / n
 
 
 def phase_times(device, smi: str) -> dict:
@@ -1296,12 +1360,43 @@ def phase_train_times(device, smi: str) -> dict:
               "kernel 3": _nbytes(*bargs, *grads),
               "kernel 3 dx-only": _nbytes(*bargs, *grads[:2])}
     bounds = {k: _bound(flop[k], nbytes[k], PEAK_BF16) for k in flop}
-    for name, v in ms.items():
+    for name, v in list(ms.items()):
         rate = (f" ({flop[name] / np.mean(v) / 1e9:.1f} TFLOP/s useful; "
                 f"bound {bounds[name]['bound_ms']:.3f} ms, "
                 f"{bounds[name]['bound_by']})" if name in flop else "")
         _log(f"[times] {smi}: {name} B={B} T={T}: "
              + " / ".join(f"{x:.3f}" for x in v) + f" ms per call{rate}")
+
+    # the weight-gradient GEMM of one layer alone, in turns with
+    # torch.matmul on the same bf16 operands (the tap columns concatenated
+    # beforehand): the one PyTorch call for that sub-step, a yardstick only.
+    # Both replayed from CUDA graphs: the GEMM's host work per call is close
+    # to its device time.
+    x, cond, dg, dout, z = _wgrad_operands(B, T, device, seed=9)
+    d = 64
+    cat = torch.cat([x, shift_right(x, d), cond], -1).reshape(B * T, -1)
+    dg2, dout2, z2 = (t.reshape(B * T, -1) for t in (dg, dout, z))
+    gemm = {"wgrad GEMM": lambda: fs.flow_stack_train_wgrads(x, cond, dg, dout, z, d),
+            "torch.matmul": lambda: (torch.matmul(dg2.mT, cat),
+                                     torch.matmul(dout2.mT, z2))}
+    counted_w = fs.flow_stack_train_wgrads.launches
+    with torch.no_grad():
+        for fn in gemm.values():
+            fn()
+        torch.cuda.synchronize()
+        for k in ("torch.matmul", "wgrad GEMM", "wgrad GEMM", "torch.matmul"):
+            ms.setdefault(k, []).append(_graph_ms(gemm[k], 20))
+        grads_w = gemm["wgrad GEMM"]()
+    fs.flow_stack_train_wgrads.launches = counted_w
+    flop_w = 2 * B * T * (K * G + N * GH)
+    bound_w = _bound(flop_w, _nbytes(x, cond, dg, dout, z, *grads_w), PEAK_BF16)
+    for name in ("wgrad GEMM", "torch.matmul"):
+        v = ms[name]
+        _log(f"[times] {smi}: {name} (one layer's dW_in and dW_out) B={B} T={T}: "
+             + " / ".join(f"{x:.4f}" for x in v) + f" ms per call "
+             f"({flop_w / np.mean(v) / 1e9:.1f} TFLOP/s useful; bound "
+             f"{bound_w['bound_ms']:.4f} ms, {bound_w['bound_by']}; x{tc.n_layers} "
+             f"layers {tc.n_layers * np.mean(v):.3f} ms)")
 
     # the teacher train step at batch 8 x 16,384
     _, state, step = _teacher_step(device, SEED)
@@ -1423,7 +1518,7 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"], **times, "library_ms": None,
     }, {
         "name": "flow_stack_train_forward", "route": "cuda",
-        "source": train_src,
+        "source": "pwn_tpu_torch/csrc/gated_layer.cu",
         "replaces": "pwn_tpu/ops/pallas/flow_stack.py:373",
         "launches": teacher["launches"][0],
         "max_abs_err": train_kern["fwd_max_abs_err"], **train_times["fwd"],

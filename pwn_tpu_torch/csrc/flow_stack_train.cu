@@ -1,13 +1,13 @@
-// Whole-stack WaveNet training pass for Hopper (sm_90a): the forward that
-// saves every layer's input, and its fused backward with weight gradients.
+// Whole-stack WaveNet training backward for Hopper (sm_90a), with its
+// weight gradients.  (The forward that saves every layer's input runs
+// kernel 5's accumulate epilogue once per layer: csrc/gated_layer.cu,
+// through ops/gated_layer.py::flow_stack_train_by_layers.)
 //
 // Replaces:
-//   kernel 2  pwn_tpu/ops/pallas/flow_stack.py::_fwd_save_kernel
-//             (via _flow_stack_train_fwd_impl / fused_flow_stack_train)
 //   kernel 3  pwn_tpu/ops/pallas/flow_stack.py::_bwd_chunk_kernel
 //             (via _flow_stack_train_bwd_impl), both want_wgrads modes.
 //
-// Forward, per layer l with dilation d, for every time t (as flow_stack.cu):
+// The forward, per layer l with dilation d, for every time t:
 //     acts[l] = x
 //     g   = [x(t) | x(t - d) | cond(t)] @ W_in[l] + b_g[l]      fp32 accumulate
 //     z   = bf16(tanh(g[:G/2]) * sigmoid(g[G/2:]))
@@ -19,7 +19,7 @@
 //     dg   = bf16([dz*sb*(1-ta^2) | dz*ta*sb*(1-sb)])  (ta, sb recomputed)
 //     dcat = dg @ W_in[l]^T = [dcx | dcs | dcc]
 //     dx  <- (dx + dcx)(t) + dcs(t + d);  dcond += dcc          all fp32
-//     dW_in[l] = cat^T dg, db_g[l] = sum dg, dW_out[l] = z^T dout,
+//     dW_in[l] = dg^T cat, db_g[l] = sum dg, dW_out[l] = dout^T z,
 //     db_rs[l] = sum dout                                         fp32
 // The rounding points are the Pallas kernels' (dout, dg and z to bf16; the
 // gates, dz and every sum in fp32).  Two of its roundings come from the TPU's
@@ -27,558 +27,738 @@
 // and dx crossing a layer chunk stay fp32 here.
 //
 // What bounds it on this card.  At teacher_lj widths (C=128, G=256, S=128,
-// M=80) a sample costs 237,568 FLOP per layer forward and about 3x that
-// backward with weight gradients, against 256 bytes of acts written (read
-// back in the backward) per layer: ~930 FLOP per byte forward, above the
-// H100's ~295 FLOP/byte ridge, so the GEMMs run on the tensor cores
-// (mma.sync m16n8k16, bf16 in, fp32 accumulate).
+// M=80) a row costs per layer 2 x 336 x 256 (gates recomputed) + 2 x 256 x
+// 128 (dz) + 2 x 256 x 336 (dcat) FLOP, and with weight gradients 2 x 256 x
+// (336 + 128) more: 2.06 ms at B=8, T=16,384 over 24 layers at 989
+// TFLOP/s.  Against that it moves per row and layer ~3 KB (dx-only: fp32
+// dpart and dcs written and read back, dcond read and written; acts, cond
+// and dskip read) and with weight gradients ~1 KB more (bf16 dg, dout, z
+// stored and read by the GEMM): a byte bound of 3-4 ms, so bytes bound it.
 //
 // Design, and what it does about the TPU kernels' assumptions:
-// * Grid order.  The TPU grid runs its time tiles in order and carries each
-//   layer's previous tile (forward) or the tap cotangent of the earlier tile
-//   (backward) in VMEM scratch.  CUDA blocks run in no order, so there is no
-//   carry: every layer is one launch over (time tile, batch row) blocks.  The
-//   forward writes acts[l+1] anyway (the backward needs it), so the dilated
-//   tap x_l(t - d) is read back from acts[l] in device memory: no halo and no
-//   ring.  (flow_stack.cu's per-layer rings would need sum(d)*(C+8)*2 =
-//   208 KB at these widths, more than a block has beside its tiles.)  The
-//   skip sum lives in an fp32 (B, T, S) buffer across the launches.
-// * The tap cotangent crosses blocks: dx_l(t) needs dcs(t + d) from rows of
-//   the next tile.  Each backward launch writes dpart = dx + dcx and dcs to
-//   device memory; the next (lower) layer's launch reads dpart(t) +
-//   dcs(t + d) as its dx.  dcs alternates between two buffers, since a block
-//   reads other blocks' rows of it.  A last pass folds layer 0's dcs into dx.
+// * Grid order.  The TPU grid runs its time tiles in order and carries the
+//   tap cotangent of the earlier tile in VMEM scratch.  CUDA blocks run in
+//   no order, so there is no carry: every layer is one launch, and the tap
+//   cotangent dx_l(t) needs dcs(t + d) from rows of a later tile.  Each
+//   layer's launch writes dpart = dx + dcx and dcs to device memory; the
+//   next (lower) layer's launch reads dpart(t) + dcs(t + d) as its dx.  dcs
+//   alternates between two buffers, since a block reads other blocks' rows
+//   of it.  A last pass folds layer 0's dcs into dx.
+// * Weights on chip.  The TPU kernel keeps a chunk of layers' weights in
+//   VMEM; one layer's W_in and W_out (236 KB) do not fit a block's shared
+//   memory beside its tiles.  The layer pass (`train_bwd_layer`) is kernel
+//   5's structure: persistent blocks over 128-row tiles, one producer
+//   thread streaming the weights by TMA through a ring of four 16 KB slots
+//   (28 a tile), two consumer warpgroups of 64 rows running every product
+//   on wgmma.  The epilogues' read-modify-writes (dpart, dcond32) issue
+//   their loads before the product whose result they take.  W_in and W_out arrive as stored, (out, in): the gate product
+//   reads W_in K-major, dz = dout @ W_out^T and dcat = dg @ W_in read W_out
+//   and W_in MN-major (their rows are the product's K), so there are no
+//   transposed copies.
+// * Registers.  The gate accumulator (64 x 256 fp32) beside dz (64 x 128)
+//   would not fit a consumer's registers: dz comes first, then the gate
+//   product runs in two halves of 128 columns (64 tanh, their 64 sigmoid
+//   partners), and dg is formed in registers per half (the exp2 /
+//   reciprocal forms of tanh and sigmoid, each within 2 ulp) and stored in
+//   bf16 over the dout tile, whose product is done.
 // * Weight gradients.  The TPU kernel keeps fp32 accumulators resident
-//   across the whole grid.  Here each backward launch stores dg, dout and z
-//   (bf16, as the reference rounds them), and a split-K kernel forms
-//   cat^T dg and z^T dout over row ranges into fp32 partials, which a second
-//   pass sums in a fixed order: the result is the same on every run.  The
-//   bias gradients ride along as a column of ones appended to cat and z.
-// * Weights (5.7 MB bf16 per stack) do not fit in shared memory; the warps
-//   read their mma B fragments from L1/L2.  The forward reads W_in (G, K) and
-//   W_out (C+S, G/2) stored (out, in), as WaveNetStack.stacked() builds them;
-//   the backward also takes them transposed, so that every fragment register
-//   is one 32-bit load.
+//   across the whole grid.  Here each layer's pass stores dg and dout (TMA
+//   from their swizzled tiles) and z (bf16, as the reference rounds them),
+//   and a split-K GEMM on wgmma (`wgrad_gemm`) forms dg^T cat and dout^T z
+//   over row ranges into fp32 partials, which `wgrad_reduce` sums in a
+//   fixed order: the result is the same on every run, with no atomics
+//   (dcond32 too has one writer per row).  Both of the GEMM's operands are
+//   row-major with the rows (time) as its K, so TMA brings 64-column boxes
+//   of them in the 128-byte swizzle and wgmma reads both as MN-major
+//   operands: no transpose in registers or shared memory.  The tap columns
+//   are the acts box at t0 - d of a (B, T, C) tensor map, zero-filled for
+//   t < 0, so a range of rows never crosses a batch row.  The bias
+//   gradients are column sums of the dg and dout tiles already in shared
+//   memory, taken by one more product with an all-ones B operand.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"  // TMA, mbarrier and wgmma wrappers: shared with kernels 1, 4, 5
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int TT = 64;          // rows per time tile: 4 row slices of 16
-constexpr int NTHREADS = 256;   // 8 warps: 4 row slices x 2 column halves
-constexpr int WG_ROWS = 32;     // rows per stage of the weight-gradient GEMM
-constexpr int WG_K = 64;        // weight-gradient output tile: 64 x 128
-constexpr int WG_N = 128;
-constexpr int WG_RS = WG_ROWS + 8;  // shared row stride of its transposed tiles
 
 template <int C_, int G_, int S_, int M_>
 struct Dims {
   static constexpr int C = C_, G = G_, S = S_, M = M_;
   static constexpr int GH = G / 2;        // tanh half, sigmoid half
-  static constexpr int K_IN = 2 * C + M;  // gate GEMM depth [x | shift | cond]
-  static constexpr int N_OUT = C + S;     // out GEMM width [residual | skip]
-  static constexpr int XS = C + 8;        // shared row strides (bf16), padded
-  static constexpr int CS = M + 8;        //   by 8 so the 8 rows of a fragment
-  static constexpr int ZS = GH + 8;       //   load fall in distinct banks
-  static constexpr int DS = N_OUT + 8;
-  static constexpr int GS = G + 8;
-  static constexpr int NT_G = GH / 16;    // tanh n-tiles per warp (+ sigmoid)
-  static constexpr int NT_O = N_OUT / 16; // out n-tiles per warp
-  static constexpr int NT_D = K_IN / 16;  // dcat n-tiles per warp
-  static constexpr int K1_IN = ((K_IN + 1 + WG_K - 1) / WG_K) * WG_K;
-  static constexpr int K1_OUT = ((GH + 1 + WG_K - 1) / WG_K) * WG_K;
-  static_assert(C == S, "warp halves of the out GEMM are [residual | skip]");
-  static_assert(C % 16 == 0 && M % 16 == 0 && GH % 16 == 0, "mma depth");
-  static_assert(K_IN % 16 == 0 && N_OUT % 16 == 0, "two column halves");
-  static_assert(G % WG_N == 0 && N_OUT % WG_N == 0, "weight-gradient tiles");
-  static constexpr size_t FWD_SMEM = (size_t)TT * (2 * XS + CS + ZS) * 2;
-  static constexpr size_t BWD_SMEM =
-      (size_t)TT * (2 * XS + CS + DS + GS + ZS) * 2 + (size_t)TT * C * 4;
+  static constexpr int K_IN = 2 * C + M;  // gate depth [x | tap | cond]
+  static constexpr int N_OUT = C + S;     // out width [residual | skip]
+  // the layer pass: x, tap, cond and z two 64-column slices each, cond's
+  // second one M - 64 wide; dout and dg four; the weight-gradient GEMM's
+  // A (dg, dout) four boxes, B (x, z, cond) two
+  static_assert(G == 4 * KC && N_OUT == 4 * KC && C == 2 * KC && GH == 2 * KC &&
+                    M > KC && M <= 2 * KC && M % 16 == 0,
+                "the slices of the layer pass and the weight-gradient tiles");
 };
 
 using Teacher = Dims<128, 256, 128, 80>;
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// ----------------------------------------------------- kernel 3: layer pass
+// One layer of the backward over all 128-row tiles.  A persistent block
+// walks tiles tile = blockIdx.x + k gridDim.x (n_tt per batch row, the
+// batch row major).  Warpgroups 0 and 1 (threads [0, 256)) compute rows
+// [64 wg, 64 wg + 64) of a tile; warpgroup 2's first thread loads.
+// setmaxnreg gives the producer 40 registers and the consumers 232; ptxas
+// still fits the kernel in the launch bound's 168 with a few hundred bytes
+// of spills (on the H100 a 9-warp block without setmaxnreg ran slower).
+//   tm_x    acts[l] (B, T, C), 64 x 128 boxes      tm_cond  cond (B, T, M)
+//   tm_dskip dskip (B, T, S), 64 x 64 boxes
+//   tm_win   W_in (G, K_IN), 64 x 64 boxes
+//   tm_wout W_out (N_OUT, GH), 64 x 64 boxes
+//   tm_dout, tm_dg  dout_g (B, T, N_OUT), dg_g (B, T, G), 64 x 64 boxes
+//                   (stores; with weight gradients only)
+//   b_g (G) fp32; dpart, dcs_prev, dcs_cur (B, T, C), dcond32 (B, T, M) fp32
+//   z_g (B, T, GH) bf16 or null
+// Per tile, each warpgroup:
+//   1. dx = dpart(t) + dcs_prev(t + d_prev) (0 at the top), rounded to bf16
+//      into the dout tile's first C columns; dskip arrives by TMA in the
+//      others.  With weight gradients, the dout tile goes to dout_g by TMA.
+//   2. dz = dout @ W_out^T (m64n128, B MN-major: W_out's rows are the K).
+//   3. Per half h of the gate columns, g = [x | tap | cond] @ W_in^T over
+//      W_in's tanh rows [64h, 64h + 64) and sigmoid rows [GH + 64h, ...)
+//      (m64n128, both K-major); then ta, sb and dg (and z, stored to z_g)
+//      in registers, dg in bf16 into the dout tile's place.
+//   4. dcat = dg @ W_in (B MN-major: W_in's rows are the K) as dcx, dcs
+//      (m64n128 each) and dcc (m64n80), each with its epilogue: dpart = dx
+//      + dcx in place, dcs_cur = dcs, dcond32 (+)= dcc; the loads of the
+//      read-modify-writes are issued before the product.  With weight
+//      gradients, the dg tile goes to dg_g by TMA.
+// Ring order per tile, 28 slots of 16 KB: dz 4 (64 rows of W_out), gate
+// half 0 and 1, 6 each (the k-slices [x | tap | cond]), dcx 4, dcs 4 and
+// dcc 4 (64 rows of W_in each).
+constexpr int LT = 128;                  // rows per tile
+constexpr int LWG = 64;                  // rows per consumer warpgroup
+constexpr int L_THREADS = 384;           // two consumer warpgroups + a producer
+constexpr int L_TILE = LT * ROW_BYTES;   // one 64-column slice of a tile: 16 KB
+static_assert(LT == 128, "swz128 addresses 128-row tiles");
+constexpr int L_SLOT = 16384;
+constexpr int L_STAGES = 4;
+constexpr int L_A = 0;                   // x (2 slices), tap (2), cond (2)
+constexpr int L_D = L_A + 6 * L_TILE;    // dout, then dg: 4 slices
+constexpr int L_W = L_D + 4 * L_TILE;    // the weight ring
+constexpr int L_BAR = L_W + L_STAGES * L_SLOT;
+constexpr int L_SMEM = L_BAR + 8 * (2 + 4 + 2 * L_STAGES) + 1024;  // + alignment
+
+// With PWN_FLOW_STACK_TRAIN_PHASES defined (tools/torch_flow_stack_train_phases.py
+// builds it so), thread 0 of block 0 adds the clock cycles of each phase of
+// each tile into fst_phase_cycles: dx in and the dskip wait, the dz product,
+// the activations wait, the gate products, the gates and dg, the dcx and dcs
+// products and their epilogues, the dcc product and its epilogue; [7] counts
+// tiles.  The same tool's builds with PWN_FST_NO_GATES (the gates as plain
+// products), PWN_FST_NO_DX (no dx loads) or PWN_FST_NO_EPILOGUE (no dpart,
+// dcs, dcond and z stores) time the kernel without that work; their
+// results are wrong.
+#ifdef PWN_FLOW_STACK_TRAIN_PHASES
+__device__ unsigned long long fst_phase_cycles[8];
+#define PHASE(k)                                                \
+  do {                                                          \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {                  \
+      const unsigned long long now = clock64();                 \
+      fst_phase_cycles[k] += now - phase_t;                     \
+      phase_t = now;                                            \
+    }                                                           \
+  } while (0)
+#else
+#define PHASE(k)
+#endif
+
+__device__ __forceinline__ float tanh_fast(float a) {
+  constexpr float LOG2E = 1.44269504f, CLAMP = 43.28f;  // 30 nats in log2
+#ifdef PWN_FST_NO_GATES
+  return a;
+#else
+  const float ea = ex2_approx(fminf(fmaxf(2.f * LOG2E * a, -CLAMP), CLAMP));
+  return (ea - 1.f) * rcp_approx(ea + 1.f);
+#endif
+}
+__device__ __forceinline__ float sigmoid_fast(float b) {
+  constexpr float LOG2E = 1.44269504f, CLAMP = 43.28f;
+#ifdef PWN_FST_NO_GATES
+  return b;
+#else
+  return rcp_approx(1.f + ex2_approx(fminf(fmaxf(-LOG2E * b, -CLAMP), CLAMP)));
+#endif
 }
 
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
+// Wait for ring slot c, run `body` (the products on it), commit, wait and
+// release the slot.
+template <class F>
+__device__ __forceinline__ void on_slot(int& c, uint32_t full, uint32_t empty, int lane,
+                                        F body) {
+  const int s = c % L_STAGES;
+  mbar_wait(full + 8 * s, (c / L_STAGES) & 1);
+  wgmma_fence();
+  body(s);
+  wgmma_commit();
+  wgmma_wait<0>();
+  if (lane == 0) mbar_arrive(empty + 8 * s);
+  ++c;
 }
 
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a @ b for one 16x8x16 tile; a row-major, b column-major, fp32 sum.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of rows r0, r0 + 8 and columns col + [0, 16) of a shared tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int stride, int r0, int col, int q) {
-  const bf16* p0 = tile + r0 * stride + col + 2 * q;
-  const bf16* p1 = p0 + 8 * stride;
-  a[0] = lds32(p0);
-  a[1] = lds32(p1);
-  a[2] = lds32(p0 + 8);
-  a[3] = lds32(p1 + 8);
-}
-
-// Rows t0 + [0, TT) of one batch row's (T, W) matrix, each shifted back by
-// `shift` samples, into a shared tile; zero before t = 0 and past T.
-template <int W, int STRIDE>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int t0,
-                                          int shift, int T) {
-  for (int i = threadIdx.x; i < TT * (W / 8); i += NTHREADS) {
-    const int r = i / (W / 8), c8 = i % (W / 8);
-    const int t = t0 + r - shift;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (t0 + r < T && t >= 0)
-      v = __ldg(reinterpret_cast<const uint4*>(src + (size_t)t * W) + c8);
-    *reinterpret_cast<uint4*>(dst + r * STRIDE + c8 * 8) = v;
-  }
-}
-
-// The gate GEMM of one warp: rows wm*16 + [0, 16) of [xs | sh | cs] times the
-// tanh columns wh*GH/2 + [0, GH/2) (acc[0, NT_G)) and the matching sigmoid
-// columns (acc[NT_G, 2 NT_G)) of W_in, stored (G, K_IN).
 template <class D>
-__device__ __forceinline__ void gate_gemm(float (&acc)[2 * D::NT_G][4],
-                                          const bf16* xs, const bf16* sh,
-                                          const bf16* cs, const bf16* w,
-                                          int wm, int wh, int g, int q) {
-#pragma unroll
-  for (int j = 0; j < 2 * D::NT_G; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < D::K_IN / 16; ++ks) {
-    uint32_t a[4];
-    if (ks < D::C / 16)
-      load_a(a, xs, D::XS, wm * 16 + g, ks * 16, q);
-    else if (ks < 2 * D::C / 16)
-      load_a(a, sh, D::XS, wm * 16 + g, ks * 16 - D::C, q);
-    else
-      load_a(a, cs, D::CS, wm * 16 + g, ks * 16 - 2 * D::C, q);
-#pragma unroll
-    for (int j = 0; j < 2 * D::NT_G; ++j) {
-      const int n = (j < D::NT_G ? 0 : D::GH) + wh * (D::GH / 2) +
-                    (j % D::NT_G) * 8 + g;
-      const bf16* wp = w + (size_t)n * D::K_IN + ks * 16 + 2 * q;
-      mma_bf16(acc[j], a, ldg32(wp), ldg32(wp + 8));
-    }
-  }
-}
-
-__device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
-
-// ---------------------------------------------------------------- kernel 2
-// One layer of the forward.  Block = (time tile, batch row), grid (tiles, B).
-//   x_in   (B, T, C)  bf16   acts[l]
-//   x_out  (B, T, C)  bf16   acts[l + 1], or null for the last layer
-//   cond   (B, T, M)  bf16
-//   w_in   (G, K_IN)  bf16   this layer's W_in stored (out, in)
-//   w_out  (N_OUT, GH) bf16  this layer's W_out stored (out, in)
-//   b_g (G), b_rs (N_OUT) fp32
-//   skip32 (B, T, S)  fp32   running skip sum (written at the first layer)
-//   skip   (B, T, S)  bf16   output, written by the last layer only
-template <class D>
-__global__ void __launch_bounds__(NTHREADS, 2)
-train_fwd_layer(const bf16* __restrict__ x_in, bf16* __restrict__ x_out,
-                const bf16* __restrict__ cond, const bf16* __restrict__ w_in,
-                const float* __restrict__ b_g, const bf16* __restrict__ w_out,
-                const float* __restrict__ b_rs, float* __restrict__ skip32,
-                bf16* __restrict__ skip, int T, int d, int first, int last) {
+__global__ void __launch_bounds__(L_THREADS, 1)
+train_bwd_layer(const __grid_constant__ CUtensorMap tm_x,
+                const __grid_constant__ CUtensorMap tm_cond,
+                const __grid_constant__ CUtensorMap tm_dskip,
+                const __grid_constant__ CUtensorMap tm_win,
+                const __grid_constant__ CUtensorMap tm_wout,
+                const __grid_constant__ CUtensorMap tm_dout,
+                const __grid_constant__ CUtensorMap tm_dg, const float* __restrict__ b_g,
+                float* __restrict__ dpart, const float* __restrict__ dcs_prev,
+                float* __restrict__ dcs_cur, float* __restrict__ dcond32,
+                bf16* __restrict__ z_g, int T, int n_tt, int n_tiles, int d, int d_prev,
+                int top, int wgrads) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // TT x XS: x(t)
-  bf16* sh = xs + TT * D::XS;                     // TT x XS: x(t - d)
-  bf16* cs = sh + TT * D::XS;                     // TT x CS: cond(t)
-  bf16* zs = cs + TT * D::CS;                     // TT x ZS: z
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t base = smem_u32(smem);
+  const uint32_t a_full = base + L_BAR, a_empty = a_full + 8;
+  const uint32_t d_full = a_empty + 8, d_empty = d_full + 16;  // one each per warpgroup
+  const uint32_t full = d_empty + 16, empty = full + 8 * L_STAGES;
+  const uint32_t ring = base + L_W;
+  const int wg = threadIdx.x / 128;
 
-  const int b = blockIdx.y, t0 = blockIdx.x * TT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;  // fragment row group, column pair
-  const int wm = warp & 3, wh = warp >> 2;
-  const size_t rb = (size_t)b * T;        // first row of this batch row
-
-  load_rows<D::C, D::XS>(xs, x_in + rb * D::C, t0, 0, T);
-  load_rows<D::C, D::XS>(sh, x_in + rb * D::C, t0, d, T);
-  load_rows<D::M, D::CS>(cs, cond + rb * D::M, t0, 0, T);
+  if (threadIdx.x == 0) {
+    mbar_init(a_full, 1);
+    mbar_init(a_empty, 8);  // one arrival per consumer warp
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(d_full + 8 * w, 1);
+      mbar_init(d_empty + 8 * w, 1);
+    }
+    for (int s = 0; s < L_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  {
-    float acc[2 * D::NT_G][4];
-    gate_gemm<D>(acc, xs, sh, cs, w_in, wm, wh, g, q);
-#pragma unroll
-    for (int j = 0; j < D::NT_G; ++j) {
-      const int col = wh * (D::GH / 2) + j * 8 + 2 * q;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = wm * 16 + g + 8 * hh;
-        float z[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          z[e] = tanhf(acc[j][2 * hh + e] + b_g[col + e]) *
-                 sigmoidf(acc[D::NT_G + j][2 * hh + e] + b_g[D::GH + col + e]);
-        *reinterpret_cast<uint32_t*>(zs + r * D::ZS + col) = pack(z[0], z[1]);
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != 256) return;
+    // the producer: activations, dskip rows and the weight ring
+    int c = 0;
+    // one ring slot: the 64 x 64 boxes of a weight at (col, row) and at
+    // (col + dcol, row + drow)
+    auto slot = [&](const CUtensorMap* map, int col, int row, int dcol, int drow) {
+      const int s = c % L_STAGES;
+      const uint32_t dst = ring + s * L_SLOT, bar = full + 8 * s;
+      mbar_wait(empty + 8 * s, ((c / L_STAGES) & 1) ^ 1);
+      mbar_expect_tx(bar, L_SLOT);
+      tma_load_2d(dst, map, col, row, bar);
+      tma_load_2d(dst + L_SLOT / 2, map, col + dcol, row + drow, bar);
+      ++c;
+    };
+    auto load_a = [&](int tile, int it) {
+      const int b = tile / n_tt, t0 = (tile % n_tt) * LT;
+      mbar_wait(a_empty, (it & 1) ^ 1);
+      mbar_expect_tx(a_full, 6 * L_TILE);
+      for (int k = 0; k < 2; ++k) {
+        tma_load_3d(base + L_A + k * L_TILE, &tm_x, k * KC, t0, b, a_full);
+        tma_load_3d(base + L_A + (2 + k) * L_TILE, &tm_x, k * KC, t0 - d, b, a_full);
+        tma_load_3d(base + L_A + (4 + k) * L_TILE, &tm_cond, k * KC, t0, b, a_full);
       }
+    };
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+      const int b = tile / n_tt, t0 = (tile % n_tt) * LT;
+      if (it == 0) load_a(tile, 0);
+      for (int w = 0; w < 2; ++w) {
+        mbar_wait(d_empty + 8 * w, (it & 1) ^ 1);
+        mbar_expect_tx(d_full + 8 * w, 2 * LWG * ROW_BYTES);
+        for (int k = 0; k < 2; ++k)
+          tma_load_3d(base + L_D + (2 + k) * L_TILE + w * LWG * ROW_BYTES, &tm_dskip, k * KC,
+                      t0 + w * LWG, b, d_full + 8 * w);
+      }
+      for (int i = 0; i < 4; ++i) slot(&tm_wout, 0, 64 * i, KC, 0);  // dz
+      for (int h = 0; h < 2; ++h)  // the gate halves: tanh rows, sigmoid rows
+        for (int i = 0; i < 6; ++i) slot(&tm_win, KC * i, 64 * h, 0, D::GH);
+      if (tile + (int)gridDim.x < n_tiles) load_a(tile + gridDim.x, it + 1);
+      for (int h = 0; h < 3; ++h)  // dcx, dcs, dcc
+        for (int i = 0; i < 4; ++i) slot(&tm_win, h * D::C, 64 * i, KC, 0);
     }
-  }
-  __syncthreads();
-
-  // out GEMM: warps with wh == 0 own the residual columns, wh == 1 the skip
-  float acc[D::NT_O][4];
-#pragma unroll
-  for (int j = 0; j < D::NT_O; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < D::GH / 16; ++ks) {
-    uint32_t a[4];
-    load_a(a, zs, D::ZS, wm * 16 + g, ks * 16, q);
-#pragma unroll
-    for (int j = 0; j < D::NT_O; ++j) {
-      const bf16* wp = w_out + (size_t)(wh * (D::N_OUT / 2) + j * 8 + g) * D::GH +
-                       ks * 16 + 2 * q;
-      mma_bf16(acc[j], a, ldg32(wp), ldg32(wp + 8));
-    }
+    return;
   }
 
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const uint32_t wrow = wg * LWG * ROW_BYTES;  // this warpgroup's rows in a slice
+  const int r0 = wg * LWG + warp * 16 + lane / 4;  // fragment rows r0, r0 + 8
+  const int q2 = 2 * (lane % 4);
+  const uint32_t bar_id = 1 + wg;
+  int c = 0;
+#ifdef PWN_FLOW_STACK_TRAIN_PHASES
+  unsigned long long phase_t = clock64();
+#endif
+  for (int tile = blockIdx.x, it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+    const int b = tile / n_tt, t0 = (tile % n_tt) * LT;
+    const size_t rb = (size_t)b * T;
+
+    // 1. dx = dpart(t) + dcs_prev(t + d_prev): in bf16 into the dout tile's
+    //    columns [0, C), and in fp32 back into dpart for the epilogue.  Each
+    //    thread moves 16 float4 of a 64-row half tile, its loads issued 8 at
+    //    a time before any is used (they wait on device memory).
+    constexpr int DX_PER = LWG * (D::C / 4) / 128, DX_BATCH = 8;
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = wm * 16 + g + 8 * hh;
-    const int t = t0 + r;
-    if (t >= T) continue;
-    const size_t row = rb + t;
+    for (int k0 = 0; k0 < DX_PER; k0 += DX_BATCH) {
+      float4 v[DX_BATCH], u[DX_BATCH];
 #pragma unroll
-    for (int j = 0; j < D::NT_O; ++j) {
-      const int col = j * 8 + 2 * q;  // within the warp half's C (or S) columns
-      if (wh == 0) {
-        if (x_out == nullptr) continue;
-        const float o0 = __bfloat162float(__float2bfloat16_rn(acc[j][2 * hh] + b_rs[col]));
-        const float o1 = __bfloat162float(__float2bfloat16_rn(acc[j][2 * hh + 1] + b_rs[col + 1]));
-        const float2 xo = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(xs + r * D::XS + col));
-        *reinterpret_cast<uint32_t*>(x_out + row * D::C + col) = pack(xo.x + o0, xo.y + o1);
-      } else {
-        float s0 = acc[j][2 * hh] + b_rs[D::C + col];
-        float s1 = acc[j][2 * hh + 1] + b_rs[D::C + col + 1];
-        float2* sp = reinterpret_cast<float2*>(skip32 + row * D::S + col);
-        if (!first) {
-          const float2 prev = *sp;
-          s0 = prev.x + s0;
-          s1 = prev.y + s1;
+      for (int k = 0; k < DX_BATCH; ++k) {
+        const int i = tid + 128 * (k0 + k);
+        const int t = t0 + wg * LWG + i / (D::C / 4), col = (i % (D::C / 4)) * 4;
+        v[k] = u[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+#ifndef PWN_FST_NO_DX
+        if (!top && t < T) {
+          v[k] = *reinterpret_cast<const float4*>(dpart + (rb + t) * D::C + col);
+          if (t + d_prev < T)
+            u[k] = __ldg(reinterpret_cast<const float4*>(dcs_prev + (rb + t + d_prev) * D::C + col));
         }
-        if (last)
-          *reinterpret_cast<uint32_t*>(skip + row * D::S + col) = pack(s0, s1);
-        else
-          *sp = make_float2(s0, s1);
+#endif
       }
-    }
-  }
-}
-
-// ---------------------------------------------------------------- kernel 3
-// One layer of the backward.  Block = (time tile, batch row).
-//   acts_l  (B, T, C) bf16     this layer's saved input
-//   dskip   (B, T, S) bf16
-//   w_in (G, K_IN), w_in_kg (K_IN, G), w_out_kn (GH, N_OUT) bf16
-//   dpart   (B, T, C) fp32     in: dx + dcx of the layer above; out: this one's
-//   dcs_prev(B, T, C) fp32     tap cotangent of the layer above (d_prev)
-//   dcs_cur (B, T, C) fp32     this layer's tap cotangent
-//   dcond32 (B, T, M) fp32     running dcond (written by the top layer)
-//   dout_g, dg_g, z_g          bf16 (B, T, N_OUT / G / GH) for the weight
-//                              gradients, or null in the dx-only mode
-template <class D>
-__global__ void __launch_bounds__(NTHREADS, 1)
-train_bwd_layer(const bf16* __restrict__ acts_l, const bf16* __restrict__ cond,
-                const bf16* __restrict__ dskip, const bf16* __restrict__ w_in,
-                const bf16* __restrict__ w_in_kg, const float* __restrict__ b_g,
-                const bf16* __restrict__ w_out_kn, float* __restrict__ dpart,
-                const float* __restrict__ dcs_prev, float* __restrict__ dcs_cur,
-                float* __restrict__ dcond32, bf16* __restrict__ dout_g,
-                bf16* __restrict__ dg_g, bf16* __restrict__ z_g, int T, int d,
-                int d_prev, int top) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* dxs = reinterpret_cast<float*>(smem_raw);              // TT x C fp32
-  bf16* xs = reinterpret_cast<bf16*>(dxs + TT * D::C);          // TT x XS
-  bf16* sh = xs + TT * D::XS;                                    // TT x XS
-  bf16* cs = sh + TT * D::XS;                                    // TT x CS
-  bf16* douts = cs + TT * D::CS;                                 // TT x DS
-  bf16* dgs = douts + TT * D::DS;                                // TT x GS
-  bf16* zs = dgs + TT * D::GS;                                   // TT x ZS
-
-  const int b = blockIdx.y, t0 = blockIdx.x * TT;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const int wm = warp & 3, wh = warp >> 2;
-  const size_t rb = (size_t)b * T;
-
-  load_rows<D::C, D::XS>(xs, acts_l + rb * D::C, t0, 0, T);
-  load_rows<D::C, D::XS>(sh, acts_l + rb * D::C, t0, d, T);
-  load_rows<D::M, D::CS>(cs, cond + rb * D::M, t0, 0, T);
-  // dx of this layer's output = dpart(t) + dcs_prev(t + d_prev); 0 at the top
-  for (int i = tid; i < TT * (D::C / 4); i += NTHREADS) {
-    const int r = i / (D::C / 4), c = (i % (D::C / 4)) * 4;
-    const int t = t0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (!top && t < T) {
-      v = *reinterpret_cast<const float4*>(dpart + (rb + t) * D::C + c);
-      if (t + d_prev < T) {
-        const float4 u =
-            *reinterpret_cast<const float4*>(dcs_prev + (rb + t + d_prev) * D::C + c);
-        v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
-      }
-    }
-    *reinterpret_cast<float4*>(dxs + r * D::C + c) = v;
-    *reinterpret_cast<uint2*>(douts + r * D::DS + c) =
-        make_uint2(pack(v.x, v.y), pack(v.z, v.w));
-  }
-  load_rows<D::S, D::DS>(douts + D::C, dskip + rb * D::S, t0, 0, T);
-  __syncthreads();
-
-  {
-    // recompute the gates: acc[j] -> tanh, acc[NT_G + j] -> sigmoid
-    float acc[2 * D::NT_G][4];
-    gate_gemm<D>(acc, xs, sh, cs, w_in, wm, wh, g, q);
 #pragma unroll
-    for (int j = 0; j < D::NT_G; ++j) {
-      const int col = wh * (D::GH / 2) + j * 8 + 2 * q;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[j][e] = tanhf(acc[j][e] + b_g[col + (e & 1)]);
-        acc[D::NT_G + j][e] = sigmoidf(acc[D::NT_G + j][e] + b_g[D::GH + col + (e & 1)]);
-      }
-    }
-    // dz = dout @ W_out^T, for this warp's gate columns
-    float dz[D::NT_G][4];
-#pragma unroll
-    for (int j = 0; j < D::NT_G; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dz[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D::N_OUT / 16; ++ks) {
-      uint32_t a[4];
-      load_a(a, douts, D::DS, wm * 16 + g, ks * 16, q);
-#pragma unroll
-      for (int j = 0; j < D::NT_G; ++j) {
-        const bf16* wp = w_out_kn +
-                         (size_t)(wh * (D::GH / 2) + j * 8 + g) * D::N_OUT +
-                         ks * 16 + 2 * q;
-        mma_bf16(dz[j], a, ldg32(wp), ldg32(wp + 8));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < D::NT_G; ++j) {
-      const int col = wh * (D::GH / 2) + j * 8 + 2 * q;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = wm * 16 + g + 8 * hh;
-        float da[2], db[2], z[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float ta = acc[j][2 * hh + e], sb = acc[D::NT_G + j][2 * hh + e];
-          const float dzv = dz[j][2 * hh + e];
-          da[e] = dzv * sb * (1.f - ta * ta);
-          db[e] = dzv * ta * sb * (1.f - sb);
-          z[e] = ta * sb;
+      for (int k = 0; k < DX_BATCH; ++k) {
+        const int i = tid + 128 * (k0 + k);
+        const int r = wg * LWG + i / (D::C / 4), col = (i % (D::C / 4)) * 4;
+        const int t = t0 + r;
+        if (!top && t < T && t + d_prev < T) {
+          v[k].x += u[k].x; v[k].y += u[k].y; v[k].z += u[k].z; v[k].w += u[k].w;
         }
-        *reinterpret_cast<uint32_t*>(dgs + r * D::GS + col) = pack(da[0], da[1]);
-        *reinterpret_cast<uint32_t*>(dgs + r * D::GS + D::GH + col) = pack(db[0], db[1]);
-        *reinterpret_cast<uint32_t*>(zs + r * D::ZS + col) = pack(z[0], z[1]);
+#ifndef PWN_FST_NO_DX
+        if (!top && t < T) *reinterpret_cast<float4*>(dpart + (rb + t) * D::C + col) = v[k];
+#endif
+        *reinterpret_cast<uint2*>(smem + L_D + swz128(r, col)) =
+            make_uint2(pack(v[k].x, v[k].y), pack(v[k].z, v[k].w));
       }
     }
-  }
-  __syncthreads();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+    mbar_wait(d_full + 8 * wg, it & 1);
+    if (wgrads && tid == 0) {
+      for (int k = 0; k < 4; ++k)
+        tma_store_3d(&tm_dout, base + L_D + k * L_TILE + wrow, k * KC, t0 + wg * LWG, b);
+      bulk_commit();
+    }
+    PHASE(0);
 
-  // dcat = dg @ W_in^T: warp half wh owns n-tiles wh*NT_D + [0, NT_D)
-  {
-    float acc[D::NT_D][4];
+    // 2. dz = dout @ W_out^T
+    float dz[64];
 #pragma unroll
-    for (int j = 0; j < D::NT_D; ++j)
+    for (int i = 0; i < 64; ++i) dz[i] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int i = 0; i < 4; ++i) {
+      fence_regs(dz);
+      on_slot(c, full, empty, lane, [&](int s) {
+        const uint64_t da = desc_sw128(base + L_D + i * L_TILE + wrow);
+        const uint64_t db = desc_mn_sw128(ring + s * L_SLOT, L_SLOT / 2);
 #pragma unroll
-    for (int ks = 0; ks < D::G / 16; ++ks) {
-      uint32_t a[4];
-      load_a(a, dgs, D::GS, wm * 16 + g, ks * 16, q);
+        for (int k = 0; k < 4; ++k) wgmma_m64n128<0, 1>(dz, da + 2 * k, db + 128 * k);
+      });
+      fence_regs(dz);
+    }
+    if (wgrads && tid == 0) bulk_wait_read<0>();  // dout_g has read the tile
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+    PHASE(1);
+    mbar_wait(a_full, it & 1);
+    PHASE(2);
+
+    // 3. the gates per half, dg into the dout tile's place
 #pragma unroll
-      for (int j = 0; j < D::NT_D; ++j) {
-        const bf16* wp = w_in_kg + (size_t)((wh * D::NT_D + j) * 8 + g) * D::G +
-                         ks * 16 + 2 * q;
-        mma_bf16(acc[j], a, ldg32(wp), ldg32(wp + 8));
+    for (int h = 0; h < 2; ++h) {
+      float g[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) g[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        fence_regs(g);
+        on_slot(c, full, empty, lane, [&](int s) {
+          const uint64_t da = desc_sw128(base + L_A + i * L_TILE + wrow);
+          const uint64_t db = desc_sw128(ring + s * L_SLOT);
+          const int steps = (i < 5 ? KC : D::M - KC) / 16;  // cond's 2nd slice: M - 64
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (k < steps) wgmma_m64n128<0, 0>(g, da + 2 * k, db + 2 * k);
+        });
+        fence_regs(g);
       }
-    }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = wm * 16 + g + 8 * hh;
-      const int t = t0 + r;
-      if (t >= T) continue;
-      const size_t row = rb + t;
-#pragma unroll
-      for (int j = 0; j < D::NT_D; ++j) {
-        const int col = (wh * D::NT_D + j) * 8 + 2 * q;
-        const float v0 = acc[j][2 * hh], v1 = acc[j][2 * hh + 1];
-        if (col < D::C) {
-          *reinterpret_cast<float2*>(dpart + row * D::C + col) =
-              make_float2(dxs[r * D::C + col] + v0, dxs[r * D::C + col + 1] + v1);
-        } else if (col < 2 * D::C) {
-          *reinterpret_cast<float2*>(dcs_cur + row * D::C + col - D::C) =
-              make_float2(v0, v1);
-        } else {
-          float2* p = reinterpret_cast<float2*>(dcond32 + row * D::M + col - 2 * D::C);
-          if (top) {
-            *p = make_float2(v0, v1);
-          } else {
-            const float2 prev = *p;
-            *p = make_float2(prev.x + v0, prev.y + v1);
-          }
-        }
-      }
-    }
-  }
-
-  if (dout_g != nullptr) {  // the weight-gradient pass reads dout, dg and z
-    const int rows = min(TT, T - t0);
-    for (int i = tid; i < rows * (D::N_OUT / 8); i += NTHREADS) {
-      const int r = i / (D::N_OUT / 8), c8 = i % (D::N_OUT / 8);
-      reinterpret_cast<uint4*>(dout_g + (rb + t0 + r) * D::N_OUT)[c8] =
-          *reinterpret_cast<const uint4*>(douts + r * D::DS + c8 * 8);
-    }
-    for (int i = tid; i < rows * (D::G / 8); i += NTHREADS) {
-      const int r = i / (D::G / 8), c8 = i % (D::G / 8);
-      reinterpret_cast<uint4*>(dg_g + (rb + t0 + r) * D::G)[c8] =
-          *reinterpret_cast<const uint4*>(dgs + r * D::GS + c8 * 8);
-    }
-    for (int i = tid; i < rows * (D::GH / 8); i += NTHREADS) {
-      const int r = i / (D::GH / 8), c8 = i % (D::GH / 8);
-      reinterpret_cast<uint4*>(z_g + (rb + t0 + r) * D::GH)[c8] =
-          *reinterpret_cast<const uint4*>(zs + r * D::ZS + c8 * 8);
-    }
-  }
-}
-
-// Eight columns kk + [0, 8) of row `row` (= b*T + t) of the weight-gradient
-// GEMM's left operand.  CAT: [x(t) | x(t - d) | cond(t) | 1 | 0...] over
-// K_IN + 1 columns; otherwise [z(t) | 1 | 0...] over GH + 1 columns.
-template <class D, bool CAT>
-__device__ __forceinline__ uint4 wg_a_chunk(const bf16* a0, const bf16* cond,
-                                            size_t row, int t, int kk, int d) {
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  const uint4 ones = make_uint4(0x3F80u, 0u, 0u, 0u);  // bf16 1.0 first
-  if (CAT) {
-    if (kk < D::C) return __ldg(reinterpret_cast<const uint4*>(a0 + row * D::C + kk));
-    if (kk < 2 * D::C)
-      return t >= d ? __ldg(reinterpret_cast<const uint4*>(a0 + (row - d) * D::C + kk - D::C))
-                    : zero;
-    if (kk < D::K_IN)
-      return __ldg(reinterpret_cast<const uint4*>(cond + row * D::M + kk - 2 * D::C));
-    return kk == D::K_IN ? ones : zero;
-  }
-  if (kk < D::GH) return __ldg(reinterpret_cast<const uint4*>(a0 + row * D::GH + kk));
-  return kk == D::GH ? ones : zero;
-}
-
-// Split-K weight gradient: part[split][k][n] = sum over this split's rows r
-// of A[r][k] * Bm[r][n], with A from wg_a_chunk and Bm (R, N) bf16.  Grid
-// (K1 / 64, N / 128, splits); rows never cross a split.
-template <class D, bool CAT>
-__global__ void __launch_bounds__(NTHREADS, 2)
-wgrad_partial(const bf16* __restrict__ a0, const bf16* __restrict__ cond,
-              const bf16* __restrict__ bm, int N, float* __restrict__ part,
-              int K1, int B, int T, int d, int rows_per_split) {
-  __shared__ __align__(16) bf16 sat[WG_K * WG_RS];  // A tile stored (k, r)
-  __shared__ __align__(16) bf16 sbt[WG_N * WG_RS];  // Bm tile stored (n, r)
-  const int k0 = blockIdx.x * WG_K, n0 = blockIdx.y * WG_N;
-  const long long R = (long long)B * T;
-  const long long r_begin = (long long)blockIdx.z * rows_per_split;
-  const long long r_end = min(R, r_begin + rows_per_split);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const int wm = warp & 3, wh = warp >> 2;
-
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (long long r0 = r_begin; r0 < r_end; r0 += WG_ROWS) {
-    __syncthreads();  // the previous stage's fragments are read
-    for (int i = tid; i < WG_ROWS * (WG_K / 8); i += NTHREADS) {
-      const int r = i / (WG_K / 8), c8 = i % (WG_K / 8);
-      const long long row = r0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row < r_end)
-        v = wg_a_chunk<D, CAT>(a0, cond, (size_t)row, (int)(row % T), k0 + c8 * 8, d);
-      const bf16* e8 = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sat[(c8 * 8 + e) * WG_RS + r] = e8[e];
-    }
-    for (int i = tid; i < WG_ROWS * (WG_N / 8); i += NTHREADS) {
-      const int r = i / (WG_N / 8), c8 = i % (WG_N / 8);
-      const long long row = r0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row < r_end)
-        v = __ldg(reinterpret_cast<const uint4*>(bm + (size_t)row * N + n0) + c8);
-      const bf16* e8 = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sbt[(c8 * 8 + e) * WG_RS + r] = e8[e];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < WG_ROWS / 16; ++ks) {
-      uint32_t a[4];
-      load_a(a, sat, WG_RS, wm * 16 + g, ks * 16, q);
+      PHASE(3);
+      // fragment j < 8: tanh column 64h + 8j + q2 (+1); j + 8 its sigmoid
+      // partner; dz's fragment 8h + j the same column
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const bf16* bp = sbt + (wh * 64 + j * 8 + g) * WG_RS + ks * 16 + 2 * q;
-        mma_bf16(acc[j], a, lds32(bp), lds32(bp + 8));
+        const int col = 64 * h + 8 * j + q2;
+        const float2 bt = __ldg(reinterpret_cast<const float2*>(b_g + col));
+        const float2 bs = __ldg(reinterpret_cast<const float2*>(b_g + D::GH + col));
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float da[2], db[2], z[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float ta = tanh_fast(g[4 * j + 2 * hh + e] + (e ? bt.y : bt.x));
+            const float sb = sigmoid_fast(g[4 * (j + 8) + 2 * hh + e] + (e ? bs.y : bs.x));
+            const float dzv = dz[4 * (8 * h + j) + 2 * hh + e];
+            da[e] = dzv * sb * (1.f - ta * ta);
+            db[e] = dzv * ta * sb * (1.f - sb);
+            z[e] = ta * sb;
+          }
+          const int r = r0 + 8 * hh;
+          *reinterpret_cast<uint32_t*>(smem + L_D + swz128(r, col)) = pack(da[0], da[1]);
+          *reinterpret_cast<uint32_t*>(smem + L_D + swz128(r, D::GH + col)) = pack(db[0], db[1]);
+#ifndef PWN_FST_NO_EPILOGUE
+          if (z_g != nullptr && t0 + r < T)
+            *reinterpret_cast<uint32_t*>(z_g + (rb + t0 + r) * D::GH + col) = pack(z[0], z[1]);
+#endif
+        }
+      }
+      PHASE(4);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(a_empty);  // the activations go back to the producer
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+    if (wgrads && tid == 0) {
+      for (int k = 0; k < 4; ++k)
+        tma_store_3d(&tm_dg, base + L_D + k * L_TILE + wrow, k * KC, t0 + wg * LWG, b);
+      bulk_commit();
+    }
+
+    // 4a. dcx = dg @ W_in[:, :C] and its epilogue dpart = dx + dcx (dx in
+    //     dpart since step 1), then dcs = dg @ W_in[:, C:2C] into dcs_cur.
+    //     The dpart loads are issued before the product, which hides them.
+    {
+      float2 dx[2][D::C / 8];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int t = t0 + r0 + 8 * hh;
+#pragma unroll
+        for (int j = 0; j < D::C / 8; ++j)
+          dx[hh][j] = top || t >= T ? make_float2(0.f, 0.f)
+                                    : *reinterpret_cast<const float2*>(
+                                          dpart + (rb + t) * D::C + 8 * j + q2);
+      }
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {
+        float acc[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          fence_regs(acc);
+          on_slot(c, full, empty, lane, [&](int s) {
+            const uint64_t da = desc_sw128(base + L_D + i * L_TILE + wrow);
+            const uint64_t db = desc_mn_sw128(ring + s * L_SLOT, L_SLOT / 2);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) wgmma_m64n128<0, 1>(acc, da + 2 * k, db + 128 * k);
+          });
+          fence_regs(acc);
+        }
+#ifndef PWN_FST_NO_EPILOGUE
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int t = t0 + r0 + 8 * hh;
+          if (t >= T) continue;
+          const size_t row = rb + t;
+#pragma unroll
+          for (int j = 0; j < D::C / 8; ++j) {
+            const float v0 = acc[4 * j + 2 * hh], v1 = acc[4 * j + 2 * hh + 1];
+            if (part == 0)
+              *reinterpret_cast<float2*>(dpart + row * D::C + 8 * j + q2) =
+                  make_float2(dx[hh][j].x + v0, dx[hh][j].y + v1);
+            else
+              *reinterpret_cast<float2*>(dcs_cur + row * D::C + 8 * j + q2) =
+                  make_float2(v0, v1);
+          }
+        }
+#endif
       }
     }
-  }
+    PHASE(5);
 
-  float* pp = part + (size_t)blockIdx.z * K1 * N;
+    // 4b. dcc = dg @ W_in[:, 2C:], dcond32 += dcc (= at the top); the
+    //     dcond32 loads issued before the product
+    {
+      float2 prev[2][D::M / 8];
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int k = k0 + wm * 16 + g + 8 * hh;
+      for (int hh = 0; hh < 2; ++hh) {
+        const int t = t0 + r0 + 8 * hh;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + wh * 64 + j * 8 + 2 * q;
-      *reinterpret_cast<float2*>(pp + (size_t)k * N + n) =
-          make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+        for (int j = 0; j < D::M / 8; ++j)
+          prev[hh][j] = top || t >= T ? make_float2(0.f, 0.f)
+                                      : *reinterpret_cast<const float2*>(
+                                            dcond32 + (rb + t) * D::M + 8 * j + q2);
+      }
+      float acc[40];
+#pragma unroll
+      for (int i = 0; i < 40; ++i) acc[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        fence_regs(acc);
+        on_slot(c, full, empty, lane, [&](int s) {
+          const uint64_t da = desc_sw128(base + L_D + i * L_TILE + wrow);
+          const uint64_t db = desc_mn_sw128(ring + s * L_SLOT, L_SLOT / 2);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) wgmma_m64n80<0, 1>(acc, da + 2 * k, db + 128 * k);
+        });
+        fence_regs(acc);
+      }
+#ifndef PWN_FST_NO_EPILOGUE
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int t = t0 + r0 + 8 * hh;
+        if (t >= T) continue;
+        const size_t row = rb + t;
+#pragma unroll
+        for (int j = 0; j < D::M / 8; ++j) {
+          const float2 v = make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+          *reinterpret_cast<float2*>(dcond32 + row * D::M + 8 * j + q2) =
+              top ? v : make_float2(prev[hh][j].x + v.x, prev[hh][j].y + v.y);
+        }
+      }
+#endif
     }
+    if (wgrads && tid == 0) bulk_wait_read<0>();  // dg_g has read the tile
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+    if (tid == 0) mbar_arrive(d_empty + 8 * wg);
+    PHASE(6);
+#ifdef PWN_FLOW_STACK_TRAIN_PHASES
+    if (blockIdx.x == 0 && threadIdx.x == 0) ++fst_phase_cycles[7];
+#endif
+  }
+  if (wgrads && tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ------------------------------------------------- kernel 3: weight gradients
+// part[split] = [dW_in (G, K_IN) | dW_out (N_OUT, GH) | db_g (G) | db_rs
+// (N_OUT)], each summed over the rows of this split's stages.
+template <class D>
+struct Part {
+  static constexpr int IN = 0;
+  static constexpr int OUT = IN + D::G * D::K_IN;
+  static constexpr int BG = OUT + D::N_OUT * D::GH;
+  static constexpr int BRS = BG + D::G;
+  static constexpr int P = BRS + D::N_OUT;
+};
+
+// Blocks (tile, split).  Tile 0, 1, 2: the x, tap and cond columns of
+// dW_in = dg^T [x | x(t - d) | cond], with db_g in tile 0; tile 3: dW_out =
+// dout^T z, with db_rs.  Every tile is a 256 x 128 output (cond's 80 columns
+// with zeros past them): A (dg or dout) 256 columns, B 128.  A stage is WR
+// rows of one batch row, t0 = (q % n_tt) * WR for stage q of b = q / n_tt;
+// TMA fills zeros past T, where both operands then contribute nothing.
+// Warpgroups 0 and 1 own the output rows [128 wg, 128 wg + 128) as two
+// m64n128 accumulators; warpgroup 2's first thread loads.
+constexpr int WR = 64;                  // rows of the reduction per stage
+constexpr int WBOX = WR * ROW_BYTES;    // one 64-column box of WR rows: 8 KB
+constexpr int W_STAGE = 6 * WBOX;       // A: 4 boxes, B: 2
+constexpr int W_STAGES = 4;
+constexpr int W_THREADS = 384;
+constexpr int W_TILES = 4;
+constexpr int W_ONES = W_STAGES * W_STAGE;  // an all-ones 8 x 64 K-major tile
+constexpr int W_BAR = W_ONES + 1024;
+constexpr int W_SMEM = W_BAR + 16 * W_STAGES + 1024;  // + alignment
+
+template <bool BIAS>
+__device__ __forceinline__ void wgrad_mma(float (&acc0)[64], float (&acc1)[64],
+                                          float (&b0)[4], float (&b1)[4], uint32_t stages,
+                                          uint32_t ones, uint32_t full, uint32_t empty,
+                                          int wg, int n, int lane) {
+  const uint64_t d1 = desc_sw128(ones);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % W_STAGES;
+    mbar_wait(full + 8 * s, (i / W_STAGES) & 1);
+    const uint32_t a = stages + s * W_STAGE + 2 * wg * WBOX;
+    const uint64_t da = desc_mn_sw128(a, WBOX);
+    const uint64_t db = desc_mn_sw128(stages + s * W_STAGE + 4 * WBOX, WBOX);
+    fence_regs(acc0);
+    fence_regs(acc1);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < WR / 16; ++k) {  // one k-step = 16 rows = 2048 bytes
+      wgmma_m64n128<1, 1>(acc0, da + 128 * k, db + 128 * k);
+      wgmma_m64n128<1, 1>(acc1, da + (WBOX >> 4) + 128 * k, db + 128 * k);
+      if (BIAS) {
+        wgmma_m64n8<1, 0>(b0, da + 128 * k, d1);
+        wgmma_m64n8<1, 0>(b1, da + (WBOX >> 4) + 128 * k, d1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: release it
+    fence_regs(acc0);
+    fence_regs(acc1);
+    if (i > 0 && lane == 0) mbar_arrive(empty + 8 * ((i - 1) % W_STAGES));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc0);
+  fence_regs(acc1);
+  fence_regs(b0);
+  fence_regs(b1);
+}
+
+// One m64n128 accumulator into a split's partials: fragment j holds columns
+// 8j + 2 (lane % 4) + {0, 1} of rows m0 (e = 0) and m0 + 8 (e = 1); the bias
+// column sum sits in every column of the n8 accumulator.
+template <class D>
+__device__ __forceinline__ void wgrad_store(const float (&acc)[64], const float (&bs)[4],
+                                            float* pp, int tile, bool bias, int m0,
+                                            int lane) {
+  using P = Part<D>;
+  const int q2 = 2 * (lane % 4);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int m = m0 + 8 * e;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + q2;
+      const float2 v = make_float2(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
+      if (tile == 3)
+        *reinterpret_cast<float2*>(pp + P::OUT + (size_t)m * D::GH + col) = v;
+      else if (128 * tile + col < D::K_IN)
+        *reinterpret_cast<float2*>(pp + P::IN + (size_t)m * D::K_IN + 128 * tile + col) = v;
+    }
+    if (bias && lane % 4 == 0) pp[(tile == 0 ? P::BG : P::BRS) + m] = bs[2 * e];
   }
 }
 
-// Sums the partials in split order: w (N, KW) stored (out, in) from rows
-// k < KW, bias (N) from row KW (the column of ones).
-__global__ void wgrad_reduce(const float* __restrict__ part, int splits, int K1,
-                             int N, int KW, float* __restrict__ w,
-                             float* __restrict__ bias) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (KW + 1) * N) return;
-  const int k = i / N, n = i % N;
-  float s = 0.f;
-  for (int sp = 0; sp < splits; ++sp) s += part[((size_t)sp * K1 + k) * N + n];
-  if (k < KW)
-    w[(size_t)n * KW + k] = s;
+template <class D>
+__global__ void __launch_bounds__(W_THREADS, 1)
+wgrad_gemm(const __grid_constant__ CUtensorMap tm_dg,
+           const __grid_constant__ CUtensorMap tm_dout,
+           const __grid_constant__ CUtensorMap tm_x,
+           const __grid_constant__ CUtensorMap tm_cond,
+           const __grid_constant__ CUtensorMap tm_z, float* __restrict__ part, int n_tt,
+           int n_stages, int per_split, int d) {
+  using P = Part<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + W_BAR, empty = full + 8 * W_STAGES;
+  const int tile = blockIdx.x, split = blockIdx.y;
+  const int q0 = split * per_split;
+  const int q1 = min(q0 + per_split, n_stages);
+  const int n = max(q1 - q0, 0);
+  const bool bias = tile == 0 || tile == 3;
+  const int wg = threadIdx.x / 128;
+
+  for (int i = threadIdx.x; i < 1024 / 4; i += W_THREADS)  // bf16 1.0 pairs
+    reinterpret_cast<uint32_t*>(smem + W_ONES)[i] = 0x3F803F80u;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the ones, for wgmma
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      const CUtensorMap* ma = tile == 3 ? &tm_dout : &tm_dg;
+      const CUtensorMap* mb = tile == 2 ? &tm_cond : tile == 3 ? &tm_z : &tm_x;
+      const int shift = tile == 1 ? d : 0;
+      for (int i = 0; i < n; ++i) {
+        const int s = i % W_STAGES, q = q0 + i;
+        const int b = q / n_tt, t0 = (q % n_tt) * WR;
+        const uint32_t dst = base + s * W_STAGE, bar = full + 8 * s;
+        mbar_wait(empty + 8 * s, ((i / W_STAGES) & 1) ^ 1);
+        mbar_expect_tx(bar, W_STAGE);
+        for (int k = 0; k < 4; ++k) tma_load_3d(dst + k * WBOX, ma, k * KC, t0, b, bar);
+        for (int k = 0; k < 2; ++k)
+          tma_load_3d(dst + (4 + k) * WBOX, mb, k * KC, t0 - shift, b, bar);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  float acc0[64], acc1[64], b0[4], b1[4];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) b0[i] = b1[i] = 0.f;
+  if (bias)
+    wgrad_mma<true>(acc0, acc1, b0, b1, base, base + W_ONES, full, empty, wg, n, lane);
   else
-    bias[n] = s;
+    wgrad_mma<false>(acc0, acc1, b0, b1, base, base + W_ONES, full, empty, wg, n, lane);
+
+  float* pp = part + (size_t)split * P::P;
+  const int m0 = 128 * wg + 16 * warp + lane / 4;
+  wgrad_store<D>(acc0, b0, pp, tile, bias, m0, lane);
+  wgrad_store<D>(acc1, b1, pp, tile, bias, m0 + 64, lane);
+}
+
+// Sums the partials in split order into dw_in (G, K_IN), dw_out (N_OUT, GH),
+// db_g (G) and db_rs (N_OUT).
+template <class D>
+__global__ void wgrad_reduce(const float* __restrict__ part, int splits,
+                             float* __restrict__ dw_in, float* __restrict__ db_g,
+                             float* __restrict__ dw_out, float* __restrict__ db_rs) {
+  using P = Part<D>;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= P::P) return;
+  float s = 0.f;
+  for (int sp = 0; sp < splits; ++sp) s += part[(size_t)sp * P::P + i];
+  if (i < P::OUT)
+    dw_in[i - P::IN] = s;
+  else if (i < P::BG)
+    dw_out[i - P::OUT] = s;
+  else if (i < P::BRS)
+    db_g[i - P::BG] = s;
+  else
+    db_rs[i - P::BRS] = s;
+}
+
+// Stages of WR rows and their splits: about one block per SM over the
+// W_TILES tiles.
+struct WgradSplits {
+  int n_tt, n_stages, per, splits;
+};
+
+WgradSplits wgrad_splits(int B, int T, int n_sm) {
+  WgradSplits w;
+  w.n_tt = (T + WR - 1) / WR;
+  w.n_stages = B * w.n_tt;
+  int s = n_sm / W_TILES;
+  s = s < 1 ? 1 : s > w.n_stages ? w.n_stages : s;
+  w.per = (w.n_stages + s - 1) / s;
+  w.splits = (w.n_stages + w.per - 1) / w.per;
+  return w;
+}
+
+template <class D>
+size_t wgrad_part_bytes(int B, int T, int n_sm) {
+  return (size_t)wgrad_splits(B, T, n_sm).splits * Part<D>::P * 4;
+}
+
+// One layer's weight gradients from x = acts[l] (B, T, C), cond (B, T, M),
+// dg (B, T, G), dout (B, T, N_OUT) and z (B, T, GH), all bf16; `part` holds
+// wgrad_part_bytes.
+template <class D>
+int wgrad(const bf16* x, const bf16* cond, const bf16* dg, const bf16* dout, const bf16* z,
+          float* part, float* dw_in, float* db_g, float* dw_out, float* db_rs, int B, int T,
+          int d, int n_sm, cudaStream_t st) {
+  CUtensorMap tm_dg, tm_dout, tm_x, tm_cond, tm_z;
+  if (!make_map(&tm_dg, dg, false, 3, D::G, T, B, WR) ||
+      !make_map(&tm_dout, dout, false, 3, D::N_OUT, T, B, WR) ||
+      !make_map(&tm_x, x, false, 3, D::C, T, B, WR) ||
+      !make_map(&tm_cond, cond, false, 3, D::M, T, B, WR) ||
+      !make_map(&tm_z, z, false, 3, D::GH, T, B, WR))
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(wgrad_gemm<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+  if (err != cudaSuccess) return err;
+  const WgradSplits w = wgrad_splits(B, T, n_sm);
+  wgrad_gemm<D><<<dim3(W_TILES, w.splits), W_THREADS, W_SMEM, st>>>(
+      tm_dg, tm_dout, tm_x, tm_cond, tm_z, part, w.n_tt, w.n_stages, w.per, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wgrad_reduce<D><<<(Part<D>::P + 255) / 256, 256, 0, st>>>(part, w.splits, dw_in, db_g,
+                                                            dw_out, db_rs);
+  return cudaGetLastError();
 }
 
 // dx = bf16(dpart(t) + dcs0(t + d0)), dcond = bf16(dcond32).
@@ -613,23 +793,8 @@ __global__ void train_bwd_finalize(const float* __restrict__ dpart,
 
 size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 
-// Row splits of a weight-gradient GEMM with `tiles` output tiles: about two
-// blocks per SM, each over a whole number of 32-row stages.
-void wgrad_splits(long long R, int tiles, int n_sm, int* splits, int* rows) {
-  long long s = (2LL * n_sm + tiles - 1) / tiles;
-  const long long max_s = (R + WG_ROWS - 1) / WG_ROWS;
-  if (s > max_s) s = max_s;
-  if (s < 1) s = 1;
-  if (s > 65535) s = 65535;
-  long long per = (R + s - 1) / s;
-  per = (per + WG_ROWS - 1) / WG_ROWS * WG_ROWS;
-  *splits = (int)s;
-  *rows = (int)per;
-}
-
 struct BwdWorkspace {
-  size_t dpart, dcs0, dcs1, dcond32, dout, dg, z, part_in, part_out, total;
-  int splits_in, rows_in, splits_out, rows_out;
+  size_t dpart, dcs0, dcs1, dcond32, dout, dg, z, part, total;
 };
 
 template <class D>
@@ -642,15 +807,11 @@ BwdWorkspace bwd_workspace(int B, int T, int want_wgrads, int n_sm) {
   w.dcs0 = take(R * D::C * 4);
   w.dcs1 = take(R * D::C * 4);
   w.dcond32 = take(R * D::M * 4);
-  wgrad_splits((long long)R, (D::K1_IN / WG_K) * (D::G / WG_N), n_sm, &w.splits_in, &w.rows_in);
-  wgrad_splits((long long)R, (D::K1_OUT / WG_K) * (D::N_OUT / WG_N), n_sm, &w.splits_out,
-               &w.rows_out);
   if (want_wgrads) {
     w.dout = take(R * D::N_OUT * 2);
     w.dg = take(R * D::G * 2);
     w.z = take(R * D::GH * 2);
-    w.part_in = take((size_t)w.splits_in * D::K1_IN * D::G * 4);
-    w.part_out = take((size_t)w.splits_out * D::K1_OUT * D::N_OUT * 4);
+    w.part = take(wgrad_part_bytes<D>(B, T, n_sm));
   }
   w.total = off;
   return w;
@@ -661,35 +822,13 @@ bool teacher_dims(int c, int g, int s, int m) {
 }
 
 template <class D>
-int train_fwd(const bf16* cond, const bf16* w_in, const float* b_g,
-              const bf16* w_out, const float* b_rs, bf16* acts, float* skip32,
-              bf16* skip, int B, int T, int L, const int* dil, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      train_fwd_layer<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)D::FWD_SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + TT - 1) / TT, B);
-  const size_t act = (size_t)B * T * D::C;
-  for (int l = 0; l < L; ++l) {
-    train_fwd_layer<D><<<grid, NTHREADS, D::FWD_SMEM, st>>>(
-        acts + l * act, l + 1 < L ? acts + (l + 1) * act : nullptr, cond,
-        w_in + (size_t)l * D::G * D::K_IN, b_g + (size_t)l * D::G,
-        w_out + (size_t)l * D::N_OUT * D::GH, b_rs + (size_t)l * D::N_OUT, skip32,
-        skip, T, dil[l], l == 0, l + 1 == L);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
-template <class D>
 int train_bwd(const bf16* acts, const bf16* cond, const bf16* dskip,
-              const bf16* w_in, const bf16* w_in_kg, const float* b_g,
-              const bf16* w_out_kn, bf16* dx, bf16* dcond, float* dw_in,
-              float* db_g, float* dw_out, float* db_rs, unsigned char* ws,
-              int B, int T, int L, const int* dil, int want_wgrads, int n_sm,
-              cudaStream_t st) {
+              const bf16* w_in, const float* b_g, const bf16* w_out, bf16* dx,
+              bf16* dcond, float* dw_in, float* db_g, float* dw_out, float* db_rs,
+              unsigned char* ws, int B, int T, int L, const int* dil, int want_wgrads,
+              int n_sm, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      train_bwd_layer<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)D::BWD_SMEM);
+      train_bwd_layer<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L_SMEM);
   if (err != cudaSuccess) return err;
   const BwdWorkspace w = bwd_workspace<D>(B, T, want_wgrads, n_sm);
   float* dpart = reinterpret_cast<float*>(ws + w.dpart);
@@ -698,40 +837,39 @@ int train_bwd(const bf16* acts, const bf16* cond, const bf16* dskip,
   bf16* dout_g = want_wgrads ? reinterpret_cast<bf16*>(ws + w.dout) : nullptr;
   bf16* dg_g = want_wgrads ? reinterpret_cast<bf16*>(ws + w.dg) : nullptr;
   bf16* z_g = want_wgrads ? reinterpret_cast<bf16*>(ws + w.z) : nullptr;
-  float* part_in = want_wgrads ? reinterpret_cast<float*>(ws + w.part_in) : nullptr;
-  float* part_out = want_wgrads ? reinterpret_cast<float*>(ws + w.part_out) : nullptr;
+  float* part = want_wgrads ? reinterpret_cast<float*>(ws + w.part) : nullptr;
 
-  const dim3 grid((T + TT - 1) / TT, B);
+  CUtensorMap tm_cond, tm_dskip, tm_dout = {}, tm_dg = {};
+  if (!make_map(&tm_cond, cond, false, 3, D::M, T, B, LT) ||
+      !make_map(&tm_dskip, dskip, false, 3, D::S, T, B, LWG) ||
+      (want_wgrads && (!make_map(&tm_dout, dout_g, false, 3, D::N_OUT, T, B, LWG) ||
+                       !make_map(&tm_dg, dg_g, false, 3, D::G, T, B, LWG))))
+    return cudaErrorInvalidValue;
+  const int n_tt = (T + LT - 1) / LT, n_tiles = B * n_tt;
+  const int grid = n_tiles < n_sm ? n_tiles : n_sm;
   const size_t act = (size_t)B * T * D::C;
   int cur = 0;
   for (int l = L - 1; l >= 0; --l) {
     cur = (L - 1 - l) & 1;
     const bf16* acts_l = acts + l * act;
-    train_bwd_layer<D><<<grid, NTHREADS, D::BWD_SMEM, st>>>(
-        acts_l, cond, dskip, w_in + (size_t)l * D::G * D::K_IN,
-        w_in_kg + (size_t)l * D::K_IN * D::G, b_g + (size_t)l * D::G,
-        w_out_kn + (size_t)l * D::GH * D::N_OUT, dpart, dcs[cur ^ 1], dcs[cur],
-        dcond32, dout_g, dg_g, z_g, T, dil[l], l + 1 < L ? dil[l + 1] : 0, l == L - 1);
+    const bf16* w_in_l = w_in + (size_t)l * D::G * D::K_IN;
+    const bf16* w_out_l = w_out + (size_t)l * D::N_OUT * D::GH;
+    CUtensorMap tm_x, tm_win, tm_wout;
+    if (!make_map(&tm_x, acts_l, false, 3, D::C, T, B, LT) ||
+        !make_map(&tm_win, w_in_l, false, 2, D::K_IN, D::G, 1, 64) ||
+        !make_map(&tm_wout, w_out_l, false, 2, D::GH, D::N_OUT, 1, 64))
+      return cudaErrorInvalidValue;
+    train_bwd_layer<D><<<grid, L_THREADS, L_SMEM, st>>>(
+        tm_x, tm_cond, tm_dskip, tm_win, tm_wout, tm_dout, tm_dg,
+        b_g + (size_t)l * D::G, dpart, dcs[cur ^ 1], dcs[cur], dcond32, z_g, T, n_tt,
+        n_tiles, dil[l], l + 1 < L ? dil[l + 1] : 0, l == L - 1, want_wgrads);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     if (!want_wgrads) continue;
-    wgrad_partial<D, true><<<dim3(D::K1_IN / WG_K, D::G / WG_N, w.splits_in), NTHREADS, 0, st>>>(
-        acts_l, cond, dg_g, D::G, part_in, D::K1_IN, B, T, dil[l], w.rows_in);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    wgrad_reduce<<<((D::K_IN + 1) * D::G + 255) / 256, 256, 0, st>>>(
-        part_in, w.splits_in, D::K1_IN, D::G, D::K_IN,
-        dw_in + (size_t)l * D::G * D::K_IN, db_g + (size_t)l * D::G);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    wgrad_partial<D, false><<<dim3(D::K1_OUT / WG_K, D::N_OUT / WG_N, w.splits_out), NTHREADS, 0, st>>>(
-        z_g, nullptr, dout_g, D::N_OUT, part_out, D::K1_OUT, B, T, 0, w.rows_out);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    wgrad_reduce<<<((D::GH + 1) * D::N_OUT + 255) / 256, 256, 0, st>>>(
-        part_out, w.splits_out, D::K1_OUT, D::N_OUT, D::GH,
-        dw_out + (size_t)l * D::N_OUT * D::GH, db_rs + (size_t)l * D::N_OUT);
-    err = cudaGetLastError();
+    err = (cudaError_t)wgrad<D>(acts_l, cond, dg_g, dout_g, z_g, part,
+                                dw_in + (size_t)l * D::G * D::K_IN, db_g + (size_t)l * D::G,
+                                dw_out + (size_t)l * D::N_OUT * D::GH,
+                                db_rs + (size_t)l * D::N_OUT, B, T, dil[l], n_sm, st);
     if (err != cudaSuccess) return err;
   }
   const size_t n = (size_t)B * T * (D::C + D::M) / 2;
@@ -752,6 +890,16 @@ bool valid_shape(int B, int T, int L, const int* dil) {
 
 extern "C" {
 
+#ifdef PWN_FLOW_STACK_TRAIN_PHASES
+// Copies the phase cycles since the last call into out[8] and clears them.
+int pwn_flow_stack_train_phases(unsigned long long* out) {
+  const unsigned long long zero[8] = {};
+  cudaError_t err = cudaMemcpyFromSymbol(out, fst_phase_cycles, sizeof(zero));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(fst_phase_cycles, zero, sizeof(zero));
+  return err;
+}
+#endif
+
 // Bytes of device workspace the backward needs (dx and dcond chains, the
 // tap-cotangent buffers, and with weight gradients the bf16 dout/dg/z and
 // the split-K partials); -1 for widths the kernels are not built for.
@@ -762,34 +910,14 @@ long long pwn_flow_stack_train_bwd_workspace_bytes(int B, int T, int c, int g,
   return (long long)bwd_workspace<Teacher>(B, T, want_wgrads, n_sm).total;
 }
 
-// Kernel 2: acts (L, B, T, C) holds x0 in acts[0] on entry; every layer's
-// input is written to it, the skip sum to `skip`.  skip32 is (B, T, S) fp32
-// scratch.  Returns a cudaError_t (0 on success).
-int pwn_flow_stack_train_fwd_bf16(void* acts, const void* cond, const void* w_in,
-                                  const void* b_g, const void* w_out,
-                                  const void* b_rs, void* skip32, void* skip,
-                                  int B, int T, int L, int c, int g, int s, int m,
-                                  const int* dilations, void* stream) {
-  if (!teacher_dims(c, g, s, m) || !valid_shape(B, T, L, dilations))
-    return cudaErrorInvalidValue;
-  return train_fwd<Teacher>(
-      static_cast<const bf16*>(cond), static_cast<const bf16*>(w_in),
-      static_cast<const float*>(b_g), static_cast<const bf16*>(w_out),
-      static_cast<const float*>(b_rs), static_cast<bf16*>(acts),
-      static_cast<float*>(skip32), static_cast<bf16*>(skip), B, T, L, dilations,
-      static_cast<cudaStream_t>(stream));
-}
-
 // Kernel 3: dx (B, T, C) and dcond (B, T, M) in bf16; with want_wgrads the
 // fp32 weight gradients dw_in (L, G, K_IN), db_g (L, G), dw_out (L, C+S, G/2),
-// db_rs (L, C+S), stored (out, in) like the weights.  w_in_kg and w_out_kn
-// are the weights transposed (L, K_IN, G) and (L, G/2, C+S).  `workspace`
-// holds pwn_flow_stack_train_bwd_workspace_bytes(...) bytes.
+// db_rs (L, C+S), stored (out, in) like the weights w_in and w_out.
+// `workspace` holds pwn_flow_stack_train_bwd_workspace_bytes(...) bytes.
 int pwn_flow_stack_train_bwd_bf16(const void* acts, const void* cond,
                                   const void* dskip, const void* w_in,
-                                  const void* w_in_kg, const void* b_g,
-                                  const void* w_out_kn, void* dx, void* dcond,
-                                  void* dw_in, void* db_g, void* dw_out,
+                                  const void* b_g, const void* w_out, void* dx,
+                                  void* dcond, void* dw_in, void* db_g, void* dw_out,
                                   void* db_rs, void* workspace, int B, int T,
                                   int L, int c, int g, int s, int m,
                                   const int* dilations, int want_wgrads,
@@ -801,12 +929,38 @@ int pwn_flow_stack_train_bwd_bf16(const void* acts, const void* cond,
   return train_bwd<Teacher>(
       static_cast<const bf16*>(acts), static_cast<const bf16*>(cond),
       static_cast<const bf16*>(dskip), static_cast<const bf16*>(w_in),
-      static_cast<const bf16*>(w_in_kg), static_cast<const float*>(b_g),
-      static_cast<const bf16*>(w_out_kn), static_cast<bf16*>(dx),
-      static_cast<bf16*>(dcond), static_cast<float*>(dw_in),
+      static_cast<const float*>(b_g), static_cast<const bf16*>(w_out),
+      static_cast<bf16*>(dx), static_cast<bf16*>(dcond), static_cast<float*>(dw_in),
       static_cast<float*>(db_g), static_cast<float*>(dw_out),
       static_cast<float*>(db_rs), static_cast<unsigned char*>(workspace), B, T,
       L, dilations, want_wgrads, n_sm, static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of device workspace for pwn_flow_stack_train_wgrad_bf16; -1 for
+// widths it is not built for.
+long long pwn_flow_stack_train_wgrad_workspace_bytes(int B, int T, int c, int g, int s,
+                                                     int m, int n_sm) {
+  if (!teacher_dims(c, g, s, m) || B < 1 || T < 1 || n_sm < 1) return -1;
+  return (long long)wgrad_part_bytes<Teacher>(B, T, n_sm);
+}
+
+// Kernel 3's weight-gradient GEMM alone, for one layer: from x = acts[l]
+// (B, T, C), cond (B, T, M), dg (B, T, G), dout (B, T, C+S), z (B, T, G/2)
+// in bf16, the fp32 dw_in (G, K_IN), db_g (G), dw_out (C+S, G/2), db_rs
+// (C+S).  Returns a cudaError_t (0 on success).
+int pwn_flow_stack_train_wgrad_bf16(const void* x, const void* cond, const void* dg,
+                                    const void* dout, const void* z, void* dw_in,
+                                    void* db_g, void* dw_out, void* db_rs, void* workspace,
+                                    int B, int T, int c, int g, int s, int m, int dilation,
+                                    int n_sm, void* stream) {
+  if (!teacher_dims(c, g, s, m) || B < 1 || B > 65535 || T < 1 || dilation < 1 || n_sm < 1)
+    return cudaErrorInvalidValue;
+  return wgrad<Teacher>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(cond),
+      static_cast<const bf16*>(dg), static_cast<const bf16*>(dout),
+      static_cast<const bf16*>(z), static_cast<float*>(workspace),
+      static_cast<float*>(dw_in), static_cast<float*>(db_g), static_cast<float*>(dw_out),
+      static_cast<float*>(db_rs), B, T, dilation, n_sm, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -76,6 +76,7 @@ constexpr int WG_ROWS = 64;    // rows per consumer warpgroup
 constexpr int NCONS = TM / WG_ROWS;
 constexpr int NTHREADS = 128 * (NCONS + 1);  // + the producer warpgroup
 constexpr int TILE_BYTES = TM * ROW_BYTES;   // one 64-column slice of 128 rows
+static_assert(TM == 128, "swz128 addresses 128-row tiles");
 constexpr int SMEM_MAX = 232448;            // a block's opt-in shared memory
 
 template <int C_, int G_, int S_, int M_>
@@ -147,14 +148,6 @@ __device__ __forceinline__ void wgmma_n<128>(float (&d)[64], uint64_t da, uint64
 template <>
 __device__ __forceinline__ void wgmma_n<256>(float (&d)[128], uint64_t da, uint64_t db) {
   wgmma_m64n256(d, da, db);
-}
-
-// Byte offset of (row, col) in a 128-row tile of 64-column slices, each in
-// the 128-byte swizzle TMA writes and wgmma reads: the 16-byte group index
-// XORed with row % 8.
-__device__ __forceinline__ uint32_t swz(int row, int col) {
-  return (col / KC) * TILE_BYTES + row * ROW_BYTES +
-         ((((col % KC) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
 }
 
 // One layer over all tiles.  A persistent block walks the 128-row time
@@ -292,7 +285,7 @@ gated_layer_kernel(const __grid_constant__ CUtensorMap tm_x,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int e = 4 * j + 2 * h, f = 4 * (j + D::GH / 8) + 2 * h;
-          *reinterpret_cast<uint32_t*>(smem + D::Z_OFF + swz(r0 + 8 * h, col)) =
+          *reinterpret_cast<uint32_t*>(smem + D::Z_OFF + swz128(r0 + 8 * h, col)) =
               pack(gate(acc[e] + bt.x, acc[f] + bs.x),
                    gate(acc[e + 1] + bt.y, acc[f + 1] + bs.y));
         }
@@ -305,7 +298,7 @@ gated_layer_kernel(const __grid_constant__ CUtensorMap tm_x,
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           xr[j][h] = *reinterpret_cast<const uint32_t*>(smem + D::X_OFF +
-                                                        swz(r0 + 8 * h, 8 * j + q2));
+                                                        swz128(r0 + 8 * h, 8 * j + q2));
       __syncwarp();
       if (lane == 0) mbar_arrive(a_empty);
       // make z visible to wgmma (the async proxy), then to the whole warpgroup

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: TMA tensor
-// maps and loads, 1-D bulk copies, mbarriers, cluster barriers and stores into
+// maps, loads and stores, 1-D bulk copies, mbarriers, cluster barriers and stores into
 // another block's shared memory, wgmma descriptors, products and fences, and
 // the gated unit in the exp2 / reciprocal form.  Everything here has internal
 // linkage, so each kernel source includes it on its own.
@@ -153,6 +153,25 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// Shared -> global: one box of a tensor map (rows past the map's bounds are
+// not written), as one bulk group of this thread; the source may be reused
+// once bulk_wait_read<0>() returns.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0,
                                             int c1, uint32_t bar) {
   asm volatile(
@@ -168,6 +187,26 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The same for an MN-major operand (its 64 MN values contiguous in each
+// 128-byte row, one row per K index), as TMA writes a 64-column box of a
+// row-major array whose rows are the product's K: 8-row K groups 1024 bytes
+// apart (the stride byte offset), and the next 64 MN values (the next box)
+// `lbo` bytes on (the leading byte offset).  Adding 128 moves it 16 rows
+// (one k-step) along K.
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Byte offset of (row, col) in a 128-row tile of 64-column bf16 slices, each
+// in the 128-byte swizzle TMA writes and wgmma reads: the 16-byte group index
+// XORed with row % 8.
+__device__ __forceinline__ uint32_t swz128(int row, int col) {
+  return (col / KC) * (128 * ROW_BYTES) + row * ROW_BYTES +
+         ((((col % KC) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -190,7 +229,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d += A(64 x 16) @ B(16 x N), both from shared memory, K-major.
+// d += A(64 x 16) @ B(16 x N), both from shared memory: K-major by default,
+// MN-major where TA (for A) or TB (for B) is 1 (the descriptor then comes
+// from desc_mn_sw128).
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
                                               uint64_t db) {
   asm volatile(
@@ -199,7 +241,7 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, 1, 1, 1, 0, 0;\n"
+      "}, %64, %65, 1, 1, 1, %66, %67;\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -208,7 +250,7 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db));
+      : "l"(da), "l"(db), "n"(TA), "n"(TB));
 }
 
 // d += A(64 x 16) @ B(16 x 128): A from registers, each warp's 16 rows in the
@@ -264,6 +306,36 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da,
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db));
+}
+
+// d += A(64 x 16) @ B(16 x 8): a column sum when B is all ones.
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_m64n8(float (&d)[4], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, 1, 1, 1, %6, %7;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "n"(TA), "n"(TB));
+}
+
+// d += A(64 x 16) @ B(16 x 80).
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_m64n80(float (&d)[40], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, 1, 1, 1, %42, %43;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "n"(TA), "n"(TB));
 }
 
 // ---------------------------------------------------------------------------

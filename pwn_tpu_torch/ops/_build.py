@@ -124,17 +124,8 @@ def load_library() -> ctypes.CDLL:
     lib.pwn_flow_stack_tile_rows.restype = i
     lib.pwn_flow_stack_smem_bytes.argtypes = [i]
     lib.pwn_flow_stack_smem_bytes.restype = ctypes.c_longlong
-    lib.pwn_flow_stack_train_fwd_bf16.argtypes = [
-        p, p, p, p, p, p, p, p,        # acts, cond, w_in, b_g, w_out, b_rs,
-                                       # skip32, skip
-        i, i, i, i, i, i, i,           # B, T, L, C, G, S, M
-        ctypes.POINTER(ctypes.c_int),  # dilations
-        p,                             # stream
-    ]
-    lib.pwn_flow_stack_train_fwd_bf16.restype = i
     lib.pwn_flow_stack_train_bwd_bf16.argtypes = [
-        p, p, p, p, p, p, p,           # acts, cond, dskip, w_in, w_in_kg,
-                                       # b_g, w_out_kn
+        p, p, p, p, p, p,              # acts, cond, dskip, w_in, b_g, w_out
         p, p, p, p, p, p, p,           # dx, dcond, dw_in, db_g, dw_out,
                                        # db_rs, workspace
         i, i, i, i, i, i, i,           # B, T, L, C, G, S, M
@@ -144,6 +135,15 @@ def load_library() -> ctypes.CDLL:
     lib.pwn_flow_stack_train_bwd_bf16.restype = i
     lib.pwn_flow_stack_train_bwd_workspace_bytes.argtypes = [i] * 8
     lib.pwn_flow_stack_train_bwd_workspace_bytes.restype = ctypes.c_longlong
+    lib.pwn_flow_stack_train_wgrad_bf16.argtypes = [
+        p, p, p, p, p,                 # x, cond, dg, dout, z
+        p, p, p, p, p,                 # dw_in, db_g, dw_out, db_rs, workspace
+        i, i, i, i, i, i, i, i, p,     # B, T, C, G, S, M, dilation, SM count,
+                                       # stream
+    ]
+    lib.pwn_flow_stack_train_wgrad_bf16.restype = i
+    lib.pwn_flow_stack_train_wgrad_workspace_bytes.argtypes = [i] * 7
+    lib.pwn_flow_stack_train_wgrad_workspace_bytes.restype = ctypes.c_longlong
     lib.pwn_ar_sample.argtypes = AR_SAMPLE_ARGTYPES
     lib.pwn_ar_sample.restype = i
     lib.pwn_ar_sample_max_clusters.argtypes = [

@@ -8,9 +8,12 @@ epilogue once per layer (`csrc/gated_layer.cu`, through
 Training (`fused_flow_stack_train` / `fused_flow_stack_score`):
 `flow_stack_train` / `flow_stack_score`, a `torch.autograd.Function`
 whose forward is `flow_stack_train_forward` (kernel 2, which also saves
-every layer's input) and whose backward is `flow_stack_train_backward`
-(kernel 3, with or without the weight gradients), both in
-`csrc/flow_stack_train.cu`.
+every layer's input: kernel 5's accumulate epilogue once per layer,
+`csrc/gated_layer.cu` through `ops/gated_layer.py::
+flow_stack_train_by_layers`) and whose backward is
+`flow_stack_train_backward` (kernel 3, with or without the weight
+gradients, `csrc/flow_stack_train.cu`; its weight-gradient GEMM alone is
+`flow_stack_train_wgrads`).
 
 `flow_stack` takes the stacked layout of `WaveNetStack.stacked()`:
     x0    (B, T, C)        compute dtype, the front 1x1 output
@@ -183,18 +186,30 @@ def flow_stack_backward_reference(acts, cond, w_in, b_g, w_out, dskip,
         dcond = dcond + dcc
         if want_wgrads:
             z = (ta * sb).to(dt).to(f32)
-            grads.append((
-                dg.reshape(-1, dg.shape[-1]).mT @ cat.reshape(-1, cat.shape[-1]),
-                dg.sum((0, 1)),
-                dout.reshape(-1, dout.shape[-1]).mT @ z.reshape(-1, z.shape[-1]),
-                dout.sum((0, 1)),
-            ))
+            grads.append(flow_stack_wgrads_reference(x, cond, dg, dout, z, d))
     dx = dx_part + _shift_left(dcs, d_prev)
     if not want_wgrads:
         return dx.to(dt), dcond.to(dt)
     grads.reverse()
     return (dx.to(dt), dcond.to(dt),
             *(torch.stack(gs) for gs in zip(*grads)))
+
+
+def flow_stack_wgrads_reference(x, cond, dg, dout, z, dilation: int):
+    """One layer's weight gradients in fp32 from its saved input x (B, T, C),
+    cond (B, T, M) and the backward's dg (B, T, G), dout (B, T, C+S) and
+    z (B, T, G/2): (dw_in (G, 2C+M), db_g (G), dw_out (C+S, G/2),
+    db_rs (C+S)), dW = dg^T [x | shift(x, d) | cond] and dout^T z, in the
+    weights' (out, in) layout (the plain version of kernel 3's
+    weight-gradient GEMM)."""
+    f32 = torch.float32
+    cat = torch.cat([x, shift_right(x, dilation), cond.to(x.dtype)],
+                    dim=-1).to(f32)
+    dg, dout, z = dg.to(f32), dout.to(f32), z.to(f32)
+    return (dg.reshape(-1, dg.shape[-1]).mT @ cat.reshape(-1, cat.shape[-1]),
+            dg.sum((0, 1)),
+            dout.reshape(-1, dout.shape[-1]).mT @ z.reshape(-1, z.shape[-1]),
+            dout.sum((0, 1)))
 
 
 def _check_operands(tensors: dict, fp32: Sequence[str], shapes: dict,
@@ -353,25 +368,24 @@ def flow_stack_train_forward(x0, cond, w_in, b_g, w_out, b_rs,
                              dilations: Sequence[int]):
     """Kernel 2: the stack forward that also saves every layer's input.
     Returns (skip (B, T, S), acts (L, B, T, C)); on CPU tensors the plain
-    `flow_stack_train_reference`.  `flow_stack_train_forward.launches`
-    counts the kernel calls (one per call, whatever the layer count)."""
+    `flow_stack_train_reference`.  On a CUDA tensor at teacher_lj widths it
+    runs kernel 5's accumulate epilogue once per layer with the residual
+    written into acts[l + 1] (`gated_layer.flow_stack_train_by_layers`,
+    the same rounding); other widths raise.
+    `flow_stack_train_forward.launches` counts the calls (one per call,
+    whatever the layer count; kernel 5 counts its L launches on
+    `gated_layer.launches`)."""
     if x0.device.type == "cpu":
         return flow_stack_train_reference(x0, cond, w_in, b_g, w_out, b_rs,
                                           dilations)
     check_kernel_args(x0, cond, w_in, b_g, w_out, b_rs, dilations,
                       kernel_dims=TRAIN_KERNEL_DIMS)
-    B, T, C, L, G, S, M = _stack_dims(x0, cond, w_in, w_out)
-    acts = torch.empty((L, B, T, C), dtype=x0.dtype, device=x0.device)
-    acts[0].copy_(x0)
-    skip32 = torch.empty((B, T, S), dtype=torch.float32, device=x0.device)
-    skip = torch.empty((B, T, S), dtype=x0.dtype, device=x0.device)
-    _device_call(
-        "pwn_flow_stack_train_fwd_bf16", x0.device,
-        acts.data_ptr(), cond.data_ptr(), w_in.data_ptr(), b_g.data_ptr(),
-        w_out.data_ptr(), b_rs.data_ptr(), skip32.data_ptr(),
-        skip.data_ptr(), B, T, L, C, G, S, M, (ctypes.c_int * L)(*dilations))
+    from pwn_tpu_torch.ops.gated_layer import flow_stack_train_by_layers
+
+    out = flow_stack_train_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
+                                     dilations)
     flow_stack_train_forward.launches += 1
-    return skip, acts
+    return out
 
 
 flow_stack_train_forward.launches = 0
@@ -398,10 +412,6 @@ def flow_stack_train_backward(acts, cond, w_in, b_g, w_out, dskip,
                      pwn_flow_stack_train_bwd_workspace_bytes(
                          B, T, C, G, S, M, int(want_wgrads), n_sm),
                      dtype=torch.uint8, device=dev)
-    # the backward's GEMMs read the weights transposed: (L, 2C+M, G) and
-    # (L, G/2, C+S), the JAX layout
-    w_in_kg = w_in.transpose(1, 2).contiguous()
-    w_out_kn = w_out.transpose(1, 2).contiguous()
     dx = torch.empty((B, T, C), dtype=acts.dtype, device=dev)
     dcond = torch.empty((B, T, M), dtype=acts.dtype, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -412,8 +422,8 @@ def flow_stack_train_backward(acts, cond, w_in, b_g, w_out, dskip,
     _device_call(
         "pwn_flow_stack_train_bwd_bf16", dev,
         acts.data_ptr(), cond.data_ptr(), dskip.data_ptr(), w_in.data_ptr(),
-        w_in_kg.data_ptr(), b_g.data_ptr(), w_out_kn.data_ptr(),
-        dx.data_ptr(), dcond.data_ptr(), *ptrs, ws.data_ptr(),
+        b_g.data_ptr(), w_out.data_ptr(), dx.data_ptr(), dcond.data_ptr(),
+        *ptrs, ws.data_ptr(),
         B, T, L, C, G, S, M, (ctypes.c_int * L)(*dilations),
         int(want_wgrads), n_sm)
     flow_stack_train_backward.launches += 1
@@ -421,6 +431,47 @@ def flow_stack_train_backward(acts, cond, w_in, b_g, w_out, dskip,
 
 
 flow_stack_train_backward.launches = 0
+
+
+def flow_stack_train_wgrads(x, cond, dg, dout, z, dilation: int):
+    """Kernel 3's weight-gradient GEMM alone, for one layer: the returns of
+    `flow_stack_wgrads_reference` (its plain version, taken for CPU
+    tensors) from bf16 operands on the card.  `flow_stack_train_backward`
+    runs the same GEMM inside its one library call; this entry point serves
+    its tests and timing.  `flow_stack_train_wgrads.launches` counts the
+    calls."""
+    if x.device.type == "cpu":
+        return flow_stack_wgrads_reference(x, cond, dg, dout, z, dilation)
+    if x.dim() != 3:
+        raise ValueError("x must be (B, T, C)")
+    B, T, C = x.shape
+    G, M, N = dg.shape[-1], cond.shape[-1], dout.shape[-1]
+    _check_operands(
+        dict(x=x, cond=cond, dg=dg, dout=dout, z=z), (),
+        {"cond": (B, T, M), "dg": (B, T, G), "dout": (B, T, N),
+         "z": (B, T, G // 2)},
+        (C, G, N - C, M), (TRAIN_KERNEL_DIMS,), (dilation,), 1)
+    from pwn_tpu_torch.ops import _build
+
+    dev = x.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    ws = torch.empty(_build.load_library().
+                     pwn_flow_stack_train_wgrad_workspace_bytes(
+                         B, T, C, G, N - C, M, n_sm),
+                     dtype=torch.uint8, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    grads = (torch.empty((G, 2 * C + M), **f32), torch.empty(G, **f32),
+             torch.empty((N, G // 2), **f32), torch.empty(N, **f32))
+    _device_call(
+        "pwn_flow_stack_train_wgrad_bf16", dev,
+        x.data_ptr(), cond.data_ptr(), dg.data_ptr(), dout.data_ptr(),
+        z.data_ptr(), *(g.data_ptr() for g in grads), ws.data_ptr(),
+        B, T, C, G, N - C, M, dilation, n_sm)
+    flow_stack_train_wgrads.launches += 1
+    return grads
+
+
+flow_stack_train_wgrads.launches = 0
 
 
 class FlowStackTrain(torch.autograd.Function):

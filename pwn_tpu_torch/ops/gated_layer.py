@@ -32,7 +32,9 @@ megakernel's rounding (`pwn_tpu/ops/pallas/flow_stack.py::_kernel`): the
 skip half stays fp32 and is summed across layers in a (B, T, S) buffer,
 and only the last layer rounds it.  `flow_stack_by_layers` runs it over a
 stack; `ops/flow_stack.py::flow_stack` calls that at the widths kernel 1 is
-not built for.
+not built for.  `flow_stack_train_by_layers` runs it with every layer's
+residual written into the saved inputs: the training forward (kernel 2's
+route, `pwn_tpu/ops/pallas/flow_stack.py::_fwd_save_kernel`).
 
 `fused_gated_residual` is the reference's differentiable layer on the raw
 layer parameters: `FusedGatedResidual`, whose forward is `gated_layer` and
@@ -204,12 +206,14 @@ def gated_layer_accumulate(x, cond, w_in, b_g, w_out, b_rs, dilation: int,
 
 
 def flow_stack_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
-                         dilations: Sequence[int]) -> torch.Tensor:
+                         dilations: Sequence[int], *, acts=None) -> torch.Tensor:
     """`flow_stack` on the stacked layout at widths kernel 1 is not built
     for: `gated_layer_accumulate` once per layer over the per-layer views of
     the stacked weights (nothing copied), the fp32 skip sum carried between
-    launches and rounded once, and the residual stream in two buffers
-    taken in turn.  Returns the skip sum (B, T, S) in the compute dtype."""
+    launches and rounded once.  Layer l's residual goes into `acts[l + 1]`
+    where `acts` (L, B, T, C) is given (acts[0] holding x0), else into two
+    buffers taken in turn.  Returns the skip sum (B, T, S) in the compute
+    dtype."""
     L = len(dilations)
     if L < 1 or w_in.dim() != 3 or len(w_in) != L or len(w_out) != L:
         raise ValueError(f"need one (w_in, w_out) per dilation, got "
@@ -219,14 +223,33 @@ def flow_stack_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
     S = w_out.shape[1] - C
     skip_acc = (torch.empty((B, T, S), dtype=torch.float32, device=x0.device)
                 if L > 1 else None)
-    bufs = [torch.empty_like(x0) for _ in range(min(L - 1, 2))]
+    bufs = (acts[1:] if acts is not None
+            else [torch.empty_like(x0) for _ in range(min(L - 1, 2))])
     x = x0
     for l, d in enumerate(dilations):
         last = l == L - 1
         x = gated_layer_accumulate(
             x, cond, w_in[l], b_g[l], w_out[l], b_rs[l], d, skip_acc,
-            first=l == 0, last=last, out=None if last else bufs[l % 2])
+            first=l == 0, last=last,
+            out=None if last else bufs[l if acts is not None else l % 2])
     return x
+
+
+def flow_stack_train_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
+                               dilations: Sequence[int]):
+    """Kernel 2's route (`ops/flow_stack.py::flow_stack_train_forward` on a
+    CUDA tensor): the whole-stack forward that also keeps every layer's
+    input, as `flow_stack_by_layers` writing each residual into the saved
+    acts.  Returns (skip (B, T, S), acts (L, B, T, C)), acts[0] = x0, with
+    `flow_stack_train_reference`'s rounding; on CPU tensors each layer is
+    the plain accumulate epilogue."""
+    L = len(dilations)
+    acts = torch.empty((L,) + tuple(x0.shape), dtype=x0.dtype,
+                       device=x0.device)
+    acts[0].copy_(x0)
+    skip = flow_stack_by_layers(acts[0], cond, w_in, b_g, w_out, b_rs,
+                                dilations, acts=acts)
+    return skip, acts
 
 
 class FusedGatedResidual(torch.autograd.Function):

@@ -1,8 +1,10 @@
 """The port's training stack: the plain forward-with-save and fused-backward
-versions against the JAX Pallas train kernels (interpret mode, as the
-reference's own CPU tests run them), the autograd wrapper against
-torch.autograd, the wrappers' dispatch and argument checks, and — on a
-CUDA card only — kernels 2 and 3 against their plain versions.
+versions and kernel 2's route (kernel 5's accumulate epilogue once per
+layer) against the JAX Pallas train kernels (interpret mode, as the
+reference's own CPU tests run them), the plain weight-gradient GEMM, the
+autograd wrapper against torch.autograd, the wrappers' dispatch and
+argument checks, and — on a CUDA card only — kernels 2 and 3 and the
+weight-gradient GEMM against their plain versions and torch.matmul.
 
 JAX is imported inside the fixture that needs it, so the CUDA cases also
 run where JAX is absent:
@@ -18,7 +20,10 @@ from pwn_tpu_torch.ops.flow_stack import (
     TRAIN_KERNEL_DIMS, check_kernel_args, check_train_backward_args,
     flow_stack_backward_reference, flow_stack_reference, flow_stack_score,
     flow_stack_train, flow_stack_train_backward, flow_stack_train_forward,
-    flow_stack_train_reference)
+    flow_stack_train_reference, flow_stack_train_wgrads,
+    flow_stack_wgrads_reference)
+from pwn_tpu_torch.ops.gated_layer import (flow_stack_train_by_layers,
+                                           gated_layer)
 
 SMALL = dict(B=2, C=16, M=8, G=32, S=16)
 TEACHER_DILATIONS = tuple(2 ** (i % 8) for i in range(24))
@@ -173,6 +178,53 @@ def test_plain_train_matches_pallas_bf16(jax_train):
         assert _rel(g.float().numpy(), w) < 1e-2, name
 
 
+@pytest.mark.parametrize("dil,T", CASES)
+def test_kernel2_route_matches_plain_and_pallas(jax_train, dil, T):
+    """Kernel 2's route on a CUDA tensor is kernel 5's accumulate epilogue
+    once per layer with each residual written into acts[l + 1]
+    (`flow_stack_train_by_layers`).  On CPU tensors each layer is the plain
+    accumulate epilogue: the same arithmetic as
+    `flow_stack_train_reference`, so bit-equal to it in fp32 and bf16; and
+    against the JAX train forward (interpret mode, fp32) within 1e-5 of
+    the largest value, the summation-order bound of
+    test_plain_train_matches_pallas_fp32."""
+    args = _inputs(7, T=T, dilations=dil, **SMALL)
+    for dtype in (torch.float32, torch.bfloat16):
+        t = _fwd(_torch(args, dtype))
+        skip, acts = flow_stack_train_by_layers(**t, dilations=dil)
+        ref_skip, ref_acts = flow_stack_train_reference(**t, dilations=dil)
+        torch.testing.assert_close(skip, ref_skip, rtol=0, atol=0)
+        torch.testing.assert_close(acts, ref_acts, rtol=0, atol=0)
+    t = _fwd(_torch(args))
+    skip, acts = flow_stack_train_by_layers(**t, dilations=dil)
+    j_skip, j_acts, _ = _jax_fwd_bwd(jax_train, args, dil, False)
+    assert _rel(skip.numpy(), j_skip) < 1e-5
+    assert _rel(acts.numpy(), j_acts) < 1e-5
+
+
+@pytest.mark.parametrize("B,T,d", [(1, 1, 1), (3, 67, 5), (2, 40, 64)])
+def test_wgrads_reference_is_the_outer_products(B, T, d):
+    """The plain weight-gradient GEMM against the sums written out per row
+    (numpy, float64): dW_in = sum_r dg[r]^T [x | x(t - d) | cond][r] with
+    the tap zero for t < d (also d >= T), db_g = sum dg, dW_out = sum dout^T
+    z, db_rs = sum dout; fp32 against float64 within 1e-5 relative."""
+    C, M, G, S = 16, 8, 32, 16
+    rng = np.random.default_rng(B * 1000 + T + d)
+    x, cond = rng.standard_normal((B, T, C)), rng.standard_normal((B, T, M))
+    dg, dout = rng.standard_normal((B, T, G)), rng.standard_normal((B, T, C + S))
+    z = rng.standard_normal((B, T, G // 2))
+    got = flow_stack_wgrads_reference(
+        *(torch.from_numpy(a).float() for a in (x, cond, dg, dout, z)), d)
+    tap = np.zeros_like(x)
+    tap[:, d:] = x[:, :max(T - d, 0)]
+    cat = np.concatenate([x, tap, cond], -1)
+    want = (np.einsum("btg,btk->gk", dg, cat), dg.sum((0, 1)),
+            np.einsum("btn,btk->nk", dout, z), dout.sum((0, 1)))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert _rel(g.numpy(), w) < 1e-5
+
+
 @pytest.mark.parametrize("fn", [flow_stack_train, flow_stack_score])
 def test_autograd_wrapper_matches_torch_autograd(fn):
     """The Function's gradients against torch.autograd through the plain
@@ -212,11 +264,18 @@ def test_autograd_casts_weight_grads_to_the_weights_dtype():
     assert leaves["b_g"].grad.dtype == torch.float32
 
 
+def _counters():
+    """Kernel 2's calls and kernel 5's launches under it, kernel 3's calls,
+    and the weight-gradient GEMM's."""
+    return (flow_stack_train_forward.launches, gated_layer.launches,
+            flow_stack_train_backward.launches,
+            flow_stack_train_wgrads.launches)
+
+
 def test_wrappers_on_cpu_are_the_plain_versions_and_launch_nothing():
     dil = CASES[0][0]
     t = _torch(_inputs(4, T=200, dilations=dil, **SMALL))
-    before = (flow_stack_train_forward.launches,
-              flow_stack_train_backward.launches)
+    before = _counters()
     skip, acts = flow_stack_train_forward(**_fwd(t), dilations=dil)
     ref_skip, ref_acts = flow_stack_train_reference(**_fwd(t), dilations=dil)
     torch.testing.assert_close(skip, ref_skip, rtol=0, atol=0)
@@ -229,8 +288,14 @@ def test_wrappers_on_cpu_are_the_plain_versions_and_launch_nothing():
                                             want_wgrads=want)
         for g, r in zip(got, ref):
             torch.testing.assert_close(g, r, rtol=0, atol=0)
-    assert (flow_stack_train_forward.launches,
-            flow_stack_train_backward.launches) == before
+    z = torch.zeros(acts.shape[1:3] + (t["w_out"].shape[-1],))
+    dout = torch.ones(acts.shape[1:3] + (t["w_out"].shape[1],))
+    dg = torch.ones(acts.shape[1:3] + (t["w_in"].shape[1],))
+    got = flow_stack_train_wgrads(acts[1], t["cond"], dg, dout, z, dil[1])
+    ref = flow_stack_wgrads_reference(acts[1], t["cond"], dg, dout, z, dil[1])
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    assert _counters() == before
 
 
 def _teacher_shaped(B=2, T=64, dtype=torch.bfloat16, device="cpu"):
@@ -318,6 +383,36 @@ def test_train_kernels_match_plain_on_card(cuda, B, T):
             assert _rel(g.float().cpu(), r.cpu()) <= 0.02, name
     assert flow_stack_train_forward.launches == f0 + 1
     assert flow_stack_train_backward.launches == b0 + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,d", [(1, 1, 1), (3, 1003, 128), (1, 4097, 4097),
+                                   (2, 64, 64), (3, 97, 5)])
+def test_wgrad_gemm_matches_matmul_on_card(cuda, B, T, d):
+    """Kernel 3's weight-gradient GEMM (TMA boxes read by wgmma as MN-major
+    operands) against torch.matmul in fp32 of the same bf16 operands, at
+    odd shapes: rows not a multiple of the 64-row stage, rows with t < d
+    (all of them where d >= T), B = 1 with T = 1.  Both sum exact bf16
+    products in fp32 in another order: 1e-3 of the largest value (a wrong
+    descriptor or tap is O(1)).  Two runs are bit-identical."""
+    C, G, S, M = TRAIN_KERNEL_DIMS
+    gen = torch.Generator(device=cuda).manual_seed(B * 7919 + T + d)
+
+    def arr(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).bfloat16()
+
+    x, cond, dg = arr(B, T, C), arr(B, T, M), arr(B, T, G)
+    dout, z = arr(B, T, C + S), arr(B, T, G // 2)
+    n0 = flow_stack_train_wgrads.launches
+    got = flow_stack_train_wgrads(x, cond, dg, dout, z, d)
+    again = flow_stack_train_wgrads(x, cond, dg, dout, z, d)
+    want = flow_stack_wgrads_reference(x, cond, dg, dout, z, d)  # fp32 matmuls
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert _rel(g.cpu(), w.cpu()) <= 1e-3
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert flow_stack_train_wgrads.launches == n0 + 2
 
 
 @pytest.mark.gpu

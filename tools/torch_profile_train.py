@@ -2,7 +2,8 @@
 """Where the device time of the port's teacher training step goes.
 
 Profiles the `teacher_lj` train step (mel, upsampler, the training stack's
-kernels 2 and 3, head, MoL loss, optimizer) at batch 8 x 16,384 samples on
+kernels 2 (kernel 5's accumulate epilogue per layer) and 3, head, MoL loss,
+optimizer) at batch 8 x 16,384 samples on
 one CUDA card with torch.profiler and prints, beside the card's name and
 power limit: the window's wall time per step, the device time per kernel
 name, the training kernels' share, and the device's idle share of the
@@ -89,7 +90,8 @@ def main() -> int:
     for dev_us, count, key in rows[:20]:
         print(f"  {dev_us / 1e3 / n:8.3f} ms/step  {100 * dev_us / total_us:5.1f}%"
               f"  x{count // n:<4d} {key[:90]}")
-    for name in ("train_fwd_layer", "train_bwd_layer", "wgrad_partial",
+    # kernel 2 is kernel 5's accumulate epilogue once per layer
+    for name in ("gated_layer_kernel", "train_bwd_layer", "wgrad_gemm",
                  "wgrad_reduce", "train_bwd_finalize"):
         us = sum(r[0] for r in rows if name in r[2])
         print(f"{name}: {us / 1e3 / n:.3f} ms/step, share {us / total_us:.3f}")
