@@ -59,8 +59,8 @@
 //   would not fit a consumer's registers: dz comes first, then the gate
 //   product runs in two halves of 128 columns (64 tanh, their 64 sigmoid
 //   partners), and dg is formed in registers per half (the exp2 /
-//   reciprocal forms of tanh and sigmoid, each within 2 ulp) and stored in
-//   bf16 over the dout tile, whose product is done.
+//   reciprocal forms of tanh and sigmoid below) and stored in bf16 over
+//   the dout tile, whose product is done.
 // * Weight gradients.  The TPU kernel keeps fp32 accumulators resident
 //   across the whole grid.  Here each layer's pass stores dg and dout (TMA
 //   from their swizzled tiles) and z (bf16, as the reference rounds them),
@@ -165,6 +165,13 @@ __device__ unsigned long long fst_phase_cycles[8];
 #define PHASE(k)
 #endif
 
+// tanh and sigmoid apart (the derivatives need both), from one hardware
+// exp2 and one reciprocal each, exponents clamped to +-30 nats.  Against
+// fp64 over every fp32 |x| <= 64 (tools/torch_train_gate_error.py, H100):
+// absolute error at most 2.3e-7 for tanh and 1.2e-7 for sigmoid (libm's
+// tanhf 1.1e-7, 1 / (1 + expf(-x)) 9e-8), and 4.5e-7 for 1 - tanh^2, 1.2e-7
+// for s (1 - s).  The relative error of tanh is unbounded near 0, where
+// e^2x - 1 cancels: the gates are summed, so only the absolute error counts.
 __device__ __forceinline__ float tanh_fast(float a) {
   constexpr float LOG2E = 1.44269504f, CLAMP = 43.28f;  // 30 nats in log2
 #ifdef PWN_FST_NO_GATES

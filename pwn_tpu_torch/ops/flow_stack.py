@@ -371,10 +371,8 @@ def flow_stack_train_forward(x0, cond, w_in, b_g, w_out, b_rs,
     `flow_stack_train_reference`.  On a CUDA tensor at teacher_lj widths it
     runs kernel 5's accumulate epilogue once per layer with the residual
     written into acts[l + 1] (`gated_layer.flow_stack_train_by_layers`,
-    the same rounding); other widths raise.
-    `flow_stack_train_forward.launches` counts the calls (one per call,
-    whatever the layer count; kernel 5 counts its L launches on
-    `gated_layer.launches`)."""
+    the same rounding); other widths raise.  It launches no kernel of its
+    own: kernel 5 counts its L launches on `gated_layer.launches`."""
     if x0.device.type == "cpu":
         return flow_stack_train_reference(x0, cond, w_in, b_g, w_out, b_rs,
                                           dilations)
@@ -382,13 +380,8 @@ def flow_stack_train_forward(x0, cond, w_in, b_g, w_out, b_rs,
                       kernel_dims=TRAIN_KERNEL_DIMS)
     from pwn_tpu_torch.ops.gated_layer import flow_stack_train_by_layers
 
-    out = flow_stack_train_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
-                                     dilations)
-    flow_stack_train_forward.launches += 1
-    return out
-
-
-flow_stack_train_forward.launches = 0
+    return flow_stack_train_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
+                                      dilations)
 
 
 def flow_stack_train_backward(acts, cond, w_in, b_g, w_out, dskip,

@@ -206,14 +206,38 @@ def gated_layer_accumulate(x, cond, w_in, b_g, w_out, b_rs, dilation: int,
 
 
 def flow_stack_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
-                         dilations: Sequence[int], *, acts=None) -> torch.Tensor:
+                         dilations: Sequence[int]) -> torch.Tensor:
     """`flow_stack` on the stacked layout at widths kernel 1 is not built
     for: `gated_layer_accumulate` once per layer over the per-layer views of
     the stacked weights (nothing copied), the fp32 skip sum carried between
-    launches and rounded once.  Layer l's residual goes into `acts[l + 1]`
-    where `acts` (L, B, T, C) is given (acts[0] holding x0), else into two
-    buffers taken in turn.  Returns the skip sum (B, T, S) in the compute
-    dtype."""
+    launches and rounded once, the residuals in two buffers taken in turn.
+    Returns the skip sum (B, T, S) in the compute dtype."""
+    bufs = [torch.empty_like(x0) for _ in range(min(len(dilations) - 1, 2))]
+    return _accumulate_layers(x0, cond, w_in, b_g, w_out, b_rs, dilations,
+                              bufs)
+
+
+def flow_stack_train_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
+                               dilations: Sequence[int]):
+    """Kernel 2's route (`ops/flow_stack.py::flow_stack_train_forward` on a
+    CUDA tensor): the whole-stack forward that also keeps every layer's
+    input, as `flow_stack_by_layers` writing layer l's residual into the
+    saved acts[l + 1].  Returns (skip (B, T, S), acts (L, B, T, C)),
+    acts[0] = x0, with `flow_stack_train_reference`'s rounding; on CPU
+    tensors each layer is the plain accumulate epilogue."""
+    L = len(dilations)
+    acts = torch.empty((L,) + tuple(x0.shape), dtype=x0.dtype,
+                       device=x0.device)
+    acts[0].copy_(x0)
+    skip = _accumulate_layers(acts[0], cond, w_in, b_g, w_out, b_rs,
+                              dilations, acts[1:])
+    return skip, acts
+
+
+def _accumulate_layers(x0, cond, w_in, b_g, w_out, b_rs,
+                       dilations: Sequence[int], bufs) -> torch.Tensor:
+    """The layer loop of both routes above: layer l (not the last) writes
+    its residual into bufs[l % len(bufs)]."""
     L = len(dilations)
     if L < 1 or w_in.dim() != 3 or len(w_in) != L or len(w_out) != L:
         raise ValueError(f"need one (w_in, w_out) per dilation, got "
@@ -223,33 +247,13 @@ def flow_stack_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
     S = w_out.shape[1] - C
     skip_acc = (torch.empty((B, T, S), dtype=torch.float32, device=x0.device)
                 if L > 1 else None)
-    bufs = (acts[1:] if acts is not None
-            else [torch.empty_like(x0) for _ in range(min(L - 1, 2))])
     x = x0
     for l, d in enumerate(dilations):
         last = l == L - 1
         x = gated_layer_accumulate(
             x, cond, w_in[l], b_g[l], w_out[l], b_rs[l], d, skip_acc,
-            first=l == 0, last=last,
-            out=None if last else bufs[l if acts is not None else l % 2])
+            first=l == 0, last=last, out=None if last else bufs[l % len(bufs)])
     return x
-
-
-def flow_stack_train_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
-                               dilations: Sequence[int]):
-    """Kernel 2's route (`ops/flow_stack.py::flow_stack_train_forward` on a
-    CUDA tensor): the whole-stack forward that also keeps every layer's
-    input, as `flow_stack_by_layers` writing each residual into the saved
-    acts.  Returns (skip (B, T, S), acts (L, B, T, C)), acts[0] = x0, with
-    `flow_stack_train_reference`'s rounding; on CPU tensors each layer is
-    the plain accumulate epilogue."""
-    L = len(dilations)
-    acts = torch.empty((L,) + tuple(x0.shape), dtype=x0.dtype,
-                       device=x0.device)
-    acts[0].copy_(x0)
-    skip = flow_stack_by_layers(acts[0], cond, w_in, b_g, w_out, b_rs,
-                                dilations, acts=acts)
-    return skip, acts
 
 
 class FusedGatedResidual(torch.autograd.Function):

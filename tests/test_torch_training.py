@@ -17,6 +17,7 @@ from pwn_tpu_torch import convert, get_config, override
 from pwn_tpu_torch.data import pipeline
 from pwn_tpu_torch.models.teacher import TeacherWaveNet, init_teacher
 from pwn_tpu_torch.ops import flow_stack as fs
+from pwn_tpu_torch.ops.gated_layer import gated_layer
 from pwn_tpu_torch.training.common import (ClippedAdam, create_train_state,
                                            global_norm)
 from pwn_tpu_torch.training.loop import make_val_batch, run_teacher_training
@@ -252,12 +253,13 @@ def test_stacked_cache_follows_an_optimizer_step_on_card(cuda):
 @pytest.mark.gpu
 def test_teacher_training_runs_the_kernels_on_card(cuda):
     """teacher_lj at full width on short crops: two steps and the eval
-    launch kernel 2 three times and kernel 3 twice."""
+    run kernel 2 three times (kernel 5 once per layer each) and kernel 3
+    twice."""
     cfg = override(override(get_config("teacher_lj"), "train.crop_samples",
                             2048), "train.global_batch_size", 2)
-    fs.flow_stack_train_forward.launches = 0
+    gated_layer.launches = 0
     fs.flow_stack_train_backward.launches = 0
     res = run_teacher_training(cfg, num_steps=2)
-    assert (fs.flow_stack_train_forward.launches,
-            fs.flow_stack_train_backward.launches) == (3, 2)
+    assert (gated_layer.launches, fs.flow_stack_train_backward.launches) == (
+        3 * cfg.teacher.n_layers, 2)
     assert all(np.isfinite(v) for v in res.final_metrics.values())
