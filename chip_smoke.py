@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's student IAF synthesis (student_iaf through
 the whole-stack kernel, large_student_sharded through the per-layer
-kernel's accumulate epilogue), teacher training and teacher AR sampling
-once on one CUDA card.
+kernel's accumulate epilogue), teacher training, distillation and direct
+training of the student, and teacher AR sampling once on one CUDA card.
 
 Run from the repository root with no arguments:
 
@@ -19,10 +19,12 @@ Phases, each printing what it finds:
   4. train kernels — kernels 2 (forward saving the layer inputs: kernel
                5's accumulate epilogue once per layer) and 3 (fused
                backward, with and without weight gradients) against their
-               plain versions at teacher_lj widths, per batch row and per
-               gradient, at the bench shape and edge shapes; kernel 3's
-               weight-gradient GEMM alone against torch.matmul on the same
-               bf16 operands at those shapes;
+               plain versions at both widths they are built for (teacher_lj
+               and student_iaf, dilations to 512 there), per batch row and
+               per gradient, at the bench shape and edge shapes, two runs
+               bit-identical and dx / dcond bit-equal in both modes; kernel
+               3's weight-gradient GEMM alone against torch.matmul on the
+               same bf16 operands at those shapes;
   5. AR kernel — the teacher AR sampler (kernel 4: one cluster of N
                blocks per R batch rows) against its plain version on the
                card, per batch row: teacher_lj (MoL, pinned),
@@ -55,8 +57,18 @@ Phases, each printing what it finds:
                kernel 3's launch count and kernel 5's under kernel 2; the loss falling over 20
                steps on one batch; one step's loss and gradients on the card
                against the same model and batch in fp32 on the CPU; one
-               training step of a C=64, M=80 teacher, which the training
-               kernels are not built for, through kernel 5 ("layer");
+               training step of a C=64, M=80 teacher with
+               `fused_layers="layer"`, through kernel 5's "layer" epilogue;
+  7b. distill — `run_distillation` on `student_iaf` at full width (8 x
+               16,384; the teacher at teacher_lj's widths, seeded), with
+               the student's kernel-3 calls (weight gradients), the frozen
+               teacher's dx-only ones and kernel 5's counted, also per
+               step, the teacher's parameters bit-identical after the
+               steps; one step's loss terms and student gradients on the
+               card against fp32 on the CPU at 2 x 4,096; one run each of
+               `student_iaf_best` (contrastive) and `clarinet_gaussian`
+               (closed form); `run_student_direct_training` on
+               `student_iaf` with its launches;
   8. AR main — `generate_teacher` on `teacher_lj` at full width from a
                synthetic utterance's mel, and `fast_sample_kernel` at batch
                8, with kernel 4's launch count;
@@ -65,9 +77,10 @@ Phases, each printing what it finds:
                inputs; kernel 5 in both epilogues at both widths), end-to-end
                audio-seconds per second at batch 8 x 2 s (student_iaf, and
                large_student_sharded in both stack modes),
-               kernel 3's weight-gradient GEMM alone beside torch.matmul on
-               the same operands, teacher train step ms and utterances per
-               second at batch 8 x 16,384, AR us per step and samples per second at batch 8
+               kernels 2 and 3 and kernel 3's weight-gradient GEMM alone
+               (beside torch.matmul on the same operands) at both widths,
+               teacher, distillation and direct-training step ms and
+               utterances per second at batch 8 x 16,384, AR us per step and samples per second at batch 8
                and 1 x 0.25 s, and the weight bytes each SM streams a step.
 Any failure raises and the script exits non-zero.  Only when every phase
 passed does it print, as its last line, {"ok": true, "device": {...}}.
@@ -106,7 +119,14 @@ from pwn_tpu_torch.ops.gated_layer import (
     gated_layer, gated_layer_accumulate, gated_layer_accumulate_reference,
     gated_layer_reference, pack_layer)
 from pwn_tpu_torch.training.common import create_train_state
-from pwn_tpu_torch.training.loop import make_val_batch, run_teacher_training
+from pwn_tpu_torch.training.distill import (distillation_losses,
+                                            make_distill_train_step)
+from pwn_tpu_torch.training.loop import (frozen_teacher, make_val_batch,
+                                         run_distillation,
+                                         run_student_direct_training,
+                                         run_teacher_training)
+from pwn_tpu_torch.training.student_direct import (
+    make_student_direct_train_step)
 from pwn_tpu_torch.training.teacher import (make_teacher_train_step,
                                             prepare_batch)
 from pwn_tpu_torch.utils.platform import require_cuda
@@ -163,6 +183,16 @@ EDGE_SHAPES = [(1, 1000), (3, 5003), (2, 300), (5, 129), (1, 1)]
 TEACHER = get_config("teacher_lj")
 TRAIN_BATCH, TRAIN_T = 8, 16384  # teacher_lj's batch: 8 x 16,384-sample crops
 TRAIN_EDGE_SHAPES = [(1, 1), (3, 1003), (1, 4097), (2, 64)]
+# The training kernels' two widths, each with the stack it is built for:
+# (C, G, S, M), the dilations, the edge shapes of phase 4 and the GEMM's
+# dilations there (the bench shape's first).  student_iaf's edges: d >= T
+# (T = 300 against dilations to 512), T not a multiple of 128, B = 3.
+TRAIN_WIDTHS = {
+    "teacher_lj": ((128, 256, 128, 80), TEACHER.teacher.dilations,
+                   TRAIN_EDGE_SHAPES, (64, 1, 128)),
+    "student_iaf": ((64, 128, 64, 80), CFG.student.flow_dilations,
+                    [(1, 300), (3, 1000), (2, 64)], (512, 1, 512)),
+}
 # Kernels 2 and 3 (bf16) vs their plain versions in fp32 on the same bf16
 # operands, max|diff| / max|ref|: per batch row for the skip output and dx,
 # per tensor for dcond and each weight gradient.  24 layers of bf16
@@ -171,8 +201,9 @@ TRAIN_EDGE_SHAPES = [(1, 1), (3, 1003), (1, 4097), (2, 64)]
 # far below the O(1) error of a wrong tap, a dropped tile or a leak between
 # rows.
 TOL_TRAIN = 0.02
-WHY_TRAIN = ("bf16 rounding of x, z, dout and dg through 24 layers; "
-             "0.003-0.010 on the first H100 runs")
+WHY_TRAIN = ("bf16 rounding of x, z, dout and dg through every layer (24 "
+             "at teacher_lj's widths, 10 at student_iaf's); 0.003-0.010 on "
+             "the first H100 runs")
 # The saved layer inputs vs the plain forward run in bf16 (the same
 # rounding points): an early flipped rounding of x is carried by the later
 # layers, 0.015-0.018 of the row max on the first H100 runs.
@@ -375,13 +406,13 @@ def phase_kernel(device) -> dict:
     return result
 
 
-def _train_inputs(B: int, T: int, device, seed: int) -> dict:
-    """Stack operands at teacher_lj widths in the wrappers' layout (weights
-    stored (out, in)), unit-variance pre-activations, and a skip
-    cotangent."""
-    tc = TEACHER.teacher
-    L, C, G, S, M = (tc.n_layers, tc.residual_channels, tc.gate_channels,
-                     tc.skip_channels, TEACHER.dsp.n_mels)
+def _train_inputs(B: int, T: int, device, seed: int,
+                  widths: str = "teacher_lj") -> dict:
+    """Stack operands at one of the training kernels' widths (TRAIN_WIDTHS)
+    in the wrappers' layout (weights stored (out, in)), unit-variance
+    pre-activations, and a skip cotangent."""
+    (C, G, S, M), dil, _, _ = TRAIN_WIDTHS[widths]
+    L = len(dil)
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def arr(shape, scale):
@@ -410,28 +441,32 @@ def _rel(out: torch.Tensor, ref: torch.Tensor) -> float:
                  / (ref.float().abs().max() + 1e-12))
 
 
-def _wgrad_operands(B: int, T: int, device, seed: int) -> tuple:
-    """x, cond, dg, dout, z for one layer's weight-gradient GEMM at
-    teacher_lj widths, bf16."""
-    tc = TEACHER.teacher
-    C, G, S, M = (tc.residual_channels, tc.gate_channels, tc.skip_channels,
-                  TEACHER.dsp.n_mels)
+def _wgrad_operands(B: int, T: int, device, seed: int,
+                    widths: str = "teacher_lj") -> tuple:
+    """x, cond, dg, dout, z for one layer's weight-gradient GEMM at one of
+    the training kernels' widths, bf16."""
+    C, G, S, M = TRAIN_WIDTHS[widths][0]
     gen = torch.Generator(device=device).manual_seed(seed)
     return tuple(torch.randn((B, T, w), generator=gen, device=device).bfloat16()
                  for w in (C, M, G, C + S, G // 2))
 
 
-def phase_train_kernels(device) -> dict:
-    dil = TEACHER.teacher.dilations
+def phase_train_kernels(device, widths: str = "teacher_lj") -> dict:
+    """Kernels 2 and 3 and the weight-gradient GEMM against their plain
+    versions at the bench shape and the edge shapes of one of their widths,
+    in both backward modes."""
+    dims, dil, edges, gemm_d = TRAIN_WIDTHS[widths]
+    tag = f"[train {widths} {dims}]"
     b0 = fs.flow_stack_train_backward.launches
     g0, w0 = gated_layer.launches, fs.flow_stack_train_wgrads.launches
     fwd_calls = bwd_calls = wgrad_calls = 0
     result = {}
     # kernel 3's weight-gradient GEMM alone: rows not a multiple of its
     # 64-row stage, rows with t < d (all rows where d >= T), B = 1 with T = 1
-    for k, (B, T) in enumerate([(TRAIN_BATCH, TRAIN_T)] + TRAIN_EDGE_SHAPES):
-        for d in ((64,) if k == 0 else (1, 128, T + 3)):
-            ops = _wgrad_operands(B, T, device, seed=300 + 7 * k + d % 5)
+    for k, (B, T) in enumerate([(TRAIN_BATCH, TRAIN_T)] + edges):
+        for d in (gemm_d[:1] if k == 0 else (*gemm_d[1:], T + 3)):
+            ops = _wgrad_operands(B, T, device, seed=300 + 7 * k + d % 5,
+                                  widths=widths)
             got = fs.flow_stack_train_wgrads(*ops, d)
             again = fs.flow_stack_train_wgrads(*ops, d)
             wgrad_calls += 2
@@ -439,7 +474,7 @@ def phase_train_kernels(device) -> dict:
             want = fs.flow_stack_wgrads_reference(*ops, d)
             torch.cuda.synchronize()
             errs = [_rel(g, w) for g, w in zip(got, want)]
-            _log(f"[train] weight-gradient GEMM B={B} T={T} d={d}: rel err vs "
+            _log(f"{tag} weight-gradient GEMM B={B} T={T} d={d}: rel err vs "
                  f"torch.matmul fp32 (dW_in, db_g, dW_out, db_rs) "
                  + ", ".join(f"{e:.2e}" for e in errs) + f" (tol {TOL_WGRAD})")
             _check(all(g.shape == w.shape for g, w in zip(got, want))
@@ -447,8 +482,8 @@ def phase_train_kernels(device) -> dict:
                    f"weight-gradient GEMM off torch.matmul at B={B} T={T} d={d}")
             _check(all(torch.equal(a, b) for a, b in zip(got, again)),
                    "the weight-gradient GEMM is not bit-identical across runs")
-    for k, (B, T) in enumerate([(TRAIN_BATCH, TRAIN_T)] + TRAIN_EDGE_SHAPES):
-        a = _train_inputs(B, T, device, seed=200 + k)
+    for k, (B, T) in enumerate([(TRAIN_BATCH, TRAIN_T)] + edges):
+        a = _train_inputs(B, T, device, seed=200 + k, widths=widths)
         fwd = {n: a[n] for n in _FWD}
         skip, acts = fs.flow_stack_train_forward(**fwd, dilations=dil)
         fwd_calls += 1
@@ -456,12 +491,12 @@ def phase_train_kernels(device) -> dict:
             **{n: v.float() for n, v in fwd.items()}, dilations=dil)
         _, acts16 = fs.flow_stack_train_reference(**fwd, dilations=dil)
         torch.cuda.synchronize()
-        _check(skip.shape == (B, T, TEACHER.teacher.skip_channels)
+        _check(skip.shape == (B, T, dims[2])
                and acts.shape == acts16.shape, "kernel 2 output shapes")
         _check(torch.isfinite(skip.float()).all(), "non-finite kernel 2 skip")
         r_skip = _row_rel(skip, skip32)
         r_acts = _row_rel(acts.transpose(0, 1), acts16.transpose(0, 1))
-        _log(f"[train] kernel 2 B={B} T={T}: skip per-row rel err vs fp32 "
+        _log(f"{tag} kernel 2 B={B} T={T}: skip per-row rel err vs fp32 "
              f"plain {np.array2string(r_skip, precision=5)} (tol {TOL_TRAIN}: "
              f"{WHY_TRAIN}); acts vs bf16 plain "
              f"{np.array2string(r_acts, precision=5)} (tol {TOL_ACTS})")
@@ -478,7 +513,7 @@ def phase_train_kernels(device) -> dict:
             torch.cuda.synchronize()
             errs = {n: _rel(g, r) for n, g, r in zip(_GRADS, got, ref)}
             r_dx = _row_rel(got[0], ref[0])
-            _log(f"[train] kernel 3 B={B} T={T} want_wgrads={want}: rel err vs "
+            _log(f"{tag} kernel 3 B={B} T={T} want_wgrads={want}: rel err vs "
                  f"fp32 plain " + ", ".join(f"{n} {e:.5f}" for n, e in errs.items())
                  + f"; dx per row {np.array2string(r_dx, precision=5)} "
                  f"(tol {TOL_TRAIN})")
@@ -489,7 +524,10 @@ def phase_train_kernels(device) -> dict:
                    f"kernel 3 off at B={B} T={T} want_wgrads={want}")
             if want:
                 full = got
-            else:
+            elif k == 0:
+                result["bwd_dx_max_abs_err"] = float(
+                    (got[0].float() - ref[0]).abs().max())
+            if not want:
                 _check(torch.equal(got[0], full[0]) and torch.equal(got[1], full[1]),
                        "dx/dcond differ between the two backward modes")
         if k == 0:
@@ -499,9 +537,10 @@ def phase_train_kernels(device) -> dict:
             bwd_calls += 1
             _check(all(torch.equal(x, y) for x, y in zip(full, again)),
                    "kernel 3 is not bit-identical across two runs")
-            _log("[train] kernel 3 weight gradients bit-identical across two runs")
+            _log(f"{tag} kernel 3 weight gradients bit-identical across two "
+                 "runs; dx and dcond bit-equal in both modes")
     # rows are independent: a change in row 1's cotangent leaves row 0's dx
-    a = _train_inputs(2, 3000, device, seed=7)
+    a = _train_inputs(2, 3000, device, seed=7, widths=widths)
     _, acts = fs.flow_stack_train_forward(**{n: a[n] for n in _FWD},
                                           dilations=dil)
     bargs = list(_bwd_args(a, acts))
@@ -518,7 +557,7 @@ def phase_train_kernels(device) -> dict:
             fs.flow_stack_train_wgrads.launches - w0)
            == (L * fwd_calls, bwd_calls, wgrad_calls),
            "the training kernels' counters did not count every call")
-    _log(f"[train] dx rows isolated; {fwd_calls} kernel-2 calls ({L * fwd_calls} "
+    _log(f"{tag} dx rows isolated; {fwd_calls} kernel-2 calls ({L * fwd_calls} "
          f"kernel-5 launches), {bwd_calls} kernel-3 calls, {wgrad_calls} "
          f"weight-gradient GEMM calls counted")
     return result
@@ -996,13 +1035,19 @@ def phase_layer_path(device) -> dict:
 
 def phase_train_layer(device) -> dict:
     """One training step of a teacher at student widths (C=64, G=128, S=64,
-    M=80), which kernels 2 and 3 are not built for: the training context
-    resolves it to "layer", so kernel 5 runs the forward (its backward is
-    the fp32 recompute) and kernels 2 and 3 do not launch."""
-    cfg = override(override(override(override(override(override(
-        TEACHER, "teacher.residual_channels", 64), "teacher.gate_channels",
-        128), "teacher.skip_channels", 64), "teacher.n_blocks", 1),
-        "train.crop_samples", 4096), "train.global_batch_size", 2)
+    M=80) with `teacher.fused_layers="layer"`: kernel 5's "layer" epilogue
+    runs the forward (its backward is the fp32 recompute of
+    `FusedGatedResidual`) and kernels 2 and 3 do not launch.  (Such a stack
+    in a training context with "auto" runs kernels 2 and 3: the
+    distillation phases drive that.)"""
+    cfg = TEACHER
+    for key, value in (("teacher.residual_channels", 64),
+                       ("teacher.gate_channels", 128),
+                       ("teacher.skip_channels", 64), ("teacher.n_blocks", 1),
+                       ("teacher.fused_layers", "layer"),
+                       ("train.crop_samples", 4096),
+                       ("train.global_batch_size", 2)):
+        cfg = override(cfg, key, value)
     mode = TeacherWaveNet(cfg, stack_mode=resolve_stack_mode(
         cfg.teacher.fused_layers, "train")).stack.mode
     counts = (fs.flow_stack_train_backward, gated_layer)
@@ -1011,12 +1056,11 @@ def phase_train_layer(device) -> dict:
     res = run_teacher_training(cfg, num_steps=1)
     torch.cuda.synchronize()
     launches = tuple(c.launches for c in counts)
-    _log(f"[teacher] C=64 M=80 teacher ({cfg.teacher.n_layers} layers), one "
-         f"step in a training context: stack mode {mode!r}; metrics "
-         f"{res.final_metrics}; launches kernel 3 {launches[0]}, kernel 5 "
-         f"{launches[1]}")
-    _check(mode == "layer", "a C=64 training stack should resolve to 'layer'")
-    # kernel 2 (kernel 5 per layer at teacher_lj widths) raises at C=64
+    _log(f"[teacher] C=64 M=80 teacher ({cfg.teacher.n_layers} layers), "
+         f"fused_layers='layer', one step in a training context: stack mode "
+         f"{mode!r}; metrics {res.final_metrics}; launches kernel 3 "
+         f"{launches[0]}, kernel 5 {launches[1]}")
+    _check(mode == "layer", "fused_layers='layer' should build 'layer'")
     _check(launches == (0, 2 * cfg.teacher.n_layers),
            "expected kernel 5 once per layer in the step and in the eval, "
            "kernel 3 never")
@@ -1102,6 +1146,181 @@ def phase_teacher(device) -> dict:
          + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in later))
     _check(rel_loss <= TOL_STEP_LOSS and rel_grads <= TOL_STEP_GRADS,
            "the card's train step is off the fp32 CPU step")
+    return {"launches": launches}
+
+
+# Distillation, one step on the card in bf16 against the same student,
+# teacher, batch and z in fp32 on the CPU at a reduced shape (2 x 4096
+# samples): the loss terms (relative error each) and all of the student's
+# gradients together (relative L2).  The KL is a difference of large terms,
+# so the terms are compared, not the KL.
+# The first H100 run gave 1.6e-4 (power), 1.4e-3 (teacher_xent), 4.8e-3
+# (student_entropy; kl 4.0e-3) and 0.0062 for the gradients: the bounds are
+# 4x and 5x those, far below the O(1) of a wrong tap, head or sign.
+DISTILL_CPU_SHAPE = (2, 4096)
+TOL_DISTILL_TERMS = 0.02
+TOL_DISTILL_GRADS = 0.03
+WHY_DISTILL = ("bf16 compute through 4 flows of 10 layers, the teacher's 24 "
+               "and both heads on the card, fp32 on the CPU; 4.8e-3 and "
+               "0.0062 on the first H100 run")
+
+
+def _reset_counts() -> None:
+    """Every launch counter to 0: just before a main path is driven."""
+    flow_stack.launches = gated_layer.launches = ar_sample.launches = 0
+    fs.flow_stack_train_backward.launches = 0
+    fs.flow_stack_train_backward.launches_by.clear()
+    fs.flow_stack_train_wgrads.launches = 0
+
+
+def _counts() -> dict:
+    by = fs.flow_stack_train_backward.launches_by
+    return {"kernel 1": flow_stack.launches, "kernel 5": gated_layer.launches,
+            "kernel 3": fs.flow_stack_train_backward.launches,
+            "kernel 3 student": by[(CFG.student.residual_channels, True)],
+            "kernel 3 teacher dx": by[(TEACHER.teacher.residual_channels,
+                                       False)],
+            "kernel 4": ar_sample.launches}
+
+
+def _student_launches(cfg, steps: int, evals: int, teacher: bool) -> dict:
+    """The launches of `steps` training steps and `evals` evals of the
+    student (distilled when `teacher`, else trained directly), per KL
+    sample: the student's n_flows kernel-3 calls with weight gradients and
+    the teacher's dx-only one (two with the contrastive term) per step;
+    kernel 5 once per layer of every forward (kernel 2's route), evals
+    included; kernels 1 and 4 never."""
+    sc, tc, dc = cfg.student, cfg.teacher, cfg.distill
+    passes = (2 if dc.contrastive_weight > 0 else 1) if teacher else 0
+    n = dc.n_kl_samples
+    fwd = n * (sc.n_flows * sc.layers_per_flow + passes * tc.n_layers)
+    return {"kernel 1": 0, "kernel 5": fwd * (steps + evals),
+            "kernel 3": n * (sc.n_flows + passes) * steps,
+            "kernel 3 student": n * sc.n_flows * steps,
+            "kernel 3 teacher dx": n * passes * steps, "kernel 4": 0}
+
+
+def _teacher_state(cfg, device) -> dict:
+    """A seeded teacher of cfg's widths and head on the card, as a state
+    dict: the distillation phases download no weights."""
+    return init_teacher(cfg, torch.Generator().manual_seed(SEED + 10),
+                        device=device).state_dict()
+
+
+def _distill_pair(cfg, device):
+    """The frozen teacher and a fresh student (train stacks) with its
+    state and distillation step, on the card."""
+    teacher = frozen_teacher(cfg, _teacher_state(cfg, device), device)
+    student = init_student(cfg, torch.Generator().manual_seed(SEED + 1),
+                           device, stack_mode="train")
+    state = create_train_state(dict(student.named_parameters()), cfg.train,
+                               seed=SEED + 2)
+    return teacher, student, state, make_distill_train_step(student, teacher,
+                                                            cfg)
+
+
+def phase_distill(device) -> dict:
+    """`run_distillation(student_iaf)` at full width, 8 x 16,384: the
+    student's kernel-3 calls with weight gradients, the teacher's dx-only
+    ones and kernel 5's under kernel 2 counted; per step through the step
+    itself, with the teacher's parameters bit-identical after it; one step
+    on the card against fp32 on the CPU; one run each of student_iaf_best
+    (contrastive term, multi-resolution power loss, EMA) and
+    clarinet_gaussian (closed form)."""
+    n_steps = 3
+    teacher_sd = _teacher_state(CFG, device)
+    _reset_counts()
+    res = run_distillation(CFG, teacher_sd, num_steps=n_steps)
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = _student_launches(CFG, n_steps, 1, teacher=True)
+    _log(f"[distill] run_distillation(student_iaf, num_steps={n_steps}) at "
+         f"{TRAIN_BATCH} x {CFG.train.crop_samples}: {res.final_metrics}; "
+         f"launches {launches} (expected {want}: {n_steps} steps and one eval)")
+    _check(launches == want, "the distillation path's launches")
+    _check(all(np.isfinite(v) for v in res.final_metrics.values())
+           and "val_kl" in res.final_metrics, "non-finite distillation metrics")
+
+    teacher, student, state, step = _distill_pair(CFG, device)
+    before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    batch = torch.from_numpy(make_val_batch(CFG, None, TRAIN_BATCH)).to(device)
+    for i in range(2):
+        _reset_counts()
+        _, m = step(state, batch)
+        torch.cuda.synchronize()
+        got, one = _counts(), _student_launches(CFG, 1, 0, teacher=True)
+        _log(f"[distill] step {i}: loss {float(m['loss']):.4f} kl "
+             f"{float(m['kl']):.4f} power {float(m['power_loss']):.4f}; "
+             f"launches {got}")
+        _check(got == one, f"one distillation step should launch {one}")
+    _check(all(torch.equal(v, before[k])
+               for k, v in teacher.state_dict().items()),
+           "the frozen teacher's parameters moved")
+    _log("[distill] the teacher's parameters are bit-identical after the steps")
+
+    # one step's terms and gradients, card bf16 vs CPU fp32
+    B, T = DISTILL_CPU_SHAPE
+    wav = batch[:B, :T]
+    cpu_cfg = override(override(CFG, "student.compute_dtype", "float32"),
+                       "teacher.compute_dtype", "float32")
+    s_cpu = StudentIAF(cpu_cfg, stack_mode="train")
+    s_cpu.load_state_dict({k: v.cpu() for k, v in student.state_dict().items()})
+    t_cpu = frozen_teacher(cpu_cfg, {k: v.cpu() for k, v in before.items()},
+                           "cpu")
+    z = sample_base_noise(CFG, torch.Generator().manual_seed(3), (B, T))
+    out = []
+    for s_m, t_m, w, zz in ((student, teacher, wav, z.to(device)),
+                            (s_cpu, t_cpu, wav.cpu(), z)):
+        x_ref, mel = prepare_batch(w, CFG)
+        loss, m = distillation_losses(s_m, t_m, x_ref, mel, CFG, z=[zz])
+        grads = torch.autograd.grad(loss, list(s_m.parameters()))
+        out.append(({k: float(v.detach()) for k, v in m.items()},
+                    torch.cat([g.float().cpu().flatten() for g in grads])))
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = out
+    terms = ("kl", "power_loss", "teacher_xent", "student_entropy")
+    rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in terms}
+    rel_grads = float((g_gpu - g_cpu).norm() / g_cpu.norm())
+    _log(f"[distill] one step at {B} x {T}, card bf16 vs CPU fp32: "
+         + "; ".join(f"{k} {m_gpu[k]:.5f} vs {m_cpu[k]:.5f} (rel {rel[k]:.2e})"
+                     for k in terms)
+         + f" (tol {TOL_DISTILL_TERMS} for each term but kl, printed only); "
+         f"student gradients rel L2 {rel_grads:.4f} (tol {TOL_DISTILL_GRADS}: "
+         f"{WHY_DISTILL})")
+    _check(max(rel[k] for k in terms[1:]) <= TOL_DISTILL_TERMS
+           and rel_grads <= TOL_DISTILL_GRADS,
+           "the card's distillation step is off the fp32 CPU step")
+
+    for name in ("student_iaf_best", "clarinet_gaussian"):
+        cfg = get_config(name)
+        sd = _teacher_state(cfg, device)
+        _reset_counts()
+        r = run_distillation(cfg, sd, num_steps=1)
+        torch.cuda.synchronize()
+        got, exp = _counts(), _student_launches(cfg, 1, 1, teacher=True)
+        _log(f"[distill] run_distillation({name}, num_steps=1): "
+             f"{r.final_metrics}; launches {got} (expected {exp})")
+        _check(got == exp, f"{name}'s distillation launches")
+        _check(all(np.isfinite(v) for v in r.final_metrics.values()),
+               f"non-finite {name} metrics")
+    return {"launches": launches}
+
+
+def phase_direct(device) -> dict:
+    """`run_student_direct_training(student_iaf)` at full width: the
+    student's kernel-3 calls with weight gradients and kernel 5 under
+    kernel 2 counted, no teacher launch."""
+    n_steps = 3
+    _reset_counts()
+    res = run_student_direct_training(CFG, num_steps=n_steps)
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = _student_launches(CFG, n_steps, 1, teacher=False)
+    _log(f"[direct] run_student_direct_training(student_iaf, num_steps="
+         f"{n_steps}): {res.final_metrics}; launches {launches} (expected "
+         f"{want})")
+    _check(launches == want, "the direct-training path's launches")
+    _check(all(np.isfinite(v) for v in res.final_metrics.values()),
+           "non-finite direct-training metrics")
     return {"launches": launches}
 
 
@@ -1315,38 +1534,47 @@ def phase_layer_times(device, smi: str) -> dict:
     return per_launch
 
 
-def phase_train_times(device, smi: str) -> dict:
-    dil = TEACHER.teacher.dilations
+def _train_kernel_times(device, smi: str, widths: str) -> dict:
+    """Kernels 2 and 3 (both modes) beside their plain versions and bounds,
+    and one layer's weight-gradient GEMM beside torch.matmul, at the bench
+    shape of one of their widths.  Returns each entry's ms, plain_ms (for
+    the GEMM torch.matmul's) and bound."""
+    (C, G, S, M), dil, _, gemm_d = TRAIN_WIDTHS[widths]
     B, T = TRAIN_BATCH, TRAIN_T
-    a = _train_inputs(B, T, device, seed=5)
+    a = _train_inputs(B, T, device, seed=5, widths=widths)
     fwd = {n: a[n] for n in _FWD}
-    counted = (gated_layer.launches, fs.flow_stack_train_backward.launches)
+    counted = (gated_layer.launches, fs.flow_stack_train_backward.launches,
+               fs.flow_stack_train_backward.launches_by.copy())
     _, acts = fs.flow_stack_train_forward(**fwd, dilations=dil)
     bargs = _bwd_args(a, acts)
     fns = {
         "kernel 2": lambda: fs.flow_stack_train_forward(**fwd, dilations=dil),
         "kernel 2 plain": lambda: fs.flow_stack_train_reference(**fwd, dilations=dil),
         "kernel 3": lambda: fs.flow_stack_train_backward(*bargs, dilations=dil),
+        "kernel 3 plain": lambda: fs.flow_stack_backward_reference(*bargs, dilations=dil),
         "kernel 3 dx-only": lambda: fs.flow_stack_train_backward(
             *bargs, dilations=dil, want_wgrads=False),
-        "kernel 3 plain": lambda: fs.flow_stack_backward_reference(*bargs, dilations=dil),
+        "kernel 3 dx-only plain": lambda: fs.flow_stack_backward_reference(
+            *bargs, dilations=dil, want_wgrads=False),
     }
     ms: dict = {}
     with torch.no_grad():
-        for name, plain in (("kernel 2", "kernel 2 plain"),
-                            ("kernel 3", "kernel 3 plain"),
-                            ("kernel 3 dx-only", None)):
-            order = [plain, name, name, plain] if plain else [name, name]
-            for k in set(order):
+        for name in ("kernel 2", "kernel 3", "kernel 3 dx-only"):
+            plain = name + " plain"
+            for k in (plain, name):
                 fns[k]()   # warm up
             torch.cuda.synchronize()
-            for k in order:   # in turns, on one card
+            for k in (plain, name, name, plain):   # in turns, on one card
                 ms.setdefault(k, []).append(
                     _time_ms(fns[k], 3 if k == plain else 5))
-    tc = TEACHER.teacher
-    K, G, GH = 2 * tc.residual_channels + TEACHER.dsp.n_mels, tc.gate_channels, tc.gate_channels // 2
-    N = tc.residual_channels + tc.skip_channels
-    rows_layers = B * T * tc.n_layers
+    # the kernels' device time alone: 3 calls replayed from a CUDA graph
+    # (at the student's widths the host's work per launch outlasts a
+    # layer's ~0.06 ms, so the events above also time the host)
+    with torch.no_grad():
+        graph = {k: _graph_ms(fns[k], 3)
+                 for k in ("kernel 2", "kernel 3", "kernel 3 dx-only")}
+    K, GH, N = 2 * C + M, G // 2, C + S
+    rows_layers = B * T * len(dil)
     flop = {"kernel 2": 2 * rows_layers * (K * G + GH * N),
             # recomputed gates, dz, dcat, dW_in, dW_out (the out GEMM is
             # not recomputed)
@@ -1354,25 +1582,28 @@ def phase_train_times(device, smi: str) -> dict:
             "kernel 3 dx-only": 2 * rows_layers * (2 * K * G + GH * N)}
     with torch.no_grad():
         grads = fns["kernel 3"]()
-        gated_layer.launches, fs.flow_stack_train_backward.launches = counted
-    nbytes = {"kernel 2": _nbytes(*fwd.values(), *fns["kernel 2"]()),
-              "kernel 3": _nbytes(*bargs, *grads),
-              "kernel 3 dx-only": _nbytes(*bargs, *grads[:2])}
+        nbytes = {"kernel 2": _nbytes(*fwd.values(), *fns["kernel 2"]()),
+                  "kernel 3": _nbytes(*bargs, *grads),
+                  "kernel 3 dx-only": _nbytes(*bargs, *grads[:2])}
     bounds = {k: _bound(flop[k], nbytes[k], PEAK_BF16) for k in flop}
     for name, v in list(ms.items()):
         rate = (f" ({flop[name] / np.mean(v) / 1e9:.1f} TFLOP/s useful; "
                 f"bound {bounds[name]['bound_ms']:.3f} ms, "
                 f"{bounds[name]['bound_by']})" if name in flop else "")
-        _log(f"[times] {smi}: {name} B={B} T={T}: "
+        _log(f"[times] {smi}: {widths} {name} B={B} T={T}: "
              + " / ".join(f"{x:.3f}" for x in v) + f" ms per call{rate}")
+    for name, v in graph.items():
+        _log(f"[times] {smi}: {widths} {name} B={B} T={T}, replayed from a "
+             f"CUDA graph: {v:.3f} ms per call ({flop[name] / v / 1e9:.1f} "
+             f"TFLOP/s useful)")
 
     # the weight-gradient GEMM of one layer alone, in turns with
     # torch.matmul on the same bf16 operands (the tap columns concatenated
     # beforehand): the one PyTorch call for that sub-step, a yardstick only.
     # Both replayed from CUDA graphs: the GEMM's host work per call is close
     # to its device time.
-    x, cond, dg, dout, z = _wgrad_operands(B, T, device, seed=9)
-    d = 64
+    x, cond, dg, dout, z = _wgrad_operands(B, T, device, seed=9, widths=widths)
+    d = gemm_d[0]
     cat = torch.cat([x, shift_right(x, d), cond], -1).reshape(B * T, -1)
     dg2, dout2, z2 = (t.reshape(B * T, -1) for t in (dg, dout, z))
     gemm = {"wgrad GEMM": lambda: fs.flow_stack_train_wgrads(x, cond, dg, dout, z, d),
@@ -1386,32 +1617,74 @@ def phase_train_times(device, smi: str) -> dict:
         for k in ("torch.matmul", "wgrad GEMM", "wgrad GEMM", "torch.matmul"):
             ms.setdefault(k, []).append(_graph_ms(gemm[k], 20))
         grads_w = gemm["wgrad GEMM"]()
+    # timing launches are not a main path's
     fs.flow_stack_train_wgrads.launches = counted_w
+    gated_layer.launches, fs.flow_stack_train_backward.launches = counted[:2]
+    fs.flow_stack_train_backward.launches_by = counted[2]
     flop_w = 2 * B * T * (K * G + N * GH)
     bound_w = _bound(flop_w, _nbytes(x, cond, dg, dout, z, *grads_w), PEAK_BF16)
     for name in ("wgrad GEMM", "torch.matmul"):
         v = ms[name]
-        _log(f"[times] {smi}: {name} (one layer's dW_in and dW_out) B={B} T={T}: "
-             + " / ".join(f"{x:.4f}" for x in v) + f" ms per call "
-             f"({flop_w / np.mean(v) / 1e9:.1f} TFLOP/s useful; bound "
-             f"{bound_w['bound_ms']:.4f} ms, {bound_w['bound_by']}; x{tc.n_layers} "
-             f"layers {tc.n_layers * np.mean(v):.3f} ms)")
+        _log(f"[times] {smi}: {widths} {name} (one layer's dW_in and dW_out) "
+             f"B={B} T={T}: " + " / ".join(f"{x:.4f}" for x in v)
+             + f" ms per call ({flop_w / np.mean(v) / 1e9:.1f} TFLOP/s useful; "
+             f"bound {bound_w['bound_ms']:.4f} ms, {bound_w['bound_by']}; "
+             f"x{len(dil)} layers {len(dil) * np.mean(v):.3f} ms)")
+    mean = {k: float(np.mean(v)) for k, v in ms.items()}
+    return {name: {"ms": graph[k], "plain_ms": mean[k + " plain"], **bounds[k]}
+            for name, k in (("fwd", "kernel 2"), ("bwd", "kernel 3"),
+                            ("bwd_dx", "kernel 3 dx-only"))} | {
+        "gemm": {"ms": mean["wgrad GEMM"], "plain_ms": mean["torch.matmul"],
+                 **bound_w}}
 
-    # the teacher train step at batch 8 x 16,384
+
+def phase_train_times(device, smi: str) -> dict:
+    """The training kernels at teacher_lj's widths, and the teacher train
+    step at batch 8 x 16,384."""
+    result = _train_kernel_times(device, smi, "teacher_lj")
+    B, T = TRAIN_BATCH, TRAIN_T
+    counted = (gated_layer.launches, fs.flow_stack_train_backward.launches,
+               fs.flow_stack_train_backward.launches_by.copy())
     _, state, step = _teacher_step(device, SEED)
     batch = torch.from_numpy(make_val_batch(TEACHER, None, B)).to(device)
     for _ in range(2):
         step(state, batch)
     torch.cuda.synchronize()
     step_ms = _time_ms(lambda: step(state, batch), 10)
-    gated_layer.launches, fs.flow_stack_train_backward.launches = counted
+    gated_layer.launches, fs.flow_stack_train_backward.launches = counted[:2]
+    fs.flow_stack_train_backward.launches_by = counted[2]
     _log(f"[times] {smi}: teacher_lj train step, batch {B} x {T}: {step_ms:.3f} "
          f"ms per step, {B / (step_ms / 1e3):.1f} utterances/s")
-    mean = {k: float(np.mean(v)) for k, v in ms.items()}
-    return {"fwd": {"ms": mean["kernel 2"], "plain_ms": mean["kernel 2 plain"],
-                    **bounds["kernel 2"]},
-            "bwd": {"ms": mean["kernel 3"], "plain_ms": mean["kernel 3 plain"],
-                    **bounds["kernel 3"]}}
+    return result
+
+
+def phase_distill_times(device, smi: str) -> dict:
+    """The training kernels at student_iaf's widths, and the distillation
+    and direct-training steps at batch 8 x 16,384."""
+    result = _train_kernel_times(device, smi, "student_iaf")
+    B, T = TRAIN_BATCH, TRAIN_T
+    counted = (gated_layer.launches, fs.flow_stack_train_backward.launches,
+               fs.flow_stack_train_backward.launches_by.copy())
+    batch = torch.from_numpy(make_val_batch(CFG, None, B)).to(device)
+    _, student, state, step = _distill_pair(CFG, device)
+    direct = init_student(CFG, torch.Generator().manual_seed(SEED + 1),
+                          device, stack_mode="train")
+    d_state = create_train_state(dict(direct.named_parameters()), CFG.train,
+                                 seed=SEED + 2)
+    d_step = make_student_direct_train_step(direct, CFG)
+    ms = {}
+    for name, fn in (("distillation", lambda: step(state, batch)),
+                     ("direct", lambda: d_step(d_state, batch))):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        ms[name] = _time_ms(fn, 5)
+        _log(f"[times] {smi}: student_iaf {name} train step, batch {B} x {T}: "
+             f"{ms[name]:.3f} ms per step, {B / (ms[name] / 1e3):.1f} "
+             f"utterances/s")
+    gated_layer.launches, fs.flow_stack_train_backward.launches = counted[:2]
+    fs.flow_stack_train_backward.launches_by = counted[2]
+    return result
 
 
 def phase_ar_times(device, smi: str) -> dict:
@@ -1493,6 +1766,7 @@ def main() -> int:
     phase_build()
     kern = phase_kernel(device)
     train_kern = phase_train_kernels(device)
+    student_kern = phase_train_kernels(device, "student_iaf")
     ar_kern = phase_ar_kernel(device)
     phase_layer_kernel(device)
     acc_kern = phase_acc_kernel(device)
@@ -1502,10 +1776,13 @@ def main() -> int:
     phase_layer_path(device)
     teacher = phase_teacher(device)
     phase_train_layer(device)
+    distill = phase_distill(device)
+    phase_direct(device)
     ar_main = phase_ar_main(device)
     times = phase_times(device, smi)
     layer_times = phase_layer_times(device, smi)
     train_times = phase_train_times(device, smi)
+    distill_times = phase_distill_times(device, smi)
     ar_times = phase_ar_times(device, smi)
     train_src = "pwn_tpu_torch/csrc/flow_stack_train.cu"
     # no single PyTorch call computes any of these functions
@@ -1530,6 +1807,30 @@ def main() -> int:
         "launches": teacher["launches"]["kernel 3"],
         "max_abs_err": train_kern["bwd_max_abs_err"], **train_times["bwd"],
         "library_ms": None,
+    }, {
+        # the distillation path: the student's forward and the teacher's,
+        # each kernel 5 once per layer
+        "name": "flow_stack_train_forward[student_iaf widths]", "route": "cuda",
+        "source": "pwn_tpu_torch/csrc/gated_layer.cu",
+        "replaces": "pwn_tpu/ops/pallas/flow_stack.py:373",
+        "launches": distill["launches"]["kernel 5"],
+        "max_abs_err": student_kern["fwd_max_abs_err"],
+        **distill_times["fwd"], "library_ms": None,
+    }, {
+        "name": "flow_stack_train_backward[student_iaf widths]",
+        "route": "cuda", "source": train_src,
+        "replaces": "pwn_tpu/ops/pallas/flow_stack.py:420",
+        "launches": distill["launches"]["kernel 3 student"],
+        "max_abs_err": student_kern["bwd_max_abs_err"],
+        **distill_times["bwd"], "library_ms": None,
+    }, {
+        # the frozen teacher on the distillation path
+        "name": "flow_stack_train_backward[teacher_lj widths, dx-only]",
+        "route": "cuda", "source": train_src,
+        "replaces": "pwn_tpu/ops/pallas/flow_stack.py:420",
+        "launches": distill["launches"]["kernel 3 teacher dx"],
+        "max_abs_err": train_kern["bwd_dx_max_abs_err"],
+        **train_times["bwd_dx"], "library_ms": None,
     }, {
         "name": "ar_sampler", "route": "cuda",
         "source": "pwn_tpu_torch/csrc/ar_sampler.cu",

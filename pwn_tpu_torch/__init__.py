@@ -7,7 +7,9 @@ channels-last `(B, T, C)` layout so tests compare like with like.
 
 What is ported: student IAF synthesis (mel -> waveform in one parallel
 pass) through `generate_student` and `vocode_many`, teacher training on
-the synthetic corpus through `run_teacher_training`, and teacher
+the synthetic corpus through `run_teacher_training`, distillation of the
+student from a frozen teacher and direct student training through
+`run_distillation` and `run_student_direct_training`, and teacher
 autoregressive sampling through `generate_teacher`.  The flow stack runs
 in hand-written CUDA C++ kernels on a CUDA tensor (`csrc/flow_stack.cu`
 for inference, `csrc/flow_stack_train.cu` for the training forward and
@@ -33,6 +35,8 @@ _LAZY = {
     "init_student": "pwn_tpu_torch.models.student",
     "init_teacher": "pwn_tpu_torch.models.teacher",
     "run_teacher_training": "pwn_tpu_torch.training.loop",
+    "run_distillation": "pwn_tpu_torch.training.loop",
+    "run_student_direct_training": "pwn_tpu_torch.training.loop",
     "require_cuda": "pwn_tpu_torch.utils.platform",
 }
 

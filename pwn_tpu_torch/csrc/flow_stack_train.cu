@@ -34,6 +34,23 @@
 // dpart and dcs written and read back, dcond read and written; acts, cond
 // and dskip read) and with weight gradients ~1 KB more (bf16 dg, dout, z
 // stored and read by the GEMM): a byte bound of 3-4 ms, so bytes bound it.
+// At student_iaf widths (C=64, G=128, S=64, M=80) a row costs a quarter of
+// the products (192,512 FLOP a layer with weight gradients: 0.255 ms over
+// 10 layers at B=8, T=16,384) against about half the bytes (the fp32
+// dcond chain keeps its 80 columns), so the memory phases take a larger
+// share than at the teacher's widths.
+//
+// Two instantiations, `Teacher` and `Student` below: one body, its slice
+// and ring-slot counts derived from the widths in `Dims`.  At the student's
+// widths x, tap and z are one 64-column slice each, dout and dg two; the
+// gates are one 128-column pass (64 tanh columns, their 64 sigmoid
+// partners), so the "gate halves" loop runs once; dz, dcx and dcs have
+// N = 64 and take m64n64 products over ring slots of 128 K rows (two 64-row
+// boxes stacked) where the teacher's N = 128 products take slots of 64 K
+// rows (two 64-column boxes side by side).  The gate accumulator (64 x 128)
+// and dz (64 x 64) fit a consumer's registers together, so at these widths
+// nothing forces "dz first": the order is kept only so that one body
+// serves both.
 //
 // Design, and what it does about the TPU kernels' assumptions:
 // * Grid order.  The TPU grid runs its time tiles in order and carries the
@@ -49,18 +66,19 @@
 //   memory beside its tiles.  The layer pass (`train_bwd_layer`) is kernel
 //   5's structure: persistent blocks over 128-row tiles, one producer
 //   thread streaming the weights by TMA through a ring of four 16 KB slots
-//   (28 a tile), two consumer warpgroups of 64 rows running every product
-//   on wgmma.  The epilogues' read-modify-writes (dpart, dcond32) issue
-//   their loads before the product whose result they take.  W_in and W_out arrive as stored, (out, in): the gate product
-//   reads W_in K-major, dz = dout @ W_out^T and dcat = dg @ W_in read W_out
-//   and W_in MN-major (their rows are the product's K), so there are no
-//   transposed copies.
-// * Registers.  The gate accumulator (64 x 256 fp32) beside dz (64 x 128)
-//   would not fit a consumer's registers: dz comes first, then the gate
-//   product runs in two halves of 128 columns (64 tanh, their 64 sigmoid
-//   partners), and dg is formed in registers per half (the exp2 /
-//   reciprocal forms of tanh and sigmoid below) and stored in bf16 over
-//   the dout tile, whose product is done.
+//   (28 a tile at the teacher's widths, 9 at the student's), two consumer
+//   warpgroups of 64 rows running every product on wgmma.  The epilogues'
+//   read-modify-writes (dpart, dcond32) issue their loads before the
+//   product whose result they take.  W_in and W_out arrive as stored,
+//   (out, in): the gate product reads W_in K-major, dz = dout @ W_out^T
+//   and dcat = dg @ W_in read W_out and W_in MN-major (their rows are the
+//   product's K), so there are no transposed copies.
+// * Registers.  At the teacher's widths the gate accumulator (64 x 256
+//   fp32) beside dz (64 x 128) would not fit a consumer's registers: dz
+//   comes first, then the gate product runs in two halves of 128 columns
+//   (64 tanh, their 64 sigmoid partners), and dg is formed in registers
+//   per half (the exp2 / reciprocal forms of tanh and sigmoid below) and
+//   stored in bf16 over the dout tile, whose product is done.
 // * Weight gradients.  The TPU kernel keeps fp32 accumulators resident
 //   across the whole grid.  Here each layer's pass stores dg and dout (TMA
 //   from their swizzled tiles) and z (bf16, as the reference rounds them),
@@ -80,21 +98,34 @@
 
 namespace {
 
+constexpr int L_SLOT = 16384;            // one weight-ring slot: two 64 x 64 boxes
+
+// The widths and, derived from them, the 64-column slices of the layer
+// pass's tiles and its ring slots (teacher | student):
 template <int C_, int G_, int S_, int M_>
 struct Dims {
   static constexpr int C = C_, G = G_, S = S_, M = M_;
   static constexpr int GH = G / 2;        // tanh half, sigmoid half
   static constexpr int K_IN = 2 * C + M;  // gate depth [x | tap | cond]
   static constexpr int N_OUT = C + S;     // out width [residual | skip]
-  // the layer pass: x, tap, cond and z two 64-column slices each, cond's
-  // second one M - 64 wide; dout and dg four; the weight-gradient GEMM's
-  // A (dg, dout) four boxes, B (x, z, cond) two
-  static_assert(G == 4 * KC && N_OUT == 4 * KC && C == 2 * KC && GH == 2 * KC &&
-                    M > KC && M <= 2 * KC && M % 16 == 0,
+  static constexpr int XS = C / KC;       // x, tap (and z): 2 | 1 slices
+  static constexpr int CS = 2;            // cond: 64 columns, then M - 64
+  static constexpr int AS = 2 * XS + CS;  // [x | tap | cond]: 6 | 4
+  static constexpr int OS = N_OUT / KC;   // dout, then dg over it: 4 | 2
+  static constexpr int SS = S / KC;       // dskip, after dx's XS: 2 | 1
+  static constexpr int NH = GH / KC;      // gate passes of 64 tanh + 64 sigmoid rows
+  // The products with N = C (= GH): dz over W_out's N_OUT rows, dcx and
+  // dcs over W_in's G rows, B MN-major.  A slot holds KR rows of their K
+  // (64 | 128), as two 64-column boxes side by side (C = 128) or two
+  // 64-row boxes stacked (C = 64).
+  static constexpr int KR = L_SLOT / (2 * C);
+  static_assert((C == KC || C == 2 * KC) && GH == C && G == N_OUT && S % KC == 0 &&
+                    M > KC && M <= 2 * KC && M % 16 == 0 && AS % 2 == 0,
                 "the slices of the layer pass and the weight-gradient tiles");
 };
 
 using Teacher = Dims<128, 256, 128, 80>;
+using Student = Dims<64, 128, 64, 80>;
 
 // ----------------------------------------------------- kernel 3: layer pass
 // One layer of the backward over all 128-row tiles.  A persistent block
@@ -126,21 +157,27 @@ using Teacher = Dims<128, 256, 128, 80>;
 //      + dcx in place, dcs_cur = dcs, dcond32 (+)= dcc; the loads of the
 //      read-modify-writes are issued before the product.  With weight
 //      gradients, the dg tile goes to dg_g by TMA.
-// Ring order per tile, 28 slots of 16 KB: dz 4 (64 rows of W_out), gate
-// half 0 and 1, 6 each (the k-slices [x | tap | cond]), dcx 4, dcs 4 and
-// dcc 4 (64 rows of W_in each).
+// Ring order per tile, slots of 16 KB (teacher 28 | student 9): dz N_OUT
+// / KR (4 | 1), the gate passes NH x AS (the k-slices [x | tap | cond]:
+// 2 x 6 | 1 x 4), dcx and dcs G / KR each (4 | 1), dcc G / 64 (64 rows of
+// W_in each: 4 | 2).
 constexpr int LT = 128;                  // rows per tile
 constexpr int LWG = 64;                  // rows per consumer warpgroup
 constexpr int L_THREADS = 384;           // two consumer warpgroups + a producer
 constexpr int L_TILE = LT * ROW_BYTES;   // one 64-column slice of a tile: 16 KB
 static_assert(LT == 128, "swz128 addresses 128-row tiles");
-constexpr int L_SLOT = 16384;
 constexpr int L_STAGES = 4;
-constexpr int L_A = 0;                   // x (2 slices), tap (2), cond (2)
-constexpr int L_D = L_A + 6 * L_TILE;    // dout, then dg: 4 slices
-constexpr int L_W = L_D + 4 * L_TILE;    // the weight ring
-constexpr int L_BAR = L_W + L_STAGES * L_SLOT;
-constexpr int L_SMEM = L_BAR + 8 * (2 + 4 + 2 * L_STAGES) + 1024;  // + alignment
+constexpr int L_A = 0;                   // x (XS slices), tap (XS), cond (2)
+// Shared memory of the layer pass: teacher 230,512 B, student 164,976 B,
+// against the 232,448 a block may opt in to.
+template <class D>
+struct Lay {
+  static constexpr int D_ = L_A + D::AS * L_TILE;  // dout, then dg: OS slices
+  static constexpr int W = D_ + D::OS * L_TILE;    // the weight ring
+  static constexpr int BAR = W + L_STAGES * L_SLOT;
+  static constexpr int SMEM = BAR + 8 * (2 + 4 + 2 * L_STAGES) + 1024;  // + alignment
+  static_assert(SMEM <= 232448, "a block's shared memory");
+};
 
 // With PWN_FLOW_STACK_TRAIN_PHASES defined (tools/torch_flow_stack_train_phases.py
 // builds it so), thread 0 of block 0 adds the clock cycles of each phase of
@@ -221,11 +258,13 @@ train_bwd_layer(const __grid_constant__ CUtensorMap tm_x,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  using Y = Lay<D>;
+  constexpr int KR = D::KR;
   const uint32_t base = smem_u32(smem);
-  const uint32_t a_full = base + L_BAR, a_empty = a_full + 8;
+  const uint32_t a_full = base + Y::BAR, a_empty = a_full + 8;
   const uint32_t d_full = a_empty + 8, d_empty = d_full + 16;  // one each per warpgroup
   const uint32_t full = d_empty + 16, empty = full + 8 * L_STAGES;
-  const uint32_t ring = base + L_W;
+  const uint32_t ring = base + Y::W;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -259,15 +298,24 @@ train_bwd_layer(const __grid_constant__ CUtensorMap tm_x,
       tma_load_2d(dst + L_SLOT / 2, map, col + dcol, row + drow, bar);
       ++c;
     };
+    // slot i of a product with N = C and B MN-major: KR rows of the
+    // weight from row KR i, columns [col, col + C)
+    auto slot_mn = [&](const CUtensorMap* map, int col, int i) {
+      if (D::C == 2 * KC)
+        slot(map, col, KR * i, KC, 0);
+      else
+        slot(map, col, KR * i, 0, KC);
+    };
     auto load_a = [&](int tile, int it) {
       const int b = tile / n_tt, t0 = (tile % n_tt) * LT;
       mbar_wait(a_empty, (it & 1) ^ 1);
-      mbar_expect_tx(a_full, 6 * L_TILE);
-      for (int k = 0; k < 2; ++k) {
+      mbar_expect_tx(a_full, D::AS * L_TILE);
+      for (int k = 0; k < D::XS; ++k) {
         tma_load_3d(base + L_A + k * L_TILE, &tm_x, k * KC, t0, b, a_full);
-        tma_load_3d(base + L_A + (2 + k) * L_TILE, &tm_x, k * KC, t0 - d, b, a_full);
-        tma_load_3d(base + L_A + (4 + k) * L_TILE, &tm_cond, k * KC, t0, b, a_full);
+        tma_load_3d(base + L_A + (D::XS + k) * L_TILE, &tm_x, k * KC, t0 - d, b, a_full);
       }
+      for (int k = 0; k < D::CS; ++k)
+        tma_load_3d(base + L_A + (2 * D::XS + k) * L_TILE, &tm_cond, k * KC, t0, b, a_full);
     };
     int it = 0;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
@@ -275,17 +323,18 @@ train_bwd_layer(const __grid_constant__ CUtensorMap tm_x,
       if (it == 0) load_a(tile, 0);
       for (int w = 0; w < 2; ++w) {
         mbar_wait(d_empty + 8 * w, (it & 1) ^ 1);
-        mbar_expect_tx(d_full + 8 * w, 2 * LWG * ROW_BYTES);
-        for (int k = 0; k < 2; ++k)
-          tma_load_3d(base + L_D + (2 + k) * L_TILE + w * LWG * ROW_BYTES, &tm_dskip, k * KC,
-                      t0 + w * LWG, b, d_full + 8 * w);
+        mbar_expect_tx(d_full + 8 * w, D::SS * LWG * ROW_BYTES);
+        for (int k = 0; k < D::SS; ++k)
+          tma_load_3d(base + Y::D_ + (D::XS + k) * L_TILE + w * LWG * ROW_BYTES, &tm_dskip,
+                      k * KC, t0 + w * LWG, b, d_full + 8 * w);
       }
-      for (int i = 0; i < 4; ++i) slot(&tm_wout, 0, 64 * i, KC, 0);  // dz
-      for (int h = 0; h < 2; ++h)  // the gate halves: tanh rows, sigmoid rows
-        for (int i = 0; i < 6; ++i) slot(&tm_win, KC * i, 64 * h, 0, D::GH);
+      for (int i = 0; i < D::N_OUT / KR; ++i) slot_mn(&tm_wout, 0, i);  // dz
+      for (int h = 0; h < D::NH; ++h)  // the gate passes: tanh rows, sigmoid rows
+        for (int i = 0; i < D::AS; ++i) slot(&tm_win, KC * i, KC * h, 0, D::GH);
       if (tile + (int)gridDim.x < n_tiles) load_a(tile + gridDim.x, it + 1);
-      for (int h = 0; h < 3; ++h)  // dcx, dcs, dcc
-        for (int i = 0; i < 4; ++i) slot(&tm_win, h * D::C, 64 * i, KC, 0);
+      for (int h = 0; h < 2; ++h)  // dcx, dcs
+        for (int i = 0; i < D::G / KR; ++i) slot_mn(&tm_win, h * D::C, i);
+      for (int i = 0; i < D::G / KC; ++i) slot(&tm_win, 2 * D::C, KC * i, KC, 0);  // dcc
     }
     return;
   }
@@ -297,6 +346,25 @@ train_bwd_layer(const __grid_constant__ CUtensorMap tm_x,
   const int q2 = 2 * (lane % 4);
   const uint32_t bar_id = 1 + wg;
   int c = 0;
+  // acc += the dout or dg tile (its first K columns) @ B, a product with
+  // N = C whose B (W_out or W_in rows [0, K) at some column) arrives in
+  // the ring as K / KR MN-major slots of KR rows
+  auto mn_product = [&](auto& acc, int K) {
+#pragma unroll
+    for (int i = 0; i < K / KR; ++i) {
+      fence_regs(acc);
+      on_slot(c, full, empty, lane, [&](int s) {
+        const uint64_t db = desc_mn_sw128(ring + s * L_SLOT, L_SLOT / 2);
+#pragma unroll
+        for (int k = 0; k < KR / 16; ++k) {
+          const int kk = i * (KR / 16) + k;  // the k-step over the tile's columns
+          const uint64_t da = desc_sw128(base + Y::D_ + (kk / 4) * L_TILE + wrow) + 2 * (kk % 4);
+          wgmma_mn<0, 1>(acc, da, db + 128 * k);
+        }
+      });
+      fence_regs(acc);
+    }
+  };
 #ifdef PWN_FLOW_STACK_TRAIN_PHASES
   unsigned long long phase_t = clock64();
 #endif
@@ -336,7 +404,7 @@ train_bwd_layer(const __grid_constant__ CUtensorMap tm_x,
 #ifndef PWN_FST_NO_DX
         if (!top && t < T) *reinterpret_cast<float4*>(dpart + (rb + t) * D::C + col) = v[k];
 #endif
-        *reinterpret_cast<uint2*>(smem + L_D + swz128(r, col)) =
+        *reinterpret_cast<uint2*>(smem + Y::D_ + swz128(r, col)) =
             make_uint2(pack(v[k].x, v[k].y), pack(v[k].z, v[k].w));
       }
     }
@@ -344,46 +412,37 @@ train_bwd_layer(const __grid_constant__ CUtensorMap tm_x,
     asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
     mbar_wait(d_full + 8 * wg, it & 1);
     if (wgrads && tid == 0) {
-      for (int k = 0; k < 4; ++k)
-        tma_store_3d(&tm_dout, base + L_D + k * L_TILE + wrow, k * KC, t0 + wg * LWG, b);
+      for (int k = 0; k < D::OS; ++k)
+        tma_store_3d(&tm_dout, base + Y::D_ + k * L_TILE + wrow, k * KC, t0 + wg * LWG, b);
       bulk_commit();
     }
     PHASE(0);
 
     // 2. dz = dout @ W_out^T
-    float dz[64];
+    float dz[D::GH / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dz[i] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      fence_regs(dz);
-      on_slot(c, full, empty, lane, [&](int s) {
-        const uint64_t da = desc_sw128(base + L_D + i * L_TILE + wrow);
-        const uint64_t db = desc_mn_sw128(ring + s * L_SLOT, L_SLOT / 2);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) wgmma_m64n128<0, 1>(dz, da + 2 * k, db + 128 * k);
-      });
-      fence_regs(dz);
-    }
+    for (int i = 0; i < D::GH / 2; ++i) dz[i] = 0.f;
+    mn_product(dz, D::N_OUT);
     if (wgrads && tid == 0) bulk_wait_read<0>();  // dout_g has read the tile
     asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
     PHASE(1);
     mbar_wait(a_full, it & 1);
     PHASE(2);
 
-    // 3. the gates per half, dg into the dout tile's place
+    // 3. the gates per pass of 64 tanh columns and their partners, dg into
+    //    the dout tile's place
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < D::NH; ++h) {
       float g[64];
 #pragma unroll
       for (int i = 0; i < 64; ++i) g[i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 6; ++i) {
+      for (int i = 0; i < D::AS; ++i) {
         fence_regs(g);
         on_slot(c, full, empty, lane, [&](int s) {
           const uint64_t da = desc_sw128(base + L_A + i * L_TILE + wrow);
           const uint64_t db = desc_sw128(ring + s * L_SLOT);
-          const int steps = (i < 5 ? KC : D::M - KC) / 16;  // cond's 2nd slice: M - 64
+          const int steps = (i < D::AS - 1 ? KC : D::M - KC) / 16;  // cond's 2nd: M - 64
 #pragma unroll
           for (int k = 0; k < 4; ++k)
             if (k < steps) wgmma_m64n128<0, 0>(g, da + 2 * k, db + 2 * k);
@@ -411,8 +470,9 @@ train_bwd_layer(const __grid_constant__ CUtensorMap tm_x,
             z[e] = ta * sb;
           }
           const int r = r0 + 8 * hh;
-          *reinterpret_cast<uint32_t*>(smem + L_D + swz128(r, col)) = pack(da[0], da[1]);
-          *reinterpret_cast<uint32_t*>(smem + L_D + swz128(r, D::GH + col)) = pack(db[0], db[1]);
+          *reinterpret_cast<uint32_t*>(smem + Y::D_ + swz128(r, col)) = pack(da[0], da[1]);
+          *reinterpret_cast<uint32_t*>(smem + Y::D_ + swz128(r, D::GH + col)) =
+              pack(db[0], db[1]);
 #ifndef PWN_FST_NO_EPILOGUE
           if (z_g != nullptr && t0 + r < T)
             *reinterpret_cast<uint32_t*>(z_g + (rb + t0 + r) * D::GH + col) = pack(z[0], z[1]);
@@ -426,8 +486,8 @@ train_bwd_layer(const __grid_constant__ CUtensorMap tm_x,
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
     if (wgrads && tid == 0) {
-      for (int k = 0; k < 4; ++k)
-        tma_store_3d(&tm_dg, base + L_D + k * L_TILE + wrow, k * KC, t0 + wg * LWG, b);
+      for (int k = 0; k < D::OS; ++k)
+        tma_store_3d(&tm_dg, base + Y::D_ + k * L_TILE + wrow, k * KC, t0 + wg * LWG, b);
       bulk_commit();
     }
 
@@ -447,20 +507,10 @@ train_bwd_layer(const __grid_constant__ CUtensorMap tm_x,
       }
 #pragma unroll
       for (int part = 0; part < 2; ++part) {
-        float acc[64];
+        float acc[D::C / 2];
 #pragma unroll
-        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          fence_regs(acc);
-          on_slot(c, full, empty, lane, [&](int s) {
-            const uint64_t da = desc_sw128(base + L_D + i * L_TILE + wrow);
-            const uint64_t db = desc_mn_sw128(ring + s * L_SLOT, L_SLOT / 2);
-#pragma unroll
-            for (int k = 0; k < 4; ++k) wgmma_m64n128<0, 1>(acc, da + 2 * k, db + 128 * k);
-          });
-          fence_regs(acc);
-        }
+        for (int i = 0; i < D::C / 2; ++i) acc[i] = 0.f;
+        mn_product(acc, D::G);
 #ifndef PWN_FST_NO_EPILOGUE
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
@@ -500,10 +550,10 @@ train_bwd_layer(const __grid_constant__ CUtensorMap tm_x,
 #pragma unroll
       for (int i = 0; i < 40; ++i) acc[i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < D::G / KC; ++i) {
         fence_regs(acc);
         on_slot(c, full, empty, lane, [&](int s) {
-          const uint64_t da = desc_sw128(base + L_D + i * L_TILE + wrow);
+          const uint64_t da = desc_sw128(base + Y::D_ + i * L_TILE + wrow);
           const uint64_t db = desc_mn_sw128(ring + s * L_SLOT, L_SLOT / 2);
 #pragma unroll
           for (int k = 0; k < 4; ++k) wgmma_m64n80<0, 1>(acc, da + 2 * k, db + 128 * k);
@@ -548,59 +598,69 @@ struct Part {
   static constexpr int P = BRS + D::N_OUT;
 };
 
-// Blocks (tile, split).  Tile 0, 1, 2: the x, tap and cond columns of
-// dW_in = dg^T [x | x(t - d) | cond], with db_g in tile 0; tile 3: dW_out =
-// dout^T z, with db_rs.  Every tile is a 256 x 128 output (cond's 80 columns
-// with zeros past them): A (dg or dout) 256 columns, B 128.  A stage is WR
-// rows of one batch row, t0 = (q % n_tt) * WR for stage q of b = q / n_tt;
-// TMA fills zeros past T, where both operands then contribute nothing.
-// Warpgroups 0 and 1 own the output rows [128 wg, 128 wg + 128) as two
-// m64n128 accumulators; warpgroup 2's first thread loads.
+// Blocks (tile, split).  Tiles [0, TILES - 1) are the 128-column blocks of
+// dW_in = dg^T [x | x(t - d) | cond], two 64-column boxes of B each (box
+// kb of the AS slices [x | tap | cond]), with db_g in tile 0; tile TILES -
+// 1 is dW_out = dout^T z, with db_rs.  Teacher: tiles x, tap, cond, out;
+// student: [x | tap], cond, out.  Every tile is a G x 128 output (cond's 80
+// columns, and the student's 64 of z, with zeros or repeats past them that
+// are not stored): A (dg or dout) G columns, B 128.  A stage is WR rows of
+// one batch row, t0 = (q % n_tt) * WR for stage q of b = q / n_tt; TMA
+// fills zeros past T, where both operands then contribute nothing.
+// Warpgroups 0 and 1 own the output rows [G/2 wg, G/2 wg + G/2) as NA
+// m64n128 accumulators (2 | 1); warpgroup 2's first thread loads.
 constexpr int WR = 64;                  // rows of the reduction per stage
 constexpr int WBOX = WR * ROW_BYTES;    // one 64-column box of WR rows: 8 KB
-constexpr int W_STAGE = 6 * WBOX;       // A: 4 boxes, B: 2
 constexpr int W_STAGES = 4;
 constexpr int W_THREADS = 384;
-constexpr int W_TILES = 4;
-constexpr int W_ONES = W_STAGES * W_STAGE;  // an all-ones 8 x 64 K-major tile
-constexpr int W_BAR = W_ONES + 1024;
-constexpr int W_SMEM = W_BAR + 16 * W_STAGES + 1024;  // + alignment
 
-template <bool BIAS>
-__device__ __forceinline__ void wgrad_mma(float (&acc0)[64], float (&acc1)[64],
-                                          float (&b0)[4], float (&b1)[4], uint32_t stages,
+template <class D>
+struct Wg {
+  static constexpr int A_BOXES = D::G / KC;           // A: 4 | 2 boxes
+  static constexpr int NA = A_BOXES / 2;              // per warpgroup
+  static constexpr int TILES = D::AS / 2 + 1;         // 4 | 3
+  static constexpr int STAGE = (A_BOXES + 2) * WBOX;  // A, then B's 2 boxes
+  static constexpr int ONES = W_STAGES * STAGE;       // an all-ones 8 x 64 K-major tile
+  static constexpr int BAR = ONES + 1024;
+  static constexpr int SMEM = BAR + 16 * W_STAGES + 1024;  // + alignment
+};
+
+template <class D, bool BIAS>
+__device__ __forceinline__ void wgrad_mma(float (&acc)[Wg<D>::NA][64],
+                                          float (&bs)[Wg<D>::NA][4], uint32_t stages,
                                           uint32_t ones, uint32_t full, uint32_t empty,
                                           int wg, int n, int lane) {
+  using W = Wg<D>;
   const uint64_t d1 = desc_sw128(ones);
   for (int i = 0; i < n; ++i) {
     const int s = i % W_STAGES;
     mbar_wait(full + 8 * s, (i / W_STAGES) & 1);
-    const uint32_t a = stages + s * W_STAGE + 2 * wg * WBOX;
+    const uint32_t a = stages + s * W::STAGE + W::NA * wg * WBOX;
     const uint64_t da = desc_mn_sw128(a, WBOX);
-    const uint64_t db = desc_mn_sw128(stages + s * W_STAGE + 4 * WBOX, WBOX);
-    fence_regs(acc0);
-    fence_regs(acc1);
+    const uint64_t db = desc_mn_sw128(stages + s * W::STAGE + W::A_BOXES * WBOX, WBOX);
+#pragma unroll
+    for (int m = 0; m < W::NA; ++m) fence_regs(acc[m]);
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < WR / 16; ++k) {  // one k-step = 16 rows = 2048 bytes
-      wgmma_m64n128<1, 1>(acc0, da + 128 * k, db + 128 * k);
-      wgmma_m64n128<1, 1>(acc1, da + (WBOX >> 4) + 128 * k, db + 128 * k);
-      if (BIAS) {
-        wgmma_m64n8<1, 0>(b0, da + 128 * k, d1);
-        wgmma_m64n8<1, 0>(b1, da + (WBOX >> 4) + 128 * k, d1);
+#pragma unroll
+      for (int m = 0; m < W::NA; ++m) {
+        wgmma_m64n128<1, 1>(acc[m], da + m * (WBOX >> 4) + 128 * k, db + 128 * k);
+        if (BIAS) wgmma_m64n8<1, 0>(bs[m], da + m * (WBOX >> 4) + 128 * k, d1);
       }
     }
     wgmma_commit();
     wgmma_wait<1>();  // the previous stage's products are done: release it
-    fence_regs(acc0);
-    fence_regs(acc1);
+#pragma unroll
+    for (int m = 0; m < W::NA; ++m) fence_regs(acc[m]);
     if (i > 0 && lane == 0) mbar_arrive(empty + 8 * ((i - 1) % W_STAGES));
   }
   wgmma_wait<0>();
-  fence_regs(acc0);
-  fence_regs(acc1);
-  fence_regs(b0);
-  fence_regs(b1);
+#pragma unroll
+  for (int m = 0; m < W::NA; ++m) {
+    fence_regs(acc[m]);
+    fence_regs(bs[m]);
+  }
 }
 
 // One m64n128 accumulator into a split's partials: fragment j holds columns
@@ -611,6 +671,7 @@ __device__ __forceinline__ void wgrad_store(const float (&acc)[64], const float 
                                             float* pp, int tile, bool bias, int m0,
                                             int lane) {
   using P = Part<D>;
+  const bool out_tile = tile == Wg<D>::TILES - 1;
   const int q2 = 2 * (lane % 4);
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
@@ -619,10 +680,12 @@ __device__ __forceinline__ void wgrad_store(const float (&acc)[64], const float 
     for (int j = 0; j < 16; ++j) {
       const int col = 8 * j + q2;
       const float2 v = make_float2(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
-      if (tile == 3)
-        *reinterpret_cast<float2*>(pp + P::OUT + (size_t)m * D::GH + col) = v;
-      else if (128 * tile + col < D::K_IN)
+      if (out_tile) {
+        if (col < D::GH)
+          *reinterpret_cast<float2*>(pp + P::OUT + (size_t)m * D::GH + col) = v;
+      } else if (128 * tile + col < D::K_IN) {
         *reinterpret_cast<float2*>(pp + P::IN + (size_t)m * D::K_IN + 128 * tile + col) = v;
+      }
     }
     if (bias && lane % 4 == 0) pp[(tile == 0 ? P::BG : P::BRS) + m] = bs[2 * e];
   }
@@ -637,20 +700,22 @@ wgrad_gemm(const __grid_constant__ CUtensorMap tm_dg,
            const __grid_constant__ CUtensorMap tm_z, float* __restrict__ part, int n_tt,
            int n_stages, int per_split, int d) {
   using P = Part<D>;
+  using W = Wg<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const uint32_t base = smem_u32(smem);
-  const uint32_t full = base + W_BAR, empty = full + 8 * W_STAGES;
+  const uint32_t full = base + W::BAR, empty = full + 8 * W_STAGES;
   const int tile = blockIdx.x, split = blockIdx.y;
   const int q0 = split * per_split;
   const int q1 = min(q0 + per_split, n_stages);
   const int n = max(q1 - q0, 0);
-  const bool bias = tile == 0 || tile == 3;
+  const bool out_tile = tile == W::TILES - 1;
+  const bool bias = tile == 0 || out_tile;
   const int wg = threadIdx.x / 128;
 
   for (int i = threadIdx.x; i < 1024 / 4; i += W_THREADS)  // bf16 1.0 pairs
-    reinterpret_cast<uint32_t*>(smem + W_ONES)[i] = 0x3F803F80u;
+    reinterpret_cast<uint32_t*>(smem + W::ONES)[i] = 0x3F803F80u;
   if (threadIdx.x == 0) {
     for (int s = 0; s < W_STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -664,38 +729,52 @@ wgrad_gemm(const __grid_constant__ CUtensorMap tm_dg,
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == 256) {
-      const CUtensorMap* ma = tile == 3 ? &tm_dout : &tm_dg;
-      const CUtensorMap* mb = tile == 2 ? &tm_cond : tile == 3 ? &tm_z : &tm_x;
-      const int shift = tile == 1 ? d : 0;
+      const CUtensorMap* ma = out_tile ? &tm_dout : &tm_dg;
+      // B's two boxes: z's columns (the student's second one repeats its
+      // first, past GH and not stored), or boxes 2 tile, 2 tile + 1 of
+      // [x | tap | cond]
+      const CUtensorMap* mb[2];
+      int col[2], shift[2];
+      for (int k = 0; k < 2; ++k) {
+        const int kb = 2 * tile + k;
+        mb[k] = out_tile ? &tm_z : kb < 2 * D::XS ? &tm_x : &tm_cond;
+        col[k] = out_tile ? min(k * KC, D::GH - KC)
+                          : KC * (kb < D::XS ? kb : kb < 2 * D::XS ? kb - D::XS : kb - 2 * D::XS);
+        shift[k] = !out_tile && kb >= D::XS && kb < 2 * D::XS ? d : 0;
+      }
       for (int i = 0; i < n; ++i) {
         const int s = i % W_STAGES, q = q0 + i;
         const int b = q / n_tt, t0 = (q % n_tt) * WR;
-        const uint32_t dst = base + s * W_STAGE, bar = full + 8 * s;
+        const uint32_t dst = base + s * W::STAGE, bar = full + 8 * s;
         mbar_wait(empty + 8 * s, ((i / W_STAGES) & 1) ^ 1);
-        mbar_expect_tx(bar, W_STAGE);
-        for (int k = 0; k < 4; ++k) tma_load_3d(dst + k * WBOX, ma, k * KC, t0, b, bar);
+        mbar_expect_tx(bar, W::STAGE);
+        for (int k = 0; k < W::A_BOXES; ++k) tma_load_3d(dst + k * WBOX, ma, k * KC, t0, b, bar);
         for (int k = 0; k < 2; ++k)
-          tma_load_3d(dst + (4 + k) * WBOX, mb, k * KC, t0 - shift, b, bar);
+          tma_load_3d(dst + (W::A_BOXES + k) * WBOX, mb[k], col[k], t0 - shift[k], b, bar);
       }
     }
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-  float acc0[64], acc1[64], b0[4], b1[4];
+  float acc[W::NA][64], bs[W::NA][4];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+  for (int m = 0; m < W::NA; ++m) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) b0[i] = b1[i] = 0.f;
+    for (int i = 0; i < 64; ++i) acc[m][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) bs[m][i] = 0.f;
+  }
   if (bias)
-    wgrad_mma<true>(acc0, acc1, b0, b1, base, base + W_ONES, full, empty, wg, n, lane);
+    wgrad_mma<D, true>(acc, bs, base, base + W::ONES, full, empty, wg, n, lane);
   else
-    wgrad_mma<false>(acc0, acc1, b0, b1, base, base + W_ONES, full, empty, wg, n, lane);
+    wgrad_mma<D, false>(acc, bs, base, base + W::ONES, full, empty, wg, n, lane);
 
   float* pp = part + (size_t)split * P::P;
-  const int m0 = 128 * wg + 16 * warp + lane / 4;
-  wgrad_store<D>(acc0, b0, pp, tile, bias, m0, lane);
-  wgrad_store<D>(acc1, b1, pp, tile, bias, m0 + 64, lane);
+#pragma unroll
+  for (int m = 0; m < W::NA; ++m)
+    wgrad_store<D>(acc[m], bs[m], pp, tile, bias,
+                   64 * (W::NA * wg + m) + 16 * warp + lane / 4, lane);
 }
 
 // Sums the partials in split order into dw_in (G, K_IN), dw_out (N_OUT, GH),
@@ -720,16 +799,17 @@ __global__ void wgrad_reduce(const float* __restrict__ part, int splits,
 }
 
 // Stages of WR rows and their splits: about one block per SM over the
-// W_TILES tiles.
+// TILES tiles.
 struct WgradSplits {
   int n_tt, n_stages, per, splits;
 };
 
+template <class D>
 WgradSplits wgrad_splits(int B, int T, int n_sm) {
   WgradSplits w;
   w.n_tt = (T + WR - 1) / WR;
   w.n_stages = B * w.n_tt;
-  int s = n_sm / W_TILES;
+  int s = n_sm / Wg<D>::TILES;
   s = s < 1 ? 1 : s > w.n_stages ? w.n_stages : s;
   w.per = (w.n_stages + s - 1) / s;
   w.splits = (w.n_stages + w.per - 1) / w.per;
@@ -738,7 +818,7 @@ WgradSplits wgrad_splits(int B, int T, int n_sm) {
 
 template <class D>
 size_t wgrad_part_bytes(int B, int T, int n_sm) {
-  return (size_t)wgrad_splits(B, T, n_sm).splits * Part<D>::P * 4;
+  return (size_t)wgrad_splits<D>(B, T, n_sm).splits * Part<D>::P * 4;
 }
 
 // One layer's weight gradients from x = acts[l] (B, T, C), cond (B, T, M),
@@ -755,11 +835,12 @@ int wgrad(const bf16* x, const bf16* cond, const bf16* dg, const bf16* dout, con
       !make_map(&tm_cond, cond, false, 3, D::M, T, B, WR) ||
       !make_map(&tm_z, z, false, 3, D::GH, T, B, WR))
     return cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(wgrad_gemm<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+  cudaError_t err = cudaFuncSetAttribute(wgrad_gemm<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Wg<D>::SMEM);
   if (err != cudaSuccess) return err;
-  const WgradSplits w = wgrad_splits(B, T, n_sm);
-  wgrad_gemm<D><<<dim3(W_TILES, w.splits), W_THREADS, W_SMEM, st>>>(
+  const WgradSplits w = wgrad_splits<D>(B, T, n_sm);
+  wgrad_gemm<D><<<dim3(Wg<D>::TILES, w.splits), W_THREADS, Wg<D>::SMEM, st>>>(
       tm_dg, tm_dout, tm_x, tm_cond, tm_z, part, w.n_tt, w.n_stages, w.per, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -824,8 +905,18 @@ BwdWorkspace bwd_workspace(int B, int T, int want_wgrads, int n_sm) {
   return w;
 }
 
-bool teacher_dims(int c, int g, int s, int m) {
-  return c == Teacher::C && g == Teacher::G && s == Teacher::S && m == Teacher::M;
+template <class D>
+bool is_dims(int c, int g, int s, int m) {
+  return c == D::C && g == D::G && s == D::S && m == D::M;
+}
+
+// f(D{}) for the instantiation of these widths (teacher_lj's or
+// student_iaf's), else `other`.
+template <class F>
+long long with_dims(int c, int g, int s, int m, long long other, F f) {
+  if (is_dims<Teacher>(c, g, s, m)) return f(Teacher{});
+  if (is_dims<Student>(c, g, s, m)) return f(Student{});
+  return other;
 }
 
 template <class D>
@@ -835,7 +926,7 @@ int train_bwd(const bf16* acts, const bf16* cond, const bf16* dskip,
               unsigned char* ws, int B, int T, int L, const int* dil, int want_wgrads,
               int n_sm, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      train_bwd_layer<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L_SMEM);
+      train_bwd_layer<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay<D>::SMEM);
   if (err != cudaSuccess) return err;
   const BwdWorkspace w = bwd_workspace<D>(B, T, want_wgrads, n_sm);
   float* dpart = reinterpret_cast<float*>(ws + w.dpart);
@@ -866,7 +957,7 @@ int train_bwd(const bf16* acts, const bf16* cond, const bf16* dskip,
         !make_map(&tm_win, w_in_l, false, 2, D::K_IN, D::G, 1, 64) ||
         !make_map(&tm_wout, w_out_l, false, 2, D::GH, D::N_OUT, 1, 64))
       return cudaErrorInvalidValue;
-    train_bwd_layer<D><<<grid, L_THREADS, L_SMEM, st>>>(
+    train_bwd_layer<D><<<grid, L_THREADS, Lay<D>::SMEM, st>>>(
         tm_x, tm_cond, tm_dskip, tm_win, tm_wout, tm_dout, tm_dg,
         b_g + (size_t)l * D::G, dpart, dcs[cur ^ 1], dcs[cur], dcond32, z_g, T, n_tt,
         n_tiles, dil[l], l + 1 < L ? dil[l + 1] : 0, l == L - 1, want_wgrads);
@@ -909,12 +1000,15 @@ int pwn_flow_stack_train_phases(unsigned long long* out) {
 
 // Bytes of device workspace the backward needs (dx and dcond chains, the
 // tap-cotangent buffers, and with weight gradients the bf16 dout/dg/z and
-// the split-K partials); -1 for widths the kernels are not built for.
+// the split-K partials); -1 for widths the kernels are not built for
+// (teacher_lj's (128, 256, 128, 80) and student_iaf's (64, 128, 64, 80)
+// are).
 long long pwn_flow_stack_train_bwd_workspace_bytes(int B, int T, int c, int g,
                                                    int s, int m, int want_wgrads,
                                                    int n_sm) {
-  if (!teacher_dims(c, g, s, m)) return -1;
-  return (long long)bwd_workspace<Teacher>(B, T, want_wgrads, n_sm).total;
+  return with_dims(c, g, s, m, -1, [&](auto dims) {
+    return (long long)bwd_workspace<decltype(dims)>(B, T, want_wgrads, n_sm).total;
+  });
 }
 
 // Kernel 3: dx (B, T, C) and dcond (B, T, M) in bf16; with want_wgrads the
@@ -929,26 +1023,29 @@ int pwn_flow_stack_train_bwd_bf16(const void* acts, const void* cond,
                                   int L, int c, int g, int s, int m,
                                   const int* dilations, int want_wgrads,
                                   int n_sm, void* stream) {
-  if (!teacher_dims(c, g, s, m) || !valid_shape(B, T, L, dilations) || n_sm < 1)
-    return cudaErrorInvalidValue;
+  if (!valid_shape(B, T, L, dilations) || n_sm < 1) return cudaErrorInvalidValue;
   if (want_wgrads && (!dw_in || !db_g || !dw_out || !db_rs))
     return cudaErrorInvalidValue;
-  return train_bwd<Teacher>(
-      static_cast<const bf16*>(acts), static_cast<const bf16*>(cond),
-      static_cast<const bf16*>(dskip), static_cast<const bf16*>(w_in),
-      static_cast<const float*>(b_g), static_cast<const bf16*>(w_out),
-      static_cast<bf16*>(dx), static_cast<bf16*>(dcond), static_cast<float*>(dw_in),
-      static_cast<float*>(db_g), static_cast<float*>(dw_out),
-      static_cast<float*>(db_rs), static_cast<unsigned char*>(workspace), B, T,
-      L, dilations, want_wgrads, n_sm, static_cast<cudaStream_t>(stream));
+  return (int)with_dims(c, g, s, m, cudaErrorInvalidValue, [&](auto dims) {
+    return (long long)train_bwd<decltype(dims)>(
+        static_cast<const bf16*>(acts), static_cast<const bf16*>(cond),
+        static_cast<const bf16*>(dskip), static_cast<const bf16*>(w_in),
+        static_cast<const float*>(b_g), static_cast<const bf16*>(w_out),
+        static_cast<bf16*>(dx), static_cast<bf16*>(dcond), static_cast<float*>(dw_in),
+        static_cast<float*>(db_g), static_cast<float*>(dw_out),
+        static_cast<float*>(db_rs), static_cast<unsigned char*>(workspace), B, T,
+        L, dilations, want_wgrads, n_sm, static_cast<cudaStream_t>(stream));
+  });
 }
 
 // Bytes of device workspace for pwn_flow_stack_train_wgrad_bf16; -1 for
 // widths it is not built for.
 long long pwn_flow_stack_train_wgrad_workspace_bytes(int B, int T, int c, int g, int s,
                                                      int m, int n_sm) {
-  if (!teacher_dims(c, g, s, m) || B < 1 || T < 1 || n_sm < 1) return -1;
-  return (long long)wgrad_part_bytes<Teacher>(B, T, n_sm);
+  if (B < 1 || T < 1 || n_sm < 1) return -1;
+  return with_dims(c, g, s, m, -1, [&](auto dims) {
+    return (long long)wgrad_part_bytes<decltype(dims)>(B, T, n_sm);
+  });
 }
 
 // Kernel 3's weight-gradient GEMM alone, for one layer: from x = acts[l]
@@ -960,14 +1057,15 @@ int pwn_flow_stack_train_wgrad_bf16(const void* x, const void* cond, const void*
                                     void* db_g, void* dw_out, void* db_rs, void* workspace,
                                     int B, int T, int c, int g, int s, int m, int dilation,
                                     int n_sm, void* stream) {
-  if (!teacher_dims(c, g, s, m) || B < 1 || B > 65535 || T < 1 || dilation < 1 || n_sm < 1)
-    return cudaErrorInvalidValue;
-  return wgrad<Teacher>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(cond),
-      static_cast<const bf16*>(dg), static_cast<const bf16*>(dout),
-      static_cast<const bf16*>(z), static_cast<float*>(workspace),
-      static_cast<float*>(dw_in), static_cast<float*>(db_g), static_cast<float*>(dw_out),
-      static_cast<float*>(db_rs), B, T, dilation, n_sm, static_cast<cudaStream_t>(stream));
+  if (B < 1 || B > 65535 || T < 1 || dilation < 1 || n_sm < 1) return cudaErrorInvalidValue;
+  return (int)with_dims(c, g, s, m, cudaErrorInvalidValue, [&](auto dims) {
+    return (long long)wgrad<decltype(dims)>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(cond),
+        static_cast<const bf16*>(dg), static_cast<const bf16*>(dout),
+        static_cast<const bf16*>(z), static_cast<float*>(workspace),
+        static_cast<float*>(dw_in), static_cast<float*>(db_g), static_cast<float*>(dw_out),
+        static_cast<float*>(db_rs), B, T, dilation, n_sm, static_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // extern "C"

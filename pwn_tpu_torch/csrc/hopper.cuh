@@ -320,6 +320,33 @@ __device__ __forceinline__ void wgmma_m64n8(float (&d)[4], uint64_t da,
       : "l"(da), "l"(db), "n"(TA), "n"(TB));
 }
 
+// d += A(64 x 16) @ B(16 x 64).
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, 1, 1, 1, %34, %35;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "n"(TA), "n"(TB));
+}
+
+// d += A(64 x 16) @ B(16 x N) for an accumulator of N / 2 per thread: the
+// m64n128 or the m64n64 product, picked by the accumulator's size.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_mn(float (&d)[64], uint64_t da, uint64_t db) {
+  wgmma_m64n128<TA, TB>(d, da, db);
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_mn(float (&d)[32], uint64_t da, uint64_t db) {
+  wgmma_m64n64<TA, TB>(d, da, db);
+}
+
 // d += A(64 x 16) @ B(16 x 80).
 template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_m64n80(float (&d)[40], uint64_t da,

@@ -18,10 +18,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pwn_tpu_torch.ops.conv import causal_conv1d, conv_transpose1d, shift_right
-from pwn_tpu_torch.ops.flow_stack import (TRAIN_KERNEL_DIMS, flow_stack,
-                                          flow_stack_score, flow_stack_train)
-from pwn_tpu_torch.ops.gated_layer import (KERNEL_DIMS as LAYER_KERNEL_DIMS,
-                                           TIME_TILE, FusedGatedResidual,
+from pwn_tpu_torch.ops.flow_stack import (flow_stack, flow_stack_score,
+                                          flow_stack_train)
+from pwn_tpu_torch.ops.gated_layer import (TIME_TILE, FusedGatedResidual,
                                            pack_layer)
 
 # WaveNetStack's execution modes and the stack function each one runs:
@@ -45,8 +44,7 @@ def resolve_stack_mode(flag: str, auto: str) -> str:
     training loops.  "auto" takes it; "mega" (the reference's whole-stack
     kernel) is "train" in a training context and "infer" otherwise.  "on"
     and "layer" are the per-layer kernel.  The reference's XLA paths
-    ("off") have no counterpart in the port.  WaveNetStack may still move a
-    "train" or "dx" stack to "layer" (from its widths and dilations)."""
+    ("off") have no counterpart in the port."""
     modes = {"auto": auto, "mega": "train" if auto == "train" else "infer",
              "mega_train": "train", "mega_dx": "dx", "on": "layer",
              "layer": "layer"}
@@ -153,19 +151,18 @@ class WaveNetStack(nn.Module):
     the gated layers run as one call of the mode's stack function over the
     stacked layout of `stacked()`; in "layer" they run one by one through
     `FusedGatedResidual` over the per-layer layout of `layer_weights()`.
-    The mode is fixed when the model is built, from widths and dilations
-    alone, as the reference's gates:
-    - "infer" stays "infer" at any width (`flow_stack` picks kernel 1 or
-      kernel 5's accumulate loop on the card; widths neither is built for
-      run the plain version on the CPU and raise on the card);
-    - a "train" or "dx" stack at widths kernels 2 and 3 are not built for
-      (`TRAIN_KERNEL_DIMS`) becomes "layer" where kernel 5 is built for them,
-      as the reference sends an ineligible mega_train / mega_dx stack to its
-      per-layer kernel; elsewhere it stays and raises on the card.  A frozen
-      stack ("dx") that becomes "layer" gets no weight gradients where its
-      parameters do not require grad (autograd drops them);
-    - a dilation above 512 raises in "infer" and "layer": the reference
-      runs such a stack in XLA, which is not ported.
+    The mode is fixed when the model is built, and kept at every width, as
+    the reference's `mega_ok` keeps every preset's stack on its whole-stack
+    kernels:
+    - "infer": `flow_stack` picks kernel 1 or kernel 5's accumulate loop on
+      the card;
+    - "train" and "dx": kernels 2 and 3, built at student_iaf's and
+      teacher_lj's widths (`ops/flow_stack.py::TRAIN_KERNEL_DIMS`);
+    - "layer" only where the config asks for it ("on" / "layer").
+    Widths no kernel is built for (the 40-mel tiny configs) run the plain
+    versions on the CPU and raise on the card.  A dilation above 512 raises
+    in "infer" and "layer": the reference runs such a stack in XLA, which
+    is not ported.
     """
 
     def __init__(self, dilations: Sequence[int], residual_channels: int,
@@ -178,11 +175,6 @@ class WaveNetStack(nn.Module):
                 f"stack mode {mode!r}; one of {sorted(STACK_MODES)}")
         C, S = residual_channels, skip_channels
         self.dilations = tuple(dilations)
-        dims = (C, gate_channels, S, cond_channels)
-        if (mode in ("train", "dx") and dims != TRAIN_KERNEL_DIMS
-                and dims in LAYER_KERNEL_DIMS
-                and max(self.dilations) <= TIME_TILE):
-            mode = "layer"
         if mode in ("infer", "layer") and max(self.dilations) > TIME_TILE:
             raise NotImplementedError(
                 f"a dilation above {TIME_TILE} needs the reference's XLA "

@@ -6,8 +6,11 @@ flows, each a causal WaveNet over the previous z shifted right by one:
 
     z_i[t] = z_{i-1}[t] * s_i(z_{i-1}[<t], c) + mu_i(z_{i-1}[<t], c)
 
-so the whole waveform comes out of one parallel pass.  Only the logistic
-base is ported; the Gaussian (ClariNet) base waits.
+so the whole waveform comes out of one parallel pass.  The base noise is
+Logistic(0, 1) (Parallel WaveNet) or, with `student.base="gaussian"`,
+N(0, 1) (ClariNet).  `transform` also returns the closed-form density
+log p_S(x) = log p_base(z_0) - sum_i log s_i (`StudentOutput.
+log_p_student`) that distillation needs.
 """
 
 from __future__ import annotations
@@ -20,22 +23,26 @@ import torch.nn as nn
 from pwn_tpu_torch.config import Config
 from pwn_tpu_torch.models.modules import (DTYPES, UpsampleNet, WaveNetStack,
                                           match_length, resolve_stack_mode)
-from pwn_tpu_torch.ops import mol
+from pwn_tpu_torch.ops import gaussian, mol
 from pwn_tpu_torch.ops.conv import shift_right
 from pwn_tpu_torch.utils.platform import require_cuda
 
+BASES = ("logistic", "gaussian")
+
 
 def _check_base(cfg: Config) -> None:
-    if cfg.student.base != "logistic":
-        raise NotImplementedError(
-            f"student base {cfg.student.base!r} is not ported yet "
-            "(only the logistic base is)")
+    if cfg.student.base not in BASES:
+        raise ValueError(f"unknown student base {cfg.student.base!r}; one of "
+                         f"{BASES}")
 
 
 def sample_base_noise(cfg: Config, generator: torch.Generator,
                       shape) -> torch.Tensor:
-    """Base noise per `student.base` on the generator's device."""
+    """Base noise per `student.base` on the generator's device:
+    Logistic(0, 1), or N(0, 1) for "gaussian"."""
     _check_base(cfg)
+    if cfg.student.base == "gaussian":
+        return gaussian.sample_normal(generator, shape)
     return mol.sample_logistic(generator, shape)
 
 
@@ -44,11 +51,24 @@ class StudentOutput(NamedTuple):
     log_det: torch.Tensor     # (B, T) sum_i log s_i[t]
     log_p_base: torch.Tensor  # (B, T) base log-density of z_0
     mu_last: torch.Tensor     # (B, T) final flow's mu
-    mu_total: torch.Tensor    # (B, T) total affine offset: x = exp(log_det)*z0 + mu_total
+    # (B, T) total affine offset: x = exp(log_det) * z0 + mu_total, so the
+    # per-step output conditional is base(mu_total, exp(log_det))
+    mu_total: torch.Tensor
+
+    @property
+    def log_p_student(self) -> torch.Tensor:
+        """(B, T) closed-form student log-density at its own sample:
+        log p_base(z0) - sum log s."""
+        return self.log_p_base - self.log_det
 
 
 class StudentIAF(nn.Module):
-    def __init__(self, config: Config, device=None):
+    """`stack_mode` is every flow's WaveNetStack mode ("infer", "layer",
+    "train" or "dx"); by default it follows `student.fused_layers`, whose
+    "auto" means "infer" here.  The training loops ask for "train"."""
+
+    def __init__(self, config: Config, stack_mode: str | None = None,
+                 device=None):
         super().__init__()
         _check_base(config)
         sc, tc = config.student, config.teacher
@@ -69,7 +89,8 @@ class StudentIAF(nn.Module):
                 gate_channels=sc.gate_channels,
                 skip_channels=sc.skip_channels, out_dim=2,
                 cond_channels=config.dsp.n_mels, dtype=dtype,
-                mode=resolve_stack_mode(sc.fused_layers, "infer"),
+                mode=stack_mode or resolve_stack_mode(sc.fused_layers,
+                                                      "infer"),
                 device=device,
             ))
 
@@ -92,7 +113,9 @@ class StudentIAF(nn.Module):
         clamp = self.config.student.log_scale_clamp
         z = z.float()
         zeros = torch.zeros_like(z)
-        log_p_base = mol.logistic_log_density(z, zeros, zeros)
+        log_p_base = (gaussian.gaussian_log_density
+                      if self.config.student.base == "gaussian"
+                      else mol.logistic_log_density)(z, zeros, zeros)
         log_det = torch.zeros_like(z)
         mu = torch.zeros_like(z)
         mu_total = torch.zeros_like(z)
@@ -137,14 +160,16 @@ class StudentIAF(nn.Module):
         return torch.clamp(z, -1.0, 1.0)
 
 
-def init_student(config: Config, generator: torch.Generator,
-                 device=None) -> StudentIAF:
+def init_student(config: Config, generator: torch.Generator, device=None,
+                 *, stack_mode: str | None = None) -> StudentIAF:
     """A student with flax's initialisation scheme: truncated-normal fan-in
     kernels and zero biases, drawn from `generator` (same shapes as
     `pwn_tpu.models.student.init_student`, not the same numbers).  The
     draw happens on the generator's device, then the model moves to
     `device` (default: the CUDA card; the CPU only when passed
-    explicitly), so one seed gives one model wherever it runs."""
-    model = StudentIAF(config, device=generator.device)
+    explicitly), so one seed gives one model wherever it runs.
+    `stack_mode` as `StudentIAF`'s."""
+    model = StudentIAF(config, stack_mode=stack_mode,
+                       device=generator.device)
     model.reset_parameters(generator)
     return model.to(require_cuda() if device is None else device)

@@ -30,7 +30,7 @@ class TeacherWaveNet(nn.Module):
     "dx"); by default it follows `teacher.fused_layers`, whose "auto" means
     "infer" here, as it means the whole-stack inference kernel in the
     reference (kernel 1 or kernel 5's accumulate loop on the card).  The
-    training loop asks for "train" (`WaveNetStack` may make it "layer")."""
+    training loop asks for "train", the distillation loop "dx"."""
 
     def __init__(self, config: Config, stack_mode: str | None = None,
                  device=None):

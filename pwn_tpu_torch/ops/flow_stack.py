@@ -13,7 +13,8 @@ every layer's input: kernel 5's accumulate epilogue once per layer,
 flow_stack_train_by_layers`) and whose backward is
 `flow_stack_train_backward` (kernel 3, with or without the weight
 gradients, `csrc/flow_stack_train.cu`; its weight-gradient GEMM alone is
-`flow_stack_train_wgrads`).
+`flow_stack_train_wgrads`).  Kernels 2 and 3 take student_iaf's and
+teacher_lj's widths (`TRAIN_KERNEL_DIMS`).
 
 `flow_stack` takes the stacked layout of `WaveNetStack.stacked()`:
     x0    (B, T, C)        compute dtype, the front 1x1 output
@@ -46,6 +47,7 @@ returned in the compute dtype, the weight gradients in fp32.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Sequence
 
@@ -55,8 +57,9 @@ from pwn_tpu_torch.ops.conv import shift_right
 
 # the widths the inference kernel is compiled for (student_iaf): C, G, S, M
 KERNEL_DIMS = (64, 128, 64, 80)
-# the widths the training kernels are compiled for (teacher_lj)
-TRAIN_KERNEL_DIMS = (128, 256, 128, 80)
+# the widths the training kernels are compiled for: student_iaf's and
+# teacher_lj's
+TRAIN_KERNEL_DIMS = ((64, 128, 64, 80), (128, 256, 128, 80))
 # Shared memory a Hopper block may opt in to (H100 and H200), and kernel 1's
 # use of it (csrc/flow_stack.cu, pwn_flow_stack_smem_bytes): 1 KB of
 # alignment slack, a ring of three 16 KB weight stages, the 128-row x tile
@@ -258,18 +261,19 @@ def _weight_shapes(L, C, G, S, M) -> dict:
 
 def check_kernel_args(x0, cond, w_in, b_g, w_out, b_rs,
                       dilations: Sequence[int],
-                      kernel_dims=KERNEL_DIMS) -> None:
+                      kernel_dims=(KERNEL_DIMS,)) -> None:
     """Raise ValueError on anything a forward kernel does not take: the
-    inference kernel (`kernel_dims=KERNEL_DIMS`, at most 32 layers) or
-    kernel 2 (`TRAIN_KERNEL_DIMS`)."""
+    inference kernel (`kernel_dims=(KERNEL_DIMS,)`, at most 32 layers) or
+    kernel 2 (`TRAIN_KERNEL_DIMS`).  `kernel_dims` lists the (C, G, S, M)
+    the kernel is built for."""
     B, T, C, L, G, S, M = _stack_dims(x0, cond, w_in, w_out)
     _check_operands(
         dict(x0=x0, cond=cond, w_in=w_in, b_g=b_g, w_out=w_out, b_rs=b_rs),
         ("b_g", "b_rs"),
         {"cond": (B, T, M), **_weight_shapes(L, C, G, S, M),
          "b_rs": (L, C + S)},
-        (C, G, S, M), (kernel_dims,), dilations, L,
-        max_layers=32 if kernel_dims == KERNEL_DIMS else None)
+        (C, G, S, M), tuple(kernel_dims), dilations, L,
+        max_layers=32 if tuple(kernel_dims) == (KERNEL_DIMS,) else None)
 
 
 def check_train_backward_args(acts, cond, w_in, b_g, w_out, dskip,
@@ -285,7 +289,7 @@ def check_train_backward_args(acts, cond, w_in, b_g, w_out, dskip,
         ("b_g",),
         {"acts": (len(w_in), B, T, C), "cond": (B, T, M),
          **_weight_shapes(L, C, G, S, M), "dskip": (B, T, S)},
-        (C, G, S, M), (TRAIN_KERNEL_DIMS,), dilations, L)
+        (C, G, S, M), TRAIN_KERNEL_DIMS, dilations, L)
 
 
 def _device_call(fn_name: str, device, *args) -> None:
@@ -368,8 +372,9 @@ def flow_stack_train_forward(x0, cond, w_in, b_g, w_out, b_rs,
                              dilations: Sequence[int]):
     """Kernel 2: the stack forward that also saves every layer's input.
     Returns (skip (B, T, S), acts (L, B, T, C)); on CPU tensors the plain
-    `flow_stack_train_reference`.  On a CUDA tensor at teacher_lj widths it
-    runs kernel 5's accumulate epilogue once per layer with the residual
+    `flow_stack_train_reference`.  On a CUDA tensor at the widths of
+    `TRAIN_KERNEL_DIMS` (student_iaf's and teacher_lj's) it runs kernel
+    5's accumulate epilogue once per layer with the residual
     written into acts[l + 1] (`gated_layer.flow_stack_train_by_layers`,
     the same rounding); other widths raise.  It launches no kernel of its
     own: kernel 5 counts its L launches on `gated_layer.launches`."""
@@ -389,8 +394,11 @@ def flow_stack_train_backward(acts, cond, w_in, b_g, w_out, dskip,
                               want_wgrads: bool = True):
     """Kernel 3: the fused backward, with the returns of
     `flow_stack_backward_reference` (its plain version, taken for CPU
-    tensors).  `flow_stack_train_backward.launches` counts the kernel
-    calls (one per call)."""
+    tensors), at the widths of `TRAIN_KERNEL_DIMS` on a CUDA tensor.
+    `flow_stack_train_backward.launches` counts the kernel calls (one per
+    call), and `flow_stack_train_backward.launches_by` the same calls by
+    (C, want_wgrads), which tells the student's calls with weight
+    gradients from the frozen teacher's dx-only ones."""
     if acts.device.type == "cpu":
         return flow_stack_backward_reference(acts, cond, w_in, b_g, w_out,
                                              dskip, dilations, want_wgrads)
@@ -420,10 +428,12 @@ def flow_stack_train_backward(acts, cond, w_in, b_g, w_out, dskip,
         B, T, L, C, G, S, M, (ctypes.c_int * L)(*dilations),
         int(want_wgrads), n_sm)
     flow_stack_train_backward.launches += 1
+    flow_stack_train_backward.launches_by[(C, bool(want_wgrads))] += 1
     return (dx, dcond, *grads)
 
 
 flow_stack_train_backward.launches = 0
+flow_stack_train_backward.launches_by = collections.Counter()
 
 
 def flow_stack_train_wgrads(x, cond, dg, dout, z, dilation: int):
@@ -443,7 +453,7 @@ def flow_stack_train_wgrads(x, cond, dg, dout, z, dilation: int):
         dict(x=x, cond=cond, dg=dg, dout=dout, z=z), (),
         {"cond": (B, T, M), "dg": (B, T, G), "dout": (B, T, N),
          "z": (B, T, G // 2)},
-        (C, G, N - C, M), (TRAIN_KERNEL_DIMS,), (dilation,), 1)
+        (C, G, N - C, M), TRAIN_KERNEL_DIMS, (dilation,), 1)
     from pwn_tpu_torch.ops import _build
 
     dev = x.device

@@ -1,11 +1,11 @@
 """Mixture-of-logistics ops (counterpart of `pwn_tpu/ops/mol.py`): the
-teacher's discretized MoL likelihood, its sampler (teacher AR sampling)
-and the student's logistic base.
+teacher's discretized MoL likelihood, its sampler (teacher AR sampling),
+the continuous MoL density (distillation) and the student's logistic
+base.
 
 The likelihood runs in fp32 whatever the stack's compute dtype, with the
 reference's branches and clamps.  Parameter layout: `params[..., 3K]` is
-[logit_probs | means | log_scales].  Not ported yet: `mol_log_density`
-(distillation).
+[logit_probs | means | log_scales].
 """
 
 from __future__ import annotations
@@ -66,6 +66,19 @@ def discretized_mol_loss(x: torch.Tensor, params: torch.Tensor,
     """Mean negative log-likelihood (nats per sample)."""
     return -discretized_mol_log_prob(x, params, num_classes,
                                      log_scale_min).mean()
+
+
+def mol_log_density(x: torch.Tensor, params: torch.Tensor,
+                    log_scale_min: float = -9.0) -> torch.Tensor:
+    """Continuous mixture-of-logistics log-density log p(x) (...,) under
+    params (..., 3K), fp32: the distillation cross-entropy's teacher term,
+    evaluated at the student's own sample."""
+    logit_probs, means, log_scales = split_params(params)
+    log_scales = torch.clamp(log_scales, min=log_scale_min)
+    mid_in = (x.float()[..., None] - means) * torch.exp(-log_scales)
+    log_pdf = mid_in - log_scales - 2.0 * F.softplus(mid_in)
+    return torch.logsumexp(log_pdf + torch.log_softmax(logit_probs, dim=-1),
+                           dim=-1)
 
 
 def logistic_log_density(

@@ -119,3 +119,10 @@ def update_ema(state: TrainState, decay: float) -> TrainState:
 def serving_params(state: TrainState) -> Dict[str, torch.Tensor]:
     """The params a consumer should run: the EMA when it is tracked."""
     return state.params if state.ema_params is None else state.ema_params
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The noise generator of one training step on `device`, seeded from
+    (seed, step) alone, as the reference folds the step into its key: a
+    step's noise does not depend on what ran before it."""
+    return torch.Generator(device=device).manual_seed(seed * 2 ** 32 + step)

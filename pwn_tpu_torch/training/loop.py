@@ -1,19 +1,21 @@
 """Training orchestration (counterpart of `pwn_tpu/training/loop.py`):
-teacher training on one device, on the synthetic corpus.
+teacher training, student distillation and direct student training on one
+device, on the synthetic corpus.
 
-`run_teacher_training(cfg, num_steps=N)` runs as the reference's does with
-no workdir: the deterministic data iterator behind a prefetch thread,
-N optimizer steps, and the held-out eval at checkpoint cadence (at the
-last step at least).  Not ported yet, and refused with NotImplementedError
-rather than skipped: a workdir (checkpoints, metrics, TensorBoard and the
-teacher's AR sample dumps) and a data_dir (the wav-directory corpus and
-its data engines).
+`run_teacher_training(cfg, num_steps=N)`, `run_distillation(cfg,
+teacher_params, num_steps=N)` and `run_student_direct_training(cfg,
+num_steps=N)` run as the reference's do with no workdir: the
+deterministic data iterator behind a prefetch thread, N optimizer steps,
+and the held-out eval at checkpoint cadence (at the last step at least).
+Not ported yet, and refused with NotImplementedError rather than skipped:
+a workdir (checkpoints, metrics, TensorBoard and the AR and student sample
+dumps) and a data_dir (the wav-directory corpus and its data engines).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import torch
 
@@ -22,8 +24,13 @@ from pwn_tpu_torch.data.pipeline import (SyntheticSpeech, SyntheticTones,
                                         local_batch_size, make_train_iterator,
                                         prefetch)
 from pwn_tpu_torch.models.modules import resolve_stack_mode
-from pwn_tpu_torch.models.teacher import init_teacher
+from pwn_tpu_torch.models.student import init_student
+from pwn_tpu_torch.models.teacher import TeacherWaveNet, init_teacher
 from pwn_tpu_torch.training.common import create_train_state
+from pwn_tpu_torch.training.distill import (make_distill_eval_step,
+                                            make_distill_train_step)
+from pwn_tpu_torch.training.student_direct import (
+    make_student_direct_eval_step, make_student_direct_train_step)
 from pwn_tpu_torch.training.teacher import (make_teacher_eval_step,
                                             make_teacher_train_step)
 from pwn_tpu_torch.utils.platform import require_cuda
@@ -98,8 +105,7 @@ def run_teacher_training(cfg: Config, workdir: Optional[str] = None,
     `device` (default: the CUDA card; the CPU only when passed
     explicitly).  The stack runs in the "train" mode ("auto" and "mega" map
     to it, as the reference trains them with mega_train), for the eval pass
-    too; at widths kernels 2 and 3 are not built for, `WaveNetStack` makes
-    it "layer" (kernel 5 forward, fp32 recompute backward)."""
+    too."""
     _refuse(workdir, data_dir)
     device = require_cuda() if device is None else torch.device(device)
     model = init_teacher(
@@ -116,3 +122,71 @@ def run_teacher_training(cfg: Config, workdir: Optional[str] = None,
         return {"loss": eval_step(val_batch)}
 
     return _run(cfg, state, step_fn, device, num_steps, eval_fn=eval_fn)
+
+
+def _student(cfg: Config, device: torch.device):
+    """The student being trained, seeded from train.seed + 1 (the
+    reference's key), its stacks in the training mode, and its train state
+    with the step noise seeded from train.seed + 2."""
+    student = init_student(
+        cfg, torch.Generator().manual_seed(cfg.train.seed + 1),
+        stack_mode=resolve_stack_mode(cfg.student.fused_layers, "train"),
+        device=device)
+    state = create_train_state(dict(student.named_parameters()), cfg.train,
+                               seed=cfg.train.seed + 2)
+    return student, state
+
+
+def frozen_teacher(cfg: Config, teacher_params: Mapping[str, torch.Tensor],
+                   device) -> TeacherWaveNet:
+    """The distillation teacher from the port's state dict (a flax tree goes
+    through `convert.params_from_flax` first), its parameters frozen.  Its
+    stack needs only its input gradient, so a whole-stack flag builds
+    "dx" (kernel 3 without weight gradients on the card), as the
+    reference's "auto" scores the teacher with mega_dx; "on" / "layer"
+    build "layer"."""
+    mode = resolve_stack_mode(cfg.teacher.fused_layers, "train")
+    teacher = TeacherWaveNet(cfg, stack_mode="dx" if mode == "train" else mode,
+                             device=device)
+    teacher.load_state_dict(teacher_params)
+    return teacher.requires_grad_(False)
+
+
+def run_distillation(cfg: Config, teacher_params: Mapping[str, torch.Tensor],
+                     workdir: Optional[str] = None,
+                     data_dir: Optional[str] = None,
+                     num_steps: Optional[int] = None,
+                     device=None) -> RunResult:
+    """Distil the student from the frozen teacher `teacher_params` (the
+    port's state dict) for `num_steps` (default `train.total_steps`) on
+    `device` (default: the CUDA card; the CPU only when passed explicitly).
+    The student trains in the "train" stack mode, the teacher scores in
+    "dx" (`frozen_teacher`); the held-out eval reports `val_*` metrics."""
+    _refuse(workdir, data_dir)
+    device = require_cuda() if device is None else torch.device(device)
+    teacher = frozen_teacher(cfg, teacher_params, device)
+    student, state = _student(cfg, device)
+    step_fn = make_distill_train_step(student, teacher, cfg)
+    eval_step = make_distill_eval_step(student, teacher, cfg)
+    val_batch = torch.from_numpy(make_val_batch(
+        cfg, data_dir, local_batch_size(cfg.train.global_batch_size))).to(device)
+    return _run(cfg, state, step_fn, device, num_steps,
+                eval_fn=lambda state: eval_step(val_batch))
+
+
+def run_student_direct_training(cfg: Config, workdir: Optional[str] = None,
+                                data_dir: Optional[str] = None,
+                                num_steps: Optional[int] = None,
+                                device=None) -> RunResult:
+    """Direct (teacher-free) student training, as `run_distillation` without
+    a teacher: the closed-form likelihood at the ground truth plus the
+    power loss (`training/student_direct.py`)."""
+    _refuse(workdir, data_dir)
+    device = require_cuda() if device is None else torch.device(device)
+    student, state = _student(cfg, device)
+    step_fn = make_student_direct_train_step(student, cfg)
+    eval_step = make_student_direct_eval_step(student, cfg)
+    val_batch = torch.from_numpy(make_val_batch(
+        cfg, data_dir, local_batch_size(cfg.train.global_batch_size))).to(device)
+    return _run(cfg, state, step_fn, device, num_steps,
+                eval_fn=lambda state: eval_step(val_batch))

@@ -1,5 +1,6 @@
-"""DSP for conditioning: preemphasis and the normalized log-mel spectrogram
-(counterpart of `pwn_tpu/utils/dsp.py`).
+"""DSP for conditioning and the power loss: preemphasis, the STFT magnitude
+and the normalized log-mel spectrogram (counterpart of
+`pwn_tpu/utils/dsp.py`).
 
 The conventions are the reference's, frozen by its goldens:
   * preemphasis:    y[t] = x[t] - coef * x[t-1], y[0] = x[0]
@@ -105,16 +106,37 @@ def normalize_db(db: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
     return torch.clamp((db - cfg.ref_db - cfg.min_db) / (-cfg.min_db), 0.0, 1.0)
 
 
+def frame(x: torch.Tensor, n_fft: int, hop: int,
+          center: bool = True) -> torch.Tensor:
+    """Overlapping frames (..., n_frames, n_fft) of a signal (..., T),
+    reflect-padded by n_fft // 2 on each side when `center`."""
+    lead = x.shape[:-1]
+    flat = x.reshape(-1, x.shape[-1])
+    if center:
+        pad = n_fft // 2
+        flat = torch.nn.functional.pad(flat[:, None], (pad, pad),
+                                       mode="reflect")[:, 0]
+    frames = flat.unfold(-1, n_fft, hop)
+    return frames.reshape(*lead, *frames.shape[-2:])
+
+
+def stft_magnitude(x: torch.Tensor, n_fft: int, hop: int, win_length: int,
+                   center: bool = True) -> torch.Tensor:
+    """|STFT| of (..., T) -> (..., n_frames, n_fft // 2 + 1), float32, on
+    x's device: the periodic Hann window of `win_length` centred in n_fft,
+    then a real FFT (`torch.fft.rfft`, as the reference leaves its FFT to
+    XLA)."""
+    frames = frame(x.to(torch.float32), n_fft, hop, center=center)
+    win = torch.from_numpy(hann_window(win_length, n_fft)).to(x.device)
+    return torch.fft.rfft(frames * win, n=n_fft, dim=-1).abs()
+
+
 def mel_spectrogram(x: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
     """Normalized log-mel spectrogram of (..., T) -> (..., frames, n_mels),
     float32, on x's device."""
     lead = x.shape[:-1]
     flat = x.reshape(-1, x.shape[-1]).to(torch.float32)
-    pad = cfg.n_fft // 2
-    flat = torch.nn.functional.pad(flat, (pad, pad), mode="reflect")
-    frames = flat.unfold(-1, cfg.n_fft, cfg.hop_length)  # (N, F, n_fft)
-    win = torch.from_numpy(hann_window(cfg.win_length, cfg.n_fft)).to(x.device)
-    mag = torch.fft.rfft(frames * win, n=cfg.n_fft, dim=-1).abs()
+    mag = stft_magnitude(flat, cfg.n_fft, cfg.hop_length, cfg.win_length)
     fbank = torch.from_numpy(
         mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin,
                        cfg.fmax_hz)

@@ -263,7 +263,7 @@ def test_wide_stack_runs_the_layer_kernel_on_card(cuda, B, T):
     for) `flow_stack` runs kernel 5's accumulate epilogue once per layer:
     10 launches, none of kernel 1, and per batch row within 0.02 of the
     plain version in fp32 (the bound chip_smoke.py states)."""
-    C, G, S, M = TRAIN_KERNEL_DIMS
+    C, G, S, M = TRAIN_KERNEL_DIMS[1]
     args = _torch(_inputs(6, B, T, C, M, G, S, STUDENT_DILATIONS),
                   torch.bfloat16, cuda)
     k1, k5 = flow_stack.launches, gated_layer.launches

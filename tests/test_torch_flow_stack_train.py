@@ -27,6 +27,11 @@ from pwn_tpu_torch.ops.gated_layer import (flow_stack_train_by_layers,
 
 SMALL = dict(B=2, C=16, M=8, G=32, S=16)
 TEACHER_DILATIONS = tuple(2 ** (i % 8) for i in range(24))
+STUDENT_DILATIONS = tuple(2 ** i for i in range(10))
+STUDENT_DIMS, TEACHER_DIMS = TRAIN_KERNEL_DIMS
+# the training kernels' two widths and the stacks built at each
+TRAIN_STACKS = {STUDENT_DIMS: STUDENT_DILATIONS,
+                TEACHER_DIMS: TEACHER_DILATIONS}
 # the reference's own train-kernel cases (tests/test_flow_stack.py)
 CASES = [
     ((1, 2, 4, 8), 1536),                     # multi-tile, growing dilations
@@ -145,6 +150,31 @@ def test_plain_train_matches_pallas_fp32(jax_train, dil, T):
                 w = np.swapaxes(w, 1, 2)
             assert g.shape == w.shape, name
             assert _rel(g.numpy(), w) < 1e-4, name
+
+
+@pytest.mark.parametrize("want", [True, False])
+def test_plain_backward_matches_pallas_at_student_widths(jax_train, want):
+    """The plain backward at student_iaf's widths (64, 128, 64, 80), which
+    kernel 3 is built for too, against the JAX backward in interpret mode,
+    float32, with the student's ten dilations to 512 at T = 300: the top
+    five layers' taps read only zeros, and their tap cotangents fall past
+    the end.  Bounds as test_plain_train_matches_pallas_fp32."""
+    C, G, S, M = STUDENT_DIMS
+    dil, T = STUDENT_DILATIONS, 300
+    args = _inputs(8, 1, T, C, M, G, S, dil)
+    t = _torch(args)
+    _, acts = flow_stack_train_reference(**_fwd(t), dilations=dil)
+    _, j_acts, j_grads = _jax_fwd_bwd(jax_train, args, dil, want)
+    assert _rel(acts.numpy(), j_acts) < 1e-5
+    got = flow_stack_backward_reference(
+        acts, t["cond"], t["w_in"], t["b_g"], t["w_out"], t["dskip"],
+        dilations=dil, want_wgrads=want)
+    assert len(got) == len(j_grads) == (6 if want else 2)
+    for name, g, w in zip(GRADS, got, j_grads):
+        if name in ("dw_in", "dw_out"):
+            w = np.swapaxes(w, 1, 2)
+        assert g.shape == w.shape, name
+        assert _rel(g.numpy(), w) < 1e-4, name
 
 
 def test_plain_train_matches_pallas_bf16(jax_train):
@@ -297,12 +327,14 @@ def test_wrappers_on_cpu_are_the_plain_versions_and_launch_nothing():
     assert _counters() == before
 
 
-def _teacher_shaped(B=2, T=64, dtype=torch.bfloat16, device="cpu"):
-    """Operands at teacher_lj widths in chip_smoke.py's distribution:
-    x0 and cond of std 0.5, weights scaled by 1/sqrt(fan_in), so the gate
-    pre-activations have unit variance."""
-    C, G, S, M = TRAIN_KERNEL_DIMS
-    args = _inputs(5, B, T, C, M, G, S, TEACHER_DILATIONS)
+def _teacher_shaped(B=2, T=64, dtype=torch.bfloat16, device="cpu",
+                    dims=TEACHER_DIMS):
+    """Operands at one of the training kernels' widths (teacher_lj's by
+    default, or student_iaf's) and that stack's dilations, in chip_smoke.py's
+    distribution: x0 and cond of std 0.5, weights scaled by 1/sqrt(fan_in),
+    so the gate pre-activations have unit variance."""
+    C, G, S, M = dims
+    args = _inputs(5, B, T, C, M, G, S, TRAIN_STACKS[dims])
     for name, fan_in in (("w_in", 2 * C + M), ("w_out", G // 2)):
         args[name] *= 10 / np.sqrt(fan_in)   # from std 0.1
     for name in ("x0", "cond"):
@@ -357,15 +389,17 @@ def _row_rel(out, ref):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dims", TRAIN_KERNEL_DIMS)
 @pytest.mark.parametrize("B,T", [(2, 300), (1, 1), (3, 1000)])
-def test_train_kernels_match_plain_on_card(cuda, B, T):
+def test_train_kernels_match_plain_on_card(cuda, B, T, dims):
     """bf16 kernels vs the plain versions in fp32 on the same bf16
     operands, in chip_smoke.py's input distribution and with its bound:
-    forward skip per row within 0.02 (0.007-0.010 on the H100), every
-    gradient within 0.02 of its largest value (0.003-0.007), in both
-    backward modes."""
-    t = _teacher_shaped(B, T, device=cuda)
-    dil = TEACHER_DILATIONS
+    forward skip per row within 0.02 (0.007-0.010 on the H100 at teacher_lj
+    widths), every gradient within 0.02 of its largest value (0.003-0.007),
+    in both backward modes, at both widths (the student's dilations reach
+    512, past T = 300)."""
+    t = _teacher_shaped(B, T, device=cuda, dims=dims)
+    dil = TRAIN_STACKS[dims]
     g0, b0 = gated_layer.launches, flow_stack_train_backward.launches
     skip, acts = flow_stack_train_forward(**_fwd(t), dilations=dil)
     ref_skip, _ = flow_stack_train_reference(
@@ -385,16 +419,18 @@ def test_train_kernels_match_plain_on_card(cuda, B, T):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dims", TRAIN_KERNEL_DIMS)
 @pytest.mark.parametrize("B,T,d", [(1, 1, 1), (3, 1003, 128), (1, 4097, 4097),
-                                   (2, 64, 64), (3, 97, 5)])
-def test_wgrad_gemm_matches_matmul_on_card(cuda, B, T, d):
+                                   (2, 64, 64), (3, 97, 5), (2, 1000, 512)])
+def test_wgrad_gemm_matches_matmul_on_card(cuda, B, T, d, dims):
     """Kernel 3's weight-gradient GEMM (TMA boxes read by wgmma as MN-major
     operands) against torch.matmul in fp32 of the same bf16 operands, at
     odd shapes: rows not a multiple of the 64-row stage, rows with t < d
     (all of them where d >= T), B = 1 with T = 1.  Both sum exact bf16
     products in fp32 in another order: 1e-3 of the largest value (a wrong
-    descriptor or tap is O(1)).  Two runs are bit-identical."""
-    C, G, S, M = TRAIN_KERNEL_DIMS
+    descriptor or tap is O(1)).  Two runs are bit-identical.  At both
+    widths."""
+    C, G, S, M = dims
     gen = torch.Generator(device=cuda).manual_seed(B * 7919 + T + d)
 
     def arr(*shape):
@@ -415,12 +451,15 @@ def test_wgrad_gemm_matches_matmul_on_card(cuda, B, T, d):
 
 
 @pytest.mark.gpu
-def test_train_backward_is_deterministic_and_rows_isolated_on_card(cuda):
+@pytest.mark.parametrize("dims", TRAIN_KERNEL_DIMS)
+def test_train_backward_is_deterministic_and_rows_isolated_on_card(cuda,
+                                                                   dims):
     """Weight gradients come from per-block partials summed in a fixed
     order: two runs are bit-identical.  dx of row 0 does not move when
-    row 1's cotangent does."""
-    t = _teacher_shaped(2, 700, device=cuda)
-    dil = TEACHER_DILATIONS
+    row 1's cotangent does.  The dx-only mode gives the same dx and dcond
+    bits as the mode with weight gradients."""
+    t = _teacher_shaped(2, 700, device=cuda, dims=dims)
+    dil = TRAIN_STACKS[dims]
     _, acts = flow_stack_train_forward(**_fwd(t), dilations=dil)
     bargs = [acts, t["cond"], t["w_in"], t["b_g"], t["w_out"], t["dskip"]]
     a = flow_stack_train_backward(*bargs, dilations=dil)
@@ -430,6 +469,9 @@ def test_train_backward_is_deterministic_and_rows_isolated_on_card(cuda):
     bargs[5][1] *= 2.0
     c = flow_stack_train_backward(*bargs, dilations=dil, want_wgrads=False)
     assert torch.equal(a[0][0], c[0][0]) and not torch.equal(a[0][1], c[0][1])
+    bargs[5][1] /= 2.0
+    e = flow_stack_train_backward(*bargs, dilations=dil, want_wgrads=False)
+    assert torch.equal(a[0], e[0]) and torch.equal(a[1], e[1])
 
 
 @pytest.mark.gpu

@@ -467,8 +467,8 @@ def test_resolve_stack_mode_in_context(flag, context, mode):
 
 
 @pytest.mark.parametrize("dims,mode,want", [
-    ((64, 128, 64, 80), "train", "layer"),
-    ((64, 128, 64, 80), "dx", "layer"),
+    ((64, 128, 64, 80), "train", "train"),
+    ((64, 128, 64, 80), "dx", "dx"),
     ((64, 128, 64, 80), "infer", "infer"),
     ((128, 256, 128, 80), "train", "train"),
     ((128, 256, 128, 80), "dx", "dx"),
@@ -477,10 +477,10 @@ def test_resolve_stack_mode_in_context(flag, context, mode):
     ((64, 128, 64, 40), "infer", "infer"),
 ])
 def test_training_stack_mode_from_widths(dims, mode, want):
-    """A "train" or "dx" stack at widths kernels 2 and 3 are not built for
-    runs "layer" where kernel 5 is built for them (the reference's
-    per-layer fallback for an ineligible mega_train / mega_dx stack), and
-    keeps its mode elsewhere; "infer" stays "infer" at every width."""
+    """A stack keeps the mode it is built in at every width: kernels 2 and
+    3 are built at the student's widths as at the teacher's, and the
+    reference runs mega_train / mega_dx for every `mega_ok` stack, so a
+    C=64 "train" or "dx" stack no longer becomes "layer"."""
     C, G, S, M = dims
     stack = WaveNetStack(tuple(2 ** i for i in range(10)), C, G, S, 2, M,
                          mode=mode)

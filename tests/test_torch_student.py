@@ -185,7 +185,6 @@ def test_npz_round_trip(tmp_path, tiny_pair):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("student.base", "gaussian"),
     ("teacher.upsample_weight_norm", True),
     # the reference's XLA stack: refused, not run on another path
     ("student.fused_layers", "off"),
@@ -206,13 +205,13 @@ def test_kernel_size_other_than_two_raises(kernel_size):
 
 @pytest.mark.parametrize("flag,mode", [
     ("auto", "infer"), ("mega", "infer"), ("on", "layer"),
-    ("layer", "layer"), ("mega_train", "layer"), ("mega_dx", "layer"),
+    ("layer", "layer"), ("mega_train", "train"), ("mega_dx", "dx"),
 ])
 def test_fused_layers_flag_reaches_every_flow(flag, mode):
     """`student.fused_layers` sets every flow's stack mode, at student_iaf's
-    widths (which kernel 1 takes; kernels 2 and 3 are not built for them,
-    so a training stack runs the per-layer kernel, as the reference's
-    fallback for an ineligible mega_train / mega_dx stack)."""
+    widths, which kernel 1 takes for inference and kernels 2 and 3 for
+    training: mega_train and mega_dx keep their modes, as the reference's
+    `mega_ok` keeps such a stack on its whole-stack training kernels."""
     port = StudentIAF(override(get_config("student_iaf"),
                                "student.fused_layers", flag))
     assert [f.mode for f in port.flows] == [mode] * 4

@@ -216,18 +216,18 @@ def test_init_teacher_is_seeded_and_fan_in_scaled():
 
 
 @pytest.mark.parametrize("flag,mode", [
-    ("auto", "infer"), ("mega", "infer"), ("mega_train", "layer"),
-    ("mega_dx", "layer"),
+    ("auto", "infer"), ("mega", "infer"), ("mega_train", "train"),
+    ("mega_dx", "dx"),
 ])
 def test_stack_mode_follows_the_config(flag, mode):
-    """At widths kernel 1 is built for (the tiny teacher with 80 mel bands),
-    which kernels 2 and 3 are not: a training stack runs the per-layer
-    kernel there, as the reference's fallback for an ineligible mega_train
-    / mega_dx stack.  At teacher_lj's widths it keeps "train"."""
+    """At student_iaf's widths (the tiny teacher with 80 mel bands), which
+    kernel 1 and kernels 2 and 3 are built for, a training stack keeps its
+    mode, as the reference's `mega_ok` keeps it on mega_train / mega_dx;
+    at teacher_lj's widths too."""
     cfg = override(TINY, "dsp.n_mels", 80)
     port = TeacherWaveNet(override(cfg, "teacher.fused_layers", flag))
     assert port.stack.mode == mode
-    assert TeacherWaveNet(cfg, stack_mode="train").stack.mode == "layer"
+    assert TeacherWaveNet(cfg, stack_mode="train").stack.mode == "train"
     lj = override(override(get_config("teacher_lj"), "teacher.n_blocks", 1),
                   "teacher.layers_per_block", 2)
     assert TeacherWaveNet(lj, stack_mode="train").stack.mode == "train"
