@@ -72,6 +72,17 @@ Phases, each printing what it finds:
   8. AR main — `generate_teacher` on `teacher_lj` at full width from a
                synthetic utterance's mel, and `fast_sample_kernel` at batch
                8, with kernel 4's launch count;
+  8b. workdir and CLI — `pwn_tpu_torch.cli` in-process on the card at
+               full width: train-teacher teacher_lj (4 steps; checkpoints,
+               metrics, TensorBoard and kernel-4 sample dumps at 2 and 4),
+               a resume to 6 against 6 steps at once (the step-6
+               checkpoints compared tensor by tensor), distill-student
+               student_iaf with `--teacher-step auto` (the probe's pick
+               checked against the lower val_loss; kernel-1 dumps),
+               generate from the student (one utterance, a directory
+               through `vocode_many`) and from the teacher (kernel 4),
+               each call's launches checked; the save's blocking ms, the
+               checkpoint's bytes and the step with the workdir;
   9. times   — each kernel's and its plain version's ms per call beside its
                bound (kernel 1 beside the kernel-5 chain on the same
                inputs; kernel 5 in both epilogues at both widths), end-to-end
@@ -89,15 +100,20 @@ The script imports no JAX; the machine with the card need not have it.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from pwn_tpu_torch import get_config, override
+from pwn_tpu_torch import cli, get_config, override
 from pwn_tpu_torch.generate import (generate_student, generate_teacher,
                                     mel_from_wav, vocode_many)
 from pwn_tpu_torch.models import sampling
@@ -122,14 +138,20 @@ from pwn_tpu_torch.training.common import create_train_state
 from pwn_tpu_torch.training.distill import (distillation_losses,
                                             make_distill_train_step)
 from pwn_tpu_torch.training.loop import (frozen_teacher, make_val_batch,
+                                         state_template,
                                          run_distillation,
                                          run_student_direct_training,
                                          run_teacher_training)
 from pwn_tpu_torch.training.student_direct import (
     make_student_direct_train_step)
+from pwn_tpu_torch.training.teacher_select import probe_teacher_checkpoints
 from pwn_tpu_torch.training.teacher import (make_teacher_train_step,
                                             prepare_batch)
+from pwn_tpu_torch.utils.audio_io import read_wav, write_wav
+from pwn_tpu_torch.utils.checkpoint import (STATE_FILE, CheckpointManager,
+                                            state_tensors)
 from pwn_tpu_torch.utils.platform import require_cuda
+from pwn_tpu_torch.utils.tensorboard import read_events
 
 SEED = 0
 CFG = get_config("student_iaf")
@@ -1361,6 +1383,242 @@ def phase_ar_main(device) -> dict:
     return {"launches": launches}
 
 
+# A resumed teacher run against an uninterrupted one, per tensor of the
+# step-6 checkpoint.  Kernels 2, 3 and 5 sum in a fixed order, so every
+# tensor should be bit-identical; a library op with atomics (cuDNN's
+# transposed-conv gradient, say) would part them by rounding alone, which
+# 1e-5 relative L2 bounds; a wrong restore (a stale moment, step or seed)
+# is O(1e-3) or more after two Adam steps at lr 1e-3.
+TOL_RESUME = 1e-5
+WORKDIR_OVERRIDES = ["train.checkpoint_every=2", "train.keep_checkpoints=2",
+                     "train.log_every=1"]
+
+
+def _cli(*args) -> str:
+    """One in-process `pwn_tpu_torch.cli` call on the card: its stdout,
+    echoed; a non-zero exit raises."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(args))
+    torch.cuda.synchronize()
+    out = buf.getvalue()
+    for line in out.splitlines():
+        _log(f"[workdir]   | {line}")
+    _check(rc == 0, f"`{' '.join(args[:2])}` exited {rc}")
+    return out
+
+
+def _driven(want: dict, what: str, *args) -> str:
+    """`_cli(*args)` with every launch counter at 0 just before and checked
+    against `want` just after."""
+    _reset_counts()
+    out = _cli(*args)
+    got = _counts()
+    _log(f"[workdir] {what}: launches {got}")
+    _check(got == want, f"{what}: expected launches {want}")
+    return out
+
+
+def _teacher_launches(steps: int, evals: int, dumps: int) -> dict:
+    """teacher_lj training: kernel 3 once a step, kernel 5 once per layer of
+    every forward (kernel 2's route: steps and evals), kernel 4 once a
+    sample dump."""
+    return {"kernel 1": 0, "kernel 5": TEACHER.teacher.n_layers * (steps + evals),
+            "kernel 3": steps, "kernel 3 student": 0, "kernel 3 teacher dx": 0,
+            "kernel 4": dumps}
+
+
+def _metrics(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _ckpt_flat(wd: str, tag: str, step: int) -> dict:
+    return torch.load(os.path.join(wd, f"ckpt_{tag}", str(step), STATE_FILE),
+                      weights_only=True)
+
+
+def _dump_len(cfg) -> int:
+    """The samples a sample dump holds: `eval_sample_seconds` of the
+    held-out clip, in whole frames."""
+    hop = cfg.dsp.hop_length
+    n = max(hop * 4, int(cfg.train.eval_sample_seconds * cfg.dsp.sample_rate))
+    return n // hop * hop
+
+
+def phase_workdir(device, smi: str) -> dict:
+    """The CLI on the card at full width (teacher_lj and student_iaf, 8 x
+    16,384): train-teacher with checkpoints, metrics, TensorBoard and
+    kernel-4 sample dumps; a resume against an uninterrupted run;
+    distill-student with the teacher picked by the probe (kernel-1 dumps);
+    generate from the student (one utterance, a directory through
+    `vocode_many`) and from the teacher (kernel 4); each call's launches;
+    the save's blocking ms and the checkpoint's bytes."""
+    root = tempfile.mkdtemp(prefix="pwn_workdir_")
+    try:
+        return _phase_workdir(device, smi, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase_workdir(device, smi: str, root: str) -> dict:
+    t1, t2, s1 = (os.path.join(root, n) for n in ("teacher", "whole",
+                                                  "student"))
+    hop, sr = TEACHER.dsp.hop_length, TEACHER.dsp.sample_rate
+    ov = WORKDIR_OVERRIDES
+    t0 = time.perf_counter()
+
+    # 1. four steps: checkpoints, metrics, TB and AR dumps at 2 and 4
+    out = _driven(_teacher_launches(4, 2, 2), "train-teacher 4 steps",
+                  "train-teacher", "teacher_lj", "--workdir", t1, "--steps",
+                  "4", *ov)
+    _check("teacher done: 4 steps" in out, "train-teacher's summary line")
+    steps = CheckpointManager(os.path.join(t1, "ckpt_teacher")).all_steps()
+    recs = _metrics(os.path.join(t1, "metrics_teacher.jsonl"))
+    losses = [r["step"] for r in recs if "loss" in r]
+    vals = [r["step"] for r in recs if "val_loss" in r]
+    (ev,) = os.listdir(os.path.join(t1, "tb_teacher"))
+    events = read_events(os.path.join(t1, "tb_teacher", ev))
+    tags = sorted({t for e in events for t in e.get("summary", {})})
+    dumps = sorted(os.listdir(os.path.join(t1, "samples")))
+    lens = [read_wav(os.path.join(t1, "samples", d))[0].shape[0] for d in dumps]
+    _log(f"[workdir] ckpt_teacher {steps}; metrics steps {losses}, val_loss "
+         f"at {vals}; TB tags {tags} in {len(events)} events; dumps {dumps} "
+         f"of {lens} samples")
+    _check(steps == [2, 4], "ckpt_teacher should hold steps [2, 4]")
+    _check(losses == [0, 1, 2, 3] and vals == [2, 4], "the metrics' steps")
+    _check(all(np.isfinite(r.get("loss", 0.0)) for r in recs),
+           "non-finite metrics")
+    _check({"loss", "grad_norm", "val_loss", "samples/audio"} <= set(tags),
+           "the TensorBoard file's summaries")
+    _check(dumps == ["step_00000002.wav", "step_00000004.wav"]
+           and lens == [_dump_len(TEACHER)] * 2, "the teacher's sample dumps")
+
+    # 2. resume to 6 against 6 steps at once
+    out = _driven(_teacher_launches(2, 1, 1), "train-teacher resumed to 6",
+                  "train-teacher", "teacher_lj", "--workdir", t1, "--steps",
+                  "6", *ov)
+    _check("resumed from step 4" in out and "teacher done: 2 steps" in out,
+           "the resume's steps_run")
+    _driven(_teacher_launches(6, 3, 3), "train-teacher 6 steps at once",
+            "train-teacher", "teacher_lj", "--workdir", t2, "--steps", "6",
+            *ov)
+    a, b = _ckpt_flat(t1, "teacher", 6), _ckpt_flat(t2, "teacher", 6)
+    _check(a.keys() == b.keys() and all(a[k] == b[k] for k in
+                                        ("step", "seed", "opt.count")),
+           "the two step-6 checkpoints' keys and scalars")
+    tensors = [k for k in a if isinstance(a[k], torch.Tensor)]
+    differ = {k: float((a[k] - b[k]).norm() / b[k].norm().clamp_min(1e-30))
+              for k in tensors if not torch.equal(a[k], b[k])}
+    _log(f"[workdir] resumed vs uninterrupted at step 6: "
+         f"{len(tensors) - len(differ)} of {len(tensors)} tensors "
+         f"bit-identical; differing: "
+         + (", ".join(f"{k} {v:.2e}" for k, v in sorted(differ.items())[:8])
+            or "none")
+         + f" (tol {TOL_RESUME} relative L2)")
+    _check(all(v <= TOL_RESUME for v in differ.values()),
+           "the resumed run is off the uninterrupted one")
+    _check(CheckpointManager(os.path.join(t1, "ckpt_teacher")).all_steps()
+           == [4, 6], "keep_checkpoints=2 should keep [4, 6]")
+
+    # 3. the probe picks a teacher step, then four distillation steps
+    probe = _student_launches(CFG, 2, 1, teacher=True)
+    distill = _student_launches(CFG, 4, 2, teacher=True)
+    want = {k: 2 * probe[k] + distill[k] for k in probe}
+    want["kernel 1"] = 2 * CFG.student.n_flows  # two student dumps
+    out = _driven(want, "distill-student --teacher-step auto",
+                  "distill-student", "student_iaf", "--teacher-workdir", t1,
+                  "--teacher-step", "auto", "--teacher-probe-steps", "2",
+                  "--steps", "4", "--workdir", s1, "train.checkpoint_every=2")
+    picked = int(out.split("selected teacher step ")[1].split()[0])
+    probes = probe_teacher_checkpoints(CFG, t1, probe_steps=2)
+    by_loss = min(probes, key=lambda r: r["val_loss"])["teacher_step"]
+    _log(f"[workdir] probe again: " + "; ".join(
+        f"step {r['teacher_step']} val_loss {r['val_loss']:.6f} val_kl "
+        f"{r['val_kl']:.6f}" for r in probes) + f"; the CLI picked {picked}")
+    _check(picked == by_loss and [r["teacher_step"] for r in probes] == [4, 6],
+           "the probe should pick the lower val_loss of steps 4 and 6")
+    _check(f"loaded teacher @ step {picked}" in out
+           and "student done: 4 steps" in out, "distill-student's lines")
+    s_steps = CheckpointManager(os.path.join(s1, "ckpt_student")).all_steps()
+    s_dumps = sorted(os.listdir(os.path.join(s1, "samples")))
+    _check(s_steps == [2, 4] and s_dumps == ["step_00000002.wav",
+                                             "step_00000004.wav"],
+           f"ckpt_student {s_steps}, dumps {s_dumps}")
+
+    # 4. generate: one utterance, a directory, the teacher
+    none = {k: 0 for k in _counts()}
+    wav_out = os.path.join(root, "gen.wav")
+    _driven({**none, "kernel 1": CFG.student.n_flows}, "generate student 2 s",
+            "generate", "student_iaf", "--workdir", s1, "--seconds", "2",
+            "--output", wav_out)
+    wav, got_sr = read_wav(wav_out)
+    _check(got_sr == sr and wav.shape == (int(2 * sr) // hop * hop,)
+           and np.isfinite(wav).all(), f"generate wrote {wav.shape}")
+    src = os.path.join(root, "src")
+    durations = [0.5, 1.2, 1.3]
+    for i, w in enumerate(_synthetic_wavs(durations)):
+        write_wav(os.path.join(src, f"utt{i}.wav"), w, sr)
+    frames = [int(d * sr) // hop for d in durations]
+    buckets = {-(-f // 64) for f in frames}  # --bucket-frames 64, batch 8
+    out = _driven({**none, "kernel 1": CFG.student.n_flows * len(buckets)},
+                  "generate --source-dir", "generate", "student_iaf",
+                  "--workdir", s1, "--source-dir", src, "--output-dir",
+                  os.path.join(root, "out"))
+    got = [read_wav(os.path.join(root, "out", f"utt{i}.wav"))[0].shape[0]
+           for i in range(3)]
+    _check("vocoded 3 utterances" in out and got == [f * hop for f in frames],
+           f"vocode_many wrote {got}")
+    t_out = os.path.join(root, "teacher.wav")
+    _driven({**none, "kernel 4": 1}, "generate --model teacher", "generate",
+            "teacher_lj", "--model", "teacher", "--workdir", t1, "--seconds",
+            "0.25", "--output", t_out)
+    tw = read_wav(t_out)[0]
+    _check(tw.shape == (int(0.25 * sr) // hop * hop,) and np.isfinite(tw).all(),
+           f"the teacher's generate wrote {tw.shape}")
+    phase_s = time.perf_counter() - t0
+
+    # 5. costs: the save's blocking part and the checkpoint's bytes;
+    # teacher step intervals with the workdir (log_every=1 syncs each step)
+    state, _ = CheckpointManager(os.path.join(t2, "ckpt_teacher")).restore(
+        state_template(TEACHER, "teacher", device))
+    n_params = sum(p.numel() for p in state.params.values())
+    reckoned = 3 * 4 * n_params
+    ckpt = CheckpointManager(os.path.join(root, "costs"), max_to_keep=1)
+    blocking, writes = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ckpt.save(100 + i, state)
+        blocking.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        ckpt.wait()
+        writes.append((time.perf_counter() - t) * 1e3)
+    nbytes = os.path.getsize(os.path.join(root, "costs", "102", STATE_FILE))
+    s_bytes = os.path.getsize(os.path.join(s1, "ckpt_student", "4",
+                                           STATE_FILE))
+    wall = [r["wall_s"] for r in _metrics(os.path.join(
+        t2, "metrics_teacher.jsonl")) if "loss" in r]
+    plain = [(wall[i + 1] - wall[i]) * 1e3 for i in (0, 2, 4)]
+    at_ckpt = [(wall[i + 1] - wall[i]) * 1e3 for i in (1, 3)]
+    _log(f"[workdir] {smi}: teacher_lj save, blocking part (device-to-host "
+         f"snapshot): " + " / ".join(f"{x:.3f}" for x in blocking)
+         + " ms; the background write " + " / ".join(f"{x:.3f}" for x in writes)
+         + f" ms; checkpoint {nbytes:,} B (reckoned {n_params:,} params x "
+         f"(params + mu + nu) x 4 B = {reckoned:,} B); student_iaf's "
+         f"{s_bytes:,} B")
+    _log(f"[workdir] {smi}: teacher_lj steps with the workdir, host clock "
+         f"between metric lines (a sync each): a step alone "
+         + " / ".join(f"{x:.1f}" for x in plain) + " ms; a step after the "
+         "eval, save and kernel-4 dump " + " / ".join(f"{x:.1f}" for x in
+                                                      at_ckpt)
+         + f" ms; the phase took {phase_s:.1f} s")
+    _check(abs(nbytes - reckoned) < 0.01 * reckoned,
+           "the checkpoint's bytes against params + mu + nu in fp32")
+    return {"step_ms": float(np.mean(plain)), "save_ms": blocking,
+            "bytes": nbytes}
+
+
 def _time_ms(fn, n: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1655,7 +1913,7 @@ def phase_train_times(device, smi: str) -> dict:
     fs.flow_stack_train_backward.launches_by = counted[2]
     _log(f"[times] {smi}: teacher_lj train step, batch {B} x {T}: {step_ms:.3f} "
          f"ms per step, {B / (step_ms / 1e3):.1f} utterances/s")
-    return result
+    return {**result, "step_ms": step_ms}
 
 
 def phase_distill_times(device, smi: str) -> dict:
@@ -1779,9 +2037,13 @@ def main() -> int:
     distill = phase_distill(device)
     phase_direct(device)
     ar_main = phase_ar_main(device)
+    workdir = phase_workdir(device, smi)
     times = phase_times(device, smi)
     layer_times = phase_layer_times(device, smi)
     train_times = phase_train_times(device, smi)
+    _log(f"[times] {smi}: teacher_lj step with the workdir (log_every=1) "
+         f"{workdir['step_ms']:.1f} ms against {train_times['step_ms']:.3f} ms "
+         f"without it (CUDA events over 10 steps, no sync between)")
     distill_times = phase_distill_times(device, smi)
     ar_times = phase_ar_times(device, smi)
     train_src = "pwn_tpu_torch/csrc/flow_stack_train.cu"

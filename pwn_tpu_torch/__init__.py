@@ -9,8 +9,11 @@ What is ported: student IAF synthesis (mel -> waveform in one parallel
 pass) through `generate_student` and `vocode_many`, teacher training on
 the synthetic corpus through `run_teacher_training`, distillation of the
 student from a frozen teacher and direct student training through
-`run_distillation` and `run_student_direct_training`, and teacher
-autoregressive sampling through `generate_teacher`.  The flow stack runs
+`run_distillation` and `run_student_direct_training` (with a workdir:
+checkpoints with exact resume, metrics, TensorBoard and sample dumps),
+teacher autoregressive sampling through `generate_teacher`, and the
+command line `python -m pwn_tpu_torch.cli` (train-teacher,
+train-student, distill-student, generate).  The flow stack runs
 in hand-written CUDA C++ kernels on a CUDA tensor (`csrc/flow_stack.cu`
 for inference, `csrc/flow_stack_train.cu` for the training forward and
 backward) and in its plain PyTorch versions (`ops/flow_stack.py`) on a

@@ -22,6 +22,7 @@ from pwn_tpu_torch.ops.flow_stack import (flow_stack, flow_stack_score,
                                           flow_stack_train)
 from pwn_tpu_torch.ops.gated_layer import (TIME_TILE, FusedGatedResidual,
                                            pack_layer)
+from pwn_tpu_torch.ops.norm import init_weight_norm_, weight_norm
 
 # WaveNetStack's execution modes and the stack function each one runs:
 #   infer  inference forward in the reference megakernel's rounding (fp32
@@ -279,37 +280,53 @@ class WaveNetStack(nn.Module):
 class UpsampleNet(nn.Module):
     """Mel-frame -> sample-rate conditioning: transposed convs, each followed
     by leaky_relu(0.4); the product of `strides` is the hop length, so
-    (B, F, n_mels) -> (B, F*hop, n_mels)."""
+    (B, F, n_mels) -> (B, F*hop, n_mels).  With `weight_norm` each kernel is
+    `ops/norm.py::weight_norm(v_i, g_i)`, held as `v_{i}` and `g_{i}` in
+    place of `kernel_{i}` (the reference's names)."""
 
     def __init__(self, strides: Sequence[int], channels: int,
                  in_channels: int, kernel_mult: int = 2,
                  dtype: torch.dtype = torch.float32, weight_norm: bool = False,
                  device=None):
         super().__init__()
-        if weight_norm:
-            raise NotImplementedError(
-                "the weight-normalized upsampler is not ported yet")
         self.strides = tuple(strides)
         self.dtype = dtype
+        self.weight_norm = weight_norm
         cin = in_channels
         for i, stride in enumerate(self.strides):
-            self.register_parameter(f"kernel_{i}", _param(
-                stride * kernel_mult, cin, channels, device=device))
+            shape = (stride * kernel_mult, cin, channels)
+            if weight_norm:
+                self.register_parameter(f"v_{i}", _param(*shape,
+                                                         device=device))
+                self.register_parameter(f"g_{i}", _param(channels,
+                                                         device=device))
+            else:
+                self.register_parameter(f"kernel_{i}", _param(
+                    *shape, device=device))
             self.register_parameter(f"bias_{i}", _param(channels,
                                                         device=device))
             cin = channels
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for i in range(len(self.strides)):
-            k = getattr(self, f"kernel_{i}")
+            k = getattr(self, f"v_{i}" if self.weight_norm else f"kernel_{i}")
             fan_in_init_(k, k.shape[0] * k.shape[1], generator)
+            if self.weight_norm:
+                init_weight_norm_(k, getattr(self, f"g_{i}"))
             nn.init.zeros_(getattr(self, f"bias_{i}"))
+
+    def kernel(self, i: int) -> torch.Tensor:
+        """The i-th transposed conv's kernel (K, Cin, Cout) in float32."""
+        if self.weight_norm:
+            return weight_norm(getattr(self, f"v_{i}"),
+                               getattr(self, f"g_{i}"))
+        return getattr(self, f"kernel_{i}")
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         x = mel.to(dt)
         for i, stride in enumerate(self.strides):
-            x = conv_transpose1d(x, getattr(self, f"kernel_{i}").to(dt),
-                                 stride, getattr(self, f"bias_{i}").to(dt))
+            x = conv_transpose1d(x, self.kernel(i).to(dt), stride,
+                                 getattr(self, f"bias_{i}").to(dt))
             x = F.leaky_relu(x, 0.4)
         return x

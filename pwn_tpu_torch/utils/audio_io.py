@@ -45,3 +45,17 @@ def write_wav(path: str, wav: np.ndarray, sample_rate: int) -> None:
     if peak > 1.0:
         wav = wav / peak
     wavfile.write(path, sample_rate, (wav * 32767.0).astype(np.int16))
+
+
+def wav_bytes(wav: np.ndarray, sample_rate: int) -> bytes:
+    """Float waveform in [-1, 1] -> in-memory 16-bit PCM RIFF bytes
+    (TensorBoard audio summaries embed the encoded file)."""
+    import io
+
+    wav = np.asarray(wav, dtype=np.float32)
+    peak = np.max(np.abs(wav)) if wav.size else 0.0
+    if peak > 1.0:
+        wav = wav / peak
+    buf = io.BytesIO()
+    wavfile.write(buf, sample_rate, (wav * 32767.0).astype(np.int16))
+    return buf.getvalue()

@@ -1,0 +1,195 @@
+"""The port's command line (`python -m pwn_tpu_torch.cli`) on the CPU at tiny
+fp32 sizes: train-teacher -> distill-student (`--teacher-step auto`, an
+integer, live params) -> generate (student, teacher, `--dump-mel` /
+`--mel`, `--mel-dir`, `--source-dir`), train-student, and the refusals
+(`--chunk-frames`, `eval`, `serve`, `bench`, no card without `--device`).
+Each command runs in-process through `cli.main` with `--device cpu`, and
+writes what it prints.
+"""
+
+import contextlib
+import io
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pwn_tpu_torch import cli
+from pwn_tpu_torch.utils.audio_io import read_wav, write_wav
+
+ROOT = Path(__file__).resolve().parents[1]
+SR = 16000  # tiny_teacher's sample rate
+# tiny_teacher's DSP with a 3-layer teacher and a 2 x 3-layer student at
+# C=16, two 1,024-sample crops, a checkpoint every 2 steps
+OVERRIDES = [
+    "student.n_flows=2", "student.layers_per_flow=3",
+    "student.residual_channels=16", "student.gate_channels=32",
+    "student.skip_channels=16", "teacher.n_blocks=1",
+    "teacher.layers_per_block=3", "teacher.residual_channels=16",
+    "teacher.gate_channels=32", "teacher.skip_channels=16",
+    "teacher.n_mixtures=4", "train.global_batch_size=2",
+    "train.crop_samples=1024", "train.checkpoint_every=2",
+    "train.eval_sample_seconds=0.02", "train.ema_decay=0.5",
+]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several pytest workers per host; torch's default of
+    one intra-op thread per core oversubscribes it, so these tests run
+    torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cli(*args):
+    """(exit code, stdout, stderr) of one in-process CLI call on the CPU."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main([*args, "--device", "cpu", *OVERRIDES])
+    return rc, out.getvalue(), err.getvalue()
+
+
+@pytest.fixture(scope="module")
+def workdirs(tmp_path_factory):
+    """A teacher trained 4 steps (checkpoints at 2 and 4) and a student
+    distilled 2 steps from the teacher step the probe picked."""
+    root = tmp_path_factory.mktemp("cli")
+    t, s = str(root / "teacher"), str(root / "student")
+    logs = {"train": _cli("train-teacher", "tiny_teacher", "--workdir", t,
+                          "--steps", "4"),
+            "distill": _cli("distill-student", "tiny_teacher",
+                            "--teacher-workdir", t, "--workdir", s,
+                            "--teacher-step", "auto",
+                            "--teacher-probe-steps", "1", "--steps", "2")}
+    return root, t, s, logs
+
+
+def test_train_teacher_then_distill_with_auto_selection(workdirs):
+    _, t, s, logs = workdirs
+    rc, out, err = logs["train"]
+    assert rc == 0 and "teacher done: 4 steps, final {'loss'" in out
+    assert sorted(os.listdir(os.path.join(t, "ckpt_teacher"))) == ["2", "4"]
+    assert '"val_loss"' in err  # the metrics' stderr echo
+    rc, out, _ = logs["distill"]
+    assert rc == 0
+    probes = [ln for ln in out.splitlines() if ln.startswith("[teacher-probe]")]
+    assert len(probes) == 3 and "selected teacher step" in probes[-1]
+    picked = int(probes[-1].split("selected teacher step ")[1].split()[0])
+    assert f"loaded teacher @ step {picked} (ema params)" in out
+    assert "student done: 2 steps" in out
+    assert sorted(os.listdir(os.path.join(s, "samples"))) == [
+        "step_00000002.wav"]
+
+
+def test_distill_from_a_given_step_and_live_params(workdirs):
+    root, t, *_ = workdirs
+    rc, out, _ = _cli("distill-student", "tiny_teacher", "--teacher-workdir",
+                      t, "--workdir", str(root / "student2"),
+                      "--teacher-step", "2", "--teacher-params", "live",
+                      "--steps", "1")
+    assert rc == 0 and "loaded teacher @ step 2 (live params)" in out
+    assert "student done: 1 steps" in out
+
+
+def test_train_student_direct(tmp_path):
+    rc, out, _ = _cli("train-student", "tiny_teacher", "--workdir",
+                      str(tmp_path), "--steps", "2")
+    assert rc == 0 and "student (direct) done: 2 steps" in out
+    assert os.listdir(tmp_path / "ckpt_student") == ["2"]
+
+
+def test_generate_student_from_a_source_and_from_its_dumped_mel(workdirs,
+                                                                tmp_path):
+    """From a source wav with `--dump-mel`, then from that mel: the same
+    audio (same mel, same noise seed), of the source's length."""
+    _, _, s, _ = workdirs
+    src = tmp_path / "src.wav"
+    write_wav(str(src), np.sin(np.arange(4000) * 0.05).astype(np.float32) * 0.5,
+              SR)
+    a, b, mel = tmp_path / "a.wav", tmp_path / "b.wav", tmp_path / "m.npy"
+    rc, out, _ = _cli("generate", "tiny_teacher", "--workdir", s, "--source",
+                      str(src), "--output", str(a), "--dump-mel", str(mel))
+    assert rc == 0 and f"wrote {a}: 0.25s @ {SR} Hz" in out
+    assert np.load(mel).shape == (31, 40)
+    rc, out, _ = _cli("generate", "tiny_teacher", "--workdir", s, "--mel",
+                      str(mel), "--output", str(b))
+    assert rc == 0 and f"wrote {b}" in out
+    wa, wb = read_wav(str(a))[0], read_wav(str(b))[0]
+    assert wa.shape == (31 * 128,) and np.array_equal(wa, wb)
+    assert np.abs(wa).max() > 0
+
+
+def test_generate_teacher(workdirs, tmp_path):
+    _, t, _, _ = workdirs
+    out_wav = tmp_path / "t.wav"
+    rc, out, _ = _cli("generate", "tiny_teacher", "--model", "teacher",
+                      "--workdir", t, "--seconds", "0.05", "--output",
+                      str(out_wav), "--temperature", "0.8")
+    assert rc == 0 and f"wrote {out_wav}: 0.05s" in out
+    wav, sr = read_wav(str(out_wav))
+    assert sr == SR and wav.shape == (768,) and np.isfinite(wav).all()
+
+
+@pytest.mark.parametrize("mode", ["mel-dir", "source-dir"])
+def test_generate_batch_mode(workdirs, tmp_path, mode):
+    """`vocode_many` over a directory: one wav per input, named by its
+    stem, at the input's length."""
+    _, _, s, _ = workdirs
+    inp = tmp_path / "in"
+    inp.mkdir()
+    rng = np.random.default_rng(0)
+    frames = {"u1": 9, "u2": 20}
+    for stem, n in frames.items():
+        if mode == "mel-dir":
+            np.save(inp / f"{stem}.npy", rng.uniform(0, 1, (n, 40)).astype(
+                np.float32))
+        else:
+            write_wav(str(inp / f"{stem}.wav"), rng.uniform(
+                -0.5, 0.5, n * 128).astype(np.float32), SR)
+    rc, out, _ = _cli("generate", "tiny_teacher", "--workdir", s,
+                      f"--{mode}", str(inp), "--output-dir",
+                      str(tmp_path / "out"), "--batch-size", "2")
+    assert rc == 0 and "vocoded 2 utterances" in out
+    for stem, n in frames.items():
+        wav, _ = read_wav(str(tmp_path / "out" / f"{stem}.wav"))
+        assert wav.shape == (n * 128,)
+
+
+@pytest.mark.parametrize("args,slice_name", [
+    (["generate", "tiny_teacher", "--workdir", "w", "--chunk-frames", "8"],
+     "streaming"),
+    (["eval", "tiny_teacher", "--ref", "a.wav", "--gen", "b.wav"],
+     "streaming and evaluation"),
+    (["serve", "tiny_teacher"], "serving"),
+    (["bench"], "benchmark"),
+])
+def test_unported_parts_exit_non_zero(args, slice_name):
+    """Refused with a message naming the slice that ports them: nothing
+    runs a substitute."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(args)
+    assert rc != 0 and out.getvalue() == ""
+    assert "not ported" in err.getvalue() and slice_name in err.getvalue()
+
+
+def test_no_card_is_an_error_not_the_cpu(tmp_path):
+    """Without `--device` the CLI takes the CUDA card, and fails where
+    there is none; as a module it exits non-zero for a refused command."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is taken")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train-teacher", "tiny_teacher", "--workdir",
+                  str(tmp_path), "--steps", "1"])
+    assert not os.listdir(tmp_path)
+    proc = subprocess.run([sys.executable, "-m", "pwn_tpu_torch.cli", "bench"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 2 and "benchmark slice" in proc.stderr

@@ -29,8 +29,17 @@ import chip_smoke
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "pwn_tpu"))
+print(" ".join(names))
 print(len(names), loaded)
 """
+
+# modules that must be among those walked: the entry points and the
+# workdir's, which the machine with the card runs without JAX
+REQUIRED = ("pwn_tpu_torch.cli", "pwn_tpu_torch.utils.checkpoint",
+            "pwn_tpu_torch.utils.metrics", "pwn_tpu_torch.utils.tensorboard",
+            "pwn_tpu_torch.utils.profiling", "pwn_tpu_torch.ops.norm",
+            "pwn_tpu_torch.training.loop",
+            "pwn_tpu_torch.training.teacher_select")
 
 
 def _run(code_or_script, cwd, *args):
@@ -44,8 +53,10 @@ def _run(code_or_script, cwd, *args):
 def test_every_port_module_imports_without_jax():
     proc = _run(["-c", _IMPORT_ALL], ROOT)
     assert proc.returncode == 0, proc.stderr
-    n, loaded = proc.stdout.strip().split(" ", 1)
+    walked, counts = proc.stdout.strip().splitlines()
+    n, loaded = counts.split(" ", 1)
     assert int(n) >= 14  # the slice's modules, __init__s included
+    assert set(REQUIRED) <= set(walked.split()), walked
     # only the blocking sentinels
     assert loaded == "['jax', 'pwn_tpu']", loaded
     # no module of the port, nor the smoke or the tools, names the JAX

@@ -185,7 +185,6 @@ def test_npz_round_trip(tmp_path, tiny_pair):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("teacher.upsample_weight_norm", True),
     # the reference's XLA stack: refused, not run on another path
     ("student.fused_layers", "off"),
 ])

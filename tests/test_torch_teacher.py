@@ -234,7 +234,6 @@ def test_stack_mode_follows_the_config(flag, mode):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("teacher.upsample_weight_norm", True),
     ("teacher.fused_layers", "off"),
 ])
 def test_unported_variants_raise(key, value):
