@@ -2,7 +2,8 @@
 """Drive the PyTorch port's student IAF synthesis (student_iaf through
 the whole-stack kernel, large_student_sharded through the per-layer
 kernel's accumulate epilogue), teacher training, distillation and direct
-training of the student, and teacher AR sampling once on one CUDA card.
+training of the student, teacher AR sampling, the command line and the
+streaming vocoder server once on one CUDA card.
 
 Run from the repository root with no arguments:
 
@@ -83,6 +84,22 @@ Phases, each printing what it finds:
                through `vocode_many`) and from the teacher (kernel 4),
                each call's launches checked; the save's blocking ms, the
                checkpoint's bytes and the step with the workdir;
+  8c. serve  — streaming synthesis and the HTTP server at student_iaf's full
+               width (`pwn_tpu_torch/serve.py`): a direct stream of a 2 s
+               utterance at 64 frames a chunk against the whole call on the
+               same z (kernel 1: 4 launches a window, 12 for 3 windows),
+               the batch engine's window at B = 1..4 with rows at other
+               phases against each row alone (and the upsampler's rows),
+               the server in-process with batch_max 4 (a lone wav, an .npy
+               mel, a short utterance, 413, a 503 burst, 4 concurrent
+               clients, each response against PCM16 of its request's direct
+               stream, rows per engine call, no retry), the CLI's serve
+               (SIGTERM: drained, exit 0), generate --chunk-frames and eval
+               as processes on phase 8b's student, large_student_sharded's
+               stream through kernel 5 (60 launches a window); device ms per
+               window at B = 1, 2, 4 with kernel 1's share, the idle share
+               and the useful share of kernel 1's rows, and time to first
+               byte and audio-s/s for 1 and 4 clients;
   9. times   — each kernel's and its plain version's ms per call beside its
                bound (kernel 1 beside the kernel-5 chain on the same
                inputs; kernel 5 in both epilogues at both widths), end-to-end
@@ -101,6 +118,7 @@ The script imports no JAX; the machine with the card need not have it.
 from __future__ import annotations
 
 import contextlib
+import http.client
 import io
 import json
 import os
@@ -1446,22 +1464,15 @@ def _dump_len(cfg) -> int:
     return n // hop * hop
 
 
-def phase_workdir(device, smi: str) -> dict:
+def phase_workdir(device, smi: str, root: str) -> dict:
     """The CLI on the card at full width (teacher_lj and student_iaf, 8 x
-    16,384): train-teacher with checkpoints, metrics, TensorBoard and
-    kernel-4 sample dumps; a resume against an uninterrupted run;
-    distill-student with the teacher picked by the probe (kernel-1 dumps);
-    generate from the student (one utterance, a directory through
-    `vocode_many`) and from the teacher (kernel 4); each call's launches;
-    the save's blocking ms and the checkpoint's bytes."""
-    root = tempfile.mkdtemp(prefix="pwn_workdir_")
-    try:
-        return _phase_workdir(device, smi, root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-
-
-def _phase_workdir(device, smi: str, root: str) -> dict:
+    16,384), its workdirs under `root`: train-teacher with checkpoints,
+    metrics, TensorBoard and kernel-4 sample dumps; a resume against an
+    uninterrupted run; distill-student with the teacher picked by the probe
+    (kernel-1 dumps) into `root`/student; generate from the student (one
+    utterance, a directory through `vocode_many`) and from the teacher
+    (kernel 4); each call's launches; the save's blocking ms and the
+    checkpoint's bytes."""
     t1, t2, s1 = (os.path.join(root, n) for n in ("teacher", "whole",
                                                   "student"))
     hop, sr = TEACHER.dsp.hop_length, TEACHER.dsp.sample_rate
@@ -1618,6 +1629,618 @@ def _phase_workdir(device, smi: str, root: str) -> dict:
     return {"step_ms": float(np.mean(plain)), "save_ms": blocking,
             "bytes": nbytes}
 
+
+# The serving path (phase 8c).  Streaming recomputes each chunk of
+# CHUNK_FRAMES frames with the flows' receptive field and the upsampler's
+# halo, so a window is WT = 16,384 + 4,096 samples at student_iaf's widths.
+CHUNK_FRAMES = 64
+SERVE_SECONDS = 2.0  # 172 frames at 22.05 kHz: two full windows + the tail
+# A stream against the whole call on the same z.  The flows (kernels 1 and
+# 5, the heads) give a window's rows the same bits as the whole call's on
+# the same conditioning, and that is checked exactly.  The conditioning is
+# not the same: cuDNN's bf16 transposed convolutions round ~60 of a
+# window's 1.6 M elements one ulp apart at the window's length (92 frames
+# against the utterance's), within 2^-7 of the largest value (one ulp
+# there).  The random model carries those ulps far (four or six flows of
+# exp(log_s), most samples on the clip), so end to end the stream is held
+# in relative L2 to the model's own bf16 gap: TOL_E2E (student_iaf, whose
+# bf16 path is 0.021 from fp32) and TOL_E2E_LARGE; a wrong window is O(1).
+TOL_COND = 2.0 ** -7
+# Engine rows against each row's window alone at B = 1..4: every row is
+# upsampled alone (`generate.stream_window`) and the flows' rows do not
+# depend on the batch, so they should be bit-identical; 0.02 max-abs is
+# the other bf16 gates' bound, far below a leak between rows.
+TOL_STREAM = 0.02
+# A served response against PCM16 of its request's direct stream: the
+# same windows, each row computed as alone, so bit-identical but for a
+# non-deterministic library op; 2 LSB allows one flipped rounding each way.
+TOL_PCM_LSB = 2
+SERVE_TIMED_REQUESTS = 20
+
+
+def _pcm16(x: np.ndarray) -> np.ndarray:
+    return (np.clip(x, -1.0, 1.0) * 32767.0).astype(np.int16)
+
+
+def _wav_body(wav: np.ndarray, sr: int) -> bytes:
+    from scipy.io import wavfile
+
+    buf = io.BytesIO()
+    wavfile.write(buf, sr, _pcm16(wav))
+    return buf.getvalue()
+
+
+def _post(port: int, body: bytes, path: str = "/synthesize", headers=None):
+    """(status, headers, PCM16 samples or JSON, ms to the first body byte)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        t = time.perf_counter()
+        conn.request("POST", path, body=body,
+                     headers=headers or {"Content-Length": str(len(body))})
+        r = conn.getresponse()
+        first = r.read(2) if r.status == 200 else b""
+        ttfb = (time.perf_counter() - t) * 1e3
+        rest = r.read()
+        data = (np.frombuffer(first + rest, "<i2") if r.status == 200
+                else json.loads(rest))
+        return r.status, dict(r.getheaders()), data, ttfb
+    finally:
+        conn.close()
+
+
+def _get_json(port: int, path: str = "/healthz") -> dict:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def _direct_pcm(service, mel: np.ndarray, k: int) -> np.ndarray:
+    """PCM16 of request k's direct stream (or whole call, when the
+    utterance is shorter than a window) on the service's model."""
+    from pwn_tpu_torch import generate as g
+    from pwn_tpu_torch.serve import _Deemph
+
+    cfg, hop = service.cfg, service.cfg.dsp.hop_length
+    F, WF = mel.shape[1], g._stream_geometry(cfg, CHUNK_FRAMES)[4]
+    with service.lock:
+        if F < WF or F < CHUNK_FRAMES:
+            z = g.BlockNoise(cfg, k, CHUNK_FRAMES * hop, 1, 1.0,
+                             service.device).window(0, F * hop)
+            return _pcm16(g.generate_student(cfg, service.model, mel, z=z))
+        chunks = list(g.stream_student_chunks(
+            cfg, service.model, mel, seed=k, chunk_frames=CHUNK_FRAMES,
+            cover_tail=True))
+    return _pcm16(_Deemph(cfg.dsp.preemphasis)(np.concatenate(chunks, 1)[0]))
+
+
+def _lsb(a: np.ndarray, b: np.ndarray) -> int:
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+
+def _kernel1_rows(B: int, T: int) -> int:
+    """Rows kernel 1 computes for B x T: each block walks its segment after
+    a halo of sum(d) rows (clipped at t = 0), per `flow_stack`'s split."""
+    props = torch.cuda.get_device_properties(0)
+    seg = fs.segment_length(B, T, props.multi_processor_count,
+                            _build.load_library().pwn_flow_stack_tile_rows())
+    halo = sum(CFG.student.flow_dilations)
+    return B * sum(min(T, t0 + seg) - max(0, t0 - halo)
+                   for t0 in range(0, T, seg))
+
+
+def _stream_vs_whole(cfg, model, mel: np.ndarray, z: torch.Tensor,
+                     tol: float) -> dict:
+    """`stream_student_chunks(z=z)` at B = 1 against the whole call on z:
+    the windows on the whole call's conditioning bit for bit, each window's
+    own conditioning within TOL_COND, the stream within `tol` relative L2.
+    Returns the stream's launches."""
+    from pwn_tpu_torch import generate as g
+
+    hop, F = cfg.dsp.hop_length, mel.shape[1]
+    _, _, CT, WT, WF = g._stream_geometry(cfg, CHUNK_FRAMES)
+    plan = list(g._stream_plan(cfg, F, CHUNK_FRAMES, True))
+    _reset_counts()
+    streamed = np.concatenate(list(g.stream_student_chunks(
+        cfg, model, mel, z=z, chunk_frames=CHUNK_FRAMES, cover_tail=True)), 1)
+    torch.cuda.synchronize()
+    launches = _counts()
+    with torch.inference_mode():
+        melt = torch.from_numpy(mel).to(z.device)
+        cond = match_length(model.upsample_cond(melt), F * hop)
+        whole = model.flows_from_z(z, cond)
+        exact = torch.cat([model.flows_from_z(z[:, ws: ws + WT],
+                                              cond[:, ws: ws + WT])
+                           [:, oo + trim: oo + CT]
+                           for ws, _, _, oo, trim in plan], 1)
+        conds = [model.upsample_cond(melt[:, f0: f0 + WF])[:, off: off + WT]
+                 .float() - cond[:, ws: ws + WT].float()
+                 for ws, f0, off, _, _ in plan]
+    cond_max = float(cond.float().abs().max())
+    cond_err = max(float(c.abs().max()) for c in conds)
+    whole = whole.cpu().numpy()
+    rel = float(np.linalg.norm(streamed - whole) / np.linalg.norm(whole))
+    _log(f"[serve] {cfg.name}: stream of {F} frames ({len(plan)} windows) vs "
+         f"the whole call on the same z: rel L2 {rel:.6f} (tol {tol}), max "
+         f"abs {float(np.abs(streamed - whole).max()):.6f}, "
+         f"{float((streamed == whole).mean()):.4f} of samples bit-equal; the "
+         f"windows on the whole call's conditioning bit-identical "
+         f"{bool(np.array_equal(exact.cpu().numpy(), whole))}; each window's "
+         f"conditioning: {sum(int((c != 0).sum()) for c in conds)} elements "
+         f"differ, max abs {cond_err:.3e} (tol {TOL_COND} x max "
+         f"{cond_max:.4f}); launches {launches}")
+    _check(streamed.shape == whole.shape == (1, F * hop),
+           f"streamed {streamed.shape}")
+    _check(np.array_equal(exact.cpu().numpy(), whole),
+           "the windows' flows are off the whole call's on the same inputs")
+    _check(cond_err <= TOL_COND * cond_max,
+           "a window's conditioning is off the whole call's")
+    _check(rel <= tol, "the stream is off the whole call")
+    return launches
+
+def _serve_windows(cfg, mels: list, B: int, device, seed: int):
+    """B engine rows from B requests at different window phases: (z, mel
+    window, off, out_off) per row, the noise from each request's blocks."""
+    from pwn_tpu_torch import generate as g
+
+    _, _, CT, WT, WF = g._stream_geometry(cfg, CHUNK_FRAMES)
+    rows = []
+    for r in range(B):
+        mel = mels[r % len(mels)]
+        plan = list(g._stream_plan(cfg, mel.shape[1], CHUNK_FRAMES, True))
+        # the first window, a middle one, the partial tail's, a middle one
+        ws, f0, off, out_off, _ = plan[(0, 1, -1, 2)[r % 4] % len(plan)]
+        z = g.BlockNoise(cfg, seed + r, CT, 1, 1.0, device).window(ws, WT)
+        rows.append((z, mel[:, f0: f0 + WF], off, out_off))
+    return rows
+
+
+def _window_call(cfg, model, rows):
+    from pwn_tpu_torch import generate as g
+
+    return g.stream_window(cfg, model, torch.cat([r[0] for r in rows]),
+                           np.concatenate([r[1] for r in rows]),
+                           [r[2] for r in rows], [r[3] for r in rows])
+
+
+def phase_serve(device, smi: str, student_workdir: str) -> None:
+    """Streaming synthesis, the HTTP server with its batch engine, and the
+    CLI's serve, generate --chunk-frames and eval, at student_iaf's full
+    width; large_student_sharded's stream through kernel 5; per-window
+    device ms, time to first byte and aggregate audio-s/s."""
+    import threading
+
+    from pwn_tpu_torch import generate as g
+    from pwn_tpu_torch.serve import VocoderService, make_server
+
+    cfg, hop, sr = CFG, CFG.dsp.hop_length, CFG.dsp.sample_rate
+    R, H, CT, WT, WF = g._stream_geometry(cfg, CHUNK_FRAMES)
+    model = init_student(cfg, torch.Generator().manual_seed(SEED), device).eval()
+    wavs = _synthetic_wavs([SERVE_SECONDS, 1.6, 2.3, 3.1, 0.5])
+    # the server computes a request's mel on the host from its PCM16 body
+    rt = [_pcm16(w).astype(np.float32) / 32768.0 for w in wavs]
+    mels = [g.mel_from_wav_host(cfg, w)[None] for w in rt]
+    mel = mels[0]
+    F = mel.shape[1]
+    n_windows = len(list(g._stream_plan(cfg, F, CHUNK_FRAMES, True)))
+    _log(f"[serve] student_iaf: chunk {CHUNK_FRAMES} frames = {CT} samples, "
+         f"window WT = {WT} (R = {R}), WF = {WF} frames (halo H = {H}); a "
+         f"{SERVE_SECONDS} s request is {F} frames, {n_windows} windows")
+
+    # 1. the direct stream against the whole call on the same z
+    z = sample_base_noise(cfg, torch.Generator(device=device).manual_seed(3),
+                          (1, F * hop))
+    got = _stream_vs_whole(cfg, model, mel, z, TOL_E2E)
+    _check(got["kernel 1"] == cfg.student.n_flows * n_windows
+           and got["kernel 5"] == 0,
+           f"expected {cfg.student.n_flows * n_windows} kernel-1 launches, "
+           "none of kernel 5")
+
+    # 2. engine rows at B = 1..4 (other requests, other phases) against each
+    # row's window alone; and, the reason each row is upsampled alone, the
+    # upsampler run on the B rows as one batch against each row alone
+    for B in (1, 2, 3, 4):
+        rows = _serve_windows(cfg, mels[:4], B, device, seed=50)
+        _reset_counts()
+        with torch.inference_mode():
+            out = _window_call(cfg, model, rows)
+            alone = torch.cat([_window_call(cfg, model, [r]) for r in rows])
+            up_b = model.upsample_cond(torch.from_numpy(np.concatenate(
+                [r[1] for r in rows])).to(device))
+            up_1 = torch.cat([model.upsample_cond(torch.from_numpy(r[1]).to(
+                device)) for r in rows])
+        torch.cuda.synchronize()
+        got = _counts()
+        err = float((out - alone).abs().max())
+        _log(f"[serve] engine rows B={B} (phases "
+             f"{[(r[2], r[3]) for r in rows]}) vs each row alone: max abs "
+             f"{err:.6f} (tol {TOL_STREAM}), bit-identical "
+             f"{bool(torch.equal(out, alone))}; the upsampler on the {B} rows "
+             f"as one batch vs alone: {int((up_b != up_1).sum())} of "
+             f"{up_b.numel():,} elements differ, max abs "
+             f"{float((up_b.float() - up_1.float()).abs().max()):.3e}; "
+             f"kernel-1 launches {got['kernel 1']} ({cfg.student.n_flows} a "
+             "call)")
+        _check(out.shape == (B, CT), f"engine output {tuple(out.shape)}")
+        _check(err <= TOL_STREAM, f"engine rows at B={B} off their windows")
+        _check(got["kernel 1"] == cfg.student.n_flows * (1 + B)
+               and got["kernel 5"] == 0, "engine window launches")
+
+    # 3. HTTP in-process: the service with its batch engine
+    service = VocoderService(cfg, model, chunk_frames=CHUNK_FRAMES,
+                             max_pending=4, batch_max=4)
+    srv = make_server(service, "127.0.0.1", 0)
+    port = srv.server_address[1]
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        _serve_http(service, port, wavs, rt, mels, smi)
+    finally:
+        srv.shutdown()
+        thread.join(timeout=30)
+        srv.server_close()
+        service.close()
+    _check(not thread.is_alive(), "the server thread did not stop")
+
+    # 4. the CLI: serve, generate --chunk-frames and eval as processes
+    _serve_cli(student_workdir, wavs[0], sr)
+
+    # 5. large_student_sharded: one direct stream through kernel 5
+    _serve_large(device)
+
+    # 6. device ms per window at B = 1, 2, 4, and a request's host work
+    _serve_window_times(cfg, model, mels, device, smi)
+    _serve_host_split(cfg, model, rt[0], device, smi)
+
+
+def _clients(n: int, fn) -> list:
+    """Run fn(i) in n threads started together; their results, in order."""
+    import threading
+
+    barrier, out = threading.Barrier(n), [None] * n
+
+    def run(i):
+        barrier.wait(timeout=60)
+        try:
+            out[i] = fn(i)
+        except Exception as e:  # noqa: BLE001 — checked by the caller
+            out[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        _check(not t.is_alive(), "a client thread did not finish")
+    for r in out:
+        if isinstance(r, Exception):
+            raise r
+    return out
+
+
+def _pick(xs: list, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def _serve_http(service, port: int, wavs: list, rt: list, mels: list,
+                smi: str) -> None:
+    cfg, eng = service.cfg, service.engine
+    hop, sr = cfg.dsp.hop_length, cfg.dsp.sample_rate
+    body = _wav_body(wavs[0], sr)
+    n0 = len(rt[0]) // hop * hop
+
+    def check_response(what, status, headers, pcm, n, ref):
+        lsb = _lsb(pcm, ref) if len(pcm) == len(ref) else None
+        _log(f"[serve] http {what}: status {status}, {len(pcm)} samples "
+             f"(want {n}), vs PCM16 of its direct stream: {lsb} LSB (tol "
+             f"{TOL_PCM_LSB})")
+        _check(status == 200 and headers.get("X-Sample-Rate") == str(sr),
+               f"{what}: status {status}")
+        _check(len(pcm) == n and lsb is not None and lsb <= TOL_PCM_LSB,
+               f"{what}: off its direct stream")
+
+    # a lone 2 s wav, an .npy mel, a short utterance (the whole call)
+    k = service.requests_served
+    status, hdrs, pcm, _ = _post(port, body)
+    check_response("lone 2 s wav", status, hdrs, pcm, n0,
+                   _direct_pcm(service, mels[0], k))
+    buf = io.BytesIO()
+    np.save(buf, mels[1][0])
+    k = service.requests_served
+    status, hdrs, pcm, _ = _post(port, buf.getvalue())
+    check_response(f".npy mel of {mels[1].shape[1]} frames", status, hdrs,
+                   pcm, mels[1].shape[1] * hop, _direct_pcm(service, mels[1], k))
+    k = service.requests_served
+    status, hdrs, pcm, _ = _post(port, _wav_body(wavs[4], sr))
+    check_response(f"short utterance of {mels[4].shape[1]} frames", status,
+                   hdrs, pcm, mels[4].shape[1] * hop,
+                   _direct_pcm(service, mels[4], k))
+    # an oversize body, and a burst while max_pending syntheses are admitted
+    status, _, err, _ = _post(port, b"", headers={"Content-Length":
+                                                  str(1 << 30)})
+    _log(f"[serve] http 1 GiB Content-Length: {status} {err}")
+    _check(status == 413, "an oversize body should get 413")
+    held = 0
+    while service.try_admit():
+        held += 1
+    try:
+        # no body: the answer comes before a body is read, and an unread
+        # body could reset the connection before the client reads it
+        burst = _clients(4, lambda i: _post(port, b""))
+    finally:
+        for _ in range(held):
+            service.release()
+    _log(f"[serve] http burst of 4 with {held} syntheses admitted "
+         f"(max_pending {service.max_pending}): "
+         f"{[(b[0], b[1].get('Retry-After')) for b in burst]}")
+    _check(held == service.max_pending and all(
+        b[0] == 503 and b[1].get("Retry-After") == "1" for b in burst),
+        "a burst past max_pending should get 503 with Retry-After")
+
+    # 4 concurrent clients: each response one request's direct stream
+    calls0, rows0, k = eng.calls, eng.rows, service.requests_served
+    got = _clients(4, lambda i: _post(port, body))
+    calls, rows = eng.calls - calls0, eng.rows - rows0
+    refs = [_direct_pcm(service, mels[0], k + j) for j in range(4)]
+    match = [[j for j in range(4) if len(r[2]) == n0 and _lsb(r[2], refs[j])
+              <= TOL_PCM_LSB] for r in got]
+    health = _get_json(port)
+    _log(f"[serve] http 4 concurrent clients: statuses {[r[0] for r in got]}; "
+         f"each matches request ids {match} of {k}..{k + 3}; engine calls "
+         f"{calls} for {rows} rows ({rows / max(calls, 1):.2f} rows a call); "
+         f"/healthz batch_rows_per_call {health['batch_rows_per_call']}, "
+         f"batch_retries {health['batch_retries']}, device "
+         f"{health['device']!r}")
+    _check(all(r[0] == 200 for r in got)
+           and sorted(m[0] for m in match if len(m) == 1) == [0, 1, 2, 3],
+           "each concurrent response should equal one request's direct stream")
+    _check(rows / max(calls, 1) > 1, "the 4 clients were not batched")
+    _check(health["batch_retries"] == 0 and health["status"] == "ok",
+           "the engine retried a call")
+
+    # times: 20 requests of 2 s from 1 client, and from 4 at once
+    for n in (1, 4):
+        per = SERVE_TIMED_REQUESTS // n
+        calls0, rows0 = eng.calls, eng.rows
+
+        def client(i):
+            return [_post(port, body) for _ in range(per)]
+
+        t = time.perf_counter()
+        out = [r for rs in _clients(n, client) for r in rs]
+        wall = time.perf_counter() - t
+        _check(all(r[0] == 200 and len(r[2]) == n0 for r in out),
+               "a timed request failed")
+        ttfb = [r[3] for r in out]
+        audio = sum(len(r[2]) for r in out) / sr
+        _log(f"[serve] {smi}: {n} client(s), {len(out)} requests of "
+             f"{SERVE_SECONDS} s: TTFB p50 {_pick(ttfb, 0.5):.3f} ms, p99 "
+             f"{_pick(ttfb, 0.99):.3f} ms (client clock: request sent to "
+             f"the first body byte); {audio:.1f} s of audio in {wall:.3f} s "
+             f"({wall / len(out) * 1e3:.3f} ms a request): "
+             f"{audio / wall:.1f} audio-s/s; engine "
+             f"{(eng.rows - rows0) / max(eng.calls - calls0, 1):.2f} rows a "
+             "call")
+    health = _get_json(port)
+    _log(f"[serve] /healthz ttfb (server clock, admission to the first "
+         f"chunk): {health['ttfb']}")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _serve_cli(student_workdir: str, wav: np.ndarray, sr: int) -> None:
+    """`serve`, `generate --chunk-frames` and `eval` as processes on the
+    card, as a user runs them."""
+    import queue
+    import signal
+    import threading
+
+    root = os.path.dirname(student_workdir)
+    here = os.path.dirname(os.path.abspath(__file__))
+    src, out = (os.path.join(root, n) for n in ("serve_src.wav",
+                                                "serve_stream.wav"))
+    write_wav(src, wav, sr)
+    cmd = [sys.executable, "-m", "pwn_tpu_torch.cli"]
+    env = {**os.environ, "PYTHONUNBUFFERED": "1"}
+    port = _free_port()
+    t = time.perf_counter()
+    srv = subprocess.Popen(
+        cmd + ["serve", "student_iaf", "--workdir", student_workdir,
+               "--port", str(port)], cwd=here, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    lines: "queue.Queue[str]" = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(ln)
+                                              for ln in srv.stdout],
+                              daemon=True)
+    reader.start()
+    try:
+        gen = subprocess.run(
+            cmd + ["generate", "student_iaf", "--workdir", student_workdir,
+                   "--source", src, "--chunk-frames", str(CHUNK_FRAMES),
+                   "--output", out], cwd=here, env=env, capture_output=True,
+            text=True, timeout=600)
+        _log(f"[serve] cli generate --chunk-frames {CHUNK_FRAMES}: exit "
+             f"{gen.returncode}: {gen.stdout.strip()} {gen.stderr[-2000:]}")
+        hop = CFG.dsp.hop_length
+        w, got_sr = read_wav(out)
+        _check(gen.returncode == 0 and got_sr == sr
+               and w.shape == (len(wav) // hop * hop,) and np.isfinite(w).all(),
+               f"generate --chunk-frames wrote {w.shape}")
+        ev = subprocess.run(cmd + ["eval", "student_iaf", "--ref", src,
+                                   "--gen", out], cwd=here, env=env,
+                            capture_output=True, text=True, timeout=600)
+        _log(f"[serve] cli eval: exit {ev.returncode}: {ev.stdout.strip()} "
+             f"{ev.stderr[-2000:]}")
+        report = json.loads(ev.stdout.strip().splitlines()[-1])
+        _check(ev.returncode == 0 and len(report) == 6 and all(
+            np.isfinite(v) for v in report.values()), "eval's six metrics")
+        first = lines.get(timeout=600)
+        _log(f"[serve] cli serve: {first.strip()} after "
+             f"{time.perf_counter() - t:.1f} s")
+        _check(f"http://127.0.0.1:{port}" in first, "serve's first line")
+        health = _get_json(port)
+        status, _, pcm, _ = _post(port, _wav_body(wav, sr))
+        _log(f"[serve] cli serve: /healthz {health}; POST {status}, "
+             f"{len(pcm)} samples")
+        _check(health["status"] == "ok" and health["device"]
+               == torch.cuda.get_device_name(0), "serve's /healthz")
+        _check(status == 200 and len(pcm) == len(wav) // hop * hop,
+               "serve's synthesis")
+        srv.send_signal(signal.SIGTERM)
+        rc = srv.wait(timeout=120)
+        reader.join(timeout=30)
+        rest = []
+        while not lines.empty():
+            rest.append(lines.get().strip())
+        _log(f"[serve] cli serve after SIGTERM: exit {rc}; {rest}")
+        _check(rc == 0 and rest and rest[-1] == "server stopped",
+               "serve should drain and exit 0 on SIGTERM")
+    finally:
+        if srv.poll() is None:
+            srv.kill()
+            srv.wait(timeout=60)
+
+
+def _serve_large(device) -> None:
+    from pwn_tpu_torch import generate as g
+
+    cfg, hop = LARGE, LARGE.dsp.hop_length
+    model = init_student(cfg, torch.Generator().manual_seed(SEED), device).eval()
+    wav = _synthetic_wavs([SERVE_SECONDS], cfg.dsp.sample_rate)[0]
+    mel = g.mel_from_wav_host(cfg, wav)[None]
+    F = mel.shape[1]
+    n_windows = len(list(g._stream_plan(cfg, F, CHUNK_FRAMES, True)))
+    z = sample_base_noise(cfg, torch.Generator(device=device).manual_seed(4),
+                          (1, F * hop))
+    got = _stream_vs_whole(cfg, model, mel, z, TOL_E2E_LARGE)
+    per = cfg.student.n_flows * cfg.student.layers_per_flow
+    _check(got["kernel 5"] == per * n_windows and got["kernel 1"] == 0,
+           f"expected {per * n_windows} kernel-5 launches ({per} a window), "
+           "none of kernel 1")
+
+
+def _device_split(prof) -> tuple[float, float, int]:
+    """(device busy us, kernel 1's us, device kernels and copies) of a
+    profile: device events only."""
+    busy = k1 = 0.0
+    launches = 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = ev.self_cuda_time_total if us is None else us
+        busy += us
+        launches += ev.count
+        if "flow_stack_kernel" in ev.key:
+            k1 += us
+    return busy, k1, launches
+
+
+def _serve_window_times(cfg, model, mels: list, device, smi: str) -> None:
+    from pwn_tpu_torch import generate as g
+
+    _, _, CT, WT, _ = g._stream_geometry(cfg, CHUNK_FRAMES)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    n = 10
+    for B in (1, 2, 4):
+        rows = _serve_windows(cfg, mels[:4], B, device, seed=70)
+
+        def fn():
+            return _window_call(cfg, model, rows)
+
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            ms = _time_ms(fn, 20)
+            with torch.profiler.profile(activities=acts) as prof:
+                t = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+        busy, k1, launches = _device_split(prof)
+        _check(busy > 0, "the profiler recorded no device time")
+        computed = _kernel1_rows(B, WT)
+        _log(f"[serve] {smi}: window B={B} ({B} x {WT} samples, {B * CT} "
+             f"emitted): {ms:.3f} ms (CUDA events over 20 calls), "
+             f"{ms / B:.3f} ms a row; profiler: device busy "
+             f"{busy / 1e3 / n:.3f} ms a window, kernel 1 {k1 / 1e3 / n:.3f} "
+             f"ms ({k1 / busy:.3f} of busy), idle share "
+             f"{1 - busy / 1e6 / wall:.3f} of the host's {wall / n * 1e3:.3f} "
+             f"ms a window (profiler on), {launches // n} device kernels and "
+             f"copies a window; kernel 1 computes {computed:,} rows a flow "
+             f"for {B * CT:,} emitted: useful {B * CT / computed:.3f} "
+             f"({B * WT / computed:.3f} of them in the window)")
+
+
+def _serve_host_split(cfg, model, wav: np.ndarray, device, smi: str) -> None:
+    """A 2 s request's steps one at a time on the host clock, the card
+    synchronized around each (median of 20): the body to a mel, a window's
+    noise, the window to host memory, a chunk's deemphasis and PCM16; then
+    the whole request through `synthesize_chunks` in this process, by the
+    engine and by the direct route (no HTTP)."""
+    from pwn_tpu_torch import generate as g
+    from pwn_tpu_torch.serve import VocoderService, _Deemph
+
+    hop, sr = cfg.dsp.hop_length, cfg.dsp.sample_rate
+    _, _, CT, WT, WF = g._stream_geometry(cfg, CHUNK_FRAMES)
+    body = _wav_body(wav, sr)
+
+    def ms(fn) -> float:
+        times = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times))
+
+    def mel_of_body():
+        return g.mel_from_wav_host(cfg, read_wav(io.BytesIO(body),
+                                                 target_sr=sr)[0])[None]
+
+    mel = mel_of_body()
+    plan = list(g._stream_plan(cfg, mel.shape[1], CHUNK_FRAMES, True))
+    ws, f0, off, out_off, _ = plan[1]
+    off, out_off = [off], [out_off]
+    z = g.BlockNoise(cfg, 0, CT, 1, 1.0, device).window(ws, WT)
+    with torch.inference_mode():
+        chunk = g.stream_window(cfg, model, z, mel[:, f0: f0 + WF], off,
+                                out_off).cpu().numpy()
+        split = {
+            "body to mel": ms(mel_of_body),
+            "noise, 2 blocks": ms(lambda: g.BlockNoise(
+                cfg, 0, CT, 1, 1.0, device).window(ws, WT)),
+            "window to host": ms(lambda: g.stream_window(
+                cfg, model, z, mel[:, f0: f0 + WF], off, out_off).cpu()),
+            "deemphasis + PCM16": ms(lambda: _pcm16(_Deemph(
+                cfg.dsp.preemphasis)(chunk[0]))),
+        }
+    service = VocoderService(cfg, model, chunk_frames=CHUNK_FRAMES,
+                             batch_max=4)
+    try:
+        for route, batching in (("engine", True), ("direct", False)):
+            split[f"synthesize_chunks by the {route} route"] = ms(
+                lambda: [_pcm16(c) for c in service.synthesize_chunks(
+                    wav, 1.0, batching=batching)])
+    finally:
+        service.close()
+    _log(f"[serve] {smi}: a {SERVE_SECONDS} s request's steps alone (host "
+         f"clock, synchronized, median of 20): " + "; ".join(
+             f"{k} {v:.3f} ms" for k, v in split.items())
+         + f"; {len(plan)} windows a request")
 
 def _time_ms(fn, n: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
@@ -2037,7 +2660,12 @@ def main() -> int:
     distill = phase_distill(device)
     phase_direct(device)
     ar_main = phase_ar_main(device)
-    workdir = phase_workdir(device, smi)
+    root = tempfile.mkdtemp(prefix="pwn_workdir_")
+    try:
+        workdir = phase_workdir(device, smi, root)
+        phase_serve(device, smi, os.path.join(root, "student"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     times = phase_times(device, smi)
     layer_times = phase_layer_times(device, smi)
     train_times = phase_train_times(device, smi)

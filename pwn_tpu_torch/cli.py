@@ -8,19 +8,23 @@
                                                [--teacher-step auto] [...]
     python -m pwn_tpu_torch.cli generate        <case> --workdir D
                                                [--model student|teacher]
+                                               [--chunk-frames N]
+    python -m pwn_tpu_torch.cli eval            <case> --ref A --gen B
+    python -m pwn_tpu_torch.cli serve           <case> --workdir D
+                                               [--host H] [--port P]
 
 `<case>` is a named preset; trailing `key=value` pairs override dotted
 config fields, e.g. `train.learning_rate=3e-4`.  Every subcommand runs on
 the CUDA card, or fails if there is none; `--device cpu` runs it on the
 CPU, as the tests do.  Not ported yet, and refused with a non-zero exit:
-`generate --chunk-frames` (streaming), `eval`, `serve` and `bench`, and a
-`--data-dir` (the wav-directory corpus).
+`bench`, and a `--data-dir` (the wav-directory corpus).
 """
 
 from __future__ import annotations
 
 import argparse
 import glob
+import json
 import os
 import sys
 import time
@@ -29,9 +33,7 @@ import numpy as np
 import torch
 
 # what of the reference's CLI the port refuses, and the slice that ports it
-STREAMING = "the streaming and evaluation slice"
-UNPORTED = {"eval": STREAMING, "serve": "the serving slice",
-            "bench": "the benchmark slice"}
+UNPORTED = {"bench": "the benchmark slice"}
 
 
 def _parse_overrides(pairs):
@@ -153,9 +155,42 @@ def _parser() -> argparse.ArgumentParser:
                             "(compute is fp32 either way; default: the "
                             "preset's compute dtype)")
     p_gen.add_argument("--chunk-frames", type=int, default=0,
-                       help="student streaming mode (not ported yet: "
-                            "only 0, one whole-utterance call)")
+                       help="student streaming mode: synthesize in chunks "
+                            "of this many mel frames, each recomputed with "
+                            "the flows' receptive field (0: one "
+                            "whole-utterance call)")
     p_gen.add_argument("overrides", nargs="*")
+
+    p_eval = sub.add_parser(
+        "eval", parents=[common],
+        help="copy-synthesis quality metrics between two wavs")
+    p_eval.add_argument("case")
+    p_eval.add_argument("--ref", required=True)
+    p_eval.add_argument("--gen", required=True)
+    p_eval.add_argument("overrides", nargs="*")
+
+    p_srv = sub.add_parser(
+        "serve", parents=[common],
+        help="streaming vocoder HTTP server (POST /synthesize with a wav or "
+             ".npy mel body -> chunked PCM16; GET /healthz)")
+    p_srv.add_argument("case")
+    p_srv.add_argument("--workdir", default="runs/student")
+    p_srv.add_argument("--host", default="127.0.0.1")
+    p_srv.add_argument("--port", type=int, default=8600,
+                       help="0 takes a free port (printed at start)")
+    p_srv.add_argument("--chunk-frames", type=int, default=64,
+                       help="mel frames per streamed chunk")
+    p_srv.add_argument("--max-pending", type=int, default=4,
+                       help="concurrent syntheses before 503 shedding")
+    p_srv.add_argument("--max-body-mb", type=int, default=64,
+                       help="request-body cap in MB (413 past it)")
+    p_srv.add_argument("--batch-max", type=int, default=4,
+                       help="batching across requests: most concurrent "
+                            "streams per device call (1 disables)")
+    p_srv.add_argument("--batch-window-ms", type=float, default=3.0,
+                       help="job gather window while more than one stream "
+                            "is active")
+    p_srv.add_argument("overrides", nargs="*")
 
     for name in UNPORTED:
         p = sub.add_parser(name, help=f"not ported yet ({UNPORTED[name]})")
@@ -169,23 +204,11 @@ def _refuse(what: str, slice_name: str) -> int:
     return 2
 
 
-def _load_student(cfg, workdir: str, device):
-    """A student built for synthesis ("infer" stacks, as `generate` runs
-    it) holding the serving parameters of `workdir`'s latest student
-    checkpoint."""
-    from pwn_tpu_torch.models.student import StudentIAF
-    from pwn_tpu_torch.training.loop import restore_serving_params
-
-    params, _ = restore_serving_params(cfg, workdir, "student", device=device)
-    model = StudentIAF(cfg, device=device)
-    model.load_state_dict(params)
-    return model
-
-
 def _generate(args, device) -> int:
     from pwn_tpu_torch.data.pipeline import SyntheticTones
     from pwn_tpu_torch.generate import (coerce_mel, generate_student,
-                                        generate_teacher, mel_from_wav)
+                                        generate_teacher, load_student,
+                                        mel_from_wav)
     from pwn_tpu_torch.utils.audio_io import read_wav, write_wav
 
     cfg = _load_config(args.case, args.overrides)
@@ -210,7 +233,7 @@ def _generate(args, device) -> int:
         out_dir = args.output_dir or os.path.dirname(
             os.path.abspath(args.output))
         os.makedirs(out_dir, exist_ok=True)
-        model = _load_student(cfg, args.workdir, device)
+        model = load_student(cfg, args.workdir, device)
         t0 = time.perf_counter()
         wavs = vocode_many(cfg, model, mels, seed=0,
                            temperature=args.temperature,
@@ -249,8 +272,20 @@ def _generate(args, device) -> int:
         out = generate_teacher(cfg, teacher, mel, gen, args.temperature,
                                ar_backend=args.ar_backend,
                                ar_weights_dtype=args.ar_weights_dtype)
+    elif args.chunk_frames:
+        from pwn_tpu_torch.generate import (_host_deemphasis,
+                                            stream_student_chunks)
+
+        # the chunks as a server would send them, assembled into one wav;
+        # cover_tail streams the last F % chunk_frames frames too
+        chunks = list(stream_student_chunks(
+            cfg, load_student(cfg, args.workdir, device), mel, seed=0,
+            chunk_frames=args.chunk_frames, temperature=args.temperature,
+            cover_tail=True))
+        out = _host_deemphasis(np.concatenate(chunks, axis=1),
+                               cfg.dsp.preemphasis)[0]
     else:
-        model = _load_student(cfg, args.workdir, device)
+        model = load_student(cfg, args.workdir, device)
         out = generate_student(cfg, model, mel, gen, args.temperature)
     write_wav(args.output, out, sr)
     print(f"wrote {args.output}: {len(out) / sr:.2f}s @ {sr} Hz")
@@ -270,9 +305,6 @@ def main(argv=None) -> int:
         args.overrides = [*args.overrides, *extra]
     if args.cmd in UNPORTED:
         return _refuse(args.cmd, UNPORTED[args.cmd])
-    if args.cmd == "generate" and args.chunk_frames:
-        return _refuse("generate --chunk-frames (streaming synthesis)",
-                       STREAMING)
     device = _device(args.device)
 
     if args.cmd == "train-teacher":
@@ -326,6 +358,30 @@ def main(argv=None) -> int:
                                device=device)
         print(f"student done: {res.steps_run} steps, "
               f"final {res.final_metrics}")
+        return 0
+
+    if args.cmd == "eval":
+        from pwn_tpu_torch.evaluate import copy_synthesis_report
+        from pwn_tpu_torch.utils.audio_io import read_wav
+
+        cfg = _load_config(args.case, args.overrides)
+        ref, _ = read_wav(args.ref, target_sr=cfg.dsp.sample_rate)
+        gen, _ = read_wav(args.gen, target_sr=cfg.dsp.sample_rate)
+        n = min(len(ref), len(gen))
+        print(json.dumps(copy_synthesis_report(cfg, ref[:n], gen[:n],
+                                               device)))
+        return 0
+
+    if args.cmd == "serve":
+        from pwn_tpu_torch.serve import serve_forever
+
+        cfg = _load_config(args.case, args.overrides)
+        serve_forever(cfg, args.workdir, args.host, args.port,
+                      chunk_frames=args.chunk_frames,
+                      max_pending=args.max_pending,
+                      max_body_bytes=args.max_body_mb * 2 ** 20,
+                      batch_max=args.batch_max,
+                      batch_window_ms=args.batch_window_ms, device=device)
         return 0
 
     return _generate(args, device)

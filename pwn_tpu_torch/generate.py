@@ -1,8 +1,10 @@
-"""Waveform generation (counterpart of the student and teacher paths of
-`pwn_tpu/generate.py`): the student's mel -> waveform in one parallel
-pass, for one utterance (`generate_student`) or many of any lengths
-(`vocode_many`, the CLI's `generate --source-dir` path), and the
-teacher's autoregressive synthesis (`generate_teacher`).
+"""Waveform generation (counterpart of `pwn_tpu/generate.py`): the
+student's mel -> waveform in one parallel pass, for one utterance
+(`generate_student`) or many of any lengths (`vocode_many`, the CLI's
+`generate --source-dir` path), or in chunks as a stream
+(`stream_student_chunks`, and the server's batch engine through
+`stream_window`), and the teacher's autoregressive synthesis
+(`generate_teacher`).
 
 Noise comes from torch generators, so it differs from `jax.random`'s;
 the student entry points also take the noise `z` explicitly, and the
@@ -12,6 +14,7 @@ the tests hold the port against the reference.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -37,6 +40,20 @@ def mel_from_wav(cfg: Config, wav: np.ndarray, device=None) -> torch.Tensor:
     x = torch.clamp(dsp.preemphasis(x, cfg.dsp.preemphasis), -1.0, 1.0)
     mel = dsp.mel_spectrogram(x, cfg.dsp)
     return mel[:, : wav.shape[-1] // cfg.dsp.hop_length]
+
+
+def mel_from_wav_host(cfg: Config, wav: np.ndarray) -> np.ndarray:
+    """`mel_from_wav` in host numpy: (T,) float32 -> (T//hop, n_mels).  The
+    server computes request mels here, off the card's lock."""
+    wav = np.asarray(wav, np.float32)
+    if cfg.dsp.preemphasis:
+        x = wav - cfg.dsp.preemphasis * np.concatenate(
+            [[0.0], wav[:-1]]).astype(np.float32)
+    else:
+        x = wav
+    x = np.clip(x, -1.0, 1.0)
+    mel = dsp.mel_spectrogram_np(x[None], cfg.dsp)
+    return mel[0, : len(wav) // cfg.dsp.hop_length]
 
 
 def coerce_mel(cfg: Config, mel) -> np.ndarray:
@@ -82,6 +99,18 @@ def item_generator(seed: int, index: int, device) -> torch.Generator:
 
 def _model_device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
+
+
+def load_student(cfg: Config, workdir: str, device) -> StudentIAF:
+    """A student built for synthesis ("infer" stacks) holding the serving
+    parameters of `workdir`'s latest student checkpoint: the EMA when the
+    checkpoint carries it."""
+    from pwn_tpu_torch.training.loop import restore_serving_params
+
+    params, _ = restore_serving_params(cfg, workdir, "student", device=device)
+    model = StudentIAF(cfg, device=device)
+    model.load_state_dict(params)
+    return model.eval()
 
 
 @torch.inference_mode()
@@ -183,6 +212,147 @@ def vocode_many(cfg: Config, model: StudentIAF, mels: Sequence,
             for row, i in enumerate(group):
                 out[i] = wav[row, : items[i].shape[0] * hop]
     return out
+
+
+def _stream_geometry(cfg: Config, chunk_frames: int):
+    """(R, H, CT, WT, WF) of streaming windows: the receptive-field prefix
+    (samples), the upsampler's frame halo, chunk samples, window samples,
+    window frames."""
+    hop = cfg.dsp.hop_length
+    R, H = sp_mega_geometry(cfg)
+    CT = chunk_frames * hop
+    WT = CT + R
+    return R, H, CT, WT, WT // hop + 2 * H
+
+
+def _stream_plan(cfg: Config, F: int, chunk_frames: int, cover_tail: bool):
+    """Window descriptors for streaming an F-frame mel: yields (ws, f_start,
+    off, out_off, trim): the base-noise window start (samples), the mel
+    window start (frames), the cond offset and the output offset within the
+    window, and how many leading samples of the emitted CT-sample chunk to
+    drop (non-zero only for the final partial chunk).  Shared by
+    `stream_student_chunks` and the server's batch engine, so the two are
+    window for window the same."""
+    hop = cfg.dsp.hop_length
+    R, H, CT, WT, WF = _stream_geometry(cfg, chunk_frames)
+    for c in range(F // chunk_frames):
+        start = c * CT
+        ws = max(0, start - R)
+        f_start = min(max(ws // hop - H, 0), F - WF)
+        yield ws, f_start, ws - f_start * hop, start - ws, 0
+    rem = F % chunk_frames
+    if cover_tail and rem:
+        # the final partial chunk: the same window shape, ending at the
+        # utterance's end; of its CT samples the first CT - rem*hop were
+        # emitted already (F >= WF gives T >= WT, so ws >= 0)
+        T = F * hop
+        ws = T - WT
+        f_start = min(max(ws // hop - H, 0), F - WF)
+        yield ws, f_start, ws - f_start * hop, (T - CT) - ws, CT - rem * hop
+
+
+class BlockNoise:
+    """The base noise of one streamed request: block b holds samples
+    [b*CT, (b+1)*CT) of every row, drawn as `sample_base_noise` of (B, CT)
+    from `item_generator(seed, b, device)`, times `temperature`.  Any window
+    reads the same values wherever it starts, so the direct stream and the
+    server's batch engine give a request the same audio.  Windows advance
+    monotonically: blocks before a window's first are dropped."""
+
+    def __init__(self, cfg: Config, seed: int, chunk_samples: int, rows: int,
+                 temperature: float, device):
+        self.cfg, self.seed, self.CT, self.rows = cfg, seed, chunk_samples, rows
+        self.temperature, self.device = temperature, device
+        self.blocks: dict = {}
+
+    def window(self, ws: int, n: int) -> torch.Tensor:
+        """Samples [ws, ws + n) of every row, (rows, n), on the device."""
+        CT = self.CT
+        first, last = ws // CT, (ws + n - 1) // CT
+        for old in [b for b in self.blocks if b < first]:
+            del self.blocks[old]
+        for b in range(first, last + 1):
+            if b not in self.blocks:
+                self.blocks[b] = sample_base_noise(
+                    self.cfg, item_generator(self.seed, b, self.device),
+                    (self.rows, CT)) * self.temperature
+        full = torch.cat([self.blocks[b] for b in range(first, last + 1)], 1)
+        lo = ws - first * CT
+        return full[:, lo: lo + n]
+
+
+@torch.inference_mode()
+def stream_window(cfg: Config, model: StudentIAF, z_win: torch.Tensor,
+                  mel_win, off: Sequence[int],
+                  out_off: Sequence[int]) -> torch.Tensor:
+    """One streaming window for B rows (counterpart of the reference's
+    `_stream_window_fn` and `_batched_stream_window_fn`): upsample the mel
+    windows (B, WF, n_mels), take WT = z_win.shape[1] samples of each row's
+    conditioning from its `off`, run the flows on (z_win, cond), and return
+    CT samples of each row from its `out_off`, (B, CT).  Rows of different
+    requests at different window phases share one call, and each row's
+    result is the same whatever rows share it.  The caller draws the noise
+    windows z_win (B, WT)."""
+    device = _model_device(model)
+    B, WT = z_win.shape
+    CT = WT - sp_mega_geometry(cfg)[0]
+    mel_win = torch.as_tensor(mel_win, device=device)
+    # each row upsampled alone: cuDNN's bf16 transposed convolutions round
+    # some elements of a row differently in a batch of another size, and the
+    # flows carry one ulp there far; a row's audio must not depend on the
+    # rows that share its call (the flows' rows do not)
+    cond = torch.stack([model.upsample_cond(mel_win[i: i + 1])[0, o: o + WT]
+                        for i, o in enumerate(off)])
+    wav = model.flows_from_z(z_win.to(device), cond)
+    return torch.stack([wav[i, o: o + CT] for i, o in enumerate(out_off)])
+
+
+@torch.inference_mode()
+def stream_student_chunks(cfg: Config, model: StudentIAF, mel,
+                          seed: int | None = None, z=None,
+                          chunk_frames: int = 64, temperature: float = 1.0,
+                          cover_tail: bool = False):
+    """Streaming synthesis: yield (B, chunk_frames * hop) float32 numpy
+    chunks of mel (B, F, n_mels) whose concatenation equals the whole call
+    on the same noise.  Each chunk is recomputed with the flows' receptive
+    field R = n_flows * (sum(dilations) + 1) (rounded up to a hop) before
+    it and the upsampler's frame halo around it, in one window shape.
+
+    cover_tail=True also yields a final partial chunk of
+    (F % chunk_frames) * hop samples, from the same window shape ending at
+    the utterance's end, so the whole utterance is synthesized.
+
+    Noise: `z` (B, F*hop) as given (temperature not applied), or the block
+    stream `BlockNoise(seed)` times `temperature`.
+    """
+    _, _, CT, WT, WF = _stream_geometry(cfg, chunk_frames)
+    if isinstance(mel, torch.Tensor):
+        mel = mel.detach().cpu().numpy()
+    mel = np.asarray(mel, np.float32)
+    B, F = mel.shape[0], mel.shape[1]
+    if F % chunk_frames and not cover_tail:
+        raise ValueError(
+            f"frames {F} not divisible by chunk_frames {chunk_frames} "
+            "(pass cover_tail=True to emit a final partial chunk)")
+    if F < WF:
+        raise ValueError(
+            f"utterance of {F} frames is shorter than one streaming window "
+            f"({WF}); call generate_student directly")
+    if z is None and seed is None:
+        raise ValueError("pass seed= (chunk-stream noise) or z=")
+    device = _model_device(model)
+    if z is not None:
+        z = torch.as_tensor(z, dtype=torch.float32)
+        z_at = lambda ws: z[:, ws: ws + WT]  # noqa: E731
+    else:
+        z_at = functools.partial(BlockNoise(cfg, seed, CT, B, temperature,
+                                            device).window, n=WT)
+    for ws, f_start, off, out_off, trim in _stream_plan(cfg, F, chunk_frames,
+                                                        cover_tail):
+        out = stream_window(cfg, model, z_at(ws),
+                            mel[:, f_start: f_start + WF], [off] * B,
+                            [out_off] * B).cpu().numpy()
+        yield out[:, trim:] if trim else out
 
 
 AR_BACKENDS = ("auto", "kernel", "pallas", "scan")

@@ -11,9 +11,9 @@ The conventions are the reference's, frozen by its goldens:
                     [min_db, 0] -> [0, 1] after subtracting ref_db
 
 The filterbank and the window are numpy constants, copied from the
-reference (whose module imports JAX).  The transforms run in torch on
-the input tensor's device.  Deemphasis is a host IIR
-(`generate._host_deemphasis`).
+reference (whose module imports JAX), and so is `mel_spectrogram_np`, its
+host mirror of the mel pipeline.  The transforms run in torch on the input
+tensor's device.  Deemphasis is a host IIR (`generate._host_deemphasis`).
 """
 
 from __future__ import annotations
@@ -101,9 +101,21 @@ def preemphasis(x: torch.Tensor, coef: float = 0.97) -> torch.Tensor:
     return x - coef * shifted
 
 
+def amp_to_db(amp: torch.Tensor) -> torch.Tensor:
+    return 20.0 * torch.log10(torch.clamp(amp, min=_AMP_FLOOR))
+
+
+def db_to_amp(db: torch.Tensor) -> torch.Tensor:
+    return torch.pow(10.0, db * 0.05)
+
+
 def normalize_db(db: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
     """Map dB to [0, 1]: clip((db - ref_db - min_db) / -min_db, 0, 1)."""
     return torch.clamp((db - cfg.ref_db - cfg.min_db) / (-cfg.min_db), 0.0, 1.0)
+
+
+def denormalize_db(norm: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
+    return torch.clamp(norm, 0.0, 1.0) * (-cfg.min_db) + cfg.min_db + cfg.ref_db
 
 
 def frame(x: torch.Tensor, n_fft: int, hop: int,
@@ -141,7 +153,112 @@ def mel_spectrogram(x: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
         mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin,
                        cfg.fmax_hz)
     ).to(x.device)
-    mel = mag @ fbank.T
-    db = 20.0 * torch.log10(torch.clamp(mel, min=_AMP_FLOOR))
-    out = normalize_db(db, cfg)
+    out = normalize_db(amp_to_db(mag @ fbank.T), cfg)
     return out.reshape(*lead, *out.shape[-2:])
+
+
+def linear_spectrogram(x: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
+    """Normalized linear-magnitude spectrogram (..., frames, n_fft//2+1)."""
+    mag = stft_magnitude(x, cfg.n_fft, cfg.hop_length, cfg.win_length)
+    return normalize_db(amp_to_db(mag), cfg)
+
+
+def wav_to_mel(wav: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
+    """wav -> conditioning mel: preemphasis, then `mel_spectrogram`."""
+    return mel_spectrogram(preemphasis(wav, cfg.preemphasis), cfg)
+
+
+def power_spectrum(x: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
+    """|STFT|^2, un-normalized: the distillation power loss's feature."""
+    mag = stft_magnitude(x, cfg.n_fft, cfg.hop_length, cfg.win_length)
+    return torch.square(mag)
+
+
+def mel_spectrogram_np(x: np.ndarray, cfg: DSPConfig) -> np.ndarray:
+    """`mel_spectrogram` in numpy, (..., T) -> (..., F, n_mels), for mel
+    extraction on the host (the server's wav requests)."""
+    x = np.asarray(x, np.float32)
+    pad = [(0, 0)] * (x.ndim - 1) + [(cfg.n_fft // 2, cfg.n_fft // 2)]
+    xp = np.pad(x, pad, mode="reflect")
+    n_frames = 1 + (xp.shape[-1] - cfg.n_fft) // cfg.hop_length
+    idx = (np.arange(n_frames)[:, None] * cfg.hop_length
+           + np.arange(cfg.n_fft)[None, :])
+    frames = xp[..., idx] * hann_window(cfg.win_length, cfg.n_fft)
+    mag = np.abs(np.fft.rfft(frames, n=cfg.n_fft, axis=-1)).astype(
+        np.float32)
+    fbank = mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
+                           cfg.fmin, cfg.fmax_hz)
+    mel = mag @ fbank.T
+    db = 20.0 * np.log10(np.maximum(mel, _AMP_FLOOR))
+    return np.clip((db - cfg.ref_db - cfg.min_db) / (-cfg.min_db),
+                   0.0, 1.0).astype(np.float32)
+
+
+# mu-law companding: the classic 8-bit WaveNet input path (the MoL teacher
+# does not use it; part of the reference's DSP surface)
+
+
+def mulaw_encode(x: torch.Tensor, mu: int = 255) -> torch.Tensor:
+    """x in [-1, 1] -> companded [-1, 1]."""
+    mu_f = float(mu)
+    return torch.sign(x) * torch.log1p(mu_f * torch.abs(x)) / np.log1p(mu_f)
+
+
+def mulaw_decode(y: torch.Tensor, mu: int = 255) -> torch.Tensor:
+    mu_f = float(mu)
+    return torch.sign(y) * (torch.pow(1.0 + mu_f, torch.abs(y)) - 1.0) / mu_f
+
+
+def mulaw_quantize(x: torch.Tensor, mu: int = 255) -> torch.Tensor:
+    """x in [-1, 1] -> integer class in [0, mu]."""
+    y = mulaw_encode(x, mu)
+    return torch.clamp((y + 1.0) / 2.0 * mu + 0.5, 0, mu).to(torch.int32)
+
+
+def mulaw_dequantize(q: torch.Tensor, mu: int = 255) -> torch.Tensor:
+    return mulaw_decode(2.0 * (q.to(torch.float32) / mu) - 1.0, mu)
+
+
+# Griffin-Lim: phase reconstruction, a debugging utility
+
+
+def _istft(spec: torch.Tensor, n_fft: int, hop: int, win_length: int,
+           length: int) -> torch.Tensor:
+    """Overlap-add inverse STFT of a complex (..., frames, n_fft//2+1),
+    normalized by the summed squared window."""
+    win = torch.from_numpy(hann_window(win_length, n_fft)).to(spec.device)
+    frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * win
+    n_frames = frames.shape[-2]
+    total = n_fft + hop * (n_frames - 1)
+    idx = (torch.arange(n_frames, device=spec.device)[:, None] * hop
+           + torch.arange(n_fft, device=spec.device)[None, :]).reshape(-1)
+    flat = frames.reshape(-1, n_frames * n_fft)
+    sig = torch.zeros(flat.shape[0], total, device=spec.device)
+    sig.index_add_(1, idx, flat)
+    wsum = torch.zeros(total, device=spec.device)
+    wsum.index_add_(0, idx, torch.square(win).repeat(n_frames))
+    out = (sig / torch.clamp(wsum, min=1e-8)).reshape(
+        *spec.shape[:-2], total)
+    start = n_fft // 2
+    return out[..., start: start + length]
+
+
+def griffin_lim(mag: torch.Tensor, cfg: DSPConfig, length: int,
+                n_iters: int = 50, seed: int = 0,
+                angles: torch.Tensor | None = None) -> torch.Tensor:
+    """Phase reconstruction from a linear magnitude spectrogram (...,
+    frames, n_fft//2+1).  The initial phases are `angles`, or uniform in
+    [-pi, pi) from a generator seeded with `seed` on mag's device."""
+    if angles is None:
+        gen = torch.Generator(device=mag.device).manual_seed(seed)
+        angles = (torch.rand(mag.shape, generator=gen, device=mag.device)
+                  * 2.0 - 1.0) * np.pi
+    spec = mag * torch.exp(1j * angles.to(torch.complex64))
+    win = torch.from_numpy(hann_window(cfg.win_length, cfg.n_fft)).to(
+        mag.device)
+    for _ in range(n_iters):
+        wav = _istft(spec, cfg.n_fft, cfg.hop_length, cfg.win_length, length)
+        re_c = torch.fft.rfft(frame(wav, cfg.n_fft, cfg.hop_length) * win,
+                              n=cfg.n_fft, dim=-1)
+        spec = mag * (re_c / torch.clamp(torch.abs(re_c), min=1e-8))
+    return _istft(spec, cfg.n_fft, cfg.hop_length, cfg.win_length, length)

@@ -1,17 +1,23 @@
 """The port's command line (`python -m pwn_tpu_torch.cli`) on the CPU at tiny
 fp32 sizes: train-teacher -> distill-student (`--teacher-step auto`, an
 integer, live params) -> generate (student, teacher, `--dump-mel` /
-`--mel`, `--mel-dir`, `--source-dir`), train-student, and the refusals
-(`--chunk-frames`, `eval`, `serve`, `bench`, no card without `--device`).
-Each command runs in-process through `cli.main` with `--device cpu`, and
-writes what it prints.
+`--mel`, `--mel-dir`, `--source-dir`, `--chunk-frames`), train-student,
+eval against the reference's report, serve as a subprocess, and the
+refusals (`bench`, no card without `--device`).  Each command but serve
+runs in-process through `cli.main` with `--device cpu`, and writes what it
+prints.
 """
 
 import contextlib
+import http.client
 import io
+import json
 import os
+import queue
+import signal
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -163,11 +169,6 @@ def test_generate_batch_mode(workdirs, tmp_path, mode):
 
 
 @pytest.mark.parametrize("args,slice_name", [
-    (["generate", "tiny_teacher", "--workdir", "w", "--chunk-frames", "8"],
-     "streaming"),
-    (["eval", "tiny_teacher", "--ref", "a.wav", "--gen", "b.wav"],
-     "streaming and evaluation"),
-    (["serve", "tiny_teacher"], "serving"),
     (["bench"], "benchmark"),
 ])
 def test_unported_parts_exit_non_zero(args, slice_name):
@@ -193,3 +194,111 @@ def test_no_card_is_an_error_not_the_cpu(tmp_path):
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 2 and "benchmark slice" in proc.stderr
+
+
+def test_generate_streaming_writes_the_sources_length(workdirs, tmp_path):
+    """`--chunk-frames 8` on a 31-frame source: three chunks and the
+    7-frame tail, deemphasized together, equal to `stream_student_chunks`
+    on the same seed."""
+    from pwn_tpu_torch.config import get_config
+    from pwn_tpu_torch.generate import (_host_deemphasis, load_student,
+                                        mel_from_wav, stream_student_chunks)
+
+    _, _, s, _ = workdirs
+    src, out_wav = tmp_path / "src.wav", tmp_path / "stream.wav"
+    write_wav(str(src), np.sin(np.arange(4000) * 0.05).astype(np.float32) * 0.5,
+              SR)
+    rc, out, _ = _cli("generate", "tiny_teacher", "--workdir", s, "--source",
+                      str(src), "--output", str(out_wav), "--chunk-frames",
+                      "8", "--temperature", "0.9")
+    assert rc == 0 and f"wrote {out_wav}: 0.25s" in out
+    wav = read_wav(str(out_wav))[0]
+    assert wav.shape == (31 * 128,) and np.isfinite(wav).all()
+    cfg = get_config("tiny_teacher", **dict(o.split("=") for o in OVERRIDES))
+    mel = mel_from_wav(cfg, read_wav(str(src))[0], device="cpu")
+    ref = _host_deemphasis(np.concatenate(list(stream_student_chunks(
+        cfg, load_student(cfg, s, "cpu"), mel, seed=0, chunk_frames=8,
+        temperature=0.9, cover_tail=True)), 1), cfg.dsp.preemphasis)[0]
+    # as write_wav stores it: scaled down past full scale, PCM16, and read
+    # back over 32768
+    pcm = (ref / max(1.0, np.abs(ref).max()) * 32767.0).astype(np.int16)
+    np.testing.assert_allclose(wav, pcm / 32768.0, rtol=0, atol=1 / 32768)
+
+
+def test_eval_prints_the_references_report(tmp_path):
+    from pwn_tpu.evaluate import copy_synthesis_report
+
+    from torch_parity import jax_config
+    from pwn_tpu_torch.config import get_config
+
+    rng = np.random.default_rng(1)
+    t = np.arange(6000) / SR
+    # voiced, then quiet noise: no bin near the -100 dB floor, where the
+    # two libraries' float32 FFT rounding is a large share of the value
+    ref = (0.4 * np.sin(2 * np.pi * 200 * t) * (t < 0.25)
+           + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
+    gen = (0.8 * ref + 0.02 * rng.standard_normal(t.size)).astype(np.float32)
+    write_wav(str(tmp_path / "ref.wav"), ref, SR)
+    write_wav(str(tmp_path / "gen.wav"), gen[:5000], SR)
+    rc, out, _ = _cli("eval", "tiny_teacher", "--ref",
+                      str(tmp_path / "ref.wav"), "--gen",
+                      str(tmp_path / "gen.wav"))
+    assert rc == 0
+    got = json.loads(out.strip().splitlines()[-1])
+    a, b = read_wav(str(tmp_path / "ref.wav"))[0], read_wav(
+        str(tmp_path / "gen.wav"))[0]
+    want = copy_synthesis_report(jax_config(get_config("tiny_teacher")),
+                                 a[:5000], b)
+    assert list(got) == list(want) and len(got) == 6
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+
+
+def test_serve_answers_healthz_and_stops_on_sigterm(workdirs):
+    """`serve` as its own process on the CPU at a free port: /healthz and one
+    synthesis answer, then SIGTERM drains and exits 0."""
+    _, _, s, _ = workdirs
+    env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+           "OMP_NUM_THREADS": "1", "PYTHONUNBUFFERED": "1",
+           "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pwn_tpu_torch.cli", "serve", "tiny_teacher",
+         "--workdir", s, "--port", "0", "--device", "cpu", *OVERRIDES],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True)
+    reader.start()
+    try:
+        first = lines.get(timeout=120)
+        assert first.startswith("serving 16000 Hz vocoder on http://127.0.0.1:")
+        port = int(first.split("127.0.0.1:")[1].split()[0])
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        assert health["status"] == "ok" and health["device"] == "cpu"
+        assert health["requests_served"] == 1  # the warm-up synthesis
+        body = io.BytesIO()
+        from scipy.io import wavfile
+
+        wavfile.write(body, SR, (np.sin(np.arange(SR) * 0.05) * 8000).astype(
+            np.int16))
+        conn.request("POST", "/synthesize", body=body.getvalue())
+        r = conn.getresponse()
+        assert r.status == 200 and len(r.read()) == SR // 128 * 128 * 2
+        conn.close()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    reader.join(timeout=30)
+    rest = []
+    while not lines.empty():
+        rest.append(lines.get())
+    assert rest[-1].strip() == "server stopped", (rest, proc.stderr.read())
+    proc.stdout.close()
+    proc.stderr.close()

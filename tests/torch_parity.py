@@ -18,3 +18,36 @@ def jax_config(cfg):
     return jc.Config(name=d["name"], **{
         name: getattr(jc, cls if isinstance(cls, str) else cls.__name__)(
             **d[name]) for name, cls in subs.items()})
+
+
+# a student small enough for the CPU streaming and serving tests:
+# tiny_teacher's DSP with 2 flows x 3 layers at C=16 (R = 128 samples)
+SMALL_STUDENT = {
+    "student.n_flows": 2, "student.layers_per_flow": 3,
+    "student.residual_channels": 16, "student.gate_channels": 32,
+    "student.skip_channels": 16,
+}
+
+
+def paired_students(cfg, seed: int = 0, jitter: float = 0.05):
+    """(JAX model, its params as numpy, the port's StudentIAF on the CPU
+    with the same parameters), every parameter jittered by `jitter` times a
+    unit normal: fresh inits have zero biases, which would hide an offset
+    of the upsampler's conditioning."""
+    import jax
+    import numpy as np
+    from pwn_tpu.config import override as jax_override
+    from pwn_tpu.models.student import init_student
+
+    from pwn_tpu_torch import convert
+    from pwn_tpu_torch.models.student import StudentIAF
+
+    jcfg = jax_override(jax_config(cfg), "student.fused_layers", "off")
+    model, variables = init_student(jcfg, jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed + 99)
+    params = jax.tree.map(
+        lambda p: np.asarray(p) + jitter * rng.standard_normal(p.shape).astype(
+            np.float32), variables["params"])
+    port = StudentIAF(cfg)
+    port.load_state_dict(convert.params_from_flax(params))
+    return model, params, port.eval()
