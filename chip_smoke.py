@@ -2,8 +2,9 @@
 """Drive the PyTorch port's student IAF synthesis (student_iaf through
 the whole-stack kernel, large_student_sharded through the per-layer
 kernel's accumulate epilogue), teacher training, distillation and direct
-training of the student, teacher AR sampling, the command line and the
-streaming vocoder server once on one CUDA card.
+training of the student, teacher AR sampling, the command line, the
+streaming vocoder server, training from a wav directory on every data
+engine and data-parallel training once on one CUDA card.
 
 Run from the repository root with no arguments:
 
@@ -100,6 +101,22 @@ Phases, each printing what it finds:
                window at B = 1, 2, 4 with kernel 1's share, the idle share
                and the useful share of kernel 1's rows, and time to first
                byte and audio-s/s for 1 and 4 clients;
+  8d. data and DP — a corpus written by the phase in LJSpeech's format (40
+               SyntheticSpeech clips, mono PCM16 at 22,050 Hz, 1.5-10 s,
+               38 train and 2 held out by `corpus_split`); each engine
+               (the C++ loader, the Python iterator, grain where it is
+               installed, else its ModuleNotFoundError) at teacher_lj's 8
+               x 16,384: its resume at step 3 bit-identical to its own
+               stream, host ms a batch, the train step it feeds (ms, idle
+               share); the CLI with --data-dir: train-teacher 4 steps
+               against 2 and a resume ("auto" ran the C++ loader, the
+               step-4 checkpoints compared, the step-2 dump regenerated
+               from held-out clip 0), distill-student 2 steps, launches of
+               each call; multihost_dp's distillation step at a per-rank
+               batch of 16 x 16,384 (one rank of 2 nodes x 8 GPUs) in a
+               child process, without a process group and in a one-rank
+               NCCL group: parameters bit-identical after 2 steps, NCCL
+               kernels and ms a step, both steps' ms, peak memory;
   9. times   — each kernel's and its plain version's ms per call beside its
                bound (kernel 1 beside the kernel-5 chain on the same
                inputs; kernel 5 in both epilogues at both widths), end-to-end
@@ -119,6 +136,7 @@ from __future__ import annotations
 
 import contextlib
 import http.client
+import importlib.util
 import io
 import json
 import os
@@ -132,6 +150,9 @@ import numpy as np
 import torch
 
 from pwn_tpu_torch import cli, get_config, override
+from pwn_tpu_torch.data.native_loader import NativeWavCropLoader
+from pwn_tpu_torch.data.pipeline import (SyntheticSpeech, WavCropDataset,
+                                        corpus_split, prefetch)
 from pwn_tpu_torch.generate import (generate_student, generate_teacher,
                                     mel_from_wav, vocode_many)
 from pwn_tpu_torch.models import sampling
@@ -155,7 +176,11 @@ from pwn_tpu_torch.ops.gated_layer import (
 from pwn_tpu_torch.training.common import create_train_state
 from pwn_tpu_torch.training.distill import (distillation_losses,
                                             make_distill_train_step)
-from pwn_tpu_torch.training.loop import (frozen_teacher, make_val_batch,
+from pwn_tpu_torch.parallel.mesh import ensure_distributed
+from pwn_tpu_torch.training.loop import (build_dataset, device_put,
+                                         frozen_teacher, make_train_stream,
+                                         make_val_batch,
+                                         restore_serving_params,
                                          state_template,
                                          run_distillation,
                                          run_student_direct_training,
@@ -1464,6 +1489,28 @@ def _dump_len(cfg) -> int:
     return n // hop * hop
 
 
+def _check_resumed(resumed: str, whole: str, step: int, what: str) -> None:
+    """The teacher checkpoints of `step` in two workdirs, one resumed and
+    one uninterrupted: the same keys and scalars, every tensor within
+    TOL_RESUME (relative L2), the bit-identical ones counted."""
+    a, b = _ckpt_flat(resumed, "teacher", step), _ckpt_flat(whole, "teacher",
+                                                            step)
+    _check(a.keys() == b.keys() and all(a[k] == b[k] for k in
+                                        ("step", "seed", "opt.count")),
+           f"the two step-{step} checkpoints' keys and scalars")
+    tensors = [k for k in a if isinstance(a[k], torch.Tensor)]
+    differ = {k: float((a[k] - b[k]).norm() / b[k].norm().clamp_min(1e-30))
+              for k in tensors if not torch.equal(a[k], b[k])}
+    _log(f"[{what}] resumed vs uninterrupted at step {step}: "
+         f"{len(tensors) - len(differ)} of {len(tensors)} tensors "
+         f"bit-identical; differing: "
+         + (", ".join(f"{k} {v:.2e}" for k, v in sorted(differ.items())[:8])
+            or "none")
+         + f" (tol {TOL_RESUME} relative L2)")
+    _check(all(v <= TOL_RESUME for v in differ.values()),
+           "the resumed run is off the uninterrupted one")
+
+
 def phase_workdir(device, smi: str, root: str) -> dict:
     """The CLI on the card at full width (teacher_lj and student_iaf, 8 x
     16,384), its workdirs under `root`: train-teacher with checkpoints,
@@ -1514,21 +1561,7 @@ def phase_workdir(device, smi: str, root: str) -> dict:
     _driven(_teacher_launches(6, 3, 3), "train-teacher 6 steps at once",
             "train-teacher", "teacher_lj", "--workdir", t2, "--steps", "6",
             *ov)
-    a, b = _ckpt_flat(t1, "teacher", 6), _ckpt_flat(t2, "teacher", 6)
-    _check(a.keys() == b.keys() and all(a[k] == b[k] for k in
-                                        ("step", "seed", "opt.count")),
-           "the two step-6 checkpoints' keys and scalars")
-    tensors = [k for k in a if isinstance(a[k], torch.Tensor)]
-    differ = {k: float((a[k] - b[k]).norm() / b[k].norm().clamp_min(1e-30))
-              for k in tensors if not torch.equal(a[k], b[k])}
-    _log(f"[workdir] resumed vs uninterrupted at step 6: "
-         f"{len(tensors) - len(differ)} of {len(tensors)} tensors "
-         f"bit-identical; differing: "
-         + (", ".join(f"{k} {v:.2e}" for k, v in sorted(differ.items())[:8])
-            or "none")
-         + f" (tol {TOL_RESUME} relative L2)")
-    _check(all(v <= TOL_RESUME for v in differ.values()),
-           "the resumed run is off the uninterrupted one")
+    _check_resumed(t1, t2, 6, "workdir")
     _check(CheckpointManager(os.path.join(t1, "ckpt_teacher")).all_steps()
            == [4, 6], "keep_checkpoints=2 should keep [4, 6]")
 
@@ -2129,6 +2162,344 @@ def _serve_large(device) -> None:
            "none of kernel 1")
 
 
+# Phase 8d: training from a wav directory on every engine, and data
+# parallelism on the card.  The phase writes its own corpus in LJSpeech's
+# format (no corpus is in the repository, and nothing is downloaded):
+# SyntheticSpeech clips, mono PCM16 at 22,050 Hz, 1.5-10 s each.
+CORPUS_CLIPS = 40
+CORPUS_SECONDS = (1.5, 10.0)
+ENGINE_WARMUP, ENGINE_STEPS, ENGINE_PROFILED = 2, 10, 5
+ENGINE_BATCHES = 40  # host ms per batch over batches 10..40 (the cache warm)
+# multihost_dp (BASELINE.json configs[3]) spreads 256 utterances over 2
+# hosts; on 2 nodes of 8 GPUs each rank holds 16.  The card runs one rank of
+# that: a one-rank NCCL group, per-rank batch 16 x 16,384 (8 if 16 does not
+# fit, said in the log).
+DP_RANK_BATCH = 16
+DP_STEPS, DP_TIMED = 2, 5
+
+
+def _write_corpus(root: str) -> str:
+    """CORPUS_CLIPS SyntheticSpeech clips of LJSpeech's lengths under
+    `root`/wavs; returns the directory."""
+    d = os.path.join(root, "wavs")
+    sr = TEACHER.dsp.sample_rate
+    rng = np.random.default_rng(SEED)
+    for i, sec in enumerate(rng.uniform(*CORPUS_SECONDS, CORPUS_CLIPS)):
+        n = int(sec * sr)
+        write_wav(os.path.join(d, f"LJ{i:03d}.wav"),
+                  SyntheticSpeech(1, n, sr, seed=i)[0], sr)
+    return d
+
+
+def _stream(engine: str, corpus: str, start: int):
+    """The engine's batch stream of teacher_lj's batch over the corpus's
+    training files, from step `start`, as the training loop makes it."""
+    cfg = override(TEACHER, "train.data_engine", engine)
+    ds = build_dataset(cfg, corpus)
+    got, it = make_train_stream(cfg, corpus, ds, TRAIN_BATCH, start)
+    _check(got == engine, f"data_engine={engine} ran {got}")
+    return it
+
+
+def _engine_step_times(device, smi: str, engine: str, corpus: str) -> dict:
+    """teacher_lj's train step fed by the engine through the loop's
+    prefetch thread: ms a step on the host clock over ENGINE_STEPS after
+    ENGINE_WARMUP, then the idle share over ENGINE_PROFILED steps."""
+    model = init_teacher(TEACHER, torch.Generator().manual_seed(SEED),
+                         stack_mode="train", device=device)
+    state = create_train_state(dict(model.named_parameters()), TEACHER.train)
+    step = make_teacher_train_step(model, TEACHER)
+    batches = prefetch(_stream(engine, corpus, 0), put=device_put(device))
+    for _ in range(ENGINE_WARMUP):
+        state, m = step(state, next(batches))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(ENGINE_STEPS):
+        state, m = step(state, next(batches))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / ENGINE_STEPS
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        for _ in range(ENGINE_PROFILED):
+            state, m = step(state, next(batches))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    batches.close()
+    busy, _, _ = _device_split(prof)
+    _check(busy > 0 and np.isfinite(float(m["loss"])),
+           f"{engine}: no device time or a non-finite loss")
+    idle = 1 - busy / 1e6 / wall
+    _log(f"[data] {smi}: teacher_lj step fed by {engine}: {ms:.3f} ms a step "
+         f"(host clock, {ENGINE_STEPS} steps after {ENGINE_WARMUP}); profiler "
+         f"({ENGINE_PROFILED} steps): device busy "
+         f"{busy / 1e3 / ENGINE_PROFILED:.3f} ms a step, idle share "
+         f"{idle:.3f}")
+    return {"step_ms": ms, "idle": idle}
+
+
+def _engines(device, smi: str, corpus: str) -> None:
+    """Each engine: its resume bit-identical to its own stream, host ms a
+    batch, the teacher_lj step it feeds; grain driven where it is
+    installed, else its refusal."""
+    engines = ["native", "python"]
+    if importlib.util.find_spec("grain") is None:
+        _log("[data] grain is not installed here: data_engine=grain must "
+             "raise ModuleNotFoundError")
+        try:
+            run_teacher_training(override(TEACHER, "train.data_engine",
+                                          "grain"), data_dir=corpus,
+                                 num_steps=1, device=device)
+        except ModuleNotFoundError as e:
+            _check(e.name == "grain", f"raised for {e.name}, not grain")
+            _log(f"[data] data_engine=grain raised: {e!r}")
+        else:
+            raise RuntimeError("data_engine=grain ran without grain")
+    else:
+        engines.append("grain")
+    for engine in engines:
+        whole = _stream(engine, corpus, 0)
+        stream = [next(whole) for _ in range(6)]
+        resumed = _stream(engine, corpus, 3)
+        _check(all(np.array_equal(next(resumed), stream[k])
+                   for k in (3, 4, 5)),
+               f"{engine}: the stream resumed at step 3 is off")
+        _check(stream[0].shape == (TRAIN_BATCH, TRAIN_T)
+               and all(np.isfinite(b).all() for b in stream),
+               f"{engine}: batch {stream[0].shape}")
+        del whole, resumed
+        t = time.perf_counter()
+        it = _stream(engine, corpus, 0)
+        made = (time.perf_counter() - t) * 1e3
+        times = []
+        for _ in range(ENGINE_BATCHES):
+            t = time.perf_counter()
+            next(it)
+            times.append((time.perf_counter() - t) * 1e3)
+        del it
+        _log(f"[data] {smi}: {engine}: resume at step 3 bit-identical; "
+             f"made in {made:.1f} ms; host ms a batch of {TRAIN_BATCH} x "
+             f"{TRAIN_T} drawn back to back (the producer's rate): batches "
+             f"1-10 {np.mean(times[:10]):.3f}, 11-{ENGINE_BATCHES} "
+             f"{np.mean(times[10:]):.3f}")
+        _engine_step_times(device, smi, engine, corpus)
+
+
+def _check_dump(device, corpus: str, wd: str, step: int) -> None:
+    """The step's teacher sample dump is the AR sample of the checkpoint's
+    parameters conditioned on held-out clip 0 of the corpus (its first
+    `eval_sample_seconds`): regenerated here, PCM16 equal."""
+    hop, sr = TEACHER.dsp.hop_length, TEACHER.dsp.sample_rate
+    held = corpus_split(corpus)[1]
+    n = max(hop * 4, int(TEACHER.train.eval_sample_seconds * sr))
+    clip = WavCropDataset(None, sr, files=held)[0][:n]
+    params, _ = restore_serving_params(TEACHER, wd, "teacher", step=step,
+                                       device=device)
+    model = TeacherWaveNet(TEACHER, device=device)
+    model.load_state_dict(params)
+    gen = torch.Generator(device=device).manual_seed(step)
+    wav = generate_teacher(TEACHER, model, mel_from_wav(TEACHER, clip, device),
+                           gen, temperature=0.8)
+    again = os.path.join(wd, "again.wav")
+    write_wav(again, wav, sr)
+    dump = os.path.join(wd, "samples", f"step_{step:08d}.wav")
+    a, b = (_read_pcm16(p) for p in (dump, again))
+    lsb = int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+    _log(f"[data] the step-{step} dump against the sample regenerated from "
+         f"held-out clip 0 ({os.path.basename(held[0])}): {a.shape[0]} "
+         f"samples, max {lsb} LSB apart")
+    _check(a.shape == b.shape and lsb == 0,
+           "the dump is not conditioned on the held-out clip")
+
+
+def _read_pcm16(path: str) -> np.ndarray:
+    from scipy.io import wavfile
+
+    return wavfile.read(path)[1]
+
+
+def _data_cli(device, corpus: str, root: str) -> None:
+    """The CLI with --data-dir and a workdir: train-teacher teacher_lj 4
+    steps (checkpoints at 2 and 4) against 2 steps and a resume to 4, the
+    dump checked against the held-out clip, then distill-student
+    student_iaf 2 steps from that teacher; each call's launches."""
+    ta, tb, s = (os.path.join(root, n) for n in ("data_teacher",
+                                                 "data_resumed",
+                                                 "data_student"))
+    ov = ["train.checkpoint_every=2", "train.keep_checkpoints=2",
+          "train.log_every=1"]
+    out = _driven(_teacher_launches(4, 2, 2), "train-teacher --data-dir",
+                  "train-teacher", "teacher_lj", "--workdir", ta,
+                  "--data-dir", corpus, "--steps", "4", *ov)
+    _check("[teacher] data engine: native" in out,
+           "data_engine=auto with a data dir should run the C++ loader")
+    _driven(_teacher_launches(2, 1, 1), "train-teacher --data-dir 2 steps",
+            "train-teacher", "teacher_lj", "--workdir", tb, "--data-dir",
+            corpus, "--steps", "2", *ov)
+    out = _driven(_teacher_launches(2, 1, 1), "train-teacher --data-dir "
+                  "resumed to 4", "train-teacher", "teacher_lj", "--workdir",
+                  tb, "--data-dir", corpus, "--steps", "4", *ov)
+    _check("resumed from step 2" in out and "teacher done: 2 steps" in out,
+           "the resume's steps_run")
+    _check_resumed(tb, ta, 4, "data")
+    _check_dump(device, corpus, ta, 2)
+    want = _student_launches(CFG, 2, 1, teacher=True)
+    want["kernel 1"] = CFG.student.n_flows  # one student dump
+    out = _driven(want, "distill-student --data-dir", "distill-student",
+                  "student_iaf", "--teacher-workdir", ta, "--data-dir",
+                  corpus, "--steps", "2", "--workdir", s,
+                  "train.checkpoint_every=2")
+    _check("[student] data engine: native" in out
+           and "student done: 2 steps" in out, "distill-student's lines")
+    _check(sorted(os.listdir(os.path.join(s, "samples"))) == [
+        "step_00000002.wav"], "the student's dump")
+
+
+def _dp_run(cfg, device, batch: torch.Tensor, smi: str, what: str) -> dict:
+    """multihost_dp's distillation step on `batch`: DP_STEPS steps (the
+    parameters kept), then DP_TIMED timed and one profiled; peak memory."""
+    torch.cuda.reset_peak_memory_stats(device)
+    _, student, state, step = _distill_pair(cfg, device)
+    for _ in range(DP_STEPS):
+        state, m = step(state, batch)
+    params = {k: v.detach().clone() for k, v in state.params.items()}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(DP_TIMED):
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / DP_TIMED
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+    nccl_n, nccl_us = 0, 0.0
+    for ev in prof.key_averages():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and "nccl" in ev.key.lower()):
+            nccl_n += ev.count
+            us = getattr(ev, "self_device_time_total", None)
+            nccl_us += ev.self_cuda_time_total if us is None else us
+    peak = torch.cuda.max_memory_allocated(device)
+    _check(np.isfinite(float(m["loss"])), f"{what}: a non-finite loss")
+    _log(f"[dp] {smi}: {what}, batch {tuple(batch.shape)}: {ms:.3f} ms a "
+         f"step (host clock, {DP_TIMED} steps after {DP_STEPS}); NCCL "
+         f"kernels in one profiled step: {nccl_n}, {nccl_us / 1e3:.3f} ms; "
+         f"peak memory {peak / 2 ** 30:.2f} GiB")
+    return {"params": params, "ms": ms, "nccl": nccl_n, "nccl_ms":
+            nccl_us / 1e3, "peak": peak}
+
+
+def dp_child(corpus: str, out: str) -> int:
+    """The process of phase 8d's one-rank NCCL group (`--dp-child CORPUS
+    OUT`): multihost_dp's distillation step without a process group, then
+    in one; the parameters after DP_STEPS steps bit-identical; results
+    to OUT as JSON."""
+    import torch.distributed as dist
+
+    device, smi = phase_device()
+    batch_rows = DP_RANK_BATCH
+    while True:
+        cfg = override(get_config("multihost_dp"), "train.global_batch_size",
+                       batch_rows)
+        loader = NativeWavCropLoader(corpus, TRAIN_T, batch_rows, seed=SEED)
+        batch = torch.from_numpy(next(loader)).to(device)
+        loader.close()
+        try:
+            alone = _dp_run(cfg, device, batch, smi, "without a process group")
+            break
+        except torch.cuda.OutOfMemoryError:
+            _check(batch_rows == DP_RANK_BATCH, "8 rows did not fit either")
+            _log(f"[dp] a per-rank batch of {batch_rows} does not fit: 8")
+            batch_rows = 8
+            torch.cuda.empty_cache()
+    ensure_distributed(device)
+    _check(dist.is_initialized() and dist.get_world_size() == 1,
+           "no one-rank process group")
+    _log(f"[dp] process group: backend {dist.get_backend()}, world 1")
+    grouped = _dp_run(cfg, device, batch, smi, "in a one-rank NCCL group")
+    same = sum(torch.equal(grouped["params"][k], v)
+               for k, v in alone["params"].items())
+    _log(f"[dp] after {DP_STEPS} steps {same} of {len(alone['params'])} "
+         f"student tensors bit-identical to the step without a group")
+    _check(same == len(alone["params"]),
+           "a world of one is off the step without a process group")
+    _check(grouped["nccl"] >= 1, "no NCCL kernel in the profiled step")
+    # the loop in the group: the committed step broadcast, rank 0's
+    # writes, the closing barrier; then a resume
+    wd = os.path.join(os.path.dirname(out), "dp_student")
+    loop_cfg = override(override(cfg, "train.checkpoint_every", 2),
+                        "train.log_every", 1)
+    teacher = _teacher_state(cfg, device)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        first = run_distillation(loop_cfg, teacher, wd, corpus, num_steps=2,
+                                 device=device)
+        again = run_distillation(loop_cfg, teacher, wd, corpus, num_steps=3,
+                                 device=device)
+    printed = buf.getvalue()
+    steps = CheckpointManager(os.path.join(wd, "ckpt_student")).all_steps()
+    _log(f"[dp] run_distillation in the group: {first.steps_run} + "
+         f"{again.steps_run} steps, checkpoints {steps}, printed "
+         f"{printed.splitlines()}")
+    _check(first.steps_run == 2 and again.steps_run == 1 and steps == [2, 3]
+           and "[student] data engine: native" in printed
+           and "[student] resumed from step 2" in printed
+           and np.isfinite(again.final_metrics["loss"]),
+           "the distillation loop in the group")
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump({"rows": batch_rows, "alone_ms": alone["ms"],
+                   "group_ms": grouped["ms"], "nccl": grouped["nccl"],
+                   "nccl_ms": grouped["nccl_ms"], "peak": grouped["peak"]}, f)
+    return 0
+
+
+def _dp(corpus: str, root: str, smi: str) -> None:
+    """Phase 8d's DP part in a child process with a launcher's
+    environment (RANK 0 of WORLD_SIZE 1, LOCAL_RANK 0, a free port)."""
+    out = os.path.join(root, "dp.json")
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port()), "RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_RANK": "0"}
+    _log(f"[dp] multihost_dp cut to one rank of a 2 x 8-GPU run: per-rank "
+         f"batch {DP_RANK_BATCH} x {TRAIN_T} of the global 256, a one-rank "
+         f"NCCL group")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--dp-child", corpus, out], env=env,
+                          capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        _log(f"[dp]   | {line}")
+    _check(proc.returncode == 0,
+           f"the DP child exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    with open(out) as f:
+        r = json.load(f)
+    _log(f"[dp] {smi}: per-rank batch {r['rows']}: the step "
+         f"{r['group_ms']:.3f} ms "
+         f"in the group against {r['alone_ms']:.3f} ms without; NCCL "
+         f"{r['nccl']} kernels, {r['nccl_ms']:.3f} ms a step; peak "
+         f"{r['peak'] / 2 ** 30:.2f} GiB")
+
+
+def phase_data(device, smi: str, root: str) -> None:
+    """Phase 8d: the corpus, the engines, the CLI with --data-dir, DP."""
+    t0 = time.perf_counter()
+    corpus = _write_corpus(root)
+    train, held = corpus_split(corpus)
+    size = sum(os.path.getsize(os.path.join(corpus, f))
+               for f in os.listdir(corpus))
+    _log(f"[data] corpus: {CORPUS_CLIPS} clips, {size:,} B of PCM16 at "
+         f"{TEACHER.dsp.sample_rate} Hz, {len(train)} train and {len(held)} "
+         f"held out; written in {time.perf_counter() - t0:.1f} s")
+    _check(len(train) == 38 and len(held) == 2, "corpus_split's lists")
+    _engines(device, smi, corpus)
+    _data_cli(device, corpus, root)
+    _dp(corpus, root, smi)
+    _log(f"[data] phase 8d took {time.perf_counter() - t0:.1f} s")
+
+
 def _device_split(prof) -> tuple[float, float, int]:
     """(device busy us, kernel 1's us, device kernels and copies) of a
     profile: device events only."""
@@ -2664,6 +3035,7 @@ def main() -> int:
     try:
         workdir = phase_workdir(device, smi, root)
         phase_serve(device, smi, os.path.join(root, "student"))
+        phase_data(device, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     times = phase_times(device, smi)
@@ -2743,4 +3115,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-child"]:
+        sys.exit(dp_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -14,10 +14,18 @@
                                                [--host H] [--port P]
 
 `<case>` is a named preset; trailing `key=value` pairs override dotted
-config fields, e.g. `train.learning_rate=3e-4`.  Every subcommand runs on
-the CUDA card, or fails if there is none; `--device cpu` runs it on the
-CPU, as the tests do.  Not ported yet, and refused with a non-zero exit:
-`bench`, and a `--data-dir` (the wav-directory corpus).
+config fields, e.g. `train.learning_rate=3e-4`.  The three train commands
+take `--data-dir D`, a directory of wav files (default: the synthetic
+corpus), read by the engine `train.data_engine` names.  Under a launcher
+they train data-parallel, one process per card:
+
+    torchrun --nproc-per-node 8 -m pwn_tpu_torch.cli train-teacher \
+        teacher_lj --data-dir wavs/ --workdir runs/teacher
+
+Every subcommand runs on the CUDA card (the card of its `LOCAL_RANK`
+under a launcher), or fails if there is none; `--device cpu` runs it on
+the CPU, as the tests do.  Not ported yet, and refused with a non-zero
+exit: `bench`.
 """
 
 from __future__ import annotations
@@ -72,7 +80,8 @@ def _parser() -> argparse.ArgumentParser:
     p_train.add_argument("case")
     p_train.add_argument("--workdir", default="runs/teacher")
     p_train.add_argument("--data-dir", default=None,
-                         help="wav corpus dir (default: synthetic tones)")
+                         help="wav corpus dir (default: the synthetic "
+                              "corpus)")
     p_train.add_argument("--steps", type=int, default=None)
     p_train.add_argument("overrides", nargs="*")
 
@@ -306,6 +315,10 @@ def main(argv=None) -> int:
     if args.cmd in UNPORTED:
         return _refuse(args.cmd, UNPORTED[args.cmd])
     device = _device(args.device)
+    if args.cmd in ("train-teacher", "train-student", "distill-student"):
+        from pwn_tpu_torch.parallel.mesh import ensure_distributed
+
+        ensure_distributed(device)
 
     if args.cmd == "train-teacher":
         from pwn_tpu_torch.training.loop import run_teacher_training

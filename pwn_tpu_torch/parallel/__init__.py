@@ -1,1 +1,1 @@
-"""Multi-device synthesis geometry of the port."""
+"""Multi-device geometry and data parallelism of the port."""

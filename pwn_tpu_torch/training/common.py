@@ -10,16 +10,24 @@ The reference's optimizer is
     the count of updates before this one: the first step uses lr itself.
 Parameters are updated in place under no_grad, which bumps each tensor's
 `_version` (WaveNetStack's weight-layout cache keys on it).
+
+Data parallelism: `average_across_processes` averages a step's gradients
+and metrics over the process group in one all-reduce, the reference's
+`pmean` over the data axis; clipping and `grad_norm` then see the
+averaged gradients, as in the reference.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from pwn_tpu_torch.config import TrainConfig
+from pwn_tpu_torch.parallel.mesh import process_index
 
 EPS = 1e-8
 
@@ -121,8 +129,43 @@ def serving_params(state: TrainState) -> Dict[str, torch.Tensor]:
     return state.params if state.ema_params is None else state.ema_params
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device,
+                   rank: Optional[int] = None) -> torch.Generator:
     """The noise generator of one training step on `device`, seeded from
-    (seed, step) alone, as the reference folds the step into its key: a
-    step's noise does not depend on what ran before it."""
-    return torch.Generator(device=device).manual_seed(seed * 2 ** 32 + step)
+    (seed, step, rank) alone, as the reference folds the step and the data
+    shard's index into its key: a step's noise does not depend on what
+    ran before it, and each process draws its own.  `rank` defaults to
+    this process's; rank 0's seed is seed * 2^32 + step, the seed of a
+    run without a process group."""
+    rank = process_index() if rank is None else rank
+    key = seed * 2 ** 32 + step
+    if rank:
+        key = int(np.random.SeedSequence([key, rank]).generate_state(
+            1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(key)
+
+
+def average_across_processes(
+        grads: List[torch.Tensor], metrics: Dict[str, torch.Tensor],
+) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+    """(grads, metrics) averaged over the process group: every tensor
+    flattened into one fp32 buffer on the gradients' device and averaged
+    by one all-reduce (NCCL's average on a card; Gloo, which has none,
+    sums and the sum is divided by the world size).  Without a process
+    group they come back as they are.  Every process calls it at the same
+    step with tensors of the same shapes and the same metric keys."""
+    if not dist.is_initialized():
+        return grads, metrics
+    names = list(metrics)
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [metrics[k].reshape(1).float() for k in names])
+    if flat.is_cuda:
+        dist.all_reduce(flat, op=dist.ReduceOp.AVG)
+    else:
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        flat /= dist.get_world_size()
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g).to(g.dtype))
+        i += g.numel()
+    return out, {k: flat[i + j] for j, k in enumerate(names)}

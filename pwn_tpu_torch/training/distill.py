@@ -1,5 +1,5 @@
 """Probability-density distillation of the student IAF from a frozen
-teacher (counterpart of `pwn_tpu/training/distill.py`), on one device.
+teacher (counterpart of `pwn_tpu/training/distill.py`).
 
     L = w_kl * KL(p_S || p_T) + w_pow * || |STFT(x_S)| - |STFT(x_ref)| ||^2
 
@@ -17,13 +17,16 @@ through x_S.  `objective="closed_form"` (a Gaussian teacher and a Gaussian
 student base) takes ClariNet's exact per-step KL with its log-sigma
 regulariser instead; `distill.contrastive_weight` > 0 adds Parallel
 WaveNet's contrastive term, the same sample scored under the batch's mels
-rolled by one (over the whole single-device batch).
+rolled by one, within each process's batch as the reference rolls within
+each shard; a batch of 1 there is refused, since its roll is the
+identity and the loss would silently become (1 - w) * KL.
 
 Noise: a `torch.Generator` per step seeded from (state.seed, state.step)
-(`training/common.py::step_generator`); `z=` takes pre-drawn noise, one
-(B, T) tensor per KL sample.  The eval draws from seed 0, as the
-reference's eval uses `PRNGKey(0)`.  Data parallelism (the reference's
-`shard_map` branch) waits for the port's multi-GPU slice.
+and the process's rank (`training/common.py::step_generator`), as the
+reference folds the data shard's index into the step key; `z=` takes
+pre-drawn noise, one (B, T) tensor per KL sample.  The eval draws from
+seed 0, as the reference's eval uses `PRNGKey(0)`.  Under a process group
+the gradients and metrics are averaged across processes before the clip.
 """
 
 from __future__ import annotations
@@ -37,8 +40,10 @@ from pwn_tpu_torch.models.modules import match_length
 from pwn_tpu_torch.models.student import StudentIAF, sample_base_noise
 from pwn_tpu_torch.models.teacher import TeacherWaveNet
 from pwn_tpu_torch.ops import gaussian, mol
-from pwn_tpu_torch.training.common import (TrainState, global_norm,
-                                           step_generator, update_ema)
+from pwn_tpu_torch.training.common import (TrainState,
+                                           average_across_processes,
+                                           global_norm, step_generator,
+                                           update_ema)
 from pwn_tpu_torch.training.teacher import prepare_batch
 from pwn_tpu_torch.utils import dsp
 
@@ -119,10 +124,16 @@ def distillation_losses(student: StudentIAF, teacher: TeacherWaveNet,
     The student's conditioning is upsampled once and shared by the samples;
     the teacher's likewise, and the contrastive term's is that one rolled
     by one along the batch (the upsampler works per utterance, so this is
-    the upsampling of the rolled mels)."""
+    the upsampling of the rolled mels); with the term on, a batch of 1
+    raises ValueError."""
     dc = cfg.distill
     objective = resolve_objective(cfg)
     contrastive = dc.contrastive_weight > 0.0
+    if contrastive and x_ref.shape[0] < 2:
+        raise ValueError(
+            "distill.contrastive_weight > 0 needs a batch of at least 2 per "
+            f"process (got {x_ref.shape[0]}): the contrastive term rolls the "
+            "mels within the batch, and a roll of one row is the identity")
     T = x_ref.shape[-1]
     if z is None:
         z = [sample_base_noise(cfg, generator, x_ref.shape)
@@ -183,7 +194,8 @@ def make_distill_train_step(student: StudentIAF, teacher: TeacherWaveNet,
     student on the distillation loss of a raw batch wav (B, T); metrics stay
     on the device, with `grad_norm`.  `state.params` must be the student's
     parameters; the teacher's are not touched.  The noise comes from
-    `step_generator(state.seed, state.step)` unless `z` is given."""
+    `step_generator(state.seed, state.step)` (this process's draw) unless
+    `z` is given; gradients and metrics are averaged across processes."""
 
     def train_step(state: TrainState, wav: torch.Tensor,
                    z: Optional[Sequence[torch.Tensor]] = None):
@@ -194,7 +206,8 @@ def make_distill_train_step(student: StudentIAF, teacher: TeacherWaveNet,
                                             cfg, generator=gen, z=z,
                                             step=state.step)
         grads = torch.autograd.grad(loss, list(state.params.values()))
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        grads, metrics = average_across_processes(
+            list(grads), {k: v.detach() for k, v in metrics.items()})
         metrics["grad_norm"] = global_norm(grads)
         state = state.apply_gradients(grads)
         if cfg.train.ema_decay > 0:

@@ -1,21 +1,37 @@
 """Training orchestration (counterpart of `pwn_tpu/training/loop.py`):
-teacher training, student distillation and direct student training on one
-device, on the synthetic corpus.
+teacher training, student distillation and direct student training, in
+one process or data-parallel across processes, on a wav-directory corpus
+or the synthetic one.
 
-`run_teacher_training(cfg, workdir, num_steps=N)`, `run_distillation(cfg,
-teacher_params, workdir, num_steps=N)` and `run_student_direct_training(
-cfg, workdir, num_steps=N)` run as the reference's do: the deterministic
-data iterator behind a prefetch thread, N optimizer steps, and the
-held-out eval at checkpoint cadence (at the last step at least).  With a
-workdir they resume from its latest checkpoint (`ckpt_<tag>/`, the data
-stream restarted at the restored step), log metrics at `train.log_every`
-(`metrics_<tag>.jsonl`, TensorBoard under `tb_<tag>/`), and at checkpoint
-cadence save, then dump a sample from the serving parameters
-(`samples/step_%08d.wav` and TB audio): the teacher's AR sample (kernel 4
-on the card), the student's parallel one (kernel 1 for student_iaf).
+`run_teacher_training(cfg, workdir, data_dir, num_steps=N)`,
+`run_distillation(cfg, teacher_params, workdir, data_dir, num_steps=N)`
+and `run_student_direct_training(cfg, workdir, data_dir, num_steps=N)` run
+as the reference's do: the deterministic data stream behind a prefetch
+thread, N optimizer steps, and the held-out eval at checkpoint cadence
+(at the last step at least).  With a workdir they resume from its latest
+checkpoint (`ckpt_<tag>/`, the data stream restarted at the restored
+step), log metrics at `train.log_every` (`metrics_<tag>.jsonl`,
+TensorBoard under `tb_<tag>/`), and at checkpoint cadence save, then dump
+a sample from the serving parameters (`samples/step_%08d.wav` and TB
+audio): the teacher's AR sample (kernel 4 on the card), the student's
+parallel one (kernel 1 for student_iaf), conditioned on a held-out clip.
 
-Not ported yet, and refused rather than skipped: a data_dir (the
-wav-directory corpus) and the "native" and "grain" data engines.
+Data.  With a data_dir, `corpus_split` holds out every 20th wav (the val
+batch, the same on every process) and each process trains on its own
+partition of the rest; without one, the synthetic corpus, seeded by the
+process's rank.  `train.data_engine` picks the stream: "auto" runs the C++
+loader (`data/native_loader.py`) for a data_dir when
+`train.native_loader` is set and the loader builds, else the Python
+iterator; "native" needs a data_dir and the loader; "python" the Python
+iterator; "grain" `data/grain_pipeline.py`, where grain is installed.
+The engine that ran is printed once.
+
+Processes.  Under a process group (`parallel/mesh.py::
+ensure_distributed`), each process steps on its share of the global batch
+and the steps average gradients and metrics across processes.  Rank 0
+alone writes checkpoints, metrics, TensorBoard and sample dumps; every
+rank restores the step rank 0 found committed; rank 0 finishes its last
+save before the closing barrier.
 """
 
 from __future__ import annotations
@@ -27,12 +43,18 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import torch
 
 from pwn_tpu_torch.config import Config
+from pwn_tpu_torch.data.grain_pipeline import make_grain_iterator
+from pwn_tpu_torch.data.native_loader import (NativeWavCropLoader,
+                                              native_available)
 from pwn_tpu_torch.data.pipeline import (SyntheticSpeech, SyntheticTones,
-                                        local_batch_size, make_train_iterator,
-                                        prefetch)
+                                        WavCropDataset, corpus_split,
+                                        make_train_iterator, prefetch)
 from pwn_tpu_torch.models.modules import resolve_stack_mode
 from pwn_tpu_torch.models.student import StudentIAF, init_student
 from pwn_tpu_torch.models.teacher import TeacherWaveNet, init_teacher
+from pwn_tpu_torch.parallel.mesh import (barrier, broadcast_int, check_mesh,
+                                         local_batch_size, process_count,
+                                         process_index)
 from pwn_tpu_torch.training.common import (TrainState, create_train_state,
                                            serving_params)
 from pwn_tpu_torch.training.distill import (make_distill_eval_step,
@@ -55,32 +77,20 @@ class RunResult:
     steps_run: int
 
 
-def _refuse(data_dir: Optional[str]) -> None:
-    if data_dir:
-        raise NotImplementedError(
-            "a data_dir (the wav-directory corpus and its data engines) is "
-            "not ported yet: the data-engine slice")
-
-
-def _check_engine(cfg: Config) -> None:
-    """`train.data_engine` as the reference reads it without a data_dir:
-    "auto" and "python" run the Python iterator; "native" needs wav files
-    and refuses; "grain" is not ported."""
-    engine = cfg.train.data_engine
-    if engine == "native":
-        raise RuntimeError(
-            "data_engine=native requires a --data-dir (the C++ loader "
-            "reads wav files); refusing to silently fall back to the "
-            "synthetic Python pipeline")
-    if engine == "grain":
-        raise NotImplementedError(
-            "data_engine='grain' is not ported yet: the data-engine slice")
-
-
 def build_dataset(cfg: Config, data_dir: Optional[str], split: str = "train"):
-    """The synthetic corpus: 64 training clips, or 8 held-out ones from a
-    seed disjoint from training's (the reference's split)."""
-    _refuse(data_dir)
+    """The training corpus of this process, or (`split="val"`) the held-out
+    one, the same on every process.  With a data_dir: `WavCropDataset`
+    over this process's partition of `corpus_split`'s training files, or
+    over its held-out files.  Without: 64 synthetic clips seeded by the
+    rank, or 8 held-out ones from a seed disjoint from every rank's."""
+    if data_dir:
+        train_files, val_files = corpus_split(data_dir)
+        if split == "val":
+            return WavCropDataset(None, cfg.dsp.sample_rate, files=val_files)
+        return WavCropDataset(None, cfg.dsp.sample_rate,
+                              process_index=process_index(),
+                              process_count=process_count(),
+                              files=train_files)
     corpus_cls = (SyntheticSpeech if cfg.train.synthetic_corpus == "speech"
                   else SyntheticTones)
     n_samples = max(cfg.train.crop_samples, cfg.dsp.sample_rate)
@@ -88,7 +98,33 @@ def build_dataset(cfg: Config, data_dir: Optional[str], split: str = "train"):
         return corpus_cls(n_clips=8, n_samples=n_samples,
                           sample_rate=cfg.dsp.sample_rate, seed=7919)
     return corpus_cls(n_clips=64, n_samples=n_samples,
-                      sample_rate=cfg.dsp.sample_rate, seed=0)
+                      sample_rate=cfg.dsp.sample_rate, seed=process_index())
+
+
+def make_train_stream(cfg: Config, data_dir: Optional[str], dataset,
+                      batch_size: int, start_step: int):
+    """(engine, iterator of (batch_size, crop) float32 batches from
+    `start_step`), the engine chosen by `train.data_engine` as the module
+    docstring says, the reference's rule."""
+    engine, seed = cfg.train.data_engine, cfg.train.seed
+    if engine == "native" and not data_dir:
+        raise RuntimeError(
+            "data_engine=native requires a --data-dir (the C++ loader "
+            "reads wav files); refusing to silently fall back to the "
+            "synthetic Python pipeline")
+    if data_dir and (engine == "native" or (
+            engine == "auto" and cfg.train.native_loader
+            and native_available())):
+        # "native" builds here and raises the build's own error
+        return "native", NativeWavCropLoader(
+            None, cfg.train.crop_samples, batch_size, seed=seed,
+            start_step=start_step, process_index=process_index(),
+            process_count=process_count(), files=corpus_split(data_dir)[0])
+    if engine == "grain":
+        return "grain", make_grain_iterator(dataset, cfg, batch_size,
+                                            seed=seed, start_step=start_step)
+    return "python", make_train_iterator(dataset, cfg, batch_size, seed=seed,
+                                         start_step=start_step)
 
 
 def make_val_batch(cfg: Config, data_dir: Optional[str], batch_size: int):
@@ -146,32 +182,55 @@ def _student_sample_fn(cfg: Config, data_dir: Optional[str], device):
         lambda m, mel, gen: generate_student(cfg, m, mel, gen))
 
 
+def device_put(device: torch.device) -> Callable:
+    """The prefetch thread's host-to-device copy of a numpy batch; it
+    enters `device` first, as every thread that touches a card must."""
+    def put(batch):
+        t = torch.from_numpy(batch)
+        if device.type != "cuda":
+            return t.to(device)
+        with torch.cuda.device(device):
+            return t.to(device)
+
+    return put
+
+
 def _run(cfg: Config, state: TrainState, step_fn: Callable, device,
-         workdir: Optional[str], num_steps: Optional[int], tag: str,
+         workdir: Optional[str], data_dir: Optional[str],
+         num_steps: Optional[int], tag: str,
          eval_fn: Optional[Callable] = None,
          sample_fn: Optional[Callable] = None) -> RunResult:
-    _check_engine(cfg)
-    dataset = build_dataset(cfg, None)
+    check_mesh(cfg.mesh)
+    batch_size = local_batch_size(cfg.train.global_batch_size)
+    dataset = build_dataset(cfg, data_dir)
     num_steps = num_steps if num_steps is not None else cfg.train.total_steps
+    lead = process_index() == 0
 
     ckpt = logger = None
     start_step = 0
     if workdir:
-        ckpt = CheckpointManager(
-            os.path.join(os.path.abspath(workdir), f"ckpt_{tag}"),
-            max_to_keep=cfg.train.keep_checkpoints)
-        if ckpt.latest_step() is not None:
-            state, start_step = ckpt.restore(state)
+        ckpt_dir = os.path.join(os.path.abspath(workdir), f"ckpt_{tag}")
+        # rank 0 alone saves; the others only read the step it found
+        # committed, from a directory that then exists
+        ckpt = (CheckpointManager(ckpt_dir,
+                                  max_to_keep=cfg.train.keep_checkpoints)
+                if lead else None)
+        latest = broadcast_int(ckpt.latest_step() if lead else None)
+        if latest is not None:
+            state, start_step = (ckpt or CheckpointManager(ckpt_dir)).restore(
+                state, step=latest)
             print(f"[{tag}] resumed from step {start_step}")
-        logger = MetricsLogger(
-            os.path.join(workdir, f"metrics_{tag}.jsonl"),
-            tb_dir=(os.path.join(workdir, f"tb_{tag}")
-                    if cfg.train.tensorboard else None))
+        if lead:
+            logger = MetricsLogger(
+                os.path.join(workdir, f"metrics_{tag}.jsonl"),
+                tb_dir=(os.path.join(workdir, f"tb_{tag}")
+                        if cfg.train.tensorboard else None))
 
-    it = make_train_iterator(dataset, cfg,
-                             local_batch_size(cfg.train.global_batch_size),
-                             seed=cfg.train.seed, start_step=start_step)
-    batches = prefetch(it, put=lambda b: torch.from_numpy(b).to(device))
+    engine, it = make_train_stream(cfg, data_dir, dataset, batch_size,
+                                   start_step)
+    if lead:
+        print(f"[{tag}] data engine: {engine}")
+    batches = prefetch(it, put=device_put(device))
     apply_debug_flags()
     profiler = StepProfiler()
     metrics: dict = {}
@@ -204,6 +263,7 @@ def _run(cfg: Config, state: TrainState, step_fn: Callable, device,
         ckpt.close()
     if logger:
         logger.close()
+    barrier(device)  # after rank 0's last save is on disk
     return RunResult(state=state,
                      final_metrics={k: float(v) for k, v in metrics.items()},
                      steps_run=num_steps - start_step)
@@ -222,8 +282,7 @@ def run_teacher_training(cfg: Config, workdir: Optional[str] = None,
     explicitly), with checkpoints, metrics and AR sample dumps in
     `workdir` when given.  The stack runs in the "train" mode ("auto" and
     "mega" map to it, as the reference trains them with mega_train), for
-    the eval pass too."""
-    _refuse(data_dir)
+    the eval pass too.  `data_dir`: a wav corpus (default: synthetic)."""
     device = _device(device)
     model = init_teacher(
         cfg, torch.Generator().manual_seed(cfg.train.seed),
@@ -239,9 +298,9 @@ def run_teacher_training(cfg: Config, workdir: Optional[str] = None,
         return {"loss": eval_step(val_batch)}
 
     sample_fn = (_teacher_sample_fn(cfg, data_dir, device) if workdir
-                 else None)
-    return _run(cfg, state, step_fn, device, workdir, num_steps, "teacher",
-                eval_fn=eval_fn, sample_fn=sample_fn)
+                 and process_index() == 0 else None)
+    return _run(cfg, state, step_fn, device, workdir, data_dir, num_steps,
+                "teacher", eval_fn=eval_fn, sample_fn=sample_fn)
 
 
 def _student(cfg: Config, device: torch.device):
@@ -285,7 +344,6 @@ def run_distillation(cfg: Config, teacher_params: Mapping[str, torch.Tensor],
     "dx" (`frozen_teacher`); the held-out eval reports `val_*` metrics.
     With a workdir: `ckpt_student/`, `metrics_student.jsonl` and student
     sample dumps."""
-    _refuse(data_dir)
     device = _device(device)
     teacher = frozen_teacher(cfg, teacher_params, device)
     student, state = _student(cfg, device)
@@ -294,9 +352,9 @@ def run_distillation(cfg: Config, teacher_params: Mapping[str, torch.Tensor],
     val_batch = torch.from_numpy(make_val_batch(
         cfg, data_dir, local_batch_size(cfg.train.global_batch_size))).to(device)
     sample_fn = (_student_sample_fn(cfg, data_dir, device) if workdir
-                 else None)
-    return _run(cfg, state, step_fn, device, workdir, num_steps, "student",
-                eval_fn=lambda state: eval_step(val_batch),
+                 and process_index() == 0 else None)
+    return _run(cfg, state, step_fn, device, workdir, data_dir, num_steps,
+                "student", eval_fn=lambda state: eval_step(val_batch),
                 sample_fn=sample_fn)
 
 
@@ -308,7 +366,6 @@ def run_student_direct_training(cfg: Config, workdir: Optional[str] = None,
     a teacher: the closed-form likelihood at the ground truth plus the
     power loss (`training/student_direct.py`).  Writes the same
     `ckpt_student` layout as distillation."""
-    _refuse(data_dir)
     device = _device(device)
     student, state = _student(cfg, device)
     step_fn = make_student_direct_train_step(student, cfg)
@@ -316,9 +373,9 @@ def run_student_direct_training(cfg: Config, workdir: Optional[str] = None,
     val_batch = torch.from_numpy(make_val_batch(
         cfg, data_dir, local_batch_size(cfg.train.global_batch_size))).to(device)
     sample_fn = (_student_sample_fn(cfg, data_dir, device) if workdir
-                 else None)
-    return _run(cfg, state, step_fn, device, workdir, num_steps, "student",
-                eval_fn=lambda state: eval_step(val_batch),
+                 and process_index() == 0 else None)
+    return _run(cfg, state, step_fn, device, workdir, data_dir, num_steps,
+                "student", eval_fn=lambda state: eval_step(val_batch),
                 sample_fn=sample_fn)
 
 

@@ -1,13 +1,13 @@
 """Direct (teacher-free) student training: maximum likelihood on the
 closed-form IAF density plus the spectral power loss (counterpart of
-`pwn_tpu/training/student_direct.py`), on one device.
+`pwn_tpu/training/student_direct.py`).
 
 Given the causal context the flow chain is affine in the base noise,
 x[t] = exp(log_det[t]) z0[t] + mu_total[t], so the student's per-step
 output conditional is base(mu_total, exp(log_det)): Logistic for the
 default base, N for `student.base="gaussian"`.  The loss is that density's
 NLL at the ground truth, plus the power loss of the student's own sample.
-Noise as in `training/distill.py`.
+Noise, and the averaging across processes, as in `training/distill.py`.
 """
 
 from __future__ import annotations
@@ -20,8 +20,10 @@ from pwn_tpu_torch.config import Config
 from pwn_tpu_torch.models.modules import match_length
 from pwn_tpu_torch.models.student import StudentIAF, sample_base_noise
 from pwn_tpu_torch.ops import gaussian, mol
-from pwn_tpu_torch.training.common import (TrainState, global_norm,
-                                           step_generator, update_ema)
+from pwn_tpu_torch.training.common import (TrainState,
+                                           average_across_processes,
+                                           global_norm, step_generator,
+                                           update_ema)
 from pwn_tpu_torch.training.distill import spectral_power_loss
 from pwn_tpu_torch.training.teacher import prepare_batch
 
@@ -65,7 +67,8 @@ def make_student_direct_train_step(student: StudentIAF, cfg: Config):
         loss, metrics = direct_student_losses(student, x_ref, mel, cfg,
                                               generator=gen, z=z)
         grads = torch.autograd.grad(loss, list(state.params.values()))
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        grads, metrics = average_across_processes(
+            list(grads), {k: v.detach() for k, v in metrics.items()})
         metrics["grad_norm"] = global_norm(grads)
         state = state.apply_gradients(grads)
         if cfg.train.ema_decay > 0:

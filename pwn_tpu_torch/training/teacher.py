@@ -1,10 +1,12 @@
 """Teacher training and eval steps (counterpart of
-`pwn_tpu/training/teacher.py`), on one device.
+`pwn_tpu/training/teacher.py`).
 
 The host ships raw fixed-length waveform crops; preemphasis, the clip to
 [-1, 1] and the mel spectrogram run on the batch's device.  The model
-works in the preemphasized domain.  Data parallelism (the reference's
-`shard_map` branch) waits for the port's multi-GPU slice.
+works in the preemphasized domain.  Under a process group each process
+steps on its share of the batch and the gradients and the loss are
+averaged across processes before the clip (the reference's `shard_map`
+branch and its `pmean`).
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import torch
 
 from pwn_tpu_torch.config import Config
 from pwn_tpu_torch.models.teacher import TeacherWaveNet
-from pwn_tpu_torch.training.common import TrainState, global_norm, update_ema
+from pwn_tpu_torch.training.common import (TrainState,
+                                           average_across_processes,
+                                           global_norm, update_ema)
 from pwn_tpu_torch.utils import dsp
 
 
@@ -32,13 +36,16 @@ def prepare_batch(wav: torch.Tensor,
 def make_teacher_train_step(model: TeacherWaveNet, cfg: Config):
     """`(state, wav) -> (state, metrics)`: one optimizer step on the
     teacher-forcing NLL; metrics `loss` and `grad_norm` stay on the device
-    (0-d fp32 tensors).  `state.params` must be the model's parameters."""
+    (0-d fp32 tensors), averaged across processes with the gradients.
+    `state.params` must be the model's parameters."""
 
     def train_step(state: TrainState, wav: torch.Tensor):
         x, mel = prepare_batch(wav, cfg)
         loss = model.loss(x, mel)
         grads = torch.autograd.grad(loss, list(state.params.values()))
-        metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
+        grads, metrics = average_across_processes(list(grads),
+                                                  {"loss": loss.detach()})
+        metrics["grad_norm"] = global_norm(grads)
         state = state.apply_gradients(grads)
         if cfg.train.ema_decay > 0:
             state = update_ema(state, cfg.train.ema_decay)

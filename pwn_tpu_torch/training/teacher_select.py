@@ -23,7 +23,8 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from pwn_tpu_torch.config import Config
-from pwn_tpu_torch.data.pipeline import local_batch_size, make_train_iterator
+from pwn_tpu_torch.data.pipeline import make_train_iterator
+from pwn_tpu_torch.parallel.mesh import local_batch_size
 from pwn_tpu_torch.training.common import create_train_state, serving_params
 from pwn_tpu_torch.training.distill import (make_distill_eval_step,
                                             make_distill_train_step)

@@ -2,12 +2,15 @@
 
 The port runs on a CUDA card or not at all: `require_cuda` never hands
 back the CPU.  The CPU path exists for the tests, which pass CPU tensors
-explicitly.
+explicitly.  Under a launcher of several processes each process takes
+the card of its `LOCAL_RANK`.
 """
 
 from __future__ import annotations
 
 import torch
+
+from pwn_tpu_torch.parallel.mesh import launcher_rank
 
 
 def configure_precision() -> None:
@@ -23,12 +26,15 @@ def configure_precision() -> None:
 
 
 def require_cuda() -> torch.device:
-    """The CUDA device, with the precision policy applied; raises if
-    there is none."""
+    """This process's CUDA device, `cuda:LOCAL_RANK` (`cuda:0` without a
+    launcher), made the current device, with the precision policy
+    applied; raises if there is none."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; the port's synthesis path runs "
             "on an NVIDIA GPU (CPU tensors are for the tests only)"
         )
     configure_precision()
-    return torch.device("cuda")
+    device = torch.device("cuda", launcher_rank())
+    torch.cuda.set_device(device)
+    return device

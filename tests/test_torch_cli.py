@@ -111,6 +111,26 @@ def test_train_student_direct(tmp_path):
     assert os.listdir(tmp_path / "ckpt_student") == ["2"]
 
 
+@pytest.mark.parametrize("cmd", ["train-teacher", "train-student",
+                                 "distill-student"])
+def test_train_commands_take_a_data_dir(workdirs, tmp_path, cmd):
+    """`--data-dir`: each train command trains on the wav files there, on
+    the engine "auto" picks (the C++ loader where g++ builds it)."""
+    _, t, *_ = workdirs
+    data = tmp_path / "wavs"
+    data.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(4):
+        write_wav(str(data / f"utt{i}.wav"),
+                  rng.uniform(-0.5, 0.5, 2400 + 300 * i).astype(np.float32),
+                  SR)
+    extra = (["--teacher-workdir", t] if cmd == "distill-student" else [])
+    rc, out, _ = _cli(cmd, "tiny_teacher", "--workdir", str(tmp_path / "wd"),
+                      "--data-dir", str(data), "--steps", "1", *extra)
+    assert rc == 0 and "done: 1 steps" in out
+    assert "data engine: native" in out
+
+
 def test_generate_student_from_a_source_and_from_its_dumped_mel(workdirs,
                                                                 tmp_path):
     """From a source wav with `--dump-mel`, then from that mel: the same

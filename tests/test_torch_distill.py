@@ -372,7 +372,8 @@ def test_run_distillation_on_cpu():
     """The distillation loop end to end on CPU tensors: two steps, finite
     metrics with the held-out `val_*` ones, the teacher's parameters
     unchanged, and the step noise drawn from the generator (no z given);
-    a data_dir is refused (the workdir's tests: tests/test_torch_loop.py)."""
+    a data_dir without wav files raises, as the reference's (the data
+    dirs' and the workdir's tests: tests/test_torch_loop.py)."""
     from pwn_tpu_torch.models.teacher import init_teacher
 
     cfg = _tiny(**{"distill.contrastive_weight": 0.3})
@@ -387,14 +388,15 @@ def test_run_distillation_on_cpu():
         f"val_{k}" for k in keys - {"grad_norm"}}
     assert all(np.isfinite(v) for v in res.final_metrics.values())
     torch.testing.assert_close(teacher.state_dict(), params, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="data_dir"):
+    with pytest.raises(FileNotFoundError, match="no .wav files under wavs"):
         run_distillation(cfg, params, num_steps=1, device="cpu",
                          data_dir="wavs")
 
 
 def test_run_student_direct_training_on_cpu():
     """The direct-training loop end to end on CPU tensors: two steps with
-    finite metrics and their `val_*`; a data_dir is refused."""
+    finite metrics and their `val_*`; a data_dir without wav files
+    raises."""
     cfg = _tiny()
     res = run_student_direct_training(cfg, num_steps=2, device="cpu")
     assert res.steps_run == 2 and res.state.step == 2
@@ -402,7 +404,7 @@ def test_run_student_direct_training_on_cpu():
     assert set(res.final_metrics) == keys | {"grad_norm"} | {
         f"val_{k}" for k in keys}
     assert all(np.isfinite(v) for v in res.final_metrics.values())
-    with pytest.raises(NotImplementedError, match="data_dir"):
+    with pytest.raises(FileNotFoundError, match="no .wav files under wavs"):
         run_student_direct_training(cfg, data_dir="wavs", num_steps=1,
                                     device="cpu")
 

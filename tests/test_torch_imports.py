@@ -33,15 +33,19 @@ print(" ".join(names))
 print(len(names), loaded)
 """
 
-# modules that must be among those walked: the entry points, the workdir's
-# and the server's, which the machine with the card runs without JAX
+# modules that must be among those walked: the entry points, the workdir's,
+# the server's, the data engines and data parallelism, which the machine
+# with the card runs without JAX
 REQUIRED = ("pwn_tpu_torch.cli", "pwn_tpu_torch.utils.checkpoint",
             "pwn_tpu_torch.utils.metrics", "pwn_tpu_torch.utils.tensorboard",
             "pwn_tpu_torch.utils.profiling", "pwn_tpu_torch.ops.norm",
             "pwn_tpu_torch.training.loop",
             "pwn_tpu_torch.training.teacher_select", "pwn_tpu_torch.serve",
             "pwn_tpu_torch.evaluate", "pwn_tpu_torch.generate",
-            "pwn_tpu_torch.utils.dsp")
+            "pwn_tpu_torch.utils.dsp", "pwn_tpu_torch.data.pipeline",
+            "pwn_tpu_torch.data.native_loader",
+            "pwn_tpu_torch.data.grain_pipeline",
+            "pwn_tpu_torch.parallel.mesh")
 
 
 def _run(code_or_script, cwd, *args):

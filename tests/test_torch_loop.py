@@ -3,8 +3,10 @@ exact resume of teacher training and of distillation (EMA and the KL
 warm-up on), the workdir's files against one run of the reference's
 `run_teacher_training` on the same config, a reference workdir converted
 by `tools/orbax_to_torch.py` and loaded by the port, distillability-aware
-teacher selection, the refusals of fault F5 (`train.data_engine`), and
-the profiling hooks (`utils/profiling.py`).
+teacher selection, the data engines (`train.data_engine`: each loop on a
+wav dir with each engine, the stream each engine feeds, the held-out
+batch against the reference's, the refusal of fault F5), and the
+profiling hooks (`utils/profiling.py`).
 
 One reference run serves the file; the port's runs share a module-scoped
 teacher workdir where they can.
@@ -21,7 +23,12 @@ import numpy as np
 import pytest
 import torch
 
+from scipy.io import wavfile
+
 from pwn_tpu_torch import convert, get_config, override
+from pwn_tpu_torch.data import native_loader
+from pwn_tpu_torch.data.pipeline import (WavCropDataset, corpus_split,
+                                        make_train_iterator)
 from pwn_tpu_torch.models.teacher import TeacherWaveNet, init_teacher
 from pwn_tpu_torch.training import loop
 from pwn_tpu_torch.training.teacher_select import (probe_teacher_checkpoints,
@@ -272,27 +279,145 @@ def test_teacher_selection_picks_the_lowest_val_loss(teacher_runs):
 # ------------------------------------------------------------------- F5
 
 
-def _run_loop(name, cfg):
+def _run_loop(name, cfg, data_dir=None):
     if name == "teacher":
-        return loop.run_teacher_training(cfg, num_steps=1, device="cpu")
+        return loop.run_teacher_training(cfg, data_dir=data_dir, num_steps=1,
+                                         device="cpu")
     if name == "direct":
-        return loop.run_student_direct_training(cfg, num_steps=1,
-                                                device="cpu")
+        return loop.run_student_direct_training(cfg, data_dir=data_dir,
+                                                num_steps=1, device="cpu")
     teacher = init_teacher(cfg, torch.Generator().manual_seed(0),
                            device="cpu").state_dict()
-    return loop.run_distillation(cfg, teacher, num_steps=1, device="cpu")
+    return loop.run_distillation(cfg, teacher, data_dir=data_dir, num_steps=1,
+                                 device="cpu")
+
+
+@pytest.fixture(scope="module")
+def wav_dir(tmp_path_factory):
+    """21 mono PCM16 clips at tiny_teacher's 16 kHz, 0.1-0.4 s: every 20th
+    (2 of them) held out."""
+    d = tmp_path_factory.mktemp("wavs")
+    rng = np.random.default_rng(0)
+    for i in range(21):
+        n = 1600 + 230 * i
+        wavfile.write(str(d / f"utt_{i:02d}.wav"), 16000,
+                      (rng.uniform(-0.6, 0.6, n) * 32767).astype(np.int16))
+    return str(d)
+
+
+@pytest.mark.parametrize("name", ["teacher", "distill", "direct"])
+@pytest.mark.parametrize("engine", ["auto", "python", "native", "grain"])
+def test_loops_train_on_a_wav_dir(name, engine, wav_dir, capsys):
+    """Each loop on a wav dir with each engine: one step, finite metrics,
+    and the engine printed once ("auto" runs the C++ loader where g++
+    builds it)."""
+    if engine == "grain":
+        pytest.importorskip("grain")
+    res = _run_loop(name, _tiny(**{"train.data_engine": engine}), wav_dir)
+    assert res.steps_run == 1
+    assert all(np.isfinite(v) for v in res.final_metrics.values())
+    want = "native" if engine == "auto" else engine
+    printed = [ln for ln in capsys.readouterr().out.splitlines()
+               if "data engine" in ln]
+    assert printed == [f"[{'teacher' if name == 'teacher' else 'student'}] "
+                       f"data engine: {want}"]
+
+
+@pytest.mark.parametrize("engine", ["auto", "python", "grain"])
+def test_each_engine_feeds_its_own_stream(engine, wav_dir, tmp_path,
+                                          monkeypatch):
+    """The batches the teacher loop steps on, resumed at step 2 of a
+    workdir, are the chosen engine's stream from step 2 over the training
+    files: the C++ loader's for "auto", the Python iterator's, grain's."""
+    if engine == "grain":
+        pytest.importorskip("grain")
+    from pwn_tpu_torch.data.grain_pipeline import make_grain_iterator
+
+    cfg = _tiny(**{"train.data_engine": engine})
+    seen = []
+    prefetch = loop.prefetch
+
+    def tap(it, put, depth=2):
+        def record(b):
+            seen.append(b.copy())
+            return put(b)
+
+        return prefetch(it, record, depth)
+
+    monkeypatch.setattr(loop, "prefetch", tap)
+    wd = str(tmp_path / "run")
+    loop.run_teacher_training(cfg, wd, wav_dir, num_steps=2, device="cpu")
+    seen.clear()
+    res = loop.run_teacher_training(cfg, wd, wav_dir, num_steps=4,
+                                    device="cpu")
+    assert res.steps_run == 2
+    train, _ = corpus_split(wav_dir)
+    ds = WavCropDataset(None, cfg.dsp.sample_rate, files=train)
+    seed, crop = cfg.train.seed, cfg.train.crop_samples
+    want = {
+        "auto": lambda: native_loader.NativeWavCropLoader(
+            None, crop, 2, seed=seed, start_step=2, files=train),
+        "python": lambda: make_train_iterator(ds, cfg, 2, seed=seed,
+                                              start_step=2),
+        "grain": lambda: make_grain_iterator(ds, cfg, 2, seed=seed,
+                                             start_step=2),
+    }[engine]()
+    for got in seen[:2]:
+        np.testing.assert_array_equal(got, next(want))
+
+
+def test_auto_falls_back_where_the_loader_does_not_build(wav_dir, monkeypatch,
+                                                         capsys):
+    """Without a loader library "auto" trains on the Python iterator and
+    says so; "native" raises the build's error."""
+    def no_gxx():
+        raise RuntimeError("g++ not found")
+
+    monkeypatch.setattr(native_loader, "load_native", no_gxx)
+    res = _run_loop("teacher", _tiny(), wav_dir)
+    assert res.steps_run == 1
+    assert "[teacher] data engine: python" in capsys.readouterr().out
+    with pytest.raises(RuntimeError, match="g.. not found"):
+        _run_loop("teacher", _tiny(**{"train.data_engine": "native"}),
+                  wav_dir)
+
+
+def test_held_out_batch_matches_the_reference(wav_dir):
+    """With a data dir the val batch comes from the held-out files, the
+    reference's bit for bit, and the sample dumps' clip is held-out clip
+    0."""
+    from pwn_tpu.training.loop import make_val_batch as ref_val_batch
+
+    cfg = _tiny()
+    _, val = corpus_split(wav_dir)
+    assert len(val) == 2
+    np.testing.assert_array_equal(loop.make_val_batch(cfg, wav_dir, 2),
+                                  ref_val_batch(jax_config(cfg), wav_dir, 2))
+    held = loop.build_dataset(cfg, wav_dir, split="val")
+    assert held.paths == val
+    assert loop.build_dataset(cfg, wav_dir).paths == corpus_split(wav_dir)[0]
 
 
 @pytest.mark.parametrize("name", ["teacher", "distill", "direct"])
 @pytest.mark.parametrize("engine,error,match", [
     ("native", RuntimeError, "refusing to silently fall back"),
-    ("grain", NotImplementedError, "data-engine slice"),
 ])
 def test_data_engine_refusals(name, engine, error, match):
     """Fault F5: without a data_dir, "native" raises the reference's
-    RuntimeError and "grain" is refused as not ported, in every loop."""
+    RuntimeError in every loop."""
     with pytest.raises(error, match=match):
         _run_loop(name, _tiny(**{"train.data_engine": engine}))
+
+
+@pytest.mark.parametrize("name", ["teacher", "distill", "direct"])
+def test_grain_engine_runs(name, capsys):
+    """Without a data_dir "grain" trains on the synthetic corpus through
+    grain, where grain is installed, in every loop."""
+    pytest.importorskip("grain")
+    res = _run_loop(name, _tiny(**{"train.data_engine": "grain"}))
+    assert res.steps_run == 1
+    assert all(np.isfinite(v) for v in res.final_metrics.values())
+    assert "data engine: grain" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("engine", ["auto", "python"])

@@ -202,13 +202,13 @@ def test_teacher_train_steps_match_jax():
 
 def test_run_teacher_training_on_cpu():
     """The loop end to end on CPU tensors (plain versions): two steps, the
-    held-out eval at the last, finite metrics; the part it does not port (a
-    data_dir) raises."""
+    held-out eval at the last, finite metrics; a data_dir without wav
+    files raises, as the reference's."""
     res = run_teacher_training(TINY, num_steps=2, device="cpu")
     assert res.steps_run == 2 and res.state.step == 2
     assert set(res.final_metrics) == {"loss", "grad_norm", "val_loss"}
     assert all(np.isfinite(v) for v in res.final_metrics.values())
-    with pytest.raises(NotImplementedError, match="data_dir"):
+    with pytest.raises(FileNotFoundError, match="no .wav files under wavs"):
         run_teacher_training(TINY, data_dir="wavs", num_steps=1,
                              device="cpu")
 
