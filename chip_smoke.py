@@ -4,7 +4,8 @@ the whole-stack kernel, large_student_sharded through the per-layer
 kernel's accumulate epilogue), teacher training, distillation and direct
 training of the student, teacher AR sampling, the command line, the
 streaming vocoder server, training from a wav directory on every data
-engine and data-parallel training once on one CUDA card.
+engine, data-parallel training, the model axis and batch-sharded and
+sequence-parallel synthesis once on one CUDA card.
 
 Run from the repository root with no arguments:
 
@@ -117,6 +118,23 @@ Phases, each printing what it finds:
                child process, without a process group and in a one-rank
                NCCL group: parameters bit-identical after 2 steps, NCCL
                kernels and ms a step, both steps' ms, peak memory;
+  8e. multi-GPU — the model axis and sharded synthesis on the one card:
+               (a) a child in a one-rank NCCL group (`--mesh-child`):
+               batch-sharded generation (`parallel/tp.py`) at student_iaf
+               and large_student_sharded, 8 x 2 s, its flows bit-identical
+               to the unsharded call on the rows' conditioning and within
+               TOL_E2E / TOL_E2E_LARGE end to end, and both sequence-
+               parallel paths (`parallel/sp.py`) at student_iaf, 1 x 30 s,
+               bit-identical to `generate_from_z`; (b) every rank of n = 2,
+               4, 8 in turn in this process at both configurations, 1 x 30
+               s: overlap-recompute windows and the halo exchange (`run_in_
+               process`), their flows on the whole call's conditioning
+               bit-identical, end to end within the same tolerances, each
+               shard's ms, overlap share and launches; (c) two children on
+               the one card in a Gloo group (`--tp-child`):
+               `run_teacher_training(teacher_lj)` 3 steps on mesh 1 x 2 and
+               2 x 1, bit-identical, and large_student_sharded's state bytes
+               a rank under 1 x 2 against 1 x 1;
   9. times   — each kernel's and its plain version's ms per call beside its
                bound (kernel 1 beside the kernel-5 chain on the same
                inputs; kernel 5 in both epilogues at both widths), end-to-end
@@ -2500,6 +2518,342 @@ def phase_data(device, smi: str, root: str) -> None:
     _log(f"[data] phase 8d took {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 8e: the multi-GPU paths.  The machine holds one card and NCCL
+# refuses two ranks on one device, so (a) runs the paths in a one-rank NCCL
+# group, (b) runs every rank of an n-way split in turn in one process (the
+# halo exchange through `parallel/sp.py::run_in_process`), and (c) runs the
+# model axis as two processes on the one card in a Gloo group, which
+# carries the all_reduce and all_gather it needs on CUDA tensors.
+MESH_BATCH, MESH_BATCH_SECONDS = 8, 2.0
+SP_SECONDS = 30.0
+SP_SHARDS = (2, 4, 8)
+TP_STEPS = 3
+TP_ROWS = 8  # teacher_lj's global batch, 4 rows a rank
+
+
+def _mesh_mel(cfg, seconds: float, rows: int = 1, multiple: int = 1):
+    """(rows, F, n_mels) host mels of synthetic utterances of `seconds`, F
+    cut to a multiple of `multiple`."""
+    from pwn_tpu_torch import generate as g
+
+    wavs = _synthetic_wavs([seconds] * rows, cfg.dsp.sample_rate)
+    mel = np.stack([g.mel_from_wav_host(cfg, w) for w in wavs])
+    return mel[:, : mel.shape[1] // multiple * multiple]
+
+
+def _rel_l2(out: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((out.float() - ref.float()).norm() / ref.float().norm())
+
+
+def mesh_child(out: str) -> int:
+    """Phase 8e (a), the process of a one-rank NCCL group (`--mesh-child
+    OUT`): batch-sharded generation at student_iaf and
+    large_student_sharded, 8 x 2 s, and both sequence-parallel paths at
+    student_iaf, 1 x 30 s, on the same z as the unsharded call; results to
+    OUT as JSON."""
+    import torch.distributed as dist
+
+    from pwn_tpu_torch.parallel import sp, tp
+
+    device, smi = phase_device()
+    ensure_distributed(device)
+    _check(dist.is_initialized() and dist.get_world_size() == 1,
+           "no one-rank process group")
+    _log(f"[mesh] process group: backend {dist.get_backend_config()}, "
+         f"world 1")
+    res = {}
+    for cfg, tol in ((CFG, TOL_E2E), (LARGE, TOL_E2E_LARGE)):
+        model = init_student(cfg, torch.Generator().manual_seed(SEED),
+                             device).eval()
+        mel = torch.from_numpy(_mesh_mel(cfg, MESH_BATCH_SECONDS,
+                                         MESH_BATCH)).to(device)
+        T = mel.shape[1] * cfg.dsp.hop_length
+        gen = tp.make_batch_sharded_generate(cfg)
+        gen(model, SEED, mel)  # warm
+        torch.cuda.synchronize()
+        _reset_counts()
+        t = time.perf_counter()
+        wav = gen(model, SEED, mel)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = _counts()
+        z = tp.global_noise(cfg, SEED, (MESH_BATCH, T), device)
+        with torch.inference_mode():
+            cond = torch.cat([match_length(model.upsample_cond(m[None]), T)
+                              for m in mel])
+            flows = model.flows_from_z(z, cond)
+            whole = model.generate_from_z(z, mel)
+        rel = _rel_l2(wav, whole)
+        per = cfg.student.n_flows
+        want = ({"kernel 1": per, "kernel 5": 0} if kernel1_takes(
+            cfg.student.flow_dilations, cfg.student.residual_channels,
+            cfg.student.gate_channels, cfg.student.skip_channels,
+            cfg.dsp.n_mels) else {"kernel 1": 0,
+                                  "kernel 5": per * cfg.student.layers_per_flow})
+        _log(f"[mesh] {smi}: {cfg.name} batch-sharded {tuple(mel.shape)} in "
+             f"the one-rank group: {ms:.3f} ms (host clock, synchronised); "
+             f"the flows on the rows' conditioning bit-identical to the "
+             f"unsharded call {torch.equal(wav, flows)}; against the whole "
+             f"call rel L2 {rel:.6f} (tol {tol}); launches {launches}")
+        _check(torch.equal(wav, flows),
+               f"{cfg.name}: batch-sharded flows off the unsharded call")
+        _check(rel <= tol, f"{cfg.name}: batch-sharded off the whole call")
+        _check(all(launches[k] == v for k, v in want.items()),
+               f"{cfg.name}: batch-sharded launches {launches}, want {want}")
+        res[f"batch {cfg.name}"] = {"ms": ms, "rel": rel, **launches}
+    model = init_student(CFG, torch.Generator().manual_seed(SEED),
+                         device).eval()
+    mel = torch.from_numpy(_mesh_mel(CFG, SP_SECONDS)).to(device)
+    z = tp.global_noise(CFG, SEED, (1, mel.shape[1] * CFG.dsp.hop_length),
+                        device)
+    with torch.inference_mode():
+        whole = model.generate_from_z(z, mel)
+    for name, make in (("overlap-recompute", sp.make_sp_generate_mega),
+                       ("halo-exchange", sp.make_sp_generate)):
+        _reset_counts()
+        wav = make(CFG)(model, SEED, mel)
+        torch.cuda.synchronize()
+        launches = _counts()
+        _log(f"[mesh] {CFG.name} {name} SP of {tuple(mel.shape)} in the "
+             f"one-rank group: bit-identical to generate_from_z "
+             f"{torch.equal(wav, whole)}; launches {launches}")
+        _check(torch.equal(wav, whole), f"{name} SP off generate_from_z")
+        _check(launches["kernel 1"] == CFG.student.n_flows,
+               f"{name} SP: kernel 1 launched {launches['kernel 1']} times")
+        res[f"sp {name}"] = launches
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _mesh_nccl(root: str) -> None:
+    """Phase 8e (a) in a child process with a launcher's environment (RANK
+    0 of WORLD_SIZE 1, a free port)."""
+    out = os.path.join(root, "mesh.json")
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port()), "RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_RANK": "0"}
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--mesh-child", out], env=env, capture_output=True,
+                          text=True, timeout=300)
+    for line in proc.stdout.splitlines():
+        _log(f"[mesh]   | {line}")
+    _check(proc.returncode == 0,
+           f"the mesh child exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+
+
+def _shard_timer(times: dict, launches: dict):
+    """A `run_in_process` call wrapper: each rank's compute timed on the
+    host clock around synchronised work, its launches counted."""
+    def call(rank, fn):
+        torch.cuda.synchronize()
+        before = _counts()
+        t = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            torch.cuda.synchronize()
+            times[rank] = times.get(rank, 0.0) + time.perf_counter() - t
+            after = _counts()
+            for k in after:
+                launches.setdefault(rank, {}).setdefault(k, 0)
+                launches[rank][k] += after[k] - before[k]
+
+    return call
+
+
+def _sp_shards(cfg, device, smi: str, tol: float, why: str) -> dict:
+    """Phase 8e (b) at one configuration: every rank of n = 2, 4, 8 in turn,
+    both sequence-parallel paths, 1 x 30 s."""
+    from pwn_tpu_torch.parallel import sp, tp
+
+    model = init_student(cfg, torch.Generator().manual_seed(SEED),
+                         device).eval()
+    hop = cfg.dsp.hop_length
+    mel = torch.from_numpy(_mesh_mel(cfg, SP_SECONDS,
+                                     multiple=max(SP_SHARDS))).to(device)
+    F = mel.shape[1]
+    T = F * hop
+    R, _ = sp.sp_mega_geometry(cfg)
+    z = tp.global_noise(cfg, SEED, (1, T), device)
+    with torch.inference_mode():
+        cond = match_length(model.upsample_cond(mel), T)
+        whole = model.flows_from_z(z, cond)
+    uses_k1 = kernel1_takes(cfg.student.flow_dilations,
+                            cfg.student.residual_channels,
+                            cfg.student.gate_channels,
+                            cfg.student.skip_channels, cfg.dsp.n_mels)
+    layers = cfg.student.n_flows * cfg.student.layers_per_flow
+    out = {}
+    for n in SP_SHARDS:
+        shard_T = T // n
+        sp.validate_sp_mega(cfg, n, F)
+        for r in range(n):  # warm: cuDNN picks its algorithms per shape
+            sp.local_window(cfg, model, z, mel, r, n)
+        sp.sp_generate_in_process(cfg, model, z, mel, n)
+        times, launches = {}, {}
+        call = _shard_timer(times, launches)
+        mega = torch.cat([call(r, lambda r=r: sp.local_window(
+            cfg, model, z, mel, r, n)) for r in range(n)], 1)
+        mega_cond = torch.cat([sp.local_window(cfg, model, z, mel, r, n,
+                                               cond=cond) for r in range(n)], 1)
+        mega_ms = [times[r] * 1e3 for r in range(n)]
+        mega_launches = [launches[r] for r in range(n)]
+        times, launches = {}, {}
+        halo = sp.sp_generate_in_process(cfg, model, z, mel, n,
+                                         call=_shard_timer(times, launches))
+        halo_ms = [times[r] * 1e3 for r in range(n)]
+        halo_launches = [launches[r] for r in range(n)]
+        halo_cond = sp.sp_generate_in_process(cfg, model, z, mel, n,
+                                              cond=cond)
+        rel_mega, rel_halo = _rel_l2(mega, whole), _rel_l2(halo, whole)
+        for what, got in (("overlap-recompute", mega_cond),
+                          ("halo-exchange", halo_cond)):
+            _check(torch.equal(got, whole),
+                   f"{cfg.name} n={n}: {what} flows on the whole call's "
+                   "conditioning off the whole call")
+        _log(f"[sp] {smi}: {cfg.name} 1 x {SP_SECONDS:g} s ({F} frames) over "
+             f"n={n}: overlap-recompute window ms per shard "
+             f"{[round(m, 3) for m in mega_ms]}, overlap R/shard_T = "
+             f"{R}/{shard_T} = {R / shard_T:.4f}, launches per shard "
+             f"{mega_launches[0]}; halo-exchange ms per shard "
+             f"{[round(m, 3) for m in halo_ms]}, launches per shard "
+             f"{halo_launches[0]}; both paths' flows on the whole call's "
+             f"conditioning bit-identical; end to end rel L2 overlap "
+             f"{rel_mega:.6f}, halo {rel_halo:.6f} (tol {tol}: {why}; the "
+             f"upsampler's windows round as phase 8c's streams do)")
+        _check(rel_mega <= tol and rel_halo <= tol,
+               f"{cfg.name} n={n}: a sequence-parallel path off the whole "
+               "call")
+        want_mega = ({"kernel 1": cfg.student.n_flows, "kernel 5": 0}
+                     if uses_k1 else {"kernel 1": 0, "kernel 5": layers})
+        for r in range(n):
+            _check(all(mega_launches[r][k] == v for k, v in want_mega.items()),
+                   f"overlap shard {r}: launches {mega_launches[r]}")
+            _check(halo_launches[r]["kernel 5"] == layers
+                   and halo_launches[r]["kernel 1"] == 0,
+                   f"halo shard {r}: launches {halo_launches[r]}")
+        out[n] = {"mega_ms": mega_ms, "halo_ms": halo_ms,
+                  "overlap": R / shard_T, "rel_mega": rel_mega,
+                  "rel_halo": rel_halo, "mega_launches": mega_launches[0],
+                  "halo_launches": halo_launches[0]}
+    return out
+
+
+def tp_child(out: str) -> int:
+    """Phase 8e (c), one of two processes on the one card (`--tp-child
+    OUT`): a Gloo group made here (the port's `ensure_distributed` leaves
+    an existing group alone), `run_teacher_training` at teacher_lj 8 x
+    16,384 for TP_STEPS steps on mesh 1 x 2 and on 2 x 1, and
+    large_student_sharded's state bytes under 1 x 2 against 1 x 1; results
+    to OUT_<rank> as JSON."""
+    import torch.distributed as dist
+
+    from pwn_tpu_torch.parallel import mesh, tp
+
+    device = require_cuda()
+    dist.init_process_group("gloo", init_method="env://",
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    rank = dist.get_rank()
+    res = {"rank": rank}
+    finals = {}
+    for data, model in ((1, 2), (2, 1)):
+        cfg = TEACHER
+        for k, v in {"train.global_batch_size": TP_ROWS, "mesh.data": data,
+                     "mesh.model": model}.items():
+            cfg = override(cfg, k, v)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t = time.perf_counter()
+        r = run_teacher_training(cfg, num_steps=TP_STEPS, device=device)
+        torch.cuda.synchronize()
+        whole = tp.gather_state(r.state)
+        finals[(data, model)] = {k: v.detach().clone()
+                                 for k, v in whole.params.items()}
+        res[f"{data}x{model}"] = {"s": time.perf_counter() - t,
+                                  "loss": r.final_metrics["loss"],
+                                  "bytes": tp.state_bytes(r.state),
+                                  **_counts()}
+    a, b = finals[(1, 2)], finals[(2, 1)]
+    res["same"] = sum(torch.equal(a[k], b[k]) for k in a)
+    res["tensors"] = len(a)
+    cfg = override(override(LARGE, "mesh.model", 2), "train.ema_decay",
+                   LARGE.train.ema_decay or 0.9995)
+    student = init_student(cfg, torch.Generator().manual_seed(SEED), device,
+                           stack_mode="train")
+    state = create_train_state(dict(student.named_parameters()), cfg.train)
+    res["large_1x1"] = tp.state_bytes(state)
+    res["large_1x2"] = tp.state_bytes(
+        tp.shard_state(state, mesh.process_grid(cfg.mesh)))
+    dist.destroy_process_group()
+    with open(f"{out}_{rank}", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _mesh_tp(root: str, smi: str) -> None:
+    """Phase 8e (c): two `--tp-child` processes on the one card."""
+    out = os.path.join(root, "tp.json")
+    port = str(_free_port())
+    procs = []
+    for rank in range(2):
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port,
+               "RANK": str(rank), "WORLD_SIZE": "2", "LOCAL_RANK": "0"}
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-child", out],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for rank, log in enumerate(logs):
+        for line in log.splitlines()[-40:]:
+            _log(f"[tp]   {rank}| {line}")
+    _check(all(p.returncode == 0 for p in procs),
+           "a model-axis child failed: " + " / ".join(
+               f"rank {r} exited {p.returncode}" for r, p in enumerate(procs)))
+    ranks = []
+    for rank in range(2):
+        with open(f"{out}_{rank}") as f:
+            ranks.append(json.load(f))
+    for r in ranks:
+        for mesh_name in ("1x2", "2x1"):
+            m = r[mesh_name]
+            _log(f"[tp] {smi}: rank {r['rank']} teacher_lj {TP_ROWS} x "
+                 f"{TRAIN_T} (4 rows a rank), {TP_STEPS} steps on mesh "
+                 f"{mesh_name} in a Gloo group of 2 processes on one card: "
+                 f"{m['s']:.2f} s with the loop's set-up, loss "
+                 f"{m['loss']:.4f}, state bytes {m['bytes']}, kernel 5 "
+                 f"(kernel 2's route) {m['kernel 5']}, kernel 3 "
+                 f"{m['kernel 3']}")
+            want = TEACHER.teacher.n_layers * (TP_STEPS + 1)
+            _check(m["kernel 5"] == want and m["kernel 3"] == TP_STEPS,
+                   f"mesh {mesh_name}: launches kernel 5 {m['kernel 5']} "
+                   f"(want {want}), kernel 3 {m['kernel 3']}")
+        _log(f"[tp] rank {r['rank']}: {r['same']} of {r['tensors']} teacher "
+             f"tensors bit-identical between 1 x 2 and 2 x 1; "
+             f"large_student_sharded's state bytes on this rank under 1 x 2 "
+             f"{r['large_1x2']} against 1 x 1 {r['large_1x1']}")
+        _check(r["same"] == r["tensors"], "mesh 1 x 2 is off 2 x 1")
+
+
+def phase_mesh(device, smi: str, root: str) -> None:
+    """Phase 8e: the multi-GPU paths on the one card ((a), (b), (c) above)."""
+    t0 = time.perf_counter()
+    _mesh_nccl(root)
+    for cfg, tol, why in ((CFG, TOL_E2E, WHY_E2E),
+                          (LARGE, TOL_E2E_LARGE, WHY_E2E_LARGE)):
+        _sp_shards(cfg, device, smi, tol, why)
+    _mesh_tp(root, smi)
+    _log(f"[mesh] phase 8e took {time.perf_counter() - t0:.1f} s")
+
+
 def _device_split(prof) -> tuple[float, float, int]:
     """(device busy us, kernel 1's us, device kernels and copies) of a
     profile: device events only."""
@@ -3036,6 +3390,7 @@ def main() -> int:
         workdir = phase_workdir(device, smi, root)
         phase_serve(device, smi, os.path.join(root, "student"))
         phase_data(device, smi, root)
+        phase_mesh(device, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     times = phase_times(device, smi)
@@ -3117,4 +3472,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-child"]:
         sys.exit(dp_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp-child"]:
+        sys.exit(tp_child(sys.argv[2]))
     sys.exit(main())

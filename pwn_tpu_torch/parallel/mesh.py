@@ -1,6 +1,5 @@
-"""Data parallelism across processes (counterpart of the data axis of
-`pwn_tpu/parallel/mesh.py` and of `pwn_tpu/data/pipeline.py::
-local_batch_size`).
+"""The process grid (counterpart of `pwn_tpu/parallel/mesh.py` and of
+`pwn_tpu/data/pipeline.py::local_batch_size`).
 
 One process per card, launched by `torchrun` (or any launcher that sets
 `RANK`, `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR` and `MASTER_PORT`):
@@ -12,14 +11,21 @@ for CPU tensors.  Each process reads its partition of the corpus, takes
 the global batch divided by the world size, and averages its gradients
 and metrics with the others' once a step
 (`training/common.py::average_across_processes`), the reference's `pmean`
-over the data axis.  Without a process group the process is a world of
-one and nothing here communicates.  The model axis (tensor parallelism)
-is not ported.
+over the mesh.  Without a process group the process is a world of one
+and nothing here communicates.
+
+The mesh `data x model` lays the world out as the reference lays its
+devices out, the model axis innermost: rank = data_index * model +
+model_index (`process_grid`).  Every rank still computes on its own rows
+of the batch; the model axis shards the training state's gate tensors
+over the ranks of one model group (`parallel/tp.py`).
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -73,18 +79,61 @@ def local_batch_size(global_batch: int) -> int:
     return global_batch // n
 
 
-def check_mesh(cfg: MeshConfig) -> None:
-    """Refuse a mesh the processes cannot form: one card per process, so
-    the data axis is the world size (-1: whatever it is), and the model
-    axis is 1."""
-    if cfg.model > 1:
-        raise NotImplementedError(
-            f"mesh.model={cfg.model}: tensor parallelism is not ported yet "
-            "(the tensor-parallel slice)")
+def mesh_shape(cfg: MeshConfig) -> tuple[int, int]:
+    """(data, model) of `cfg` over this world: data = -1 takes the world
+    divided by the model axis.  ValueError when the processes cannot form
+    the mesh: each process holds one card, so data x model must be the
+    world size."""
     n = process_count()
-    if cfg.data > 0 and cfg.data != n:
-        raise ValueError(f"mesh {cfg.data}x{max(1, cfg.model)} does not "
-                         f"cover {n} devices")
+    model = max(1, cfg.model)
+    if n % model:
+        raise ValueError(f"{n} devices not divisible by model={model}")
+    data = cfg.data if cfg.data > 0 else n // model
+    if data * model != n:
+        raise ValueError(f"mesh {data}x{model} does not cover {n} devices")
+    return data, model
+
+
+@dataclass(frozen=True)
+class ProcessGrid:
+    """This rank's place on the `data x model` mesh, and the two subgroups
+    it belongs to: the ranks of its model group share one data index (they
+    hold one sharded state between them), those of its data group one
+    model index.  The groups are None where the axis is 1 or there is no
+    process group."""
+
+    data: int
+    model: int
+    data_index: int
+    model_index: int
+    model_group: Optional[object] = None
+    data_group: Optional[object] = None
+
+
+_GRIDS: dict = {}
+
+
+def process_grid(cfg: MeshConfig) -> ProcessGrid:
+    """The grid of `cfg` over this world.  Its subgroups are made once per
+    mesh shape and process group (`dist.new_group` is collective: every
+    rank makes every group, in the same order), the model axis
+    innermost."""
+    data, model = mesh_shape(cfg)
+    rank = process_index()
+    if not dist.is_initialized():
+        return ProcessGrid(data, model, rank // model, rank % model)
+    key = (dist.group.WORLD, data, model)
+    if key not in _GRIDS:
+        model_groups = [dist.new_group([d * model + m for m in range(model)])
+                        for d in range(data)]
+        data_groups = [dist.new_group([d * model + m for d in range(data)])
+                       for m in range(model)]
+        _GRIDS[key] = (model_groups, data_groups)
+    model_groups, data_groups = _GRIDS[key]
+    d, m = rank // model, rank % model
+    return ProcessGrid(data, model, d, m,
+                       model_groups[d] if model > 1 else None,
+                       data_groups[m] if data > 1 else None)
 
 
 def barrier(device: torch.device) -> None:

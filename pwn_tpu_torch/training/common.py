@@ -13,8 +13,16 @@ Parameters are updated in place under no_grad, which bumps each tensor's
 
 Data parallelism: `average_across_processes` averages a step's gradients
 and metrics over the process group in one all-reduce, the reference's
-`pmean` over the data axis; clipping and `grad_norm` then see the
-averaged gradients, as in the reference.
+`pmean` over the mesh; clipping and `grad_norm` then see the averaged
+gradients, as in the reference.
+
+The model axis: a TrainState sharded by `parallel/tp.py::shard_state`
+holds only this rank's slice of every gate tensor (the parameter, Adam's
+`mu` and `nu`, the EMA) and the other tensors whole.  `apply_gradients`
+clips by the norm of the full averaged gradient, runs Adam on the slices
+and the whole tensors (Adam is elementwise, so a slice's update is the
+same as its part of the whole tensor's), then rebuilds the model's gate
+tensors from every rank's slices.
 """
 
 from __future__ import annotations
@@ -61,9 +69,15 @@ class ClippedAdam:
 
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               state: AdamState) -> None:
+               state: AdamState,
+               norm: Optional[torch.Tensor] = None) -> None:
+        """Clip `grads` by `norm`, the global norm of the whole gradient
+        (default: `grads`' own; a sharded state passes the norm of the
+        gradient it took its slices from), then one Adam step on `params`
+        in place."""
         c = self.cfg
-        norm = global_norm(grads)
+        if norm is None:
+            norm = global_norm(grads)
         keep = norm < c.grad_clip_norm
         grads = [torch.where(keep, g, g / norm * c.grad_clip_norm)
                  for g in grads]
@@ -97,8 +111,26 @@ class TrainState:
     seed: int = 0
     ema_params: Optional[Dict[str, torch.Tensor]] = field(default=None)
 
+    # a `parallel/tp.py::ModelShard` when the gate tensors are sharded
+    shard: Optional[object] = field(default=None)
+
+    def trainable(self) -> List[torch.Tensor]:
+        """The model's parameters in `params`' order: what a step
+        differentiates (under a shard, the model's whole gate tensors in
+        place of this rank's slices)."""
+        if self.shard is None:
+            return list(self.params.values())
+        return [self.shard.full.get(k, p) for k, p in self.params.items()]
+
     def apply_gradients(self, grads: List[torch.Tensor]) -> "TrainState":
-        self.tx.update(list(self.params.values()), grads, self.opt_state)
+        """One clipped Adam update from the gradients of `trainable()`."""
+        norm = global_norm(grads)
+        if self.shard is not None:
+            grads = [self.shard.local(k, g) for k, g in zip(self.params, grads)]
+        self.tx.update(list(self.params.values()), grads, self.opt_state,
+                       norm)
+        if self.shard is not None:
+            self.shard.sync_model(self.params)
         self.step += 1
         return self
 
@@ -145,21 +177,30 @@ def step_generator(seed: int, step: int, device,
     return torch.Generator(device=device).manual_seed(key)
 
 
+def averages_natively(device) -> bool:
+    """Whether the process group's backend for `device`'s tensors has an
+    average reduction: NCCL has; Gloo (on the CPU, and carrying CUDA
+    tensors too) gets a sum divided by the world size."""
+    pairs = dict(p.split(":") for p in dist.get_backend_config().split(",")
+                 if ":" in p)
+    return pairs.get(torch.device(device).type) == dist.Backend.NCCL
+
+
 def average_across_processes(
         grads: List[torch.Tensor], metrics: Dict[str, torch.Tensor],
 ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
     """(grads, metrics) averaged over the process group: every tensor
     flattened into one fp32 buffer on the gradients' device and averaged
-    by one all-reduce (NCCL's average on a card; Gloo, which has none,
-    sums and the sum is divided by the world size).  Without a process
-    group they come back as they are.  Every process calls it at the same
-    step with tensors of the same shapes and the same metric keys."""
+    by one all-reduce (`averages_natively` picks the backend's average or
+    a sum and a division).  Without a process group they come back as they
+    are.  Every process calls it at the same step with tensors of the same
+    shapes and the same metric keys."""
     if not dist.is_initialized():
         return grads, metrics
     names = list(metrics)
     flat = torch.cat([g.reshape(-1).float() for g in grads]
                      + [metrics[k].reshape(1).float() for k in names])
-    if flat.is_cuda:
+    if averages_natively(flat.device):
         dist.all_reduce(flat, op=dist.ReduceOp.AVG)
     else:
         dist.all_reduce(flat, op=dist.ReduceOp.SUM)

@@ -192,8 +192,10 @@ def make_distill_train_step(student: StudentIAF, teacher: TeacherWaveNet,
                             cfg: Config):
     """`(state, wav, z=None) -> (state, metrics)`: one optimizer step of the
     student on the distillation loss of a raw batch wav (B, T); metrics stay
-    on the device, with `grad_norm`.  `state.params` must be the student's
-    parameters; the teacher's are not touched.  The noise comes from
+    on the device, with `grad_norm`.  `state.trainable()` must be the
+    student's parameters (whole or sharded over the model axis, as
+    `make_teacher_train_step` says); the teacher is held whole and not
+    touched.  The noise comes from
     `step_generator(state.seed, state.step)` (this process's draw) unless
     `z` is given; gradients and metrics are averaged across processes."""
 
@@ -205,7 +207,7 @@ def make_distill_train_step(student: StudentIAF, teacher: TeacherWaveNet,
         loss, metrics = distillation_losses(student, teacher, x_ref, mel,
                                             cfg, generator=gen, z=z,
                                             step=state.step)
-        grads = torch.autograd.grad(loss, list(state.params.values()))
+        grads = torch.autograd.grad(loss, state.trainable())
         grads, metrics = average_across_processes(
             list(grads), {k: v.detach() for k, v in metrics.items()})
         metrics["grad_norm"] = global_norm(grads)

@@ -32,6 +32,14 @@ and the steps average gradients and metrics across processes.  Rank 0
 alone writes checkpoints, metrics, TensorBoard and sample dumps; every
 rank restores the step rank 0 found committed; rank 0 finishes its last
 save before the closing barrier.
+
+The model axis.  Under `mesh.model` > 1 the loops check that each gate
+half divides over it (the teacher's and the student's), then shard the
+restored state over each model group (`parallel/tp.py::shard_state`): a
+rank keeps its slice of every gate tensor's parameter, Adam moments and
+EMA.  At checkpoint cadence every rank joins the gather of its model
+group's state (`gather_state`) and rank 0 writes the whole state in the
+same format, so a checkpoint resumes on any mesh.
 """
 
 from __future__ import annotations
@@ -52,9 +60,10 @@ from pwn_tpu_torch.data.pipeline import (SyntheticSpeech, SyntheticTones,
 from pwn_tpu_torch.models.modules import resolve_stack_mode
 from pwn_tpu_torch.models.student import StudentIAF, init_student
 from pwn_tpu_torch.models.teacher import TeacherWaveNet, init_teacher
-from pwn_tpu_torch.parallel.mesh import (barrier, broadcast_int, check_mesh,
+from pwn_tpu_torch.parallel.mesh import (barrier, broadcast_int,
                                          local_batch_size, process_count,
-                                         process_index)
+                                         process_grid, process_index)
+from pwn_tpu_torch.parallel.tp import gather_state, shard_state, validate_tp
 from pwn_tpu_torch.training.common import (TrainState, create_train_state,
                                            serving_params)
 from pwn_tpu_torch.training.distill import (make_distill_eval_step,
@@ -200,7 +209,7 @@ def _run(cfg: Config, state: TrainState, step_fn: Callable, device,
          num_steps: Optional[int], tag: str,
          eval_fn: Optional[Callable] = None,
          sample_fn: Optional[Callable] = None) -> RunResult:
-    check_mesh(cfg.mesh)
+    grid = process_grid(cfg.mesh)  # refuses a mesh the world cannot form
     batch_size = local_batch_size(cfg.train.global_batch_size)
     dataset = build_dataset(cfg, data_dir)
     num_steps = num_steps if num_steps is not None else cfg.train.total_steps
@@ -226,6 +235,11 @@ def _run(cfg: Config, state: TrainState, step_fn: Callable, device,
                 tb_dir=(os.path.join(workdir, f"tb_{tag}")
                         if cfg.train.tensorboard else None))
 
+    if grid.model > 1:
+        validate_tp(cfg.teacher.gate_channels, grid.model)
+        validate_tp(cfg.student.gate_channels, grid.model)
+        state = shard_state(state, grid)
+
     engine, it = make_train_stream(cfg, data_dir, dataset, batch_size,
                                    start_step)
     if lead:
@@ -247,10 +261,12 @@ def _run(cfg: Config, state: TrainState, step_fn: Callable, device,
             if logger:
                 logger.log(step + 1, **val)
             metrics = {**metrics, **val}
+        # every rank of a model group joins the gather of its state
+        full = gather_state(state) if workdir and at_ckpt else None
         if ckpt and at_ckpt:
-            ckpt.save(step + 1, state)
+            ckpt.save(step + 1, full)
             if sample_fn:
-                wav = sample_fn(state, step + 1)
+                wav = sample_fn(full, step + 1)
                 write_wav(os.path.join(workdir, "samples",
                                        f"step_{step + 1:08d}.wav"),
                           wav, cfg.dsp.sample_rate)

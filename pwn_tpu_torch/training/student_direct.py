@@ -66,7 +66,7 @@ def make_student_direct_train_step(student: StudentIAF, cfg: Config):
                else step_generator(state.seed, state.step, wav.device))
         loss, metrics = direct_student_losses(student, x_ref, mel, cfg,
                                               generator=gen, z=z)
-        grads = torch.autograd.grad(loss, list(state.params.values()))
+        grads = torch.autograd.grad(loss, state.trainable())
         grads, metrics = average_across_processes(
             list(grads), {k: v.detach() for k, v in metrics.items()})
         metrics["grad_norm"] = global_norm(grads)

@@ -6,7 +6,9 @@ The host ships raw fixed-length waveform crops; preemphasis, the clip to
 works in the preemphasized domain.  Under a process group each process
 steps on its share of the batch and the gradients and the loss are
 averaged across processes before the clip (the reference's `shard_map`
-branch and its `pmean`).
+branch and its `pmean`).  The same steps run a state sharded over the
+model axis (`parallel/tp.py`): they differentiate the model's whole
+parameters, and the state updates its slices.
 """
 
 from __future__ import annotations
@@ -37,12 +39,14 @@ def make_teacher_train_step(model: TeacherWaveNet, cfg: Config):
     """`(state, wav) -> (state, metrics)`: one optimizer step on the
     teacher-forcing NLL; metrics `loss` and `grad_norm` stay on the device
     (0-d fp32 tensors), averaged across processes with the gradients.
-    `state.params` must be the model's parameters."""
+    `state.trainable()` must be the model's parameters (a state sharded
+    over the model axis holds slices of the gate tensors and updates them
+    there, `TrainState.apply_gradients`)."""
 
     def train_step(state: TrainState, wav: torch.Tensor):
         x, mel = prepare_batch(wav, cfg)
         loss = model.loss(x, mel)
-        grads = torch.autograd.grad(loss, list(state.params.values()))
+        grads = torch.autograd.grad(loss, state.trainable())
         grads, metrics = average_across_processes(list(grads),
                                                   {"loss": loss.detach()})
         metrics["grad_norm"] = global_norm(grads)

@@ -18,6 +18,12 @@ to `max_to_keep`.  Only committed step directories count as steps, so a
 crash mid-save leaves the previous step the latest.  A failed write
 raises at the next `save`, `wait` or `close`.
 
+A state sharded over the model axis (`parallel/tp.py`) is written whole:
+every rank of its model group joins `gather_state`, and rank 0 saves what
+it returns (`training/loop.py`), so the file is the same on every mesh and
+resumes on any; the loop restores into the whole state and shards it
+after.  A sharded state itself is refused here, in both directions.
+
 `restore` copies into the template's own tensors in place: the model and
 its TrainState share them, and `WaveNetStack`'s weight-layout cache keys
 on each parameter's storage and version, which an in-place copy bumps.
@@ -41,6 +47,9 @@ _SCALARS = ("step", "seed", "opt.count")
 
 def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
     """The state's live tensors under their checkpoint keys."""
+    if state.shard is not None:
+        raise ValueError("a sharded state holds slices: checkpoint "
+                         "parallel/tp.py::gather_state(state) instead")
     out = {f"params.{k}": p for k, p in state.params.items()}
     for name, mu, nu in zip(state.params, state.opt_state.mu,
                             state.opt_state.nu):

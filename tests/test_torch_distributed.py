@@ -16,14 +16,11 @@ a free port.
   the teacher and for distillation.
 - Distillation noise differs between ranks; a per-rank batch of 1 with
   the contrastive term, a batch that does not divide, and a mesh the
-  processes cannot form are refused.
+  processes cannot form are refused (the model axis: tests/test_torch_tp.py).
 """
 
 import json
 import os
-import socket
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
@@ -41,11 +38,10 @@ from pwn_tpu_torch.training.common import (create_train_state,
 from pwn_tpu_torch.training.distill import distillation_losses
 from pwn_tpu_torch.training.teacher import make_teacher_train_step
 from pwn_tpu_torch.utils.checkpoint import STATE_FILE
-from torch_parity import jax_config
+from torch_parity import jax_config, launch_workers
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = str(ROOT / "tests" / "torch_dp_worker.py")
-TIMEOUT_S = 120
 
 # tiny_teacher's DSP (16 kHz, 40 mels, hop 128) with a 3-layer teacher
 # (Gaussian head) and a 2 x 3-layer student at C=16, fp32, four 1,024-sample
@@ -88,40 +84,6 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _launch(world: int, mode: str, out, overrides, *args) -> list:
-    """Start `world` worker processes of `mode`, wait for them (killing
-    them all past the timeout or on a failure); returns each rank's
-    result."""
-    port = _free_port()
-    procs = []
-    for rank in range(world):
-        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(world),
-               "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1",
-               "MASTER_PORT": str(port), "CUDA_VISIBLE_DEVICES": "",
-               "OMP_NUM_THREADS": "1"}
-        env.pop("PYTHONPATH", None)
-        procs.append(subprocess.Popen(
-            [sys.executable, WORKER, mode, str(out), json.dumps(overrides),
-             *map(str, args)], env=env, cwd=str(out),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    assert all(p.returncode == 0 for p in procs), "\n\n".join(logs)
-    return [torch.load(Path(out) / f"{mode}_{r}.pt", weights_only=False)
-            for r in range(world)]
-
-
 def _corpus(d: Path) -> str:
     """Six mono PCM16 clips at tiny_teacher's 16 kHz, 0.2-0.5 s."""
     d.mkdir()
@@ -141,9 +103,9 @@ def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("dp")
     data = _corpus(root / "wavs")
     a, b = str(root / "a"), str(root / "b")
-    whole = _launch(2, "loop", _mkdir(root / "out_a"), OVERRIDES, a, data, 3)
-    first = _launch(2, "loop", _mkdir(root / "out_b1"), OVERRIDES, b, data, 2)
-    resumed = _launch(2, "loop", _mkdir(root / "out_b2"), OVERRIDES, b, data,
+    whole = launch_workers(WORKER, 2, "loop", _mkdir(root / "out_a"), OVERRIDES, a, data, 3)
+    first = launch_workers(WORKER, 2, "loop", _mkdir(root / "out_b1"), OVERRIDES, b, data, 2)
+    resumed = launch_workers(WORKER, 2, "loop", _mkdir(root / "out_b2"), OVERRIDES, b, data,
                       3)
     return data, a, b, whole, first, resumed
 
@@ -165,7 +127,7 @@ def grad_run(tmp_path_factory):
     wav = np.random.default_rng(1).uniform(-0.6, 0.6, (4, 1024)).astype(
         np.float32)
     np.save(out / "batch.npy", wav)
-    return model, variables, wav, _launch(2, "grads", out, OVERRIDES)
+    return model, variables, wav, launch_workers(WORKER, 2, "grads", out, OVERRIDES)
 
 
 def _mkdir(p: Path) -> Path:
@@ -323,7 +285,7 @@ def test_a_world_of_one_is_bit_identical(tmp_path):
     data = _corpus(tmp_path / "wavs")
     cfg = {**OVERRIDES, "distill.contrastive_weight": 0.3,
            "train.global_batch_size": 2}
-    (r,) = _launch(1, "world1", tmp_path, cfg, data)
+    (r,) = launch_workers(WORKER, 1, "world1", tmp_path, cfg, data)
     for alone, group in zip(r["alone"][:2], r["group"][:2]):
         assert alone.keys() == group.keys()
         for k in alone:
@@ -354,22 +316,26 @@ def test_contrastive_refuses_a_per_rank_batch_of_1():
 
 def test_local_batch_and_mesh_refusals(monkeypatch):
     """The global batch divided by the world size, or the reference's
-    ValueError; `mesh.data` other than the world size raises ValueError,
-    `mesh.model` > 1 NotImplementedError naming the tensor-parallel slice;
-    without a group the process is a world of one."""
+    ValueError; a mesh whose data x model is not the world size raises
+    ValueError, and `mesh.model` > 1 is accepted where it is; without a
+    group the process is a world of one."""
     assert (mesh.process_index(), mesh.process_count()) == (0, 1)
     assert mesh.local_batch_size(8) == 8
-    mesh.check_mesh(MeshConfig(data=-1, model=1))
-    mesh.check_mesh(MeshConfig(data=1, model=1))
+    mesh.mesh_shape(MeshConfig(data=-1, model=1))
+    mesh.mesh_shape(MeshConfig(data=1, model=1))
     monkeypatch.setattr(mesh, "process_count", lambda: 2)
     assert mesh.local_batch_size(8) == 4
     with pytest.raises(ValueError, match="not divisible by 2 processes"):
         mesh.local_batch_size(3)
     with pytest.raises(ValueError, match="does not cover 2 devices"):
-        mesh.check_mesh(MeshConfig(data=4, model=1))
-    mesh.check_mesh(MeshConfig(data=2, model=1))
-    with pytest.raises(NotImplementedError, match="tensor-parallel slice"):
-        mesh.check_mesh(MeshConfig(data=-1, model=2))
+        mesh.mesh_shape(MeshConfig(data=4, model=1))
+    mesh.mesh_shape(MeshConfig(data=2, model=1))
+    mesh.mesh_shape(MeshConfig(data=-1, model=2))
+    mesh.mesh_shape(MeshConfig(data=1, model=2))
+    with pytest.raises(ValueError, match="does not cover 2 devices"):
+        mesh.mesh_shape(MeshConfig(data=2, model=2))
+    with pytest.raises(ValueError, match="not divisible by model=4"):
+        mesh.mesh_shape(MeshConfig(data=-1, model=4))
 
 
 def test_ensure_distributed_without_a_launcher(monkeypatch):

@@ -34,8 +34,9 @@ print(len(names), loaded)
 """
 
 # modules that must be among those walked: the entry points, the workdir's,
-# the server's, the data engines and data parallelism, which the machine
-# with the card runs without JAX
+# the server's, the data engines, data parallelism, the model axis,
+# sharded synthesis and the dry run, which the machine with the card runs
+# without JAX
 REQUIRED = ("pwn_tpu_torch.cli", "pwn_tpu_torch.utils.checkpoint",
             "pwn_tpu_torch.utils.metrics", "pwn_tpu_torch.utils.tensorboard",
             "pwn_tpu_torch.utils.profiling", "pwn_tpu_torch.ops.norm",
@@ -45,7 +46,8 @@ REQUIRED = ("pwn_tpu_torch.cli", "pwn_tpu_torch.utils.checkpoint",
             "pwn_tpu_torch.utils.dsp", "pwn_tpu_torch.data.pipeline",
             "pwn_tpu_torch.data.native_loader",
             "pwn_tpu_torch.data.grain_pipeline",
-            "pwn_tpu_torch.parallel.mesh")
+            "pwn_tpu_torch.parallel.mesh", "pwn_tpu_torch.parallel.tp",
+            "pwn_tpu_torch.parallel.sp", "pwn_tpu_torch.dryrun")
 
 
 def _run(code_or_script, cwd, *args):

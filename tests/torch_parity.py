@@ -51,3 +51,45 @@ def paired_students(cfg, seed: int = 0, jitter: float = 0.05):
     port = StudentIAF(cfg)
     port.load_state_dict(convert.params_from_flax(params))
     return model, params, port.eval()
+
+
+def launch_workers(worker: str, world: int, mode: str, out, config: dict,
+                   *args, timeout: int = 120) -> list:
+    """Start `world` processes of `python worker MODE OUT CONFIG_JSON
+    ARGS...` with a launcher's environment (RANK, WORLD_SIZE, LOCAL_RANK,
+    MASTER_ADDR, MASTER_PORT on a free port; no card, one OpenMP thread)
+    in `out`, wait for them (killing them all past `timeout` seconds or on
+    a failure), and return each rank's OUT/<mode>_<rank>.pt."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import torch
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(world),
+               "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(port), "CUDA_VISIBLE_DEVICES": "",
+               "OMP_NUM_THREADS": "1"}
+        env.pop("PYTHONPATH", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, worker, mode, str(out), json.dumps(config),
+             *map(str, args)], env=env, cwd=str(out),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n\n".join(logs)
+    return [torch.load(Path(out) / f"{mode}_{r}.pt", weights_only=False)
+            for r in range(world)]
