@@ -4,8 +4,9 @@ the whole-stack kernel, large_student_sharded through the per-layer
 kernel's accumulate epilogue), teacher training, distillation and direct
 training of the student, teacher AR sampling, the command line, the
 streaming vocoder server, training from a wav directory on every data
-engine, data-parallel training, the model axis and batch-sharded and
-sequence-parallel synthesis once on one CUDA card.
+engine, data-parallel training, the model axis, batch-sharded and
+sequence-parallel synthesis and the benchmark suite once on one CUDA
+card.
 
 Run from the repository root with no arguments:
 
@@ -144,7 +145,12 @@ Phases, each printing what it finds:
                (beside torch.matmul on the same operands) at both widths,
                teacher, distillation and direct-training step ms and
                utterances per second at batch 8 x 16,384, AR us per step and samples per second at batch 8
-               and 1 x 0.25 s, and the weight bytes each SM streams a step.
+               and 1 x 0.25 s, and the weight bytes each SM streams a step;
+  10. bench  — `python -m pwn_tpu_torch.cli bench student_iaf` in a child
+               process: the reference's one-line contract with no error,
+               its per-row kernel canary passed on the card, every kernel
+               launched in it, every MFU at most 1; each measurement logged
+               beside phase 9's, student_iaf's audio-s/s within 20% of it.
 Any failure raises and the script exits non-zero.  Only when every phase
 passed does it print, as its last line, {"ok": true, "device": {...}}.
 The script imports no JAX; the machine with the card need not have it.
@@ -2992,7 +2998,9 @@ def _graph_ms(fn, n: int) -> float:
     return _time_ms(graph.replay, 1) / n
 
 
-def phase_times(device, smi: str) -> dict:
+def phase_times(device, smi: str, phase9: dict) -> dict:
+    """Kernel 1 beside the kernel-5 chain and its plain version, and
+    student_iaf's generate end to end (its audio-s/s into `phase9`)."""
     dil = CFG.student.flow_dilations
     T = _bench_T()
     args = _stack_inputs(BATCH, T, device, seed=3)
@@ -3046,13 +3054,15 @@ def phase_times(device, smi: str) -> dict:
     rate = audio_s / (ms / 1e3)
     _log(f"[times] {smi}: generate batch {BATCH} x {SECONDS} s: {ms:.3f} ms "
          f"per call, {rate:.1f} audio-seconds/s")
+    phase9["student"] = rate
     return {"ms": mean["kernel 1"], "plain_ms": mean["plain"], **bound}
 
 
-def phase_layer_times(device, smi: str) -> dict:
+def phase_layer_times(device, smi: str, phase9: dict) -> dict:
     """Kernel 5 in both epilogues and its plain versions at the bench shapes
     of both widths, each beside its bound, and large_student_sharded's
-    generate end to end in both stack modes.  Returns the main path's
+    generate end to end in both stack modes ("infer"'s audio-s/s into
+    `phase9`).  Returns the main path's
     figures: the accumulate epilogue at C=128 averaged over one flow's
     layers (one first, eight middle, one last)."""
     counted = gated_layer.launches
@@ -3127,6 +3137,8 @@ def phase_layer_times(device, smi: str) -> dict:
             torch.cuda.synchronize()
             ms = _time_ms(lambda: model.generate(gen, mel), 10)
         rate = BATCH * T / LARGE.dsp.sample_rate / (ms / 1e3)
+        if model.flows[0].mode == "infer":
+            phase9["student_config4"] = rate
         _log(f"[times] {smi}: large_student_sharded generate ({model.flows[0].mode}"
              f" stacks) batch {BATCH} x {SECONDS} s (T={T} at "
              f"{LARGE.dsp.sample_rate} Hz): {ms:.3f} ms per call, {rate:.1f} "
@@ -3244,9 +3256,9 @@ def _train_kernel_times(device, smi: str, widths: str) -> dict:
                  **bound_w}}
 
 
-def phase_train_times(device, smi: str) -> dict:
+def phase_train_times(device, smi: str, phase9: dict) -> dict:
     """The training kernels at teacher_lj's widths, and the teacher train
-    step at batch 8 x 16,384."""
+    step at batch 8 x 16,384 (its ms into `phase9`)."""
     result = _train_kernel_times(device, smi, "teacher_lj")
     B, T = TRAIN_BATCH, TRAIN_T
     counted = (gated_layer.launches, fs.flow_stack_train_backward.launches,
@@ -3261,12 +3273,14 @@ def phase_train_times(device, smi: str) -> dict:
     fs.flow_stack_train_backward.launches_by = counted[2]
     _log(f"[times] {smi}: teacher_lj train step, batch {B} x {T}: {step_ms:.3f} "
          f"ms per step, {B / (step_ms / 1e3):.1f} utterances/s")
+    phase9["teacher_train"] = step_ms
     return {**result, "step_ms": step_ms}
 
 
-def phase_distill_times(device, smi: str) -> dict:
+def phase_distill_times(device, smi: str, phase9: dict) -> dict:
     """The training kernels at student_iaf's widths, and the distillation
-    and direct-training steps at batch 8 x 16,384."""
+    and direct-training steps at batch 8 x 16,384 (their ms into
+    `phase9`)."""
     result = _train_kernel_times(device, smi, "student_iaf")
     B, T = TRAIN_BATCH, TRAIN_T
     counted = (gated_layer.launches, fs.flow_stack_train_backward.launches,
@@ -3279,12 +3293,13 @@ def phase_distill_times(device, smi: str) -> dict:
                                  seed=SEED + 2)
     d_step = make_student_direct_train_step(direct, CFG)
     ms = {}
-    for name, fn in (("distillation", lambda: step(state, batch)),
-                     ("direct", lambda: d_step(d_state, batch))):
+    for name, key, fn in (
+            ("distillation", "distill_train", lambda: step(state, batch)),
+            ("direct", "student_direct_train", lambda: d_step(d_state, batch))):
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
-        ms[name] = _time_ms(fn, 5)
+        ms[name] = phase9[key] = _time_ms(fn, 5)
         _log(f"[times] {smi}: student_iaf {name} train step, batch {B} x {T}: "
              f"{ms[name]:.3f} ms per step, {B / (ms[name] / 1e3):.1f} "
              f"utterances/s")
@@ -3293,7 +3308,9 @@ def phase_distill_times(device, smi: str) -> dict:
     return result
 
 
-def phase_ar_times(device, smi: str) -> dict:
+def phase_ar_times(device, smi: str, phase9: dict) -> dict:
+    """Kernel 4 at batch 8 and 1 x 5,376 and at T=512 beside its plain
+    version, and generate_teacher (the batch-8 kernel ms into `phase9`)."""
     cfg = TEACHER
     tc = cfg.teacher
     model = _ar_teacher(cfg, device)
@@ -3350,7 +3367,7 @@ def phase_ar_times(device, smi: str) -> dict:
         + S * S + S * hd + C)
     nbytes = _nbytes(cond, noise, *weights.values()) + AR_BATCH * AR_T * 4
     bound = _bound(flop, nbytes, PEAK_FP32)
-    k_ms = float(np.mean(ms["kernel"]))
+    k_ms = phase9["teacher_ar"] = float(np.mean(ms["kernel"]))
     plain_ms = float(np.mean(ms["plain short"])) * AR_T / AR_CHECK_T
     # each block (one rank of a row's cluster) reads its slice of every
     # layer from L2 every step
@@ -3365,6 +3382,75 @@ def phase_ar_times(device, smi: str) -> dict:
          f"{per_sm * AR_RANKS * AR_BATCH * AR_T / (k_ms / 1e3) / 1e12:.2f} "
          f"TB/s from L2 in all")
     return {"ms": k_ms, "plain_ms": plain_ms, **bound}
+
+
+# Phase 10: the benchmark suite as a user runs it.  student_iaf's synthesis
+# is device-bound (PERF.md §5: the card idle 0.164 ms of a 6.5 ms call), so
+# the bench's two-point differencing and phase 9's CUDA events time the same
+# work: within 20%.  The train steps are host-bound (81-147 ms a step between
+# calls), so they are logged beside phase 9's, not gated.
+TOL_BENCH_STUDENT = 0.2
+BENCH_KERNELS = ("kernel 1", "kernel 5", "kernel 3", "kernel 3 dx-only",
+                 "kernel 4")
+
+
+def phase_bench(smi: str, phase9: dict) -> None:
+    """`python -m pwn_tpu_torch.cli bench student_iaf` as a child process:
+    one JSON line with the reference's five keys and no `error`, its
+    kernel canary passed on the card (every row printed), every kernel
+    launched in it, a positive value, every MFU at most 1; each measurement
+    beside phase 9's figure for the same work."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pwn_tpu_torch.cli", "bench", "student_iaf"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    _check(proc.returncode == 0,
+           f"bench exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    _check({"metric", "value", "unit", "vs_baseline", "detail"} <= set(out)
+           and out["metric"] == "student_audio_sec_per_s_per_chip",
+           f"bench: not the reference's contract: {sorted(out)}")
+    _check("error" not in out, f"bench: {out.get('error')}")
+    d = out["detail"]
+    kc = d["kernel_check"]
+    _log(f"[bench] {d['device']}: kernel canary at {kc.get('layout')}: "
+         f"generation rows {kc.get('gen_row_rel_err')}, training dx rows "
+         f"{kc.get('train_dx_row_rel_err')}, AR rows "
+         f"{kc.get('ar_row_abs_diff')} (thresholds {kc.get('thresholds')})")
+    _check(kc.get("pass") is True, f"bench: kernel canary {kc}")
+    _check(out["value"] > 0, f"bench: value {out['value']}")
+    ratios = {k: v for k, v in d["mfu"].items()
+              if k not in ("peak_bf16_tflops", "note")
+              and not k.endswith("_tflops")}
+    _check(ratios and all(isinstance(v, float) and v <= 1.0
+                          for v in ratios.values()),
+           f"bench: MFU {d['mfu']}")
+    _log(f"[bench] launches in the bench: {d['launches']}")
+    _check(all(d["launches"][k] > 0 for k in BENCH_KERNELS),
+           f"bench: a kernel was not launched: {d['launches']}")
+    rows = [
+        ("student_iaf audio-s/s", out["value"], phase9["student"]),
+        ("large_student_sharded audio-s/s",
+         d["student_config4"]["audio_sec_per_s_per_chip"],
+         phase9["student_config4"]),
+        ("teacher_lj train step ms", d["teacher_train"]["step_ms"],
+         phase9["teacher_train"]),
+        ("student_iaf distillation step ms", d["distill_train"]["step_ms"],
+         phase9["distill_train"]),
+        ("student_iaf direct step ms", d["student_direct_train"]["step_ms"],
+         phase9["student_direct_train"]),
+        ("teacher_lj AR 8 x 5,376 ms (phase 9: kernel 4 alone)",
+         d["teacher_ar"]["step_ms"], phase9["teacher_ar"]),
+    ]
+    for name, got, ref in rows:
+        _log(f"[bench] {smi}: {name}: bench {got:.3f}, phase 9 {ref:.3f} "
+             f"({got / ref:.3f} of phase 9)")
+    _log(f"[bench] {smi}: MFU {ratios}; DP audit {d['dp_equivalence']}; "
+         f"the bench took {time.perf_counter() - t0:.1f} s")
+    _check(abs(out["value"] / phase9["student"] - 1) <= TOL_BENCH_STUDENT,
+           f"bench: student_iaf {out['value']} audio-s/s against phase 9's "
+           f"{phase9['student']:.2f}")
 
 
 def main() -> int:
@@ -3393,14 +3479,16 @@ def main() -> int:
         phase_mesh(device, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    times = phase_times(device, smi)
-    layer_times = phase_layer_times(device, smi)
-    train_times = phase_train_times(device, smi)
+    phase9: dict = {}
+    times = phase_times(device, smi, phase9)
+    layer_times = phase_layer_times(device, smi, phase9)
+    train_times = phase_train_times(device, smi, phase9)
     _log(f"[times] {smi}: teacher_lj step with the workdir (log_every=1) "
          f"{workdir['step_ms']:.1f} ms against {train_times['step_ms']:.3f} ms "
          f"without it (CUDA events over 10 steps, no sync between)")
-    distill_times = phase_distill_times(device, smi)
-    ar_times = phase_ar_times(device, smi)
+    distill_times = phase_distill_times(device, smi, phase9)
+    ar_times = phase_ar_times(device, smi, phase9)
+    phase_bench(smi, phase9)
     train_src = "pwn_tpu_torch/csrc/flow_stack_train.cu"
     # no single PyTorch call computes any of these functions
     print(json.dumps({"kernels": [{

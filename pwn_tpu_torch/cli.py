@@ -12,6 +12,7 @@
     python -m pwn_tpu_torch.cli eval            <case> --ref A --gen B
     python -m pwn_tpu_torch.cli serve           <case> --workdir D
                                                [--host H] [--port P]
+    python -m pwn_tpu_torch.cli bench           [case] [k=v ...]
 
 `<case>` is a named preset; trailing `key=value` pairs override dotted
 config fields, e.g. `train.learning_rate=3e-4`.  The three train commands
@@ -24,8 +25,8 @@ they train data-parallel, one process per card:
 
 Every subcommand runs on the CUDA card (the card of its `LOCAL_RANK`
 under a launcher), or fails if there is none; `--device cpu` runs it on
-the CPU, as the tests do.  Not ported yet, and refused with a non-zero
-exit: `bench`.
+the CPU, as the tests do.  `bench` prints the benchmark suite's result
+(`benchmarks.run_bench`, default case student_iaf) as one JSON line.
 """
 
 from __future__ import annotations
@@ -39,9 +40,6 @@ import time
 
 import numpy as np
 import torch
-
-# what of the reference's CLI the port refuses, and the slice that ports it
-UNPORTED = {"bench": "the benchmark slice"}
 
 
 def _parse_overrides(pairs):
@@ -201,16 +199,11 @@ def _parser() -> argparse.ArgumentParser:
                             "is active")
     p_srv.add_argument("overrides", nargs="*")
 
-    for name in UNPORTED:
-        p = sub.add_parser(name, help=f"not ported yet ({UNPORTED[name]})")
-        p.add_argument("rest", nargs=argparse.REMAINDER)
+    p_bench = sub.add_parser("bench", parents=[common],
+                             help="run the benchmark suite")
+    p_bench.add_argument("case", nargs="?", default="student_iaf")
+    p_bench.add_argument("overrides", nargs="*")
     return parser
-
-
-def _refuse(what: str, slice_name: str) -> int:
-    print(f"{what} is not ported to pwn_tpu_torch yet: {slice_name}",
-          file=sys.stderr)
-    return 2
 
 
 def _generate(args, device) -> int:
@@ -312,8 +305,6 @@ def main(argv=None) -> int:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
     if extra:
         args.overrides = [*args.overrides, *extra]
-    if args.cmd in UNPORTED:
-        return _refuse(args.cmd, UNPORTED[args.cmd])
     device = _device(args.device)
     if args.cmd in ("train-teacher", "train-student", "distill-student"):
         from pwn_tpu_torch.parallel.mesh import ensure_distributed
@@ -383,6 +374,13 @@ def main(argv=None) -> int:
         n = min(len(ref), len(gen))
         print(json.dumps(copy_synthesis_report(cfg, ref[:n], gen[:n],
                                                device)))
+        return 0
+
+    if args.cmd == "bench":
+        from pwn_tpu_torch.benchmarks import run_bench
+
+        print(json.dumps(run_bench(args.case, _parse_overrides(args.overrides),
+                                   device=device)), flush=True)
         return 0
 
     if args.cmd == "serve":

@@ -33,7 +33,8 @@ from pwn_tpu_torch.ops.norm import init_weight_norm_, weight_norm
 #   dx     the same forward; backward to the inputs only (a frozen stack)
 # and "layer": the layers one by one through `FusedGatedResidual` (kernel 5's
 # "layer" epilogue on the card, skip summed in the compute dtype, biases
-# unrounded; its backward is plain fp32 matmuls).
+# unrounded; its backward is plain fp32 matmuls).  The reference's XLA stack
+# ("off") is that per-layer form, so it builds "layer".
 STACK_FNS = {"infer": flow_stack, "train": flow_stack_train,
              "dx": flow_stack_score}
 STACK_MODES = (*STACK_FNS, "layer")
@@ -44,11 +45,14 @@ def resolve_stack_mode(flag: str, auto: str) -> str:
     caller's context: "infer" for inference models, "train" for the
     training loops.  "auto" takes it; "mega" (the reference's whole-stack
     kernel) is "train" in a training context and "infer" otherwise.  "on"
-    and "layer" are the per-layer kernel.  The reference's XLA paths
-    ("off") have no counterpart in the port."""
+    and "layer" are the per-layer kernel, and so is "off": the reference's
+    XLA stack runs one gated layer after another and sums the skips in the
+    compute dtype, as "layer" does, on kernel 5's "layer" epilogue (which
+    keeps the biases and the gate pre-activation in fp32 where the XLA form
+    rounds them to the compute dtype)."""
     modes = {"auto": auto, "mega": "train" if auto == "train" else "infer",
              "mega_train": "train", "mega_dx": "dx", "on": "layer",
-             "layer": "layer"}
+             "layer": "layer", "off": "layer"}
     if flag not in modes:
         raise NotImplementedError(
             f"fused_layers={flag!r} is not ported (the port's stack modes "
@@ -159,11 +163,11 @@ class WaveNetStack(nn.Module):
       the card;
     - "train" and "dx": kernels 2 and 3, built at student_iaf's and
       teacher_lj's widths (`ops/flow_stack.py::TRAIN_KERNEL_DIMS`);
-    - "layer" only where the config asks for it ("on" / "layer").
+    - "layer" only where the config asks for it ("on", "layer", "off").
     Widths no kernel is built for (the 40-mel tiny configs) run the plain
     versions on the CPU and raise on the card.  A dilation above 512 raises
-    in "infer" and "layer": the reference runs such a stack in XLA, which
-    is not ported.
+    in "infer" and "layer" (so also for "off", which the reference runs in
+    XLA at any dilation); no preset has one.
     """
 
     def __init__(self, dilations: Sequence[int], residual_channels: int,
@@ -178,8 +182,9 @@ class WaveNetStack(nn.Module):
         self.dilations = tuple(dilations)
         if mode in ("infer", "layer") and max(self.dilations) > TIME_TILE:
             raise NotImplementedError(
-                f"a dilation above {TIME_TILE} needs the reference's XLA "
-                "stack, which is not ported")
+                f"a dilation above {TIME_TILE} is taken by none of the "
+                "port's kernels (the reference runs such a stack only in "
+                "XLA)")
         self.dtype = dtype
         self.mode = mode
         self.skip_channels = S

@@ -2,10 +2,10 @@
 fp32 sizes: train-teacher -> distill-student (`--teacher-step auto`, an
 integer, live params) -> generate (student, teacher, `--dump-mel` /
 `--mel`, `--mel-dir`, `--source-dir`, `--chunk-frames`), train-student,
-eval against the reference's report, serve as a subprocess, and the
-refusals (`bench`, no card without `--device`).  Each command but serve
-runs in-process through `cli.main` with `--device cpu`, and writes what it
-prints.
+eval against the reference's report, serve as a subprocess, bench (its
+suite replaced by a recorder), and the refusal of a run without a card
+and without `--device`.  Each command but serve runs in-process through
+`cli.main` with `--device cpu`, and writes what it prints.
 """
 
 import contextlib
@@ -188,22 +188,38 @@ def test_generate_batch_mode(workdirs, tmp_path, mode):
         assert wav.shape == (n * 128,)
 
 
-@pytest.mark.parametrize("args,slice_name", [
-    (["bench"], "benchmark"),
+@pytest.mark.parametrize("args,want", [
+    (["bench"], ("student_iaf", {})),
+    (["bench", "tiny_teacher", "train.crop_samples=1024"],
+     ("tiny_teacher", {"train.crop_samples": "1024"})),
 ])
-def test_unported_parts_exit_non_zero(args, slice_name):
-    """Refused with a message naming the slice that ports them: nothing
-    runs a substitute."""
-    out, err = io.StringIO(), io.StringIO()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = cli.main(args)
-    assert rc != 0 and out.getvalue() == ""
-    assert "not ported" in err.getvalue() and slice_name in err.getvalue()
+def test_unported_parts_exit_non_zero(args, want, monkeypatch):
+    """Nothing of the reference's CLI is left unported: `bench [case]
+    [k=v ...]` hands the case (default student_iaf) and the overrides to
+    `benchmarks.run_bench` on the device asked for and prints its result
+    as one JSON line."""
+    from pwn_tpu_torch import benchmarks
+
+    calls = []
+
+    def fake(case, overrides, device):
+        calls.append((case, overrides, device))
+        return {"metric": "student_audio_sec_per_s_per_chip", "value": 1.0}
+
+    monkeypatch.setattr(benchmarks, "run_bench", fake)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([*args, "--device", "cpu"])
+    assert rc == 0 and calls == [(*want, torch.device("cpu"))]
+    lines = out.getvalue().splitlines()
+    assert len(lines) == 1 and json.loads(lines[0])["value"] == 1.0
+    assert not hasattr(cli, "UNPORTED")
 
 
 def test_no_card_is_an_error_not_the_cpu(tmp_path):
     """Without `--device` the CLI takes the CUDA card, and fails where
-    there is none; as a module it exits non-zero for a refused command."""
+    there is none, also as a module (`bench`, which would otherwise run
+    the suite)."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is taken")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -213,7 +229,8 @@ def test_no_card_is_an_error_not_the_cpu(tmp_path):
     proc = subprocess.run([sys.executable, "-m", "pwn_tpu_torch.cli", "bench"],
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=120)
-    assert proc.returncode == 2 and "benchmark slice" in proc.stderr
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+    assert proc.stdout == ""
 
 
 def test_generate_streaming_writes_the_sources_length(workdirs, tmp_path):

@@ -35,8 +35,8 @@ print(len(names), loaded)
 
 # modules that must be among those walked: the entry points, the workdir's,
 # the server's, the data engines, data parallelism, the model axis,
-# sharded synthesis and the dry run, which the machine with the card runs
-# without JAX
+# sharded synthesis, the dry run and the benchmark suite, which the machine
+# with the card runs without JAX
 REQUIRED = ("pwn_tpu_torch.cli", "pwn_tpu_torch.utils.checkpoint",
             "pwn_tpu_torch.utils.metrics", "pwn_tpu_torch.utils.tensorboard",
             "pwn_tpu_torch.utils.profiling", "pwn_tpu_torch.ops.norm",
@@ -47,7 +47,8 @@ REQUIRED = ("pwn_tpu_torch.cli", "pwn_tpu_torch.utils.checkpoint",
             "pwn_tpu_torch.data.native_loader",
             "pwn_tpu_torch.data.grain_pipeline",
             "pwn_tpu_torch.parallel.mesh", "pwn_tpu_torch.parallel.tp",
-            "pwn_tpu_torch.parallel.sp", "pwn_tpu_torch.dryrun")
+            "pwn_tpu_torch.parallel.sp", "pwn_tpu_torch.dryrun",
+            "pwn_tpu_torch.benchmarks")
 
 
 def _run(code_or_script, cwd, *args):

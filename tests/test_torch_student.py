@@ -185,12 +185,43 @@ def test_npz_round_trip(tmp_path, tiny_pair):
 
 
 @pytest.mark.parametrize("key,value", [
-    # the reference's XLA stack: refused, not run on another path
+    # the reference's XLA stack: once refused, now the per-layer kernel mode
     ("student.fused_layers", "off"),
 ])
-def test_unported_variants_raise(key, value):
-    with pytest.raises(NotImplementedError):
-        StudentIAF(override(TINY, key, value))
+def test_unported_variants_raise(key, value, rng):
+    """`"off"` builds every flow in mode "layer", and under autograd (the
+    layers' custom backward) a loss of the transform's outputs and its
+    gradient in every parameter match the JAX package's "off" on the same
+    converted weights at fp32: the loss within 1e-5 relative, each
+    gradient within 2e-3 of its norm (the gate of
+    tests/test_torch_gated_layer.py::test_teacher_trains_through_the_layer_kernel)."""
+    cfg = override(override(TINY, key, value), "student.n_flows", 2)
+    model, variables = jax_init_student(jax_config(cfg),
+                                        jax.random.PRNGKey(3), use_scan=False)
+    port = StudentIAF(cfg)
+    assert [f.mode for f in port.flows] == ["layer", "layer"]
+    port.load_state_dict(convert.params_from_flax(
+        jax.tree.map(np.asarray, variables)))
+    hop = cfg.dsp.hop_length
+    mel = rng.uniform(0, 1, (2, 6, cfg.dsp.n_mels)).astype(np.float32)
+    z = rng.logistic(0, 1, (2, 6 * hop)).astype(np.float32)
+
+    def loss_of(out, mean):
+        return mean(out.log_p_student) + mean(out.wav * out.mu_total)
+
+    want_loss, want = jax.jit(jax.value_and_grad(lambda p: loss_of(
+        model.apply({"params": p}, jnp.asarray(z), jnp.asarray(mel)),
+        jnp.mean)))(variables["params"])
+    want = convert.params_from_flax(jax.tree.map(np.asarray, want))
+    loss = loss_of(port(torch.from_numpy(z), torch.from_numpy(mel)),
+                   torch.mean)
+    names, params = zip(*port.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               rtol=1e-5)
+    assert set(names) == set(want)
+    for n, g in zip(names, grads):
+        assert float((g - want[n]).norm()) <= 2e-3 * float(want[n].norm()), n
 
 
 @pytest.mark.parametrize("kernel_size", [1, 3])

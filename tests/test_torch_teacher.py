@@ -234,8 +234,40 @@ def test_stack_mode_follows_the_config(flag, mode):
 
 
 @pytest.mark.parametrize("key,value", [
+    # the reference's XLA stack: once refused, now the per-layer kernel mode
     ("teacher.fused_layers", "off"),
 ])
-def test_unported_variants_raise(key, value):
-    with pytest.raises(NotImplementedError):
-        TeacherWaveNet(override(TINY, key, value))
+def test_unported_variants_raise(key, value, rng):
+    """`"off"` builds the teacher in mode "layer", and its loss and every
+    gradient match jax.grad of the JAX package's "off" on the same
+    converted weights at fp32: the loss within 1e-5 relative, each
+    gradient within 2e-3 of its norm (the gate of
+    tests/test_torch_gated_layer.py::test_teacher_trains_through_the_layer_kernel)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from pwn_tpu.models.teacher import init_teacher as jax_init_teacher
+    from pwn_tpu.training.teacher import prepare_batch as jax_prepare
+    from pwn_tpu_torch.training.teacher import prepare_batch
+
+    cfg = override(override(TINY, key, value), "teacher.n_blocks", 1)
+    jcfg = jax_config(cfg)
+    model, variables = jax_init_teacher(jcfg, jax.random.PRNGKey(4),
+                                        use_scan=False)
+    port = TeacherWaveNet(cfg)
+    assert port.stack.mode == "layer"
+    port.load_state_dict(convert.params_from_flax(
+        jax.tree.map(np.asarray, variables)))
+    wav = rng.uniform(-0.6, 0.6, (2, 1024)).astype(np.float32)
+    x, mel = jax_prepare(jnp.asarray(wav), jcfg)
+    want_loss, want = jax.jit(jax.value_and_grad(lambda p: model.apply(
+        {"params": p}, x, mel, method="loss")))(variables["params"])
+    want = convert.params_from_flax(jax.tree.map(np.asarray, want))
+    loss = port.loss(*prepare_batch(torch.from_numpy(wav), cfg))
+    names, params = zip(*port.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               rtol=1e-5)
+    assert set(names) == set(want)
+    for n, g in zip(names, grads):
+        assert float((g - want[n]).norm()) <= 2e-3 * float(want[n].norm()), n
