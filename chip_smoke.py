@@ -5,8 +5,9 @@ kernel's accumulate epilogue), teacher training, distillation and direct
 training of the student, teacher AR sampling, the command line, the
 streaming vocoder server, training from a wav directory on every data
 engine, data-parallel training, the model axis, batch-sharded and
-sequence-parallel synthesis and the benchmark suite once on one CUDA
-card.
+sequence-parallel synthesis, the 40-mel fp32 tiny_teacher through the
+general-width bodies of kernels 5 and 3, and the benchmark suite once on
+one CUDA card.
 
 Run from the repository root with no arguments:
 
@@ -136,6 +137,28 @@ Phases, each printing what it finds:
                `run_teacher_training(teacher_lj)` 3 steps on mesh 1 x 2 and
                2 x 1, bit-identical, and large_student_sharded's state bytes
                a rank under 1 x 2 against 1 x 1;
+  8f. tiny and fp32 — the general bodies of kernels 5 and 3
+               (`csrc/gated_layer_generic.cu`,
+               `csrc/flow_stack_train_generic.cu`): (a) each against its
+               plain version on the card per batch row, at the tiny
+               teacher's stack (dilations 1..16), the tiny student's flow
+               (1..512), student_iaf's and teacher_lj's widths in fp32,
+               the tiny widths in bf16 and the JAX kernel tests' shapes,
+               T in {1, 127, 1,003}, B up to 3: kernel 2's route (skip
+               and the saved inputs), the "layer" epilogue, kernel 3 in
+               both modes, bit-identical twice, dx / dcond equal across
+               modes; (b) tiny_teacher through the CLI in-process:
+               train-teacher 4 steps (kernel-4 dumps), distill-student 2
+               steps, generate from the student and the teacher, each
+               call's launches by body, and no CUDA tensor on a plain
+               version; (c) one tiny teacher step's loss and gradients and
+               one student generate_from_z on the card against the CPU;
+               (d) `run_bench("tiny_teacher", full=False)`, its canary
+               passed; (e) the general bodies' ms beside their fp32 bound
+               and the plain versions' at the tiny teacher's training
+               shape, the tiny student's 4 x 10 layers and student_iaf's
+               widths in fp32 at 8 x 44,032.  Phases 6, 6b, 7, 7b, 8b and
+               8c hold the general bodies' launches at 0;
   9. times   — each kernel's and its plain version's ms per call beside its
                bound (kernel 1 beside the kernel-5 chain on the same
                inputs; kernel 5 in both epilogues at both widths), end-to-end
@@ -439,6 +462,14 @@ def phase_build() -> None:
         _check(lib.pwn_flow_stack_smem_bytes(sum_d)
                == fs._kernel1_smem_bytes(sum_d),
                "kernel1_takes' shared-memory formula is not kernel 1's")
+    # so are the general bodies' limits (`generic_limits`)
+    for dims in ((64, 128, 64, 40), (128, 256, 128, 80), (16, 32, 16, 8),
+                 (300, 2, 1, 221)):
+        for backward in (False, True):
+            _check(lib.pwn_generic_smem_bytes(*dims, int(backward))
+                   == fs.generic_smem_bytes(*dims, backward),
+                   "generic_limits' shared-memory formula is not the "
+                   "general bodies'")
     log = _build.library_path().with_suffix(".log")
     for line in log.read_text().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
@@ -1013,15 +1044,15 @@ def phase_main(device, cfg=CFG, mode: str = "infer",
     _check(len(buckets) >= 2 and any(n % batch for n in buckets.values()),
            "the utterances must span two buckets and a ragged batch")
 
-    flow_stack.launches = 0
-    gated_layer.launches = 0
+    _reset_counts()
     outs = vocode_many(cfg, model, mels, seed=SEED, batch_size=batch,
                        bucket_frames=bucket)
     one = generate_student(cfg, model, mels[0][None],
                            torch.Generator(device=device).manual_seed(1))
     torch.cuda.synchronize()
     launches = {"flow_stack": flow_stack.launches,
-                "gated_layer": gated_layer.launches}
+                "gated_layer": gated_layer.launches,
+                "generic": _counts()["generic"]}
     sc = cfg.student
     n_flows, n_layers = sc.n_flows, sc.layers_per_flow
     per_generate = ({"flow_stack": n_flows, "gated_layer": 0}
@@ -1030,6 +1061,7 @@ def phase_main(device, cfg=CFG, mode: str = "infer",
                         sc.gate_channels, sc.skip_channels, cfg.dsp.n_mels)
                     else {"flow_stack": 0, "gated_layer": n_flows * n_layers})
     want = {k: v * (n_batches + 1) for k, v in per_generate.items()}
+    want["generic"] = 0  # bf16 at built widths: the wgmma bodies only
     _log(f"[main] {cfg.name}: vocode_many: {len(mels)} items in "
          f"{len(buckets)} buckets, {n_batches} device batches; "
          f"generate_student: 1 batch; launches {launches} "
@@ -1104,15 +1136,16 @@ def phase_layer_path(device) -> dict:
            f"fused_layers='layer' should build every flow in 'layer': {modes}")
     mel = mel_from_wav(cfg, _synthetic_wavs([1.0], cfg.dsp.sample_rate)[0],
                        device)
-    flow_stack.launches = 0
-    gated_layer.launches = 0
+    _reset_counts()
     wav = generate_student(cfg, model, mel[0].cpu().numpy()[None],
                            torch.Generator(device=device).manual_seed(1))
     torch.cuda.synchronize()
     launches = {"flow_stack": flow_stack.launches,
-                "gated_layer": gated_layer.launches}
+                "gated_layer": gated_layer.launches,
+                "generic": _counts()["generic"]}
     want = {"flow_stack": 0,
-            "gated_layer": cfg.student.n_flows * cfg.student.layers_per_flow}
+            "gated_layer": cfg.student.n_flows * cfg.student.layers_per_flow,
+            "generic": 0}
     _log(f"[main] {cfg.name} with fused_layers='layer': generate_student on "
          f"{mel.shape[1]} frames -> {wav.shape[0]} samples; launches "
          f"{launches} (want {want})")
@@ -1172,21 +1205,23 @@ def phase_teacher(device) -> dict:
     L = TEACHER.teacher.n_layers
     # kernel 2 launches nothing of its own: its kernel is kernel 5's
     # accumulate epilogue, one launch per layer, counted on gated_layer
-    fs.flow_stack_train_backward.launches = 0
-    gated_layer.launches = 0
+    _reset_counts()
     res = run_teacher_training(TEACHER, num_steps=n_steps)
     torch.cuda.synchronize()
     launches = {"kernel 2": gated_layer.launches,
-                "kernel 3": fs.flow_stack_train_backward.launches}
+                "kernel 3": fs.flow_stack_train_backward.launches,
+                "generic": _counts()["generic"]}
     _log(f"[teacher] run_teacher_training(teacher_lj, num_steps={n_steps}): "
          f"{res.final_metrics}; kernel 2: {launches['kernel 2']} kernel-5 "
          f"launches, kernel 3: {launches['kernel 3']} launches")
     _check(all(np.isfinite(v) for v in res.final_metrics.values()),
            "non-finite training metrics")
-    _check(launches == {"kernel 2": L * (n_steps + 1), "kernel 3": n_steps},
+    _check(launches == {"kernel 2": L * (n_steps + 1), "kernel 3": n_steps,
+                        "generic": 0},
            f"expected {L * (n_steps + 1)} kernel-5 launches ({n_steps + 1} "
-           f"forwards of {L} layers) and {n_steps} kernel-3 launches "
-           f"({n_steps} train steps and one eval)")
+           f"forwards of {L} layers), {n_steps} kernel-3 launches "
+           f"({n_steps} train steps and one eval), none of the general "
+           f"bodies")
 
     # 20 steps on one fixed batch.  At the configured lr (1e-3) the loss is
     # not monotone: the reference does the same (fp32 on the CPU, teacher_lj
@@ -1257,19 +1292,26 @@ WHY_DISTILL = ("bf16 compute through 4 flows of 10 layers, the teacher's 24 "
 def _reset_counts() -> None:
     """Every launch counter to 0: just before a main path is driven."""
     flow_stack.launches = gated_layer.launches = ar_sample.launches = 0
+    gated_layer.launches_by.clear()
     fs.flow_stack_train_backward.launches = 0
     fs.flow_stack_train_backward.launches_by.clear()
     fs.flow_stack_train_wgrads.launches = 0
 
 
 def _counts() -> dict:
+    """The launch counters; "generic" sums the general bodies' launches
+    (kernel 5's and kernel 3's), which "kernel 5" and "kernel 3" also
+    count."""
     by = fs.flow_stack_train_backward.launches_by
     return {"kernel 1": flow_stack.launches, "kernel 5": gated_layer.launches,
             "kernel 3": fs.flow_stack_train_backward.launches,
             "kernel 3 student": by[(CFG.student.residual_channels, True)],
             "kernel 3 teacher dx": by[(TEACHER.teacher.residual_channels,
                                        False)],
-            "kernel 4": ar_sample.launches}
+            "kernel 4": ar_sample.launches,
+            "generic": sum(v for k, v in gated_layer.launches_by.items()
+                           if k[0] == "generic")
+            + sum(v for k, v in by.items() if k[0] == "generic")}
 
 
 def _student_launches(cfg, steps: int, evals: int, teacher: bool) -> dict:
@@ -1286,7 +1328,8 @@ def _student_launches(cfg, steps: int, evals: int, teacher: bool) -> dict:
     return {"kernel 1": 0, "kernel 5": fwd * (steps + evals),
             "kernel 3": n * (sc.n_flows + passes) * steps,
             "kernel 3 student": n * sc.n_flows * steps,
-            "kernel 3 teacher dx": n * passes * steps, "kernel 4": 0}
+            "kernel 3 teacher dx": n * passes * steps, "kernel 4": 0,
+            "generic": 0}
 
 
 def _teacher_state(cfg, device) -> dict:
@@ -1492,7 +1535,7 @@ def _teacher_launches(steps: int, evals: int, dumps: int) -> dict:
     sample dump."""
     return {"kernel 1": 0, "kernel 5": TEACHER.teacher.n_layers * (steps + evals),
             "kernel 3": steps, "kernel 3 student": 0, "kernel 3 teacher dx": 0,
-            "kernel 4": dumps}
+            "kernel 4": dumps, "generic": 0}
 
 
 def _metrics(path: str) -> list:
@@ -1511,6 +1554,423 @@ def _dump_len(cfg) -> int:
     hop = cfg.dsp.hop_length
     n = max(hop * 4, int(cfg.train.eval_sample_seconds * cfg.dsp.sample_rate))
     return n // hop * hop
+
+
+# Phase 8f: the 40-mel tiny configuration and fp32 at every width, through
+# the general bodies of kernels 5 and 3 (csrc/gated_layer_generic.cu,
+# csrc/flow_stack_train_generic.cu).
+TINY = get_config("tiny_teacher")
+TINY_DIMS = (64, 128, 64, 40)
+TINY_TEACHER_DIL = TINY.teacher.dilations            # 1..16, twice
+TINY_FLOW_DIL = TINY.student.flow_dilations          # 1..512
+# (what, (C, G, S, M), dtype, dilations): the tiny teacher's stack, the tiny
+# student's flow, both preset widths in fp32, the tiny widths in bf16 and
+# the JAX kernel tests' shapes
+GENERIC_CASES = [
+    ("tiny teacher fp32", TINY_DIMS, torch.float32, TINY_TEACHER_DIL),
+    ("tiny student flow fp32", TINY_DIMS, torch.float32, TINY_FLOW_DIL),
+    ("tiny teacher bf16", TINY_DIMS, torch.bfloat16, TINY_TEACHER_DIL),
+    ("student_iaf widths fp32", (64, 128, 64, 80), torch.float32,
+     TINY_FLOW_DIL),
+    ("teacher_lj widths fp32", (128, 256, 128, 80), torch.float32,
+     TEACHER.teacher.dilations),
+    ("JAX shape (32, 64, 48, 16) fp32", (32, 64, 48, 16), torch.float32,
+     (1, 4, 64)),
+    ("JAX shape (32, 64, 48, 16) bf16", (32, 64, 48, 16), torch.bfloat16,
+     (1, 4, 64)),
+    ("JAX shape (16, 32, 16, 8) fp32", (16, 32, 16, 8), torch.float32,
+     (1, 512)),
+    ("JAX shape (16, 32, 16, 8) bf16", (16, 32, 16, 8), torch.bfloat16,
+     (1, 512)),
+]
+GENERIC_SHAPES = [(1, 1), (3, 127), (2, 1003)]
+# A general body against its plain version on the same card operands,
+# max|diff| / max|ref| per batch row (per tensor for dcond and the weight
+# gradients).  fp32: both sum exact fp32 products in fp32 in another order
+# and take libm's gates (TF32 off for the plain version), so 1e-4 of the
+# row's scale; a wrong tap, row or column is O(1).  bf16: the bf16 gates of
+# phases 4 and 5b (TOL_TRAIN, TOL_ACTS), the same rounding points.
+TOL_GENERIC = {torch.float32: 1e-4, torch.bfloat16: TOL_TRAIN}
+TOL_GENERIC_ACTS = {torch.float32: 1e-4, torch.bfloat16: TOL_ACTS}
+
+
+def _generic_inputs(dims, dtype, dilations, B: int, T: int, device,
+                    seed: int) -> dict:
+    """Stack operands in `flow_stack`'s layout and a skip cotangent, in
+    `_stack_inputs`' distribution, at any widths and dtype."""
+    C, G, S, M = dims
+    L = len(dilations)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def arr(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+
+    return dict(
+        x0=arr((B, T, C), 0.5), cond=arr((B, T, M), 0.5),
+        w_in=arr((L, G, 2 * C + M), (2 * C + M) ** -0.5),
+        b_g=arr((L, G), 0.1).float(),
+        w_out=arr((L, C + S, G // 2), (G // 2) ** -0.5),
+        b_rs=arr((L, C + S), 0.1).float(), dskip=arr((B, T, S), 1.0))
+
+
+def _generic_check(device) -> dict:
+    """(a) Each general body against its plain version on the card: kernel
+    2's route (kernel 5's accumulate epilogue per layer) per row for skip
+    and the saved inputs, kernel 5's "layer" epilogue per row, kernel 3 in
+    both modes (dx per row, dcond and each weight gradient per tensor);
+    two backward runs bit-identical, dx and dcond the same bits in both
+    modes.  Returns the max abs errors at fp32 of each body."""
+    fwd_err = bwd_err = 0.0
+    _reset_counts()
+    for what, dims, dt, dil in GENERIC_CASES:
+        worst = {}
+        for k, (B, T) in enumerate(GENERIC_SHAPES):
+            a = _generic_inputs(dims, dt, dil, B, T, device, seed=300 + k)
+            dskip = a.pop("dskip")
+            skip, acts = fs.flow_stack_train_forward(**a, dilations=dil)
+            ref_skip, ref_acts = fs.flow_stack_train_reference(
+                **a, dilations=dil)
+            top = [a[k][-1] for k in ("w_in", "b_g", "w_out", "b_rs")]
+            layer = gated_layer(a["x0"], a["cond"], *top, dil[-1])
+            ref_layer = gated_layer_reference(a["x0"], a["cond"], *top,
+                                              dil[-1])
+            rows = {"skip": _row_rel(skip, ref_skip),
+                    "acts": _row_rel(acts.transpose(0, 1),
+                                     ref_acts.transpose(0, 1)),
+                    "res": _row_rel(layer[0], ref_layer[0]),
+                    "layer skip": _row_rel(layer[1], ref_layer[1])}
+            bargs = (acts, a["cond"], a["w_in"], a["b_g"], a["w_out"], dskip)
+            outs = {}
+            for want in (True, False):
+                got = fs.flow_stack_train_backward(*bargs, dilations=dil,
+                                                   want_wgrads=want)
+                ref = fs.flow_stack_backward_reference(
+                    *bargs, dilations=dil, want_wgrads=want)
+                outs[want] = got
+                rows[f"dx{'' if want else ' (dx-only)'}"] = _row_rel(
+                    got[0], ref[0])
+                names = ("dcond", "dw_in", "db_g", "dw_out", "db_rs")
+                for name, g, r in zip(names, got[1:], ref[1:]):
+                    rows[name] = _row_rel(g[None], r[None])
+                if dt == torch.float32:
+                    bwd_err = max(bwd_err, float(
+                        (got[0].float() - ref[0].float()).abs().max()))
+            again = fs.flow_stack_train_backward(*bargs, dilations=dil)
+            _check(all(torch.equal(x, y) for x, y in zip(outs[True], again)),
+                   f"{what} {B} x {T}: two backward runs differ")
+            _check(torch.equal(outs[True][0], outs[False][0])
+                   and torch.equal(outs[True][1], outs[False][1]),
+                   f"{what} {B} x {T}: dx / dcond differ between the modes")
+            if dt == torch.float32:
+                fwd_err = max(fwd_err, float(
+                    (skip.float() - ref_skip.float()).abs().max()))
+            for name, r in rows.items():
+                tol = (TOL_GENERIC_ACTS if name == "acts" else TOL_GENERIC)[dt]
+                _check((r <= tol).all(),
+                       f"{what} {B} x {T}: {name} rows {r} above {tol}")
+                worst[name] = max(worst.get(name, 0.0), float(r.max()))
+        _log(f"[generic] {what} {dims}, {len(dil)} layers, shapes "
+             f"{GENERIC_SHAPES}: worst row rel " + ", ".join(
+                 f"{k} {v:.2e}" for k, v in worst.items())
+             + f" (tol {TOL_GENERIC[dt]}, acts {TOL_GENERIC_ACTS[dt]}); "
+             "backward bit-identical twice, dx / dcond equal across modes")
+    torch.cuda.synchronize()
+    got = _counts()
+    _check(got["kernel 1"] == 0 and got["generic"] == got["kernel 5"]
+           + got["kernel 3"] > 0,
+           f"the general bodies ran alone in (a): {got}")
+    return {"fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err}
+
+
+@contextlib.contextmanager
+def _plain_on_card():
+    """Count the calls of the plain versions the kernel wrappers take for
+    CPU tensors that get a CUDA tensor (the list yielded): such a call
+    would be a CUDA tensor on a plain version, which the route forbids."""
+    from pwn_tpu_torch.ops import ar_sampler
+    from pwn_tpu_torch.ops import gated_layer as gl
+
+    hits, saved = [], []
+    for mod, name in ((fs, "layer_out"), (gl, "layer_out"),
+                      (fs, "flow_stack_backward_reference"),
+                      (ar_sampler, "ar_sample_reference")):
+        fn = getattr(mod, name)
+
+        def shim(*a, _fn=fn, _name=name, **k):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda
+                   for t in (*a, *k.values())):
+                hits.append(_name)
+            return _fn(*a, **k)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, shim)
+    try:
+        yield hits
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _tiny_launches(teacher_steps: int = 0, teacher_evals: int = 0,
+                   ar: int = 0, student_steps: int = 0,
+                   student_evals: int = 0, student_gens: int = 0) -> dict:
+    """tiny_teacher's launches, every one of kernels 5 and 3 on the general
+    bodies: the teacher's 10 layers once per training forward (steps and
+    evals) and kernel 3 once a step; a distillation step's forward of the
+    4 x 10 student layers and the teacher's 10, and the student's 4
+    kernel-3 calls with weight gradients and the teacher's dx-only one;
+    each student generation (a sample dump too) 40 accumulate launches;
+    kernel 4 once a teacher dump or generation; kernel 1 never."""
+    sc, L = TINY.student, TINY.teacher.n_layers
+    per_gen = sc.n_flows * sc.layers_per_flow
+    k5 = (L * (teacher_steps + teacher_evals)
+          + (per_gen + L) * (student_steps + student_evals)
+          + per_gen * student_gens)
+    k3 = teacher_steps + (sc.n_flows + 1) * student_steps
+    return {"kernel 1": 0, "kernel 5": k5, "kernel 3": k3,
+            "kernel 3 student": 0, "kernel 3 teacher dx": 0, "kernel 4": ar,
+            "generic": k5 + k3}
+
+
+def _tiny_cli(root: str) -> dict:
+    """(b) tiny_teacher through the CLI in-process with workdirs under
+    `root`: train-teacher 4 steps (kernel-4 dumps at 2 and 4),
+    distill-student 2 steps (a student dump at 2), generate from the
+    student and from the teacher; each call's launches by body, and no
+    CUDA tensor on a plain version.  Returns the launches of all four."""
+    tw, sw = os.path.join(root, "tiny_teacher"), os.path.join(root,
+                                                               "tiny_student")
+    hop, sr = TINY.dsp.hop_length, TINY.dsp.sample_rate
+    total = {}
+    calls = [
+        (_tiny_launches(teacher_steps=4, teacher_evals=2, ar=2),
+         "tiny train-teacher 4 steps",
+         ["train-teacher", "tiny_teacher", "--workdir", tw, "--steps", "4",
+          *WORKDIR_OVERRIDES], "teacher done: 4 steps"),
+        (_tiny_launches(student_steps=2, student_evals=1, student_gens=1),
+         "tiny distill-student 2 steps",
+         ["distill-student", "tiny_teacher", "--teacher-workdir", tw,
+          "--steps", "2", "--workdir", sw, "train.checkpoint_every=2"],
+         "student done: 2 steps"),
+        (_tiny_launches(student_gens=1), "tiny generate student 1 s",
+         ["generate", "tiny_teacher", "--workdir", sw, "--seconds", "1",
+          "--output", os.path.join(root, "tiny_s.wav")], None),
+        (_tiny_launches(ar=1), "tiny generate --model teacher 0.25 s",
+         ["generate", "tiny_teacher", "--model", "teacher", "--workdir", tw,
+          "--seconds", "0.25", "--output", os.path.join(root, "tiny_t.wav")],
+         None),
+    ]
+    with _plain_on_card() as hits:
+        for want, what, args, line in calls:
+            out = _driven(want, what, *args)
+            _check(line is None or line in out, f"{what}: {line!r} missing")
+            for k, v in want.items():
+                total[k] = total.get(k, 0) + v
+    _check(not hits, f"a CUDA tensor reached a plain version: {hits}")
+    dumps = sorted(os.listdir(os.path.join(tw, "samples")))
+    s_dumps = sorted(os.listdir(os.path.join(sw, "samples")))
+    _check(dumps == ["step_00000002.wav", "step_00000004.wav"]
+           and s_dumps == ["step_00000002.wav"],
+           f"the tiny dumps: teacher {dumps}, student {s_dumps}")
+    for name, secs in (("tiny_s.wav", 1.0), ("tiny_t.wav", 0.25)):
+        wav, got_sr = read_wav(os.path.join(root, name))
+        _check(got_sr == sr and wav.shape == (int(secs * sr) // hop * hop,)
+               and np.isfinite(wav).all(), f"{name}: {wav.shape}")
+    _log(f"[tiny] the CLI on tiny_teacher: every launch of kernels 5 and 3 "
+         f"on the general bodies ({total['generic']} in all), none of the "
+         f"wgmma bodies or kernel 1; no plain version got a CUDA tensor "
+         f"({len(hits)} calls); dumps {dumps} / {s_dumps}")
+    return total
+
+
+# One tiny_teacher training step and one student generation, fp32 on the
+# card (the general bodies) against the same model and batch in fp32 on the
+# CPU (the plain versions).  Both are fp32 with TF32 off; only summation
+# order and libm ulps part them.  The first H100 run gave 8.1e-8 (loss,
+# relative), 1.5e-7 (all the teacher's gradients, relative L2) and 1.0e-6
+# (the student's audio, relative L2, four flows of exp(log_s) carrying each
+# ulp); the bounds are ~100x those and far below the O(1) of a wrong tap,
+# head or rounding point.
+TOL_TINY_LOSS = 1e-5
+TOL_TINY_GRADS = 1e-5
+TOL_TINY_E2E = 1e-4
+
+
+def _tiny_vs_cpu(device) -> None:
+    """(c) One tiny teacher step's loss and gradients, and one tiny student
+    `generate_from_z`, on the card against the CPU."""
+    model = init_teacher(TINY, torch.Generator().manual_seed(SEED + 20),
+                         stack_mode="train", device=device)
+    cpu = TeacherWaveNet(TINY, stack_mode="train")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    wav = torch.from_numpy(make_val_batch(TINY, None, 2)).to(device)
+    out = []
+    for m, w in ((model, wav), (cpu, wav.cpu())):
+        loss = m.loss(*prepare_batch(w, TINY))
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        out.append((float(loss.detach()), torch.cat(
+            [g.float().cpu().flatten() for g in grads])))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out
+    rel_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    rel_grads = float((g_gpu - g_cpu).norm() / g_cpu.norm())
+
+    student = init_student(TINY, torch.Generator().manual_seed(SEED + 21),
+                           device).eval()
+    s_cpu = StudentIAF(TINY)
+    s_cpu.load_state_dict({k: v.cpu() for k, v in student.state_dict()
+                           .items()})
+    s_cpu.eval()
+    mel = mel_from_wav(TINY, _synthetic_wavs([1.0], TINY.dsp.sample_rate)[0],
+                       "cpu")
+    z = sample_base_noise(TINY, torch.Generator().manual_seed(5),
+                          (1, mel.shape[1] * TINY.dsp.hop_length))
+    with torch.inference_mode():
+        w_gpu = student.generate_from_z(z.to(device), mel.to(device)).cpu()
+        w_cpu = s_cpu.generate_from_z(z, mel)
+    e2e = float((w_gpu - w_cpu).norm() / w_cpu.norm())
+    _log(f"[tiny] one teacher step on {tuple(wav.shape)}, card fp32 (general "
+         f"bodies) vs CPU fp32: loss {l_gpu:.7f} vs {l_cpu:.7f} (rel "
+         f"{rel_loss:.2e}, tol {TOL_TINY_LOSS}); all gradients rel L2 "
+         f"{rel_grads:.2e} (tol {TOL_TINY_GRADS}); student generate_from_z "
+         f"on {mel.shape[1]} frames rel L2 {e2e:.2e} (tol {TOL_TINY_E2E}), "
+         f"finite {bool(torch.isfinite(w_gpu).all())}")
+    _check(rel_loss <= TOL_TINY_LOSS and rel_grads <= TOL_TINY_GRADS,
+           "the tiny teacher step on the card is off the CPU's")
+    _check(e2e <= TOL_TINY_E2E and torch.isfinite(w_gpu).all(),
+           "the tiny student on the card is off the CPU's")
+
+
+def _tiny_bench(device) -> None:
+    """(d) `run_bench("tiny_teacher", full=False)`: no error, the kernel
+    canary passed on the card (at the tiny student's widths in fp32, so
+    through the general bodies), the general bodies launched."""
+    from pwn_tpu_torch import benchmarks
+
+    _reset_counts()
+    out = benchmarks.run_bench("tiny_teacher", full=False, device=device)
+    torch.cuda.synchronize()
+    got = _counts()
+    d = out["detail"]
+    kc = d["kernel_check"]
+    _log(f"[tiny] run_bench(tiny_teacher, full=False): value {out['value']} "
+         f"{out['unit']}; canary rows gen {kc.get('gen_row_rel_err')}, "
+         f"train dx {kc.get('train_dx_row_rel_err')}, AR "
+         f"{kc.get('ar_row_abs_diff')} (thresholds {kc.get('thresholds')}); "
+         f"MFU {d['mfu']}; launches {got}")
+    _check("error" not in out, f"tiny bench: {out.get('error')}")
+    _check(kc.get("pass") is True, f"tiny bench: kernel canary {kc}")
+    _check(out["value"] > 0 and got["generic"] > 0 and got["kernel 1"] == 0,
+           f"tiny bench: value {out['value']}, launches {got}")
+
+
+def _stack_flop(dims, L: int, rows: int, backward: bool, wgrads: bool):
+    """Multiply-adds x 2 of L layers over `rows` samples: the forward's two
+    products, or the backward's gates recomputed, dz and dcat (and with
+    weight gradients dW_in and dW_out with their bias columns)."""
+    C, G, S, M = dims
+    K = 2 * C + M
+    mac = K * G + (C + S) * (G // 2)
+    if backward:
+        mac += G * K + (G * (K + 1) + (C + S) * (G // 2 + 1) if wgrads else 0)
+    return 2.0 * mac * L * rows
+
+
+def _tiny_times(device, smi: str) -> dict:
+    """(e) The general bodies' ms (CUDA events over back-to-back calls,
+    and replayed from a CUDA graph) beside their bounds (fp32 on the CUDA
+    cores at PEAK_FP32) and the plain versions' ms, at the tiny teacher's
+    training shape, the tiny student's 4 x 10 layers and student_iaf's
+    widths in fp32 at the headline inference shape.  Timing launches are
+    not the main path's: the counters are put back."""
+    counted = _counts()
+    by = (gated_layer.launches_by.copy(),
+          fs.flow_stack_train_backward.launches_by.copy())
+    res = {}
+    cases = [("tiny teacher training, 1 x 16,000, 10 layers", TINY_DIMS,
+              TINY_TEACHER_DIL, 1, 16000, 1, 20),
+             ("tiny student, 4 flows x 10 layers, 1 x 16,000", TINY_DIMS,
+              TINY_FLOW_DIL, 1, 16000, 4, 10),
+             ("student_iaf widths in fp32, one flow, 8 x 44,032",
+              (64, 128, 64, 80), TINY_FLOW_DIL, 8, 44032, 1, 3)]
+    for what, dims, dil, B, T, flows, n in cases:
+        a = _generic_inputs(dims, torch.float32, dil, B, T, device, seed=400)
+        dskip = a.pop("dskip")
+        _, acts = fs.flow_stack_train_forward(**a, dilations=dil)
+        bargs = (acts, a["cond"], a["w_in"], a["b_g"], a["w_out"], dskip)
+
+        def fwd():
+            for _ in range(flows):
+                fs.flow_stack_train_forward(**a, dilations=dil)
+
+        def fwd_plain():
+            for _ in range(flows):
+                fs.flow_stack_train_reference(**a, dilations=dil)
+
+        def bwd(want=True):
+            for _ in range(flows):
+                fs.flow_stack_train_backward(*bargs, dilations=dil,
+                                             want_wgrads=want)
+
+        def bwd_plain():
+            for _ in range(flows):
+                fs.flow_stack_backward_reference(*bargs, dilations=dil)
+
+        with torch.no_grad():
+            for fn in (fwd, fwd_plain, bwd, bwd_plain):
+                fn()
+            ms = {"fwd": _time_ms(fwd, n), "fwd_plain": _time_ms(fwd_plain, n),
+                  "bwd": _time_ms(bwd, n), "bwd_dx": _time_ms(
+                      lambda: bwd(False), n),
+                  "bwd_plain": _time_ms(bwd_plain, n),
+                  "fwd_graph": _graph_ms(fwd, n), "bwd_graph": _graph_ms(bwd, n)}
+        # bytes: each input read once, each output written once (fp32, so
+        # dx, dcond and the weight gradients are the sizes of x0, cond and
+        # the weights; skip is dskip's)
+        L, rows = len(dil) * flows, B * T
+        weights = [a[k] for k in ("w_in", "b_g", "w_out", "b_rs")]
+        f_bound = _bound(_stack_flop(dims, L, rows, False, False),
+                         flows * _nbytes(a["x0"], a["cond"], *weights, acts,
+                                         dskip), PEAK_FP32)
+        b_bound = _bound(_stack_flop(dims, L, rows, True, True),
+                         flows * (_nbytes(acts, a["cond"], dskip, *weights)
+                                  + _nbytes(a["x0"], a["cond"], *weights)),
+                         PEAK_FP32)
+        _log(f"[tiny times] {smi}: {what}: kernel 5 (kernel 2's route) "
+             f"{ms['fwd']:.3f} ms (graph {ms['fwd_graph']:.3f}), plain "
+             f"{ms['fwd_plain']:.3f} ms, bound {f_bound['bound_ms']:.3f} ms "
+             f"({f_bound['bound_by']}); kernel 3 with weight gradients "
+             f"{ms['bwd']:.3f} ms (graph {ms['bwd_graph']:.3f}), dx-only "
+             f"{ms['bwd_dx']:.3f} ms, plain {ms['bwd_plain']:.3f} ms, bound "
+             f"{b_bound['bound_ms']:.3f} ms ({b_bound['bound_by']})")
+        # the kernels line keeps the graph's device time, as phase 9 does
+        # for kernels 2 and 3: at the tiny shape the host's work per launch
+        # outlasts a 0.1 ms layer
+        res[what] = {"fwd": {"ms": ms["fwd_graph"],
+                             "plain_ms": ms["fwd_plain"], **f_bound},
+                     "bwd": {"ms": ms["bwd_graph"],
+                             "plain_ms": ms["bwd_plain"], **b_bound}}
+    torch.cuda.synchronize()
+    (flow_stack.launches, gated_layer.launches,
+     fs.flow_stack_train_backward.launches) = (
+        counted["kernel 1"], counted["kernel 5"], counted["kernel 3"])
+    gated_layer.launches_by, fs.flow_stack_train_backward.launches_by = by
+    return res[cases[0][0]]
+
+
+def phase_tiny(device, smi: str, root: str) -> dict:
+    """Phase 8f: tiny_teacher (40 mel bands, fp32) end to end on the card,
+    and fp32 at the presets' widths, through the general bodies of kernels
+    5 and 3: (a) each body against its plain version, (b) the CLI, (c) a
+    step and a generation against the CPU, (d) the bench, (e) times."""
+    t0 = time.perf_counter()
+    errs = _generic_check(device)
+    launches = _tiny_cli(root)
+    _tiny_vs_cpu(device)
+    _tiny_bench(device)
+    times = _tiny_times(device, smi)
+    _log(f"[tiny] phase 8f took {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "times": times, **errs}
 
 
 def _check_resumed(resumed: str, whole: str, step: int, what: str) -> None:
@@ -1891,7 +2351,7 @@ def phase_serve(device, smi: str, student_workdir: str) -> None:
                           (1, F * hop))
     got = _stream_vs_whole(cfg, model, mel, z, TOL_E2E)
     _check(got["kernel 1"] == cfg.student.n_flows * n_windows
-           and got["kernel 5"] == 0,
+           and got["kernel 5"] == got["generic"] == 0,
            f"expected {cfg.student.n_flows * n_windows} kernel-1 launches, "
            "none of kernel 5")
 
@@ -1923,7 +2383,8 @@ def phase_serve(device, smi: str, student_workdir: str) -> None:
         _check(out.shape == (B, CT), f"engine output {tuple(out.shape)}")
         _check(err <= TOL_STREAM, f"engine rows at B={B} off their windows")
         _check(got["kernel 1"] == cfg.student.n_flows * (1 + B)
-               and got["kernel 5"] == 0, "engine window launches")
+               and got["kernel 5"] == got["generic"] == 0,
+               "engine window launches")
 
     # 3. HTTP in-process: the service with its batch engine
     service = VocoderService(cfg, model, chunk_frames=CHUNK_FRAMES,
@@ -2181,7 +2642,8 @@ def _serve_large(device) -> None:
                           (1, F * hop))
     got = _stream_vs_whole(cfg, model, mel, z, TOL_E2E_LARGE)
     per = cfg.student.n_flows * cfg.student.layers_per_flow
-    _check(got["kernel 5"] == per * n_windows and got["kernel 1"] == 0,
+    _check(got["kernel 5"] == per * n_windows
+           and got["kernel 1"] == got["generic"] == 0,
            f"expected {per * n_windows} kernel-5 launches ({per} a window), "
            "none of kernel 1")
 
@@ -3477,6 +3939,7 @@ def main() -> int:
         phase_serve(device, smi, os.path.join(root, "student"))
         phase_data(device, smi, root)
         phase_mesh(device, smi, root)
+        tiny = phase_tiny(device, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase9: dict = {}
@@ -3548,6 +4011,23 @@ def main() -> int:
         "replaces": "pwn_tpu/ops/pallas/gated_layer.py:42",
         "launches": large_path["launches"]["gated_layer"],
         "max_abs_err": acc_kern["max_abs_err"], **layer_times,
+        "library_ms": None,
+    }, {
+        # the general bodies on tiny_teacher's main path (phase 8f's CLI
+        # run), timed at its training shape: the 10-layer forward and the
+        # backward with weight gradients
+        "name": "gated_layer_generic", "route": "cuda",
+        "source": "pwn_tpu_torch/csrc/gated_layer_generic.cu",
+        "replaces": "pwn_tpu/ops/pallas/gated_layer.py:42",
+        "launches": tiny["launches"]["kernel 5"],
+        "max_abs_err": tiny["fwd_max_abs_err"], **tiny["times"]["fwd"],
+        "library_ms": None,
+    }, {
+        "name": "flow_stack_train_backward_generic", "route": "cuda",
+        "source": "pwn_tpu_torch/csrc/flow_stack_train_generic.cu",
+        "replaces": "pwn_tpu/ops/pallas/flow_stack.py:420",
+        "launches": tiny["launches"]["kernel 3"],
+        "max_abs_err": tiny["bwd_max_abs_err"], **tiny["times"]["bwd"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

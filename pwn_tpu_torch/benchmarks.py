@@ -843,8 +843,8 @@ def _launch_counts() -> Dict[str, int]:
     by = fs.flow_stack_train_backward.launches_by
     return {"kernel 1": fs.flow_stack.launches,
             "kernel 5": gated_layer.launches,
-            "kernel 3": sum(v for (_, w), v in by.items() if w),
-            "kernel 3 dx-only": sum(v for (_, w), v in by.items() if not w),
+            "kernel 3": sum(v for k, v in by.items() if k[-1]),
+            "kernel 3 dx-only": sum(v for k, v in by.items() if not k[-1]),
             "kernel 4": ar_sample.launches}
 
 

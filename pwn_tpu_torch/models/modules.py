@@ -161,13 +161,16 @@ class WaveNetStack(nn.Module):
     kernels:
     - "infer": `flow_stack` picks kernel 1 or kernel 5's accumulate loop on
       the card;
-    - "train" and "dx": kernels 2 and 3, built at student_iaf's and
-      teacher_lj's widths (`ops/flow_stack.py::TRAIN_KERNEL_DIMS`);
+    - "train" and "dx": kernels 2 and 3;
     - "layer" only where the config asks for it ("on", "layer", "off").
-    Widths no kernel is built for (the 40-mel tiny configs) run the plain
-    versions on the CPU and raise on the card.  A dilation above 512 raises
-    in "infer" and "layer" (so also for "off", which the reference runs in
-    XLA at any dilation); no preset has one.
+    Kernels 5 and 3 (and so 2) run bf16 at student_iaf's and teacher_lj's
+    widths (`ops/flow_stack.py::TRAIN_KERNEL_DIMS`) on their wgmma bodies,
+    and every other width and fp32 (the 40-mel tiny configs, any preset
+    with compute_dtype float32) on their general bodies
+    (`ops/flow_stack.py::kernel_body`); kernel 1 is bf16 at student_iaf's
+    widths only.  On the CPU every mode runs the plain versions.  A
+    dilation above 512 raises in "infer" and "layer" (so also for "off",
+    which the reference runs in XLA at any dilation); no preset has one.
     """
 
     def __init__(self, dilations: Sequence[int], residual_channels: int,

@@ -22,7 +22,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "flow_stack.cu", CSRC / "flow_stack_train.cu",
-           CSRC / "ar_sampler.cu", CSRC / "gated_layer.cu")
+           CSRC / "ar_sampler.cu", CSRC / "gated_layer.cu",
+           CSRC / "gated_layer_generic.cu",
+           CSRC / "flow_stack_train_generic.cu")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -165,6 +167,34 @@ def load_library() -> ctypes.CDLL:
                                        # last, stream
     ]
     lib.pwn_gated_layer_acc_bf16.restype = i
+    lib.pwn_generic_smem_bytes.argtypes = [i] * 5  # C, G, S, M, backward
+    lib.pwn_generic_smem_bytes.restype = ctypes.c_longlong
+    lib.pwn_gated_layer_generic.argtypes = [
+        p, p, p, p, p, p, p, p,        # x, cond, w_in, b_g, w_out, b_out, res,
+                                       # skip
+        i, i, i, i, i, i, i, i, p,     # B, T, C, G, S, M, dilation, is_bf16,
+                                       # stream
+    ]
+    lib.pwn_gated_layer_generic.restype = i
+    lib.pwn_gated_layer_acc_generic.argtypes = [
+        p, p, p, p, p, p, p, p, p,     # x, cond, w_in, b_g, w_out, b_rs, res,
+                                       # skip_acc, skip
+        i, i, i, i, i, i, i, i, i, i,  # B, T, C, G, S, M, dilation, first,
+        p,                             # last, is_bf16, stream
+    ]
+    lib.pwn_gated_layer_acc_generic.restype = i
+    lib.pwn_flow_stack_train_bwd_generic.argtypes = [
+        p, p, p, p, p, p,              # acts, cond, dskip, w_in, b_g, w_out
+        p, p, p, p, p, p, p,           # dx, dcond, dw_in, db_g, dw_out,
+                                       # db_rs, workspace
+        i, i, i, i, i, i, i,           # B, T, L, C, G, S, M
+        ctypes.POINTER(ctypes.c_int),  # dilations
+        i, i, i, p,                    # want_wgrads, SM count, is_bf16, stream
+    ]
+    lib.pwn_flow_stack_train_bwd_generic.restype = i
+    lib.pwn_flow_stack_train_bwd_generic_workspace_bytes.argtypes = [i] * 9
+    lib.pwn_flow_stack_train_bwd_generic_workspace_bytes.restype = \
+        ctypes.c_longlong
     lib.pwn_cuda_error_string.argtypes = [i]
     lib.pwn_cuda_error_string.restype = ctypes.c_char_p
     return lib

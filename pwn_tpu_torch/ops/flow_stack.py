@@ -2,19 +2,27 @@
 CUDA kernels (counterpart of `pwn_tpu/ops/pallas/flow_stack.py`).
 
 Inference (`fused_flow_stack`):  `flow_stack` -> `csrc/flow_stack.cu`
-(kernel 1, student widths), or at the other widths kernel 5's accumulate
-epilogue once per layer (`csrc/gated_layer.cu`, through
-`ops/gated_layer.py::flow_stack_by_layers`).
+(kernel 1, student widths in bf16), or elsewhere kernel 5's accumulate
+epilogue once per layer (through `ops/gated_layer.py::
+flow_stack_by_layers`).
 Training (`fused_flow_stack_train` / `fused_flow_stack_score`):
 `flow_stack_train` / `flow_stack_score`, a `torch.autograd.Function`
 whose forward is `flow_stack_train_forward` (kernel 2, which also saves
 every layer's input: kernel 5's accumulate epilogue once per layer,
-`csrc/gated_layer.cu` through `ops/gated_layer.py::
-flow_stack_train_by_layers`) and whose backward is
-`flow_stack_train_backward` (kernel 3, with or without the weight
-gradients, `csrc/flow_stack_train.cu`; its weight-gradient GEMM alone is
-`flow_stack_train_wgrads`).  Kernels 2 and 3 take student_iaf's and
-teacher_lj's widths (`TRAIN_KERNEL_DIMS`).
+through `ops/gated_layer.py::flow_stack_train_by_layers`) and whose
+backward is `flow_stack_train_backward` (kernel 3, with or without the
+weight gradients; its weight-gradient GEMM alone, bf16 at the wgmma
+widths, is `flow_stack_train_wgrads`).
+
+Kernels 5 and 3 each have two CUDA bodies, and `kernel_body` picks one
+from the operand dtype and the widths alone:
+* "wgmma" (`csrc/gated_layer.cu`, `csrc/flow_stack_train.cu`): bf16 at
+  student_iaf's and teacher_lj's widths (`TRAIN_KERNEL_DIMS`);
+* "generic" (`csrc/gated_layer_generic.cu`,
+  `csrc/flow_stack_train_generic.cu`): fp32 or bf16 at any other width
+  within `generic_limits` (the 40-mel tiny configs, every preset run in
+  fp32), products and gates in fp32 FMAs on the CUDA cores.
+A dtype or width neither takes raises ValueError.
 
 `flow_stack` takes the stacked layout of `WaveNetStack.stacked()`:
     x0    (B, T, C)        compute dtype, the front 1x1 output
@@ -66,6 +74,63 @@ TRAIN_KERNEL_DIMS = ((64, 128, 64, 80), (128, 256, 128, 80))
 # and the per-layer rings of sum(d) rows in 128-byte rows (C bf16), a
 # 128-row cond tile of M + 8 bf16, and six 8-byte barriers.
 SMEM_PER_BLOCK = 232_448
+# The general bodies' tile (csrc/generic.cuh): 64 rows a block, held in
+# shared memory as fp32 [k][row] tiles of 68-float rows, and one weight
+# slice of 32 such rows.
+GENERIC_ROW_BYTES, GENERIC_SLICE_ROWS = 68 * 4, 32
+GENERIC_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def generic_smem_bytes(C: int, G: int, S: int, M: int,
+                       backward: bool = False) -> int:
+    """Shared memory of a general body's block at these widths
+    (`gen::smem_bytes` in csrc/generic.cuh): the tiles [x | tap | cond]
+    (2C + M rows) and z (G/2), in the backward also dout then dg
+    (max(C + S, G)), and the weight slice."""
+    rows = 2 * C + M + G // 2 + (max(C + S, G) if backward else 0)
+    return (rows + GENERIC_SLICE_ROWS) * GENERIC_ROW_BYTES
+
+
+def generic_limits(dtype, C: int, G: int, S: int, M: int,
+                   backward: bool = False) -> str | None:
+    """Why the general bodies (kernel 5's forward, or with `backward`
+    kernel 3's) do not take this dtype and these widths, or None where they
+    do: float32 or bfloat16 operands; C, S, M >= 1; an even G >= 2; and
+    `generic_smem_bytes` within a block's SMEM_PER_BLOCK, which is
+    2C + M + G/2 (+ max(C + S, G) backward) <= 822."""
+    if dtype not in GENERIC_DTYPES:
+        return f"the general bodies take float32 or bfloat16, got {dtype}"
+    if min(C, S, M) < 1 or G < 2 or G % 2:
+        return (f"the general bodies take C, S, M >= 1 and an even G >= 2, "
+                f"got (C, G, S, M) = {(C, G, S, M)}")
+    need = generic_smem_bytes(C, G, S, M, backward)
+    if need > SMEM_PER_BLOCK:
+        return (f"the general {'backward' if backward else 'forward'} body "
+                f"needs {need} bytes of shared memory at (C, G, S, M) = "
+                f"{(C, G, S, M)}, more than a block's {SMEM_PER_BLOCK}: it "
+                f"takes 2C + M + G/2{' + max(C + S, G)' if backward else ''}"
+                f" <= {SMEM_PER_BLOCK // GENERIC_ROW_BYTES - GENERIC_SLICE_ROWS}")
+    return None
+
+
+def kernel_body(dtype, C: int, G: int, S: int, M: int,
+                backward: bool = False) -> str:
+    """Which CUDA body a call of kernel 5 (the forward layer, also kernel
+    2's route) or, with `backward`, kernel 3 reaches: "wgmma" for bf16 at
+    the widths those bodies are built for (`TRAIN_KERNEL_DIMS`, kernel 5's
+    too), "generic" for fp32 or bf16 within `generic_limits`.  Anything
+    else raises ValueError naming both bodies' limits.  The dtype and the
+    widths alone decide, so the answer is the same on the CPU and on the
+    card; it is a route, never a fallback: a bf16 call at a built width
+    never reaches the general body."""
+    if dtype == torch.bfloat16 and (C, G, S, M) in TRAIN_KERNEL_DIMS:
+        return "wgmma"
+    why = generic_limits(dtype, C, G, S, M, backward)
+    if why:
+        raise ValueError(f"no kernel body takes {dtype} at (C, G, S, M) = "
+                         f"{(C, G, S, M)}: the wgmma bodies take bfloat16 "
+                         f"at {list(TRAIN_KERNEL_DIMS)}, and {why}")
+    return "generic"
 
 
 def _kernel1_smem_bytes(sum_d: int) -> int:
@@ -76,15 +141,16 @@ def _kernel1_smem_bytes(sum_d: int) -> int:
 
 
 def kernel1_takes(dilations: Sequence[int], C: int, G: int, S: int,
-                  M: int) -> bool:
-    """Whether kernel 1 takes a stack of these widths and dilations: its
-    compiled widths, at most 32 layers, a largest dilation of at most 512
-    (the reference's one-tile bound) and rings that fit a block's shared
-    memory.  It picks the kernel of an inference stack, not its rounding:
-    where it does not hold, `flow_stack` runs kernel 5's accumulate loop.
-    Widths and dilations alone decide, so the answer is the same on the CPU
-    and on the card."""
-    return ((C, G, S, M) == KERNEL_DIMS and 1 <= len(dilations) <= 32
+                  M: int, dtype=torch.bfloat16) -> bool:
+    """Whether kernel 1 takes a stack of these widths, dilations and
+    operand dtype: bf16 at its compiled widths, at most 32 layers, a
+    largest dilation of at most 512 (the reference's one-tile bound) and
+    rings that fit a block's shared memory.  It picks the kernel of an
+    inference stack, not its rounding: where it does not hold, `flow_stack`
+    runs kernel 5's accumulate loop.  Dtype, widths and dilations alone
+    decide, so the answer is the same on the CPU and on the card."""
+    return (dtype == torch.bfloat16 and (C, G, S, M) == KERNEL_DIMS
+            and 1 <= len(dilations) <= 32
             and max(dilations) <= 512
             and _kernel1_smem_bytes(sum(dilations)) <= SMEM_PER_BLOCK)
 
@@ -216,16 +282,20 @@ def flow_stack_wgrads_reference(x, cond, dg, dout, z, dilation: int):
 
 
 def _check_operands(tensors: dict, fp32: Sequence[str], shapes: dict,
-                    dims, built: Sequence[tuple], dilations: Sequence[int],
-                    L: int, max_layers: int | None = None) -> None:
-    """The checks every kernel wrapper makes; `built` lists the (C, G, S, M)
-    the kernel is compiled for; the first tensor is the one the others must
+                    dims, built: Sequence[tuple] | None,
+                    dilations: Sequence[int], L: int,
+                    max_layers: int | None = None,
+                    dtype=torch.bfloat16) -> None:
+    """The checks every kernel wrapper makes: the tensors named in `fp32`
+    are float32, the others `dtype`; `built` lists the (C, G, S, M) the
+    kernel is compiled for (None: the general bodies, whose widths
+    `generic_limits` checks); the first tensor is the one the others must
     share a CUDA device with."""
     for name, t in tensors.items():
-        want = torch.float32 if name in fp32 else torch.bfloat16
+        want = torch.float32 if name in fp32 else dtype
         if t.dtype != want:
             raise ValueError(f"{name} must be {str(want)[6:]}, got {t.dtype}")
-    if dims not in built:
+    if built is not None and dims not in built:
         raise ValueError(f"kernel is built for (C, G, S, M) in {list(built)}, "
                          f"got {dims}")
     for name, shape in shapes.items():
@@ -259,29 +329,19 @@ def _weight_shapes(L, C, G, S, M) -> dict:
             "w_out": (L, C + S, G // 2)}
 
 
-def check_kernel_args(x0, cond, w_in, b_g, w_out, b_rs,
-                      dilations: Sequence[int],
-                      kernel_dims=(KERNEL_DIMS,)) -> None:
-    """Raise ValueError on anything a forward kernel does not take: the
-    inference kernel (`kernel_dims=(KERNEL_DIMS,)`, at most 32 layers) or
-    kernel 2 (`TRAIN_KERNEL_DIMS`).  `kernel_dims` lists the (C, G, S, M)
-    the kernel is built for."""
+def _check_stack(x0, cond, w_in, b_g, w_out, b_rs, dilations, built,
+                 max_layers=None, dtype=torch.bfloat16) -> None:
     B, T, C, L, G, S, M = _stack_dims(x0, cond, w_in, w_out)
     _check_operands(
         dict(x0=x0, cond=cond, w_in=w_in, b_g=b_g, w_out=w_out, b_rs=b_rs),
         ("b_g", "b_rs"),
         {"cond": (B, T, M), **_weight_shapes(L, C, G, S, M),
          "b_rs": (L, C + S)},
-        (C, G, S, M), tuple(kernel_dims), dilations, L,
-        max_layers=32 if tuple(kernel_dims) == (KERNEL_DIMS,) else None)
+        (C, G, S, M), built, dilations, L, max_layers, dtype)
 
 
-def check_train_backward_args(acts, cond, w_in, b_g, w_out, dskip,
-                              dilations: Sequence[int]) -> None:
-    """Raise ValueError on anything kernel 3 (the fused backward) does not
-    take."""
-    if acts.dim() != 4:
-        raise ValueError("acts must be (L, B, T, C)")
+def _check_backward(acts, cond, w_in, b_g, w_out, dskip, dilations, built,
+                    dtype=torch.bfloat16) -> None:
     B, T, C, L, G, S, M = _stack_dims(acts[0], cond, w_in, w_out)
     _check_operands(
         dict(acts=acts, cond=cond, w_in=w_in, b_g=b_g, w_out=w_out,
@@ -289,7 +349,61 @@ def check_train_backward_args(acts, cond, w_in, b_g, w_out, dskip,
         ("b_g",),
         {"acts": (len(w_in), B, T, C), "cond": (B, T, M),
          **_weight_shapes(L, C, G, S, M), "dskip": (B, T, S)},
-        (C, G, S, M), TRAIN_KERNEL_DIMS, dilations, L)
+        (C, G, S, M), built, dilations, L, dtype=dtype)
+
+
+def _acts_dims(acts, cond, w_in, w_out):
+    if acts.dim() != 4:
+        raise ValueError("acts must be (L, B, T, C)")
+    return _stack_dims(acts[0], cond, w_in, w_out)
+
+
+def check_kernel_args(x0, cond, w_in, b_g, w_out, b_rs,
+                      dilations: Sequence[int],
+                      kernel_dims=(KERNEL_DIMS,)) -> None:
+    """Raise ValueError on anything a forward kernel does not take: the
+    inference kernel (`kernel_dims=(KERNEL_DIMS,)`, at most 32 layers) or
+    kernel 2 (`TRAIN_KERNEL_DIMS`).  `kernel_dims` lists the (C, G, S, M)
+    the kernel is built for."""
+    _check_stack(x0, cond, w_in, b_g, w_out, b_rs, dilations,
+                 tuple(kernel_dims),
+                 32 if tuple(kernel_dims) == (KERNEL_DIMS,) else None)
+
+
+def check_train_backward_args(acts, cond, w_in, b_g, w_out, dskip,
+                              dilations: Sequence[int]) -> None:
+    """Raise ValueError on anything kernel 3 (the fused backward) does not
+    take."""
+    _acts_dims(acts, cond, w_in, w_out)
+    _check_backward(acts, cond, w_in, b_g, w_out, dskip, dilations,
+                    TRAIN_KERNEL_DIMS)
+
+
+def check_generic_args(x0, cond, w_in, b_g, w_out, b_rs,
+                       dilations: Sequence[int]) -> None:
+    """Raise ValueError on a stack (in `flow_stack`'s layout) that the
+    general forward body does not take: a dtype or widths outside
+    `generic_limits`, operands not all in x0's dtype (the biases fp32),
+    wrong shapes, then a tensor off x0's CUDA device, non-contiguous or not
+    16-byte aligned."""
+    _, _, C, _, G, S, M = _stack_dims(x0, cond, w_in, w_out)
+    why = generic_limits(x0.dtype, C, G, S, M)
+    if why:
+        raise ValueError(why)
+    _check_stack(x0, cond, w_in, b_g, w_out, b_rs, dilations, None,
+                 dtype=x0.dtype)
+
+
+def check_generic_backward_args(acts, cond, w_in, b_g, w_out, dskip,
+                                dilations: Sequence[int]) -> None:
+    """Raise ValueError on anything kernel 3's general body does not take,
+    as `check_generic_args` with the backward's limits."""
+    _, _, C, _, G, S, M = _acts_dims(acts, cond, w_in, w_out)
+    why = generic_limits(acts.dtype, C, G, S, M, backward=True)
+    if why:
+        raise ValueError(why)
+    _check_backward(acts, cond, w_in, b_g, w_out, dskip, dilations, None,
+                    dtype=acts.dtype)
 
 
 def _device_call(fn_name: str, device, *args) -> None:
@@ -333,7 +447,7 @@ def flow_stack(x0, cond, w_in, b_g, w_out, b_rs, dilations: Sequence[int],
         raise RuntimeError("the flow_stack kernels have no backward; "
                            "call them under torch.no_grad()")
     _, _, C, _, G, S, M = _stack_dims(x0, cond, w_in, w_out)
-    if not kernel1_takes(dilations, C, G, S, M):
+    if not kernel1_takes(dilations, C, G, S, M, x0.dtype):
         from pwn_tpu_torch.ops.gated_layer import flow_stack_by_layers
 
         return flow_stack_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
@@ -372,17 +486,21 @@ def flow_stack_train_forward(x0, cond, w_in, b_g, w_out, b_rs,
                              dilations: Sequence[int]):
     """Kernel 2: the stack forward that also saves every layer's input.
     Returns (skip (B, T, S), acts (L, B, T, C)); on CPU tensors the plain
-    `flow_stack_train_reference`.  On a CUDA tensor at the widths of
-    `TRAIN_KERNEL_DIMS` (student_iaf's and teacher_lj's) it runs kernel
-    5's accumulate epilogue once per layer with the residual
-    written into acts[l + 1] (`gated_layer.flow_stack_train_by_layers`,
-    the same rounding); other widths raise.  It launches no kernel of its
-    own: kernel 5 counts its L launches on `gated_layer.launches`."""
+    `flow_stack_train_reference`.  On a CUDA tensor it runs kernel 5's
+    accumulate epilogue once per layer with the residual written into
+    acts[l + 1] (`gated_layer.flow_stack_train_by_layers`, the same
+    rounding), in the body `kernel_body` picks; what neither body takes
+    raises.  It launches no kernel of its own: kernel 5 counts its L
+    launches on `gated_layer.launches` (and `.launches_by`, by body)."""
     if x0.device.type == "cpu":
         return flow_stack_train_reference(x0, cond, w_in, b_g, w_out, b_rs,
                                           dilations)
-    check_kernel_args(x0, cond, w_in, b_g, w_out, b_rs, dilations,
-                      kernel_dims=TRAIN_KERNEL_DIMS)
+    _, _, C, _, G, S, M = _stack_dims(x0, cond, w_in, w_out)
+    if kernel_body(x0.dtype, C, G, S, M) == "wgmma":
+        check_kernel_args(x0, cond, w_in, b_g, w_out, b_rs, dilations,
+                          kernel_dims=TRAIN_KERNEL_DIMS)
+    else:
+        check_generic_args(x0, cond, w_in, b_g, w_out, b_rs, dilations)
     from pwn_tpu_torch.ops.gated_layer import flow_stack_train_by_layers
 
     return flow_stack_train_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
@@ -394,23 +512,37 @@ def flow_stack_train_backward(acts, cond, w_in, b_g, w_out, dskip,
                               want_wgrads: bool = True):
     """Kernel 3: the fused backward, with the returns of
     `flow_stack_backward_reference` (its plain version, taken for CPU
-    tensors), at the widths of `TRAIN_KERNEL_DIMS` on a CUDA tensor.
-    `flow_stack_train_backward.launches` counts the kernel calls (one per
-    call), and `flow_stack_train_backward.launches_by` the same calls by
-    (C, want_wgrads), which tells the student's calls with weight
-    gradients from the frozen teacher's dx-only ones."""
+    tensors).  On a CUDA tensor, the body `kernel_body(..., backward=True)`
+    picks: the wgmma body (bf16 at `TRAIN_KERNEL_DIMS`) or the general one;
+    what neither takes raises.  `flow_stack_train_backward.launches` counts
+    the kernel calls (one per call), and
+    `flow_stack_train_backward.launches_by` the same calls by (C,
+    want_wgrads) for the wgmma body and ("generic", C, want_wgrads) for
+    the general one, which tells the student's calls with weight gradients
+    from the frozen teacher's dx-only ones, and the bodies apart."""
     if acts.device.type == "cpu":
         return flow_stack_backward_reference(acts, cond, w_in, b_g, w_out,
                                              dskip, dilations, want_wgrads)
-    check_train_backward_args(acts, cond, w_in, b_g, w_out, dskip, dilations)
+    _, _, C, _, G, S, M = _acts_dims(acts, cond, w_in, w_out)
+    generic = kernel_body(acts.dtype, C, G, S, M, backward=True) == "generic"
+    if generic:
+        check_generic_backward_args(acts, cond, w_in, b_g, w_out, dskip,
+                                    dilations)
+    else:
+        check_train_backward_args(acts, cond, w_in, b_g, w_out, dskip,
+                                  dilations)
     from pwn_tpu_torch.ops import _build
 
     L, B, T, C = acts.shape
     G, S, M = w_in.shape[1], dskip.shape[-1], cond.shape[-1]
     dev = acts.device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    ws = torch.empty(_build.load_library().
-                     pwn_flow_stack_train_bwd_workspace_bytes(
+    lib = _build.load_library()
+    is_bf16 = int(acts.dtype == torch.bfloat16)
+    ws = torch.empty(lib.pwn_flow_stack_train_bwd_generic_workspace_bytes(
+                         B, T, C, G, S, M, int(want_wgrads), n_sm, is_bf16)
+                     if generic else
+                     lib.pwn_flow_stack_train_bwd_workspace_bytes(
                          B, T, C, G, S, M, int(want_wgrads), n_sm),
                      dtype=torch.uint8, device=dev)
     dx = torch.empty((B, T, C), dtype=acts.dtype, device=dev)
@@ -421,14 +553,16 @@ def flow_stack_train_backward(acts, cond, w_in, b_g, w_out, dskip,
              if want_wgrads else ())
     ptrs = [g.data_ptr() for g in grads] or [None] * 4
     _device_call(
-        "pwn_flow_stack_train_bwd_bf16", dev,
+        "pwn_flow_stack_train_bwd_" + ("generic" if generic else "bf16"), dev,
         acts.data_ptr(), cond.data_ptr(), dskip.data_ptr(), w_in.data_ptr(),
         b_g.data_ptr(), w_out.data_ptr(), dx.data_ptr(), dcond.data_ptr(),
         *ptrs, ws.data_ptr(),
         B, T, L, C, G, S, M, (ctypes.c_int * L)(*dilations),
-        int(want_wgrads), n_sm)
+        int(want_wgrads), n_sm, *((is_bf16,) if generic else ()))
     flow_stack_train_backward.launches += 1
-    flow_stack_train_backward.launches_by[(C, bool(want_wgrads))] += 1
+    key = (C, bool(want_wgrads))
+    flow_stack_train_backward.launches_by[
+        ("generic", *key) if generic else key] += 1
     return (dx, dcond, *grads)
 
 

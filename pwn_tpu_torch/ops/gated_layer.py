@@ -20,9 +20,13 @@ and returns (res (B, T, C), skip (B, T, S)) in the compute dtype.  The
 weights are the reference's `(2C+M, G)` and `(G/2, C+S)` transposed: the
 K-major B operand the CUDA kernel's wgmma reads.
 
-A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
-(`csrc/gated_layer.cu`, built for (C, G, S, M) = (64, 128, 64, 80) and
-(128, 256, 128, 80)) or raises.  Rounding points, kept by both: the GEMMs
+A CPU tensor goes to the plain version; a CUDA tensor goes to one of
+kernel 5's two bodies, as `ops/flow_stack.py::kernel_body` picks from the
+dtype and widths, or raises: `csrc/gated_layer.cu` (wgmma; bf16 at (C, G,
+S, M) = (64, 128, 64, 80) and (128, 256, 128, 80)) or
+`csrc/gated_layer_generic.cu` (fp32 FMAs on the CUDA cores; fp32 or bf16
+at any other width within `generic_limits`: the 40-mel tiny configs,
+every preset in fp32).  Rounding points, kept by all three: the GEMMs
 accumulate in fp32, the biases and the gates are fp32, z and out are
 rounded to the compute dtype, and res is the compute-dtype sum x + out.
 
@@ -31,8 +35,8 @@ epilogue, one layer of the whole-stack forward with the reference
 megakernel's rounding (`pwn_tpu/ops/pallas/flow_stack.py::_kernel`): the
 skip half stays fp32 and is summed across layers in a (B, T, S) buffer,
 and only the last layer rounds it.  `flow_stack_by_layers` runs it over a
-stack; `ops/flow_stack.py::flow_stack` calls that at the widths kernel 1 is
-not built for.  `flow_stack_train_by_layers` runs it with every layer's
+stack; `ops/flow_stack.py::flow_stack` calls that where kernel 1 does not
+take the stack.  `flow_stack_train_by_layers` runs it with every layer's
 residual written into the saved inputs: the training forward (kernel 2's
 route, `pwn_tpu/ops/pallas/flow_stack.py::_fwd_save_kernel`).
 
@@ -44,20 +48,23 @@ which runs in XLA outside any Pallas kernel, so plain matmuls here).
 
 from __future__ import annotations
 
+import collections
 from typing import Sequence
 
 import torch
 
 from pwn_tpu_torch.ops.conv import shift_right
-from pwn_tpu_torch.ops.flow_stack import (_check_operands, _device_call,
-                                          _shift_left, layer_out)
+from pwn_tpu_torch.ops.flow_stack import (TRAIN_KERNEL_DIMS, _check_operands,
+                                          _device_call, _shift_left,
+                                          generic_limits, kernel_body,
+                                          layer_out)
 
 # The reference's time tile: its kernel reaches the tap through the previous
-# tile, so it refuses a dilation above one tile.  The CUDA kernel has no
+# tile, so it refuses a dilation above one tile.  The CUDA bodies have no
 # tile bound; the check is kept so that the two accept the same layers.
 TIME_TILE = 512
-# the widths the CUDA kernel is built for: (C, G, S, M)
-KERNEL_DIMS = ((64, 128, 64, 80), (128, 256, 128, 80))
+# the widths the wgmma body is built for: (C, G, S, M), kernel 3's too
+KERNEL_DIMS = TRAIN_KERNEL_DIMS
 
 
 def pack_layer(w_dilated, b_dilated, w_cond, b_cond, w_res, b_res, w_skip,
@@ -78,47 +85,82 @@ def gated_layer_reference(x, cond, w_in, b_g, w_out, b_out, dilation: int):
     return x + out[..., :C], out[..., C:]
 
 
-def check_gated_layer_args(x, cond, w_in, b_g, w_out, b_out,
-                           dilation: int) -> None:
-    """Raise ValueError on anything the CUDA kernel does not take."""
+def _layer_dims(x, cond, w_in, w_out):
     if x.dim() != 3 or cond.dim() != 3:
         raise ValueError("x and cond must be (B, T, channels)")
-    B, T, C = x.shape
-    M = cond.shape[-1]
-    G = w_in.shape[0]
-    S = w_out.shape[0] - C
+    C = x.shape[-1]
+    return C, w_in.shape[0], w_out.shape[0] - C, cond.shape[-1]
+
+
+def _check_layer(x, cond, w_in, b_g, w_out, b_out, dilation: int,
+                 built) -> None:
+    C, G, S, M = _layer_dims(x, cond, w_in, w_out)
+    B, T = x.shape[:2]
     _check_operands(
         dict(x=x, cond=cond, w_in=w_in, b_g=b_g, w_out=w_out, b_out=b_out),
         ("b_g", "b_out"),
         {"cond": (B, T, M), "w_in": (G, 2 * C + M), "b_g": (G,),
          "w_out": (C + S, G // 2), "b_out": (C + S,)},
-        (C, G, S, M), KERNEL_DIMS, (dilation,), 1)
+        (C, G, S, M), built, (dilation,), 1,
+        dtype=torch.bfloat16 if built else x.dtype)
+
+
+def check_gated_layer_args(x, cond, w_in, b_g, w_out, b_out,
+                           dilation: int) -> None:
+    """Raise ValueError on anything the wgmma body does not take."""
+    _check_layer(x, cond, w_in, b_g, w_out, b_out, dilation, KERNEL_DIMS)
+
+
+def check_generic_layer_args(x, cond, w_in, b_g, w_out, b_out,
+                             dilation: int) -> None:
+    """Raise ValueError on anything kernel 5's general body does not take:
+    a dtype or widths outside `generic_limits` (named there), operands not
+    all in x's dtype (the biases fp32), wrong shapes, then a tensor off
+    x's CUDA device, non-contiguous or not 16-byte aligned."""
+    why = generic_limits(x.dtype, *_layer_dims(x, cond, w_in, w_out))
+    if why:
+        raise ValueError(why)
+    _check_layer(x, cond, w_in, b_g, w_out, b_out, dilation, None)
+
+
+def _count(body: str, epilogue: str) -> None:
+    gated_layer.launches += 1
+    gated_layer.launches_by[(body, epilogue)] += 1
 
 
 def gated_layer(x, cond, w_in, b_g, w_out, b_out, dilation: int):
     """One layer's (res, skip); see the module docstring.
-    `gated_layer.launches` counts the kernel launches."""
+    `gated_layer.launches` counts the kernel launches of both epilogues and
+    both bodies, `gated_layer.launches_by` the same by (body, epilogue):
+    ("wgmma" | "generic", "layer" | "accumulate")."""
     if dilation > TIME_TILE:
         raise ValueError(f"dilation {dilation} > TIME_TILE {TIME_TILE}: the "
                          "reference's per-layer kernel does not take it")
     if x.device.type == "cpu":
         return gated_layer_reference(x, cond, w_in, b_g, w_out, b_out,
                                      dilation)
-    check_gated_layer_args(x, cond, w_in, b_g, w_out, b_out, dilation)
+    body = kernel_body(x.dtype, *_layer_dims(x, cond, w_in, w_out))
+    if body == "wgmma":
+        check_gated_layer_args(x, cond, w_in, b_g, w_out, b_out, dilation)
+    else:
+        check_generic_layer_args(x, cond, w_in, b_g, w_out, b_out, dilation)
     B, T, C = x.shape
     G, M, S = w_in.shape[0], cond.shape[-1], w_out.shape[0] - C
     res = torch.empty_like(x)
     skip = torch.empty((B, T, S), dtype=x.dtype, device=x.device)
     _device_call(
-        "pwn_gated_layer_bf16", x.device,
+        "pwn_gated_layer_" + ("bf16" if body == "wgmma" else "generic"),
+        x.device,
         x.data_ptr(), cond.data_ptr(), w_in.data_ptr(), b_g.data_ptr(),
         w_out.data_ptr(), b_out.data_ptr(), res.data_ptr(), skip.data_ptr(),
-        B, T, C, G, S, M, dilation)
-    gated_layer.launches += 1
+        B, T, C, G, S, M, dilation,
+        *(() if body == "wgmma" else (int(x.dtype == torch.bfloat16),)))
+    _count(body, "layer")
     return res, skip
 
 
 gated_layer.launches = 0
+gated_layer.launches_by = collections.Counter()
 
 
 def gated_layer_accumulate_reference(x, cond, w_in, b_g, w_out, b_rs,
@@ -144,9 +186,25 @@ def _into(out, value):
 
 def check_accumulate_args(x, cond, w_in, b_g, w_out, b_rs, dilation: int,
                           skip_acc, out, *, first: bool, last: bool) -> None:
-    """Raise ValueError on anything the accumulate epilogue does not take:
-    its buffers (`out`, and `skip_acc` unless the layer is both first and
-    last), then the layer's operands as `check_gated_layer_args`."""
+    """Raise ValueError on anything the wgmma body's accumulate epilogue
+    does not take: its buffers (`out`, and `skip_acc` unless the layer is
+    both first and last), then the layer's operands as
+    `check_gated_layer_args`."""
+    _check_acc_buffers(x, w_out, skip_acc, out, first, last)
+    check_gated_layer_args(x, cond, w_in, b_g, w_out, b_rs, dilation)
+
+
+def check_generic_accumulate_args(x, cond, w_in, b_g, w_out, b_rs,
+                                  dilation: int, skip_acc, out, *,
+                                  first: bool, last: bool) -> None:
+    """`check_accumulate_args` for the general body: the same buffers, then
+    the layer's operands as `check_generic_layer_args`."""
+    _check_acc_buffers(x, w_out, skip_acc, out, first, last)
+    check_generic_layer_args(x, cond, w_in, b_g, w_out, b_rs, dilation)
+
+
+def _check_acc_buffers(x, w_out, skip_acc, out, first: bool,
+                       last: bool) -> None:
     if x.dim() != 3:
         raise ValueError("x and cond must be (B, T, channels)")
     B, T, C = x.shape
@@ -162,7 +220,6 @@ def check_accumulate_args(x, cond, w_in, b_g, w_out, b_rs, dilation: int,
                              f"{shape} {dt} tensor on {x.device}")
     if not last and out.data_ptr() == x.data_ptr():
         raise ValueError("res must not overwrite x: other tiles read its taps")
-    check_gated_layer_args(x, cond, w_in, b_g, w_out, b_rs, dilation)
 
 
 def gated_layer_accumulate(x, cond, w_in, b_g, w_out, b_rs, dilation: int,
@@ -176,8 +233,9 @@ def gated_layer_accumulate(x, cond, w_in, b_g, w_out, b_rs, dilation: int,
     leaves it (and it may be None where the layer is both).  Returns the
     layer's res (B, T, C), or for the last layer the stack's output
     bf16(skip_acc + skip) (B, T, S), written into `out` if given.  A CPU
-    tensor goes to the plain version; a CUDA tensor to the kernel or raises.
-    Each launch counts on `gated_layer.launches`."""
+    tensor goes to the plain version; a CUDA tensor to the body
+    `kernel_body` picks, or raises.  Each launch counts on
+    `gated_layer.launches` and `gated_layer.launches_by`."""
     if dilation > TIME_TILE:
         raise ValueError(f"dilation {dilation} > TIME_TILE {TIME_TILE}: the "
                          "reference's per-layer kernel does not take it")
@@ -189,26 +247,31 @@ def gated_layer_accumulate(x, cond, w_in, b_g, w_out, b_rs, dilation: int,
         B, T, C = x.shape
         out = torch.empty((B, T, w_out.shape[0] - C) if last else x.shape,
                           dtype=x.dtype, device=x.device)
-    check_accumulate_args(x, cond, w_in, b_g, w_out, b_rs, dilation,
-                          skip_acc, out, first=first, last=last)
+    body = kernel_body(x.dtype, *_layer_dims(x, cond, w_in, w_out))
+    check = (check_accumulate_args if body == "wgmma"
+             else check_generic_accumulate_args)
+    check(x, cond, w_in, b_g, w_out, b_rs, dilation, skip_acc, out,
+          first=first, last=last)
     B, T, C = x.shape
     G, M, S = w_in.shape[0], cond.shape[-1], w_out.shape[0] - C
     _device_call(
-        "pwn_gated_layer_acc_bf16", x.device,
+        "pwn_gated_layer_acc_" + ("bf16" if body == "wgmma" else "generic"),
+        x.device,
         x.data_ptr(), cond.data_ptr(), w_in.data_ptr(), b_g.data_ptr(),
         w_out.data_ptr(), b_rs.data_ptr(),
         None if last else out.data_ptr(),
         None if first and last else skip_acc.data_ptr(),
         out.data_ptr() if last else None,
-        B, T, C, G, S, M, dilation, int(first), int(last))
-    gated_layer.launches += 1
+        B, T, C, G, S, M, dilation, int(first), int(last),
+        *(() if body == "wgmma" else (int(x.dtype == torch.bfloat16),)))
+    _count(body, "accumulate")
     return out
 
 
 def flow_stack_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
                          dilations: Sequence[int]) -> torch.Tensor:
-    """`flow_stack` on the stacked layout at widths kernel 1 is not built
-    for: `gated_layer_accumulate` once per layer over the per-layer views of
+    """`flow_stack` on the stacked layout where kernel 1 does not take the
+    stack: `gated_layer_accumulate` once per layer over the per-layer views of
     the stacked weights (nothing copied), the fp32 skip sum carried between
     launches and rounded once, the residuals in two buffers taken in turn.
     Returns the skip sum (B, T, S) in the compute dtype."""

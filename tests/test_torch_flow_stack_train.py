@@ -208,6 +208,56 @@ def test_plain_train_matches_pallas_bf16(jax_train):
         assert _rel(g.float().numpy(), w) < 1e-2, name
 
 
+# tiny_teacher's widths (40 mel bands), which kernels 2 and 3 run through
+# their general bodies on the card; three layers, the last one's tap and
+# its cotangent past T
+TINY_DIMS, TINY_DILATIONS, TINY_T = (64, 128, 64, 40), (1, 16, 512), 512
+
+
+@pytest.mark.parametrize("want", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_train_matches_pallas_at_tiny_widths(jax_train, dtype, want):
+    """The plain forward-with-save and backward at tiny_teacher's widths
+    (64, 128, 64, 40), both backward modes, against the JAX train kernels
+    in interpret mode.  float32: the JAX tests' rtol 1e-4, atol 1e-5 (only
+    the summation order differs).  bfloat16: within 1e-2 of the largest
+    value, test_plain_train_matches_pallas_bf16's bound."""
+    import jax.numpy as jnp
+
+    C, G, S, M = TINY_DIMS
+    dil = TINY_DILATIONS
+    args = _inputs(9, 1, TINY_T, C, M, G, S, dil)
+    t = _torch(args, dtype)
+    skip, acts = flow_stack_train_reference(**_fwd(t), dilations=dil)
+    got = flow_stack_backward_reference(
+        acts, t["cond"], t["w_in"], t["b_g"], t["w_out"], t["dskip"],
+        dilations=dil, want_wgrads=want)
+    if dtype == torch.float32:
+        j_skip, j_acts, want_grads = _jax_fwd_bwd(jax_train, args, dil, want)
+    else:
+        fwd, bwd = jax_train
+        j = {k: jnp.asarray(v).astype(jnp.float32 if k in ("b_g", "b_rs")
+                                      else jnp.bfloat16)
+             for k, v in args.items()}
+        j_skip, j_acts, _ = fwd(dil, True, j["x0"], j["cond"], j["w_in"],
+                                j["b_g"], j["w_out"], j["b_rs"])
+        want_grads = bwd(dil, True, j_acts, j["cond"], j["w_in"], j["b_g"],
+                         j["w_out"], j["dskip"], want_wgrads=want)
+    assert len(got) == len(want_grads) == (6 if want else 2)
+    pairs = [("skip", skip, j_skip), ("acts", acts, j_acts),
+             *zip(GRADS, got, want_grads)]
+    for name, g, w in pairs:
+        g, w = g.float().numpy(), np.asarray(w, np.float32)
+        if name in ("dw_in", "dw_out"):   # JAX: (L, in, out)
+            w = np.swapaxes(w, 1, 2)
+        assert g.shape == w.shape, name
+        if dtype == torch.float32:
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5,
+                                       err_msg=name)
+        else:
+            assert _rel(g, w) < 1e-2, name
+
+
 @pytest.mark.parametrize("dil,T", CASES)
 def test_kernel2_route_matches_plain_and_pallas(jax_train, dil, T):
     """Kernel 2's route on a CUDA tensor is kernel 5's accumulate epilogue
@@ -476,13 +526,22 @@ def test_train_backward_is_deterministic_and_rows_isolated_on_card(cuda,
 
 @pytest.mark.gpu
 def test_train_kernels_refuse_other_widths_on_card(cuda):
-    """A CUDA tensor at widths the kernels are not built for raises."""
+    """A CUDA tensor that neither body takes raises: fp16 operands (the
+    wgmma bodies take bf16, the general ones fp32 or bf16), and in the
+    backward a width past the general body's shared memory (C = 320)."""
     dil = (1, 2, 4)
-    t = _torch(_inputs(6, T=64, dilations=dil, **SMALL), torch.bfloat16,
+    t = _torch(_inputs(6, T=64, dilations=dil, **SMALL), torch.float16,
                cuda)
-    with pytest.raises(ValueError, match="kernel is built for"):
+    with pytest.raises(ValueError, match="no kernel body takes"):
         flow_stack_train_forward(**_fwd(t), dilations=dil)
     acts = t["x0"][None].expand(3, -1, -1, -1).contiguous()
-    with pytest.raises(ValueError, match="kernel is built for"):
+    with pytest.raises(ValueError, match="no kernel body takes"):
         flow_stack_train_backward(acts, t["cond"], t["w_in"], t["b_g"],
                                   t["w_out"], t["dskip"], dilations=dil)
+    wide = _torch(_inputs(6, B=1, T=8, C=320, M=8, G=32, S=16,
+                          dilations=dil), torch.float32, cuda)
+    acts = wide["x0"][None].expand(3, -1, -1, -1).contiguous()
+    with pytest.raises(ValueError, match="no kernel body takes"):
+        flow_stack_train_backward(acts, wide["cond"], wide["w_in"],
+                                  wide["b_g"], wide["w_out"], wide["dskip"],
+                                  dilations=dil)

@@ -126,6 +126,74 @@ def test_forward_matches_pallas_bf16(jax_layer):
         assert (g == w).mean() > 0.9
 
 
+# tiny_teacher's widths (40 mel bands): kernel 5's general body on the card
+TINY_DIMS = (64, 128, 64, 40)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_matches_pallas_at_tiny_widths(jax_layer, dtype):
+    """The "layer" epilogue's plain version at tiny_teacher's widths
+    (64, 128, 64, 40) against the Pallas kernel in interpret mode, d = 16
+    at T = 512.  float32: rtol 1e-4, atol 1e-5, as
+    test_forward_matches_pallas_fp32; bfloat16: within 2 bf16 ulps of each
+    output's max, as test_forward_matches_pallas_bf16."""
+    import jax.numpy as jnp
+
+    C, G, S, M = TINY_DIMS
+    x, cond, p = _layer_inputs(40, 1, 512, C, M, G, S, scale=5.0)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jax_layer.fused_gated_residual(
+        jnp.asarray(x, jdt), jnp.asarray(cond, jdt),
+        **{k: jnp.asarray(v) for k, v in p.items()}, dilation=16,
+        interpret=True)
+    with torch.no_grad():
+        got = fused_gated_residual(_t(x, dtype), _t(cond, dtype),
+                                   **{k: _t(v) for k, v in p.items()},
+                                   dilation=16)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        g, w = g.float().numpy(), np.asarray(w.astype(jnp.float32))
+        if dtype == torch.float32:
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+        else:
+            assert np.abs(g - w).max() <= 2 ** -7 * np.abs(w).max()
+            assert (g == w).mean() > 0.9
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_accumulate_chain_matches_pallas_at_tiny_widths(jax_layer, dtype):
+    """The "accumulate" epilogue's plain version once per layer
+    (`flow_stack_by_layers` on CPU tensors) at tiny_teacher's widths,
+    three layers (d = 1, 16, 512 at T = 512: the last tap all padding),
+    against the Pallas whole-stack kernel in interpret mode.  float32:
+    rtol 1e-4, atol 1e-5; bfloat16: 1e-2 of the largest value, as
+    tests/test_torch_flow_stack.py's bf16 comparison with that kernel."""
+    import jax.numpy as jnp
+
+    from pwn_tpu.ops.pallas.flow_stack import fused_flow_stack
+
+    C, G, S, M = TINY_DIMS
+    dil = (1, 16, 512)
+    args = _stack_args(41, 3, torch.float32, B=1, T=512, C=C, G=G, S=S, M=M)
+    args = {k: (v if k in ("b_g", "b_rs") else v.to(dtype))
+            for k, v in args.items()}
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    j = {k: jnp.asarray(v.float().numpy()).astype(
+             jnp.float32 if k in ("b_g", "b_rs") else jdt)
+         for k, v in args.items()}
+    for k in ("w_in", "w_out"):   # JAX: (L, in, out)
+        j[k] = jnp.swapaxes(j[k], 1, 2)
+    want = np.asarray(fused_flow_stack(**j, dilations=dil, interpret=True)
+                      .astype(jnp.float32))
+    got = flow_stack_by_layers(**args, dilations=dil)
+    assert got.dtype == dtype
+    got = got.float().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    else:
+        assert np.abs(got - want).max() < 1e-2 * np.abs(want).max()
+
+
 def test_dilation_above_time_tile_raises(jax_layer):
     """The reference's API check, kept: a dilation above TIME_TILE raises
     ValueError naming it, in both packages."""
@@ -473,7 +541,7 @@ def test_resolve_stack_mode_in_context(flag, context, mode):
     ((128, 256, 128, 80), "train", "train"),
     ((128, 256, 128, 80), "dx", "dx"),
     ((128, 256, 128, 80), "infer", "infer"),
-    ((64, 128, 64, 40), "train", "train"),  # no kernel: raises on the card
+    ((64, 128, 64, 40), "train", "train"),  # the general bodies on the card
     ((64, 128, 64, 40), "infer", "infer"),
 ])
 def test_training_stack_mode_from_widths(dims, mode, want):
@@ -488,9 +556,10 @@ def test_training_stack_mode_from_widths(dims, mode, want):
 
 
 def test_tiny_teacher_keeps_train_in_a_training_context():
-    """tiny_teacher (40 mel bands, which no kernel is built for) in the
-    training loop's context builds in "train" for "auto" and "mega", and
-    its loss and gradients run on the CPU (the plain versions)."""
+    """tiny_teacher (40 mel bands, which kernels 2 and 3 run through their
+    general bodies on the card) in the training loop's context builds in
+    "train" for "auto" and "mega", and its loss and gradients run on the
+    CPU (the plain versions)."""
     from pwn_tpu_torch.training.teacher import prepare_batch
 
     for flag in ("auto", "mega"):
@@ -762,10 +831,16 @@ def test_kernel_matches_reference_on_card(cuda, dims, B, T, d):
 
 @pytest.mark.gpu
 def test_kernel_unbuilt_width_raises_on_card(cuda):
-    args = {k: v.to(cuda) for k, v in
-            _kernel_args(dims=(32, 64, 32, 80)).items()}
-    with pytest.raises(ValueError, match="kernel is built for"):
+    """Operands neither body takes (fp16: the wgmma body is bf16 only, the
+    general body fp32 or bf16) raise on the card, in both epilogues; a
+    width the wgmma body is not built for now goes to the general body."""
+    args = {k: (v.half() if k in ("x", "cond", "w_in", "w_out") else v)
+            .to(cuda) for k, v in _kernel_args(dims=(32, 64, 32, 80)).items()}
+    with pytest.raises(ValueError, match="no kernel body takes"):
         gated_layer(**args, dilation=1)
+    with pytest.raises(ValueError, match="no kernel body takes"):
+        gated_layer_accumulate(*args.values(), 1, None, first=True,
+                               last=True)
 
 
 @pytest.mark.gpu
