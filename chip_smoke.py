@@ -463,13 +463,17 @@ def phase_build() -> None:
                == fs._kernel1_smem_bytes(sum_d),
                "kernel1_takes' shared-memory formula is not kernel 1's")
     # so are the general bodies' limits (`generic_limits`)
+    # and the general bodies' tile route and shared memory
     for dims in ((64, 128, 64, 40), (128, 256, 128, 80), (16, 32, 16, 8),
-                 (300, 2, 1, 221)):
+                 (300, 2, 1, 221), (5, 34, 3, 7), (1, 1638, 1, 1),
+                 (1, 546, 1, 1)):
         for backward in (False, True):
             _check(lib.pwn_generic_smem_bytes(*dims, int(backward))
-                   == fs.generic_smem_bytes(*dims, backward),
-                   "generic_limits' shared-memory formula is not the "
-                   "general bodies'")
+                   == fs.generic_smem_bytes(*dims, backward)
+                   and lib.pwn_generic_tile_rows(*dims, int(backward))
+                   == fs.generic_tile_rows(*dims, backward),
+                   "generic_tile_rows / generic_smem_bytes are not the "
+                   "general bodies' route and shared memory")
     log = _build.library_path().with_suffix(".log")
     for line in log.read_text().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
@@ -1583,6 +1587,26 @@ GENERIC_CASES = [
     ("JAX shape (16, 32, 16, 8) bf16", (16, 32, 16, 8), torch.bfloat16,
      (1, 512)),
 ]
+# The tiles' edges (csrc/generic.cuh): C, S, M not multiples of 4 (the
+# element-wise loads and stores), 2C + M not a multiple of the 16-row
+# slice, G/2 not a multiple of the 64-column gate chunk (17; 65: a second
+# chunk of one column), dilations past the 64-row tile, and the widest rows
+# the limit takes (822: K = 620 in 5 dcat chunks; G = 546 backward and
+# 1,638 forward, on 32-row tiles); the last two are past the backward's
+# limit, so forward only.
+GENERIC_EDGE_CASES = [
+    ("edge (5, 34, 3, 7) fp32", (5, 34, 3, 7), torch.float32, (1, 100)),
+    ("edge (5, 34, 3, 7) bf16", (5, 34, 3, 7), torch.bfloat16, (1, 100)),
+    ("edge (16, 130, 48, 8) fp32", (16, 130, 48, 8), torch.float32, (3, 512)),
+    ("edge (200, 2, 1, 220) fp32", (200, 2, 1, 220), torch.float32, (2, 70)),
+    ("edge (1, 546, 1, 1) fp32", (1, 546, 1, 1), torch.float32, (1, 65)),
+]
+GENERIC_FWD_ONLY = [
+    ("edge (300, 2, 1, 221) fp32, forward", (300, 2, 1, 221), torch.float32,
+     (1, 64)),
+    ("edge (1, 1638, 1, 1) fp32, forward", (1, 1638, 1, 1), torch.float32,
+     (1, 33)),
+]
 GENERIC_SHAPES = [(1, 1), (3, 127), (2, 1003)]
 # A general body against its plain version on the same card operands,
 # max|diff| / max|ref| per batch row (per tensor for dcond and the weight
@@ -1623,7 +1647,9 @@ def _generic_check(device) -> dict:
     modes.  Returns the max abs errors at fp32 of each body."""
     fwd_err = bwd_err = 0.0
     _reset_counts()
-    for what, dims, dt, dil in GENERIC_CASES:
+    for what, dims, dt, dil in (GENERIC_CASES + GENERIC_EDGE_CASES
+                                + GENERIC_FWD_ONLY):
+        backward = (what, dims, dt, dil) not in GENERIC_FWD_ONLY
         worst = {}
         for k, (B, T) in enumerate(GENERIC_SHAPES):
             a = _generic_inputs(dims, dt, dil, B, T, device, seed=300 + k)
@@ -1642,7 +1668,7 @@ def _generic_check(device) -> dict:
                     "layer skip": _row_rel(layer[1], ref_layer[1])}
             bargs = (acts, a["cond"], a["w_in"], a["b_g"], a["w_out"], dskip)
             outs = {}
-            for want in (True, False):
+            for want in (True, False) if backward else ():
                 got = fs.flow_stack_train_backward(*bargs, dilations=dil,
                                                    want_wgrads=want)
                 ref = fs.flow_stack_backward_reference(
@@ -1656,12 +1682,15 @@ def _generic_check(device) -> dict:
                 if dt == torch.float32:
                     bwd_err = max(bwd_err, float(
                         (got[0].float() - ref[0].float()).abs().max()))
-            again = fs.flow_stack_train_backward(*bargs, dilations=dil)
-            _check(all(torch.equal(x, y) for x, y in zip(outs[True], again)),
-                   f"{what} {B} x {T}: two backward runs differ")
-            _check(torch.equal(outs[True][0], outs[False][0])
-                   and torch.equal(outs[True][1], outs[False][1]),
-                   f"{what} {B} x {T}: dx / dcond differ between the modes")
+            if backward:
+                again = fs.flow_stack_train_backward(*bargs, dilations=dil)
+                _check(all(torch.equal(x, y)
+                           for x, y in zip(outs[True], again)),
+                       f"{what} {B} x {T}: two backward runs differ")
+                _check(torch.equal(outs[True][0], outs[False][0])
+                       and torch.equal(outs[True][1], outs[False][1]),
+                       f"{what} {B} x {T}: dx / dcond differ between the "
+                       "modes")
             if dt == torch.float32:
                 fwd_err = max(fwd_err, float(
                     (skip.float() - ref_skip.float()).abs().max()))
@@ -1674,7 +1703,9 @@ def _generic_check(device) -> dict:
              f"{GENERIC_SHAPES}: worst row rel " + ", ".join(
                  f"{k} {v:.2e}" for k, v in worst.items())
              + f" (tol {TOL_GENERIC[dt]}, acts {TOL_GENERIC_ACTS[dt]}); "
-             "backward bit-identical twice, dx / dcond equal across modes")
+             + ("backward bit-identical twice, dx / dcond equal across "
+                "modes" if backward else "forward only")
+             + f"; {fs.generic_tile_rows(*dims)}-row tiles forward")
     torch.cuda.synchronize()
     got = _counts()
     _check(got["kernel 1"] == 0 and got["generic"] == got["kernel 5"]
@@ -1876,13 +1907,71 @@ def _stack_flop(dims, L: int, rows: int, backward: bool, wgrads: bool):
     return 2.0 * mac * L * rows
 
 
+# kernel 3's general weight-gradient product against torch.matmul of the
+# same fp32 operands (TF32 off, require_cuda): both sum the same fp32
+# products in fp32 over all B x T rows, in another order (the kernel by
+# row ranges summed in split order), per tensor of its largest value; the
+# fp32 gate of the general bodies, far below the O(1) of a wrong row,
+# column or tap.
+TOL_GENERIC_WGRAD = 1e-4
+
+
+def _generic_wgrad_times(x, cond, dims, d: int, smi: str, what: str):
+    """The weight-gradient product of one layer alone
+    (`flow_stack_train_wgrads_generic` on the stored layout) and, in turns,
+    the two torch.matmul calls of the same fp32 products ([x | tap | cond |
+    1] and [z | 1] built beforehand), replayed from CUDA graphs; each
+    result against the other per tensor.  A yardstick for that part of
+    kernel 3's backward, logged."""
+    C, G, S, M = dims
+    B, T, _ = x.shape
+    gen = torch.Generator(device=x.device).manual_seed(410)
+    dg, dout, z = (torch.randn((B, T, n), generator=gen, device=x.device)
+                   for n in (G, C + S, G // 2))
+    stored = fs.generic_wgrad_operands(dg, dout, z)
+    ones = torch.ones((B * T, 1), device=x.device)
+    cat1 = torch.cat([torch.cat([x, shift_right(x, d), cond], -1).reshape(
+        B * T, -1).float(), ones], 1)
+    z1 = torch.cat([z.reshape(B * T, -1), ones], 1)
+    dg2, dout2 = dg.reshape(B * T, -1), dout.reshape(B * T, -1)
+    launches = fs.flow_stack_train_wgrads_generic.launches
+
+    def kernel():
+        return fs.flow_stack_train_wgrads_generic(x, cond, dg, dout, z, d,
+                                                  stored=stored)
+
+    def matmul():
+        return dg2.T @ cat1, dout2.T @ z1
+
+    got = kernel()
+    ref_in, ref_out = matmul()
+    ref = (ref_in[:, :-1], ref_in[:, -1], ref_out[:, :-1], ref_out[:, -1])
+    errs = [_rel(g, r) for g, r in zip(got, ref)]
+    _check(max(errs) <= TOL_GENERIC_WGRAD,
+           f"{what}: the general weight-gradient product against torch."
+           f"matmul: {errs} above {TOL_GENERIC_WGRAD}")
+    ms = {"kernel": [], "matmul": []}
+    for name in ("kernel", "matmul", "matmul", "kernel"):
+        ms[name].append(_graph_ms(kernel if name == "kernel" else matmul, 3))
+    fs.flow_stack_train_wgrads_generic.launches = launches
+    _log(f"[tiny times] {smi}: {what}: kernel 3's general weight-gradient "
+         f"product of one layer alone (dW_in, db_g, dW_out, db_rs from the "
+         f"stored fp32 dg, dout, z) {ms['kernel'][0]:.3f} / "
+         f"{ms['kernel'][1]:.3f} ms, torch.matmul of the same fp32 "
+         f"operands (allow_tf32 False) {ms['matmul'][0]:.3f} / "
+         f"{ms['matmul'][1]:.3f} ms (CUDA graphs, in turns); per tensor "
+         f"{max(errs):.2e} apart (tol {TOL_GENERIC_WGRAD})")
+
+
 def _tiny_times(device, smi: str) -> dict:
     """(e) The general bodies' ms (CUDA events over back-to-back calls,
     and replayed from a CUDA graph) beside their bounds (fp32 on the CUDA
     cores at PEAK_FP32) and the plain versions' ms, at the tiny teacher's
     training shape, the tiny student's 4 x 10 layers and student_iaf's
-    widths in fp32 at the headline inference shape.  Timing launches are
-    not the main path's: the counters are put back."""
+    widths in fp32 at the headline inference shape; at the first and the
+    last, the weight-gradient product's own ms beside torch.matmul's
+    (`_generic_wgrad_times`).  Timing launches are not the main path's:
+    the counters are put back."""
     counted = _counts()
     by = (gated_layer.launches_by.copy(),
           fs.flow_stack_train_backward.launches_by.copy())
@@ -1924,6 +2013,8 @@ def _tiny_times(device, smi: str) -> dict:
                       lambda: bwd(False), n),
                   "bwd_plain": _time_ms(bwd_plain, n),
                   "fwd_graph": _graph_ms(fwd, n), "bwd_graph": _graph_ms(bwd, n)}
+        if flows == 1:
+            _generic_wgrad_times(acts[-1], a["cond"], dims, dil[-1], smi, what)
         # bytes: each input read once, each output written once (fp32, so
         # dx, dcond and the weight gradients are the sizes of x0, cond and
         # the weights; skip is dskip's)

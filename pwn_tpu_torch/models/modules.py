@@ -19,7 +19,8 @@ import torch.nn.functional as F
 
 from pwn_tpu_torch.ops.conv import causal_conv1d, conv_transpose1d, shift_right
 from pwn_tpu_torch.ops.flow_stack import (flow_stack, flow_stack_score,
-                                          flow_stack_train)
+                                          flow_stack_train, kernel_body,
+                                          pack_generic)
 from pwn_tpu_torch.ops.gated_layer import (TIME_TILE, FusedGatedResidual,
                                            pack_layer)
 from pwn_tpu_torch.ops.norm import init_weight_norm_, weight_norm
@@ -167,7 +168,8 @@ class WaveNetStack(nn.Module):
     widths (`ops/flow_stack.py::TRAIN_KERNEL_DIMS`) on their wgmma bodies,
     and every other width and fp32 (the 40-mel tiny configs, any preset
     with compute_dtype float32) on their general bodies
-    (`ops/flow_stack.py::kernel_body`); kernel 1 is bf16 at student_iaf's
+    (`ops/flow_stack.py::kernel_body`), which read the weights packed
+    once per stack (`generic_weights()`); kernel 1 is bf16 at student_iaf's
     widths only.  On the CPU every mode runs the plain versions.  A
     dilation above 512 raises in "infer" and "layer" (so also for "off",
     which the reference runs in XLA at any dilation); no preset has one.
@@ -191,6 +193,7 @@ class WaveNetStack(nn.Module):
         self.dtype = dtype
         self.mode = mode
         self.skip_channels = S
+        self.widths = (C, gate_channels, S, cond_channels)
         self.front = CausalConv1d(1, C, dtype=dtype, device=device)
         for i in range(len(self.dilations)):
             self.add_module(f"layer_{i}", GatedLayer(
@@ -263,6 +266,25 @@ class WaveNetStack(nn.Module):
 
         return self._cached("layer", build)
 
+    def generic_weights(self):
+        """`stacked()`'s weights packed for the general bodies of kernels 5
+        and 3 (`ops/flow_stack.py::pack_generic`: fp32, k-major, padded,
+        tanh columns beside their sigmoid partners).  Built once while grad
+        is off (`_cached`), so an inference stack packs once and an
+        optimizer step (an in-place change) packs anew."""
+        def build():
+            w_in, _, w_out, _ = self.stacked()
+            return pack_generic(w_in, w_out)
+
+        return self._cached("generic", build)
+
+    def _generic_for(self, x: torch.Tensor):
+        """`generic_weights()` where the stack function runs the general
+        body on x (a CUDA tensor, `kernel_body` "generic"), else None."""
+        if x.is_cuda and kernel_body(self.dtype, *self.widths) == "generic":
+            return self.generic_weights()
+        return None
+
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         x = self.front(x).contiguous()
         cond = cond.to(self.dtype).contiguous()
@@ -279,7 +301,8 @@ class WaveNetStack(nn.Module):
                 skip = skip + s
         else:
             skip = STACK_FNS[self.mode](x, cond, *self.stacked(),
-                                        dilations=self.dilations)
+                                        dilations=self.dilations,
+                                        packed=self._generic_for(x))
         h = F.relu(skip)
         h = F.relu(self.head1(h))
         return self.head2(h).float()

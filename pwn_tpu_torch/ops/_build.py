@@ -169,22 +169,27 @@ def load_library() -> ctypes.CDLL:
     lib.pwn_gated_layer_acc_bf16.restype = i
     lib.pwn_generic_smem_bytes.argtypes = [i] * 5  # C, G, S, M, backward
     lib.pwn_generic_smem_bytes.restype = ctypes.c_longlong
+    lib.pwn_generic_tile_rows.argtypes = [i] * 5  # C, G, S, M, backward
+    lib.pwn_generic_tile_rows.restype = i
     lib.pwn_gated_layer_generic.argtypes = [
-        p, p, p, p, p, p, p, p,        # x, cond, w_in, b_g, w_out, b_out, res,
+        p, p, p, p, p, p, p, p,        # x, cond, w_gate, b_g, w_out (packed),
+                                       # b_out, res,
                                        # skip
         i, i, i, i, i, i, i, i, p,     # B, T, C, G, S, M, dilation, is_bf16,
                                        # stream
     ]
     lib.pwn_gated_layer_generic.restype = i
     lib.pwn_gated_layer_acc_generic.argtypes = [
-        p, p, p, p, p, p, p, p, p,     # x, cond, w_in, b_g, w_out, b_rs, res,
+        p, p, p, p, p, p, p, p, p,     # x, cond, w_gate, b_g, w_out (packed),
+                                       # b_rs, res,
                                        # skip_acc, skip
         i, i, i, i, i, i, i, i, i, i,  # B, T, C, G, S, M, dilation, first,
         p,                             # last, is_bf16, stream
     ]
     lib.pwn_gated_layer_acc_generic.restype = i
     lib.pwn_flow_stack_train_bwd_generic.argtypes = [
-        p, p, p, p, p, p,              # acts, cond, dskip, w_in, b_g, w_out
+        p, p, p, p, p, p, p,           # acts, cond, dskip, w_gate, b_g, w_dz,
+                                       # w_dcat (packed)
         p, p, p, p, p, p, p,           # dx, dcond, dw_in, db_g, dw_out,
                                        # db_rs, workspace
         i, i, i, i, i, i, i,           # B, T, L, C, G, S, M
@@ -192,7 +197,18 @@ def load_library() -> ctypes.CDLL:
         i, i, i, p,                    # want_wgrads, SM count, is_bf16, stream
     ]
     lib.pwn_flow_stack_train_bwd_generic.restype = i
+    lib.pwn_flow_stack_train_wgrad_generic.argtypes = [
+        p, p, p, p, p,                 # x, cond, dg, dout, z (stored layouts)
+        p, p, p, p, p,                 # dw_in, db_g, dw_out, db_rs, workspace
+        i, i, i, i, i, i, i, i, i, p,  # B, T, C, G, S, M, dilation, SM count,
+                                       # is_bf16, stream
+    ]
+    lib.pwn_flow_stack_train_wgrad_generic.restype = i
+    lib.pwn_flow_stack_train_wgrad_generic_workspace_bytes.argtypes = [i] * 7
+    lib.pwn_flow_stack_train_wgrad_generic_workspace_bytes.restype = \
+        ctypes.c_longlong
     lib.pwn_flow_stack_train_bwd_generic_workspace_bytes.argtypes = [i] * 9
+    # (B, T, L, C, G, S, M, want_wgrads, SM count)
     lib.pwn_flow_stack_train_bwd_generic_workspace_bytes.restype = \
         ctypes.c_longlong
     lib.pwn_cuda_error_string.argtypes = [i]

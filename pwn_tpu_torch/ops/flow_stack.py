@@ -57,7 +57,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -74,21 +74,85 @@ TRAIN_KERNEL_DIMS = ((64, 128, 64, 80), (128, 256, 128, 80))
 # and the per-layer rings of sum(d) rows in 128-byte rows (C bf16), a
 # 128-row cond tile of M + 8 bf16, and six 8-byte barriers.
 SMEM_PER_BLOCK = 232_448
-# The general bodies' tile (csrc/generic.cuh): 64 rows a block, held in
-# shared memory as fp32 [k][row] tiles of 68-float rows, and one weight
-# slice of 32 such rows.
-GENERIC_ROW_BYTES, GENERIC_SLICE_ROWS = 68 * 4, 32
+# The general bodies (csrc/generic.cuh): k-slices of GENERIC_BK rows,
+# output chunks of GENERIC_NB columns, a ring of GENERIC_STAGES slots, row
+# tiles of 64 or 32 (`generic_tile_rows`), and the widths they take:
+# 2C + M + G/2 (+ max(C + S, G) backward) <= GENERIC_MAX_ROWS.
+GENERIC_BK, GENERIC_NB, GENERIC_STAGES = 16, 128, 3
+GENERIC_MAX_ROWS = 822
 GENERIC_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _pack_dims(K: int, G: int, N: int) -> dict:
+    GH = G // 2
+    return dict(K=K, GH=GH, N=N, Kp=_up(K, GENERIC_BK),
+                GHp=_up(GH, GENERIC_BK), Np=_up(N, GENERIC_BK),
+                Gc=-(-GH // 64), Nc=-(-N // GENERIC_NB),
+                Kc=-(-K // GENERIC_NB))
+
+
+def generic_pack_dims(C: int, G: int, S: int, M: int) -> dict:
+    """The packed weights' dimensions (`gen::pack_dims`): K = 2C + M, GH =
+    G/2, N = C + S, each padded to GENERIC_BK (Kp, GHp, Np), and the chunk
+    counts Gc (64 tanh columns and their sigmoid partners), Nc (128 out
+    columns), Kc (128 dcat columns)."""
+    return _pack_dims(2 * C + M, G, C + S)
+
+
+def _packed_shapes(K: int, G: int, N: int) -> dict:
+    d = _pack_dims(K, G, N)
+    return {"gate": (d["Gc"], d["Kp"], 128),
+            "out": (d["Nc"], d["GHp"], GENERIC_NB),
+            "dz": (d["Gc"], d["Np"], 64),
+            "dcat": (d["Kc"], 2 * d["GHp"], GENERIC_NB)}
+
+
+def _generic_smem_at(tm: int, C: int, G: int, S: int, M: int,
+                     backward: bool) -> int:
+    p = generic_pack_dims(C, G, S, M)
+    stage = tm * (GENERIC_BK * 4 + 16) + GENERIC_BK * GENERIC_NB * 4
+    cols = p["GHp"] + 4 if not backward or p["Gc"] > 1 else 0
+    if backward:
+        cols += max(p["Np"], 2 * p["GHp"]) + 4
+    return GENERIC_STAGES * stage + tm * cols * 4
+
+
+def generic_tile_rows(C: int, G: int, S: int, M: int,
+                      backward: bool = False) -> int:
+    """The general bodies' row tile at these widths (`gen::tile_rows`, a
+    route of the widths alone): 64 rows, or 32 where a 64-row block's
+    resident tiles do not fit SMEM_PER_BLOCK."""
+    return (64 if _generic_smem_at(64, C, G, S, M, backward)
+            <= SMEM_PER_BLOCK else 32)
+
+
+# the SM count the layer pass's register route is sized for (an H100's)
+GENERIC_FULL_SMS = 132
+
+
+def generic_layer_blocks(R: int, tile_rows: int) -> int:
+    """Blocks an SM kernel 3's general layer pass is built for at R rows of
+    `tile_rows`-row tiles (`gen::layer_blocks`, a route of R and the tile
+    alone): 3 where the tiles fill three blocks on each of an H100's 132
+    SMs, else 2 (fewer blocks, more registers each)."""
+    return 3 if -(-R // tile_rows) >= 3 * GENERIC_FULL_SMS else 2
 
 
 def generic_smem_bytes(C: int, G: int, S: int, M: int,
                        backward: bool = False) -> int:
-    """Shared memory of a general body's block at these widths
-    (`gen::smem_bytes` in csrc/generic.cuh): the tiles [x | tap | cond]
-    (2C + M rows) and z (G/2), in the backward also dout then dg
-    (max(C + S, G)), and the weight slice."""
-    rows = 2 * C + M + G // 2 + (max(C + S, G) if backward else 0)
-    return (rows + GENERIC_SLICE_ROWS) * GENERIC_ROW_BYTES
+    """Shared memory of a general body's block at these widths, at the tile
+    `generic_tile_rows` routes to (`gen::smem_bytes`): the ring's
+    GENERIC_STAGES slots (the tile's rows of GENERIC_BK activations, 16
+    bytes past each row, and a GENERIC_BK x 128 fp32 weight slice) and the
+    resident fp32 tiles, each row 4 floats past its width: z forward;
+    dout then dg, and where G/2 > 64 dz, backward (at G/2 <= 64 dz sits
+    over dout)."""
+    return _generic_smem_at(generic_tile_rows(C, G, S, M, backward), C, G,
+                            S, M, backward)
 
 
 def generic_limits(dtype, C: int, G: int, S: int, M: int,
@@ -96,21 +160,90 @@ def generic_limits(dtype, C: int, G: int, S: int, M: int,
     """Why the general bodies (kernel 5's forward, or with `backward`
     kernel 3's) do not take this dtype and these widths, or None where they
     do: float32 or bfloat16 operands; C, S, M >= 1; an even G >= 2; and
-    `generic_smem_bytes` within a block's SMEM_PER_BLOCK, which is
-    2C + M + G/2 (+ max(C + S, G) backward) <= 822."""
+    2C + M + G/2 (+ max(C + S, G) backward) <= GENERIC_MAX_ROWS, the widths
+    the bodies' shared memory was sized for (within them the routed tile
+    always fits)."""
     if dtype not in GENERIC_DTYPES:
         return f"the general bodies take float32 or bfloat16, got {dtype}"
     if min(C, S, M) < 1 or G < 2 or G % 2:
         return (f"the general bodies take C, S, M >= 1 and an even G >= 2, "
                 f"got (C, G, S, M) = {(C, G, S, M)}")
-    need = generic_smem_bytes(C, G, S, M, backward)
-    if need > SMEM_PER_BLOCK:
+    rows = 2 * C + M + G // 2 + (max(C + S, G) if backward else 0)
+    if rows > GENERIC_MAX_ROWS:
         return (f"the general {'backward' if backward else 'forward'} body "
-                f"needs {need} bytes of shared memory at (C, G, S, M) = "
-                f"{(C, G, S, M)}, more than a block's {SMEM_PER_BLOCK}: it "
                 f"takes 2C + M + G/2{' + max(C + S, G)' if backward else ''}"
-                f" <= {SMEM_PER_BLOCK // GENERIC_ROW_BYTES - GENERIC_SLICE_ROWS}")
+                f" <= {GENERIC_MAX_ROWS} (the widths its shared memory is "
+                f"sized for), got {rows} at (C, G, S, M) = {(C, G, S, M)}")
     return None
+
+
+class GenericWeights(NamedTuple):
+    """A stack's weights packed for the general bodies (`pack_generic`),
+    fp32, chunk-major and k-major within a chunk (so that 16 k-rows of a
+    chunk are one contiguous run), zero past the real widths; per layer:
+        gate (Gc, Kp, 128)    g = cat @ gate; chunk j's column c is tanh
+                              column 64 j + c (c < 64), else its sigmoid
+                              partner
+        out  (Nc, GHp, 128)   out = z @ out
+        dz   (Gc, Np, 64)     dz = dout @ dz
+        dcat (Kc, 2*GHp, 128) dcat = dg @ dcat, dg's columns [tanh |
+                              sigmoid], each padded to GHp
+    with a leading layer axis for a stack, none for one layer."""
+    gate: torch.Tensor
+    out: torch.Tensor
+    dz: torch.Tensor
+    dcat: torch.Tensor
+
+    def layer(self, l: int) -> "GenericWeights":
+        return GenericWeights(*(t[l] for t in self))
+
+
+def pack_generic(w_in: torch.Tensor, w_out: torch.Tensor) -> GenericWeights:
+    """`GenericWeights` of w_in (L, G, 2C+M) and w_out (L, C+S, G/2) in the
+    stacked (out, in) layout (or one layer's (G, 2C+M), (C+S, G/2)), on their
+    device, without grad."""
+    one = w_in.dim() == 2
+    if one:
+        w_in, w_out = w_in[None], w_out[None]
+    L, G, K = w_in.shape
+    N, GH = w_out.shape[1:]
+    d = _pack_dims(K, G, N)
+    Kp, GHp, Np, Gc = d["Kp"], d["GHp"], d["Np"], d["Gc"]
+    pad = torch.nn.functional.pad
+    with torch.no_grad():
+        wi, wo = w_in.float(), w_out.float()
+        tanh_sig = (wi[:, :GH], wi[:, GH:])
+        gate = torch.cat([pad(h, (0, Kp - K, 0, 64 * Gc - GH))
+                          .reshape(L, Gc, 1, 64, Kp) for h in tanh_sig], 2)
+        out = pad(wo.transpose(1, 2),
+                  (0, d["Nc"] * GENERIC_NB - N, 0, GHp - GH))
+        dz = pad(wo, (0, 64 * Gc - GH, 0, Np - N))
+        dcat = torch.cat([pad(h, (0, d["Kc"] * GENERIC_NB - K, 0, GHp - GH))
+                          for h in tanh_sig], 1)
+        packed = GenericWeights(   # columns split into chunks, chunk-major
+            gate=gate.reshape(L, Gc, 128, Kp).transpose(2, 3),
+            out=out.reshape(L, GHp, d["Nc"], 128).transpose(1, 2),
+            dz=dz.reshape(L, Np, Gc, 64).transpose(1, 2),
+            dcat=dcat.reshape(L, 2 * GHp, d["Kc"], 128).transpose(1, 2))
+        packed = GenericWeights(*(t.contiguous() for t in packed))
+    return packed.layer(0) if one else packed
+
+
+def generic_packed(w_in, w_out, packed: GenericWeights | None = None):
+    """`packed`, checked against w_in and w_out's widths, layers and device
+    (ValueError), or `pack_generic(w_in, w_out)` where it is None."""
+    if packed is None:
+        return pack_generic(w_in, w_out)
+    lead = tuple(w_in.shape[:-2])
+    shapes = _packed_shapes(w_in.shape[-1], w_in.shape[-2], w_out.shape[-2])
+    for name, t in packed._asdict().items():
+        want = (*lead, *shapes[name])
+        if (tuple(t.shape) != want or t.dtype != torch.float32
+                or t.device != w_in.device or not t.is_contiguous()):
+            raise ValueError(f"packed.{name} must be a contiguous float32 "
+                             f"{want} tensor on {w_in.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return packed
 
 
 def kernel_body(dtype, C: int, G: int, S: int, M: int,
@@ -289,7 +422,8 @@ def _check_operands(tensors: dict, fp32: Sequence[str], shapes: dict,
     """The checks every kernel wrapper makes: the tensors named in `fp32`
     are float32, the others `dtype`; `built` lists the (C, G, S, M) the
     kernel is compiled for (None: the general bodies, whose widths
-    `generic_limits` checks); the first tensor is the one the others must
+    `generic_limits` checks, and which need `row_alignment` where the wgmma
+    bodies need 16 bytes); the first tensor is the one the others must
     share a CUDA device with."""
     for name, t in tensors.items():
         want = torch.float32 if name in fp32 else dtype
@@ -312,8 +446,23 @@ def _check_operands(tensors: dict, fp32: Sequence[str], shapes: dict,
         if t.device.type != "cuda" or t.device != lead.device:
             raise ValueError(f"{name} must be on {first}'s CUDA device, got "
                              f"{t.device} ({first} on {lead.device})")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+        align = 16 if built is not None else row_alignment(t)
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"{name} must be contiguous and {align}-byte "
+                             f"aligned")
+
+
+def row_alignment(t: torch.Tensor) -> int:
+    """The alignment the general bodies need of a tensor: that of each of
+    its rows (the largest power of two up to 16 dividing the last
+    dimension's bytes, at least one element), since they read and write 16
+    bytes at a time only where a row's width allows it.  A layer's slice of
+    a stack at C = 5 in fp32 is 4-byte aligned, and taken."""
+    n = (t.shape[-1] if t.dim() else 1) * t.element_size()
+    align = 16
+    while n % align:
+        align //= 2
+    return max(align, t.element_size())
 
 
 def _stack_dims(x0, cond, w_in, w_out):
@@ -430,13 +579,16 @@ def segment_length(B: int, T: int, n_sm: int, tile: int) -> int:
 
 
 def flow_stack(x0, cond, w_in, b_g, w_out, b_rs, dilations: Sequence[int],
-               *, segment: int | None = None) -> torch.Tensor:
+               *, segment: int | None = None,
+               packed: GenericWeights | None = None) -> torch.Tensor:
     """Whole-stack forward; see the module docstring.  On a CUDA tensor,
     kernel 1 where `kernel1_takes` the stack, else kernel 5's accumulate
     epilogue once per layer (`gated_layer.flow_stack_by_layers`), which
     keeps the same rounding; a stack that neither kernel takes raises.
     `segment` overrides kernel 1's samples per block (default
-    `segment_length`); the result does not depend on it.
+    `segment_length`); the result does not depend on it.  `packed` is
+    `pack_generic(w_in, w_out)` (built here where it is None and the
+    general body runs).
     `flow_stack.launches` counts kernel 1's launches (kernel 5's count on
     `gated_layer.launches`)."""
     if x0.device.type == "cpu":
@@ -451,7 +603,7 @@ def flow_stack(x0, cond, w_in, b_g, w_out, b_rs, dilations: Sequence[int],
         from pwn_tpu_torch.ops.gated_layer import flow_stack_by_layers
 
         return flow_stack_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
-                                    dilations)
+                                    dilations, packed=packed)
     check_kernel_args(x0, cond, w_in, b_g, w_out, b_rs, dilations)
     from pwn_tpu_torch.ops import _build
 
@@ -483,7 +635,8 @@ flow_stack.launches = 0
 
 
 def flow_stack_train_forward(x0, cond, w_in, b_g, w_out, b_rs,
-                             dilations: Sequence[int]):
+                             dilations: Sequence[int],
+                             packed: GenericWeights | None = None):
     """Kernel 2: the stack forward that also saves every layer's input.
     Returns (skip (B, T, S), acts (L, B, T, C)); on CPU tensors the plain
     `flow_stack_train_reference`.  On a CUDA tensor it runs kernel 5's
@@ -491,7 +644,9 @@ def flow_stack_train_forward(x0, cond, w_in, b_g, w_out, b_rs,
     acts[l + 1] (`gated_layer.flow_stack_train_by_layers`, the same
     rounding), in the body `kernel_body` picks; what neither body takes
     raises.  It launches no kernel of its own: kernel 5 counts its L
-    launches on `gated_layer.launches` (and `.launches_by`, by body)."""
+    launches on `gated_layer.launches` (and `.launches_by`, by body).
+    `packed`: the general body's weights (`pack_generic`), built here where
+    it is None."""
     if x0.device.type == "cpu":
         return flow_stack_train_reference(x0, cond, w_in, b_g, w_out, b_rs,
                                           dilations)
@@ -504,12 +659,13 @@ def flow_stack_train_forward(x0, cond, w_in, b_g, w_out, b_rs,
     from pwn_tpu_torch.ops.gated_layer import flow_stack_train_by_layers
 
     return flow_stack_train_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
-                                      dilations)
+                                      dilations, packed=packed)
 
 
 def flow_stack_train_backward(acts, cond, w_in, b_g, w_out, dskip,
                               dilations: Sequence[int],
-                              want_wgrads: bool = True):
+                              want_wgrads: bool = True,
+                              packed: GenericWeights | None = None):
     """Kernel 3: the fused backward, with the returns of
     `flow_stack_backward_reference` (its plain version, taken for CPU
     tensors).  On a CUDA tensor, the body `kernel_body(..., backward=True)`
@@ -519,7 +675,9 @@ def flow_stack_train_backward(acts, cond, w_in, b_g, w_out, dskip,
     `flow_stack_train_backward.launches_by` the same calls by (C,
     want_wgrads) for the wgmma body and ("generic", C, want_wgrads) for
     the general one, which tells the student's calls with weight gradients
-    from the frozen teacher's dx-only ones, and the bodies apart."""
+    from the frozen teacher's dx-only ones, and the bodies apart.  The
+    general body reads `packed` (`pack_generic(w_in, w_out)`, built here
+    where it is None)."""
     if acts.device.type == "cpu":
         return flow_stack_backward_reference(acts, cond, w_in, b_g, w_out,
                                              dskip, dilations, want_wgrads)
@@ -539,8 +697,9 @@ def flow_stack_train_backward(acts, cond, w_in, b_g, w_out, dskip,
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     lib = _build.load_library()
     is_bf16 = int(acts.dtype == torch.bfloat16)
+    weights = ((generic_packed(w_in, w_out, packed),) if generic else ())
     ws = torch.empty(lib.pwn_flow_stack_train_bwd_generic_workspace_bytes(
-                         B, T, C, G, S, M, int(want_wgrads), n_sm, is_bf16)
+                         B, T, L, C, G, S, M, int(want_wgrads), n_sm)
                      if generic else
                      lib.pwn_flow_stack_train_bwd_workspace_bytes(
                          B, T, C, G, S, M, int(want_wgrads), n_sm),
@@ -552,10 +711,14 @@ def flow_stack_train_backward(acts, cond, w_in, b_g, w_out, dskip,
               torch.empty(w_out.shape, **f32), torch.empty((L, C + S), **f32))
              if want_wgrads else ())
     ptrs = [g.data_ptr() for g in grads] or [None] * 4
+    w_ptrs = ([weights[0].gate.data_ptr(), b_g.data_ptr(),
+               weights[0].dz.data_ptr(), weights[0].dcat.data_ptr()]
+              if generic else
+              [w_in.data_ptr(), b_g.data_ptr(), w_out.data_ptr()])
     _device_call(
         "pwn_flow_stack_train_bwd_" + ("generic" if generic else "bf16"), dev,
-        acts.data_ptr(), cond.data_ptr(), dskip.data_ptr(), w_in.data_ptr(),
-        b_g.data_ptr(), w_out.data_ptr(), dx.data_ptr(), dcond.data_ptr(),
+        acts.data_ptr(), cond.data_ptr(), dskip.data_ptr(), *w_ptrs,
+        dx.data_ptr(), dcond.data_ptr(),
         *ptrs, ws.data_ptr(),
         B, T, L, C, G, S, M, (ctypes.c_int * L)(*dilations),
         int(want_wgrads), n_sm, *((is_bf16,) if generic else ()))
@@ -611,6 +774,72 @@ def flow_stack_train_wgrads(x, cond, dg, dout, z, dilation: int):
 flow_stack_train_wgrads.launches = 0
 
 
+def generic_wgrad_operands(dg, dout, z):
+    """dg (B, T, G), dout (B, T, C+S), z (B, T, G/2) in the layout kernel 3's
+    general layer pass stores them for its weight-gradient product: fp32,
+    dg's tanh and sigmoid halves each padded to GHp columns, dout padded to
+    Np, z to GHp (`generic_pack_dims`)."""
+    GH, N = z.shape[-1], dout.shape[-1]
+    GHp, Np = _up(GH, GENERIC_BK), _up(N, GENERIC_BK)
+    pad = torch.nn.functional.pad
+    dg = dg.float()
+    return (torch.cat([pad(dg[..., :GH], (0, GHp - GH)),
+                       pad(dg[..., GH:], (0, GHp - GH))], -1).contiguous(),
+            pad(dout.float(), (0, Np - N)).contiguous(),
+            pad(z.float(), (0, GHp - GH)).contiguous())
+
+
+def flow_stack_train_wgrads_generic(x, cond, dg, dout, z, dilation: int,
+                                    stored=None):
+    """Kernel 3's general weight-gradient product alone, for one layer: the
+    returns of `flow_stack_wgrads_reference` (its plain version, taken for
+    CPU tensors) from x and cond in the operand type (fp32 or bf16) and dg,
+    dout, z; on the card they go in as `generic_wgrad_operands` lays them
+    out (`stored`, built here where it is None).  `flow_stack_train_backward`
+    runs the same kernels inside its one library call; this entry point
+    serves tests and timing.  `flow_stack_train_wgrads_generic.launches`
+    counts the calls."""
+    if x.device.type == "cpu":
+        return flow_stack_wgrads_reference(x, cond, dg, dout, z, dilation)
+    if x.dim() != 3:
+        raise ValueError("x must be (B, T, C)")
+    B, T, C = x.shape
+    G, M, N = dg.shape[-1], cond.shape[-1], dout.shape[-1]
+    why = generic_limits(x.dtype, C, G, N - C, M, backward=True)
+    if why:
+        raise ValueError(why)
+    if stored is None:
+        stored = generic_wgrad_operands(dg, dout, z)
+    d = generic_pack_dims(C, G, N - C, M)
+    _check_operands(
+        dict(x=x, cond=cond, dg=stored[0], dout=stored[1], z=stored[2]),
+        ("dg", "dout", "z"),
+        {"cond": (B, T, M), "dg": (B, T, 2 * d["GHp"]),
+         "dout": (B, T, d["Np"]), "z": (B, T, d["GHp"])},
+        (C, G, N - C, M), None, (dilation,), 1, dtype=x.dtype)
+    from pwn_tpu_torch.ops import _build
+
+    dev = x.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = _build.load_library()
+    ws = torch.empty(lib.pwn_flow_stack_train_wgrad_generic_workspace_bytes(
+        B, T, C, G, N - C, M, n_sm), dtype=torch.uint8, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    grads = (torch.empty((G, 2 * C + M), **f32), torch.empty(G, **f32),
+             torch.empty((N, G // 2), **f32), torch.empty(N, **f32))
+    _device_call(
+        "pwn_flow_stack_train_wgrad_generic", dev,
+        x.data_ptr(), cond.data_ptr(), *(t.data_ptr() for t in stored),
+        *(g.data_ptr() for g in grads), ws.data_ptr(),
+        B, T, C, G, N - C, M, dilation, n_sm,
+        int(x.dtype == torch.bfloat16))
+    flow_stack_train_wgrads_generic.launches += 1
+    return grads
+
+
+flow_stack_train_wgrads_generic.launches = 0
+
+
 class FlowStackTrain(torch.autograd.Function):
     """Differentiable stack: forward `flow_stack_train_forward`, which
     saves the per-layer inputs; backward `flow_stack_train_backward`.
@@ -620,11 +849,16 @@ class FlowStackTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x0, cond, w_in, b_g, w_out, b_rs, dilations,
-                want_wgrads):
+                want_wgrads, packed):
+        _, _, C, _, G, S, M = _stack_dims(x0, cond, w_in, w_out)
+        if x0.is_cuda and kernel_body(x0.dtype, C, G, S, M) == "generic":
+            # packed once, for the forward and the backward
+            packed = generic_packed(w_in, w_out, packed)
         skip, acts = flow_stack_train_forward(x0, cond, w_in, b_g, w_out,
-                                              b_rs, dilations)
+                                              b_rs, dilations, packed)
         ctx.save_for_backward(acts, cond, w_in, b_g, w_out)
         ctx.dilations, ctx.want_wgrads = tuple(dilations), want_wgrads
+        ctx.packed = packed
         return skip
 
     @staticmethod
@@ -632,22 +866,25 @@ class FlowStackTrain(torch.autograd.Function):
         acts, cond, w_in, b_g, w_out = ctx.saved_tensors
         dx, dcond, *grads = flow_stack_train_backward(
             acts, cond, w_in, b_g, w_out, dskip.contiguous(), ctx.dilations,
-            ctx.want_wgrads)
-        return (dx, dcond, *(grads or [None] * 4), None, None)
+            ctx.want_wgrads, ctx.packed)
+        return (dx, dcond, *(grads or [None] * 4), None, None, None)
 
 
 def flow_stack_train(x0, cond, w_in, b_g, w_out, b_rs,
-                     dilations: Sequence[int]) -> torch.Tensor:
+                     dilations: Sequence[int],
+                     packed: GenericWeights | None = None) -> torch.Tensor:
     """The training stack (counterpart of `fused_flow_stack_train`): the
-    skip sum, differentiable in every input."""
+    skip sum, differentiable in every input.  `packed`: the general body's
+    weights, as `flow_stack_train_backward` takes them."""
     return FlowStackTrain.apply(x0, cond, w_in, b_g, w_out, b_rs,
-                                tuple(dilations), True)
+                                tuple(dilations), True, packed)
 
 
 def flow_stack_score(x0, cond, w_in, b_g, w_out, b_rs,
-                     dilations: Sequence[int]) -> torch.Tensor:
+                     dilations: Sequence[int],
+                     packed: GenericWeights | None = None) -> torch.Tensor:
     """The frozen-stack scoring variant (counterpart of
     `fused_flow_stack_score`): the backward computes dx and dcond only, and
     the weights' gradients are None."""
     return FlowStackTrain.apply(x0, cond, w_in, b_g, w_out, b_rs,
-                                tuple(dilations), False)
+                                tuple(dilations), False, packed)

@@ -54,10 +54,11 @@ from typing import Sequence
 import torch
 
 from pwn_tpu_torch.ops.conv import shift_right
-from pwn_tpu_torch.ops.flow_stack import (TRAIN_KERNEL_DIMS, _check_operands,
-                                          _device_call, _shift_left,
-                                          generic_limits, kernel_body,
-                                          layer_out)
+from pwn_tpu_torch.ops.flow_stack import (TRAIN_KERNEL_DIMS, GenericWeights,
+                                          _check_operands, _device_call,
+                                          _shift_left, generic_limits,
+                                          generic_packed, kernel_body,
+                                          layer_out, row_alignment)
 
 # The reference's time tile: its kernel reaches the tap through the previous
 # tile, so it refuses a dilation above one tile.  The CUDA bodies have no
@@ -123,6 +124,15 @@ def check_generic_layer_args(x, cond, w_in, b_g, w_out, b_out,
     _check_layer(x, cond, w_in, b_g, w_out, b_out, dilation, None)
 
 
+def _kernel_weights(body: str, w_in, w_out, packed):
+    """The weights a body's launch reads: the wgmma body's (out, in)
+    matrices, or the general body's packed gate and out matrices."""
+    if body == "wgmma":
+        return w_in, w_out
+    packed = generic_packed(w_in, w_out, packed)
+    return packed.gate, packed.out
+
+
 def _count(body: str, epilogue: str) -> None:
     gated_layer.launches += 1
     gated_layer.launches_by[(body, epilogue)] += 1
@@ -132,7 +142,9 @@ def gated_layer(x, cond, w_in, b_g, w_out, b_out, dilation: int):
     """One layer's (res, skip); see the module docstring.
     `gated_layer.launches` counts the kernel launches of both epilogues and
     both bodies, `gated_layer.launches_by` the same by (body, epilogue):
-    ("wgmma" | "generic", "layer" | "accumulate")."""
+    ("wgmma" | "generic", "layer" | "accumulate").  The general body reads
+    the weights packed (`ops/flow_stack.py::pack_generic`), here, per call
+    (the per-layer "layer" mode; the stack routes pack once)."""
     if dilation > TIME_TILE:
         raise ValueError(f"dilation {dilation} > TIME_TILE {TIME_TILE}: the "
                          "reference's per-layer kernel does not take it")
@@ -148,6 +160,7 @@ def gated_layer(x, cond, w_in, b_g, w_out, b_out, dilation: int):
     G, M, S = w_in.shape[0], cond.shape[-1], w_out.shape[0] - C
     res = torch.empty_like(x)
     skip = torch.empty((B, T, S), dtype=x.dtype, device=x.device)
+    w_in, w_out = _kernel_weights(body, w_in, w_out, None)
     _device_call(
         "pwn_gated_layer_" + ("bf16" if body == "wgmma" else "generic"),
         x.device,
@@ -197,14 +210,15 @@ def check_accumulate_args(x, cond, w_in, b_g, w_out, b_rs, dilation: int,
 def check_generic_accumulate_args(x, cond, w_in, b_g, w_out, b_rs,
                                   dilation: int, skip_acc, out, *,
                                   first: bool, last: bool) -> None:
-    """`check_accumulate_args` for the general body: the same buffers, then
-    the layer's operands as `check_generic_layer_args`."""
-    _check_acc_buffers(x, w_out, skip_acc, out, first, last)
+    """`check_accumulate_args` for the general body: the same buffers (at
+    their rows' alignment, `row_alignment`), then the layer's operands as
+    `check_generic_layer_args`."""
+    _check_acc_buffers(x, w_out, skip_acc, out, first, last, generic=True)
     check_generic_layer_args(x, cond, w_in, b_g, w_out, b_rs, dilation)
 
 
 def _check_acc_buffers(x, w_out, skip_acc, out, first: bool,
-                       last: bool) -> None:
+                       last: bool, generic: bool = False) -> None:
     if x.dim() != 3:
         raise ValueError("x and cond must be (B, T, channels)")
     B, T, C = x.shape
@@ -213,17 +227,19 @@ def _check_acc_buffers(x, w_out, skip_acc, out, first: bool,
     if not (first and last):
         bufs["skip_acc"] = (skip_acc, torch.float32, (B, T, S))
     for name, (t, dt, shape) in bufs.items():
+        align = row_alignment(t) if generic and t is not None else 16
         if (t is None or t.dtype != dt or tuple(t.shape) != shape
                 or t.device != x.device or not t.is_contiguous()
-                or t.data_ptr() % 16):
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"{shape} {dt} tensor on {x.device}")
+                or t.data_ptr() % align):
+            raise ValueError(f"{name} must be a contiguous, {align}-byte "
+                             f"aligned {shape} {dt} tensor on {x.device}")
     if not last and out.data_ptr() == x.data_ptr():
         raise ValueError("res must not overwrite x: other tiles read its taps")
 
 
 def gated_layer_accumulate(x, cond, w_in, b_g, w_out, b_rs, dilation: int,
-                           skip_acc, *, first: bool, last: bool, out=None):
+                           skip_acc, *, first: bool, last: bool, out=None,
+                           packed: GenericWeights | None = None):
     """Kernel 5's "accumulate" epilogue: layer `first` / `last` of the
     whole-stack forward, in its rounding (`flow_stack_reference`).  The
     operands are `gated_layer`'s, with `b_g` and `b_rs` from the stacked
@@ -235,7 +251,9 @@ def gated_layer_accumulate(x, cond, w_in, b_g, w_out, b_rs, dilation: int,
     bf16(skip_acc + skip) (B, T, S), written into `out` if given.  A CPU
     tensor goes to the plain version; a CUDA tensor to the body
     `kernel_body` picks, or raises.  Each launch counts on
-    `gated_layer.launches` and `gated_layer.launches_by`."""
+    `gated_layer.launches` and `gated_layer.launches_by`.  `packed`: the
+    general body's weights (`ops/flow_stack.py::pack_generic(w_in,
+    w_out)`), built here where it is None."""
     if dilation > TIME_TILE:
         raise ValueError(f"dilation {dilation} > TIME_TILE {TIME_TILE}: the "
                          "reference's per-layer kernel does not take it")
@@ -254,6 +272,7 @@ def gated_layer_accumulate(x, cond, w_in, b_g, w_out, b_rs, dilation: int,
           first=first, last=last)
     B, T, C = x.shape
     G, M, S = w_in.shape[0], cond.shape[-1], w_out.shape[0] - C
+    w_in, w_out = _kernel_weights(body, w_in, w_out, packed)
     _device_call(
         "pwn_gated_layer_acc_" + ("bf16" if body == "wgmma" else "generic"),
         x.device,
@@ -269,19 +288,23 @@ def gated_layer_accumulate(x, cond, w_in, b_g, w_out, b_rs, dilation: int,
 
 
 def flow_stack_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
-                         dilations: Sequence[int]) -> torch.Tensor:
+                         dilations: Sequence[int],
+                         packed: GenericWeights | None = None) -> torch.Tensor:
     """`flow_stack` on the stacked layout where kernel 1 does not take the
     stack: `gated_layer_accumulate` once per layer over the per-layer views of
     the stacked weights (nothing copied), the fp32 skip sum carried between
     launches and rounded once, the residuals in two buffers taken in turn.
-    Returns the skip sum (B, T, S) in the compute dtype."""
+    Returns the skip sum (B, T, S) in the compute dtype.  `packed`: the
+    general body's weights for the whole stack (`pack_generic`), built here
+    where it is None and that body runs."""
     bufs = [torch.empty_like(x0) for _ in range(min(len(dilations) - 1, 2))]
     return _accumulate_layers(x0, cond, w_in, b_g, w_out, b_rs, dilations,
-                              bufs)
+                              bufs, packed)
 
 
 def flow_stack_train_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
-                               dilations: Sequence[int]):
+                               dilations: Sequence[int],
+                               packed: GenericWeights | None = None):
     """Kernel 2's route (`ops/flow_stack.py::flow_stack_train_forward` on a
     CUDA tensor): the whole-stack forward that also keeps every layer's
     input, as `flow_stack_by_layers` writing layer l's residual into the
@@ -293,14 +316,16 @@ def flow_stack_train_by_layers(x0, cond, w_in, b_g, w_out, b_rs,
                        device=x0.device)
     acts[0].copy_(x0)
     skip = _accumulate_layers(acts[0], cond, w_in, b_g, w_out, b_rs,
-                              dilations, acts[1:])
+                              dilations, acts[1:], packed)
     return skip, acts
 
 
 def _accumulate_layers(x0, cond, w_in, b_g, w_out, b_rs,
-                       dilations: Sequence[int], bufs) -> torch.Tensor:
+                       dilations: Sequence[int], bufs,
+                       packed: GenericWeights | None) -> torch.Tensor:
     """The layer loop of both routes above: layer l (not the last) writes
-    its residual into bufs[l % len(bufs)]."""
+    its residual into bufs[l % len(bufs)]; the general body's packed
+    weights are checked or built once for the stack."""
     L = len(dilations)
     if L < 1 or w_in.dim() != 3 or len(w_in) != L or len(w_out) != L:
         raise ValueError(f"need one (w_in, w_out) per dilation, got "
@@ -308,6 +333,9 @@ def _accumulate_layers(x0, cond, w_in, b_g, w_out, b_rs,
                          f"{L} dilations")
     B, T, C = x0.shape
     S = w_out.shape[1] - C
+    if x0.is_cuda and kernel_body(x0.dtype, C, w_in.shape[1], S,
+                                  cond.shape[-1]) == "generic":
+        packed = generic_packed(w_in, w_out, packed)
     skip_acc = (torch.empty((B, T, S), dtype=torch.float32, device=x0.device)
                 if L > 1 else None)
     x = x0
@@ -315,7 +343,8 @@ def _accumulate_layers(x0, cond, w_in, b_g, w_out, b_rs,
         last = l == L - 1
         x = gated_layer_accumulate(
             x, cond, w_in[l], b_g[l], w_out[l], b_rs[l], d, skip_acc,
-            first=l == 0, last=last, out=None if last else bufs[l % len(bufs)])
+            first=l == 0, last=last, out=None if last else bufs[l % len(bufs)],
+            packed=None if packed is None else packed.layer(l))
     return x
 
 

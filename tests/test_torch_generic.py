@@ -15,6 +15,9 @@ CUDA cases also run where JAX is absent:
     python -m pytest --noconftest -m gpu tests/test_torch_generic.py
 """
 
+import re
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -96,13 +99,19 @@ def test_kernel_body_refuses_what_neither_body_takes(dtype, dims, backward,
 
 
 def test_generic_limits_are_the_shared_memory_formula():
-    """The general bodies' limit is a block's shared memory: 64-row tiles
-    of fp32 rows (68 floats), 2C + M + G/2 of them (+ max(C + S, G) in the
-    backward) plus a 32-row weight slice: 2C + M + G/2 (+ ...) <= 822.
-    Every preset's widths fit both bodies."""
-    assert generic_smem_bytes(*TEACHER) == (336 + 128 + 32) * 272
+    """The general bodies take 2C + M + G/2 (+ max(C + S, G) in the
+    backward) <= 822, the widths their shared memory is sized for.  A
+    block's shared memory: 3 ring slots of 64 rows x (16 fp32 + 16 bytes)
+    and a 16 x 128 fp32 weight slice, and the resident fp32 tiles (z; dz
+    and dout / dg; dz over dout at G/2 <= 64), each row of 64 their padded
+    width + 4 floats.  Every preset's widths fit both bodies."""
+    slots = 3 * (64 * 80 + 16 * 128 * 4)
+    assert generic_smem_bytes(*TEACHER) == slots + 64 * (128 + 4) * 4
     assert generic_smem_bytes(*TEACHER, backward=True) == \
-        (336 + 128 + 256 + 32) * 272
+        slots + 64 * (128 + 4 + 256 + 4) * 4
+    # at G/2 <= 64 dz sits over dout: student_iaf's backward block
+    assert generic_smem_bytes(*STUDENT, backward=True) == \
+        slots + 64 * (128 + 4) * 4
     for dims in (TINY, STUDENT, TEACHER, WIDE_40, *JAX_SHAPES):
         assert generic_smem_bytes(*dims, backward=True) <= SMEM_PER_BLOCK
         assert generic_limits(F32, *dims, backward=True) is None
@@ -111,6 +120,202 @@ def test_generic_limits_are_the_shared_memory_formula():
     assert generic_limits(F32, 300, 2, 1, 222) is not None  # 823
     assert generic_limits(F32, 200, 2, 1, 220, backward=True) is None
     assert generic_limits(F32, 200, 2, 1, 221, backward=True) is not None
+
+
+def _csrc_constants() -> dict:
+    """The `constexpr int NAME = value;` lines of csrc/generic.cuh."""
+    text = (Path(fs.__file__).parents[1] / "csrc" / "generic.cuh").read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+def test_generic_mirror_holds_the_sources_constants():
+    """The Python mirror of the general bodies' tile (slice rows, chunk
+    columns, ring slots, width limit, a block's shared memory) is the one
+    csrc/generic.cuh states, and its route picks 64-row tiles at every
+    preset's widths and 32-row tiles only where 64 rows do not fit."""
+    c = _csrc_constants()
+    assert (c["BK"], c["NB"], c["STAGES"], c["MAX_ROWS"], c["SMEM_MAX"],
+            c["FULL_SMS"]) == (
+        fs.GENERIC_BK, fs.GENERIC_NB, fs.GENERIC_STAGES,
+        fs.GENERIC_MAX_ROWS, SMEM_PER_BLOCK, fs.GENERIC_FULL_SMS)
+    # the layer pass's register route: three blocks an SM once the tiles
+    # fill three on each of 132 SMs (student_iaf's 8 x 44,032), else two
+    # (the tiny teacher's 1 x 16,000)
+    assert fs.generic_layer_blocks(16000, 64) == 2
+    assert fs.generic_layer_blocks(8 * 44032, 64) == 3
+    assert fs.generic_layer_blocks(395 * 64, 64) == 2
+    assert fs.generic_layer_blocks(395 * 64 + 1, 64) == 3
+    assert fs.generic_layer_blocks(395 * 64 + 1, 32) == 3
+    for dims in (TINY, STUDENT, TEACHER, WIDE_40, *JAX_SHAPES):
+        for backward in (False, True):
+            assert fs.generic_tile_rows(*dims, backward=backward) == 64
+    # the widest G/2 the limit takes: its z (and dz, dg) tiles need 32 rows
+    assert fs.generic_tile_rows(1, 1638, 1, 1) == 32
+    assert fs.generic_tile_rows(1, 546, 1, 1, backward=True) == 32
+    assert fs.generic_tile_rows(300, 2, 1, 221) == 64
+    for dims, backward in (((1, 1638, 1, 1), False), ((1, 546, 1, 1), True)):
+        assert fs._generic_smem_at(64, *dims, backward) > SMEM_PER_BLOCK
+        assert generic_smem_bytes(*dims, backward) == fs._generic_smem_at(
+            32, *dims, backward) <= SMEM_PER_BLOCK
+
+
+def _old_limit(C, G, S, M, backward):
+    """The widths the general bodies took before their tiles streamed the
+    activations: (2C + M + G/2 (+ max(C + S, G)) + 32) rows of 272 bytes
+    within a block's 232,448 bytes."""
+    rows = 2 * C + M + G // 2 + (max(C + S, G) if backward else 0)
+    return C >= 1 and S >= 1 and M >= 1 and G >= 2 and G % 2 == 0 and \
+        (rows + 32) * 272 <= SMEM_PER_BLOCK
+
+
+def _edge_widths(backward):
+    """(C, G, S, M) along the old limit's edge: for each (C, S, M) the
+    widest even G it took, and a few below."""
+    for C in (1, 2, 3, 5, 16, 33, 64, 128, 200, 300):
+        for S in (1, 7, 64, 128, 301):
+            for M in (1, 8, 40, 80, 221):
+                G = 2
+                while _old_limit(C, G + 2, S, M, backward):
+                    G += 2
+                for g in {G, G - 2, G - 30, 128, 256, 2}:
+                    if g >= 2 and g % 2 == 0 and _old_limit(C, g, S, M,
+                                                            backward):
+                        yield (C, g, S, M)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_every_width_taken_before_is_still_taken(backward):
+    """Every (dtype, widths) the general bodies took before is taken: each
+    preset's widths in fp32, the tiny widths in bf16, the old limit's edge
+    2C + M + G/2 = 822 forward and its backward counterpart, and a walk
+    along that edge; at each, the routed tile fits a block."""
+    cases = [(F32, d) for d in (TINY, STUDENT, TEACHER, WIDE_40,
+                                *JAX_SHAPES)]
+    cases += [(BF16, TINY), (BF16, WIDE_40), (BF16, JAX_SHAPES[0])]
+    cases += [(F32, (300, 2, 1, 221)), (F32, (200, 2, 1, 220)),
+              (F32, (1, 1638, 1, 1)), (F32, (1, 546, 1, 1))]
+    walked = list(_edge_widths(backward))
+    assert len(walked) > 1000
+    cases += [(dt, d) for d in walked for dt in (F32, BF16)]
+    n = 0
+    for dt, dims in cases:
+        if not _old_limit(*dims, backward):
+            continue
+        n += 1
+        assert generic_limits(dt, *dims, backward=backward) is None, dims
+        assert kernel_body(dt, *dims, backward=backward) in ("generic",
+                                                             "wgmma")
+        assert generic_smem_bytes(*dims, backward) <= SMEM_PER_BLOCK, dims
+    assert n > 2000
+
+
+def _unpack(packed: fs.GenericWeights, G: int, K: int, N: int):
+    """w_in (G, K) and w_out (N, G/2) read back from each packed matrix
+    by the layout GenericWeights states, and the packed matrices with those
+    entries zeroed (which must then be all zero: the padding)."""
+    GH = G // 2
+    d = fs._pack_dims(K, G, N)
+    # chunk-major to columns: (chunks, rows, width) -> (rows, chunks * width)
+    packed = fs.GenericWeights(*(t.transpose(0, 1).reshape(t.shape[1], -1)
+                                 for t in packed))
+    h = torch.arange(GH)
+    col = 128 * (h // 64) + h % 64            # tanh column of h in gate
+    gate = packed.gate.clone()
+    w_in_gate = torch.cat([gate[:K, col].T, gate[:K, col + 64].T])
+    gate[:K, col] = 0
+    gate[:K, col + 64] = 0
+    out = packed.out.clone()
+    w_out_out = out[:GH, :N].T.clone()
+    out[:GH, :N] = 0
+    dz = packed.dz.clone()
+    w_out_dz = dz[:N, :GH].clone()
+    dz[:N, :GH] = 0
+    dcat = packed.dcat.clone()
+    w_in_dcat = torch.cat([dcat[:GH, :K], dcat[d["GHp"]:d["GHp"] + GH, :K]])
+    dcat[:GH, :K] = 0
+    dcat[d["GHp"]:d["GHp"] + GH, :K] = 0
+    return ((w_in_gate, w_in_dcat), (w_out_out, w_out_dz),
+            (gate, out, dz, dcat))
+
+
+@pytest.mark.parametrize("dims", [TINY, STUDENT, (5, 34, 3, 7),
+                                  (16, 130, 48, 8)])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_packed_weights_unpack_to_the_stacked_layout(dims, dtype):
+    """`WaveNetStack.generic_weights()` holds `stacked()`'s w_in and w_out
+    exactly (fp32 of the compute dtype) in every packed matrix, zero
+    everywhere else; each layer's slice is that layer's `layer_weights()`
+    matrices; and the shapes are the ones the kernels are built to read."""
+    from pwn_tpu_torch.models.modules import WaveNetStack
+
+    C, G, S, M = dims
+    stack = WaveNetStack((1, 2, 4), C, G, S, 2, M, dtype=dtype)
+    stack.reset_parameters(torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        w_in, _, w_out, _ = stack.stacked()
+        packed = stack.generic_weights()
+        layers = stack.layer_weights()
+    d = fs.generic_pack_dims(*dims)
+    assert tuple(packed.gate.shape) == (3, d["Gc"], d["Kp"], 128)
+    assert tuple(packed.out.shape) == (3, d["Nc"], d["GHp"], 128)
+    assert tuple(packed.dz.shape) == (3, d["Gc"], d["Np"], 64)
+    assert tuple(packed.dcat.shape) == (3, d["Kc"], 2 * d["GHp"], 128)
+    for t in packed:
+        assert t.dtype == F32 and t.is_contiguous()
+    fs.generic_packed(w_in, w_out, packed)   # its own check passes
+    for l in range(3):
+        ins, outs, rest = _unpack(packed.layer(l), G, 2 * C + M, C + S)
+        for got in ins:
+            assert torch.equal(got, w_in[l].float())
+            assert torch.equal(got, layers[l][0].float())
+        for got in outs:
+            assert torch.equal(got, w_out[l].float())
+            assert torch.equal(got, layers[l][2].float())
+        for t in rest:
+            assert not t.any()
+    one = fs.pack_generic(w_in[1], w_out[1])
+    assert all(torch.equal(a, b) for a, b in zip(one, packed.layer(1)))
+
+
+def test_packed_weights_cache_follows_an_optimizer_step():
+    """The packed form is built once while grad is off and reused, and an
+    in-place optimizer step (which bumps the parameters' versions) builds it
+    anew from the stepped weights."""
+    from pwn_tpu_torch.models.modules import WaveNetStack
+
+    stack = WaveNetStack((1, 2), *TINY[:3], 2, TINY[3])
+    stack.reset_parameters(torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        first = stack.generic_weights()
+        assert stack.generic_weights() is first
+    opt = torch.optim.SGD(stack.parameters(), lr=0.1)
+    loss = sum((p * p).sum() for p in stack.layers[1].parameters())
+    loss.backward()
+    opt.step()
+    with torch.no_grad():
+        stepped = stack.generic_weights()
+        w_in, _, w_out, _ = stack.stacked()
+    assert stepped is not first
+    assert not torch.equal(stepped.gate, first.gate)
+    assert all(torch.equal(a, b) for a, b in
+               zip(stepped, fs.pack_generic(w_in, w_out)))
+    # under grad nothing is kept: each call packs the weights it sees
+    assert stack.generic_weights() is not stack.generic_weights()
+
+
+def test_generic_packed_refuses_a_stale_layout():
+    """A packed form of other widths, of another layer count or not fp32 is
+    refused before any launch."""
+    w_in, w_out = torch.randn(2, 128, 168), torch.randn(2, 128, 64)
+    good = fs.pack_generic(w_in, w_out)
+    for bad in (fs.pack_generic(w_in[:1], w_out[:1]),
+                fs.pack_generic(torch.randn(2, 130, 168),
+                                torch.randn(2, 128, 65)),
+                good._replace(out=good.out.double())):
+        with pytest.raises(ValueError, match="packed"):
+            fs.generic_packed(w_in, w_out, bad)
+    assert fs.generic_packed(w_in, w_out, good) is good
 
 
 @pytest.mark.parametrize("dims,dtype,want", [
@@ -410,3 +615,116 @@ def test_fp32_inference_stack_runs_the_generic_chain_on_card(cuda):
         by[("generic", "accumulate")] + len(dil)
     assert gated_layer.launches_by[("wgmma", "accumulate")] == \
         by[("wgmma", "accumulate")]
+
+
+# The tiles' edges: C, S, M not multiples of 4 (the element-wise loads and
+# stores), K = 2C + M not a multiple of the 16-row slice, G/2 not a multiple
+# of the 64-column gate chunk (17, and 65: a second chunk of one column), a
+# dilation past the 64-row tile, the widest rows the limit takes (822:
+# 5 dcat chunks of K = 620; G = 546 backward and 1,638 forward on 32-row
+# tiles), at B x T = 1 x 1, 3 x 127 (R not a multiple of the tile) and
+# 2 x 257.  FWD_ONLY are past the backward's limit.
+EDGE_CASES = [
+    ((5, 34, 3, 7), F32, (1, 100)), ((5, 34, 3, 7), BF16, (1, 100)),
+    ((16, 130, 48, 8), F32, (3, 512)), ((16, 130, 48, 8), BF16, (3, 512)),
+    ((200, 2, 1, 220), F32, (2, 70)), ((1, 546, 1, 1), F32, (1, 65)),
+    ((1, 546, 1, 1), BF16, (1, 65)),
+]
+FWD_ONLY = [((300, 2, 1, 221), F32, (1, 64)), ((1, 1638, 1, 1), F32, (1, 33)),
+            ((1, 1638, 1, 1), BF16, (2,))]
+EDGE_SHAPES = [(1, 1), (3, 127), (2, 257)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims,dtype,dil", EDGE_CASES + FWD_ONLY)
+@pytest.mark.parametrize("B,T", EDGE_SHAPES)
+def test_generic_edges_match_plain_on_card(cuda, dims, dtype, dil, B, T):
+    """At the tiles' edges both general bodies against their plain versions
+    on the same card operands: kernel 2's route (skip and the saved inputs
+    per row), kernel 5's "layer" epilogue per row, and where the backward
+    takes the widths kernel 3 in both modes (dx per row, dcond and each
+    weight gradient per tensor), two runs bit-identical (the split-K weight
+    gradients too) and dx, dcond the same bits in both modes."""
+    a = _stack_ops(dims, dtype, dil, B, T, device=cuda)
+    dskip = a.pop("dskip")
+    skip, acts = flow_stack_train_forward(**a, dilations=dil)
+    ref_skip, ref_acts = flow_stack_train_reference(**a, dilations=dil)
+    assert (_row_rel(skip, ref_skip) <= TOL[dtype]).all()
+    assert (_row_rel(acts.transpose(0, 1), ref_acts.transpose(0, 1))
+            <= TOL_ACTS[dtype]).all()
+    top = [a[k][-1] for k in ("w_in", "b_g", "w_out", "b_rs")]
+    with torch.inference_mode():
+        got = gated_layer(a["x0"], a["cond"], *top, dil[-1])
+        want = gated_layer_reference(a["x0"], a["cond"], *top, dil[-1])
+    for g, w in zip(got, want):
+        assert (_row_rel(g, w) <= TOL[dtype]).all()
+    if (dims, dtype, dil) in FWD_ONLY:
+        return
+    bargs = (acts, a["cond"], a["w_in"], a["b_g"], a["w_out"], dskip)
+    runs = {}
+    for want_w in (True, False):
+        got = flow_stack_train_backward(*bargs, dilations=dil,
+                                        want_wgrads=want_w)
+        ref = flow_stack_backward_reference(*bargs, dilations=dil,
+                                            want_wgrads=want_w)
+        assert (_row_rel(got[0], ref[0]) <= TOL[dtype]).all()
+        for name, g, r in zip(GRADS, got, ref):
+            assert g.dtype == r.dtype and g.shape == r.shape, name
+            assert float(_row_rel(g[None], r[None])[0]) <= TOL[dtype], name
+        runs[want_w] = got
+    again = flow_stack_train_backward(*bargs, dilations=dil)
+    assert all(torch.equal(x, y) for x, y in zip(runs[True], again))
+    assert torch.equal(runs[True][0], runs[False][0])
+    assert torch.equal(runs[True][1], runs[False][1])
+
+
+def test_generic_wgrad_operands_are_the_stored_layout():
+    """The weight-gradient product's operands as the layer pass stores
+    them: fp32, dg's tanh and sigmoid halves each padded to GHp columns,
+    dout to Np, z to GHp, zero in the padding; on CPU tensors the entry
+    point is the plain version."""
+    gen = torch.Generator().manual_seed(5)
+    B, T, (C, G, S, M) = 2, 9, (5, 34, 3, 7)
+    dg, dout, z = (torch.randn((B, T, n), generator=gen)
+                   for n in (G, C + S, G // 2))
+    d = fs.generic_pack_dims(C, G, S, M)
+    sdg, sdout, sz = fs.generic_wgrad_operands(dg.bfloat16(), dout, z)
+    assert sdg.shape == (B, T, 2 * d["GHp"]) and sdg.dtype == F32
+    assert torch.equal(sdg[..., :17], dg.bfloat16()[..., :17].float())
+    assert torch.equal(sdg[..., 32:49], dg.bfloat16()[..., 17:].float())
+    assert not sdg[..., 17:32].any() and not sdg[..., 49:].any()
+    assert torch.equal(sdout[..., :8], dout) and not sdout[..., 8:].any()
+    assert torch.equal(sz[..., :17], z) and not sz[..., 17:].any()
+    x, cond = torch.randn(B, T, C), torch.randn(B, T, M)
+    got = fs.flow_stack_train_wgrads_generic(x, cond, dg, dout, z, 3)
+    want = fs.flow_stack_wgrads_reference(x, cond, dg, dout, z, 3)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims,dtype,B,T,d", [
+    (TINY, F32, 1, 16000, 16), (TINY, BF16, 2, 1003, 512),
+    (STUDENT, F32, 3, 127, 1), ((5, 34, 3, 7), F32, 2, 257, 100),
+    ((16, 130, 48, 8), BF16, 1, 1, 3), ((1, 546, 1, 1), F32, 2, 33, 65),
+])
+def test_generic_wgrad_product_matches_plain_on_card(cuda, dims, dtype, B,
+                                                     T, d):
+    """Kernel 3's general weight-gradient product alone against its plain
+    version on the same card operands (per tensor, at the fp32 gate: both
+    sum the same fp32 products), and two runs bit-identical: the split-K
+    partials are summed in split order, with no atomics."""
+    C, G, S, M = dims
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((B, T, C), generator=gen, device=cuda).to(dtype)
+    cond = torch.randn((B, T, M), generator=gen, device=cuda).to(dtype)
+    dg, dout, z = (torch.randn((B, T, n), generator=gen, device=cuda)
+                   .to(dtype).float() for n in (G, C + S, G // 2))
+    n0 = fs.flow_stack_train_wgrads_generic.launches
+    got = fs.flow_stack_train_wgrads_generic(x, cond, dg, dout, z, d)
+    again = fs.flow_stack_train_wgrads_generic(x, cond, dg, dout, z, d)
+    want = fs.flow_stack_wgrads_reference(x, cond, dg, dout, z, d)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == F32 and g.shape == w.shape
+        assert float(_row_rel(g[None], w[None])[0]) <= TOL[F32]
+        assert torch.equal(g, a)
+    assert fs.flow_stack_train_wgrads_generic.launches == n0 + 2
