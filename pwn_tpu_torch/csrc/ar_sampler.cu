@@ -93,6 +93,31 @@
 //   79 KB of head weights.
 // * A pipeline fault traps (2^26 polls of an mbarrier) instead of hanging
 //   the card.
+// * The wide teacher, (C, G, S, M) = (256, 512, 256, 80) (the JAX package's
+//   "wide (24 x 256ch)"), keeps this structure; what its widths break is
+//   sized by `Dims` from the widths and the weights' type:
+//   - A rank's layer slice is 108,544 B in bf16 (217,088 in fp32): no ring
+//     of whole slices fits a block (RING false, RING_MAX).  The products read
+//     the slice where it lies, in L2 (20.8 MB of bf16 weights, 41.7 MB of
+//     fp32, against 50 MB), by the same loads as from the ring; the tap and
+//     cond part still runs while the exchange lands.
+//   - C + S = 512 outputs over 256 threads: thread tid owns outputs tid and
+//     tid + 256 (OPT), the residual one and the skip one.
+//   - head1 (S x S: 128 KB in bf16, 256 KB in fp32) is split (SPLIT_HEAD):
+//     rank j holds its 32 columns (S x 32), forms those hidden values and
+//     sends them to every rank by st.async, counted on one more mbarrier;
+//     every rank then holds the same S values and runs head2 and the draw
+//     as before.  The buffer is written again only in the next step, after
+//     the cluster barrier that every rank reaches after reading it.
+//   - cond(t+1) rides on threads [256 - CH, 256) (CB).
+//   Shared memory: 76 KB in bf16, 108 KB in fp32 (the taps 24 KB, the
+//   exchange 16 KB, head1's slice and head2).  teacher_lj's and the tiny
+//   teacher's instantiations compile to the same arithmetic as before
+//   (tools/torch_ar_compare_trees.py).  At batch 8 a step is 902.6 GFLOP /
+//   5,376 in fp32 (2.5 us at 67 TFLOP/s) over 8 x 20.8 MB of bf16 weight
+//   reads from L2; it took 81.2 us on the H100 (chip_smoke.py phase 8g):
+//   2.0 TB/s from L2 in all, with each layer's two products waiting on
+//   their loads in turn.
 //
 // With PWN_AR_SAMPLER_PHASES defined (tools/torch_ar_sampler_phases.py builds
 // it so), thread 0 of block 0 adds the clock cycles of each phase of each step
@@ -205,6 +230,9 @@ __device__ __forceinline__ float warp_max(float v) {
 
 constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 
+constexpr int RING_MAX = 128 * 1024;  // the ring's share of shared memory
+constexpr int HEAD1_MAX = 64 * 1024;  // head1 whole in every rank up to this
+
 // The widths, the rank split, the thread maps and the shared memory.
 template <typename W, typename CT, int C, int G, int S, int M, int N>
 struct Dims {
@@ -212,15 +240,27 @@ struct Dims {
   static constexpr int WIN_E = GC * KIN, LAYER_E = WIN_E + GN * NO;
   static constexpr int LAYER_BYTES = LAYER_E * sizeof(W);
   static constexpr int STAGES = sizeof(W) == 2 ? 4 : 2;
+  // the layer slices stream through a ring of whole slices where STAGES of
+  // them fit RING_MAX; else (the wide teacher) the products read them from
+  // L2 where they lie
+  static constexpr bool RING = STAGES * LAYER_BYTES <= RING_MAX;
+  // head1 (S x S) whole in every rank, or split: rank j holds its columns
+  // [j SN, (j+1) SN) and the ranks exchange their SN hidden values
+  static constexpr bool SPLIT_HEAD = S * S * (int)sizeof(W) > HEAD1_MAX;
+  static constexpr int SN = SPLIT_HEAD ? S / N : S;
+  // out product: thread tid owns outputs tid + NTHREADS o, o < OPT
+  static constexpr int OPT = (NO + NTHREADS - 1) / NTHREADS;
   // gate: warp w owns z values [w ZW, (w+1) ZW), so 2 ZW columns; lanes
   // over k pairs: XP pairs a lane over x (k < C), RP over tap and cond
   static constexpr int ZW = GN / NWARPS, ZC = 2 * ZW;
   static constexpr int KP = KIN / 2, XP = C / 64, RP = (KP - C / 2 + 31) / 32;
   static constexpr int HP = NTHREADS / S;                  // k parts of head1's product
   static constexpr int CH = M * (int)sizeof(CT) / 16;      // 16-byte chunks of cond(t)
+  // threads [CB, CB + CH) carry cond(t+1) through a step
+  static constexpr int CB = C + CH <= NTHREADS ? C : NTHREADS - CH;
   // shared memory, in bytes: the ring, then floats, then the head's weights
-  static constexpr int RING = 0;
-  static constexpr int F0 = STAGES * LAYER_BYTES;          // floats from here
+  static constexpr int RING_OFF = 0;
+  static constexpr int F0 = RING ? STAGES * LAYER_BYTES : 0;  // floats from here
   static constexpr int XBUF = 0;    // the exchange: 2 parities x N ranks x C (= S)
   static constexpr int CS = XBUF + 2 * N * C;      // cond(t) (M)
   static constexpr int ZP = round4(GN);
@@ -228,18 +268,36 @@ struct Dims {
   static constexpr int HS = ZS + 2 * ZP;           // the head's hidden (S)
   static constexpr int HPART = HS + S;             // head1 partials, HP x S
   static constexpr int HPO = HPART + HP * S;       // head outputs (MAX_HD)
-  static constexpr int TAPS = HPO + MAX_HD;        // then the taps, L x C
+  static constexpr int HX = HPO + MAX_HD;          // split head: every rank's hidden (S)
+  static constexpr int TAPS = HX + (SPLIT_HEAD ? S : 0);  // then the taps, L x C
+  // then head1 (S x SN) and head2 (S x HD) in the weights' type
   static_assert(GH % N == 0 && C % N == 0 && GN % NWARPS == 0, "gate split");
-  static_assert(C % 64 == 0 && M % 2 == 0 && NO % 32 == 0 && NO <= NTHREADS, "thread maps");
+  static_assert(C % 64 == 0 && M % 2 == 0 && NO % 32 == 0 &&
+                    (NO <= NTHREADS || NO % NTHREADS == 0),
+                "thread maps");
   static_assert(S == C && NTHREADS % S == 0 && (S / HP) % 2 == 0, "head split");
-  static_assert(M * sizeof(CT) % 16 == 0 && C + CH <= NTHREADS, "cond chunks");
+  static_assert(!SPLIT_HEAD || (SN == 32 && (S / (NTHREADS / SN)) % 2 == 0 &&
+                                SN * sizeof(W) % 16 == 0),
+                "split head: a warp's lanes over a rank's columns");
+  static_assert(M * sizeof(CT) % 16 == 0 && CH <= NTHREADS, "cond chunks");
   static_assert(LAYER_BYTES % 16 == 0 && F0 % 16 == 0, "16-byte bulk copies");
 };
 
 template <typename W, typename CT, int C, int G, int S, int M, int N>
 size_t smem_bytes(int L, int HD) {
   using D = Dims<W, CT, C, G, S, M, N>;
-  return D::F0 + sizeof(float) * (size_t)(D::TAPS + L * C) + sizeof(W) * (size_t)S * (S + HD);
+  return D::F0 + sizeof(float) * (size_t)(D::TAPS + L * C) + sizeof(W) * (size_t)S * (D::SN + HD);
+}
+
+// Layer l's slice (global layer counter c): its ring stage, or where the
+// slices do not stream through shared memory, the slice itself in L2.
+template <class D, typename W>
+__device__ __forceinline__ const W* layer_slice(const W* ring, const W* w_rank, long long c,
+                                                int l) {
+  if constexpr (D::RING)
+    return ring + (c % D::STAGES) * D::LAYER_E;
+  else
+    return w_rank + (size_t)l * D::LAYER_E;
 }
 
 // The gate product of warp `warp`'s columns over the tap and cond rows of
@@ -300,7 +358,7 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
   float* queue = a.queue + (size_t)b * a.sum_d * C;
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const W* ring = reinterpret_cast<const W*>(smem + D::RING);
+  const W* ring = reinterpret_cast<const W*>(smem + D::RING_OFF);
   float* fsm = reinterpret_cast<float*>(smem + D::F0);
   float* xbuf = fsm + D::XBUF;
   float* cs = fsm + D::CS;
@@ -308,13 +366,15 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
   float* hs = fsm + D::HS;
   float* hpart = fsm + D::HPART;
   float* hp = fsm + D::HPO;
+  float* hx = fsm + D::HX;
   float* taps = fsm + D::TAPS;
-  W* head1 = reinterpret_cast<W*>(taps + L * C);
-  W* head2 = head1 + S * S;
+  W* head1 = reinterpret_cast<W*>(taps + L * C);  // S x SN: this rank's columns
+  W* head2 = head1 + S * D::SN;
   __shared__ int dd[MAX_L], oo[MAX_L], slot_now[MAX_L], slot_next[MAX_L];
   __shared__ float x_prev;
   __shared__ __align__(8) uint64_t full[STAGES];
   __shared__ __align__(8) uint64_t xbar[2];  // the exchange's arrivals, by parity
+  __shared__ __align__(8) uint64_t hbar;     // the split head's arrivals
 
 #ifdef PWN_AR_SAMPLER_PHASES
   const bool phase_on = blockIdx.x == 0 && tid == 0;
@@ -326,30 +386,40 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
   //    zero taps, cond(0), per-thread constants
   const long long n_layers = (long long)T * L;  // layers over all steps
   constexpr uint32_t XBYTES = N * C * sizeof(float);  // one layer's exchange
+  constexpr uint32_t HXBYTES = S * sizeof(float);     // one step's split head
   if (tid == REFILL) {
-    for (int s = 0; s < STAGES; ++s) mbar_init(smem_u32(&full[s]), 1);
+    if constexpr (D::RING)
+      for (int s = 0; s < STAGES; ++s) mbar_init(smem_u32(&full[s]), 1);
     for (int p = 0; p < 2; ++p) {
       mbar_init(smem_u32(&xbar[p]), 1);
       mbar_expect_tx(smem_u32(&xbar[p]), XBYTES);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int s = 0; s < STAGES && s < n_layers; ++s) {
-      mbar_expect_tx(smem_u32(&full[s]), D::LAYER_BYTES);
-      bulk_load(smem_u32(ring + s * D::LAYER_E), w_rank + (size_t)(s % L) * D::LAYER_E,
-                D::LAYER_BYTES, smem_u32(&full[s]));
+    if constexpr (D::SPLIT_HEAD) {
+      mbar_init(smem_u32(&hbar), 1);
+      mbar_expect_tx(smem_u32(&hbar), HXBYTES);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if constexpr (D::RING)
+      for (int s = 0; s < STAGES && s < n_layers; ++s) {
+        mbar_expect_tx(smem_u32(&full[s]), D::LAYER_BYTES);
+        bulk_load(smem_u32(ring + s * D::LAYER_E), w_rank + (size_t)(s % L) * D::LAYER_E,
+                  D::LAYER_BYTES, smem_u32(&full[s]));
+      }
   }
   for (int l = tid; l < L; l += NTHREADS) {
     dd[l] = dl.d[l];
     oo[l] = dl.off[l];
   }
   {
-    const uint4* src1 = static_cast<const uint4*>(a.head1_k);
+    // head1's columns [rank SN, (rank+1) SN) of every row (all of it unless
+    // split): RC 16-byte chunks a row out of the row's S * sizeof(W) / 16
+    constexpr int RC = D::SN * (int)sizeof(W) / 16, RS = S * (int)sizeof(W) / 16;
+    const uint4* src1 = static_cast<const uint4*>(a.head1_k) + (D::SPLIT_HEAD ? rank * RC : 0);
     const uint4* src2 = static_cast<const uint4*>(a.head2_k);
     uint4* dst1 = reinterpret_cast<uint4*>(head1);
     uint4* dst2 = reinterpret_cast<uint4*>(head2);
-    const int n1 = S * S * (int)sizeof(W) / 16, n2 = S * HD * (int)sizeof(W) / 16;
-    for (int i = tid; i < n1; i += NTHREADS) dst1[i] = __ldg(src1 + i);
+    const int n1 = S * RC, n2 = S * HD * (int)sizeof(W) / 16;
+    for (int i = tid; i < n1; i += NTHREADS) dst1[i] = __ldg(src1 + (i / RC) * RS + i % RC);
     for (int i = tid; i < n2; i += NTHREADS) dst2[i] = __ldg(src2 + i);
   }
   for (int i = tid; i < L * C; i += NTHREADS) taps[i] = 0.f;
@@ -374,17 +444,24 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
   cluster_arrive();
   cluster_wait();
 
-  const bool res_warp = warp < C / 32;                // outputs [0, C): residual
-  const bool skip_warp = !res_warp && warp < NO / 32; // outputs [C, C+S): skip
+  constexpr int OPT = D::OPT;
   // the exchange buffer and its barriers in ranks lane / 8 + 4i, where this
-  // lane's pushes go
+  // lane's pushes go (and the split head's)
   uint32_t xbuf_at[N / 4], xbar_at[N / 4];
+  uint32_t hx_at[D::SPLIT_HEAD ? N / 4 : 1], hbar_at[D::SPLIT_HEAD ? N / 4 : 1];
 #pragma unroll
   for (int i = 0; i < N / 4; ++i) {
     xbuf_at[i] = mapa(smem_u32(xbuf), (lane >> 3) + 4 * i);
     xbar_at[i] = mapa(smem_u32(&xbar[0]), (lane >> 3) + 4 * i);
+    if constexpr (D::SPLIT_HEAD) {
+      hx_at[i] = mapa(smem_u32(hx), (lane >> 3) + 4 * i);
+      hbar_at[i] = mapa(smem_u32(&hbar), (lane >> 3) + 4 * i);
+    }
   }
-  float skip_part = 0.f;  // this rank's skip partial of output tid (skip warps)
+  // this rank's skip partials of outputs tid + NTHREADS o (those in [C, C+S))
+  float skip_part[OPT];
+#pragma unroll
+  for (int o = 0; o < OPT; ++o) skip_part[o] = 0.f;
   float2 pend[XP];        // the next step's tap of the layer before (warp 0)
   bool pending = false;
   int par = 0;            // parity of the layers so far: the exchange's and z's buffer
@@ -403,14 +480,14 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
     for (int e = 0; e < 2 * XP; ++e) xv[e] = __fadd_rn(__fmul_rn(x_prev, fk[e]), fb[e]);
     float acc[ZC];
     PHASE(0);
-    mbar_spin(smem_u32(&full[c % STAGES]), (uint32_t)((c / STAGES) & 1));
+    if constexpr (D::RING) mbar_spin(smem_u32(&full[c % STAGES]), (uint32_t)((c / STAGES) & 1));
     PHASE(1);
-    gate_tap_cond<W, CT, C, G, S, M, N>(acc, ring + (c % STAGES) * D::LAYER_E, taps, cs, warp,
+    gate_tap_cond<W, CT, C, G, S, M, N>(acc, layer_slice<D>(ring, w_rank, c, 0), taps, cs, warp,
                                         lane);
     PHASE(2);
 
     for (int l = 0; l < L; ++l, ++c) {
-      const W* stage = ring + (c % STAGES) * D::LAYER_E;
+      const W* stage = layer_slice<D>(ring, w_rank, c, l);
       const bool last = l + 1 == L;
       float* z = zs + par * D::ZP;
       const int zi = warp * ZW + lane % ZW;  // lanes 0..ZW-1: z value zi
@@ -444,12 +521,13 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
       }
       __syncthreads();
       // every thread is past the layer before's products: refill its stage
-      if (tid == REFILL && c >= 1 && c - 1 + STAGES < n_layers) {
-        const uint32_t bar = smem_u32(&full[(c - 1) % STAGES]);
-        mbar_expect_tx(bar, D::LAYER_BYTES);
-        bulk_load(smem_u32(ring + ((c - 1) % STAGES) * D::LAYER_E),
-                  w_rank + (size_t)((c - 1 + STAGES) % L) * D::LAYER_E, D::LAYER_BYTES, bar);
-      }
+      if constexpr (D::RING)
+        if (tid == REFILL && c >= 1 && c - 1 + STAGES < n_layers) {
+          const uint32_t bar = smem_u32(&full[(c - 1) % STAGES]);
+          mbar_expect_tx(bar, D::LAYER_BYTES);
+          bulk_load(smem_u32(ring + ((c - 1) % STAGES) * D::LAYER_E),
+                    w_rank + (size_t)((c - 1 + STAGES) % L) * D::LAYER_E, D::LAYER_BYTES, bar);
+        }
       PHASE(4);
       // the queue's writes of the step before are visible from here on
       if (l == 0 && t > 0) cluster_wait();
@@ -466,29 +544,40 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
             reinterpret_cast<float2*>(taps + l * C)[p] = make_float2(xv[2 * m], xv[2 * m + 1]);
         }
       }
-      // out product: output tid's partial over this rank's z rows
-      float p = 0.f;
-      if (tid < NO) {
+      // out product: outputs tid + NTHREADS o, partials over this rank's z rows
+      float p[OPT];
+      {
         const W* wout = stage + D::WIN_E;
 #pragma unroll
-        for (int i = 0; i < GN; ++i) p = fmaf(z[i], to_f32(wout[i * NO + tid]), p);
+        for (int o = 0; o < OPT; ++o) {
+          const int n = tid + NTHREADS * o;
+          p[o] = 0.f;
+          if (n < NO)
+#pragma unroll
+            for (int i = 0; i < GN; ++i) p[o] = fmaf(z[i], to_f32(wout[i * NO + n]), p[o]);
+        }
       }
       PHASE(5);
       // the residual partials to every rank (the skip partials, summed over
       // the layers, at the last layer): 4 columns a lane, gathered by shuffles
-      if (skip_warp) skip_part += p;
-      if (last ? skip_warp : res_warp) {
-        const float val = last ? skip_part : p;
-        const int f = lane & 7;
-        const float4 v = make_float4(__shfl_sync(FULL, val, 4 * f), __shfl_sync(FULL, val, 4 * f + 1),
-                                     __shfl_sync(FULL, val, 4 * f + 2),
-                                     __shfl_sync(FULL, val, 4 * f + 3));
-        const int col = 32 * (last ? warp - C / 32 : warp) + 4 * f;
-        const uint32_t off = 4 * ((par * N + rank) * C + col);
 #pragma unroll
-        for (int i = 0; i < N / 4; ++i) st_async(xbuf_at[i] + off, v, xbar_at[i] + 8 * par);
+      for (int o = 0; o < OPT; ++o) {
+        const int n0 = 32 * warp + NTHREADS * o;  // this warp's first output
+        const bool res_out = n0 < C, skip_out = !res_out && n0 < NO;
+        if (skip_out) skip_part[o] += p[o];
+        if (last ? skip_out : res_out) {
+          const float val = last ? skip_part[o] : p[o];
+          const int f = lane & 7;
+          const float4 v = make_float4(__shfl_sync(FULL, val, 4 * f), __shfl_sync(FULL, val, 4 * f + 1),
+                                       __shfl_sync(FULL, val, 4 * f + 2),
+                                       __shfl_sync(FULL, val, 4 * f + 3));
+          const int col = n0 - (last ? C : 0) + 4 * f;
+          const uint32_t off = 4 * ((par * N + rank) * C + col);
+#pragma unroll
+          for (int i = 0; i < N / 4; ++i) st_async(xbuf_at[i] + off, v, xbar_at[i] + 8 * par);
+        }
+        if (last && skip_out) skip_part[o] = 0.f;
       }
-      if (last && skip_warp) skip_part = 0.f;
       if (warp == 0 && pending)
 #pragma unroll
         for (int m = 0; m < XP; ++m)
@@ -496,16 +585,17 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
                            lane + 32 * m);
       if (l == 0) {
         if (warp == 0 && lane < a.NZ) u = __ldg(a.noise + ((size_t)t * a.B + b) * a.NZ + lane);
-        if (tid >= C && tid < C + D::CH && t + 1 < T)
-          cond_next = __ldg(
-              reinterpret_cast<const uint4*>(cond + (size_t)(t + 1) * M * sizeof(CT)) + (tid - C));
+        if (tid >= D::CB && tid < D::CB + D::CH && t + 1 < T)
+          cond_next = __ldg(reinterpret_cast<const uint4*>(cond + (size_t)(t + 1) * M * sizeof(CT)) +
+                            (tid - D::CB));
       }
       PHASE(6);
       // while the other ranks catch up: the next layer's tap and cond rows
       if (!last) {
-        mbar_spin(smem_u32(&full[(c + 1) % STAGES]), (uint32_t)(((c + 1) / STAGES) & 1));
+        if constexpr (D::RING)
+          mbar_spin(smem_u32(&full[(c + 1) % STAGES]), (uint32_t)(((c + 1) / STAGES) & 1));
         PHASE(1);
-        gate_tap_cond<W, CT, C, G, S, M, N>(acc, ring + ((c + 1) % STAGES) * D::LAYER_E,
+        gate_tap_cond<W, CT, C, G, S, M, N>(acc, layer_slice<D>(ring, w_rank, c + 1, l + 1),
                                             taps + (l + 1) * C, cs, warp, lane);
         PHASE(2);
       }
@@ -551,34 +641,57 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
       PHASE(3);
     }
 
-    // -- head: relu (above), 1x1, relu, 1x1, in every rank
+    // -- head: relu (above), 1x1, relu, 1x1, in every rank; where head1 is
+    //    split, rank j forms hidden values [j SN, (j+1) SN) and sends them to
+    //    every rank, so every rank holds the same S values in hx
     {
-      constexpr int KH = S / D::HP;
-      const int n = tid % S, part = tid / S;
+      constexpr int SN = D::SN, KP = NTHREADS / SN, KH = S / KP;
+      const int n = tid % SN, part = tid / SN;
       float v0 = 0.f, v1 = 0.f;
 #pragma unroll 8
       for (int k = part * KH; k < (part + 1) * KH; k += 2) {
-        v0 = fmaf(hs[k], to_f32(head1[k * S + n]), v0);
-        v1 = fmaf(hs[k + 1], to_f32(head1[(k + 1) * S + n]), v1);
+        v0 = fmaf(hs[k], to_f32(head1[k * SN + n]), v0);
+        v1 = fmaf(hs[k + 1], to_f32(head1[(k + 1) * SN + n]), v1);
       }
-      hpart[part * S + n] = v0 + v1;
+      hpart[part * SN + n] = v0 + v1;
     }
     __syncthreads();
-    if (tid < S) {
-      float v = 0.f;
+    if constexpr (D::SPLIT_HEAD) {
+      constexpr int SN = D::SN, KP = NTHREADS / SN;
+      if (warp == 0) {  // lane: column rank SN + lane
+        float v = 0.f;
 #pragma unroll
-      for (int part = 0; part < D::HP; ++part) v += hpart[part * S + tid];
-      hs[tid] = fmaxf(a.head1_b[tid] + v, 0.f);
+        for (int part = 0; part < KP; ++part) v += hpart[part * SN + lane];
+        const float h = fmaxf(a.head1_b[rank * SN + lane] + v, 0.f);
+        const int f = lane & 7;
+        const float4 hv = make_float4(__shfl_sync(FULL, h, 4 * f), __shfl_sync(FULL, h, 4 * f + 1),
+                                      __shfl_sync(FULL, h, 4 * f + 2),
+                                      __shfl_sync(FULL, h, 4 * f + 3));
+        const uint32_t off = 4 * (rank * SN + 4 * f);
+#pragma unroll
+        for (int i = 0; i < N / 4; ++i) st_async(hx_at[i] + off, hv, hbar_at[i]);
+      }
+      // every rank's hidden values have landed here: arm the next step's
+      mbar_spin_cluster(smem_u32(&hbar), (uint32_t)(t & 1));
+      if (tid == REFILL && t + 1 < T) mbar_expect_tx(smem_u32(&hbar), HXBYTES);
+    } else {
+      if (tid < S) {
+        float v = 0.f;
+#pragma unroll
+        for (int part = 0; part < D::HP; ++part) v += hpart[part * S + tid];
+        hs[tid] = fmaxf(a.head1_b[tid] + v, 0.f);
+      }
+      __syncthreads();
     }
-    __syncthreads();
     {
+      const float* hid = D::SPLIT_HEAD ? hx : hs;  // head1's output
       constexpr int NJ = MAX_HD / NWARPS;  // columns warp, warp + NWARPS, ...
       float v[NJ];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) v[j] = 0.f;
 #pragma unroll
       for (int k = lane; k < S; k += 32) {
-        const float h = hs[k];
+        const float h = hid[k];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           const int n = warp + NWARPS * j;
@@ -629,8 +742,8 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
       for (int m = 0; m < XP; ++m)
         reinterpret_cast<float2*>(taps + (L - 1) * C)[lane + 32 * m] = pend[m];
     pending = false;
-    if (tid >= C && tid < C + D::CH)
-      Vec<CT>::to_f32(cond_next, cs + (tid - C) * Vec<CT>::N);
+    if (tid >= D::CB && tid < D::CB + D::CH)
+      Vec<CT>::to_f32(cond_next, cs + (tid - D::CB) * Vec<CT>::N);
     // this step's queue reads and writes are done (release)
     cluster_arrive();
     __syncthreads();
@@ -706,7 +819,8 @@ int run(const Args& a, const int* dilations, int c, int g, int s, int m, int hd,
         int* clusters) {
   const bool teacher_lj = c == 128 && g == 256 && s == 128 && m == 80;
   const bool tiny = c == 64 && g == 128 && s == 64 && m == 40;
-  if (!(teacher_lj || tiny) || n_ranks != RANKS || a.B < 1 || a.T < 1 || a.L < 1 ||
+  const bool wide = c == 256 && g == 512 && s == 256 && m == 80;
+  if (!(teacher_lj || tiny || wide) || n_ranks != RANKS || a.B < 1 || a.T < 1 || a.L < 1 ||
       a.L > MAX_L)
     return cudaErrorInvalidValue;
   if (gaussian ? hd != 2 : (k < 1 || hd != 3 * k || hd > MAX_HD))
@@ -727,6 +841,9 @@ int run(const Args& a, const int* dilations, int c, int g, int s, int m, int hd,
   args.sum_d = sum_d;
   if (teacher_lj)
     return launch_dims<128, 256, 128, 80, RANKS>(args, dl, weights_bf16, cond_bf16, st,
+                                                 clusters);
+  if (wide)
+    return launch_dims<256, 512, 256, 80, RANKS>(args, dl, weights_bf16, cond_bf16, st,
                                                  clusters);
   return launch_dims<64, 128, 64, 40, RANKS>(args, dl, weights_bf16, cond_bf16, st,
                                              clusters);

@@ -62,8 +62,9 @@
 // * Deterministic: no atomics, every sum in a fixed order, so two runs are
 //   bit-identical and dx, dcond are the same bits in both modes (the
 //   weight-gradient stores change no arithmetic).
-// * Widths are runtime arguments: C, S, M >= 1, G even, and 2C + M + G/2 +
-//   max(C + S, G) <= 822 (gen::widths_ok).
+// * Widths are runtime arguments: C, S, M >= 1, G even, and a routed tile
+//   whose resident dout / dg and dz fit a block (gen::widths_ok): at the
+//   wide teacher's (256, 512, 256, 80) 32-row tiles of 131,584 bytes.
 
 #include "generic.cuh"
 

@@ -32,7 +32,12 @@
 //   1 x 16,000, and three blocks an SM at student_iaf's widths, so one
 //   block's gates and stores run under the others' products.  Widths
 //   whose resident tiles do not fit take 32-row tiles (`tile_rows`: the
-//   route, a function of the widths alone, mirrored in Python).
+//   route, a function of the widths alone, mirrored in Python): the wide
+//   teacher's (256, 512, 256, 80) backward, one block an SM.
+// * The widths a body takes are the widths its routed tile fits: only z
+//   (G/2 columns) and, backward, dout / dg and dz (C + S and G columns)
+//   stay resident, and the 2C + M activation columns stream, so C and M
+//   set no bound of their own (`widths_ok`).
 // * Registers: a slice's products unroll two k quads (the weight
 //   gradients' four k): unrolled whole, the compiler hoists every fragment
 //   load of the slice and spills.
@@ -53,7 +58,6 @@ using bf16 = __nv_bfloat16;
 constexpr int BK = 16;             // k-rows per ring slice; packed K padded to it
 constexpr int NB = 128;            // columns per output chunk
 constexpr int STAGES = 3;          // ring slots
-constexpr int MAX_ROWS = 822;      // the widths the general bodies take (widths_ok)
 constexpr int SMEM_MAX = 232448;   // a block's opt-in shared memory on H100
 
 __host__ __device__ constexpr int up(int n, int m) { return (n + m - 1) / m * m; }
@@ -126,13 +130,13 @@ __host__ __device__ inline long long smem_bytes(int C, int G, int S, int M, bool
   return smem_at(tile_rows(C, G, S, M, backward), C, G, S, M, backward);
 }
 
-// The widths a general body takes: C, S, M >= 1, an even G >= 2, and
-// 2C + M + G/2 (backward + max(C + S, G)) <= MAX_ROWS; within that the
-// routed tile always fits (tests/test_torch_generic.py walks the edge).
+// The widths a general body takes: C, S, M >= 1, an even G >= 2, and a
+// routed tile that fits a block's shared memory (nothing else in either
+// body is sized by a width; ops/flow_stack.py::generic_limits, and
+// tests/test_torch_generic.py walks the edge).
 inline bool widths_ok(int C, int G, int S, int M, bool backward) {
   if (C < 1 || S < 1 || M < 1 || G < 2 || G % 2) return false;
-  const int rows = 2 * C + M + G / 2 + (backward ? (C + S > G ? C + S : G) : 0);
-  return rows <= MAX_ROWS && smem_bytes(C, G, S, M, backward) <= SMEM_MAX;
+  return smem_bytes(C, G, S, M, backward) <= SMEM_MAX;
 }
 
 __device__ __forceinline__ float f32(float v) { return v; }

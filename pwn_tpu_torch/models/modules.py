@@ -41,23 +41,30 @@ STACK_FNS = {"infer": flow_stack, "train": flow_stack_train,
 STACK_MODES = (*STACK_FNS, "layer")
 
 
-def resolve_stack_mode(flag: str, auto: str) -> str:
-    """A config's `fused_layers` flag -> a WaveNetStack mode.  `auto` is the
-    caller's context: "infer" for inference models, "train" for the
-    training loops.  "auto" takes it; "mega" (the reference's whole-stack
-    kernel) is "train" in a training context and "infer" otherwise.  "on"
-    and "layer" are the per-layer kernel, and so is "off": the reference's
-    XLA stack runs one gated layer after another and sums the skips in the
-    compute dtype, as "layer" does, on kernel 5's "layer" epilogue (which
-    keeps the biases and the gate pre-activation in fp32 where the XLA form
-    rounds them to the compute dtype)."""
+def resolve_stack_mode(flag: str, auto: str,
+                       dilations: Sequence[int] = ()) -> str:
+    """A config's `fused_layers` flag, or a stack mode itself, -> the
+    WaveNetStack mode of a stack of `dilations`.  `auto` is the caller's
+    context: "infer" for inference models, "train" for the training loops.
+    "auto" takes it; "mega" (the reference's whole-stack kernel) is "train"
+    in a training context and "infer" otherwise.  "on" and "layer" are the
+    per-layer kernel, and so is "off": the reference's XLA stack runs one
+    gated layer after another and sums the skips in the compute dtype, as
+    "layer" does, on kernel 5's "layer" epilogue (which keeps the biases
+    and the gate pre-activation in fp32 where the XLA form rounds them to
+    the compute dtype).  A stack with a dilation above the reference's time
+    tile (TIME_TILE = 512) is "layer" whatever the flag: the reference runs
+    it (`tile_ok` false) on that XLA per-layer form, and kernel 5's "layer"
+    epilogue reads the tap at any distance."""
     modes = {"auto": auto, "mega": "train" if auto == "train" else "infer",
              "mega_train": "train", "mega_dx": "dx", "on": "layer",
-             "layer": "layer", "off": "layer"}
+             "off": "layer", **{m: m for m in STACK_MODES}}
     if flag not in modes:
         raise NotImplementedError(
             f"fused_layers={flag!r} is not ported (the port's stack modes "
             f"are {sorted(STACK_MODES)})")
+    if dilations and max(dilations) > TIME_TILE:
+        return "layer"
     return modes[flag]
 
 
@@ -163,16 +170,16 @@ class WaveNetStack(nn.Module):
     - "infer": `flow_stack` picks kernel 1 or kernel 5's accumulate loop on
       the card;
     - "train" and "dx": kernels 2 and 3;
-    - "layer" only where the config asks for it ("on", "layer", "off").
+    - "layer" where the config asks for it ("on", "layer", "off"), and
+      only "layer" for a stack with a dilation above TIME_TILE (the mode
+      `resolve_stack_mode` gives it; another raises ValueError).
     Kernels 5 and 3 (and so 2) run bf16 at student_iaf's and teacher_lj's
     widths (`ops/flow_stack.py::TRAIN_KERNEL_DIMS`) on their wgmma bodies,
     and every other width and fp32 (the 40-mel tiny configs, any preset
     with compute_dtype float32) on their general bodies
     (`ops/flow_stack.py::kernel_body`), which read the weights packed
     once per stack (`generic_weights()`); kernel 1 is bf16 at student_iaf's
-    widths only.  On the CPU every mode runs the plain versions.  A
-    dilation above 512 raises in "infer" and "layer" (so also for "off",
-    which the reference runs in XLA at any dilation); no preset has one.
+    widths only.  On the CPU every mode runs the plain versions.
     """
 
     def __init__(self, dilations: Sequence[int], residual_channels: int,
@@ -185,11 +192,10 @@ class WaveNetStack(nn.Module):
                 f"stack mode {mode!r}; one of {sorted(STACK_MODES)}")
         C, S = residual_channels, skip_channels
         self.dilations = tuple(dilations)
-        if mode in ("infer", "layer") and max(self.dilations) > TIME_TILE:
-            raise NotImplementedError(
-                f"a dilation above {TIME_TILE} is taken by none of the "
-                "port's kernels (the reference runs such a stack only in "
-                "XLA)")
+        if mode != "layer" and max(self.dilations) > TIME_TILE:
+            raise ValueError(
+                f"stack mode {mode!r} with a dilation above {TIME_TILE}: "
+                "such a stack runs \"layer\" (resolve_stack_mode)")
         self.dtype = dtype
         self.mode = mode
         self.skip_channels = S

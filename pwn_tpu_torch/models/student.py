@@ -65,7 +65,9 @@ class StudentOutput(NamedTuple):
 class StudentIAF(nn.Module):
     """`stack_mode` is every flow's WaveNetStack mode ("infer", "layer",
     "train" or "dx"); by default it follows `student.fused_layers`, whose
-    "auto" means "infer" here.  The training loops ask for "train"."""
+    "auto" means "infer" here.  The training loops ask for "train".  A
+    flow with a dilation above TIME_TILE builds "layer" whatever is asked
+    (`resolve_stack_mode`)."""
 
     def __init__(self, config: Config, stack_mode: str | None = None,
                  device=None):
@@ -89,8 +91,8 @@ class StudentIAF(nn.Module):
                 gate_channels=sc.gate_channels,
                 skip_channels=sc.skip_channels, out_dim=2,
                 cond_channels=config.dsp.n_mels, dtype=dtype,
-                mode=stack_mode or resolve_stack_mode(sc.fused_layers,
-                                                      "infer"),
+                mode=resolve_stack_mode(stack_mode or sc.fused_layers,
+                                        "infer", sc.flow_dilations),
                 device=device,
             ))
 

@@ -30,7 +30,9 @@ class TeacherWaveNet(nn.Module):
     "dx"); by default it follows `teacher.fused_layers`, whose "auto" means
     "infer" here, as it means the whole-stack inference kernel in the
     reference (kernel 1 or kernel 5's accumulate loop on the card).  The
-    training loop asks for "train", the distillation loop "dx"."""
+    training loop asks for "train", the distillation loop "dx".  A stack
+    with a dilation above TIME_TILE builds "layer" whatever is asked
+    (`resolve_stack_mode`)."""
 
     def __init__(self, config: Config, stack_mode: str | None = None,
                  device=None):
@@ -50,7 +52,8 @@ class TeacherWaveNet(nn.Module):
             dilations=tc.dilations, residual_channels=tc.residual_channels,
             gate_channels=tc.gate_channels, skip_channels=tc.skip_channels,
             out_dim=tc.head_dim, cond_channels=n_mels, dtype=dtype,
-            mode=stack_mode or resolve_stack_mode(tc.fused_layers, "infer"),
+            mode=resolve_stack_mode(stack_mode or tc.fused_layers, "infer",
+                                    tc.dilations),
             device=device,
         )
 

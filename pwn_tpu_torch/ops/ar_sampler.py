@@ -22,7 +22,10 @@ Compute is fp32 over the stored weights, and the queues are fp32.
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
 (`csrc/ar_sampler.cu`) or raises.  The kernel runs each batch row on a
 cluster of `AR_RANKS` blocks, each of which owns 1/AR_RANKS of every
-layer's gate columns; `pack_ar_ranks` lays the weights out for it.
+layer's gate columns; `pack_ar_ranks` lays the weights out for it.  At the
+wide teacher's widths a rank's slices are read from L2 instead of a
+shared-memory ring, and head1 is split among the ranks (the source's
+note).
 """
 
 from __future__ import annotations
@@ -38,8 +41,9 @@ from pwn_tpu_torch.ops.gaussian import sample_from_normals
 from pwn_tpu_torch.ops.mol import mol_sample_from_uniforms
 
 # the widths (C, G, S, M) the kernel is compiled for: teacher_lj (and
-# clarinet_gaussian), tiny_teacher
-AR_KERNEL_DIMS = ((128, 256, 128, 80), (64, 128, 64, 40))
+# clarinet_gaussian), tiny_teacher, and the wide teacher (teacher_lj with
+# 256 residual, 512 gate and 256 skip channels)
+AR_KERNEL_DIMS = ((128, 256, 128, 80), (64, 128, 64, 40), (256, 512, 256, 80))
 AR_MAX_LAYERS = 64
 AR_RANKS = 8  # blocks per cluster: the kernel's split of every layer
 AR_ROWS = 1   # batch rows per cluster

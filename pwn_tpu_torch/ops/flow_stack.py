@@ -76,10 +76,9 @@ TRAIN_KERNEL_DIMS = ((64, 128, 64, 80), (128, 256, 128, 80))
 SMEM_PER_BLOCK = 232_448
 # The general bodies (csrc/generic.cuh): k-slices of GENERIC_BK rows,
 # output chunks of GENERIC_NB columns, a ring of GENERIC_STAGES slots, row
-# tiles of 64 or 32 (`generic_tile_rows`), and the widths they take:
-# 2C + M + G/2 (+ max(C + S, G) backward) <= GENERIC_MAX_ROWS.
+# tiles of 64 or 32 (`generic_tile_rows`), and the widths they take: those
+# whose routed tile fits SMEM_PER_BLOCK (`generic_limits`).
 GENERIC_BK, GENERIC_NB, GENERIC_STAGES = 16, 128, 3
-GENERIC_MAX_ROWS = 822
 GENERIC_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -159,21 +158,22 @@ def generic_limits(dtype, C: int, G: int, S: int, M: int,
                    backward: bool = False) -> str | None:
     """Why the general bodies (kernel 5's forward, or with `backward`
     kernel 3's) do not take this dtype and these widths, or None where they
-    do: float32 or bfloat16 operands; C, S, M >= 1; an even G >= 2; and
-    2C + M + G/2 (+ max(C + S, G) backward) <= GENERIC_MAX_ROWS, the widths
-    the bodies' shared memory was sized for (within them the routed tile
-    always fits)."""
+    do (`gen::widths_ok`): float32 or bfloat16 operands; C, S, M >= 1; an
+    even G >= 2; and a routed tile (`generic_tile_rows`) whose block fits
+    SMEM_PER_BLOCK.  Only z (G/2 columns) and, backward, dout / dg and dz
+    (C + S and G columns) stay resident; the 2C + M activation columns
+    stream, so C and M set no bound of their own."""
     if dtype not in GENERIC_DTYPES:
         return f"the general bodies take float32 or bfloat16, got {dtype}"
     if min(C, S, M) < 1 or G < 2 or G % 2:
         return (f"the general bodies take C, S, M >= 1 and an even G >= 2, "
                 f"got (C, G, S, M) = {(C, G, S, M)}")
-    rows = 2 * C + M + G // 2 + (max(C + S, G) if backward else 0)
-    if rows > GENERIC_MAX_ROWS:
-        return (f"the general {'backward' if backward else 'forward'} body "
-                f"takes 2C + M + G/2{' + max(C + S, G)' if backward else ''}"
-                f" <= {GENERIC_MAX_ROWS} (the widths its shared memory is "
-                f"sized for), got {rows} at (C, G, S, M) = {(C, G, S, M)}")
+    smem = generic_smem_bytes(C, G, S, M, backward)
+    if smem > SMEM_PER_BLOCK:
+        return (f"the general {'backward' if backward else 'forward'} "
+                f"body's {generic_tile_rows(C, G, S, M, backward)}-row tile "
+                f"needs {smem} bytes of shared memory at (C, G, S, M) = "
+                f"{(C, G, S, M)}; a block has {SMEM_PER_BLOCK}")
     return None
 
 

@@ -61,8 +61,11 @@ from pwn_tpu_torch.ops.flow_stack import (TRAIN_KERNEL_DIMS, GenericWeights,
                                           layer_out, row_alignment)
 
 # The reference's time tile: its kernel reaches the tap through the previous
-# tile, so it refuses a dilation above one tile.  The CUDA bodies have no
-# tile bound; the check is kept so that the two accept the same layers.
+# tile, so its per-layer API (`fused_gated_residual`) refuses a dilation
+# above one tile, and so does the port's.  The CUDA bodies have no tile
+# bound: a stack with such a dilation runs "layer" (models/modules.py),
+# the counterpart of the reference's XLA per-layer form, through
+# `FusedGatedResidual` and `gated_layer`, which take any dilation.
 TIME_TILE = 512
 # the widths the wgmma body is built for: (C, G, S, M), kernel 3's too
 KERNEL_DIMS = TRAIN_KERNEL_DIMS
@@ -145,9 +148,6 @@ def gated_layer(x, cond, w_in, b_g, w_out, b_out, dilation: int):
     ("wgmma" | "generic", "layer" | "accumulate").  The general body reads
     the weights packed (`ops/flow_stack.py::pack_generic`), here, per call
     (the per-layer "layer" mode; the stack routes pack once)."""
-    if dilation > TIME_TILE:
-        raise ValueError(f"dilation {dilation} > TIME_TILE {TIME_TILE}: the "
-                         "reference's per-layer kernel does not take it")
     if x.device.type == "cpu":
         return gated_layer_reference(x, cond, w_in, b_g, w_out, b_out,
                                      dilation)
@@ -254,9 +254,6 @@ def gated_layer_accumulate(x, cond, w_in, b_g, w_out, b_rs, dilation: int,
     `gated_layer.launches` and `gated_layer.launches_by`.  `packed`: the
     general body's weights (`ops/flow_stack.py::pack_generic(w_in,
     w_out)`), built here where it is None."""
-    if dilation > TIME_TILE:
-        raise ValueError(f"dilation {dilation} > TIME_TILE {TIME_TILE}: the "
-                         "reference's per-layer kernel does not take it")
     if x.device.type == "cpu":
         return gated_layer_accumulate_reference(
             x, cond, w_in, b_g, w_out, b_rs, dilation, skip_acc, first=first,
@@ -410,7 +407,11 @@ def fused_gated_residual(x, cond, w_dilated, b_dilated, w_cond, b_cond,
                          w_res, b_res, w_skip, b_skip, *, dilation: int):
     """Differentiable gated residual layer on the raw parameters (the
     reference's signature): returns (res (B, T, C), skip (B, T, S)) in x's
-    dtype."""
+    dtype.  A dilation above TIME_TILE raises ValueError, as the
+    reference's does."""
+    if dilation > TIME_TILE:
+        raise ValueError(f"dilation {dilation} > TIME_TILE {TIME_TILE}: the "
+                         "reference's per-layer kernel does not take it")
     return FusedGatedResidual.apply(x, cond, w_dilated, b_dilated, w_cond,
                                     b_cond, w_res, b_res, w_skip, b_skip,
                                     dilation, None)

@@ -528,7 +528,8 @@ def test_train_backward_is_deterministic_and_rows_isolated_on_card(cuda,
 def test_train_kernels_refuse_other_widths_on_card(cuda):
     """A CUDA tensor that neither body takes raises: fp16 operands (the
     wgmma bodies take bf16, the general ones fp32 or bf16), and in the
-    backward a width past the general body's shared memory (C = 320)."""
+    backward a width past the general body's shared memory (G = 1,026:
+    its 32-row dz and dout / dg tiles)."""
     dil = (1, 2, 4)
     t = _torch(_inputs(6, T=64, dilations=dil, **SMALL), torch.float16,
                cuda)
@@ -538,7 +539,7 @@ def test_train_kernels_refuse_other_widths_on_card(cuda):
     with pytest.raises(ValueError, match="no kernel body takes"):
         flow_stack_train_backward(acts, t["cond"], t["w_in"], t["b_g"],
                                   t["w_out"], t["dskip"], dilations=dil)
-    wide = _torch(_inputs(6, B=1, T=8, C=320, M=8, G=32, S=16,
+    wide = _torch(_inputs(6, B=1, T=8, C=16, M=8, G=1026, S=16,
                           dilations=dil), torch.float32, cuda)
     acts = wide["x0"][None].expand(3, -1, -1, -1).contiguous()
     with pytest.raises(ValueError, match="no kernel body takes"):

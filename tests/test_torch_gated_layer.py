@@ -679,10 +679,35 @@ def test_kernel1_takes(dims, dilations, want):
 
 
 def test_layer_mode_refuses_a_dilation_above_the_tile():
-    """The per-layer kernel takes dilations up to 512, like the reference's;
-    a larger one needs the XLA stack, which is not ported."""
-    with pytest.raises(NotImplementedError, match="XLA"):
-        WaveNetStack((1, 1024), 64, 128, 64, 2, 80)
+    """The per-layer API refuses a dilation above the tile, like the
+    reference's; a stack with one resolves to "layer" in every mode asked
+    for (and refuses another mode built directly), the counterpart of the
+    reference's XLA per-layer form, which runs it through
+    `FusedGatedResidual` (kernel 5 takes any dilation), and on the CPU
+    matches that stack's plain per-layer form."""
+    for mode in ("infer", "layer", "train", "dx"):
+        assert resolve_stack_mode(mode, "infer", (1, 1024)) == "layer"
+        if mode != "layer":
+            with pytest.raises(ValueError, match="resolve_stack_mode"):
+                WaveNetStack((1, 1024), 64, 128, 64, 2, 80, mode=mode)
+    stack = WaveNetStack((1, 1024), 8, 16, 8, 2, 4, mode="layer")
+    stack.reset_parameters(torch.Generator().manual_seed(0))
+    x, cond = torch.rand(1, 1100, 1), torch.rand(1, 1100, 4)
+    layer = stack.layers[1]
+    with pytest.raises(ValueError, match="TIME_TILE"):
+        fused_gated_residual(torch.rand(1, 1100, 8), cond,
+                             *(getattr(layer, n) for n in PARAM_NAMES),
+                             dilation=1024)
+    with torch.no_grad():
+        h = stack.front(x)
+        skip = 0
+        for lp, d in zip(stack.layers, stack.dilations):
+            h, s = gated_layer_reference(h, cond, *pack_layer(
+                *(getattr(lp, n) for n in PARAM_NAMES), torch.float32), d)
+            skip = skip + s
+        want = stack.head2(torch.relu(stack.head1(torch.relu(skip))))
+        torch.testing.assert_close(stack(x, cond), want, rtol=1e-6,
+                                   atol=1e-6)
 
 
 def test_teacher_trains_through_the_layer_kernel():

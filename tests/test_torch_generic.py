@@ -27,7 +27,7 @@ from pwn_tpu_torch.ops.flow_stack import (
     check_generic_backward_args, flow_stack, flow_stack_backward_reference,
     flow_stack_reference, flow_stack_train_backward,
     flow_stack_train_forward, flow_stack_train_reference, generic_limits,
-    generic_smem_bytes, kernel1_takes, kernel_body)
+    generic_smem_bytes, generic_tile_rows, kernel1_takes, kernel_body)
 from pwn_tpu_torch.ops.gated_layer import (
     check_generic_accumulate_args, check_generic_layer_args, gated_layer,
     gated_layer_accumulate, gated_layer_accumulate_reference,
@@ -85,8 +85,8 @@ def test_kernel_body_is_the_same_for_cpu_and_card_tensors():
     (torch.float64, TINY, True, "float32 or bfloat16"),
     (F32, (64, 127, 64, 40), False, "even G"),
     (F32, (0, 128, 64, 40), False, "C, S, M >= 1"),
-    (F32, (320, 32, 16, 8), True, "shared memory"),
-    (BF16, (256, 512, 256, 80), False, "shared memory"),
+    (F32, (320, 1026, 16, 8), True, "shared memory"),
+    (BF16, (256, 3200, 256, 80), False, "shared memory"),
 ])
 def test_kernel_body_refuses_what_neither_body_takes(dtype, dims, backward,
                                                      match):
@@ -99,12 +99,13 @@ def test_kernel_body_refuses_what_neither_body_takes(dtype, dims, backward,
 
 
 def test_generic_limits_are_the_shared_memory_formula():
-    """The general bodies take 2C + M + G/2 (+ max(C + S, G) in the
-    backward) <= 822, the widths their shared memory is sized for.  A
-    block's shared memory: 3 ring slots of 64 rows x (16 fp32 + 16 bytes)
-    and a 16 x 128 fp32 weight slice, and the resident fp32 tiles (z; dz
-    and dout / dg; dz over dout at G/2 <= 64), each row of 64 their padded
-    width + 4 floats.  Every preset's widths fit both bodies."""
+    """The general bodies take the widths whose routed tile fits a block's
+    shared memory.  A block's shared memory: 3 ring slots of 64 rows x (16
+    fp32 + 16 bytes) and a 16 x 128 fp32 weight slice, and the resident
+    fp32 tiles (z; dz and dout / dg; dz over dout at G/2 <= 64), each row
+    of 64 their padded width + 4 floats (32-row tiles where 64 rows do not
+    fit).  Every preset's widths fit both bodies, and so do the wide
+    teacher's; only G/2 and C + S set the edge, walked on both sides."""
     slots = 3 * (64 * 80 + 16 * 128 * 4)
     assert generic_smem_bytes(*TEACHER) == slots + 64 * (128 + 4) * 4
     assert generic_smem_bytes(*TEACHER, backward=True) == \
@@ -115,11 +116,32 @@ def test_generic_limits_are_the_shared_memory_formula():
     for dims in (TINY, STUDENT, TEACHER, WIDE_40, *JAX_SHAPES):
         assert generic_smem_bytes(*dims, backward=True) <= SMEM_PER_BLOCK
         assert generic_limits(F32, *dims, backward=True) is None
-    # the edge: 822 rows fit, 823 do not
-    assert generic_limits(F32, 300, 2, 1, 221) is None     # 822 forward
-    assert generic_limits(F32, 300, 2, 1, 222) is not None  # 823
-    assert generic_limits(F32, 200, 2, 1, 220, backward=True) is None
-    assert generic_limits(F32, 200, 2, 1, 221, backward=True) is not None
+    # the wide teacher: 64-row tiles forward, 32-row tiles backward
+    wide = (256, 512, 256, 80)
+    assert generic_smem_bytes(*wide) == slots + 64 * (256 + 4) * 4
+    slots32 = 3 * (32 * 80 + 16 * 128 * 4)
+    assert generic_smem_bytes(*wide, backward=True) == \
+        slots32 + 32 * (256 + 4 + 512 + 4) * 4
+    for dt in (F32, BF16):
+        assert generic_limits(dt, *wide) is None
+        assert generic_limits(dt, *wide, backward=True) is None
+    # the edge on both sides: z's G/2 forward; dz and dout / dg backward
+    # (G, and C + S at G/2 <= 64, where dz sits over dout)
+    assert generic_limits(F32, 1, 3104, 1, 1) is None
+    assert "shared memory" in generic_limits(F32, 1, 3106, 1, 1)
+    assert generic_limits(F32, 1, 1024, 1, 1, backward=True) is None
+    assert "shared memory" in generic_limits(F32, 1, 1026, 1, 1,
+                                             backward=True)
+    assert generic_limits(F32, 1551, 2, 1, 1, backward=True) is None
+    assert "shared memory" in generic_limits(F32, 1551, 2, 2, 1,
+                                             backward=True)
+    for dims, backward in (((1, 3104, 1, 1), False),
+                           ((1, 1024, 1, 1), True),
+                           ((1551, 2, 1, 1), True)):
+        assert generic_smem_bytes(*dims, backward) <= SMEM_PER_BLOCK
+        assert generic_tile_rows(*dims, backward) == 32
+    # the 2C + M activation columns stream: C and M set no bound forward
+    assert generic_limits(F32, 4000, 2, 1, 5000) is None
 
 
 def _csrc_constants() -> dict:
@@ -131,14 +153,16 @@ def _csrc_constants() -> dict:
 
 def test_generic_mirror_holds_the_sources_constants():
     """The Python mirror of the general bodies' tile (slice rows, chunk
-    columns, ring slots, width limit, a block's shared memory) is the one
-    csrc/generic.cuh states, and its route picks 64-row tiles at every
-    preset's widths and 32-row tiles only where 64 rows do not fit."""
+    columns, ring slots, a block's shared memory, which bounds the widths)
+    is the one csrc/generic.cuh states, and its route picks 64-row tiles at
+    every preset's widths and 32-row tiles only where 64 rows do not
+    fit."""
     c = _csrc_constants()
-    assert (c["BK"], c["NB"], c["STAGES"], c["MAX_ROWS"], c["SMEM_MAX"],
+    assert "MAX_ROWS" not in c
+    assert (c["BK"], c["NB"], c["STAGES"], c["SMEM_MAX"],
             c["FULL_SMS"]) == (
-        fs.GENERIC_BK, fs.GENERIC_NB, fs.GENERIC_STAGES,
-        fs.GENERIC_MAX_ROWS, SMEM_PER_BLOCK, fs.GENERIC_FULL_SMS)
+        fs.GENERIC_BK, fs.GENERIC_NB, fs.GENERIC_STAGES, SMEM_PER_BLOCK,
+        fs.GENERIC_FULL_SMS)
     # the layer pass's register route: three blocks an SM once the tiles
     # fill three on each of 132 SMs (student_iaf's 8 x 44,032), else two
     # (the tiny teacher's 1 x 16,000)
@@ -352,8 +376,8 @@ def _layer_ops(dims, dtype, B=2, T=64, seed=0, device="cpu"):
     (lambda a: a.update(b_g=a["b_g"].bfloat16()), "b_g must be float32"),
     (lambda a: a.update(cond=a["cond"][:, :10]), "cond must be"),
     (lambda a: a.update(w_out=a["w_out"][:, :32]), "w_out must be"),
-    (lambda a: a.update(x=torch.zeros(2, 64, 400), w_in=torch.zeros(
-        128, 840), w_out=torch.zeros(464, 64), b_out=torch.zeros(464)),
+    (lambda a: a.update(w_in=torch.zeros(3200, 168),
+                        w_out=torch.zeros(128, 1600)),
      "shared memory"),
     (lambda a: None, "CUDA device"),
 ])
