@@ -7,8 +7,8 @@ streaming vocoder server, training from a wav directory on every data
 engine, data-parallel training, the model axis, batch-sharded and
 sequence-parallel synthesis, the 40-mel fp32 tiny_teacher through the
 general-width bodies of kernels 5 and 3, the wide teacher (256 residual
-channels) through those bodies and kernel 4's wide instantiation, and the
-benchmark suite once on one CUDA card.
+channels) through kernels 5 and 3's wgmma column split and kernel 4's
+wide instantiation, and the benchmark suite once on one CUDA card.
 
 Run from the repository root with no arguments:
 
@@ -164,19 +164,25 @@ Phases, each printing what it finds:
                residual, 512 gate and 256 skip channels, at full width:
                (a) kernel 4's wide instantiation against its plain version
                in bf16 and fp32 weights (MoL pinned over 1,003 steps,
-               Gaussian over 64), kernels 2 and 3's general bodies over its
-               24 layers in fp32 and bf16 per row, both modes, bit-identical
-               twice; kernel 5's "layer" epilogue at dilations 1,024 and
-               2,048 on both bodies, T below and above d; a stack with such
+               Gaussian over 64), kernels 2 and 3 over its 24 layers per
+               row, both modes, bit-identical twice: the general bodies in
+               fp32, the wgmma bodies' column split in bf16; kernel 5's
+               "layer" epilogue at dilations 1,024 and 2,048 on both
+               bodies, T below and above d; a stack with such
                dilations asked for "train" running "layer"; kernel 4 with
                dilations to 1,024 over 1,100 steps; the deep variant
                (6 x 8 layers at teacher_lj's widths) through kernels 2, 3
                and 4; (b) the CLI in-process at 8 x 16,384: train-teacher 4
                steps (kernel-4 dumps), distill-student student_iaf 2 steps
                against it, generate from it, each call's launches by body
-               and mode, no CUDA tensor on a plain version; (c) kernel 4 at
-               8 x 5,376 and the general bodies at 8 x 16,384 beside their
-               bounds and plain versions.  Alone: `PYTHONPATH=. python3 -c
+               and mode (the wgmma bodies in bf16, no general body), no
+               CUDA tensor on a plain version; (c) kernel 4 at 8 x 5,376,
+               and at 8 x 16,384 kernels 2 and 3 (both modes) on the wgmma
+               bodies held per row against the bf16 plain versions, kernel
+               5's "layer" epilogue too, their times beside their bounds,
+               the plain versions' and the general bodies' on the same
+               operands, and the wide train and distillation steps.
+               Alone: `PYTHONPATH=. python3 -c
                "import tempfile, chip_smoke as c; d, s = c.phase_device();
                c.phase_build(); c.phase_wide(d, s, tempfile.mkdtemp())"`;
   9. times   — each kernel's and its plain version's ms per call beside its
@@ -202,6 +208,7 @@ The script imports no JAX; the machine with the card need not have it.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import http.client
 import importlib.util
 import io
@@ -1317,6 +1324,7 @@ def _reset_counts() -> None:
     """Every launch counter to 0: just before a main path is driven."""
     flow_stack.launches = gated_layer.launches = ar_sample.launches = 0
     gated_layer.launches_by.clear()
+    gated_layer.launches_by_width.clear()
     fs.flow_stack_train_backward.launches = 0
     fs.flow_stack_train_backward.launches_by.clear()
     fs.flow_stack_train_wgrads.launches = 0
@@ -2087,8 +2095,10 @@ def phase_tiny(device, smi: str, root: str) -> dict:
 # Phase 8g: the JAX package's wide teacher, teacher_lj with 256 residual,
 # 512 gate and 256 skip channels ("wide (24 x 256ch)", BASELINE.md), at full
 # width: kernel 4's wide instantiation (the slices read from L2, head1 split
-# among the ranks) and kernels 5 and 3's general bodies, which take these
-# widths since their limit is the routed tile's shared memory; stacks with a
+# among the ranks); kernels 5 and 3's wgmma bodies at these widths in bf16
+# (64-row tiles whose columns the consumer warpgroups split), and their
+# general bodies in fp32 (and, timed for comparison only, in bf16 through
+# their own entry points); stacks with a
 # dilation above the reference's time tile on kernel 5; and the deep variant
 # ("deep (48 x 128ch)": 6 blocks x 8 layers at teacher_lj's widths).
 WIDE_OVERRIDES = ["teacher.residual_channels=256",
@@ -2181,10 +2191,10 @@ def _wide_kernel_rows(device) -> dict:
     """(a) Each kernel at the wide widths against its plain version on the
     card: kernel 4 in bf16 and fp32 weights, MoL (pinned) over 1,003 steps
     on the init's weights with the front 1x1 scaled (WIDE_AR_FRONT), and
-    MoL and Gaussian with jittered biases over AR_EARLY; kernels 2 and 3's
-    general bodies
-    over the wide teacher's 24 layers in fp32 and bf16, both backward modes,
-    bit-identical twice.  Then kernel 5 at dilations 1,024 and 2,048 on
+    MoL and Gaussian with jittered biases over AR_EARLY; kernels 2 and 3
+    over the wide teacher's 24 layers in fp32 (the general bodies) and bf16
+    (the wgmma bodies), both backward modes, bit-identical twice.  Then
+    kernel 5 at dilations 1,024 and 2,048 on
     both bodies, a stack with such dilations built "train" (it runs
     "layer"), kernel 4 with dilations to 1,024, and the deep variant's
     kernels 2, 3 and 4.  Returns kernel 4's max abs error in bf16 weights
@@ -2206,10 +2216,11 @@ def _wide_kernel_rows(device) -> dict:
                  "wide MoL, biases jittered")
         _ar_rows(gauss, gauss_model, wdt, 8, AR_EARLY, device, 501, True,
                  "wide Gaussian, biases jittered")
-    # kernels 2 and 3 through the general bodies at the wide widths (at
-    # the main path's 8 x 16,384 in `_wide_times`)
+    # kernels 2 and 3 at the wide widths on the body `kernel_body` picks
+    # (at the main path's 8 x 16,384 in `_wide_times`)
     dil = WIDE.teacher.dilations
     for dt in (torch.float32, torch.bfloat16):
+        body = fs.kernel_body(dt, *WIDE_DIMS, backward=True)
         worst = {}
         for k, (B, T) in enumerate(GENERIC_SHAPES):
             a = _generic_inputs(WIDE_DIMS, dt, dil, B, T, device,
@@ -2245,22 +2256,28 @@ def _wide_kernel_rows(device) -> dict:
                 _check((r <= tol).all(),
                        f"wide {dt} {B} x {T}: {name} rows {r} above {tol}")
                 worst[name] = max(worst.get(name, 0.0), float(r.max()))
-        _log(f"[wide] kernels 2 and 3 (general bodies) at {WIDE_DIMS}, "
+        tiles = (f"{fs.generic_tile_rows(*WIDE_DIMS)}-row tiles forward, "
+                 f"{fs.generic_tile_rows(*WIDE_DIMS, backward=True)} "
+                 f"backward ({fs.generic_smem_bytes(*WIDE_DIMS):,} and "
+                 f"{fs.generic_smem_bytes(*WIDE_DIMS, backward=True):,} B "
+                 "of shared memory)" if body == "generic" else
+                 f"64-row tiles, columns split between the warpgroups "
+                 f"({fs.wgmma_smem_bytes(*WIDE_DIMS):,} and "
+                 f"{fs.wgmma_smem_bytes(*WIDE_DIMS, backward=True):,} B of "
+                 "shared memory)")
+        _log(f"[wide] kernels 2 and 3 ({body} bodies) at {WIDE_DIMS}, "
              f"{len(dil)} layers, {dt}, shapes {GENERIC_SHAPES}: worst row rel "
              + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
              + f" (tol {TOL_GENERIC[dt]}, acts {TOL_GENERIC_ACTS[dt]}); "
              f"backward bit-identical twice, dx / dcond equal across modes; "
-             f"{fs.generic_tile_rows(*WIDE_DIMS)}-row tiles forward, "
-             f"{fs.generic_tile_rows(*WIDE_DIMS, backward=True)} backward "
-             f"({fs.generic_smem_bytes(*WIDE_DIMS):,} and "
-             f"{fs.generic_smem_bytes(*WIDE_DIMS, backward=True):,} B of "
-             "shared memory)")
+             + tiles)
     # kernel 5 past the reference's time tile: the wgmma body's TMA tap box
     # at t0 - d and the general body's cp.async tap rows, T below d (every
     # tap is padding) and above it
     for body, dims, dt in (("wgmma", (128, 256, 128, 80), torch.bfloat16),
                            ("wgmma", (64, 128, 64, 80), torch.bfloat16),
-                           ("generic", WIDE_DIMS, torch.bfloat16),
+                           ("wgmma", WIDE_DIMS, torch.bfloat16),
+                           ("generic", WIDE_DIMS, torch.float32),
                            ("generic", (64, 128, 64, 80), torch.float32)):
         _check(fs.kernel_body(dt, *dims) == body, f"{dims} {dt} -> {body}")
         worst = 0.0
@@ -2352,44 +2369,47 @@ def _wide_kernel_rows(device) -> dict:
 def _wide_launches(teacher_steps: int = 0, teacher_evals: int = 0,
                    ar: int = 0, student_steps: int = 0,
                    student_evals: int = 0, student_dumps: int = 0) -> dict:
-    """The wide teacher's launches on the general bodies (its 24 layers once
-    per forward through kernel 5's accumulate epilogue, kernel 3 once a
-    step with weight gradients, or dx-only once a distillation step) and,
-    distilling student_iaf against it, the student's kernels on the wgmma
-    bodies (4 x 10 layers a forward, 4 kernel-3 calls a step) and kernel 1
-    once per flow of a sample dump; kernel 4 once a teacher dump or
-    generation."""
+    """The wide teacher's launches on the wgmma bodies in bf16 (its 24
+    layers once per forward through kernel 5's accumulate epilogue, kernel
+    3 once a step with weight gradients, or dx-only once a distillation
+    step) and, distilling student_iaf against it, the student's kernels on
+    the wgmma bodies (4 x 10 layers a forward, 4 kernel-3 calls a step) and
+    kernel 1 once per flow of a sample dump; kernel 4 once a teacher dump
+    or generation; no general body."""
     sc, L = CFG.student, WIDE.teacher.n_layers
     n = CFG.distill.n_kl_samples
     s_fwd = n * sc.n_flows * sc.layers_per_flow
     g5 = L * (teacher_steps + teacher_evals) + n * L * (student_steps
                                                         + student_evals)
     g3 = teacher_steps + n * student_steps
-    return {"kernel 1": sc.n_flows * student_dumps,
-            "kernel 5": g5 + s_fwd * (student_steps + student_evals),
+    k5 = g5 + s_fwd * (student_steps + student_evals)
+    return {"kernel 1": sc.n_flows * student_dumps, "kernel 5": k5,
             "kernel 3": g3 + n * sc.n_flows * student_steps,
             "kernel 3 student": n * sc.n_flows * student_steps,
-            "kernel 3 teacher dx": 0, "kernel 4": ar, "generic": g5 + g3,
-            "generic kernel 5": g5, "generic kernel 3": teacher_steps,
-            "generic kernel 3 dx": n * student_steps}
+            "kernel 3 teacher dx": 0, "kernel 4": ar, "generic": 0,
+            "wgmma kernel 5": k5, "wide kernel 5": g5,
+            "wide kernel 3": teacher_steps,
+            "wide kernel 3 dx": n * student_steps}
 
 
 def _wide_counts() -> dict:
-    """`_counts()` with the general bodies' launches at the wide widths by
-    kernel and mode too."""
+    """`_counts()` with kernel 5's wgmma launches, and the wide widths'
+    launches by kernel and mode, too."""
     by = fs.flow_stack_train_backward.launches_by
     return {**_counts(),
-            "generic kernel 5": gated_layer.launches_by[("generic",
-                                                         "accumulate")],
-            "generic kernel 3": by[("generic", WIDE_DIMS[0], True)],
-            "generic kernel 3 dx": by[("generic", WIDE_DIMS[0], False)]}
+            "wgmma kernel 5": gated_layer.launches_by[("wgmma",
+                                                       "accumulate")],
+            "wide kernel 5": gated_layer.launches_by_width[WIDE_DIMS[0]],
+            "wide kernel 3": by[(WIDE_DIMS[0], True)],
+            "wide kernel 3 dx": by[(WIDE_DIMS[0], False)]}
 
 
 def _wide_cli(root: str) -> dict:
     """(b) The wide teacher through the CLI in-process at full width (8 x
     16,384): train-teacher 4 steps (kernel-4 dumps at 2 and 4),
     distill-student student_iaf 2 steps against it, generate from it; each
-    call's launches by body, and no CUDA tensor on a plain version.
+    call's launches by body and width (the wgmma bodies in bf16, no general
+    body), and no CUDA tensor on a plain version.
     Returns the launches of all three."""
     tw, sw = (os.path.join(root, n) for n in ("wide_teacher",
                                                "wide_student"))
@@ -2429,10 +2449,11 @@ def _wide_cli(root: str) -> dict:
     _check(got_sr == sr and wav.shape == (int(0.25 * sr) // hop * hop,)
            and np.isfinite(wav).all(), f"wide_t.wav: {wav.shape}")
     _log(f"[wide] the CLI on the wide teacher in {time.perf_counter() - t0:.1f}"
-         f" s: {total['generic']} launches of the general bodies (kernel 5 "
-         f"{total['generic kernel 5']}, kernel 3 {total['generic kernel 3']},"
-         f" dx-only {total['generic kernel 3 dx']}), {total['kernel 4']} of "
-         f"kernel 4; no plain version got a CUDA tensor; losses "
+         f" s: the wide teacher's launches on the wgmma bodies (kernel 5 "
+         f"{total['wide kernel 5']}, kernel 3 {total['wide kernel 3']}, "
+         f"dx-only {total['wide kernel 3 dx']}), {total['generic']} of the "
+         f"general bodies, {total['kernel 4']} of kernel 4; no plain version "
+         f"got a CUDA tensor; losses "
          f"{[round(r['loss'], 4) for r in recs if 'loss' in r]}")
     return total
 
@@ -2440,18 +2461,21 @@ def _wide_cli(root: str) -> dict:
 def _wide_times(device, smi: str) -> dict:
     """(c) Times beside bound and plain: kernel 4 at the reference's AR
     workload (8 x 5,376) in bf16 and fp32 weights, the plain version timed
-    once at the same shape; and the general bodies' forward (kernel 2's
+    once at the same shape; and the wgmma bodies' forward (kernel 2's
     route) and backward in both modes at the wide teacher's training shape
     (8 x 16,384, 24 layers, bf16: the preset's dtype; the bound by
-    operations at the bf16 peak), replayed from CUDA graphs, the plain
-    versions on the same operands by CUDA events.  There, on the main
-    path's route (kernel 3's 3-block layer pass, its split-K at this many
-    rows), each output is held per row against the same-dtype plain
-    version (TOL_GENERIC, TOL_GENERIC_ACTS), and the max abs errors are
-    the kernels line's.  Timing launches are not the main path's: the
+    operations at the bf16 peak), replayed from CUDA graphs, beside the
+    general bodies on the same operands (graphs; `_wide_general_calls`)
+    and the plain versions (CUDA events).  There, on the main path's route
+    (the weight-gradient GEMM's split-K at this many rows), each output is
+    held per row against the same-dtype plain version (TOL_GENERIC,
+    TOL_GENERIC_ACTS), kernel 5's "layer" epilogue too, and the max abs
+    errors are the kernels line's; the general bodies' skip and dx per row
+    as well.  Then the wide train and distillation steps
+    (`_wide_step_times`).  Timing launches are not the main path's: the
     counters are put back."""
     counted = _counts()
-    by = (gated_layer.launches_by.copy(),
+    by = (gated_layer.launches_by.copy(), gated_layer.launches_by_width.copy(),
           fs.flow_stack_train_backward.launches_by.copy(), ar_sample.launches)
     res = {}
     tc = WIDE.teacher
@@ -2489,22 +2513,24 @@ def _wide_times(device, smi: str) -> dict:
     dil = tc.dilations
     L, rows = len(dil), TRAIN_BATCH * TRAIN_T
     dt = torch.bfloat16
+    _check(fs.kernel_body(dt, *WIDE_DIMS) == "wgmma"
+           and fs.kernel_body(dt, *WIDE_DIMS, backward=True) == "wgmma",
+           "bf16 at the wide widths routes to the wgmma bodies")
     a = _generic_inputs(WIDE_DIMS, dt, dil, TRAIN_BATCH, TRAIN_T, device,
                         seed=531)
     dskip = a.pop("dskip")
     packed = fs.pack_generic(a["w_in"], a["w_out"])
     with torch.no_grad():
-        skip, acts = fs.flow_stack_train_forward(**a, dilations=dil,
-                                                 packed=packed)
+        skip, acts = fs.flow_stack_train_forward(**a, dilations=dil)
         bargs = (acts, a["cond"], a["w_in"], a["b_g"], a["w_out"], dskip)
         fns = {
-            "fwd": lambda: fs.flow_stack_train_forward(
-                **a, dilations=dil, packed=packed),
-            "bwd": lambda: fs.flow_stack_train_backward(
-                *bargs, dilations=dil, packed=packed),
+            "fwd": lambda: fs.flow_stack_train_forward(**a, dilations=dil),
+            "bwd": lambda: fs.flow_stack_train_backward(*bargs,
+                                                        dilations=dil),
             "bwd_dx": lambda: fs.flow_stack_train_backward(
-                *bargs, dilations=dil, want_wgrads=False, packed=packed),
+                *bargs, dilations=dil, want_wgrads=False),
         }
+        general = _wide_general_calls(a, bargs, dil, packed)
         plain_fns = {
             "fwd": lambda: fs.flow_stack_train_reference(**a, dilations=dil),
             "bwd": lambda: fs.flow_stack_backward_reference(
@@ -2512,13 +2538,16 @@ def _wide_times(device, smi: str) -> dict:
             "bwd_dx": lambda: fs.flow_stack_backward_reference(
                 *bargs, dilations=dil, want_wgrads=False),
         }
-        # the main path's outputs against the plain version's, per row
+        # the main path's outputs against the plain version's, per row;
+        # the general bodies' on the same operands too (timed beside them)
         ref_skip, ref_acts = plain_fns["fwd"]()
+        g_skip, g_acts = general["fwd"]()
         err = {"fwd": {"skip": _row_rel(skip, ref_skip),
                        "acts": _row_rel(acts.transpose(0, 1),
                                         ref_acts.transpose(0, 1))}}
+        g_err = {"fwd": float(_row_rel(g_skip, ref_skip).max())}
         max_abs = {"fwd": float((skip.float() - ref_skip.float()).abs().max())}
-        del ref_skip, ref_acts
+        del ref_skip, ref_acts, g_skip, g_acts
         for k in ("bwd", "bwd_dx"):
             got, ref = fns[k](), plain_fns[k]()
             err[k] = {"dx": _row_rel(got[0], ref[0])} | {
@@ -2526,8 +2555,23 @@ def _wide_times(device, smi: str) -> dict:
                     ("dcond", "dw_in", "db_g", "dw_out", "db_rs"),
                     got[1:], ref[1:])}
             max_abs[k] = float((got[0].float() - ref[0].float()).abs().max())
+            g_err[k] = float(_row_rel(general[k]()[0], ref[0]).max())
             del got, ref
+        # kernel 5's "layer" epilogue on the top layer's weights
+        err["layer"] = {}
+        top = [a[k][L - 1] for k in ("w_in", "b_g", "w_out", "b_rs")]
+        n_layer = gated_layer.launches_by[("wgmma", "layer")]
+        for d in (1, 128):
+            got = gated_layer(a["x0"], a["cond"], *top, d)
+            want = gated_layer_reference(a["x0"], a["cond"], *top, d)
+            for n, g, w in zip(("res", "skip"), got, want):
+                err["layer"][f"{n} d={d}"] = _row_rel(g, w)
+        _check(gated_layer.launches_by[("wgmma", "layer")] == n_layer + 2,
+               "kernel 5's \"layer\" epilogue at the wide widths: not the "
+               "wgmma body")
+        del got, want
         ms = {k: _graph_ms(fn, 1) for k, fn in fns.items()}
+        general_ms = {k: _graph_ms(fn, 1) for k, fn in general.items()}
         plain = {k: _time_ms(fn, 1) for k, fn in plain_fns.items()}
     weights = [a[k] for k in ("w_in", "b_g", "w_out", "b_rs")]
     b = {"fwd": _bound(_stack_flop(WIDE_DIMS, L, rows, False, False),
@@ -2540,35 +2584,127 @@ def _wide_times(device, smi: str) -> dict:
          "bwd_dx": _bound(_stack_flop(WIDE_DIMS, L, rows, True, False),
                           _nbytes(acts, a["cond"], dskip, *weights)
                           + _nbytes(a["x0"], a["cond"]), PEAK_BF16)}
-    fp32_floor = {k: _stack_flop(WIDE_DIMS, L, rows, k != "fwd",
-                                 k == "bwd") / PEAK_FP32 * 1e3
-                  for k in b}
     for k in fns:
         _log(f"[wide times] {smi}: {k} of the wide teacher's stack on the "
-             f"general bodies, {TRAIN_BATCH} x {TRAIN_T}, {L} layers, {dt}: "
-             f"graph {ms[k]:.3f} ms, plain {plain[k]:.3f} ms, bound "
-             f"{b[k]['bound_ms']:.3f} ms ({b[k]['bound_by']}, bf16 peak), "
-             f"the fp32 FMAs' own floor {fp32_floor[k]:.3f} ms; against the "
-             f"{dt} plain version, worst row rel "
+             f"wgmma bodies, {TRAIN_BATCH} x {TRAIN_T}, {L} layers, {dt}: "
+             f"graph {ms[k]:.3f} ms, the general bodies on the same operands "
+             f"{general_ms[k]:.3f} ms (graph; worst row rel "
+             f"{g_err[k]:.2e} against the plain version), plain "
+             f"{plain[k]:.3f} ms, bound {b[k]['bound_ms']:.3f} ms "
+             f"({b[k]['bound_by']}, bf16 peak; {b[k]['bound_ms'] / ms[k]:.1%}"
+             f" of it); against the {dt} plain version, worst row rel "
              + ", ".join(f"{n} {r.max():.2e}" for n, r in err[k].items())
              + f" (tol {TOL_GENERIC[dt]}, acts {TOL_GENERIC_ACTS[dt]}), max "
              f"abs {max_abs[k]:.3e} ({'skip' if k == 'fwd' else 'dx'})")
-        res[k] = {"ms": ms[k], "plain_ms": plain[k], **b[k]}
+        res[k] = {"ms": ms[k], "plain_ms": plain[k], **b[k],
+                  "generic_ms": general_ms[k]}
+    _log(f"[wide times] kernel 5 \"layer\" (wgmma) at {TRAIN_BATCH} x "
+         f"{TRAIN_T}, the top layer's weights, against the {dt} plain "
+         f"version: worst row rel " + ", ".join(
+             f"{n} {r.max():.2e}" for n, r in err["layer"].items())
+         + f" (tol {TOL_GENERIC[dt]})")
+    del a, acts, bargs, fns, general, plain_fns, packed, skip, dskip, weights
+    torch.cuda.empty_cache()
+    res["steps"] = _wide_step_times(device, smi)
     torch.cuda.synchronize()
     (flow_stack.launches, gated_layer.launches,
      fs.flow_stack_train_backward.launches) = (
         counted["kernel 1"], counted["kernel 5"], counted["kernel 3"])
-    (gated_layer.launches_by, fs.flow_stack_train_backward.launches_by,
-     ar_sample.launches) = by
+    (gated_layer.launches_by, gated_layer.launches_by_width,
+     fs.flow_stack_train_backward.launches_by, ar_sample.launches) = by
     for k, rows_k in err.items():
         for n, r in rows_k.items():
             tol = (TOL_GENERIC_ACTS if n == "acts" else TOL_GENERIC)[dt]
             _check((r <= tol).all(), f"wide {k} at {TRAIN_BATCH} x "
                    f"{TRAIN_T}: {n} rows {r} above {tol}")
+    _check(max(g_err.values()) <= TOL_GENERIC[dt],
+           f"the general bodies at the wide widths: {g_err}")
     res.update(fwd_max_abs_err=max_abs["fwd"],
                bwd_max_abs_err=max_abs["bwd"],
                bwd_dx_max_abs_err=max_abs["bwd_dx"])
     return res
+
+
+def _wide_general_calls(a: dict, bargs: tuple, dil, packed) -> dict:
+    """Kernels 2 and 3's general bodies on the wide teacher's bf16 operands
+    through the library's own entry points, for timing beside the wgmma
+    bodies only: no route of the port reaches them there (`kernel_body`
+    sends bf16 at these widths to the wgmma bodies).  The calls are those
+    of `ops/gated_layer.py::_accumulate_layers` (kernel 2's route) and
+    `ops/flow_stack.py::flow_stack_train_backward`; "fwd" returns (skip,
+    acts), "bwd" / "bwd_dx" (dx, dcond[, the weight gradients])."""
+    x0, cond, b_g, b_rs = a["x0"], a["cond"], a["b_g"], a["b_rs"]
+    acts_in, dskip = bargs[0], bargs[5]
+    B, T, C = x0.shape
+    L, G, _ = a["w_in"].shape
+    S, M = a["w_out"].shape[1] - C, cond.shape[-1]
+    dev = x0.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = _build.load_library()
+
+    def fwd():
+        acts = torch.empty((L, B, T, C), dtype=x0.dtype, device=dev)
+        acts[0].copy_(x0)
+        skip = torch.empty((B, T, S), dtype=x0.dtype, device=dev)
+        acc = torch.empty((B, T, S), dtype=torch.float32, device=dev)
+        for l, d in enumerate(dil):
+            last = l == L - 1
+            fs._device_call(
+                "pwn_gated_layer_acc_generic", dev, acts[l].data_ptr(),
+                cond.data_ptr(), packed.gate[l].data_ptr(), b_g[l].data_ptr(),
+                packed.out[l].data_ptr(), b_rs[l].data_ptr(),
+                None if last else acts[l + 1].data_ptr(), acc.data_ptr(),
+                skip.data_ptr() if last else None, B, T, C, G, S, M, d,
+                int(l == 0), int(last), 1)
+        return skip, acts
+
+    def bwd(want: bool):
+        ws = torch.empty(lib.pwn_flow_stack_train_bwd_generic_workspace_bytes(
+            B, T, L, C, G, S, M, int(want), n_sm), dtype=torch.uint8,
+            device=dev)
+        dx = torch.empty((B, T, C), dtype=x0.dtype, device=dev)
+        dcond = torch.empty((B, T, M), dtype=x0.dtype, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        grads = ((torch.empty(a["w_in"].shape, **f32),
+                  torch.empty(b_g.shape, **f32),
+                  torch.empty(a["w_out"].shape, **f32),
+                  torch.empty((L, C + S), **f32)) if want else ())
+        fs._device_call(
+            "pwn_flow_stack_train_bwd_generic", dev, acts_in.data_ptr(),
+            cond.data_ptr(), dskip.data_ptr(), packed.gate.data_ptr(),
+            b_g.data_ptr(), packed.dz.data_ptr(), packed.dcat.data_ptr(),
+            dx.data_ptr(), dcond.data_ptr(),
+            *([g.data_ptr() for g in grads] or [None] * 4), ws.data_ptr(),
+            B, T, L, C, G, S, M, (ctypes.c_int * L)(*dil), int(want), n_sm, 1)
+        return (dx, dcond, *grads)
+
+    return {"fwd": fwd, "bwd": lambda: bwd(True), "bwd_dx": lambda: bwd(False)}
+
+
+def _wide_step_times(device, smi: str) -> dict:
+    """The wide teacher's train step and student_iaf's distillation step
+    against the wide teacher (frozen, dx-only), batch 8 x 16,384: CUDA
+    events over 5 steps after 2 warm-ups, as phase 9 times teacher_lj's."""
+    B = TRAIN_BATCH
+    model = init_teacher(WIDE, torch.Generator().manual_seed(SEED),
+                         stack_mode="train", device=device)
+    state = create_train_state(dict(model.named_parameters()), WIDE.train)
+    step = make_teacher_train_step(model, WIDE)
+    batch = torch.from_numpy(make_val_batch(WIDE, None, B)).to(device)
+    dcfg = cli._load_config("student_iaf", WIDE_OVERRIDES)
+    _, _, dstate, dstep = _distill_pair(dcfg, device)
+    dbatch = torch.from_numpy(make_val_batch(dcfg, None, B)).to(device)
+    ms = {}
+    for name, fn in (("train", lambda: step(state, batch)),
+                     ("distill", lambda: dstep(dstate, dbatch))):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        ms[name] = _time_ms(fn, 5)
+        _log(f"[wide times] {smi}: the wide teacher's {name} step, batch "
+             f"{B} x {TRAIN_T}: {ms[name]:.3f} ms per step, "
+             f"{B / (ms[name] / 1e3):.1f} utterances/s")
+    return ms
 
 
 def phase_wide(device, smi: str, root: str) -> dict:
@@ -4686,30 +4822,29 @@ def main() -> int:
         "max_abs_err": wide["ar_max_abs_err"],
         **wide["times"]["ar torch.bfloat16"], "library_ms": None,
     }, {
-        # kernel 2's route on the wide teacher: kernel 5's general
-        # accumulate body, 24 launches a forward of its training and of the
-        # distillation against it
-        "name": "gated_layer_generic[wide teacher]", "route": "cuda",
-        "source": "pwn_tpu_torch/csrc/gated_layer_generic.cu",
+        # kernel 2's route on the wide teacher: kernel 5's wgmma body (the
+        # column split), 24 launches a forward of its training and of the
+        # distillation against it; "generic_ms" is the general body on the
+        # same operands (no route reaches it in bf16)
+        "name": "gated_layer[wide teacher]", "route": "cuda",
+        "source": "pwn_tpu_torch/csrc/gated_layer.cu",
         "replaces": "pwn_tpu/ops/pallas/flow_stack.py:373",
-        "launches": wide["launches"]["generic kernel 5"],
+        "launches": wide["launches"]["wide kernel 5"],
         "max_abs_err": wide["fwd_max_abs_err"], **wide["times"]["fwd"],
         "library_ms": None,
     }, {
-        "name": "flow_stack_train_backward_generic[wide teacher]",
-        "route": "cuda",
-        "source": "pwn_tpu_torch/csrc/flow_stack_train_generic.cu",
+        "name": "flow_stack_train_backward[wide teacher]", "route": "cuda",
+        "source": train_src,
         "replaces": "pwn_tpu/ops/pallas/flow_stack.py:420",
-        "launches": wide["launches"]["generic kernel 3"],
+        "launches": wide["launches"]["wide kernel 3"],
         "max_abs_err": wide["bwd_max_abs_err"], **wide["times"]["bwd"],
         "library_ms": None,
     }, {
         # the frozen wide teacher of the distillation: dx-only
-        "name": "flow_stack_train_backward_generic[wide teacher, dx-only]",
-        "route": "cuda",
-        "source": "pwn_tpu_torch/csrc/flow_stack_train_generic.cu",
+        "name": "flow_stack_train_backward[wide teacher, dx-only]",
+        "route": "cuda", "source": train_src,
         "replaces": "pwn_tpu/ops/pallas/flow_stack.py:420",
-        "launches": wide["launches"]["generic kernel 3 dx"],
+        "launches": wide["launches"]["wide kernel 3 dx"],
         "max_abs_err": wide["bwd_dx_max_abs_err"], **wide["times"]["bwd_dx"],
         "library_ms": None,
     }]}))

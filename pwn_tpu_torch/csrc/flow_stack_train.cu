@@ -40,6 +40,12 @@
 // dcond chain keeps its 80 columns), so the memory phases take a larger
 // share than at the teacher's widths.
 //
+// At the wide teacher's widths (C=256, G=512, S=256, M=80) a row costs
+// four times the teacher's products (7.46 ms over 24 layers at B=8,
+// T=16,384 with weight gradients, 4.69 dx-only) against about twice its
+// bytes, so the products bound it: the split body below (`SplitDims`)
+// keeps them on wgmma.
+//
 // Two instantiations, `Teacher` and `Student` below: one body, its slice
 // and ring-slot counts derived from the widths in `Dims`.  At the student's
 // widths x, tap and z are one 64-column slice each, dout and dg two; the
@@ -94,6 +100,8 @@
 //   gradients are column sums of the dg and dout tiles already in shared
 //   memory, taken by one more product with an all-ones B operand.
 
+#include <type_traits>
+
 #include "hopper.cuh"  // TMA, mbarrier and wgmma wrappers: shared with kernels 1, 4, 5
 
 namespace {
@@ -126,6 +134,47 @@ struct Dims {
 
 using Teacher = Dims<128, 256, 128, 80>;
 using Student = Dims<64, 128, 64, 80>;
+
+// The wide teacher's widths, (C, G, S, M) = (256, 512, 256, 80), where no
+// consumer's registers hold a row's dz, gates or dcat, and 128-row tiles
+// of [x | tap | cond] and dout would fill a block's shared memory: the
+// layer pass (`train_bwd_layer_split`) takes 64-row tiles that both
+// consumer warpgroups share, and splits the columns.  Warpgroup w owns
+// dz's columns [WC w, WC w + WC) (and so those z and tanh columns and
+// their sigmoid partners, NH gate passes of 64 + 64), dcx's and dcs's
+// [WC w, ...) and dcc's [MC w, MC w + MC).  The ring's 16 KB slots
+// alternate between the warpgroups.  The weight-gradient GEMM splits G
+// into row blocks of 256 (`Wg::RB`).
+template <int C_, int G_, int S_, int M_>
+struct SplitDims {
+  static constexpr int C = C_, G = G_, S = S_, M = M_;
+  static constexpr int GH = G / 2;
+  static constexpr int K_IN = 2 * C + M;
+  static constexpr int N_OUT = C + S;
+  static constexpr int XS = C / KC;       // 4
+  static constexpr int CS = 2;
+  static constexpr int AS = 2 * XS + CS;  // 10
+  static constexpr int OS = N_OUT / KC;   // 8
+  static constexpr int SS = S / KC;       // 4
+  static constexpr int TM = 64;           // rows per tile, both warpgroups
+  static constexpr int WC = C / 2;        // a warpgroup's dz, dcx and dcs columns: 128
+  static constexpr int MC = M / 2;        // a warpgroup's dcc columns: 40
+  static constexpr int NH = WC / KC;      // a warpgroup's gate passes: 2
+  static constexpr int KR = L_SLOT / (2 * WC);  // K rows of an N = WC slot: 64
+  static constexpr int SLICE = TM * ROW_BYTES;  // one 64-column slice of a tile: 8 KB
+  // shared memory: [x | tap | cond], dout then dg, the ring, the barriers
+  static constexpr int A_ = 0;
+  static constexpr int D_ = A_ + AS * SLICE;
+  static constexpr int W = D_ + OS * SLICE;
+  static constexpr int BAR = W + 4 * L_SLOT;
+  static constexpr int SMEM = BAR + 8 * (2 + 2 + 2 * 4) + 1024;  // + alignment
+  static_assert(GH == C && G == N_OUT && S == C && C % (2 * KC) == 0 && KR == KC &&
+                    M > KC && M <= 2 * KC && M % 16 == 0 && MC % 8 == 0 && AS % 2 == 0,
+                "the column split of the layer pass and the weight-gradient tiles");
+  static_assert(SMEM <= 232448, "a block's shared memory");
+};
+
+using WideTeacher = SplitDims<256, 512, 256, 80>;
 
 // ----------------------------------------------------- kernel 3: layer pass
 // One layer of the backward over all 128-row tiles.  A persistent block
@@ -586,6 +635,346 @@ train_bwd_layer(const __grid_constant__ CUtensorMap tm_x,
   if (wgrads && tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// One layer of the backward at the split widths (SplitDims): the arguments,
+// maps and per-tile steps of train_bwd_layer, over 64-row tiles whose rows
+// both consumer warpgroups take, each on its own columns:
+//   1. dx (all 256 consumer threads over the tile's C columns) into the
+//      dout tile, dskip by TMA; a named barrier (the whole dout tile is
+//      every warpgroup's A operand);
+//   2. dz's columns [WC w, WC w + WC) = dout @ W_out[:, those]^T;
+//      a named barrier: the dout tile is read (by both products and by
+//      the dout_g store) and dg may go over it;
+//   3. NH passes of the gates of 64 of those columns and their sigmoid
+//      partners; dg's columns into the dout tile's place; a named barrier;
+//   4. dcx and dcs on columns [WC w, ...), dcc on [MC w, MC w + MC), each
+//      over the whole dg, with the epilogues of train_bwd_layer.
+// Ring order per tile, each step one 16 KB slot for warpgroup 0 and then
+// one for warpgroup 1: dz N_OUT / KR (8), the gate passes NH x AS (2 x 10),
+// dcx and dcs G / KR each (8), dcc G / 128 (4: two 64-row boxes of MC
+// columns stacked, 128 K rows).
+template <class D>
+__global__ void __launch_bounds__(L_THREADS, 1)
+train_bwd_layer_split(const __grid_constant__ CUtensorMap tm_x,
+                      const __grid_constant__ CUtensorMap tm_cond,
+                      const __grid_constant__ CUtensorMap tm_dskip,
+                      const __grid_constant__ CUtensorMap tm_win,
+                      const __grid_constant__ CUtensorMap tm_wout,
+                      const __grid_constant__ CUtensorMap tm_dout,
+                      const __grid_constant__ CUtensorMap tm_dg, const float* __restrict__ b_g,
+                      float* __restrict__ dpart, const float* __restrict__ dcs_prev,
+                      float* __restrict__ dcs_cur, float* __restrict__ dcond32,
+                      bf16* __restrict__ z_g, int T, int n_tt, int n_tiles, int d, int d_prev,
+                      int top, int wgrads) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  constexpr int KR = D::KR, WC = D::WC, MC = D::MC, TM = D::TM;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t a_full = base + D::BAR, a_empty = a_full + 8;
+  const uint32_t d_full = a_empty + 8, d_empty = d_full + 8;
+  const uint32_t full = d_empty + 8, empty = full + 8 * L_STAGES;
+  const uint32_t ring = base + D::W;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(a_full, 1);
+    mbar_init(a_empty, 8);  // one arrival per consumer warp
+    mbar_init(d_full, 1);
+    mbar_init(d_empty, 1);
+    for (int s = 0; s < L_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);  // the warps of the slot's warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != 256) return;
+    int c = 0;
+    // one ring slot: the 64 x 64 boxes of a weight at (col, row) and at
+    // (col + dcol, row + drow)
+    auto slot = [&](const CUtensorMap* map, int col, int row, int dcol, int drow) {
+      const int s = c % L_STAGES;
+      const uint32_t dst = ring + s * L_SLOT, bar = full + 8 * s;
+      mbar_wait(empty + 8 * s, ((c / L_STAGES) & 1) ^ 1);
+      mbar_expect_tx(bar, L_SLOT);
+      tma_load_2d(dst, map, col, row, bar);
+      tma_load_2d(dst + L_SLOT / 2, map, col + dcol, row + drow, bar);
+      ++c;
+    };
+    auto load_a = [&](int tile, int it) {
+      const int b = tile / n_tt, t0 = (tile % n_tt) * TM;
+      mbar_wait(a_empty, (it & 1) ^ 1);
+      mbar_expect_tx(a_full, D::AS * D::SLICE);
+      for (int k = 0; k < D::XS; ++k) {
+        tma_load_3d(base + D::A_ + k * D::SLICE, &tm_x, k * KC, t0, b, a_full);
+        tma_load_3d(base + D::A_ + (D::XS + k) * D::SLICE, &tm_x, k * KC, t0 - d, b, a_full);
+      }
+      for (int k = 0; k < D::CS; ++k)
+        tma_load_3d(base + D::A_ + (2 * D::XS + k) * D::SLICE, &tm_cond, k * KC, t0, b,
+                    a_full);
+    };
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+      const int b = tile / n_tt, t0 = (tile % n_tt) * TM;
+      if (it == 0) load_a(tile, 0);
+      mbar_wait(d_empty, (it & 1) ^ 1);
+      mbar_expect_tx(d_full, D::SS * D::SLICE);
+      for (int k = 0; k < D::SS; ++k)
+        tma_load_3d(base + D::D_ + (D::XS + k) * D::SLICE, &tm_dskip, k * KC, t0, b, d_full);
+      for (int i = 0; i < D::N_OUT / KR; ++i)  // dz: W_out rows [KR i, ...), N = WC
+        for (int w = 0; w < 2; ++w) slot(&tm_wout, WC * w, KR * i, KC, 0);
+      for (int h = 0; h < D::NH; ++h)  // the gate passes: tanh rows, sigmoid rows
+        for (int i = 0; i < D::AS; ++i)
+          for (int w = 0; w < 2; ++w) slot(&tm_win, KC * i, WC * w + KC * h, 0, D::GH);
+      if (tile + (int)gridDim.x < n_tiles) load_a(tile + gridDim.x, it + 1);
+      for (int p = 0; p < 2; ++p)  // dcx, dcs
+        for (int i = 0; i < D::G / KR; ++i)
+          for (int w = 0; w < 2; ++w) slot(&tm_win, p * D::C + WC * w, KR * i, KC, 0);
+      for (int i = 0; i < D::G / (2 * KC); ++i)  // dcc: 128 K rows, MC columns
+        for (int w = 0; w < 2; ++w) slot(&tm_win, 2 * D::C + MC * w, 2 * KC * i, 0, KC);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int ctid = threadIdx.x;  // of the 256 consumer threads
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4;  // fragment rows r0, r0 + 8
+  const int q2 = 2 * (lane % 4);
+  const int cw = WC * wg;  // this warpgroup's first dz / dcx / dcs column
+  int c = 0;  // ring slot count, as the producer's; this warpgroup's is c + wg
+  // wait for this warpgroup's next slot, run `body` on it, release it
+  auto own_slot = [&](auto body) {
+    const int s = (c + wg) % L_STAGES;
+    mbar_wait(full + 8 * s, ((c + wg) / L_STAGES) & 1);
+    wgmma_fence();
+    body(s);
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+    c += 2;
+  };
+  // acc += the dout or dg tile (its first K columns) @ B, a product with
+  // N = WC whose B arrives as K / KR MN-major slots of KR rows
+  auto mn_product = [&](float (&acc)[WC / 2], int K) {
+#pragma unroll
+    for (int i = 0; i < K / KR; ++i) {
+      fence_regs(acc);
+      own_slot([&](int s) {
+        const uint64_t db = desc_mn_sw128(ring + s * L_SLOT, L_SLOT / 2);
+#pragma unroll
+        for (int k = 0; k < KR / 16; ++k) {
+          const int kk = i * (KR / 16) + k;  // the k-step over the tile's columns
+          const uint64_t da = desc_sw128(base + D::D_ + (kk / 4) * D::SLICE) + 2 * (kk % 4);
+          wgmma_m64n128<0, 1>(acc, da, db + 128 * k);
+        }
+      });
+      fence_regs(acc);
+    }
+  };
+  for (int tile = blockIdx.x, it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+    const int b = tile / n_tt, t0 = (tile % n_tt) * TM;
+    const size_t rb = (size_t)b * T;
+
+    // 1. dx = dpart(t) + dcs_prev(t + d_prev) over the tile's C columns, by
+    //    all 256 consumer threads: bf16 into the dout tile, fp32 back into
+    //    dpart
+    constexpr int DX_PER = TM * (D::C / 4) / 256, DX_BATCH = 8;
+#pragma unroll
+    for (int k0 = 0; k0 < DX_PER; k0 += DX_BATCH) {
+      float4 v[DX_BATCH], u[DX_BATCH];
+#pragma unroll
+      for (int k = 0; k < DX_BATCH; ++k) {
+        const int i = ctid + 256 * (k0 + k);
+        const int t = t0 + i / (D::C / 4), col = (i % (D::C / 4)) * 4;
+        v[k] = u[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!top && t < T) {
+          v[k] = *reinterpret_cast<const float4*>(dpart + (rb + t) * D::C + col);
+          if (t + d_prev < T)
+            u[k] = __ldg(reinterpret_cast<const float4*>(dcs_prev + (rb + t + d_prev) * D::C + col));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < DX_BATCH; ++k) {
+        const int i = ctid + 256 * (k0 + k);
+        const int r = i / (D::C / 4), col = (i % (D::C / 4)) * 4;
+        const int t = t0 + r;
+        if (!top && t < T && t + d_prev < T) {
+          v[k].x += u[k].x; v[k].y += u[k].y; v[k].z += u[k].z; v[k].w += u[k].w;
+        }
+        if (!top && t < T) *reinterpret_cast<float4*>(dpart + (rb + t) * D::C + col) = v[k];
+        *reinterpret_cast<uint2*>(smem + D::D_ + swz64(r, col)) =
+            make_uint2(pack(v[k].x, v[k].y), pack(v[k].z, v[k].w));
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    mbar_wait(d_full, it & 1);
+    if (wgrads && ctid == 0) {
+      for (int k = 0; k < D::OS; ++k)
+        tma_store_3d(&tm_dout, base + D::D_ + k * D::SLICE, k * KC, t0, b);
+      bulk_commit();
+    }
+
+    // 2. this warpgroup's columns of dz = dout @ W_out^T
+    float dz[WC / 2];
+#pragma unroll
+    for (int i = 0; i < WC / 2; ++i) dz[i] = 0.f;
+    mn_product(dz, D::N_OUT);
+    if (wgrads && ctid == 0) bulk_wait_read<0>();  // dout_g has read the tile
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    mbar_wait(a_full, it & 1);
+
+    // 3. the gates per pass of 64 of this warpgroup's tanh columns and
+    //    their partners, dg into the dout tile's place
+#pragma unroll
+    for (int h = 0; h < D::NH; ++h) {
+      float g[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) g[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < D::AS; ++i) {
+        fence_regs(g);
+        own_slot([&](int s) {
+          const uint64_t da = desc_sw128(base + D::A_ + i * D::SLICE);
+          const uint64_t db = desc_sw128(ring + s * L_SLOT);
+          const int steps = (i < D::AS - 1 ? KC : D::M - KC) / 16;  // cond's 2nd: M - 64
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (k < steps) wgmma_m64n128<0, 0>(g, da + 2 * k, db + 2 * k);
+        });
+        fence_regs(g);
+      }
+      // fragment j < 8: tanh column cw + 64h + 8j + q2 (+1); j + 8 its
+      // sigmoid partner; dz's fragment 8h + j the same column
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = cw + 64 * h + 8 * j + q2;
+        const float2 bt = __ldg(reinterpret_cast<const float2*>(b_g + col));
+        const float2 bs = __ldg(reinterpret_cast<const float2*>(b_g + D::GH + col));
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float da[2], db[2], z[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float ta = tanh_fast(g[4 * j + 2 * hh + e] + (e ? bt.y : bt.x));
+            const float sb = sigmoid_fast(g[4 * (j + 8) + 2 * hh + e] + (e ? bs.y : bs.x));
+            const float dzv = dz[4 * (8 * h + j) + 2 * hh + e];
+            da[e] = dzv * sb * (1.f - ta * ta);
+            db[e] = dzv * ta * sb * (1.f - sb);
+            z[e] = ta * sb;
+          }
+          const int r = r0 + 8 * hh;
+          *reinterpret_cast<uint32_t*>(smem + D::D_ + swz64(r, col)) = pack(da[0], da[1]);
+          *reinterpret_cast<uint32_t*>(smem + D::D_ + swz64(r, D::GH + col)) =
+              pack(db[0], db[1]);
+          if (z_g != nullptr && t0 + r < T)
+            *reinterpret_cast<uint32_t*>(z_g + (rb + t0 + r) * D::GH + col) = pack(z[0], z[1]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(a_empty);  // the activations go back to the producer
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    if (wgrads && ctid == 0) {
+      for (int k = 0; k < D::OS; ++k)
+        tma_store_3d(&tm_dg, base + D::D_ + k * D::SLICE, k * KC, t0, b);
+      bulk_commit();
+    }
+
+    // 4a. dcx = dg @ W_in[:, cw + (0..WC)] and its epilogue dpart = dx +
+    //     dcx, then dcs = dg @ W_in[:, C + cw + (0..WC)] into dcs_cur
+    {
+      float2 dx[2][WC / 8];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int t = t0 + r0 + 8 * hh;
+#pragma unroll
+        for (int j = 0; j < WC / 8; ++j)
+          dx[hh][j] = top || t >= T ? make_float2(0.f, 0.f)
+                                    : *reinterpret_cast<const float2*>(
+                                          dpart + (rb + t) * D::C + cw + 8 * j + q2);
+      }
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {
+        float acc[WC / 2];
+#pragma unroll
+        for (int i = 0; i < WC / 2; ++i) acc[i] = 0.f;
+        mn_product(acc, D::G);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int t = t0 + r0 + 8 * hh;
+          if (t >= T) continue;
+          const size_t row = rb + t;
+#pragma unroll
+          for (int j = 0; j < WC / 8; ++j) {
+            const float v0 = acc[4 * j + 2 * hh], v1 = acc[4 * j + 2 * hh + 1];
+            const int col = cw + 8 * j + q2;
+            if (part == 0)
+              *reinterpret_cast<float2*>(dpart + row * D::C + col) =
+                  make_float2(dx[hh][j].x + v0, dx[hh][j].y + v1);
+            else
+              *reinterpret_cast<float2*>(dcs_cur + row * D::C + col) = make_float2(v0, v1);
+          }
+        }
+      }
+    }
+
+    // 4b. dcc's columns [MC w, MC w + MC) = dg @ W_in[:, 2C + ...],
+    //     dcond32 += dcc (= at the top)
+    {
+      const int cm = MC * wg;
+      float2 prev[2][MC / 8];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int t = t0 + r0 + 8 * hh;
+#pragma unroll
+        for (int j = 0; j < MC / 8; ++j)
+          prev[hh][j] = top || t >= T ? make_float2(0.f, 0.f)
+                                      : *reinterpret_cast<const float2*>(
+                                            dcond32 + (rb + t) * D::M + cm + 8 * j + q2);
+      }
+      float acc[MC / 2];
+#pragma unroll
+      for (int i = 0; i < MC / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < D::G / (2 * KC); ++i) {
+        fence_regs(acc);
+        own_slot([&](int s) {
+          const uint64_t db = desc_mn_sw128(ring + s * L_SLOT, L_SLOT / 2);
+#pragma unroll
+          for (int k = 0; k < 2 * KC / 16; ++k) {
+            const int kk = i * (2 * KC / 16) + k;  // the k-step over dg's columns
+            const uint64_t da = desc_sw128(base + D::D_ + (kk / 4) * D::SLICE) + 2 * (kk % 4);
+            wgmma_m64n40<0, 1>(acc, da, db + 128 * k);
+          }
+        });
+        fence_regs(acc);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int t = t0 + r0 + 8 * hh;
+        if (t >= T) continue;
+        const size_t row = rb + t;
+#pragma unroll
+        for (int j = 0; j < MC / 8; ++j) {
+          const float2 v = make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+          *reinterpret_cast<float2*>(dcond32 + row * D::M + cm + 8 * j + q2) =
+              top ? v : make_float2(prev[hh][j].x + v.x, prev[hh][j].y + v.y);
+        }
+      }
+    }
+    if (wgrads && ctid == 0) bulk_wait_read<0>();  // dg_g has read the tile
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    if (ctid == 0) mbar_arrive(d_empty);
+  }
+  if (wgrads && ctid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // ------------------------------------------------- kernel 3: weight gradients
 // part[split] = [dW_in (G, K_IN) | dW_out (N_OUT, GH) | db_g (G) | db_rs
 // (N_OUT)], each summed over the rows of this split's stages.
@@ -598,17 +987,21 @@ struct Part {
   static constexpr int P = BRS + D::N_OUT;
 };
 
-// Blocks (tile, split).  Tiles [0, TILES - 1) are the 128-column blocks of
-// dW_in = dg^T [x | x(t - d) | cond], two 64-column boxes of B each (box
-// kb of the AS slices [x | tap | cond]), with db_g in tile 0; tile TILES -
-// 1 is dW_out = dout^T z, with db_rs.  Teacher: tiles x, tap, cond, out;
-// student: [x | tap], cond, out.  Every tile is a G x 128 output (cond's 80
-// columns, and the student's 64 of z, with zeros or repeats past them that
-// are not stored): A (dg or dout) G columns, B 128.  A stage is WR rows of
-// one batch row, t0 = (q % n_tt) * WR for stage q of b = q / n_tt; TMA
-// fills zeros past T, where both operands then contribute nothing.
-// Warpgroups 0 and 1 own the output rows [G/2 wg, G/2 wg + G/2) as NA
-// m64n128 accumulators (2 | 1); warpgroup 2's first thread loads.
+// Blocks (tile, split).  A tile is a row block rb of GR output rows (all G
+// of them, except at the wide widths: two of 256) and a column tile ct:
+// ct < IN_TILES are the 128-column blocks of dW_in = dg^T [x | x(t - d) |
+// cond], two 64-column boxes of B each (box kb of the AS slices [x | tap |
+// cond]), with db_g in column tile 0; the OUT_TILES after them are the
+// 128-column blocks of dW_out = dout^T z, with db_rs in the first.
+// Teacher: tiles x, tap, cond, out; student: [x | tap], cond, out; wide:
+// 2 x (x, x, tap, tap, cond, out, out).  Every tile is a GR x 128 output
+// (cond's 80 columns, and the student's 64 of z, with zeros or repeats
+// past them that are not stored): A (dg's or dout's columns of the row
+// block) GR columns, B 128.  A stage is WR rows of one batch row, t0 = (q
+// % n_tt) * WR for stage q of b = q / n_tt; TMA fills zeros past T, where
+// both operands then contribute nothing.  Warpgroups 0 and 1 own the
+// output rows [GR/2 wg, GR/2 wg + GR/2) of the row block as NA m64n128
+// accumulators (2 | 1 | 2); warpgroup 2's first thread loads.
 constexpr int WR = 64;                  // rows of the reduction per stage
 constexpr int WBOX = WR * ROW_BYTES;    // one 64-column box of WR rows: 8 KB
 constexpr int W_STAGES = 4;
@@ -616,9 +1009,15 @@ constexpr int W_THREADS = 384;
 
 template <class D>
 struct Wg {
-  static constexpr int A_BOXES = D::G / KC;           // A: 4 | 2 boxes
+  static constexpr int GR = D::G < 256 ? D::G : 256;  // output rows a block
+  static constexpr int RB = D::G / GR;                // row blocks: 1 | 1 | 2
+  static constexpr int A_BOXES = GR / KC;             // A: 4 | 2 | 4 boxes
   static constexpr int NA = A_BOXES / 2;              // per warpgroup
-  static constexpr int TILES = D::AS / 2 + 1;         // 4 | 3
+  static constexpr int IN_TILES = D::AS / 2;          // 3 | 2 | 5
+  static constexpr int OUT_TILES = (D::GH + 127) / 128;  // 1 | 1 | 2
+  static constexpr int CT = IN_TILES + OUT_TILES;     // column tiles a row block
+  static constexpr int TILES = RB * CT;               // 4 | 3 | 14
+  static_assert(D::G % GR == 0 && NA <= 2, "row blocks: at most 2 x 64 accumulator rows");
   static constexpr int STAGE = (A_BOXES + 2) * WBOX;  // A, then B's 2 boxes
   static constexpr int ONES = W_STAGES * STAGE;       // an all-ones 8 x 64 K-major tile
   static constexpr int BAR = ONES + 1024;
@@ -664,14 +1063,15 @@ __device__ __forceinline__ void wgrad_mma(float (&acc)[Wg<D>::NA][64],
 }
 
 // One m64n128 accumulator into a split's partials: fragment j holds columns
-// 8j + 2 (lane % 4) + {0, 1} of rows m0 (e = 0) and m0 + 8 (e = 1); the bias
-// column sum sits in every column of the n8 accumulator.
+// 8j + 2 (lane % 4) + {0, 1} of column tile ct of rows m0 (e = 0) and m0 + 8
+// (e = 1); the bias column sum sits in every column of the n8 accumulator.
 template <class D>
 __device__ __forceinline__ void wgrad_store(const float (&acc)[64], const float (&bs)[4],
-                                            float* pp, int tile, bool bias, int m0,
+                                            float* pp, int ct, bool bias, int m0,
                                             int lane) {
   using P = Part<D>;
-  const bool out_tile = tile == Wg<D>::TILES - 1;
+  const bool out_tile = ct >= Wg<D>::IN_TILES;
+  const int oc = 128 * (ct - Wg<D>::IN_TILES);  // the dW_out tile's first column
   const int q2 = 2 * (lane % 4);
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
@@ -681,13 +1081,13 @@ __device__ __forceinline__ void wgrad_store(const float (&acc)[64], const float 
       const int col = 8 * j + q2;
       const float2 v = make_float2(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
       if (out_tile) {
-        if (col < D::GH)
-          *reinterpret_cast<float2*>(pp + P::OUT + (size_t)m * D::GH + col) = v;
-      } else if (128 * tile + col < D::K_IN) {
-        *reinterpret_cast<float2*>(pp + P::IN + (size_t)m * D::K_IN + 128 * tile + col) = v;
+        if (oc + col < D::GH)
+          *reinterpret_cast<float2*>(pp + P::OUT + (size_t)m * D::GH + oc + col) = v;
+      } else if (128 * ct + col < D::K_IN) {
+        *reinterpret_cast<float2*>(pp + P::IN + (size_t)m * D::K_IN + 128 * ct + col) = v;
       }
     }
-    if (bias && lane % 4 == 0) pp[(tile == 0 ? P::BG : P::BRS) + m] = bs[2 * e];
+    if (bias && lane % 4 == 0) pp[(ct == 0 ? P::BG : P::BRS) + m] = bs[2 * e];
   }
 }
 
@@ -707,11 +1107,12 @@ wgrad_gemm(const __grid_constant__ CUtensorMap tm_dg,
   const uint32_t base = smem_u32(smem);
   const uint32_t full = base + W::BAR, empty = full + 8 * W_STAGES;
   const int tile = blockIdx.x, split = blockIdx.y;
+  const int rb = W::RB == 1 ? 0 : tile / W::CT, ct = W::RB == 1 ? tile : tile % W::CT;
   const int q0 = split * per_split;
   const int q1 = min(q0 + per_split, n_stages);
   const int n = max(q1 - q0, 0);
-  const bool out_tile = tile == W::TILES - 1;
-  const bool bias = tile == 0 || out_tile;
+  const bool out_tile = ct >= W::IN_TILES;
+  const bool bias = ct == 0 || ct == W::IN_TILES;
   const int wg = threadIdx.x / 128;
 
   for (int i = threadIdx.x; i < 1024 / 4; i += W_THREADS)  // bf16 1.0 pairs
@@ -730,15 +1131,15 @@ wgrad_gemm(const __grid_constant__ CUtensorMap tm_dg,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == 256) {
       const CUtensorMap* ma = out_tile ? &tm_dout : &tm_dg;
-      // B's two boxes: z's columns (the student's second one repeats its
-      // first, past GH and not stored), or boxes 2 tile, 2 tile + 1 of
-      // [x | tap | cond]
+      // B's two boxes: z's columns of the out tile (the student's second
+      // one repeats its first, past GH and not stored), or boxes 2 ct,
+      // 2 ct + 1 of [x | tap | cond]
       const CUtensorMap* mb[2];
       int col[2], shift[2];
       for (int k = 0; k < 2; ++k) {
-        const int kb = 2 * tile + k;
+        const int kb = 2 * ct + k;
         mb[k] = out_tile ? &tm_z : kb < 2 * D::XS ? &tm_x : &tm_cond;
-        col[k] = out_tile ? min(k * KC, D::GH - KC)
+        col[k] = out_tile ? min(128 * (ct - W::IN_TILES) + k * KC, D::GH - KC)
                           : KC * (kb < D::XS ? kb : kb < 2 * D::XS ? kb - D::XS : kb - 2 * D::XS);
         shift[k] = !out_tile && kb >= D::XS && kb < 2 * D::XS ? d : 0;
       }
@@ -748,7 +1149,8 @@ wgrad_gemm(const __grid_constant__ CUtensorMap tm_dg,
         const uint32_t dst = base + s * W::STAGE, bar = full + 8 * s;
         mbar_wait(empty + 8 * s, ((i / W_STAGES) & 1) ^ 1);
         mbar_expect_tx(bar, W::STAGE);
-        for (int k = 0; k < W::A_BOXES; ++k) tma_load_3d(dst + k * WBOX, ma, k * KC, t0, b, bar);
+        for (int k = 0; k < W::A_BOXES; ++k)
+          tma_load_3d(dst + k * WBOX, ma, rb * W::GR + k * KC, t0, b, bar);
         for (int k = 0; k < 2; ++k)
           tma_load_3d(dst + (W::A_BOXES + k) * WBOX, mb[k], col[k], t0 - shift[k], b, bar);
       }
@@ -773,8 +1175,8 @@ wgrad_gemm(const __grid_constant__ CUtensorMap tm_dg,
   float* pp = part + (size_t)split * P::P;
 #pragma unroll
   for (int m = 0; m < W::NA; ++m)
-    wgrad_store<D>(acc[m], bs[m], pp, tile, bias,
-                   64 * (W::NA * wg + m) + 16 * warp + lane / 4, lane);
+    wgrad_store<D>(acc[m], bs[m], pp, ct, bias,
+                   rb * W::GR + 64 * (W::NA * wg + m) + 16 * warp + lane / 4, lane);
 }
 
 // Sums the partials in split order into dw_in (G, K_IN), dw_out (N_OUT, GH),
@@ -910,12 +1312,13 @@ bool is_dims(int c, int g, int s, int m) {
   return c == D::C && g == D::G && s == D::S && m == D::M;
 }
 
-// f(D{}) for the instantiation of these widths (teacher_lj's or
-// student_iaf's), else `other`.
+// f(D{}) for the instantiation of these widths (teacher_lj's,
+// student_iaf's or the wide teacher's), else `other`.
 template <class F>
 long long with_dims(int c, int g, int s, int m, long long other, F f) {
   if (is_dims<Teacher>(c, g, s, m)) return f(Teacher{});
   if (is_dims<Student>(c, g, s, m)) return f(Student{});
+  if (is_dims<WideTeacher>(c, g, s, m)) return f(WideTeacher{});
   return other;
 }
 
@@ -925,8 +1328,28 @@ int train_bwd(const bf16* acts, const bf16* cond, const bf16* dskip,
               bf16* dcond, float* dw_in, float* db_g, float* dw_out, float* db_rs,
               unsigned char* ws, int B, int T, int L, const int* dil, int want_wgrads,
               int n_sm, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      train_bwd_layer<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay<D>::SMEM);
+  // the split widths' layer pass: 64-row tiles (SplitDims)
+  constexpr bool SPLIT = std::is_same<D, WideTeacher>::value;
+  auto layer = [] {
+    if constexpr (SPLIT)
+      return train_bwd_layer_split<D>;
+    else
+      return train_bwd_layer<D>;
+  }();
+  constexpr int TR = [] {
+    if constexpr (SPLIT)
+      return D::TM;
+    else
+      return LT;
+  }();
+  constexpr int SMEM = [] {
+    if constexpr (SPLIT)
+      return D::SMEM;
+    else
+      return Lay<D>::SMEM;
+  }();
+  cudaError_t err = cudaFuncSetAttribute(layer, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SMEM);
   if (err != cudaSuccess) return err;
   const BwdWorkspace w = bwd_workspace<D>(B, T, want_wgrads, n_sm);
   float* dpart = reinterpret_cast<float*>(ws + w.dpart);
@@ -938,12 +1361,12 @@ int train_bwd(const bf16* acts, const bf16* cond, const bf16* dskip,
   float* part = want_wgrads ? reinterpret_cast<float*>(ws + w.part) : nullptr;
 
   CUtensorMap tm_cond, tm_dskip, tm_dout = {}, tm_dg = {};
-  if (!make_map(&tm_cond, cond, false, 3, D::M, T, B, LT) ||
+  if (!make_map(&tm_cond, cond, false, 3, D::M, T, B, TR) ||
       !make_map(&tm_dskip, dskip, false, 3, D::S, T, B, LWG) ||
       (want_wgrads && (!make_map(&tm_dout, dout_g, false, 3, D::N_OUT, T, B, LWG) ||
                        !make_map(&tm_dg, dg_g, false, 3, D::G, T, B, LWG))))
     return cudaErrorInvalidValue;
-  const int n_tt = (T + LT - 1) / LT, n_tiles = B * n_tt;
+  const int n_tt = (T + TR - 1) / TR, n_tiles = B * n_tt;
   const int grid = n_tiles < n_sm ? n_tiles : n_sm;
   const size_t act = (size_t)B * T * D::C;
   int cur = 0;
@@ -953,11 +1376,11 @@ int train_bwd(const bf16* acts, const bf16* cond, const bf16* dskip,
     const bf16* w_in_l = w_in + (size_t)l * D::G * D::K_IN;
     const bf16* w_out_l = w_out + (size_t)l * D::N_OUT * D::GH;
     CUtensorMap tm_x, tm_win, tm_wout;
-    if (!make_map(&tm_x, acts_l, false, 3, D::C, T, B, LT) ||
+    if (!make_map(&tm_x, acts_l, false, 3, D::C, T, B, TR) ||
         !make_map(&tm_win, w_in_l, false, 2, D::K_IN, D::G, 1, 64) ||
         !make_map(&tm_wout, w_out_l, false, 2, D::GH, D::N_OUT, 1, 64))
       return cudaErrorInvalidValue;
-    train_bwd_layer<D><<<grid, L_THREADS, Lay<D>::SMEM, st>>>(
+    layer<<<grid, L_THREADS, SMEM, st>>>(
         tm_x, tm_cond, tm_dskip, tm_win, tm_wout, tm_dout, tm_dg,
         b_g + (size_t)l * D::G, dpart, dcs[cur ^ 1], dcs[cur], dcond32, z_g, T, n_tt,
         n_tiles, dil[l], l + 1 < L ? dil[l + 1] : 0, l == L - 1, want_wgrads);

@@ -65,7 +65,17 @@
 // * Shared memory at C=128: x, tap and cond tiles 96 KB, z 32 KB, weight ring
 //   96 KB.
 // * Built at two widths: (C, G, S, M) = (64, 128, 64, 80) (student_iaf) and
-//   (128, 256, 128, 80) (large_student_sharded, teacher_lj).
+//   (128, 256, 128, 80) (large_student_sharded, teacher_lj).  A third
+//   instantiation, the JAX package's wide teacher (256, 512, 256, 80),
+//   has its own kernel (`gated_layer_split_kernel`, `SplitDims`): 64-row
+//   tiles whose columns the two consumer warpgroups split.  Per sample
+//   there: 2*(592*512 + 256*512) = 868,352 FLOP (113.8 GFLOP at 8 x
+//   16,384: 0.115 ms at 989 TFLOP/s) against 1,696 bytes for "layer" and
+//   3,232 for a middle "accumulate" layer (0.066 and 0.126 ms): products
+//   and bytes bound it about equally, and both products run on wgmma at
+//   N = 256.
+
+#include <type_traits>
 
 #include "hopper.cuh"  // TMA, mbarrier and wgmma wrappers, the gates: shared with kernel 1
 
@@ -120,6 +130,60 @@ struct Dims {
 
 using Narrow = Dims<64, 128, 64, 80>;
 using Wide = Dims<128, 256, 128, 80>;
+
+// The wide teacher's widths, (C, G, S, M) = (256, 512, 256, 80): no wgmma
+// (N <= 256) and no consumer's registers span the 512 gate or output
+// columns, and 128-row tiles of x, tap, cond and z would fill a block's
+// shared memory.  So a tile has 64 rows, which both consumer warpgroups
+// share, and the columns are split: warpgroup w owns tanh columns [WC w,
+// WC w + WC) and their sigmoid partners (one m64n256 gate accumulator), z's
+// columns [WC w, ...), and of the output the residual and skip columns
+// [WC w, WC w + WC) (one m64n256 out accumulator over the whole z, which
+// both warpgroups write and a named barrier publishes).  A ring stage holds
+// one warpgroup's 2 WC rows of a 64-column k-slice of W_in or W_out (two
+// 128-row TMA boxes, stacked as the K-major B operand), or its WC columns
+// of the fp32 skip sum's 64 rows; the stages alternate between the two
+// warpgroups.  With three stages a stage's consecutive uses belong to
+// different warpgroups, so each stage has a full barrier per warpgroup:
+// a warpgroup waits only on its own uses' phases, and never on a phase of
+// the other's that has not completed yet.
+template <int C_, int G_, int S_, int M_>
+struct SplitDims {
+  static constexpr int C = C_, G = G_, S = S_, M = M_;
+  static constexpr int GH = G / 2;
+  static constexpr int K_IN = 2 * C + M;
+  static constexpr int N_OUT = C + S;
+  static constexpr int TM = 64;                 // rows per tile, both warpgroups
+  static constexpr int WC = GH / 2;             // a warpgroup's columns: 128
+  static constexpr int SLICE = TM * ROW_BYTES;  // one 64-column slice of a tile: 8 KB
+  static constexpr int XCH = C / KC;
+  static constexpr int CCH = (M + KC - 1) / KC;
+  static constexpr int NCH_IN = 2 * XCH + CCH;
+  static constexpr int NCH_OUT = GH / KC;
+  static constexpr int NCH = NCH_IN + NCH_OUT;
+  static constexpr int STAGE_BYTES = 2 * WC * ROW_BYTES;  // 32 KB
+  static constexpr uint32_t A_BYTES = NCH_IN * SLICE;
+  static constexpr uint32_t ACC_BYTES = TM * WC * 4;      // a warpgroup's skip_acc
+  static constexpr int STAGES = 3;
+  static constexpr int X_OFF = 0;
+  static constexpr int T_OFF = X_OFF + XCH * SLICE;
+  static constexpr int C_OFF = T_OFF + XCH * SLICE;
+  static constexpr int Z_OFF = C_OFF + CCH * SLICE;
+  static constexpr int W_OFF = Z_OFF + NCH_OUT * SLICE;
+  static constexpr int BAR_OFF = W_OFF + STAGES * STAGE_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (2 + 3 * STAGES) + 1024;  // + alignment
+  static_assert(GH == C && S == C && 2 * WC == C && WC % KC == 0 && M % 16 == 0,
+                "the column split: z, residual and skip halves of WC columns");
+  static_assert(2 * WC <= 256 && WC <= 256, "one wgmma and one TMA box span a half");
+  static_assert(ACC_BYTES <= STAGE_BYTES, "skip_acc columns fit a ring stage");
+  static_assert(SMEM <= SMEM_MAX, "shared memory");
+  __host__ __device__ static constexpr int steps(int i) {
+    return i < 2 * XCH ? KC / 16
+                       : ((M - (i - 2 * XCH) * KC) >= KC ? KC : M - (i - 2 * XCH) * KC) / 16;
+  }
+};
+
+using WideTeacher = SplitDims<256, 512, 256, 80>;
 
 // With PWN_GATED_LAYER_PHASES defined (tools/torch_gated_layer_phases.py
 // builds it so), thread 0 of block 0 adds the clock cycles of each phase of
@@ -385,28 +449,264 @@ gated_layer_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
+// One layer over all tiles at the split widths (SplitDims): the persistent
+// walk, the arguments and the ring order of gated_layer_kernel, with
+// 64-row tiles (n_tt per batch row) and one ring slot per warpgroup where
+// that kernel has one per slice: for each k-slice of W_in, then of W_out,
+// warpgroup 0's rows and then warpgroup 1's, then (ACC and not first)
+// warpgroup 0's and 1's columns of the skip sum.
+template <class D, bool ACC>
+__global__ void __launch_bounds__(NTHREADS, 1)
+gated_layer_split_kernel(const __grid_constant__ CUtensorMap tm_x,
+                         const __grid_constant__ CUtensorMap tm_cond,
+                         const __grid_constant__ CUtensorMap tm_win,
+                         const __grid_constant__ CUtensorMap tm_wout,
+                         const __grid_constant__ CUtensorMap tm_acc,
+                         const float* __restrict__ b_g, const float* __restrict__ b_out,
+                         bf16* __restrict__ res, bf16* __restrict__ skip,
+                         float* __restrict__ skip_acc, int T, int n_tt, int n_tiles, int d,
+                         int first, int last) {
+  constexpr int STAGES = D::STAGES, WC = D::WC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t base = smem_u32(smem);
+  const uint32_t xs = base + D::X_OFF, ts = base + D::T_OFF, cs = base + D::C_OFF;
+  const uint32_t zs = base + D::Z_OFF, ws = base + D::W_OFF;
+  // full: one barrier per (stage, warpgroup), at full + 8 (NCONS s + w)
+  const uint32_t a_full = base + D::BAR_OFF, a_empty = a_full + 8;
+  const uint32_t full = a_empty + 8, empty = full + 8 * NCONS * STAGES;
+  const int n_acc = ACC && !first ? 1 : 0;  // skip_acc slots per tile and warpgroup
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(a_full, 1);
+    mbar_init(a_empty, NCONS * 4);  // one arrival per consumer warp
+    for (int s = 0; s < STAGES; ++s) {
+      for (int w = 0; w < NCONS; ++w) mbar_init(full + 8 * (NCONS * s + w), 1);
+      mbar_init(empty + 8 * s, 4);  // the warps of the slot's warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NCONS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == NCONS * 128) {
+      int c = 0;  // ring slot count
+      for (int tile = blockIdx.x, it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+        const int b = tile / n_tt, t0 = (tile % n_tt) * D::TM;
+        mbar_wait(a_empty, (it & 1) ^ 1);
+        mbar_expect_tx(a_full, D::A_BYTES);
+        for (int k = 0; k < D::XCH; ++k) {
+          tma_load_3d(xs + k * D::SLICE, &tm_x, k * KC, t0, b, a_full);
+          tma_load_3d(ts + k * D::SLICE, &tm_x, k * KC, t0 - d, b, a_full);
+        }
+        for (int k = 0; k < D::CCH; ++k)
+          tma_load_3d(cs + k * D::SLICE, &tm_cond, k * KC, t0, b, a_full);
+        for (int i = 0; i < D::NCH + n_acc; ++i) {
+          for (int w = 0; w < NCONS; ++w, ++c) {
+            const int s = c % STAGES;
+            const uint32_t dst = ws + s * D::STAGE_BYTES, bar = full + 8 * (NCONS * s + w);
+            mbar_wait(empty + 8 * s, ((c / STAGES) & 1) ^ 1);
+            if (i < D::NCH_IN) {  // W_in's tanh rows, then their sigmoid partners
+              mbar_expect_tx(bar, D::STAGE_BYTES);
+              tma_load_2d(dst, &tm_win, i * KC, WC * w, bar);
+              tma_load_2d(dst + WC * ROW_BYTES, &tm_win, i * KC, D::GH + WC * w, bar);
+            } else if (i < D::NCH) {  // W_out's residual rows, then skip rows
+              mbar_expect_tx(bar, D::STAGE_BYTES);
+              tma_load_2d(dst, &tm_wout, (i - D::NCH_IN) * KC, WC * w, bar);
+              tma_load_2d(dst + WC * ROW_BYTES, &tm_wout, (i - D::NCH_IN) * KC, D::C + WC * w,
+                          bar);
+            } else {
+              mbar_expect_tx(bar, D::ACC_BYTES);
+              tma_load_3d(dst, &tm_acc, WC * w, t0, b, bar);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int r0 = warp * 16 + lane / 4;  // fragment rows r0 and r0 + 8
+    const int q2 = 2 * (lane % 4);
+    const int cw = WC * wg;               // this warpgroup's first column
+    // ring slot count, as the producer's; this warpgroup's is c + wg, in
+    // stage (c + wg) % STAGES, whose full barrier of this warpgroup it
+    // finds in phase (c / NCONS) / STAGES
+    int c = 0;
+    auto wait_own = [&](int s) {
+      mbar_wait(full + 8 * (NCONS * s + wg), ((c / NCONS) / STAGES) & 1);
+    };
+    for (int tile = blockIdx.x, it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+      const int b = tile / n_tt, t0 = (tile % n_tt) * D::TM;
+      mbar_wait(a_full, it & 1);
+
+      // gate product: tanh columns [cw, cw + WC) in acc[0, WC/2), their
+      // sigmoid partners in acc[WC/2, WC)
+      float acc[WC];
+#pragma unroll
+      for (int i = 0; i < WC; ++i) acc[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < D::NCH_IN; ++i, c += NCONS) {
+        const int s = (c + wg) % STAGES;
+        const uint32_t a = i < D::XCH ? xs + i * D::SLICE
+                           : i < 2 * D::XCH ? ts + (i - D::XCH) * D::SLICE
+                                            : cs + (i - 2 * D::XCH) * D::SLICE;
+        wait_own(s);
+        const uint64_t da = desc_sw128(a), db = desc_sw128(ws + s * D::STAGE_BYTES);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < D::steps(i); ++k) wgmma_m64n256(acc, da + 2 * k, db + 2 * k);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+
+      // both warpgroups' out products of the previous tile have read z
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      // z = tanh(g) * sigmoid(g'): fragment j of this warpgroup's tanh
+      // columns in acc[4j..4j+3], its sigmoid partner in acc[4(j + WC/8)..]
+#pragma unroll
+      for (int j = 0; j < WC / 8; ++j) {
+        const int col = cw + 8 * j + q2;
+        const float2 bt = __ldg(reinterpret_cast<const float2*>(b_g + col));
+        const float2 bs = __ldg(reinterpret_cast<const float2*>(b_g + D::GH + col));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 4 * j + 2 * h, f = 4 * (j + WC / 8) + 2 * h;
+          *reinterpret_cast<uint32_t*>(smem + D::Z_OFF + swz64(r0 + 8 * h, col)) =
+              pack(gate(acc[e] + bt.x, acc[f] + bs.x),
+                   gate(acc[e + 1] + bt.y, acc[f + 1] + bs.y));
+        }
+      }
+      // this thread's x(t) for its residual columns, then the activations go
+      // back to the producer
+      uint32_t xr[WC / 8][2];
+#pragma unroll
+      for (int j = 0; j < WC / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          xr[j][h] = *reinterpret_cast<const uint32_t*>(smem + D::X_OFF +
+                                                        swz64(r0 + 8 * h, cw + 8 * j + q2));
+      __syncwarp();
+      if (lane == 0) mbar_arrive(a_empty);
+      // z to the async proxy, then to both warpgroups
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync 2, 256;\n" ::: "memory");
+
+      // out product over all of z: residual columns [cw, cw + WC) in
+      // out[0, WC/2), skip columns [cw, cw + WC) in out[WC/2, WC)
+      float out[WC];
+#pragma unroll
+      for (int i = 0; i < WC; ++i) out[i] = 0.f;
+#pragma unroll
+      for (int o = 0; o < D::NCH_OUT; ++o, c += NCONS) {
+        const int s = (c + wg) % STAGES;
+        wait_own(s);
+        const uint64_t da = desc_sw128(zs + o * D::SLICE);
+        const uint64_t db = desc_sw128(ws + s * D::STAGE_BYTES);
+        fence_regs(out);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < KC / 16; ++k) wgmma_m64n256(out, da + 2 * k, db + 2 * k);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(out);
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+
+      // this warpgroup's columns of the skip sum's rows
+      const int sa = (c + wg) % STAGES;
+      if (n_acc) wait_own(sa);
+      const float* acc_s =
+          reinterpret_cast<const float*>(smem + D::W_OFF + sa * D::STAGE_BYTES);
+
+      // epilogue: fragment j < WC/8 holds residual columns cw + 8j + q2 +
+      // {0, 1}, fragment j >= WC/8 skip columns cw + 8(j - WC/8) + q2 + {0, 1},
+      // of rows r0 (h = 0) and r0 + 8 (h = 1)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h, t = t0 + r;
+        if (t >= T) continue;
+        const size_t row = static_cast<size_t>(b) * T + t;
+#pragma unroll
+        for (int j = 0; j < 2 * (WC / 8); ++j) {
+          const int jc = 8 * (j % (WC / 8)) + q2;  // within this warpgroup's columns
+          const int col = j < WC / 8 ? cw + jc : D::C + cw + jc;
+          const float2 bias = __ldg(reinterpret_cast<const float2*>(b_out + col));
+          const float o0 = out[4 * j + 2 * h] + bias.x;
+          const float o1 = out[4 * j + 2 * h + 1] + bias.y;
+          if (j < WC / 8) {
+            if (ACC && last) continue;
+            __nv_bfloat162 xv;
+            *reinterpret_cast<uint32_t*>(&xv) = xr[j][h];
+            const float2 xo = __bfloat1622float2(xv);
+            *reinterpret_cast<uint32_t*>(res + row * D::C + col) =
+                pack(xo.x + round_bf16(o0), xo.y + round_bf16(o1));
+          } else if (!ACC) {
+            *reinterpret_cast<uint32_t*>(skip + row * D::S + col - D::C) = pack(o0, o1);
+          } else {
+            float2 v = make_float2(o0, o1);
+            if (!first) {
+              const float2 prev = *reinterpret_cast<const float2*>(acc_s + r * WC + jc);
+              v = make_float2(prev.x + o0, prev.y + o1);
+            }
+            if (last)
+              *reinterpret_cast<uint32_t*>(skip + row * D::S + col - D::C) = pack(v.x, v.y);
+            else
+              *reinterpret_cast<float2*>(skip_acc + row * D::S + col - D::C) = v;
+          }
+        }
+      }
+      if (n_acc) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * sa);
+      }
+      c += NCONS * n_acc;
+    }
+  }
+}
+
 template <class D, bool ACC>
 int launch(const void* x, const void* cond, const void* w_in, const void* b_g,
            const void* w_out, const void* b_out, void* res, void* skip, void* skip_acc,
            int B, int T, int d, int first, int last, cudaStream_t st) {
+  // the split widths: 64-row tiles, 128-row weight boxes (two a ring
+  // slot), a warpgroup's 128 columns of skip_acc a box
+  constexpr bool SPLIT = std::is_same<D, WideTeacher>::value;
+  constexpr int TR = SPLIT ? WideTeacher::TM : TM;
+  constexpr int WIN_ROWS = SPLIT ? WideTeacher::WC : D::G;
+  constexpr int WOUT_ROWS = SPLIT ? WideTeacher::WC : D::N_OUT;
+  constexpr int ACC_ROWS = SPLIT ? WideTeacher::TM : WG_ROWS;
+  constexpr uint32_t ACC_COLS = SPLIT ? WideTeacher::WC : 0;
   CUtensorMap tm_x, tm_cond, tm_win, tm_wout, tm_acc = {};
-  if (!make_map(&tm_x, x, false, 3, D::C, T, B, TM) ||
-      !make_map(&tm_cond, cond, false, 3, D::M, T, B, TM) ||
-      !make_map(&tm_win, w_in, false, 2, D::K_IN, D::G, 1, D::G) ||
-      !make_map(&tm_wout, w_out, false, 2, D::GH, D::N_OUT, 1, D::N_OUT) ||
-      (ACC && !first && !make_map(&tm_acc, skip_acc, true, 3, D::S, T, B, WG_ROWS)))
+  if (!make_map(&tm_x, x, false, 3, D::C, T, B, TR) ||
+      !make_map(&tm_cond, cond, false, 3, D::M, T, B, TR) ||
+      !make_map(&tm_win, w_in, false, 2, D::K_IN, D::G, 1, WIN_ROWS) ||
+      !make_map(&tm_wout, w_out, false, 2, D::GH, D::N_OUT, 1, WOUT_ROWS) ||
+      (ACC && !first &&
+       !make_map(&tm_acc, skip_acc, true, 3, D::S, T, B, ACC_ROWS, ACC_COLS)))
     return cudaErrorInvalidValue;
+  auto kernel = [] {
+    if constexpr (SPLIT)
+      return gated_layer_split_kernel<D, ACC>;
+    else
+      return gated_layer_kernel<D, ACC>;
+  }();
   int dev = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gated_layer_kernel<D, ACC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, D::SMEM);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, D::SMEM);
   if (err != cudaSuccess) return err;
-  const int n_tt = (T + TM - 1) / TM, n_tiles = B * n_tt;
+  const int n_tt = (T + TR - 1) / TR, n_tiles = B * n_tt;
   const int grid = n_tiles < n_sm ? n_tiles : n_sm;
-  gated_layer_kernel<D, ACC><<<grid, NTHREADS, D::SMEM, st>>>(
+  kernel<<<grid, NTHREADS, D::SMEM, st>>>(
       tm_x, tm_cond, tm_win, tm_wout, tm_acc, static_cast<const float*>(b_g),
       static_cast<const float*>(b_out), static_cast<bf16*>(res), static_cast<bf16*>(skip),
       static_cast<float*>(skip_acc), T, n_tt, n_tiles, d, first, last);
@@ -431,6 +731,9 @@ int dispatch(const void* x, const void* cond, const void* w_in, const void* b_g,
   if (is<Wide>(c, g, s, m))
     return launch<Wide, ACC>(x, cond, w_in, b_g, w_out, b_out, res, skip, skip_acc, B, T, d,
                              first, last, st);
+  if (is<WideTeacher>(c, g, s, m))
+    return launch<WideTeacher, ACC>(x, cond, w_in, b_g, w_out, b_out, res, skip, skip_acc, B,
+                                    T, d, first, last, st);
   return cudaErrorInvalidValue;
 }
 

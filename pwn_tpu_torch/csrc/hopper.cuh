@@ -209,6 +209,12 @@ __device__ __forceinline__ uint32_t swz128(int row, int col) {
          ((((col % KC) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
 }
 
+// The same for tiles of 64 rows (the wide widths' tiles): a slice is 8 KB.
+__device__ __forceinline__ uint32_t swz64(int row, int col) {
+  return (col / KC) * (64 * ROW_BYTES) + row * ROW_BYTES +
+         ((((col % KC) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -365,6 +371,21 @@ __device__ __forceinline__ void wgmma_m64n80(float (&d)[40], uint64_t da,
       : "l"(da), "l"(db), "n"(TA), "n"(TB));
 }
 
+// d += A(64 x 16) @ B(16 x 40).
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_m64n40(float (&d)[20], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, %20, %21, 1, 1, 1, %22, %23;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(da), "l"(db), "n"(TA), "n"(TB));
+}
+
 // ---------------------------------------------------------------------------
 // The gated unit
 
@@ -431,15 +452,17 @@ EncodeTiled encoder() {
 // A tensor map over a row-major (batch, rows, inner) array (rank 3) or (rows,
 // inner) (rank 2), innermost first, with boxes of box_inner x box_rows:
 // bf16 in 64-column boxes with the 128-byte swizzle, or fp32 unswizzled in
-// boxes of whole rows.  Out-of-bounds elements load as zeros.
+// boxes of whole rows (of box_inner columns where that is given).
+// Out-of-bounds elements load as zeros.
 bool make_map(CUtensorMap* map, const void* ptr, bool fp32, int rank, uint64_t inner,
-              uint64_t rows, uint64_t batch, uint32_t box_rows) {
+              uint64_t rows, uint64_t batch, uint32_t box_rows, uint32_t box_inner = 0) {
   const EncodeTiled enc = encoder();
   if (!enc) return false;
   const uint64_t size = fp32 ? 4 : 2;
   const cuuint64_t dims[3] = {inner, rows, batch};
   const cuuint64_t strides[2] = {inner * size, inner * rows * size};
-  const cuuint32_t box[3] = {fp32 ? static_cast<cuuint32_t>(inner) : KC, box_rows, 1};
+  const cuuint32_t box[3] = {
+      box_inner ? box_inner : fp32 ? static_cast<cuuint32_t>(inner) : KC, box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return enc(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
              rank, const_cast<void*>(ptr), dims, strides, box, elem,

@@ -173,8 +173,9 @@ class WaveNetStack(nn.Module):
     - "layer" where the config asks for it ("on", "layer", "off"), and
       only "layer" for a stack with a dilation above TIME_TILE (the mode
       `resolve_stack_mode` gives it; another raises ValueError).
-    Kernels 5 and 3 (and so 2) run bf16 at student_iaf's and teacher_lj's
-    widths (`ops/flow_stack.py::TRAIN_KERNEL_DIMS`) on their wgmma bodies,
+    Kernels 5 and 3 (and so 2) run bf16 at student_iaf's, teacher_lj's
+    and the wide teacher's widths (`ops/flow_stack.py::TRAIN_KERNEL_DIMS`)
+    on their wgmma bodies,
     and every other width and fp32 (the 40-mel tiny configs, any preset
     with compute_dtype float32) on their general bodies
     (`ops/flow_stack.py::kernel_body`), which read the weights packed

@@ -17,7 +17,9 @@ widths, is `flow_stack_train_wgrads`).
 Kernels 5 and 3 each have two CUDA bodies, and `kernel_body` picks one
 from the operand dtype and the widths alone:
 * "wgmma" (`csrc/gated_layer.cu`, `csrc/flow_stack_train.cu`): bf16 at
-  student_iaf's and teacher_lj's widths (`TRAIN_KERNEL_DIMS`);
+  student_iaf's, teacher_lj's and the wide teacher's widths
+  (`TRAIN_KERNEL_DIMS`; the wide one on 64-row tiles whose columns the two
+  consumer warpgroups split, `wgmma_smem_bytes`);
 * "generic" (`csrc/gated_layer_generic.cu`,
   `csrc/flow_stack_train_generic.cu`): fp32 or bf16 at any other width
   within `generic_limits` (the 40-mel tiny configs, every preset run in
@@ -65,9 +67,10 @@ from pwn_tpu_torch.ops.conv import shift_right
 
 # the widths the inference kernel is compiled for (student_iaf): C, G, S, M
 KERNEL_DIMS = (64, 128, 64, 80)
-# the widths the training kernels are compiled for: student_iaf's and
-# teacher_lj's
-TRAIN_KERNEL_DIMS = ((64, 128, 64, 80), (128, 256, 128, 80))
+# the widths the training kernels (and kernel 5's wgmma body) are compiled
+# for: student_iaf's, teacher_lj's and the JAX package's wide teacher's
+TRAIN_KERNEL_DIMS = ((64, 128, 64, 80), (128, 256, 128, 80),
+                     (256, 512, 256, 80))
 # Shared memory a Hopper block may opt in to (H100 and H200), and kernel 1's
 # use of it (csrc/flow_stack.cu, pwn_flow_stack_smem_bytes): 1 KB of
 # alignment slack, a ring of three 16 KB weight stages, the 128-row x tile
@@ -264,6 +267,34 @@ def kernel_body(dtype, C: int, G: int, S: int, M: int,
                          f"{(C, G, S, M)}: the wgmma bodies take bfloat16 "
                          f"at {list(TRAIN_KERNEL_DIMS)}, and {why}")
     return "generic"
+
+
+def wgmma_smem_bytes(C: int, G: int, S: int, M: int,
+                     backward: bool = False) -> int:
+    """Shared memory of a wgmma body's block at one of `TRAIN_KERNEL_DIMS`
+    (a mirror of `csrc/gated_layer.cu`'s `Dims` / `SplitDims::SMEM`, or with
+    `backward` of `csrc/flow_stack_train.cu`'s layer pass, `Lay` /
+    `SplitDims::SMEM`): 64-column bf16 slices of the activation tiles (x,
+    tap, cond; forward z, backward dout / dg) of 128 rows, or 64 at the
+    wide widths; the weight ring (forward three stages of a k-slice of
+    every gate or output row, or of one warpgroup's half at the wide
+    widths; backward four 16 KB slots); the mbarriers; 1 KB of alignment
+    slack."""
+    if (C, G, S, M) not in TRAIN_KERNEL_DIMS:
+        raise ValueError(f"no wgmma body at (C, G, S, M) = {(C, G, S, M)}")
+    split = G > 256
+    rows = 64 if split else 128
+    slice_ = rows * 128
+    xs, cs = C // 64, 2
+    if backward:
+        tiles = (2 * xs + cs + (C + S) // 64) * slice_
+        return tiles + 4 * 16_384 + 8 * (12 if split else 14) + 1024
+    tiles = (3 * xs + cs) * slice_
+    stage = (G // 2 if split else max(G, C + S)) * 128
+    stages = 3 if tiles + 3 * stage + 64 + 1024 <= SMEM_PER_BLOCK else 2
+    # the barriers: the activations' pair, and per stage an empty barrier
+    # and a full one (one per consumer warpgroup at the wide widths)
+    return tiles + stages * stage + 8 * (2 + (3 if split else 2) * stages) + 1024
 
 
 def _kernel1_smem_bytes(sum_d: int) -> int:

@@ -23,7 +23,7 @@ K-major B operand the CUDA kernel's wgmma reads.
 A CPU tensor goes to the plain version; a CUDA tensor goes to one of
 kernel 5's two bodies, as `ops/flow_stack.py::kernel_body` picks from the
 dtype and widths, or raises: `csrc/gated_layer.cu` (wgmma; bf16 at (C, G,
-S, M) = (64, 128, 64, 80) and (128, 256, 128, 80)) or
+S, M) = (64, 128, 64, 80), (128, 256, 128, 80) and (256, 512, 256, 80)) or
 `csrc/gated_layer_generic.cu` (fp32 FMAs on the CUDA cores; fp32 or bf16
 at any other width within `generic_limits`: the 40-mel tiny configs,
 every preset in fp32).  Rounding points, kept by all three: the GEMMs
@@ -136,16 +136,19 @@ def _kernel_weights(body: str, w_in, w_out, packed):
     return packed.gate, packed.out
 
 
-def _count(body: str, epilogue: str) -> None:
+def _count(body: str, epilogue: str, C: int) -> None:
     gated_layer.launches += 1
     gated_layer.launches_by[(body, epilogue)] += 1
+    gated_layer.launches_by_width[C] += 1
 
 
 def gated_layer(x, cond, w_in, b_g, w_out, b_out, dilation: int):
     """One layer's (res, skip); see the module docstring.
     `gated_layer.launches` counts the kernel launches of both epilogues and
     both bodies, `gated_layer.launches_by` the same by (body, epilogue):
-    ("wgmma" | "generic", "layer" | "accumulate").  The general body reads
+    ("wgmma" | "generic", "layer" | "accumulate"), and
+    `gated_layer.launches_by_width` by C (a wide teacher's launches apart
+    from its student's).  The general body reads
     the weights packed (`ops/flow_stack.py::pack_generic`), here, per call
     (the per-layer "layer" mode; the stack routes pack once)."""
     if x.device.type == "cpu":
@@ -168,12 +171,13 @@ def gated_layer(x, cond, w_in, b_g, w_out, b_out, dilation: int):
         w_out.data_ptr(), b_out.data_ptr(), res.data_ptr(), skip.data_ptr(),
         B, T, C, G, S, M, dilation,
         *(() if body == "wgmma" else (int(x.dtype == torch.bfloat16),)))
-    _count(body, "layer")
+    _count(body, "layer", C)
     return res, skip
 
 
 gated_layer.launches = 0
 gated_layer.launches_by = collections.Counter()
+gated_layer.launches_by_width = collections.Counter()
 
 
 def gated_layer_accumulate_reference(x, cond, w_in, b_g, w_out, b_rs,
@@ -280,7 +284,7 @@ def gated_layer_accumulate(x, cond, w_in, b_g, w_out, b_rs, dilation: int,
         out.data_ptr() if last else None,
         B, T, C, G, S, M, dilation, int(first), int(last),
         *(() if body == "wgmma" else (int(x.dtype == torch.bfloat16),)))
-    _count(body, "accumulate")
+    _count(body, "accumulate", C)
     return out
 
 

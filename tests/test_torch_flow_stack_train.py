@@ -28,10 +28,12 @@ from pwn_tpu_torch.ops.gated_layer import (flow_stack_train_by_layers,
 SMALL = dict(B=2, C=16, M=8, G=32, S=16)
 TEACHER_DILATIONS = tuple(2 ** (i % 8) for i in range(24))
 STUDENT_DILATIONS = tuple(2 ** i for i in range(10))
-STUDENT_DIMS, TEACHER_DIMS = TRAIN_KERNEL_DIMS
-# the training kernels' two widths and the stacks built at each
+STUDENT_DIMS, TEACHER_DIMS, WIDE_DIMS = TRAIN_KERNEL_DIMS
+# the training kernels' three widths and the stacks built at each (the
+# wide teacher is teacher_lj's stack at 256 / 512 / 256 channels)
 TRAIN_STACKS = {STUDENT_DIMS: STUDENT_DILATIONS,
-                TEACHER_DIMS: TEACHER_DILATIONS}
+                TEACHER_DIMS: TEACHER_DILATIONS,
+                WIDE_DIMS: TEACHER_DILATIONS}
 # the reference's own train-kernel cases (tests/test_flow_stack.py)
 CASES = [
     ((1, 2, 4, 8), 1536),                     # multi-tile, growing dilations

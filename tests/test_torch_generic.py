@@ -35,7 +35,8 @@ from pwn_tpu_torch.ops.gated_layer import (
 
 F32, BF16 = torch.float32, torch.bfloat16
 TINY = (64, 128, 64, 40)             # tiny_teacher's (C, G, S, M)
-STUDENT, TEACHER = TRAIN_KERNEL_DIMS  # student_iaf's, teacher_lj's
+# student_iaf's, teacher_lj's and the wide teacher's
+STUDENT, TEACHER, WIDE = TRAIN_KERNEL_DIMS
 WIDE_40 = (128, 256, 128, 40)
 JAX_SHAPES = ((32, 64, 48, 16), (16, 32, 16, 8))  # the JAX kernel tests'
 TINY_TEACHER_DIL = (1, 2, 4, 8, 16) * 2
@@ -58,6 +59,8 @@ def _one_torch_thread():
     (F32, STUDENT, True, "generic"), (F32, TEACHER, True, "generic"),
     (F32, TINY, False, "generic"), (F32, TINY, True, "generic"),
     (F32, WIDE_40, True, "generic"),
+    (BF16, WIDE, False, "wgmma"), (BF16, WIDE, True, "wgmma"),
+    (F32, WIDE, False, "generic"), (F32, WIDE, True, "generic"),
     (BF16, TINY, False, "generic"), (BF16, TINY, True, "generic"),
     (F32, JAX_SHAPES[0], True, "generic"),
     (BF16, JAX_SHAPES[1], True, "generic"),

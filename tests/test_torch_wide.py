@@ -14,8 +14,9 @@ stream; the distillation losses and the student's gradients with the wide
 teacher frozen ("dx", kernel 3's dx-only plain version); a stack with
 dilations (1, 1024, 2048) in every mode, which builds "layer" as the
 reference falls back to its XLA per-layer form; and the routes that send
-these widths to the kernels (`kernel_body`, `generic_limits`,
-`AR_KERNEL_DIMS`).
+these widths to the kernels (`kernel_body`: bf16 to the wgmma bodies'
+column-split instantiation, fp32 to the general bodies within
+`generic_limits`; `AR_KERNEL_DIMS`).
 
 The CUDA cases are marked `gpu` and skip without a card; JAX is imported
 inside the tests that need it:
@@ -93,11 +94,16 @@ def _rel_norm(a, b) -> float:
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("backward", [False, True])
-def test_wide_widths_route_to_the_general_bodies(dtype, backward):
-    """No wgmma body is built at the wide widths, so kernels 5 (and so 2)
-    and 3 run them on their general bodies in either dtype: 64-row tiles
-    forward (106,496 bytes a block), 32-row tiles backward (131,584: a
-    64-row block's dout / dg and dz tiles would take 238,592)."""
+def test_wide_widths_route_by_dtype(dtype, backward):
+    """Kernels 5 (and so 2) and 3 run the wide widths in bf16 on their
+    wgmma bodies (the column-split instantiation), and in fp32, which
+    wgmma does not take, on their general bodies: 64-row tiles forward
+    (106,496 bytes a block), 32-row tiles backward (131,584: a 64-row
+    block's dout / dg and dz tiles would take 238,592)."""
+    if dtype == BF16:
+        assert WIDE in fs.TRAIN_KERNEL_DIMS
+        assert fs.kernel_body(dtype, *WIDE, backward=backward) == "wgmma"
+        return
     assert fs.kernel_body(dtype, *WIDE, backward=backward) == "generic"
     assert fs.generic_limits(dtype, *WIDE, backward=backward) is None
     assert fs.generic_tile_rows(*WIDE, backward=backward) == (
@@ -105,6 +111,55 @@ def test_wide_widths_route_to_the_general_bodies(dtype, backward):
     assert fs.generic_smem_bytes(*WIDE, backward=backward) == (
         131_584 if backward else 106_496)
     assert fs._generic_smem_at(64, *WIDE, True) == 238_592
+
+
+@pytest.mark.parametrize("dims,backward,smem", [
+    ((64, 128, 64, 80), False, 132_160), ((64, 128, 64, 80), True, 164_976),
+    ((128, 256, 128, 80), False, 230_464),
+    ((128, 256, 128, 80), True, 230_512),
+    (WIDE, False, 214_104), (WIDE, True, 214_112),
+])
+def test_wgmma_bodies_fit_a_block(dims, backward, smem):
+    """The wgmma bodies' shared memory (`wgmma_smem_bytes`, the mirror of
+    the CUDA sources' layouts) at each width they are built for fits a
+    Hopper block: the wide widths' 64-row tiles with column-split weight
+    stages (kernel 5: x, tap, cond and z 112 KB, three 32 KB stages;
+    kernel 3: [x | tap | cond] 80 KB, dout / dg 64 KB, four 16 KB slots)
+    take less than teacher_lj's 128-row tiles."""
+    assert fs.wgmma_smem_bytes(*dims, backward=backward) == smem
+    assert smem <= fs.SMEM_PER_BLOCK
+
+
+def test_wgmma_smem_refuses_unbuilt_widths():
+    """There is no wgmma body, so no layout, at a width outside
+    TRAIN_KERNEL_DIMS."""
+    with pytest.raises(ValueError, match="no wgmma body"):
+        fs.wgmma_smem_bytes(64, 128, 64, 40)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_wide_stack_packs_only_for_the_general_bodies(dtype):
+    """The column split needs no weight layout of its own: the wgmma
+    bodies read `stacked()`'s (out, in) weights by TMA boxes at the split's
+    coordinates, so a bf16 wide stack packs nothing for the general body
+    (`_generic_for` is None on a card tensor) and an fp32 one packs the
+    general layout, which unpacks to `stacked()`'s weights bit for bit."""
+    port = WaveNetStack((1, 2), *WIDE[:3], 2, WIDE[3], dtype=dtype,
+                        mode="train")
+    port.reset_parameters(torch.Generator().manual_seed(9))
+    want = "wgmma" if dtype == BF16 else "generic"
+    assert fs.kernel_body(dtype, *port.widths, backward=True) == want
+    with torch.no_grad():
+        w_in, _, w_out, _ = port.stacked()
+        p = port.generic_weights()
+    GH = WIDE[1] // 2
+    gate = p.gate.transpose(-1, -2).reshape(2, -1, p.gate.shape[-2])
+    tanh = gate.reshape(2, -1, 2, 64, gate.shape[-1])[:, :, 0]
+    assert torch.equal(tanh.reshape(2, -1, gate.shape[-1])[:, :GH,
+                                                          :w_in.shape[-1]],
+                       w_in[:, :GH].float())
+    out = p.out.transpose(1, 2).reshape(2, p.out.shape[2], -1)
+    assert torch.equal(out[:, :GH, :w_out.shape[1]], w_out.mT.float())
 
 
 def test_ar_kernel_takes_the_wide_widths():
@@ -435,21 +490,25 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_wide_general_bodies_match_plain_on_card(cuda, dtype):
-    """Kernel 2's route (kernel 5's general accumulate body) and kernel 3's
-    general body at the wide widths, 3 layers at B x T = 2 x 257, against
-    their plain versions on the same card operands per row: the skip and
-    the saved inputs, and kernel 3 in both modes (dx per row, dcond and
-    each weight gradient per tensor); dx and dcond the same bits in both
-    modes."""
+    """Kernel 2's route (kernel 5's accumulate epilogue) and kernel 3 at
+    the wide widths, 3 layers at B x T = 2 x 257, on the body `kernel_body`
+    picks for the dtype (fp32: the general bodies; bf16: the wgmma bodies'
+    column split), against their plain versions on the same card operands
+    per row: the skip and the saved inputs, and kernel 3 in both modes (dx
+    per row, dcond and each weight gradient per tensor); dx and dcond the
+    same bits in both modes."""
     from pwn_tpu_torch.ops.gated_layer import gated_layer as k5
 
     dil = (1, 2, 300)
+    body = fs.kernel_body(dtype, *WIDE)
+    key3 = (lambda w: ("generic", 256, w)) if body == "generic" else (
+        lambda w: (256, w))
     a = _stack_ops(WIDE, dtype, dil, B=2, T=257, device=cuda)
     dskip = a.pop("dskip")
     by = k5.launches_by.copy()
     skip, acts = fs.flow_stack_train_forward(**a, dilations=dil)
-    assert k5.launches_by[("generic", "accumulate")] == \
-        by[("generic", "accumulate")] + len(dil)
+    assert k5.launches_by[(body, "accumulate")] == \
+        by[(body, "accumulate")] + len(dil)
     ref_skip, ref_acts = fs.flow_stack_train_reference(**a, dilations=dil)
     assert (_row_rel(skip, ref_skip) <= TOL[dtype]).all()
     assert (_row_rel(acts.transpose(0, 1), ref_acts.transpose(0, 1))
@@ -457,12 +516,11 @@ def test_wide_general_bodies_match_plain_on_card(cuda, dtype):
     bargs = (acts, a["cond"], a["w_in"], a["b_g"], a["w_out"], dskip)
     runs = {}
     for want_w in (True, False):
-        n = fs.flow_stack_train_backward.launches_by[("generic", 256,
-                                                       want_w)]
+        n = fs.flow_stack_train_backward.launches_by[key3(want_w)]
         got = fs.flow_stack_train_backward(*bargs, dilations=dil,
                                            want_wgrads=want_w)
         assert fs.flow_stack_train_backward.launches_by[
-            ("generic", 256, want_w)] == n + 1
+            key3(want_w)] == n + 1
         ref = fs.flow_stack_backward_reference(*bargs, dilations=dil,
                                                want_wgrads=want_w)
         assert (_row_rel(got[0], ref[0]) <= TOL[dtype]).all()
@@ -470,6 +528,70 @@ def test_wide_general_bodies_match_plain_on_card(cuda, dtype):
             assert g.dtype == r.dtype and g.shape == r.shape, name
             assert float(_row_rel(g[None], r[None])[0]) <= TOL[dtype], name
         runs[want_w] = got
+    assert torch.equal(runs[True][0], runs[False][0])
+    assert torch.equal(runs[True][1], runs[False][1])
+
+
+WGMMA_DIL = (1, 2, 300, 512)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T", [(2, 700), (1, 1), (3, 63), (3, 6000)])
+def test_wide_wgmma_bodies_match_plain_on_card(cuda, B, T):
+    """The wgmma bodies' column split at the wide widths in bf16, dilations
+    (1, 2, 300, 512), against the plain versions in fp32 on the same bf16
+    operands per row (0.02, as at teacher_lj's widths), at shapes whose
+    persistent blocks take one tile each and (3 x 6,000: 282 tiles of 64
+    rows) several: kernel 5's "layer"
+    epilogue at each dilation (res and skip), its accumulate epilogue as
+    kernel 2's route (the skip, and the saved inputs against the bf16
+    plain version within 0.04), kernel 3 with and without weight gradients
+    (dx per row, dcond and each weight gradient per tensor); dx and dcond
+    the same bits in both modes and in a second run; the launches on
+    ("wgmma", ...) and kernel 3's (256, want_wgrads)."""
+    from pwn_tpu_torch.ops.gated_layer import gated_layer as k5
+
+    dil = WGMMA_DIL
+    a = _stack_ops(WIDE, BF16, dil, B=B, T=T, seed=T + 17, device=cuda)
+    a32 = {k: v.float() for k, v in a.items()}
+    dskip = a.pop("dskip")
+    by = k5.launches_by.copy()
+    with torch.inference_mode():
+        for l, d in enumerate(dil):
+            top = [a[k][l] for k in ("w_in", "b_g", "w_out", "b_rs")]
+            got = gated_layer(a["x0"], a["cond"], *top, d)
+            want = gated_layer_reference(
+                a32["x0"], a32["cond"], *(t.float() for t in top), d)
+            for g, w in zip(got, want):
+                assert (_row_rel(g, w) <= TOL[BF16]).all(), (d, l)
+    assert k5.launches_by[("wgmma", "layer")] == \
+        by[("wgmma", "layer")] + len(dil)
+    skip, acts = fs.flow_stack_train_forward(**a, dilations=dil)
+    assert k5.launches_by[("wgmma", "accumulate")] == \
+        by[("wgmma", "accumulate")] + len(dil)
+    ref_skip, _ = fs.flow_stack_train_reference(
+        **{k: v for k, v in a32.items() if k != "dskip"}, dilations=dil)
+    _, ref_acts = fs.flow_stack_train_reference(**a, dilations=dil)
+    assert (_row_rel(skip, ref_skip) <= TOL[BF16]).all()
+    assert (_row_rel(acts.transpose(0, 1), ref_acts.transpose(0, 1))
+            <= TOL_ACTS[BF16]).all()
+    bargs = (acts, a["cond"], a["w_in"], a["b_g"], a["w_out"], dskip)
+    runs = {}
+    for want_w in (True, False):
+        n = fs.flow_stack_train_backward.launches_by[(256, want_w)]
+        got = fs.flow_stack_train_backward(*bargs, dilations=dil,
+                                           want_wgrads=want_w)
+        assert fs.flow_stack_train_backward.launches_by[(256, want_w)] \
+            == n + 1
+        ref = fs.flow_stack_backward_reference(
+            *(t.float() for t in bargs), dilations=dil, want_wgrads=want_w)
+        assert (_row_rel(got[0], ref[0]) <= TOL[BF16]).all()
+        for name, g, r in zip(GRADS, got, ref):
+            assert g.shape == r.shape, name
+            assert float(_row_rel(g[None], r[None])[0]) <= TOL[BF16], name
+        runs[want_w] = got
+    again = fs.flow_stack_train_backward(*bargs, dilations=dil)
+    assert all(torch.equal(x, y) for x, y in zip(runs[True], again))
     assert torch.equal(runs[True][0], runs[False][0])
     assert torch.equal(runs[True][1], runs[False][1])
 
@@ -556,7 +678,8 @@ def test_ar_kernel_takes_dilations_past_the_tile_on_card(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("body,dims,dtype", [
     ("wgmma", (128, 256, 128, 80), BF16), ("wgmma", (64, 128, 64, 80), BF16),
-    ("generic", (64, 128, 64, 40), F32), ("generic", WIDE, BF16),
+    ("generic", (64, 128, 64, 40), F32), ("wgmma", WIDE, BF16),
+    ("generic", WIDE, F32),
 ])
 @pytest.mark.parametrize("d", [1024, 2048])
 @pytest.mark.parametrize("T", ["below", "above"])
