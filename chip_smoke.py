@@ -238,7 +238,7 @@ from pwn_tpu_torch.ops import _build
 from pwn_tpu_torch.models.teacher import TeacherWaveNet, init_teacher
 from pwn_tpu_torch.ops import flow_stack as fs
 from pwn_tpu_torch.ops.conv import shift_right
-from pwn_tpu_torch.ops.ar_sampler import (AR_RANKS, AR_ROWS, ar_max_clusters,
+from pwn_tpu_torch.ops.ar_sampler import (AR_RANKS, ar_geometry,
                                           ar_sample, ar_sample_reference,
                                           pack_ar_ranks, stack_teacher_weights)
 from pwn_tpu_torch.ops.flow_stack import (flow_stack, flow_stack_reference,
@@ -778,12 +778,13 @@ def phase_ar_kernel(device) -> dict:
             grown = [int(np.argmax(r > 1e-5)) if (r > 1e-5).any() else None
                      for r in diff.cpu().numpy()]
             inside = float((ref.abs() < 1).float().mean())
-            fit = ar_max_clusters(weights, n_mixtures=kw["n_mixtures"],
-                                  head=kw["head"], cond_dtype=cond.dtype)
+            geo = ar_geometry(weights, n_mixtures=kw["n_mixtures"],
+                              head=kw["head"], cond_dtype=cond.dtype)
             _log(f"[ar] {cfg.name} ({cfg.teacher.output}, weights "
                  f"{weights['w_in'].dtype}) B={B} T={T} temperature {temp:g}, "
-                 f"N={AR_RANKS} blocks x R={AR_ROWS} row per cluster, "
-                 f"{-(-B // AR_ROWS)} clusters ({fit} fit the card at once): "
+                 f"N={geo['ranks']} blocks x R={geo['rows']} row per cluster, "
+                 f"{-(-B // geo['rows'])} clusters ({geo['clusters']} fit the "
+                 f"card at once): "
                  f"max abs diff per row vs plain "
                  f"{np.array2string(err, precision=8)} (tol {TOL_AR}), over "
                  f"the first {AR_EARLY} steps "
@@ -2171,15 +2172,17 @@ def _ar_rows(cfg, model, wdt, B: int, T: int, device, seed: int,
     err = diff.amax(1).cpu().numpy()
     early = diff[:, :AR_EARLY].amax(1).cpu().numpy()
     inside = float((ref.abs() < 1).float().mean())
-    fit = ar_max_clusters(weights, n_mixtures=kw["n_mixtures"],
-                          head=kw["head"], cond_dtype=cond.dtype)
+    geo = ar_geometry(weights, n_mixtures=kw["n_mixtures"], head=kw["head"],
+                      cond_dtype=cond.dtype)
     tol = "" if early_only else f" (tol {TOL_AR})"
     _log(f"[wide] kernel 4 {what} ({cfg.teacher.output}, weights {wdt}) "
          f"B={B} T={T}: max abs diff per row vs plain "
          f"{np.array2string(err, precision=8)}{tol}, over the first "
          f"{AR_EARLY} steps {np.array2string(early, precision=8)} (tol "
          f"{TOL_AR_EARLY}; {WHY_AR}); {inside:.3f} of the draws inside "
-         f"(-1, 1); {fit} clusters fit the card at once{moved}")
+         f"(-1, 1); R={geo['rows']} rows x N={geo['ranks']} blocks a "
+         f"cluster, {geo['stages']} ring stages, {geo['clusters']} clusters "
+         f"fit the card at once{moved}")
     _check(out.shape == (B, T) and torch.isfinite(out).all()
            and (early <= TOL_AR_EARLY).all()
            and (early_only or (err <= TOL_AR).all()) and inside > 0.2,
@@ -2189,12 +2192,14 @@ def _ar_rows(cfg, model, wdt, B: int, T: int, device, seed: int,
 
 def _wide_kernel_rows(device) -> dict:
     """(a) Each kernel at the wide widths against its plain version on the
-    card: kernel 4 in bf16 and fp32 weights, MoL (pinned) over 1,003 steps
-    on the init's weights with the front 1x1 scaled (WIDE_AR_FRONT), and
-    MoL and Gaussian with jittered biases over AR_EARLY; kernels 2 and 3
-    over the wide teacher's 24 layers in fp32 (the general bodies) and bf16
-    (the wgmma bodies), both backward modes, bit-identical twice.  Then
-    kernel 5 at dilations 1,024 and 2,048 on
+    card: kernel 4 in bf16 and fp32 weights (R = 2 rows a cluster), MoL
+    (pinned) on the init's weights and Gaussian with jittered biases, both
+    with the front 1x1 scaled (WIDE_AR_FRONT), over 1,003 steps at B = 3
+    (a batch R does not divide) and B = 1; MoL and Gaussian with jittered
+    biases over AR_EARLY at B = 8; two rows of one cluster independent;
+    kernels 2 and 3 over the wide teacher's 24 layers in fp32 (the general
+    bodies) and bf16 (the wgmma bodies), both backward modes,
+    bit-identical twice.  Then kernel 5 at dilations 1,024 and 2,048 on
     both bodies, a stack with such dilations built "train" (it runs
     "layer"), kernel 4 with dilations to 1,024, and the deep variant's
     kernels 2, 3 and 4.  Returns kernel 4's max abs error in bf16 weights
@@ -2204,18 +2209,39 @@ def _wide_kernel_rows(device) -> dict:
                      "student.base", "gaussian")
     mol_init = _wide_ar_teacher(WIDE, device, biases=False,
                                 front=WIDE_AR_FRONT)
+    gauss_front = _wide_ar_teacher(gauss, device, biases=True,
+                                   front=WIDE_AR_FRONT)
     mol_model = _wide_ar_teacher(WIDE, device, biases=True)
     gauss_model = _wide_ar_teacher(gauss, device, biases=True)
     for wdt in (torch.bfloat16, torch.float32):
-        err = _ar_rows(WIDE, mol_init, wdt, 2, 1003, device, 500,
+        err = _ar_rows(WIDE, mol_init, wdt, 3, 1003, device, 500,
                        False, f"wide MoL, the init's weights, the front 1x1 "
                        f"x {WIDE_AR_FRONT}")
         if wdt == torch.bfloat16:
             res["ar_max_abs_err"] = err
+        _ar_rows(gauss, gauss_front, wdt, 1, 1003, device, 503, False,
+                 f"wide Gaussian, biases jittered, the front 1x1 x "
+                 f"{WIDE_AR_FRONT}")
         _ar_rows(WIDE, mol_model, wdt, 8, AR_EARLY, device, 502, True,
                  "wide MoL, biases jittered")
         _ar_rows(gauss, gauss_model, wdt, 8, AR_EARLY, device, 501, True,
                  "wide Gaussian, biases jittered")
+    # the two rows of a cluster are independent: perturbing row 1's cond
+    # leaves row 0 (the same cluster) bit for bit
+    weights = stack_teacher_weights(mol_init.stack, torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(504)
+    cond, noise = _ar_inputs(WIDE, 2, 300, gen)
+    kw = _ar_kw(WIDE)
+    with torch.inference_mode():
+        a0 = ar_sample(cond, noise, weights, **kw)
+        cond = cond.clone()
+        cond[1] += 1.0
+        a1 = ar_sample(cond, noise, weights, **kw)
+    torch.cuda.synchronize()
+    _check(torch.equal(a0[0], a1[0]) and not torch.equal(a0[1], a1[1]),
+           "wide kernel 4: row 1 leaked into row 0 of its cluster")
+    _log("[wide] kernel 4: row 0 unchanged bit for bit when row 1 (the same "
+         "cluster) changes")
     # kernels 2 and 3 at the wide widths on the body `kernel_body` picks
     # (at the main path's 8 x 16,384 in `_wide_times`)
     dil = WIDE.teacher.dilations
@@ -2502,13 +2528,26 @@ def _wide_times(device, smi: str) -> dict:
         bound = _bound(flop, _nbytes(*big, *weights.values())
                        + AR_BATCH * AR_T * 4, PEAK_FP32)
         k_ms, plain_ms = (float(np.mean(ms[k])) for k in ("kernel", "plain"))
+        geo = ar_geometry(weights, n_mixtures=kw["n_mixtures"],
+                          head=kw["head"], cond_dtype=big[0].dtype)
+        # each block streams its rank's slice of every layer once a step,
+        # for the cluster's R rows
+        per_sm = _nbytes(pack_ar_ranks(weights, geo["ranks"], "chunks")["w"][0])
+        clusters = -(-AR_BATCH // geo["rows"])
         _log(f"[wide times] {smi}: kernel 4 at {WIDE_DIMS}, weights {wdt}, "
              f"B={AR_BATCH} T={AR_T}: " + " / ".join(
                  f"{x:.3f}" for x in ms["kernel"])
              + f" ms ({k_ms * 1e3 / AR_T:.2f} us a step); plain "
              f"{plain_ms:.1f} ms (one call at the same shape); "
              f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}: "
-             f"{flop / 1e9:.1f} GFLOP fp32)")
+             f"{flop / 1e9:.1f} GFLOP fp32); R={geo['rows']} rows x "
+             f"N={geo['ranks']} blocks a cluster, {clusters} clusters "
+             f"({geo['clusters']} fit the card at once), {geo['stages']} "
+             f"ring stages, {geo['smem']:,} B of shared memory a block; "
+             f"weights streamed per SM per step {per_sm:,} B, "
+             f"{per_sm * AR_T / (k_ms / 1e3) / 1e9:.1f} GB/s into each SM, "
+             f"{per_sm * geo['ranks'] * clusters * AR_T / (k_ms / 1e3) / 1e12:.2f}"
+             f" TB/s from L2 in all")
         res[f"ar {wdt}"] = {"ms": k_ms, "plain_ms": plain_ms, **bound}
     dil = tc.dilations
     L, rows = len(dil), TRAIN_BATCH * TRAIN_T

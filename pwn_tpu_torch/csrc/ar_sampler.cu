@@ -1,6 +1,7 @@
 // Whole-loop teacher autoregressive sampler for Hopper (sm_90a): Fast
 // WaveNet with per-layer conv queues, all T steps in one launch, each batch
-// row on one cluster of N = 8 thread blocks.
+// row on one cluster of N = 8 thread blocks (at the wide teacher's widths,
+// two rows a cluster of 16: the last item of the design below).
 //
 // Replaces: pwn_tpu/ops/pallas/ar_sampler.py::_kernel (reached through
 // ar_sample_pallas <- models/sampling.py::fast_sample_pallas <-
@@ -94,39 +95,87 @@
 // * A pipeline fault traps (2^26 polls of an mbarrier) instead of hanging
 //   the card.
 // * The wide teacher, (C, G, S, M) = (256, 512, 256, 80) (the JAX package's
-//   "wide (24 x 256ch)"), keeps this structure; what its widths break is
-//   sized by `Dims` from the widths and the weights' type:
-//   - A rank's layer slice is 108,544 B in bf16 (217,088 in fp32): no ring
-//     of whole slices fits a block (RING false, RING_MAX).  The products read
-//     the slice where it lies, in L2 (20.8 MB of bf16 weights, 41.7 MB of
-//     fp32, against 50 MB), by the same loads as from the ring; the tap and
-//     cond part still runs while the exchange lands.
-//   - C + S = 512 outputs over 256 threads: thread tid owns outputs tid and
-//     tid + 256 (OPT), the residual one and the skip one.
-//   - head1 (S x S: 128 KB in bf16, 256 KB in fp32) is split (SPLIT_HEAD):
-//     rank j holds its 32 columns (S x 32), forms those hidden values and
-//     sends them to every rank by st.async, counted on one more mbarrier;
-//     every rank then holds the same S values and runs head2 and the draw
-//     as before.  The buffer is written again only in the next step, after
-//     the cluster barrier that every rank reaches after reading it.
-//   - cond(t+1) rides on threads [256 - CH, 256) (CB).
-//   Shared memory: 76 KB in bf16, 108 KB in fp32 (the taps 24 KB, the
-//   exchange 16 KB, head1's slice and head2).  teacher_lj's and the tiny
-//   teacher's instantiations compile to the same arithmetic as before
-//   (tools/torch_ar_compare_trees.py).  At batch 8 a step is 902.6 GFLOP /
-//   5,376 in fp32 (2.5 us at 67 TFLOP/s) over 8 x 20.8 MB of bf16 weight
-//   reads from L2; it took 81.2 us on the H100 (chip_smoke.py phase 8g):
-//   2.0 TB/s from L2 in all, with each layer's two products waiting on
-//   their loads in turn.
+//   "wide (24 x 256ch)"), runs a kernel of its own, `ar_wide_kernel`, sized
+//   by `WideDims`.  Its weights are 20.8 MB in bf16 (41.7 MB in fp32); a
+//   rank's layer slice at N = 8 is 108,544 B in bf16, so no ring of whole
+//   slices fits a block, and one row a cluster read every weight once a row
+//   (8 x 20.8 MB a step at batch 8).  What it does instead:
+//   - R = 2 batch rows a cluster, N = 16 blocks (a non-portable cluster
+//     size; 7 clusters fit the H100, 4 run a batch of 8 in one wave).  Every
+//     weight a thread loads serves both rows, so a step reads (B/R) x 20.8
+//     MB from L2 (83 MB at batch 8, not 167), and a rank's slice of a layer
+//     is 54,272 B in bf16: 1.3 MB an SM a step over 64 SMs.  The choice,
+//     from the budget of bytes and FMAs an SM and the phase tool (H100,
+//     bf16, batch 8): R x N = 2 x 8 on 32 SMs streams 2.6 MB an SM a step
+//     and ran 92-101 us a step where 2 x 16, which halves the stream and
+//     the products an SM, ran 71-76 in the same calls
+//     (tools/torch_ar_sampler_phases.py, "8 ranks" beside the kernel).
+//   - The stream.  A producer warp (a 9th warp: lane 0) brings each layer's
+//     run into a ring of chunks of WIDE_CHUNK_E = 4,096 weights (8 KB in
+//     bf16, 16 KB in fp32) by 1-D bulk copies, each counted on its stage's
+//     full mbarrier; the 8 consumer warps read every chunk and release its
+//     stage on its empty mbarrier (8 arrivals), after which the producer
+//     refills it.  The ring takes as many stages as the shared memory left
+//     holds, up to 16 (bf16: 16, fp32: 7, at L = 24).  The run is laid out
+//     in the order it is consumed (`pack_ar_ranks(..., "chunks")`): the tap
+//     and cond rows of W_in (the product that runs while the exchange
+//     lands), its x rows, then W_out's rows.  Chunks of 2,048 weights were
+//     slower (more hand-offs), of 8,192 slower in both types, a ring of 6
+//     stages as fast as one of 16, and a copy of a quarter of each chunk as
+//     fast as the whole: the stream's bytes do not bound a step, its
+//     hand-offs and the layer's chain of dependent phases do.
+//   - The products read 16-byte operands from the ring.  Gate: warp w owns
+//     its rank's z values [w ZW, (w+1) ZW) (ZW = 2 at N = 16), lane group a
+//     (LG = 16 lanes) value w ZW + a: its tanh and sigmoid columns; lane o
+//     holds 16-byte vectors o + LG v of each chunk's columns, so weights e =
+//     4h + i of vector gv are rows 4 (h kc/VW + gv) + i and the lanes' input
+//     reads cover consecutive addresses; two accumulators a column and row,
+//     a shuffle sum over the group, then lane o = r forms row r's z.  Out:
+//     thread q owns outputs 2q and 2q + 1, a 16-byte vector RV rows of its
+//     two columns.  Both are software-pipelined: chunk j + 1's weights and
+//     inputs are loaded while chunk j's FMAs run.
+//   - The exchange is a reduce-scatter and a broadcast.  Rank k owns columns
+//     [16k, 16k + 16) of x and of the skip sum.  Each residual partial goes
+//     to its owner by st.async (lanes 2m and 2m + 1 swap halves, so that
+//     lane 2m + r holds row r of 4 columns: one 16-byte store a thread),
+//     counted on the owner's pbar; warp OWNER of the owner sums the N
+//     partials in rank order, adds them to x, writes its columns to the
+//     queues, and sends the 16 x R new values to every rank by st.async,
+//     counted on each rank's xbar.  A rank moves 4 KB a layer over DSMEM
+//     this way, against 32 KB for every partial to every rank; at the last
+//     layer the skip partials go the same way and relu(skip) lands in hs.
+//     Every rank holds the owners' bits, so all ranks agree.  Buffers are
+//     written again only after every reader has sent what the writer waits
+//     for (z is double-buffered by layer parity for the out product's
+//     stragglers).  Summing on warp OWNER, which has no x pair of its own,
+//     ran 4-7% faster than on warp 0.
+//   - head1 is split: rank j holds its S/N = 16 columns and sends those
+//     hidden values of each row to every rank by st.async (one more
+//     mbarrier); head2 and the draw run in every rank, warp r for row r.
+//   - A row past B (a batch that R does not divide) reads row B - 1's cond
+//     and noise and writes nothing.
+//   Shared memory at L = 24 (taps 48 KB, head1's slice and head2 23 KB in
+//   bf16, 46 KB in fp32, the rest 11 KB) leaves the ring 128 KB in bf16,
+//   112 KB in fp32; a longer stack leaves less, and fewer than 2 stages is
+//   refused.  teacher_lj's and the tiny teacher's instantiations are the
+//   ring kernel above, unchanged: their samples are the same bits as
+//   before (tools/torch_ar_sampler_phases.py --before).  At batch 8 a step
+//   is 902.6 GFLOP / 5,376 in fp32 (2.5 us at 67 TFLOP/s); on the H100
+//   (700 W) it took 71.3 us in bf16 weights and 73.5 in fp32, against 88.6
+//   and 112.5 in the same call for one row an 8-block cluster reading its
+//   slices from L2; the phase split is in PERF.md section 5.
 //
 // With PWN_AR_SAMPLER_PHASES defined (tools/torch_ar_sampler_phases.py builds
-// it so), thread 0 of block 0 adds the clock cycles of each phase of each step
-// into ar_phase_cycles (PHASE_NAMES below), then counts the steps.  With
+// it so), one thread of block 0 (thread 0; in the wide kernel lane 0 of warp
+// OWNER) adds the clock cycles of each phase of each step into
+// ar_phase_cycles (PHASE_NAMES below), then counts the steps.  With
 // PWN_AR_SAMPLER_CHECK defined, every rank writes its samples to wav_ranks
 // (N, B, T), so that a tool can hold the ranks equal bit for bit.
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -167,7 +216,7 @@ struct Args {
 #ifdef PWN_AR_SAMPLER_PHASES
 constexpr int NPHASES = 9;
 constexpr const char* PHASE_NAMES =
-    "step start;waiting for a slice;tap and cond product;x update;"
+    "step start;waiting for weights;tap and cond product;x update;"
     "x product and gates;out product;DSMEM push;exchange wait;head and draw";
 // the cycles of each phase, then the count of steps
 __device__ unsigned long long ar_phase_cycles[NPHASES + 1];
@@ -230,9 +279,6 @@ __device__ __forceinline__ float warp_max(float v) {
 
 constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 
-constexpr int RING_MAX = 128 * 1024;  // the ring's share of shared memory
-constexpr int HEAD1_MAX = 64 * 1024;  // head1 whole in every rank up to this
-
 // The widths, the rank split, the thread maps and the shared memory.
 template <typename W, typename CT, int C, int G, int S, int M, int N>
 struct Dims {
@@ -240,27 +286,15 @@ struct Dims {
   static constexpr int WIN_E = GC * KIN, LAYER_E = WIN_E + GN * NO;
   static constexpr int LAYER_BYTES = LAYER_E * sizeof(W);
   static constexpr int STAGES = sizeof(W) == 2 ? 4 : 2;
-  // the layer slices stream through a ring of whole slices where STAGES of
-  // them fit RING_MAX; else (the wide teacher) the products read them from
-  // L2 where they lie
-  static constexpr bool RING = STAGES * LAYER_BYTES <= RING_MAX;
-  // head1 (S x S) whole in every rank, or split: rank j holds its columns
-  // [j SN, (j+1) SN) and the ranks exchange their SN hidden values
-  static constexpr bool SPLIT_HEAD = S * S * (int)sizeof(W) > HEAD1_MAX;
-  static constexpr int SN = SPLIT_HEAD ? S / N : S;
-  // out product: thread tid owns outputs tid + NTHREADS o, o < OPT
-  static constexpr int OPT = (NO + NTHREADS - 1) / NTHREADS;
   // gate: warp w owns z values [w ZW, (w+1) ZW), so 2 ZW columns; lanes
   // over k pairs: XP pairs a lane over x (k < C), RP over tap and cond
   static constexpr int ZW = GN / NWARPS, ZC = 2 * ZW;
   static constexpr int KP = KIN / 2, XP = C / 64, RP = (KP - C / 2 + 31) / 32;
   static constexpr int HP = NTHREADS / S;                  // k parts of head1's product
   static constexpr int CH = M * (int)sizeof(CT) / 16;      // 16-byte chunks of cond(t)
-  // threads [CB, CB + CH) carry cond(t+1) through a step
-  static constexpr int CB = C + CH <= NTHREADS ? C : NTHREADS - CH;
   // shared memory, in bytes: the ring, then floats, then the head's weights
-  static constexpr int RING_OFF = 0;
-  static constexpr int F0 = RING ? STAGES * LAYER_BYTES : 0;  // floats from here
+  static constexpr int RING = 0;
+  static constexpr int F0 = STAGES * LAYER_BYTES;          // floats from here
   static constexpr int XBUF = 0;    // the exchange: 2 parities x N ranks x C (= S)
   static constexpr int CS = XBUF + 2 * N * C;      // cond(t) (M)
   static constexpr int ZP = round4(GN);
@@ -268,36 +302,18 @@ struct Dims {
   static constexpr int HS = ZS + 2 * ZP;           // the head's hidden (S)
   static constexpr int HPART = HS + S;             // head1 partials, HP x S
   static constexpr int HPO = HPART + HP * S;       // head outputs (MAX_HD)
-  static constexpr int HX = HPO + MAX_HD;          // split head: every rank's hidden (S)
-  static constexpr int TAPS = HX + (SPLIT_HEAD ? S : 0);  // then the taps, L x C
-  // then head1 (S x SN) and head2 (S x HD) in the weights' type
+  static constexpr int TAPS = HPO + MAX_HD;        // then the taps, L x C
   static_assert(GH % N == 0 && C % N == 0 && GN % NWARPS == 0, "gate split");
-  static_assert(C % 64 == 0 && M % 2 == 0 && NO % 32 == 0 &&
-                    (NO <= NTHREADS || NO % NTHREADS == 0),
-                "thread maps");
+  static_assert(C % 64 == 0 && M % 2 == 0 && NO % 32 == 0 && NO <= NTHREADS, "thread maps");
   static_assert(S == C && NTHREADS % S == 0 && (S / HP) % 2 == 0, "head split");
-  static_assert(!SPLIT_HEAD || (SN == 32 && (S / (NTHREADS / SN)) % 2 == 0 &&
-                                SN * sizeof(W) % 16 == 0),
-                "split head: a warp's lanes over a rank's columns");
-  static_assert(M * sizeof(CT) % 16 == 0 && CH <= NTHREADS, "cond chunks");
+  static_assert(M * sizeof(CT) % 16 == 0 && C + CH <= NTHREADS, "cond chunks");
   static_assert(LAYER_BYTES % 16 == 0 && F0 % 16 == 0, "16-byte bulk copies");
 };
 
 template <typename W, typename CT, int C, int G, int S, int M, int N>
 size_t smem_bytes(int L, int HD) {
   using D = Dims<W, CT, C, G, S, M, N>;
-  return D::F0 + sizeof(float) * (size_t)(D::TAPS + L * C) + sizeof(W) * (size_t)S * (D::SN + HD);
-}
-
-// Layer l's slice (global layer counter c): its ring stage, or where the
-// slices do not stream through shared memory, the slice itself in L2.
-template <class D, typename W>
-__device__ __forceinline__ const W* layer_slice(const W* ring, const W* w_rank, long long c,
-                                                int l) {
-  if constexpr (D::RING)
-    return ring + (c % D::STAGES) * D::LAYER_E;
-  else
-    return w_rank + (size_t)l * D::LAYER_E;
+  return D::F0 + sizeof(float) * (size_t)(D::TAPS + L * C) + sizeof(W) * (size_t)S * (S + HD);
 }
 
 // The gate product of warp `warp`'s columns over the tap and cond rows of
@@ -358,7 +374,7 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
   float* queue = a.queue + (size_t)b * a.sum_d * C;
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const W* ring = reinterpret_cast<const W*>(smem + D::RING_OFF);
+  const W* ring = reinterpret_cast<const W*>(smem + D::RING);
   float* fsm = reinterpret_cast<float*>(smem + D::F0);
   float* xbuf = fsm + D::XBUF;
   float* cs = fsm + D::CS;
@@ -366,15 +382,13 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
   float* hs = fsm + D::HS;
   float* hpart = fsm + D::HPART;
   float* hp = fsm + D::HPO;
-  float* hx = fsm + D::HX;
   float* taps = fsm + D::TAPS;
-  W* head1 = reinterpret_cast<W*>(taps + L * C);  // S x SN: this rank's columns
-  W* head2 = head1 + S * D::SN;
+  W* head1 = reinterpret_cast<W*>(taps + L * C);
+  W* head2 = head1 + S * S;
   __shared__ int dd[MAX_L], oo[MAX_L], slot_now[MAX_L], slot_next[MAX_L];
   __shared__ float x_prev;
   __shared__ __align__(8) uint64_t full[STAGES];
   __shared__ __align__(8) uint64_t xbar[2];  // the exchange's arrivals, by parity
-  __shared__ __align__(8) uint64_t hbar;     // the split head's arrivals
 
 #ifdef PWN_AR_SAMPLER_PHASES
   const bool phase_on = blockIdx.x == 0 && tid == 0;
@@ -386,40 +400,30 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
   //    zero taps, cond(0), per-thread constants
   const long long n_layers = (long long)T * L;  // layers over all steps
   constexpr uint32_t XBYTES = N * C * sizeof(float);  // one layer's exchange
-  constexpr uint32_t HXBYTES = S * sizeof(float);     // one step's split head
   if (tid == REFILL) {
-    if constexpr (D::RING)
-      for (int s = 0; s < STAGES; ++s) mbar_init(smem_u32(&full[s]), 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(smem_u32(&full[s]), 1);
     for (int p = 0; p < 2; ++p) {
       mbar_init(smem_u32(&xbar[p]), 1);
       mbar_expect_tx(smem_u32(&xbar[p]), XBYTES);
     }
-    if constexpr (D::SPLIT_HEAD) {
-      mbar_init(smem_u32(&hbar), 1);
-      mbar_expect_tx(smem_u32(&hbar), HXBYTES);
-    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if constexpr (D::RING)
-      for (int s = 0; s < STAGES && s < n_layers; ++s) {
-        mbar_expect_tx(smem_u32(&full[s]), D::LAYER_BYTES);
-        bulk_load(smem_u32(ring + s * D::LAYER_E), w_rank + (size_t)(s % L) * D::LAYER_E,
-                  D::LAYER_BYTES, smem_u32(&full[s]));
-      }
+    for (int s = 0; s < STAGES && s < n_layers; ++s) {
+      mbar_expect_tx(smem_u32(&full[s]), D::LAYER_BYTES);
+      bulk_load(smem_u32(ring + s * D::LAYER_E), w_rank + (size_t)(s % L) * D::LAYER_E,
+                D::LAYER_BYTES, smem_u32(&full[s]));
+    }
   }
   for (int l = tid; l < L; l += NTHREADS) {
     dd[l] = dl.d[l];
     oo[l] = dl.off[l];
   }
   {
-    // head1's columns [rank SN, (rank+1) SN) of every row (all of it unless
-    // split): RC 16-byte chunks a row out of the row's S * sizeof(W) / 16
-    constexpr int RC = D::SN * (int)sizeof(W) / 16, RS = S * (int)sizeof(W) / 16;
-    const uint4* src1 = static_cast<const uint4*>(a.head1_k) + (D::SPLIT_HEAD ? rank * RC : 0);
+    const uint4* src1 = static_cast<const uint4*>(a.head1_k);
     const uint4* src2 = static_cast<const uint4*>(a.head2_k);
     uint4* dst1 = reinterpret_cast<uint4*>(head1);
     uint4* dst2 = reinterpret_cast<uint4*>(head2);
-    const int n1 = S * RC, n2 = S * HD * (int)sizeof(W) / 16;
-    for (int i = tid; i < n1; i += NTHREADS) dst1[i] = __ldg(src1 + (i / RC) * RS + i % RC);
+    const int n1 = S * S * (int)sizeof(W) / 16, n2 = S * HD * (int)sizeof(W) / 16;
+    for (int i = tid; i < n1; i += NTHREADS) dst1[i] = __ldg(src1 + i);
     for (int i = tid; i < n2; i += NTHREADS) dst2[i] = __ldg(src2 + i);
   }
   for (int i = tid; i < L * C; i += NTHREADS) taps[i] = 0.f;
@@ -444,24 +448,17 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
   cluster_arrive();
   cluster_wait();
 
-  constexpr int OPT = D::OPT;
+  const bool res_warp = warp < C / 32;                // outputs [0, C): residual
+  const bool skip_warp = !res_warp && warp < NO / 32; // outputs [C, C+S): skip
   // the exchange buffer and its barriers in ranks lane / 8 + 4i, where this
-  // lane's pushes go (and the split head's)
+  // lane's pushes go
   uint32_t xbuf_at[N / 4], xbar_at[N / 4];
-  uint32_t hx_at[D::SPLIT_HEAD ? N / 4 : 1], hbar_at[D::SPLIT_HEAD ? N / 4 : 1];
 #pragma unroll
   for (int i = 0; i < N / 4; ++i) {
     xbuf_at[i] = mapa(smem_u32(xbuf), (lane >> 3) + 4 * i);
     xbar_at[i] = mapa(smem_u32(&xbar[0]), (lane >> 3) + 4 * i);
-    if constexpr (D::SPLIT_HEAD) {
-      hx_at[i] = mapa(smem_u32(hx), (lane >> 3) + 4 * i);
-      hbar_at[i] = mapa(smem_u32(&hbar), (lane >> 3) + 4 * i);
-    }
   }
-  // this rank's skip partials of outputs tid + NTHREADS o (those in [C, C+S))
-  float skip_part[OPT];
-#pragma unroll
-  for (int o = 0; o < OPT; ++o) skip_part[o] = 0.f;
+  float skip_part = 0.f;  // this rank's skip partial of output tid (skip warps)
   float2 pend[XP];        // the next step's tap of the layer before (warp 0)
   bool pending = false;
   int par = 0;            // parity of the layers so far: the exchange's and z's buffer
@@ -480,14 +477,14 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
     for (int e = 0; e < 2 * XP; ++e) xv[e] = __fadd_rn(__fmul_rn(x_prev, fk[e]), fb[e]);
     float acc[ZC];
     PHASE(0);
-    if constexpr (D::RING) mbar_spin(smem_u32(&full[c % STAGES]), (uint32_t)((c / STAGES) & 1));
+    mbar_spin(smem_u32(&full[c % STAGES]), (uint32_t)((c / STAGES) & 1));
     PHASE(1);
-    gate_tap_cond<W, CT, C, G, S, M, N>(acc, layer_slice<D>(ring, w_rank, c, 0), taps, cs, warp,
+    gate_tap_cond<W, CT, C, G, S, M, N>(acc, ring + (c % STAGES) * D::LAYER_E, taps, cs, warp,
                                         lane);
     PHASE(2);
 
     for (int l = 0; l < L; ++l, ++c) {
-      const W* stage = layer_slice<D>(ring, w_rank, c, l);
+      const W* stage = ring + (c % STAGES) * D::LAYER_E;
       const bool last = l + 1 == L;
       float* z = zs + par * D::ZP;
       const int zi = warp * ZW + lane % ZW;  // lanes 0..ZW-1: z value zi
@@ -521,13 +518,12 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
       }
       __syncthreads();
       // every thread is past the layer before's products: refill its stage
-      if constexpr (D::RING)
-        if (tid == REFILL && c >= 1 && c - 1 + STAGES < n_layers) {
-          const uint32_t bar = smem_u32(&full[(c - 1) % STAGES]);
-          mbar_expect_tx(bar, D::LAYER_BYTES);
-          bulk_load(smem_u32(ring + ((c - 1) % STAGES) * D::LAYER_E),
-                    w_rank + (size_t)((c - 1 + STAGES) % L) * D::LAYER_E, D::LAYER_BYTES, bar);
-        }
+      if (tid == REFILL && c >= 1 && c - 1 + STAGES < n_layers) {
+        const uint32_t bar = smem_u32(&full[(c - 1) % STAGES]);
+        mbar_expect_tx(bar, D::LAYER_BYTES);
+        bulk_load(smem_u32(ring + ((c - 1) % STAGES) * D::LAYER_E),
+                  w_rank + (size_t)((c - 1 + STAGES) % L) * D::LAYER_E, D::LAYER_BYTES, bar);
+      }
       PHASE(4);
       // the queue's writes of the step before are visible from here on
       if (l == 0 && t > 0) cluster_wait();
@@ -544,40 +540,29 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
             reinterpret_cast<float2*>(taps + l * C)[p] = make_float2(xv[2 * m], xv[2 * m + 1]);
         }
       }
-      // out product: outputs tid + NTHREADS o, partials over this rank's z rows
-      float p[OPT];
-      {
+      // out product: output tid's partial over this rank's z rows
+      float p = 0.f;
+      if (tid < NO) {
         const W* wout = stage + D::WIN_E;
 #pragma unroll
-        for (int o = 0; o < OPT; ++o) {
-          const int n = tid + NTHREADS * o;
-          p[o] = 0.f;
-          if (n < NO)
-#pragma unroll
-            for (int i = 0; i < GN; ++i) p[o] = fmaf(z[i], to_f32(wout[i * NO + n]), p[o]);
-        }
+        for (int i = 0; i < GN; ++i) p = fmaf(z[i], to_f32(wout[i * NO + tid]), p);
       }
       PHASE(5);
       // the residual partials to every rank (the skip partials, summed over
       // the layers, at the last layer): 4 columns a lane, gathered by shuffles
+      if (skip_warp) skip_part += p;
+      if (last ? skip_warp : res_warp) {
+        const float val = last ? skip_part : p;
+        const int f = lane & 7;
+        const float4 v = make_float4(__shfl_sync(FULL, val, 4 * f), __shfl_sync(FULL, val, 4 * f + 1),
+                                     __shfl_sync(FULL, val, 4 * f + 2),
+                                     __shfl_sync(FULL, val, 4 * f + 3));
+        const int col = 32 * (last ? warp - C / 32 : warp) + 4 * f;
+        const uint32_t off = 4 * ((par * N + rank) * C + col);
 #pragma unroll
-      for (int o = 0; o < OPT; ++o) {
-        const int n0 = 32 * warp + NTHREADS * o;  // this warp's first output
-        const bool res_out = n0 < C, skip_out = !res_out && n0 < NO;
-        if (skip_out) skip_part[o] += p[o];
-        if (last ? skip_out : res_out) {
-          const float val = last ? skip_part[o] : p[o];
-          const int f = lane & 7;
-          const float4 v = make_float4(__shfl_sync(FULL, val, 4 * f), __shfl_sync(FULL, val, 4 * f + 1),
-                                       __shfl_sync(FULL, val, 4 * f + 2),
-                                       __shfl_sync(FULL, val, 4 * f + 3));
-          const int col = n0 - (last ? C : 0) + 4 * f;
-          const uint32_t off = 4 * ((par * N + rank) * C + col);
-#pragma unroll
-          for (int i = 0; i < N / 4; ++i) st_async(xbuf_at[i] + off, v, xbar_at[i] + 8 * par);
-        }
-        if (last && skip_out) skip_part[o] = 0.f;
+        for (int i = 0; i < N / 4; ++i) st_async(xbuf_at[i] + off, v, xbar_at[i] + 8 * par);
       }
+      if (last && skip_warp) skip_part = 0.f;
       if (warp == 0 && pending)
 #pragma unroll
         for (int m = 0; m < XP; ++m)
@@ -585,17 +570,16 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
                            lane + 32 * m);
       if (l == 0) {
         if (warp == 0 && lane < a.NZ) u = __ldg(a.noise + ((size_t)t * a.B + b) * a.NZ + lane);
-        if (tid >= D::CB && tid < D::CB + D::CH && t + 1 < T)
-          cond_next = __ldg(reinterpret_cast<const uint4*>(cond + (size_t)(t + 1) * M * sizeof(CT)) +
-                            (tid - D::CB));
+        if (tid >= C && tid < C + D::CH && t + 1 < T)
+          cond_next = __ldg(
+              reinterpret_cast<const uint4*>(cond + (size_t)(t + 1) * M * sizeof(CT)) + (tid - C));
       }
       PHASE(6);
       // while the other ranks catch up: the next layer's tap and cond rows
       if (!last) {
-        if constexpr (D::RING)
-          mbar_spin(smem_u32(&full[(c + 1) % STAGES]), (uint32_t)(((c + 1) / STAGES) & 1));
+        mbar_spin(smem_u32(&full[(c + 1) % STAGES]), (uint32_t)(((c + 1) / STAGES) & 1));
         PHASE(1);
-        gate_tap_cond<W, CT, C, G, S, M, N>(acc, layer_slice<D>(ring, w_rank, c + 1, l + 1),
+        gate_tap_cond<W, CT, C, G, S, M, N>(acc, ring + ((c + 1) % STAGES) * D::LAYER_E,
                                             taps + (l + 1) * C, cs, warp, lane);
         PHASE(2);
       }
@@ -641,57 +625,34 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
       PHASE(3);
     }
 
-    // -- head: relu (above), 1x1, relu, 1x1, in every rank; where head1 is
-    //    split, rank j forms hidden values [j SN, (j+1) SN) and sends them to
-    //    every rank, so every rank holds the same S values in hx
+    // -- head: relu (above), 1x1, relu, 1x1, in every rank
     {
-      constexpr int SN = D::SN, KP = NTHREADS / SN, KH = S / KP;
-      const int n = tid % SN, part = tid / SN;
+      constexpr int KH = S / D::HP;
+      const int n = tid % S, part = tid / S;
       float v0 = 0.f, v1 = 0.f;
 #pragma unroll 8
       for (int k = part * KH; k < (part + 1) * KH; k += 2) {
-        v0 = fmaf(hs[k], to_f32(head1[k * SN + n]), v0);
-        v1 = fmaf(hs[k + 1], to_f32(head1[(k + 1) * SN + n]), v1);
+        v0 = fmaf(hs[k], to_f32(head1[k * S + n]), v0);
+        v1 = fmaf(hs[k + 1], to_f32(head1[(k + 1) * S + n]), v1);
       }
-      hpart[part * SN + n] = v0 + v1;
+      hpart[part * S + n] = v0 + v1;
     }
     __syncthreads();
-    if constexpr (D::SPLIT_HEAD) {
-      constexpr int SN = D::SN, KP = NTHREADS / SN;
-      if (warp == 0) {  // lane: column rank SN + lane
-        float v = 0.f;
+    if (tid < S) {
+      float v = 0.f;
 #pragma unroll
-        for (int part = 0; part < KP; ++part) v += hpart[part * SN + lane];
-        const float h = fmaxf(a.head1_b[rank * SN + lane] + v, 0.f);
-        const int f = lane & 7;
-        const float4 hv = make_float4(__shfl_sync(FULL, h, 4 * f), __shfl_sync(FULL, h, 4 * f + 1),
-                                      __shfl_sync(FULL, h, 4 * f + 2),
-                                      __shfl_sync(FULL, h, 4 * f + 3));
-        const uint32_t off = 4 * (rank * SN + 4 * f);
-#pragma unroll
-        for (int i = 0; i < N / 4; ++i) st_async(hx_at[i] + off, hv, hbar_at[i]);
-      }
-      // every rank's hidden values have landed here: arm the next step's
-      mbar_spin_cluster(smem_u32(&hbar), (uint32_t)(t & 1));
-      if (tid == REFILL && t + 1 < T) mbar_expect_tx(smem_u32(&hbar), HXBYTES);
-    } else {
-      if (tid < S) {
-        float v = 0.f;
-#pragma unroll
-        for (int part = 0; part < D::HP; ++part) v += hpart[part * S + tid];
-        hs[tid] = fmaxf(a.head1_b[tid] + v, 0.f);
-      }
-      __syncthreads();
+      for (int part = 0; part < D::HP; ++part) v += hpart[part * S + tid];
+      hs[tid] = fmaxf(a.head1_b[tid] + v, 0.f);
     }
+    __syncthreads();
     {
-      const float* hid = D::SPLIT_HEAD ? hx : hs;  // head1's output
       constexpr int NJ = MAX_HD / NWARPS;  // columns warp, warp + NWARPS, ...
       float v[NJ];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) v[j] = 0.f;
 #pragma unroll
       for (int k = lane; k < S; k += 32) {
-        const float h = hid[k];
+        const float h = hs[k];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           const int n = warp + NWARPS * j;
@@ -742,11 +703,703 @@ ar_sampler_kernel(const Args a, const Dilations dl) {
       for (int m = 0; m < XP; ++m)
         reinterpret_cast<float2*>(taps + (L - 1) * C)[lane + 32 * m] = pend[m];
     pending = false;
-    if (tid >= D::CB && tid < D::CB + D::CH)
-      Vec<CT>::to_f32(cond_next, cs + (tid - D::CB) * Vec<CT>::N);
+    if (tid >= C && tid < C + D::CH)
+      Vec<CT>::to_f32(cond_next, cs + (tid - C) * Vec<CT>::N);
     // this step's queue reads and writes are done (release)
     cluster_arrive();
     __syncthreads();
+    PHASE(8);
+#ifdef PWN_AR_SAMPLER_PHASES
+    if (phase_on) ++phase_acc[NPHASES];
+#endif
+  }
+  cluster_wait();
+#ifdef PWN_AR_SAMPLER_PHASES
+  if (phase_on)
+    for (int k = 0; k <= NPHASES; ++k) atomicAdd(&ar_phase_cycles[k], phase_acc[k]);
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// The wide teacher's kernel: R batch rows a cluster, the layer slices
+// streamed through a ring of 8 KB chunks (the design in the comment at the
+// top of this file).
+
+constexpr int WT = NTHREADS;          // consumer threads
+constexpr int W_THREADS = WT + 32;    // and one producer warp
+constexpr int WIDE_CHUNK_E = 4096;    // weights a stage of the ring
+constexpr int WIDE_STAGES = 16;       // the most stages the ring takes
+constexpr int BAR_ALL = 1;            // named barrier of the consumer threads
+constexpr int OWNER = NWARPS - 1;     // the warp that sums this rank's columns
+
+template <typename W, typename CT, int C, int G, int S, int M, int N, int R>
+struct WideDims {
+  static constexpr int GH = G / 2, GN = GH / N, GC = 2 * GN, KIN = 2 * C + M, NO = C + S;
+  static constexpr int LAYER_E = GC * KIN + GN * NO;  // a rank's slice of a layer
+  static constexpr int VW = 16 / (int)sizeof(W);      // weights in 16 bytes
+  // gate: warp w owns z values [w ZW, (w+1) ZW); lane group a (LG lanes)
+  // z value w ZW + a, its tanh and sigmoid columns; lane o of the group
+  // k vector o of every chunk
+  static constexpr int ZW = GN / NWARPS, LG = 32 / ZW;
+  static constexpr int CHUNK_E = WIDE_CHUNK_E;
+  static constexpr int CHUNK_BYTES = CHUNK_E * (int)sizeof(W);  // 8 KB in bf16, 16 KB in fp32
+  static constexpr int KCH = CHUNK_E / GC;             // gate rows a chunk
+  static constexpr int VPL = KCH / (LG * VW);          // 16-byte vectors a lane a column
+  static constexpr int TCK = C + M;                    // tap and cond rows
+  static constexpr int NTC = (TCK + KCH - 1) / KCH, NX = C / KCH;
+  static constexpr int KLAST = TCK - (NTC - 1) * KCH;  // rows of the last tap/cond chunk
+  // out product: thread q owns outputs 2q, 2q + 1; a 16-byte vector holds
+  // RV rows of its two columns; a chunk ZR rows of W_out
+  static constexpr int NP = NO / 2, RV = VW / 2, ZR = CHUNK_E / NO, NOUT = GN / ZR;
+  static constexpr int NCH = NTC + NX + NOUT;          // chunks a layer
+  static constexpr int CP = C / 2;                     // x pairs: threads [0, CP)
+  // head1: rank j its columns [j SN, (j+1) SN); thread tid column tid % SN
+  // over rows part tid / SN (NPART parts of HK rows)
+  static constexpr int SN = S / N, NPART = WT / SN, HK = S / NPART;
+  // the split head's sends: FQ float4s a row, each to N ranks, over a warp
+  static constexpr int FQ = SN / 4, HSEND = N * FQ / 32;
+  static constexpr int CH = M * (int)sizeof(CT) / 16;  // 16-byte chunks of cond(t)
+  // the exchange: rank k owns columns [k CN, (k+1) CN) of x (and of the
+  // skip sum); NV2 float4s of them a layer, R rows
+  static constexpr int CN = C / N, NV2 = R * CN / 4;
+  static constexpr uint32_t XBYTES = R * C * 4;        // one layer's partials, and its x
+  static constexpr uint32_t HXBYTES = R * S * 4;       // one step's split head
+  // floats after the ring
+  static constexpr int MP = round4(M), ZP = round4(GN);
+  static constexpr int PART = 0;                       // the owned partials, N x R x CN
+  static constexpr int XS = PART + R * C;              // x, R x C
+  static constexpr int ZS = XS + R * C;                // z, 2 parities x R x GN
+  static constexpr int CS = ZS + 2 * R * ZP;           // cond(t), R x M
+  static constexpr int HS = CS + R * MP;               // relu(skip), R x S
+  static constexpr int HPART = HS + R * S;             // head1 partials, R x NPART x SN
+  static constexpr int HX = HPART + R * NPART * SN;    // every rank's hidden, R x S
+  static constexpr int HPO = HX + R * S;               // head outputs, R x MAX_HD
+  static constexpr int XPREV = HPO + R * MAX_HD;       // the samples fed back, R
+  static constexpr int TAPS = XPREV + round4(R);       // then the taps, L x R x C
+  // then head1's columns (S x SN) and head2 (S x HD) in the weights' type
+  static_assert(GH % N == 0 && GN % NWARPS == 0 && 32 % ZW == 0, "gate split");
+  static_assert(C % KCH == 0 && KLAST % VW == 0 && CHUNK_E % NO == 0 && GN % ZR == 0 &&
+                    ZR % RV == 0 && VW % 4 == 0,
+                "chunks");
+  static_assert(GC * KCH == CHUNK_E && VPL * LG * VW == KCH, "a gate chunk fills a stage");
+  static_assert(NP == WT && CP <= WT && S == C && C % (2 * N) == 0, "thread maps");
+  static_assert(R == 2, "rows: a lane pair swaps halves into one row's 4 columns");
+  static_assert(CN % 4 == 0 && NV2 <= 32 && 32 % NV2 == 0 && NV2 * N % 32 == 0,
+                "the exchange: an owner's float4s over warp 0");
+  static_assert(SN <= 32 && WT % SN == 0 && S % NPART == 0 && SN * sizeof(W) % 16 == 0 &&
+                    N * FQ % 32 == 0,
+                "split head: a warp's lanes over a rank's columns");
+  static_assert(M * sizeof(CT) % 16 == 0 && CP + R * CH <= WT, "cond chunks");
+  static_assert((LAYER_E * sizeof(W)) % 16 == 0 && (GC * TCK * sizeof(W)) % 16 == 0,
+                "16-byte bulk copies");
+};
+
+// Dynamic shared memory past the ring, in bytes.
+template <typename W, typename CT, int C, int G, int S, int M, int N, int R>
+size_t wide_rest_bytes(int L, int HD) {
+  using D = WideDims<W, CT, C, G, S, M, N, R>;
+  return sizeof(float) * (size_t)(D::TAPS + L * R * C) + sizeof(W) * (size_t)S * (D::SN + HD);
+}
+
+// Chunk j of a layer's run: its offset in elements and its bytes.
+template <class D>
+__device__ __forceinline__ void chunk_at(int j, int& off, int& bytes) {
+  constexpr int W_SIZE = D::CHUNK_BYTES / D::CHUNK_E;
+  if (j < D::NTC) {
+    off = j * D::CHUNK_E;
+    bytes = D::GC * (j + 1 < D::NTC ? D::KCH : D::KLAST) * W_SIZE;
+  } else {
+    off = D::GC * D::TCK + (j - D::NTC) * D::CHUNK_E;  // x rows, then W_out
+    bytes = D::CHUNK_BYTES;
+  }
+}
+
+template <typename W, typename CT, int C, int G, int S, int M, int N, int R>
+__global__ void __launch_bounds__(W_THREADS, 1)
+ar_wide_kernel(const Args a, const Dilations dl, const int stages) {
+  using D = WideDims<W, CT, C, G, S, M, N, R>;
+  constexpr int VW = D::VW, LG = D::LG, ZW = D::ZW, CP = D::CP, RV = D::RV;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int b0 = (int)(blockIdx.x / N) * R;  // the cluster's first row
+  const int L = a.L, T = a.T, HD = a.HD, K = a.K;
+  const W* w_rank = static_cast<const W*>(a.w_rank) + (size_t)rank * L * D::LAYER_E;
+  const float* b_rank = a.b_rank + (size_t)rank * L * D::GC;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const W* ring = reinterpret_cast<const W*>(smem);
+  float* fsm = reinterpret_cast<float*>(smem + (size_t)stages * D::CHUNK_BYTES);
+  float* part = fsm + D::PART;
+  float* xs = fsm + D::XS;
+  float* zs = fsm + D::ZS;
+  float* cs = fsm + D::CS;
+  float* hs = fsm + D::HS;
+  float* hpart = fsm + D::HPART;
+  float* hx = fsm + D::HX;
+  float* hp = fsm + D::HPO;
+  float* xprev = fsm + D::XPREV;
+  float* taps = fsm + D::TAPS;
+  W* head1 = reinterpret_cast<W*>(taps + L * R * C);  // S x SN: this rank's columns
+  W* head2 = head1 + S * D::SN;
+  __shared__ int dd[MAX_L], oo[MAX_L], slot_now[MAX_L], slot_next[MAX_L];
+  __shared__ __align__(8) uint64_t full[WIDE_STAGES], empty[WIDE_STAGES];
+  __shared__ __align__(8) uint64_t pbar;     // the owned partials' arrivals
+  __shared__ __align__(8) uint64_t xbar;     // the owners' x (or skip sums)
+  __shared__ __align__(8) uint64_t hbar;     // the split head's arrivals
+
+#ifdef PWN_AR_SAMPLER_PHASES
+  const bool phase_on = blockIdx.x == 0 && tid == 32 * OWNER;
+  unsigned long long phase_acc[NPHASES + 1] = {};
+  long long phase_t = clock64();
+#endif
+
+  // -- once: the barriers, the dilations, the head's weights, zero taps,
+  //    cond(0), x_prev
+  const long long n_layers = (long long)T * L;  // layers over all steps
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), NWARPS);
+    }
+    for (uint64_t* bar : {&pbar, &xbar}) {
+      mbar_init(smem_u32(bar), 1);
+      mbar_expect_tx(smem_u32(bar), D::XBYTES);
+    }
+    mbar_init(smem_u32(&hbar), 1);
+    mbar_expect_tx(smem_u32(&hbar), D::HXBYTES);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int l = tid; l < L; l += W_THREADS) {
+    dd[l] = dl.d[l];
+    oo[l] = dl.off[l];
+  }
+  {
+    // head1's columns [rank SN, (rank+1) SN) of every row: RC 16-byte chunks
+    // a row out of the row's RS
+    constexpr int RC = D::SN * (int)sizeof(W) / 16, RS = S * (int)sizeof(W) / 16;
+    const uint4* src1 = static_cast<const uint4*>(a.head1_k) + rank * RC;
+    const uint4* src2 = static_cast<const uint4*>(a.head2_k);
+    uint4* dst1 = reinterpret_cast<uint4*>(head1);
+    uint4* dst2 = reinterpret_cast<uint4*>(head2);
+    const int n1 = S * RC, n2 = S * HD * (int)sizeof(W) / 16;
+    for (int i = tid; i < n1; i += W_THREADS) dst1[i] = __ldg(src1 + (i / RC) * RS + i % RC);
+    for (int i = tid; i < n2; i += W_THREADS) dst2[i] = __ldg(src2 + i);
+  }
+  // row r of the cluster: batch row b0 + r; a row past B (the last cluster
+  // of a batch that R does not divide) reads row B - 1's cond and noise and
+  // writes nothing
+  const char* cond_row[R];
+  float* queue_row[R];
+  bool valid[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    valid[r] = b0 + r < a.B;
+    const int br = valid[r] ? b0 + r : a.B - 1;
+    cond_row[r] = static_cast<const char*>(a.cond) + (size_t)br * T * M * sizeof(CT);
+    queue_row[r] = a.queue + (size_t)br * a.sum_d * C;
+  }
+  for (int i = tid; i < L * R * C; i += W_THREADS) taps[i] = 0.f;
+  for (int i = tid; i < R * M; i += W_THREADS)
+    cs[(i / M) * D::MP + i % M] = to_f32(reinterpret_cast<const CT*>(cond_row[i / M])[i % M]);
+  if (tid < R) xprev[tid] = 0.f;
+  __syncthreads();
+  // every block of the cluster has started before any writes into another's
+  // shared memory
+  cluster_arrive();
+  cluster_wait();
+
+  if (warp == NWARPS) {
+    // -- the producer warp: lane 0 streams every layer's chunks through the
+    //    ring, each into a stage its 8 consumer warps have released; every
+    //    lane takes its part in the step's cluster barrier (after issuing
+    //    the step's chunks, so the stream runs across the step's end)
+    int s = 0;
+    uint32_t ph = 0;
+    bool first = true;
+    for (int t = 0; t < T; ++t) {
+      if (lane == 0)
+        for (int l = 0; l < L; ++l) {
+          const W* src = w_rank + (size_t)l * D::LAYER_E;
+          for (int j = 0; j < D::NCH; ++j) {
+            if (!first) mbar_wait(smem_u32(&empty[s]), ph);
+            int off, bytes;
+            chunk_at<D>(j, off, bytes);
+            mbar_expect_tx(smem_u32(&full[s]), bytes);
+            bulk_load(smem_u32(ring + s * D::CHUNK_E), src + off, bytes, smem_u32(&full[s]));
+            if (++s == stages) {
+              s = 0;
+              if (!first) ph ^= 1;
+              first = false;
+            }
+          }
+        }
+      __syncwarp();
+      if (t > 0) cluster_wait();
+      cluster_arrive();
+    }
+    cluster_wait();
+    return;
+  }
+
+  // -- the consumers
+  // gate: lane group a, z value zi, its columns ct (tanh) and ct + ZW
+  // (sigmoid) in the packed order, k vector o of each chunk
+  const int ga = lane / LG, o = lane % LG;
+  const int zi = warp * ZW + ga, ct = warp * 2 * ZW + ga;
+  const bool xo = tid < CP;  // owns x pair tid: rows 2 tid, 2 tid + 1
+  const int qs = tid - CP;   // tid >= CP: skip pair qs
+  float fk[2] = {0.f, 0.f}, fb[2] = {0.f, 0.f};
+  if (xo)
+    for (int e = 0; e < 2; ++e) {
+      fk[e] = to_f32(static_cast<const W*>(a.front_k)[2 * tid + e]);
+      fb[e] = a.front_b[2 * tid + e];
+    }
+  // warp OWNER, lane v < NV2: this rank's float4 v of the owned columns,
+  // row orow, columns ocol .. ocol + 3; the skip biases summed over the
+  // layers
+  const int orow = (lane % D::NV2) / (D::CN / 4);
+  const int ocol = rank * D::CN + 4 * ((lane % D::NV2) % (D::CN / 4));
+  float bsum[4] = {0.f, 0.f, 0.f, 0.f};
+  if (warp == OWNER && lane < D::NV2)
+    for (int e = 0; e < 4; ++e)
+      for (int l = 0; l < L; ++l) bsum[e] += a.b_rs[l * D::NO + C + ocol + e];
+  // the split head's destinations (warps r < R: lane's ranks lane / FQ +
+  // 32 / FQ i)
+  uint32_t hx_at[D::HSEND], hbar_at[D::HSEND];
+#pragma unroll
+  for (int i = 0; i < D::HSEND; ++i) {
+    hx_at[i] = mapa(smem_u32(hx), lane / D::FQ + 32 / D::FQ * i);
+    hbar_at[i] = mapa(smem_u32(&hbar), lane / D::FQ + 32 / D::FQ * i);
+  }
+  float skip_part[2][R];  // tid >= CP: this rank's skip partials of pair qs
+#pragma unroll
+  for (int r = 0; r < R; ++r) skip_part[0][r] = skip_part[1][r] = 0.f;
+  int rs = 0;             // the ring: the stage of the next chunk,
+  uint32_t rph = 0;       // and the parity of its full barrier's phase
+  long long c = 0;        // layers so far, over all steps: the exchange's phases
+
+  // The ring: wait for the next chunk (PHASE(ph) before, PHASE(1) after),
+  // returning its stage; release a stage once this warp has read it.
+  auto wait_chunk = [&](int ph) {
+    PHASE(ph);
+    mbar_spin(smem_u32(&full[rs]), rph);
+    PHASE(1);
+    const int s = rs;
+    if (++rs == stages) {
+      rs = 0;
+      rph ^= 1;
+    }
+    return s;
+  };
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
+  };
+  // The gate product over a layer's NC chunks of tap and cond rows (tapl:
+  // the layer's taps; then cond) or of x rows (tapl null: xs), added into
+  // acc[col][row][half].  Software-pipelined: chunk j + 1's weights and
+  // inputs are loaded while chunk j's FMAs run.  Lane o's vectors of a
+  // column are gv = o + LG v (v < VPL); weight e = 4h + i of vector gv is
+  // row 4 (h kc / VW + gv) + i of the chunk (the packing's order), so the
+  // lanes' 16-byte input reads cover consecutive addresses.
+  float acc[2][R][2];
+  struct GateOps {
+    uint4 wt[D::VPL], ws[D::VPL];
+    float4 in[R][D::VPL][VW / 4];
+    int kc;
+  };
+  auto gate_fetch = [&](GateOps& g, int s, int j, const float* tapl) {
+    const int kc = tapl && j + 1 == D::NTC ? D::KLAST : D::KCH;
+    const float* in = !tapl ? xs + j * D::KCH : j * D::KCH < C ? tapl + j * D::KCH
+                                                               : cs + (j * D::KCH - C);
+    const int stride = tapl && j * D::KCH >= C ? D::MP : C;
+    const W* ck = ring + s * D::CHUNK_E;
+    g.kc = kc;
+#pragma unroll
+    for (int v = 0; v < D::VPL; ++v) {
+      const int gv = o + LG * v;
+      if (gv * VW < kc) {
+        g.wt[v] = *reinterpret_cast<const uint4*>(ck + ct * kc + gv * VW);
+        g.ws[v] = *reinterpret_cast<const uint4*>(ck + (ct + ZW) * kc + gv * VW);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int h = 0; h < VW / 4; ++h)
+            g.in[r][v][h] =
+                *reinterpret_cast<const float4*>(in + r * stride + 4 * (h * (kc / VW) + gv));
+      }
+    }
+  };
+  auto gate_fma = [&](const GateOps& g) {
+#pragma unroll
+    for (int v = 0; v < D::VPL; ++v)
+      if ((o + LG * v) * VW < g.kc) {
+        float wt[VW], wsg[VW];
+        Vec<W>::to_f32(g.wt[v], wt);
+        Vec<W>::to_f32(g.ws[v], wsg);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            const float4 f = g.in[r][v][e / 4];
+            const float x = e % 4 == 0 ? f.x : e % 4 == 1 ? f.y : e % 4 == 2 ? f.z : f.w;
+            acc[0][r][e & 1] = fmaf(x, wt[e], acc[0][r][e & 1]);
+            acc[1][r][e & 1] = fmaf(x, wsg[e], acc[1][r][e & 1]);
+          }
+      }
+  };
+  auto gate_chunks = [&](auto nc, const float* tapl, int ph) {
+    constexpr int NC = decltype(nc)::value;
+    GateOps g[2];
+    int s = wait_chunk(ph);
+    gate_fetch(g[0], s, 0, tapl);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      int s_next = 0;
+      if (j + 1 < NC) {
+        s_next = wait_chunk(ph);
+        gate_fetch(g[(j + 1) & 1], s_next, j + 1, tapl);
+      }
+      gate_fma(g[j & 1]);
+      release(s);
+      s = s_next;
+    }
+  };
+  auto zero_acc = [&]() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[i][r][0] = acc[i][r][1] = 0.f;
+  };
+
+  for (int t = 0; t < T; ++t) {
+    // -- step start: the queue slots, the front 1x1, layer 0's gate product
+    //    over its tap and cond rows
+    float u = 0.f;
+    uint4 cond_next = make_uint4(0u, 0u, 0u, 0u);
+    for (int l = tid; l < L; l += WT) {
+      slot_now[l] = oo[l] + t % dd[l];
+      slot_next[l] = oo[l] + (t + 1) % dd[l];
+    }
+    if (xo)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        *reinterpret_cast<float2*>(xs + r * C + 2 * tid) =
+            make_float2(__fadd_rn(__fmul_rn(xprev[r], fk[0]), fb[0]),
+                        __fadd_rn(__fmul_rn(xprev[r], fk[1]), fb[1]));
+    PHASE(0);
+    zero_acc();
+    gate_chunks(std::integral_constant<int, D::NTC>{}, taps, 2);
+    PHASE(2);
+    named_sync(BAR_ALL, WT);
+
+    for (int l = 0; l < L; ++l, ++c) {
+      const bool last = l + 1 == L;
+      // gate product over the x rows; the gated unit in lanes o < R of
+      // each group (row o)
+      gate_chunks(std::integral_constant<int, D::NX>{}, nullptr, 4);
+      float g[2][R];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float v = acc[i][r][0] + acc[i][r][1];
+#pragma unroll
+          for (int m = LG / 2; m > 0; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
+          g[i][r] = v;
+        }
+      {
+        const float bga = __ldg(b_rank + l * D::GC + zi);
+        const float bgb = __ldg(b_rank + l * D::GC + D::GN + zi);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (o == r) {
+            const float ga_ = bga + g[0][r], gb_ = bgb + g[1][r];
+            zs[((c & 1) * R + r) * D::ZP + zi] = tanhf(ga_) * (1.f / (1.f + expf(-gb_)));
+          }
+      }
+      PHASE(4);
+      named_sync(BAR_ALL, WT);
+      // the queue's writes of the step before are visible from here on
+      if (l == 0 && t > 0) cluster_wait();
+      // x pair owners: layer l's tap of step t+1 (its queue slot, landing by
+      // the exchange's end, or x itself where d = 1); x_0 into its slot
+      float2 pend[R];
+      if (xo) {
+        const bool mine = 2 * tid / (C / N) == rank;  // this rank's queue columns
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float2* tap = reinterpret_cast<float2*>(taps + (l * R + r) * C) + tid;
+          const float2 x = reinterpret_cast<const float2*>(xs + r * C)[tid];
+          if (dd[l] > 1) {
+            if (valid[r])
+              pend[r] = __ldcg(reinterpret_cast<const float2*>(queue_row[r] + (size_t)slot_next[l] * C) + tid);
+            if (l == 0 && mine && valid[r])
+              __stcg(reinterpret_cast<float2*>(queue_row[r] + (size_t)slot_now[0] * C) + tid, x);
+          } else {
+            *tap = x;
+          }
+        }
+      }
+      // out product: outputs 2 tid, 2 tid + 1 over this rank's z rows, ZR
+      // rows a chunk, pipelined as the gate product
+      float p[2][R][2];
+#pragma unroll
+      for (int r = 0; r < R; ++r) p[0][r][0] = p[1][r][0] = p[0][r][1] = p[1][r][1] = 0.f;
+      {
+        constexpr int NV = D::ZR / RV;  // vectors a chunk
+        uint4 w[2][NV];
+        int s = wait_chunk(5);
+#pragma unroll
+        for (int gq = 0; gq < NV; ++gq)
+          w[0][gq] = *reinterpret_cast<const uint4*>(ring + s * D::CHUNK_E + (gq * D::NP + tid) * VW);
+#pragma unroll
+        for (int j = 0; j < D::NOUT; ++j) {
+          int s_next = 0;
+          if (j + 1 < D::NOUT) {
+            s_next = wait_chunk(5);
+#pragma unroll
+            for (int gq = 0; gq < NV; ++gq)
+              w[(j + 1) & 1][gq] = *reinterpret_cast<const uint4*>(ring + s_next * D::CHUNK_E +
+                                                                   (gq * D::NP + tid) * VW);
+          }
+#pragma unroll
+          for (int gq = 0; gq < NV; ++gq) {
+            float wf[VW];
+            Vec<W>::to_f32(w[j & 1][gq], wf);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              float z[RV];
+              const float* zp = zs + ((c & 1) * R + r) * D::ZP + j * D::ZR + gq * RV;
+              if constexpr (RV == 4) {
+                const float4 f = *reinterpret_cast<const float4*>(zp);
+                z[0] = f.x; z[1] = f.y; z[2] = f.z; z[3] = f.w;
+              } else {
+                const float2 f = *reinterpret_cast<const float2*>(zp);
+                z[0] = f.x; z[1] = f.y;
+              }
+#pragma unroll
+              for (int i = 0; i < RV; ++i) {
+                p[0][r][gq & 1] = fmaf(z[i], wf[2 * i], p[0][r][gq & 1]);
+                p[1][r][gq & 1] = fmaf(z[i], wf[2 * i + 1], p[1][r][gq & 1]);
+              }
+            }
+          }
+          release(s);
+          s = s_next;
+        }
+      }
+      PHASE(5);
+      // the exchange, reduce-scatter then broadcast: each residual partial
+      // (at the last layer the skip partials, summed over the layers) goes to
+      // the rank that owns its columns; lanes 2m and 2m + 1 swap halves, so
+      // that lane 2m + r holds row r of columns 4m .. 4m + 3, one st.async
+      // a lane into the owner's part [source rank][row][CN]
+      float ps[2][R];  // the halves summed
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        ps[0][r] = p[0][r][0] + p[0][r][1];
+        ps[1][r] = p[1][r][0] + p[1][r][1];
+      }
+      if (!xo)
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          skip_part[0][r] += ps[0][r];
+          skip_part[1][r] += ps[1][r];
+        }
+      if (last ? !xo : xo) {  // warp-uniform
+        const int q = last ? qs : tid;  // pair q: columns 2q, 2q + 1
+        float v[2][R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          v[0][r] = last ? skip_part[0][r] : ps[0][r];
+          v[1][r] = last ? skip_part[1][r] : ps[1][r];
+        }
+        const int odd = lane & 1;
+        const float g0 = __shfl_xor_sync(FULL, odd ? v[0][0] : v[0][1], 1);
+        const float g1 = __shfl_xor_sync(FULL, odd ? v[1][0] : v[1][1], 1);
+        const float4 f = odd ? make_float4(g0, g1, v[0][1], v[1][1])
+                             : make_float4(v[0][0], v[1][0], g0, g1);
+        const int col = 4 * (q >> 1), owner = col / D::CN;
+        st_async(mapa(smem_u32(part + (rank * R + odd) * D::CN + col % D::CN), owner), f,
+                 mapa(smem_u32(&pbar), owner));
+      }
+      if (last && !xo)
+#pragma unroll
+        for (int r = 0; r < R; ++r) skip_part[0][r] = skip_part[1][r] = 0.f;
+      if (l == 0) {
+        if (warp < R && lane < a.NZ)
+          u = __ldg(a.noise + ((size_t)t * a.B + (valid[warp] ? b0 + warp : a.B - 1)) * a.NZ + lane);
+        if (tid >= CP && tid < CP + R * D::CH && t + 1 < T) {
+          const int r = (tid - CP) / D::CH;
+          cond_next = __ldg(reinterpret_cast<const uint4*>(cond_row[r] + (size_t)(t + 1) * M * sizeof(CT)) +
+                            (tid - CP) % D::CH);
+        }
+      }
+      PHASE(6);
+      if (warp == OWNER) {
+        // this rank's columns: every rank's partials, summed in rank order;
+        // x (at the last layer relu of the skip sum) to every rank
+        float4 brs = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!last && lane < D::NV2) brs = __ldg(reinterpret_cast<const float4*>(a.b_rs + l * D::NO + ocol));
+        mbar_spin_cluster(smem_u32(&pbar), (uint32_t)(c & 1));
+        if (lane == 0 && c + 1 < n_layers) mbar_expect_tx(smem_u32(&pbar), D::XBYTES);
+        PHASE(7);
+        float4 res = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (lane < D::NV2) {
+          float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int j = 0; j < N; ++j) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(part + (j * R + orow) * D::CN + ocol % D::CN);
+            sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
+          }
+          if (!last) {
+            const float4 x = *reinterpret_cast<const float4*>(xs + orow * C + ocol);
+            res = make_float4(x.x + (brs.x + sum.x), x.y + (brs.y + sum.y), x.z + (brs.z + sum.z),
+                              x.w + (brs.w + sum.w));
+            if (dd[l + 1] > 1 && valid[orow])
+              __stcg(reinterpret_cast<float4*>(queue_row[orow] + (size_t)slot_now[l + 1] * C + ocol), res);
+          } else {
+            res = make_float4(fmaxf(bsum[0] + sum.x, 0.f), fmaxf(bsum[1] + sum.y, 0.f),
+                              fmaxf(bsum[2] + sum.z, 0.f), fmaxf(bsum[3] + sum.w, 0.f));
+          }
+        }
+        // lane l sends float4 l % NV2 to ranks l / NV2 + (32 / NV2) i
+        const int src = lane % D::NV2;
+        const float4 f = make_float4(__shfl_sync(FULL, res.x, src), __shfl_sync(FULL, res.y, src),
+                                     __shfl_sync(FULL, res.z, src), __shfl_sync(FULL, res.w, src));
+        float* dst = (last ? hs : xs) + orow * C + ocol;
+#pragma unroll
+        for (int i = 0; i < D::NV2 * N / 32; ++i) {
+          const int rk = lane / D::NV2 + 32 / D::NV2 * i;
+          st_async(mapa(smem_u32(dst), rk), f, mapa(smem_u32(&xbar), rk));
+        }
+        PHASE(3);
+      }
+      // while the owners' sums land: the next layer's tap and cond rows
+      if (!last) {
+        zero_acc();
+        gate_chunks(std::integral_constant<int, D::NTC>{}, taps + (l + 1) * R * C, 2);
+        PHASE(2);
+      }
+      if (xo && dd[l] > 1)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          reinterpret_cast<float2*>(taps + (l * R + r) * C)[tid] = valid[r] ? pend[r]
+                                                                           : make_float2(0.f, 0.f);
+      // x_{l+1} (or relu(skip)) is whole here
+      mbar_spin_cluster(smem_u32(&xbar), (uint32_t)(c & 1));
+      if (tid == 0 && c + 1 < n_layers) mbar_expect_tx(smem_u32(&xbar), D::XBYTES);
+      PHASE(7);
+    }
+
+    // -- head: relu (above), 1x1, relu, 1x1, in every rank: rank j forms the
+    //    hidden values [j SN, (j+1) SN) of each row and sends them to every
+    //    rank, so every rank holds the same S values a row in hx
+    {
+      const int n = tid % D::SN, kp = tid / D::SN;
+      float v[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[r] = 0.f;
+#pragma unroll 8
+      for (int k = kp * D::HK; k < (kp + 1) * D::HK; ++k) {
+        const float w = to_f32(head1[k * D::SN + n]);
+#pragma unroll
+        for (int r = 0; r < R; ++r) v[r] = fmaf(hs[r * S + k], w, v[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) hpart[(r * D::NPART + kp) * D::SN + n] = v[r];
+    }
+    named_sync(BAR_ALL, WT);
+    if (warp < R) {  // row warp; lane < SN: column rank SN + lane
+      const int r = warp;
+      float h = 0.f;
+      if (lane < D::SN) {
+        float v = 0.f;
+#pragma unroll
+        for (int k = 0; k < D::NPART; ++k) v += hpart[(r * D::NPART + k) * D::SN + lane];
+        h = fmaxf(a.head1_b[rank * D::SN + lane] + v, 0.f);
+      }
+      const int f = lane % D::FQ;
+      const float4 hv = make_float4(__shfl_sync(FULL, h, 4 * f), __shfl_sync(FULL, h, 4 * f + 1),
+                                    __shfl_sync(FULL, h, 4 * f + 2),
+                                    __shfl_sync(FULL, h, 4 * f + 3));
+      const uint32_t off = 4 * (r * S + rank * D::SN + 4 * f);
+#pragma unroll
+      for (int i = 0; i < D::HSEND; ++i) st_async(hx_at[i] + off, hv, hbar_at[i]);
+    }
+    // every rank's hidden values have landed here: arm the next step's
+    mbar_spin_cluster(smem_u32(&hbar), (uint32_t)(t & 1));
+    if (tid == 0 && t + 1 < T) mbar_expect_tx(smem_u32(&hbar), D::HXBYTES);
+    {
+      constexpr int NJ = MAX_HD / NWARPS;  // columns warp, warp + NWARPS, ...
+      float v[NJ][R];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int r = 0; r < R; ++r) v[j][r] = 0.f;
+#pragma unroll
+      for (int k = lane; k < S; k += 32) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int n = warp + NWARPS * j;
+          if (n < HD) {
+            const float w = to_f32(head2[k * HD + n]);
+#pragma unroll
+            for (int r = 0; r < R; ++r) v[j][r] = fmaf(hx[r * S + k], w, v[j][r]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int n = warp + NWARPS * j;
+        if (n < HD)  // warp-uniform
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float s = warp_sum(v[j][r]);
+            if (lane == 0) hp[r * MAX_HD + n] = a.head2_b[n] + s;
+          }
+      }
+    }
+    named_sync(BAR_ALL, WT);
+
+    // -- the sample of row r (warp r of every rank); cond(t+1) lands
+    if (warp < R) {
+      const int r = warp;
+      const float* hq = hp + r * MAX_HD;
+      float xt;
+      if (a.gaussian) {
+        const float eps = __shfl_sync(FULL, u, 0);
+        const float ls = fmaxf(hq[1], a.log_scale_min);
+        xt = hq[0] + expf(ls) * a.temperature * eps;
+      } else {
+        const float score = lane < K ? hq[lane] - logf(-logf(u)) : -INFINITY;
+        const float best = warp_max(score);
+        const bool pick = lane < K && score >= best;
+        const int count = __popc(__ballot_sync(FULL, pick));
+        const float wgt = pick ? 1.f / (float)count : 0.f;
+        const float mean = warp_sum(lane < K ? hq[K + lane] * wgt : 0.f);
+        const float ls = warp_sum(lane < K ? fmaxf(hq[2 * K + lane], a.log_scale_min) * wgt : 0.f);
+        const float ul = __shfl_sync(FULL, u, K);
+        xt = mean + expf(ls) * a.temperature * (logf(ul) - log1pf(-ul));
+      }
+      xt = fminf(fmaxf(xt, -1.f), 1.f);
+      if (lane == 0) {
+        xprev[r] = xt;
+        if (rank == 0 && valid[r]) a.wav[(size_t)(b0 + r) * T + t] = xt;
+#ifdef PWN_AR_SAMPLER_CHECK
+        if (valid[r]) a.wav_ranks[((size_t)rank * a.B + b0 + r) * T + t] = xt;
+#endif
+      }
+    }
+    if (tid >= CP && tid < CP + R * D::CH) {
+      const int r = (tid - CP) / D::CH, i = (tid - CP) % D::CH;
+      Vec<CT>::to_f32(cond_next, cs + r * D::MP + i * Vec<CT>::N);
+    }
+    // this step's queue reads and writes are done (release)
+    cluster_arrive();
+    named_sync(BAR_ALL, WT);
     PHASE(8);
 #ifdef PWN_AR_SAMPLER_PHASES
     if (phase_on) ++phase_acc[NPHASES];
@@ -781,10 +1434,16 @@ cudaError_t launch_config(const Args& a, cudaLaunchConfig_t* cfg, cudaLaunchAttr
   return cudaSuccess;
 }
 
-// Launches the kernel, or only reports in *clusters how many of its clusters
-// the card holds at once (when clusters is not null).
+// What a launch looks like: rows a cluster, blocks a cluster, ring stages
+// and dynamic shared memory, and how many of its clusters the card holds
+// at once.
+struct Geometry {
+  int rows, ranks, stages, smem, clusters;
+};
+
+// Launches the kernel, or only fills *geo (when geo is not null).
 template <typename W, typename CT, int C, int G, int S, int M, int N>
-int launch(const Args& a, const Dilations& dl, cudaStream_t stream, int* clusters) {
+int launch(const Args& a, const Dilations& dl, cudaStream_t stream, Geometry* geo) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = launch_config<W, CT, C, G, S, M, N>(a, &cfg, &attr, stream);
@@ -792,8 +1451,8 @@ int launch(const Args& a, const Dilations& dl, cudaStream_t stream, int* cluster
   int fit = 0;
   err = cudaOccupancyMaxActiveClusters(&fit, ar_sampler_kernel<W, CT, C, G, S, M, N>, &cfg);
   if (err != cudaSuccess) return err;
-  if (clusters) {
-    *clusters = fit;
+  if (geo) {
+    *geo = {1, N, Dims<W, CT, C, G, S, M, N>::STAGES, (int)cfg.dynamicSmemBytes, fit};
     return cudaSuccess;
   }
   if (fit < 1) return cudaErrorLaunchOutOfResources;
@@ -802,26 +1461,86 @@ int launch(const Args& a, const Dilations& dl, cudaStream_t stream, int* cluster
   return cudaGetLastError();
 }
 
-template <int C, int G, int S, int M, int N>
-int launch_dims(const Args& a, const Dilations& dl, int weights_bf16, int cond_bf16,
-                cudaStream_t st, int* clusters) {
-  if (weights_bf16)
-    return cond_bf16 ? launch<bf16, bf16, C, G, S, M, N>(a, dl, st, clusters)
-                     : launch<bf16, float, C, G, S, M, N>(a, dl, st, clusters);
-  return cond_bf16 ? launch<float, bf16, C, G, S, M, N>(a, dl, st, clusters)
-                   : launch<float, float, C, G, S, M, N>(a, dl, st, clusters);
+// The wide kernel: as many ring stages as the shared memory left by the
+// rest (its taps grow with L) holds, up to WIDE_STAGES; fewer than 2 is an
+// error.
+template <typename W, typename CT, int C, int G, int S, int M, int N, int R>
+int launch_wide(const Args& a, const Dilations& dl, cudaStream_t stream, Geometry* geo) {
+  auto kernel = ar_wide_kernel<W, CT, C, G, S, M, N, R>;
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  const long long rest = (long long)wide_rest_bytes<W, CT, C, G, S, M, N, R>(a.L, a.HD);
+  const long long room = (long long)optin - (long long)fa.sharedSizeBytes - rest;
+  constexpr int CB = WideDims<W, CT, C, G, S, M, N, R>::CHUNK_BYTES;
+  const int stages = (int)(room / CB < WIDE_STAGES ? room / CB : WIDE_STAGES);
+  if (stages < 2) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)stages * CB + (size_t)rest;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && N > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = N;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.B + R - 1) / R * N);
+  cfg.blockDim = dim3(W_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int fit = 0;
+  err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (geo) {
+    *geo = {R, N, stages, (int)smem, fit};
+    return cudaSuccess;
+  }
+  if (fit < 1) return cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kernel, a, dl, stages);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
-constexpr int RANKS = 8;  // blocks per cluster
+template <int C, int G, int S, int M, int N>
+int launch_dims(const Args& a, const Dilations& dl, int weights_bf16, int cond_bf16,
+                cudaStream_t st, Geometry* geo) {
+  if (weights_bf16)
+    return cond_bf16 ? launch<bf16, bf16, C, G, S, M, N>(a, dl, st, geo)
+                     : launch<bf16, float, C, G, S, M, N>(a, dl, st, geo);
+  return cond_bf16 ? launch<float, bf16, C, G, S, M, N>(a, dl, st, geo)
+                   : launch<float, float, C, G, S, M, N>(a, dl, st, geo);
+}
+
+template <int C, int G, int S, int M, int N, int R>
+int launch_wide_dims(const Args& a, const Dilations& dl, int weights_bf16, int cond_bf16,
+                     cudaStream_t st, Geometry* geo) {
+  if (weights_bf16)
+    return cond_bf16 ? launch_wide<bf16, bf16, C, G, S, M, N, R>(a, dl, st, geo)
+                     : launch_wide<bf16, float, C, G, S, M, N, R>(a, dl, st, geo);
+  return cond_bf16 ? launch_wide<float, bf16, C, G, S, M, N, R>(a, dl, st, geo)
+                   : launch_wide<float, float, C, G, S, M, N, R>(a, dl, st, geo);
+}
+
+constexpr int RANKS = 8;        // blocks per cluster
+constexpr int WIDE_RANKS = 16;  // blocks per cluster of the wide kernel
+constexpr int WIDE_ROWS = 2;    // batch rows per cluster of the wide kernel
 
 int run(const Args& a, const int* dilations, int c, int g, int s, int m, int hd, int k,
         int gaussian, int weights_bf16, int cond_bf16, int n_ranks, cudaStream_t st,
-        int* clusters) {
+        Geometry* geo) {
   const bool teacher_lj = c == 128 && g == 256 && s == 128 && m == 80;
   const bool tiny = c == 64 && g == 128 && s == 64 && m == 40;
   const bool wide = c == 256 && g == 512 && s == 256 && m == 80;
-  if (!(teacher_lj || tiny || wide) || n_ranks != RANKS || a.B < 1 || a.T < 1 || a.L < 1 ||
-      a.L > MAX_L)
+  if (!(teacher_lj || tiny || wide) || n_ranks != (wide ? WIDE_RANKS : RANKS) || a.B < 1 ||
+      a.T < 1 || a.L < 1 || a.L > MAX_L)
     return cudaErrorInvalidValue;
   if (gaussian ? hd != 2 : (k < 1 || hd != 3 * k || hd > MAX_HD))
     return cudaErrorInvalidValue;
@@ -840,13 +1559,11 @@ int run(const Args& a, const int* dilations, int c, int g, int s, int m, int hd,
   Args args = a;
   args.sum_d = sum_d;
   if (teacher_lj)
-    return launch_dims<128, 256, 128, 80, RANKS>(args, dl, weights_bf16, cond_bf16, st,
-                                                 clusters);
+    return launch_dims<128, 256, 128, 80, RANKS>(args, dl, weights_bf16, cond_bf16, st, geo);
   if (wide)
-    return launch_dims<256, 512, 256, 80, RANKS>(args, dl, weights_bf16, cond_bf16, st,
-                                                 clusters);
-  return launch_dims<64, 128, 64, 40, RANKS>(args, dl, weights_bf16, cond_bf16, st,
-                                             clusters);
+    return launch_wide_dims<256, 512, 256, 80, WIDE_RANKS, WIDE_ROWS>(args, dl, weights_bf16,
+                                                                       cond_bf16, st, geo);
+  return launch_dims<64, 128, 64, 40, RANKS>(args, dl, weights_bf16, cond_bf16, st, geo);
 }
 
 }  // namespace
@@ -904,18 +1621,25 @@ int pwn_ar_sample(const void* cond, const void* noise, const void* front_k,
              static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// How many of the sampler's clusters (one per batch row) the card holds at
-// once for these widths and types; returns a cudaError_t.
-int pwn_ar_sample_max_clusters(int L, int c, int g, int s, int m, int hd, int k,
-                               int gaussian, int weights_bf16, int cond_bf16, int n_ranks,
-                               int* clusters) {
+// The launch for these widths, types and layers, into out[5]: batch rows a
+// cluster, blocks a cluster, ring stages, dynamic shared memory in bytes,
+// and how many clusters the card holds at once (a batch with more runs in
+// waves); returns a cudaError_t.
+int pwn_ar_sample_geometry(int L, int c, int g, int s, int m, int hd, int k, int gaussian,
+                           int weights_bf16, int cond_bf16, int n_ranks, int* out) {
   Args a = {};
   a.B = 1; a.T = 1; a.L = L; a.HD = hd;
   int dil[MAX_L];
   for (int l = 0; l < MAX_L; ++l) dil[l] = 1;
   if (L < 1 || L > MAX_L) return cudaErrorInvalidValue;
-  return run(a, dil, c, g, s, m, hd, k, gaussian, weights_bf16, cond_bf16, n_ranks, nullptr,
-             clusters);
+  Geometry geo;
+  const int err = run(a, dil, c, g, s, m, hd, k, gaussian, weights_bf16, cond_bf16, n_ranks,
+                      nullptr, &geo);
+  if (err == cudaSuccess) {
+    out[0] = geo.rows; out[1] = geo.ranks; out[2] = geo.stages; out[3] = geo.smem;
+    out[4] = geo.clusters;
+  }
+  return err;
 }
 
 }  // extern "C"

@@ -148,12 +148,13 @@ def load_library() -> ctypes.CDLL:
     lib.pwn_flow_stack_train_wgrad_workspace_bytes.restype = ctypes.c_longlong
     lib.pwn_ar_sample.argtypes = AR_SAMPLE_ARGTYPES
     lib.pwn_ar_sample.restype = i
-    lib.pwn_ar_sample_max_clusters.argtypes = [
+    lib.pwn_ar_sample_geometry.argtypes = [
         i, i, i, i, i, i, i, i, i, i, i,  # L, C, G, S, M, head_dim, K, gaussian,
                                           # weights_bf16, cond_bf16, n_ranks
-        ctypes.POINTER(ctypes.c_int),     # out: clusters
+        ctypes.POINTER(ctypes.c_int),     # out: rows, ranks, stages, smem,
+                                          # clusters
     ]
-    lib.pwn_ar_sample_max_clusters.restype = i
+    lib.pwn_ar_sample_geometry.restype = i
     lib.pwn_gated_layer_bf16.argtypes = [
         p, p, p, p, p, p, p, p,        # x, cond, w_in, b_g, w_out, b_out, res,
                                        # skip

@@ -20,12 +20,15 @@ with cond (B, T, M) in the compute dtype, and returns wav (B, T) fp32.
 Compute is fp32 over the stored weights, and the queues are fp32.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
-(`csrc/ar_sampler.cu`) or raises.  The kernel runs each batch row on a
-cluster of `AR_RANKS` blocks, each of which owns 1/AR_RANKS of every
-layer's gate columns; `pack_ar_ranks` lays the weights out for it.  At the
-wide teacher's widths a rank's slices are read from L2 instead of a
-shared-memory ring, and head1 is split among the ranks (the source's
-note).
+(`csrc/ar_sampler.cu`) or raises.  The kernel runs the batch rows on
+clusters of `ar_ranks` blocks, each of which owns its share of every
+layer's gate columns; `pack_ar_ranks` lays the weights out for it.  At
+teacher_lj's and the tiny teacher's widths a cluster of 8 takes one row
+and a rank's layer slice streams whole through a shared-memory ring; at
+the wide teacher's (`AR_WIDE_DIMS`) a cluster of 16 takes two rows, each
+weight read serving both, and the slice streams in chunks of 4,096
+weights (`layout="chunks"`; the source's note).  `ar_geometry` reports
+what a launch looks like.
 """
 
 from __future__ import annotations
@@ -43,12 +46,21 @@ from pwn_tpu_torch.ops.mol import mol_sample_from_uniforms
 # the widths (C, G, S, M) the kernel is compiled for: teacher_lj (and
 # clarinet_gaussian), tiny_teacher, and the wide teacher (teacher_lj with
 # 256 residual, 512 gate and 256 skip channels)
-AR_KERNEL_DIMS = ((128, 256, 128, 80), (64, 128, 64, 40), (256, 512, 256, 80))
+AR_WIDE_DIMS = (256, 512, 256, 80)
+AR_KERNEL_DIMS = ((128, 256, 128, 80), (64, 128, 64, 40), AR_WIDE_DIMS)
 AR_MAX_LAYERS = 64
 AR_RANKS = 8  # blocks per cluster: the kernel's split of every layer
-AR_ROWS = 1   # batch rows per cluster
+AR_WIDE_RANKS = 16  # the same at AR_WIDE_DIMS
+AR_CHUNK_ELEMS = 4096  # weights a stage of the wide kernel's ring
+
+
 _WEIGHTS = ("front_k", "w_in", "w_out", "head1_k", "head2_k")
 _BIASES = ("front_b", "b_g", "b_rs", "head1_b", "head2_b")
+
+
+def ar_ranks(C: int, G: int, S: int, M: int) -> int:
+    """Blocks per cluster of the kernel at these widths."""
+    return AR_WIDE_RANKS if (C, G, S, M) == AR_WIDE_DIMS else AR_RANKS
 
 
 @torch.no_grad()
@@ -80,30 +92,92 @@ def stack_teacher_weights(stack, dtype: torch.dtype = torch.bfloat16) -> dict:
     return {k: v.detach().contiguous() for k, v in out.items()}
 
 
-def pack_ar_ranks(weights: dict, n_ranks: int) -> dict:
+def pack_ar_ranks(weights: dict, n_ranks: int, layout: str = "slices",
+                  chunk_elems: int = AR_CHUNK_ELEMS) -> dict:
     """Split `stack_teacher_weights`' gate layers among `n_ranks` blocks:
     rank j owns gate columns [j*GH/n, (j+1)*GH/n) of the tanh half and the
     same of the sigmoid half (GH = G/2), and those rows of W_out.  Returns
-    `w`, (n_ranks, L, 2GH/n*(2C+M) + GH/n*(C+S)) in the storage dtype: per
-    rank and layer its W_in columns (2GH/n x (2C+M): column by column,
-    tanh then sigmoid, each column's 2C+M weights contiguous), then its
-    W_out rows (GH/n x (C+S)), one contiguous run; and `b_g`,
-    (n_ranks, L, 2GH/n) fp32, its gate biases in the same column order.
-    Plain torch, on the weights' device."""
+    `w`, (n_ranks, L, 2GH/n*(2C+M) + GH/n*(C+S)) in the storage dtype, one
+    contiguous run per rank and layer, and `b_g`, (n_ranks, L, 2GH/n) fp32,
+    its gate biases, tanh slice then sigmoid partners.  Plain torch, on the
+    weights' device.
+
+    layout "slices": the run is its W_in columns (2GH/n x (2C+M): column by
+    column, tanh then sigmoid, each column's 2C+M weights contiguous), then
+    its W_out rows (GH/n x (C+S)).
+
+    layout "chunks" (the wide kernel's): the run is the order in which the
+    kernel consumes it, in chunks of at most `chunk_elems` weights (the
+    kernel's WIDE_CHUNK_E, AR_CHUNK_ELEMS: 8 KB in bf16): W_in's tap and
+    cond rows [C, 2C+M), then its x rows [0, C), KCH rows a chunk, then
+    W_out's rows, ZR a chunk (`chunk_geometry`).  A gate chunk holds the
+    rank's 2GH/n columns one after the other, warp w's 2 ZW together (its ZW
+    tanh columns, then their sigmoid partners); within a column, its 16-byte
+    vector o holds rows 4o + i, 4 kc/VW + 4o + i, ... (i < 4; kc the
+    chunk's rows, VW weights in 16 bytes).  A W_out chunk holds, for each
+    group of RV rows, output pair q's RV x 2 weights (row-major) for q = 0
+    .. (C+S)/2 - 1."""
+    if layout not in ("slices", "chunks"):
+        raise ValueError(f"layout {layout!r}; one of 'slices', 'chunks'")
     w_in, w_out, b_g = weights["w_in"], weights["w_out"], weights["b_g"]
     L, K, G = w_in.shape
     gh = G // 2
     if gh % n_ranks:
         raise ValueError(f"{gh} gate columns do not split into {n_ranks} ranks")
     gn = gh // n_ranks
-    # w_in[l, k, h*GH + j*gn + c] -> [j, l, h, c, k]
-    win = w_in.reshape(L, K, 2, n_ranks, gn).permute(3, 0, 2, 4, 1)
-    # w_out[l, j*gn + i, n] -> [j, l, i, n]
-    wout = w_out.reshape(L, n_ranks, gn, -1).permute(1, 0, 2, 3)
     bg = b_g.reshape(L, 2, n_ranks, gn).permute(2, 0, 1, 3)
-    return {"w": torch.cat([win.reshape(n_ranks, L, -1),
-                            wout.reshape(n_ranks, L, -1)], dim=2).contiguous(),
-            "b_g": bg.reshape(n_ranks, L, 2 * gn).contiguous()}
+    bg = bg.reshape(n_ranks, L, 2 * gn).contiguous()
+    if layout == "slices":
+        # w_in[l, k, h*GH + j*gn + c] -> [j, l, h, c, k]
+        win = w_in.reshape(L, K, 2, n_ranks, gn).permute(3, 0, 2, 4, 1)
+        # w_out[l, j*gn + i, n] -> [j, l, i, n]
+        wout = w_out.reshape(L, n_ranks, gn, -1).permute(1, 0, 2, 3)
+        return {"w": torch.cat([win.reshape(n_ranks, L, -1),
+                                wout.reshape(n_ranks, L, -1)],
+                               dim=2).contiguous(),
+                "b_g": bg}
+    NO = w_out.shape[-1]
+    C = NO // 2  # the kernel takes S = C
+    geo = chunk_geometry(C, G, NO - C, K - 2 * C, n_ranks, w_in.element_size(),
+                         chunk_elems)
+    zw, vw, rv, zr = geo["ZW"], geo["VW"], geo["RV"], geo["ZR"]
+    # w_in[l, k, h*GH + j*gn + w*zw + a] -> [j, l, w, h, a, k]: warp w's
+    # tanh columns, then their sigmoid partners
+    win = w_in.reshape(L, K, 2, n_ranks, gn // zw, zw)
+    win = win.permute(3, 0, 4, 2, 5, 1)
+    win = win.reshape(n_ranks, L, 2 * gn, K)
+    runs = []
+    for k0, kc in geo["gate_chunks"]:
+        # position o*vw + 4h + i of a column holds row 4*(kc/vw)*h + 4o + i
+        pos = torch.arange(kc)
+        o, h, i = pos // vw, pos % vw // 4, pos % 4
+        rows = k0 + 4 * (kc // vw) * h + 4 * o + i
+        runs.append(win[..., rows.to(win.device)].reshape(n_ranks, L, -1))
+    # w_out[l, j*gn + c*zr + g*rv + ii, 2q + e] -> [j, l, c, g, q, ii, e]
+    wout = w_out.reshape(L, n_ranks, gn // zr, zr // rv, rv, NO // 2, 2)
+    runs.append(wout.permute(1, 0, 2, 3, 5, 4, 6).reshape(n_ranks, L, -1))
+    return {"w": torch.cat(runs, dim=2).contiguous(), "b_g": bg}
+
+
+def chunk_geometry(C: int, G: int, S: int, M: int, n_ranks: int,
+                   weight_bytes: int,
+                   chunk_elems: int = AR_CHUNK_ELEMS) -> dict:
+    """The wide kernel's chunks of a rank's layer run (`WideDims` in the
+    source): ZW z values a warp (8 warps), LG = 32/ZW lanes a z value, VW
+    weights in 16 bytes, KCH gate rows a chunk (a chunk of the rank's 2GH/n
+    columns holds `chunk_elems` weights), RV W_out rows in a 16-byte vector
+    of two outputs, ZR W_out rows a chunk; `gate_chunks` lists (first row,
+    rows) of each gate chunk in the order they stream: tap and cond rows
+    [C, 2C+M), then x rows [0, C)."""
+    gn = G // 2 // n_ranks
+    zw = gn // 8
+    vw = 16 // weight_bytes
+    kch = chunk_elems // (2 * gn)
+    zr = chunk_elems // (C + S)
+    tc = [(C + k, min(kch, C + M - k)) for k in range(0, C + M, kch)]
+    x = [(k, kch) for k in range(0, C, kch)]
+    return {"ZW": zw, "LG": 32 // zw, "VW": vw, "KCH": kch, "RV": vw // 2,
+            "ZR": zr, "gate_chunks": tc + x, "out_chunks": gn // zr}
 
 
 def queue_offsets(dilations: Sequence[int]) -> list:
@@ -232,17 +306,27 @@ def ar_sample(cond: torch.Tensor, noise: torch.Tensor, weights: dict, *,
 
 def ar_launch_args(cond, noise, weights: dict, dilations: Sequence[int],
                    n_mixtures: int, head: str, log_scale_min: float,
-                   temperature: float, wav_ranks: torch.Tensor | None = None):
+                   temperature: float, wav_ranks: torch.Tensor | None = None,
+                   layout: str | None = None,
+                   chunk_elems: int = AR_CHUNK_ELEMS,
+                   n_ranks: int | None = None):
     """The arguments of the library's `pwn_ar_sample` but the stream, for
     arguments `check_ar_args` passed, and the tensors they point into that
     the caller must hold until the launch: (wav (B, T), the packed
-    weights, the zeroed queues)."""
+    weights, the zeroed queues).  `layout` overrides the weights' packing
+    (by default "chunks" at AR_WIDE_DIMS, else "slices"); `chunk_elems` is
+    the "chunks" layout's and `n_ranks` the blocks per cluster (by default
+    `ar_ranks`), for a build with another WIDE_CHUNK_E or WIDE_RANKS."""
     B, T, M = cond.shape
     L, _, G = weights["w_in"].shape
     C = weights["front_k"].shape[-1]
     S = weights["head1_k"].shape[0]
     HD = weights["head2_k"].shape[-1]
-    ranks = pack_ar_ranks(weights, AR_RANKS)
+    if layout is None:
+        layout = "chunks" if (C, G, S, M) == AR_WIDE_DIMS else "slices"
+    if n_ranks is None:
+        n_ranks = ar_ranks(C, G, S, M)
+    ranks = pack_ar_ranks(weights, n_ranks, layout, chunk_elems)
     queue = torch.zeros((B, sum(dilations), C), dtype=torch.float32,
                         device=cond.device)
     wav = torch.empty((B, T), dtype=torch.float32, device=cond.device)
@@ -256,30 +340,32 @@ def ar_launch_args(cond, noise, weights: dict, dilations: Sequence[int],
             B, T, L, C, G, S, M, HD, n_mixtures, int(head == "gaussian"),
             (ctypes.c_int * L)(*dilations), float(log_scale_min),
             float(temperature), int(weights["w_in"].dtype == torch.bfloat16),
-            int(cond.dtype == torch.bfloat16), AR_RANKS)
+            int(cond.dtype == torch.bfloat16), n_ranks)
     return args, (wav, ranks, queue)
 
 
-def ar_max_clusters(weights: dict, *, n_mixtures: int, head: str,
-                    cond_dtype: torch.dtype) -> int:
-    """How many of the kernel's clusters (AR_ROWS batch rows each) the
-    current card holds at once for these weights: a larger batch runs in
-    waves."""
+def ar_geometry(weights: dict, *, n_mixtures: int, head: str,
+                cond_dtype: torch.dtype) -> dict:
+    """What the kernel's launch looks like on the current card for these
+    weights: `rows` batch rows and `ranks` blocks a cluster, `stages` of its
+    weight ring, `smem` bytes of dynamic shared memory a block, and
+    `clusters`, how many of its clusters the card holds at once (a larger
+    batch runs in waves)."""
     from pwn_tpu_torch.ops import _build
 
     L, K, G = weights["w_in"].shape
     C = weights["front_k"].shape[-1]
     S = weights["head1_k"].shape[0]
-    out = ctypes.c_int(0)
+    out = (ctypes.c_int * 5)()
     lib = _build.load_library()
-    err = lib.pwn_ar_sample_max_clusters(
+    err = lib.pwn_ar_sample_geometry(
         L, C, G, S, K - 2 * C, weights["head2_k"].shape[-1], n_mixtures,
         int(head == "gaussian"), int(weights["w_in"].dtype == torch.bfloat16),
-        int(cond_dtype == torch.bfloat16), AR_RANKS, ctypes.byref(out))
+        int(cond_dtype == torch.bfloat16), ar_ranks(C, G, S, K - 2 * C), out)
     if err:
-        raise RuntimeError("pwn_ar_sample_max_clusters failed: "
+        raise RuntimeError("pwn_ar_sample_geometry failed: "
                            + lib.pwn_cuda_error_string(err).decode())
-    return out.value
+    return dict(zip(("rows", "ranks", "stages", "smem", "clusters"), out))
 
 
 ar_sample.launches = 0

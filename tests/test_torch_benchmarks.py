@@ -7,7 +7,6 @@ verdict, the data-parallel audit over Gloo processes, and `run_bench`'s
 one-line contract with its measurements replaced by fakes.
 """
 
-import time
 
 import numpy as np
 import pytest
@@ -54,27 +53,47 @@ def test_param_bytes_equal_the_reference(name):
     assert [r["link"] for r in got["rows"]] == ["nvlink"] * 3 + ["nic"] * 3
 
 
-def _fake_chain(overhead_s: float, per_iter_s: float):
-    """A fixed sync cost plus linear per-iteration work, as
-    tests/test_benchmarks.py fakes the reference's chain."""
+class _FakeClock:
+    """A clock that moves only when the fake chain runs, so the timers'
+    decisions follow the chain's own numbers and not the host's
+    scheduling (under several test workers a sleep can overrun by more
+    than the margin a decision rests on)."""
 
-    def chain(n):
-        time.sleep(overhead_s + per_iter_s * int(n))
-        return np.float32(n)
+    def __init__(self):
+        self.now = 0.0
 
-    return chain
+    def perf_counter(self) -> float:
+        return self.now
+
+    def chain(self, overhead_s: float, per_iter_s: float):
+        """A fixed sync cost plus linear per-iteration work, as
+        tests/test_benchmarks.py fakes the reference's chain."""
+
+        def chain(n):
+            self.now += overhead_s + per_iter_s * int(n)
+            return np.float32(n)
+
+        return chain
+
+
+def _fake_clock(module, monkeypatch) -> _FakeClock:
+    """Replace the `time` module a timer reads by a fake clock."""
+    clock = _FakeClock()
+    monkeypatch.setattr(module, "time", clock)
+    return clock
 
 
 @pytest.mark.parametrize("module", [bench, jax_bench], ids=["port", "jax"])
 def test_time_chain_recovers_per_iter_time(module, monkeypatch):
-    """The 20 ms fixed cost cancels, leaving 10 ms an iteration within 10%
-    in both timers."""
+    """The 20 ms fixed cost cancels, leaving 10 ms an iteration in both
+    timers."""
     monkeypatch.setattr(module, "measure_round_trip_ms",
                         lambda *a, **k: 5.0)
-    dt, meta = module._time_chain(_fake_chain(0.020, 0.010), n_iters=4,
+    clock = _fake_clock(module, monkeypatch)
+    dt, meta = module._time_chain(clock.chain(0.020, 0.010), n_iters=4,
                                   reps=3)
     assert dt is not None and "timing_error" not in meta
-    assert 0.009 <= dt <= 0.011, (dt, meta)
+    assert dt == pytest.approx(0.010, rel=1e-9), (dt, meta)
 
 
 @pytest.mark.parametrize("module", [bench, jax_bench], ids=["port", "jax"])
@@ -82,7 +101,8 @@ def test_time_chain_refuses_sub_noise_signal(module, monkeypatch):
     """All the time is the fixed cost: an explicit error and no number."""
     monkeypatch.setattr(module, "measure_round_trip_ms",
                         lambda *a, **k: 30.0)
-    dt, meta = module._time_chain(_fake_chain(0.030, 0.0), n_iters=2,
+    clock = _fake_clock(module, monkeypatch)
+    dt, meta = module._time_chain(clock.chain(0.030, 0.0), n_iters=2,
                                   reps=1, max_doublings=2)
     assert dt is None
     assert "refusing" in meta["timing_error"]
@@ -90,11 +110,13 @@ def test_time_chain_refuses_sub_noise_signal(module, monkeypatch):
 
 def test_time_chain_follows_the_agreed_decision(monkeypatch):
     """Under `agree` the group's decision holds over the rank's own: a
-    clear signal is re-timed when the group says no."""
+    clear signal (10 ms against a 1.5 ms threshold) is re-timed when the
+    group says no."""
     monkeypatch.setattr(bench, "measure_round_trip_ms", lambda *a, **k: 1.0)
+    clock = _fake_clock(bench, monkeypatch)
     calls = []
     dt, meta = bench._time_chain(
-        _fake_chain(0.0, 0.005), n_iters=2, reps=1, max_doublings=1,
+        clock.chain(0.0, 0.005), n_iters=2, reps=1, max_doublings=1,
         agree=lambda ok: calls.append(ok) or False)
     assert calls == [True, True]
     assert dt is None and meta["n_iters"] == 4

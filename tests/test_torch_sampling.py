@@ -26,8 +26,10 @@ from pwn_tpu_torch.models import sampling
 from pwn_tpu_torch.models.modules import DTYPES
 from pwn_tpu_torch.models.teacher import TeacherWaveNet, init_teacher
 from pwn_tpu_torch.ops import ar_sampler
-from pwn_tpu_torch.ops.ar_sampler import (AR_KERNEL_DIMS, ar_sample,
-                                          ar_sample_reference, pack_ar_ranks,
+from pwn_tpu_torch.ops.ar_sampler import (AR_CHUNK_ELEMS, AR_KERNEL_DIMS,
+                                          AR_WIDE_DIMS, ar_sample,
+                                          ar_sample_reference, chunk_geometry,
+                                          pack_ar_ranks,
                                           stack_teacher_weights)
 from pwn_tpu_torch.ops.mol import mol_sample_from_uniforms
 from torch_parity import jax_config
@@ -305,7 +307,9 @@ def test_pack_ar_ranks_unpacks_to_the_stacked_layout(n_ranks, dims, dtype):
     sigmoid partners), each column's 2C+M weights contiguous, then its W_out
     rows, in the storage dtype, a multiple of 16 bytes; its gate biases
     follow the same column order.  Read back slice by slice, the runs give
-    the stacked weights exactly."""
+    the stacked weights exactly.  At the wide widths the "chunks" layout
+    (the wide kernel's) reads back exactly too, chunk by chunk as the
+    kernel reads it (`_unpack_chunks`)."""
     C, G, S, M = dims
     L, kin, no, gn = 3, 2 * C + M, C + S, G // 2 // n_ranks
     w = _stacked(dims, L, DTYPES[dtype], seed=11)
@@ -327,6 +331,54 @@ def test_pack_ar_ranks_unpacks_to_the_stacked_layout(n_ranks, dims, dtype):
     assert torch.equal(w_in, w["w_in"])
     assert torch.equal(w_out, w["w_out"])
     assert torch.equal(b_g, w["b_g"])
+    if dims == AR_WIDE_DIMS:
+        chunks = pack_ar_ranks(w, n_ranks, "chunks")
+        assert chunks["w"].shape == packed["w"].shape
+        assert chunks["w"].dtype == DTYPES[dtype]
+        assert chunks["w"].is_contiguous()
+        assert torch.equal(chunks["b_g"], packed["b_g"])
+        w_in, w_out = _unpack_chunks(chunks["w"], dims, n_ranks)
+        assert torch.equal(w_in, w["w_in"])
+        assert torch.equal(w_out, w["w_out"])
+
+
+def _unpack_chunks(run, dims, n_ranks):
+    """(w_in, w_out) from `pack_ar_ranks`' "chunks" layout, read as the wide
+    kernel reads it: per rank and layer the gate chunks (tap and cond rows,
+    then x rows; every chunk but a last short one AR_CHUNK_ELEMS weights), then the
+    W_out chunks; in a gate chunk of kc rows, lane o of the group of warp
+    w's z value a reads 16 bytes (VW weights) of its tanh column (packed
+    column 2 ZW w + a) and of its sigmoid partner (+ ZW) at o VW, weight e
+    being row 4 (kc / VW) (e // 4) + 4 o + e % 4; in a W_out chunk thread q
+    reads RV rows x its 2 outputs at (g NO/2 + q) VW."""
+    C, G, S, M = dims
+    NO, gn, elt = C + S, G // 2 // n_ranks, run.element_size()
+    geo = chunk_geometry(C, G, S, M, n_ranks, elt)
+    zw, vw, rv, zr = geo["ZW"], geo["VW"], geo["RV"], geo["ZR"]
+    L = run.shape[1]
+    w_in = torch.zeros((L, 2 * C + M, G), dtype=run.dtype)
+    w_out = torch.zeros((L, G // 2, NO), dtype=run.dtype)
+    for j in range(n_ranks):
+        for l in range(L):
+            flat, at = run[j, l], 0
+            for k0, kc in geo["gate_chunks"]:
+                chunk = flat[at:at + 2 * gn * kc].reshape(2 * gn, kc // vw, vw)
+                o, e = torch.meshgrid(torch.arange(kc // vw), torch.arange(vw),
+                                      indexing="ij")
+                k = k0 + 4 * (kc // vw) * (e // 4) + 4 * o + e % 4
+                for col in range(2 * gn):
+                    w, h, a = col // (2 * zw), col % (2 * zw) // zw, col % zw
+                    w_in[l, k, h * G // 2 + j * gn + w * zw + a] = chunk[col]
+                at += 2 * gn * kc
+                assert 2 * gn * kc <= AR_CHUNK_ELEMS
+            for c in range(gn // zr):
+                chunk = flat[at:at + zr * NO].reshape(zr // rv, NO // 2, rv, 2)
+                for g in range(zr // rv):
+                    rows = j * gn + c * zr + g * rv + torch.arange(rv)
+                    w_out[l, rows] = chunk[g].permute(1, 0, 2).reshape(rv, NO)
+                at += zr * NO
+            assert at == flat.numel()
+    return w_in, w_out
 
 
 @pytest.mark.parametrize("dims", AR_KERNEL_DIMS)

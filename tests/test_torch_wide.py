@@ -34,8 +34,9 @@ from pwn_tpu_torch.models.modules import (STACK_MODES, WaveNetStack,
 from pwn_tpu_torch.models.student import StudentIAF
 from pwn_tpu_torch.models.teacher import TeacherWaveNet
 from pwn_tpu_torch.ops import flow_stack as fs
-from pwn_tpu_torch.ops.ar_sampler import (AR_KERNEL_DIMS, ar_sample,
-                                          ar_sample_reference, check_ar_args,
+from pwn_tpu_torch.ops.ar_sampler import (AR_KERNEL_DIMS, ar_geometry,
+                                          ar_sample, ar_sample_reference,
+                                          check_ar_args,
                                           stack_teacher_weights)
 from pwn_tpu_torch.ops.gated_layer import TIME_TILE, gated_layer, \
     gated_layer_reference
@@ -645,6 +646,76 @@ def test_wide_ar_kernel_matches_plain_on_card(cuda, head, wdtype):
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-3
     assert (got.abs() < 1.0).float().mean() > 0.2
+
+
+def _wide_ar_inputs(cfg, head, B, T, seed, device):
+    """bf16 cond and the head's noise, (B, T), from a torch seed."""
+    gen = torch.Generator().manual_seed(seed)
+    cond = (torch.randn(B, T, 80, generator=gen) * 0.5).to(BF16).to(device)
+    nz = 1 if head == "gaussian" else cfg.teacher.n_mixtures + 1
+    noise = (torch.randn(T, B, 1, generator=gen) if head == "gaussian"
+             else torch.rand(T, B, nz, generator=gen) * 0.998 + 0.001)
+    return cond, noise.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head", ["mol", "gaussian"])
+@pytest.mark.parametrize("wdtype", [BF16, F32])
+@pytest.mark.parametrize("B", [1, 3])
+def test_wide_ar_kernel_takes_batches_rows_do_not_divide_on_card(
+        cuda, head, wdtype, B):
+    """The wide kernel runs R = 2 rows a cluster: B = 1 and B = 3 (a
+    cluster with one row past the batch) against the plain version over 64
+    steps within 1e-3, as B = 2 above."""
+    extra = ({"teacher.output": "gaussian", "student.base": "gaussian"}
+             if head == "gaussian" else {})
+    cfg = wide_config(3, 8, **extra)
+    tc = cfg.teacher
+    w = _wide_weights(cfg, head, wdtype, cuda)
+    cond, noise = _wide_ar_inputs(cfg, head, B, 64, 9 + B, cuda)
+    kw = dict(dilations=tc.dilations, n_mixtures=tc.n_mixtures, head=head,
+              log_scale_min=tc.log_scale_min)
+    geo = ar_geometry(w, n_mixtures=tc.n_mixtures, head=head,
+                      cond_dtype=cond.dtype)
+    assert geo["rows"] == 2  # B = 3: the second cluster's row 1 is past B
+    got = ar_sample(cond, noise, w, **kw)
+    want = ar_sample_reference(cond, noise, w, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (B, 64)
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_wide_ar_rows_of_a_cluster_are_independent_on_card(cuda):
+    """Rows 0 and 1 share a cluster (and every weight read): changing row
+    1's cond leaves row 0 the same bits."""
+    cfg = wide_config(3, 8)
+    tc = cfg.teacher
+    w = _wide_weights(cfg, "mol", BF16, cuda)
+    cond, noise = _wide_ar_inputs(cfg, "mol", 2, 64, 12, cuda)
+    kw = dict(dilations=tc.dilations, n_mixtures=tc.n_mixtures, head="mol",
+              log_scale_min=tc.log_scale_min)
+    a = ar_sample(cond, noise, w, **kw)
+    cond = cond.clone()
+    cond[1] += 1.0
+    b = ar_sample(cond, noise, w, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and not torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wdtype", [BF16, F32])
+def test_wide_ar_geometry_on_card(cuda, wdtype):
+    """The wide kernel's launch: 2 rows x 16 blocks a cluster, a ring of at
+    least 2 stages within a block's shared memory, and room on the card for
+    the 4 clusters of a batch of 8 at once."""
+    cfg = wide_config(3, 8)
+    w = _wide_weights(cfg, "mol", wdtype, cuda)
+    geo = ar_geometry(w, n_mixtures=cfg.teacher.n_mixtures, head="mol",
+                      cond_dtype=BF16)
+    assert (geo["rows"], geo["ranks"]) == (2, 16)
+    assert geo["stages"] >= 2 and geo["smem"] <= 232448
+    assert geo["clusters"] >= 4
 
 
 @pytest.mark.gpu
