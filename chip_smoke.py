@@ -1324,6 +1324,7 @@ WHY_DISTILL = ("bf16 compute through 4 flows of 10 layers, the teacher's 24 "
 def _reset_counts() -> None:
     """Every launch counter to 0: just before a main path is driven."""
     flow_stack.launches = gated_layer.launches = ar_sample.launches = 0
+    ar_sample.launches_by.clear()
     gated_layer.launches_by.clear()
     gated_layer.launches_by_width.clear()
     fs.flow_stack_train_backward.launches = 0
@@ -2762,6 +2763,289 @@ def phase_wide(device, smi: str, root: str) -> dict:
     errs |= {k: times.pop(k) for k in list(times)
              if k.endswith("max_abs_err")}
     return {"launches": launches, "times": times, **errs}
+
+
+# Phase 8h: kernel 4's general-width body (`ar_generic_kernel`, one block a
+# batch row, the weights read from L2 every step), which takes every teacher
+# the built bodies do not: (a) at the preset widths against the plain
+# version and the built body on the same inputs, (b) timed in turns with the
+# built body at the reference's AR workload, (c) through the CLI at a width
+# no instantiation is built for (96 is no multiple of 64) at teacher_lj's
+# full depth.  The gates are phase 5's, TOL_AR and TOL_AR_EARLY.
+GEN_AR_OVERRIDES = ["teacher.residual_channels=96",
+                    "teacher.gate_channels=192", "teacher.skip_channels=96"]
+GEN_AR = cli._load_config("teacher_lj", GEN_AR_OVERRIDES)
+GEN_AR_DEEP = cli._load_config("teacher_lj", [
+    *GEN_AR_OVERRIDES, "teacher.n_mixtures=16", "teacher.n_blocks=9"])
+AR_DEEP_T = 128  # 72 layers of the plain version a step cost 3x teacher_lj's
+AR_DEEP_HEAD2 = 0.1
+
+
+def _gen_ar_counts() -> dict:
+    """`_counts()` with kernel 4's launches on its general body."""
+    return {**_counts(), "kernel 4 generic": ar_sample.launches_by["generic"]}
+
+
+def _ar_flop_bytes(cfg, weights: dict, cond, noise) -> tuple:
+    """The fp32 operations and the bytes (each input read once, wav
+    written once) of one AR call over these inputs (phase 9's count)."""
+    tc = cfg.teacher
+    B, T, M = cond.shape
+    C, G, S = tc.residual_channels, tc.gate_channels, tc.skip_channels
+    hd = weights["head2_k"].shape[-1]
+    flop = 2 * B * T * (tc.n_layers * ((2 * C + M) * G + G // 2 * (C + S))
+                        + S * S + S * hd + C)
+    return flop, _nbytes(cond, noise, *weights.values()) + B * T * 4
+
+
+def _generic_ar_rows(device) -> dict:
+    """(a) The general body at AR_BATCH x AR_CHECK_T against the plain
+    version, per row.  At the built widths it runs by `body="generic"` and
+    is held against the built body on the same inputs as well: teacher_lj
+    (bf16 and fp32 weights), clarinet_gaussian, tiny_teacher, and the wide
+    teacher in both weight types with the front 1x1 scaled by
+    WIDE_AR_FRONT (its random-init loop is chaotic).  Off the built widths
+    the default route must pick it: the CLI's (96, 192, 96, 80), where no
+    product splits evenly over the block (`gen_parts`: 21 k-parts over 24
+    column vectors of W_in), and the same widths with 16 mixtures and 72
+    layers over AR_DEEP_T steps, the head's last 1x1 scaled by
+    AR_DEEP_HEAD2 (72 random layers put most draws on the clip otherwise).
+    Returns each case's worst row against the plain version."""
+    cases = [  # (what, config, weights dtype, front scale, head2 scale, T)
+        ("teacher_lj", TEACHER, None, None, None, AR_CHECK_T),
+        ("teacher_lj fp32 weights", TEACHER, "float32", None, None,
+         AR_CHECK_T),
+        ("clarinet_gaussian", get_config("clarinet_gaussian"), None, None,
+         None, AR_CHECK_T),
+        ("tiny_teacher", TINY, None, None, None, AR_CHECK_T),
+        ("wide teacher", WIDE, None, WIDE_AR_FRONT, None, AR_CHECK_T),
+        ("wide teacher fp32 weights", WIDE, "float32", WIDE_AR_FRONT, None,
+         AR_CHECK_T),
+        ("(96, 192, 96, 80)", GEN_AR, None, None, None, AR_CHECK_T),
+        ("(96, 192, 96, 80), 16 mixtures, 72 layers", GEN_AR_DEEP, None,
+         None, AR_DEEP_HEAD2, AR_DEEP_T),
+    ]
+    errs = {}
+    gen = torch.Generator(device=device).manual_seed(810)
+    for what, cfg, wdt, front, head2, T in cases:
+        model = (_ar_teacher(cfg, device) if front is None else
+                 _wide_ar_teacher(cfg, device, False, front))
+        if head2 is not None:
+            with torch.no_grad():
+                model.stack.head2.kernel.mul_(head2)
+        weights = stack_teacher_weights(
+            model.stack, DTYPES[wdt or cfg.teacher.compute_dtype])
+        cond, noise = _ar_inputs(cfg, AR_BATCH, T, gen)
+        kw = _ar_kw(cfg)
+        built = ar_geometry(weights, n_mixtures=kw["n_mixtures"],
+                            head=kw["head"], cond_dtype=cond.dtype)["body"]
+        # the built widths ask for the general body; the others take the
+        # default route, which must reach it
+        body = "generic" if built != "generic" else None
+        n = ar_sample.launches_by["generic"]
+        with torch.inference_mode():
+            out = ar_sample(cond, noise, weights, body=body, **kw)
+            ref = ar_sample_reference(cond, noise, weights, **kw)
+            others = {"plain": ref}
+            if body:
+                others["built body"] = ar_sample(cond, noise, weights, **kw)
+        torch.cuda.synchronize()
+        _check(ar_sample.launches_by["generic"] == n + 1,
+               f"general AR body {what}: the general body did not run")
+        _check(out.shape == ref.shape and torch.isfinite(out).all(),
+               f"general AR body {what}: shape or non-finite")
+        rows = {}
+        for name, other in others.items():
+            diff = (out - other).abs()
+            rows[name] = (diff.amax(1).cpu().numpy(),
+                          diff[:, :AR_EARLY].amax(1).cpu().numpy())
+        geo = ar_geometry(weights, n_mixtures=kw["n_mixtures"],
+                          head=kw["head"], cond_dtype=cond.dtype,
+                          body="generic")
+        inside = float((ref.abs() < 1).float().mean())
+        _log(f"[generic ar] {what} ({cfg.teacher.output}, K="
+             f"{kw['n_mixtures']}, {cfg.teacher.n_layers} layers, weights "
+             f"{weights['w_in'].dtype}) B={AR_BATCH} T={T}, "
+             + (f"body='generic' (the built body: {built})" if body else
+                "the default route") + f": one block of {geo['threads']} "
+             f"threads a row, {geo['smem']} B of shared memory, "
+             f"{geo['blocks']} blocks fit the card at once; "
+             + "; ".join(
+                 f"max abs diff per row vs {n} "
+                 f"{np.array2string(e, precision=8)} (tol {TOL_AR}), over "
+                 f"the first {AR_EARLY} steps "
+                 f"{np.array2string(a, precision=8)} (tol {TOL_AR_EARLY})"
+                 for n, (e, a) in rows.items())
+             + f"; {inside:.3f} of the draws inside (-1, 1)")
+        _check(all((e <= TOL_AR).all() and (a <= TOL_AR_EARLY).all()
+                   for e, a in rows.values()) and inside > 0.2,
+               f"general AR body {what} off its plain version or the built "
+               f"body ({WHY_AR})")
+        errs[what] = float(rows["plain"][0].max())
+    return errs
+
+
+def _generic_ar_times(device, smi: str) -> dict:
+    """(b) The general body and the built body at AR_BATCH x AR_T in turns
+    (built, general, general, built; CUDA events, one call each, after a
+    warm-up of AR_CHECK_T steps) at teacher_lj's and the wide teacher's
+    widths, bf16 weights; and the general body on the CLI's path, 1 x
+    `_dump_len(GEN_AR)` at (96, 192, 96, 80) (a sample dump's shape and a
+    0.25 s generation's), in turns with its plain version (general, plain,
+    general), the first AR_EARLY steps of each row held at TOL_AR_EARLY.
+    Returns each one's ms and bound (the CLI path's with its plain_ms)."""
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(820)
+    for what, cfg, front in (("teacher_lj", TEACHER, None),
+                             ("wide teacher", WIDE, WIDE_AR_FRONT)):
+        model = (_ar_teacher(cfg, device) if front is None else
+                 _wide_ar_teacher(cfg, device, False, front))
+        weights = stack_teacher_weights(model.stack, torch.bfloat16)
+        cond, noise = _ar_inputs(cfg, AR_BATCH, AR_T, gen)
+        kw = _ar_kw(cfg)
+        fns = {"built": lambda: ar_sample(cond, noise, weights, **kw),
+               "general": lambda: ar_sample(cond, noise, weights,
+                                            body="generic", **kw)}
+        ms: dict = {}
+        with torch.inference_mode():
+            for body in (None, "generic"):  # warm up
+                ar_sample(cond[:, :AR_CHECK_T].contiguous(),
+                          noise[:AR_CHECK_T].contiguous(), weights,
+                          body=body, **kw)
+            torch.cuda.synchronize()
+            for k in ("built", "general", "general", "built"):
+                ms.setdefault(k, []).append(_time_ms(fns[k], 1))
+        flop, nbytes = _ar_flop_bytes(cfg, weights, cond, noise)
+        bound = _bound(flop, nbytes, PEAK_FP32)
+        g_ms, b_ms = float(np.mean(ms["general"])), float(np.mean(ms["built"]))
+        per_row = _nbytes(*(weights[n] for n in ("w_in", "w_out", "head1_k",
+                                                 "head2_k")))
+        _log(f"[times] {smi}: kernel 4 general body, {what} B={AR_BATCH} "
+             f"T={AR_T}: "
+             + " / ".join(f"{x:.3f}" for x in ms["general"])
+             + f" ms ({g_ms * 1e3 / AR_T:.2f} us per step), the built body "
+             + " / ".join(f"{x:.3f}" for x in ms["built"])
+             + f" ms ({b_ms * 1e3 / AR_T:.2f} us per step); bound "
+             f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}); each block "
+             f"reads {per_row:,} B of weights a step, "
+             f"{per_row * AR_T / (g_ms / 1e3) / 1e9:.1f} GB/s into its SM")
+        out[what] = {"ms": g_ms, "built_ms": b_ms, **bound}
+    out["cli"] = _generic_ar_cli_times(device, smi, gen)
+    return out
+
+
+def _generic_ar_cli_times(device, smi: str, gen) -> dict:
+    """The general body on the CLI path's shape (see `_generic_ar_times`)
+    beside its plain version and its bound."""
+    T = _dump_len(GEN_AR)
+    model = _ar_teacher(GEN_AR, device)
+    weights = stack_teacher_weights(model.stack, torch.bfloat16)
+    cond, noise = _ar_inputs(GEN_AR, 1, T, gen)
+    kw = _ar_kw(GEN_AR)
+    ms: dict = {}
+    res: dict = {}
+    fns = {"general": lambda: ar_sample(cond, noise, weights, **kw),
+           "plain": lambda: ar_sample_reference(cond, noise, weights, **kw)}
+
+    def timed(k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res[k] = fns[k]()
+        end.record()
+        torch.cuda.synchronize()
+        ms.setdefault(k, []).append(start.elapsed_time(end))
+
+    with torch.inference_mode():
+        ar_sample(cond[:, :AR_CHECK_T].contiguous(),
+                  noise[:AR_CHECK_T].contiguous(), weights, **kw)  # warm up
+        torch.cuda.synchronize()
+        for k in ("general", "plain", "general"):
+            timed(k)
+    diff = (res["general"] - res["plain"]).abs()
+    early = float(diff[:, :AR_EARLY].max())
+    flop, nbytes = _ar_flop_bytes(GEN_AR, weights, cond, noise)
+    bound = _bound(flop, nbytes, PEAK_FP32)
+    g_ms, p_ms = float(np.mean(ms["general"])), float(np.mean(ms["plain"]))
+    _log(f"[times] {smi}: kernel 4 general body on the CLI's path, (96, 192, "
+         f"96, 80), {GEN_AR.teacher.n_layers} layers, B=1 T={T}: "
+         + " / ".join(f"{x:.3f}" for x in ms["general"])
+         + f" ms ({g_ms * 1e3 / T:.2f} us per step); plain {p_ms:.1f} ms "
+         f"(one call at the same shape); bound {bound['bound_ms']:.3f} ms "
+         f"({bound['bound_by']}: {flop / 1e9:.2f} GFLOP fp32, "
+         f"{nbytes / 1e6:.2f} MB); against the plain version max abs diff "
+         f"{early:.3e} over the first {AR_EARLY} steps (tol {TOL_AR_EARLY}), "
+         f"{float(diff.max()):.3e} over the run")
+    _check(bool(torch.isfinite(res["general"]).all())
+           and early <= TOL_AR_EARLY,
+           f"the general AR body on the CLI's shape off its plain version "
+           f"({WHY_AR})")
+    return {"ms": g_ms, "plain_ms": p_ms, **bound}
+
+
+def _generic_ar_cli(root: str) -> dict:
+    """(c) `train-teacher teacher_lj` at (96, 192, 96, 80) for 2 steps with
+    one sample dump, then `generate --model teacher` from its workdir: each
+    call's launches (kernels 5 and 3 on their general bodies, kernel 4 on
+    its general body), no CUDA tensor on a plain version, the dump and the
+    wav finite and of their lengths.  Returns the launches of both."""
+    wd = os.path.join(root, "generic_ar_teacher")
+    L, hop = GEN_AR.teacher.n_layers, GEN_AR.dsp.hop_length
+    sr = GEN_AR.dsp.sample_rate
+    idle = {"kernel 1": 0, "kernel 5": 0, "kernel 3": 0,
+            "kernel 3 student": 0, "kernel 3 teacher dx": 0, "generic": 0}
+    calls = [
+        ({**idle, "kernel 5": L * 3, "kernel 3": 2, "generic": L * 3 + 2,
+          "kernel 4": 1, "kernel 4 generic": 1},
+         "train-teacher 2 steps at (96, 192, 96, 80)",
+         ["train-teacher", "teacher_lj", "--workdir", wd, "--steps", "2",
+          "train.checkpoint_every=2", "train.log_every=1",
+          *GEN_AR_OVERRIDES], "teacher done: 2 steps"),
+        ({**idle, "kernel 4": 1, "kernel 4 generic": 1},
+         "generate --model teacher 0.25 s at (96, 192, 96, 80)",
+         ["generate", "teacher_lj", "--model", "teacher", "--workdir", wd,
+          "--seconds", "0.25", "--output", os.path.join(root, "gen_t.wav"),
+          *GEN_AR_OVERRIDES], None),
+    ]
+    total: dict = {}
+    with _plain_on_card() as hits:
+        for want, what, args, line in calls:
+            t = time.perf_counter()
+            out = _driven(want, what, *args, counts=_gen_ar_counts)
+            _log(f"[generic ar] {what}: {time.perf_counter() - t:.1f} s")
+            _check(line is None or line in out, f"{what}: {line!r} missing")
+            for k, v in want.items():
+                total[k] = total.get(k, 0) + v
+    _check(not hits, f"a CUDA tensor reached a plain version: {hits}")
+    dumps = sorted(os.listdir(os.path.join(wd, "samples")))
+    _check(dumps == ["step_00000002.wav"], f"sample dumps {dumps}")
+    dump, got_sr = read_wav(os.path.join(wd, "samples", dumps[0]))
+    wav, _ = read_wav(os.path.join(root, "gen_t.wav"))
+    _check(got_sr == sr and dump.shape == (_dump_len(GEN_AR),)
+           and wav.shape == (int(0.25 * sr) // hop * hop,)
+           and np.isfinite(dump).all() and np.isfinite(wav).all(),
+           f"the dump {dump.shape} or gen_t.wav {wav.shape}")
+    _log(f"[generic ar] the CLI at (96, 192, 96, 80), {L} layers: kernel 4's "
+         f"general body launched {total['kernel 4 generic']} times (a dump "
+         f"and a generation), kernels 5 and 3 on their general bodies "
+         f"{total['generic']}; no plain version got a CUDA tensor")
+    return total
+
+
+def phase_generic_ar(device, smi: str, root: str) -> dict:
+    """Phase 8h: kernel 4's general body, (a) rows, (b) times, (c) the
+    CLI at an unbuilt width."""
+    t0 = time.perf_counter()
+    errs = _generic_ar_rows(device)
+    t1 = time.perf_counter()
+    times = _generic_ar_times(device, smi)
+    t2 = time.perf_counter()
+    launches = _generic_ar_cli(root)
+    _log(f"[generic ar] phase 8h took {time.perf_counter() - t0:.1f} s (rows "
+         f"{t1 - t0:.1f}, times {t2 - t1:.1f}, CLI "
+         f"{time.perf_counter() - t2:.1f})")
+    return {"launches": launches["kernel 4 generic"],
+            "max_abs_err": errs["(96, 192, 96, 80)"], "times": times}
 
 
 def _check_resumed(resumed: str, whole: str, step: int, what: str) -> None:
@@ -4762,6 +5046,7 @@ def main() -> int:
         phase_mesh(device, smi, root)
         tiny = phase_tiny(device, smi, root)
         wide = phase_wide(device, smi, root)
+        generic_ar = phase_generic_ar(device, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase9: dict = {}
@@ -4860,6 +5145,16 @@ def main() -> int:
         "launches": wide["launches"]["kernel 4"],
         "max_abs_err": wide["ar_max_abs_err"],
         **wide["times"]["ar torch.bfloat16"], "library_ms": None,
+    }, {
+        # kernel 4's general body (phase 8h): its launches on the CLI run at
+        # (96, 192, 96, 80), its error there at 8 x 512, and its time, its
+        # plain version's and its bound at that run's 1 x 5,376
+        "name": "ar_sampler[general body]", "route": "cuda",
+        "source": "pwn_tpu_torch/csrc/ar_sampler.cu",
+        "replaces": "pwn_tpu/ops/pallas/ar_sampler.py:47",
+        "launches": generic_ar["launches"],
+        "max_abs_err": generic_ar["max_abs_err"],
+        **generic_ar["times"]["cli"], "library_ms": None,
     }, {
         # kernel 2's route on the wide teacher: kernel 5's wgmma body (the
         # column split), 24 launches a forward of its training and of the

@@ -1,7 +1,8 @@
 // Whole-loop teacher autoregressive sampler for Hopper (sm_90a): Fast
 // WaveNet with per-layer conv queues, all T steps in one launch, each batch
 // row on one cluster of N = 8 thread blocks (at the wide teacher's widths,
-// two rows a cluster of 16: the last item of the design below).
+// two rows a cluster of 16; at every other width one block a row: the last
+// two items of the design below).
 //
 // Replaces: pwn_tpu/ops/pallas/ar_sampler.py::_kernel (reached through
 // ar_sample_pallas <- models/sampling.py::fast_sample_pallas <-
@@ -164,6 +165,32 @@
 //   (700 W) it took 71.3 us in bf16 weights and 73.5 in fp32, against 88.6
 //   and 112.5 in the same call for one row an 8-block cluster reading its
 //   slices from L2; the phase split is in PERF.md section 5.
+// * The general-width body, `ar_generic_kernel`, takes what the three
+//   instantiations above do not: any (C, G, S, M) with G even (C = 96 or
+//   48, M = 40 at teacher_lj's widths), any head width HD (3K for MoL, any
+//   K; 2 for the Gaussian head) and any number of layers, the dilations and
+//   queue offsets in a (2, L) int32 array on the card.  It is the plain
+//   version's loop in one launch, right before fast:
+//   - One block of 512 threads a batch row; rows never meet, so which rows
+//     share an SM or a wave changes no row's bits.
+//   - The weights stay in `stack_teacher_weights`' layout (no rank packing)
+//     and are read every step from global memory through L2: a product
+//     x @ W of (k, n) takes thread t's column vector t % (n / V) (V weights
+//     in one 16-byte load where a row of W is whole vectors, else one) over
+//     rows kp, kp + P, ... (kp = t / (n / V), at most 32 parts), so the
+//     threads of a warp read consecutive 16-byte vectors of one row; the P
+//     partials of a column are summed in part order.
+//   - x, the tap, cond(t), z, skip and the head's values in fp32 shared
+//     memory, with the partials and the fed-back sample, all dynamic: (1 +
+//     2C + M + G/2 + 3S + HD + max(G, C + S, HD, 4,096)) floats
+//     (`generic_ar_limits` in ops/ar_sampler.py); the fp32 queues (B,
+//     sum(d), C) in global memory, thread i owning element i of every
+//     slot; __syncthreads between the phases (4 a layer).
+//   - The numerics above: fp32 FMAs, IEEE tanhf/expf/logf/log1pf; the draw
+//     in warp 0 over K in strides of 32.
+//   What bounds it: a block reads a row's every weight each step, 5.70 MB
+//   in bf16 at teacher_lj's widths and 20.8 MB at the wide teacher's, from
+//   L2 into one SM, against 29,696 B an SM a layer for the ring kernel.
 //
 // With PWN_AR_SAMPLER_PHASES defined (tools/torch_ar_sampler_phases.py builds
 // it so), one thread of block 0 (thread 0; in the wide kernel lane 0 of warp
@@ -1566,6 +1593,272 @@ int run(const Args& a, const int* dilations, int c, int g, int s, int m, int hd,
   return launch_dims<64, 128, 64, 40, RANKS>(args, dl, weights_bf16, cond_bf16, st, geo);
 }
 
+// ---------------------------------------------------------------------------
+// The general-width body: any (C, G, S, M), head width HD and K, any number
+// of layers, one block a batch row (the design in the comment at the top of
+// this file, last item).
+
+constexpr int GEN_THREADS = 512;  // 16 warps
+constexpr int GEN_MAX_PARTS = 32;  // k parts of a product, at most
+constexpr int GEN_VEC_MAX = 8;    // weights in one 16-byte load (bf16)
+
+struct GenArgs {
+  const void* cond;      // (B, T, M) bf16 or fp32
+  const float* noise;    // (T, B, NZ)
+  const void* front_k;   // (1, C)
+  const float* front_b;  // (1, C)
+  const void* w_in;      // (L, 2C+M, G), `stack_teacher_weights`' layout
+  const float* b_g;      // (L, G)
+  const void* w_out;     // (L, G/2, C+S)
+  const float* b_rs;     // (L, C+S)
+  const void* head1_k;   // (S, S)
+  const float* head1_b;  // (1, S)
+  const void* head2_k;   // (S, HD)
+  const float* head2_b;  // (1, HD)
+  const int* dil;        // (2, L) on the card: the dilations, then the queue offsets
+  float* queue;          // (B, sum(d), C), zero on entry
+  float* wav;            // (B, T)
+  int B, T, L, C, G, S, M, HD, K, NZ, sum_d, gaussian;
+  float log_scale_min, temperature;
+};
+
+// Weights a thread loads at once from a row of n weights of `wbytes` bytes:
+// a 16-byte vector where the row is whole vectors, else one.
+__host__ __device__ inline int gen_vec(int n, int wbytes) {
+  return n % (16 / wbytes) == 0 ? 16 / wbytes : 1;
+}
+
+// The k parts of a product with n output columns, v a load: the threads
+// over the n / v column vectors, the rest of them over k.
+__host__ __device__ inline int gen_parts(int n, int v) {
+  const int nv = n / v;
+  if (nv >= GEN_THREADS) return 1;
+  return GEN_THREADS / nv < GEN_MAX_PARTS ? GEN_THREADS / nv : GEN_MAX_PARTS;
+}
+
+// Floats of shared memory: the fed-back sample, [x | tap | cond(t)], z,
+// skip, relu(skip), the head's hidden, its output, and the products'
+// partials (parts x columns, at most GEN_THREADS x GEN_VEC_MAX below
+// GEN_THREADS vectors, else the columns themselves).
+__host__ __device__ inline long long gen_smem_floats(int c, int g, int s, int m, int hd) {
+  int n = g > c + s ? g : c + s;
+  n = n > hd ? n : hd;
+  const int part = n > GEN_THREADS * GEN_VEC_MAX ? n : GEN_THREADS * GEN_VEC_MAX;
+  return 1 + (long long)(2 * c + m) + g / 2 + 3LL * s + hd + part;
+}
+
+template <typename W, int V>
+__device__ __forceinline__ void load_w(const W* p, float (&f)[V]) {
+  if constexpr (V == 1) {
+    f[0] = to_f32(*p);
+  } else {
+    static_assert(V * sizeof(W) == 16, "one 16-byte vector");
+    Vec<W>::to_f32(__ldg(reinterpret_cast<const uint4*>(p)), f);
+  }
+}
+
+// The partials of y = x @ w (x: k_len floats in shared memory; w: (k_len,
+// n) row-major, read from global memory through L2) into part[kp * n + col]
+// for kp < gen_parts(n, V): thread t takes column vector t % (n / V) and
+// rows kp, kp + P, ... (kp = t / (n / V)), or, with as many vectors as
+// threads, vectors t, t + GEN_THREADS, ... over every row.
+template <typename W, int V>
+__device__ __forceinline__ void gen_product_v(const float* x, int k_len, int n, const W* w,
+                                              float* part) {
+  const int nv = n / V, tid = threadIdx.x, P = gen_parts(n, V);
+  const bool wide = nv >= GEN_THREADS;
+  const int kp = wide ? 0 : tid / nv;
+  if (kp >= P) return;
+  for (int cv = wide ? tid : tid % nv; cv < nv; cv += GEN_THREADS) {
+    float acc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = 0.f;
+    const W* col = w + (size_t)cv * V;
+#pragma unroll 4
+    for (int k = kp; k < k_len; k += P) {
+      float wv[V];
+      load_w<W, V>(col + (size_t)k * n, wv);
+      const float xk = x[k];
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = fmaf(xk, wv[e], acc[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) part[kp * n + cv * V + e] = acc[e];
+  }
+}
+
+template <typename W>
+__device__ __forceinline__ int gen_product(const float* x, int k_len, int n, const W* w,
+                                           float* part) {
+  constexpr int VW = 16 / sizeof(W);
+  if (gen_vec(n, sizeof(W)) == VW) {
+    gen_product_v<W, VW>(x, k_len, n, w, part);
+    return gen_parts(n, VW);
+  }
+  gen_product_v<W, 1>(x, k_len, n, w, part);
+  return gen_parts(n, 1);
+}
+
+// Column j of a product's partials, summed in part order.
+__device__ __forceinline__ float gen_sum(const float* part, int n, int parts, int j) {
+  float v = part[j];
+  for (int p = 1; p < parts; ++p) v += part[p * n + j];
+  return v;
+}
+
+template <typename W, typename CT>
+__global__ void __launch_bounds__(GEN_THREADS, 1) ar_generic_kernel(const GenArgs a) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x;
+  const int C = a.C, G = a.G, S = a.S, M = a.M, HD = a.HD, K = a.K, L = a.L, T = a.T;
+  const int GH = G / 2, KIN = 2 * C + M, NO = C + S;
+  const W* w_in = static_cast<const W*>(a.w_in);
+  const W* w_out = static_cast<const W*>(a.w_out);
+  const W* front_k = static_cast<const W*>(a.front_k);
+  const CT* cond = static_cast<const CT*>(a.cond) + (size_t)b * T * M;
+  float* queue = a.queue + (size_t)b * a.sum_d * C;
+
+  // all of it dynamic, so a block takes the whole opt-in size
+  extern __shared__ __align__(16) float gsm[];
+  float* x_prev = gsm;     // the fed-back sample
+  float* cat = gsm + 1;    // [x | tap | cond(t)]
+  float* z = cat + KIN;    // G/2
+  float* skip = z + GH;    // S
+  float* hs = skip + S;    // relu(skip), S
+  float* h1 = hs + S;      // the head's hidden, S
+  float* hp = h1 + S;      // the head's output, HD
+  float* part = hp + HD;   // the products' partials
+  if (tid == 0) *x_prev = 0.f;
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    // the front 1x1 (no FMA, as the plain version), cond(t), a zero skip
+    const float xp = *x_prev;
+    for (int i = tid; i < C; i += GEN_THREADS)
+      cat[i] = __fadd_rn(__fmul_rn(xp, to_f32(front_k[i])), a.front_b[i]);
+    for (int m = tid; m < M; m += GEN_THREADS) cat[2 * C + m] = to_f32(cond[(size_t)t * M + m]);
+    for (int s = tid; s < S; s += GEN_THREADS) skip[s] = 0.f;
+    for (int l = 0; l < L; ++l) {
+      // the tap, read before its slot takes x (thread i owns element i of
+      // every slot, so the queue needs no barrier of its own)
+      const int slot = __ldg(a.dil + L + l) + t % __ldg(a.dil + l);
+      float* q = queue + (size_t)slot * C;
+      for (int i = tid; i < C; i += GEN_THREADS) {
+        cat[C + i] = q[i];
+        q[i] = cat[i];
+      }
+      __syncthreads();
+      const float* bg = a.b_g + (size_t)l * G;
+      const int pg = gen_product<W>(cat, KIN, G, w_in + (size_t)l * KIN * G, part);
+      __syncthreads();
+      for (int j = tid; j < GH; j += GEN_THREADS) {
+        const float ga = gen_sum(part, G, pg, j) + bg[j];
+        const float gb = gen_sum(part, G, pg, GH + j) + bg[GH + j];
+        z[j] = tanhf(ga) * (1.f / (1.f + expf(-gb)));
+      }
+      __syncthreads();
+      const float* brs = a.b_rs + (size_t)l * NO;
+      const int po = gen_product<W>(z, GH, NO, w_out + (size_t)l * GH * NO, part);
+      __syncthreads();
+      for (int n = tid; n < NO; n += GEN_THREADS) {
+        const float o = gen_sum(part, NO, po, n) + brs[n];
+        if (n < C)
+          cat[n] = cat[n] + o;
+        else
+          skip[n - C] = skip[n - C] + o;
+      }
+      __syncthreads();
+    }
+
+    // the head: relu, 1x1, relu, 1x1
+    for (int s = tid; s < S; s += GEN_THREADS) hs[s] = fmaxf(skip[s], 0.f);
+    __syncthreads();
+    const int p1 = gen_product<W>(hs, S, S, static_cast<const W*>(a.head1_k), part);
+    __syncthreads();
+    for (int n = tid; n < S; n += GEN_THREADS)
+      h1[n] = fmaxf(gen_sum(part, S, p1, n) + a.head1_b[n], 0.f);
+    __syncthreads();
+    const int p2 = gen_product<W>(h1, S, HD, static_cast<const W*>(a.head2_k), part);
+    __syncthreads();
+    for (int n = tid; n < HD; n += GEN_THREADS) hp[n] = gen_sum(part, HD, p2, n) + a.head2_b[n];
+    __syncthreads();
+
+    // the draw (warp 0), as the ring kernel's but over any K
+    if (warp == 0) {
+      const float* u = a.noise + ((size_t)t * a.B + b) * a.NZ;
+      float xt;
+      if (a.gaussian) {
+        const float ls = fmaxf(hp[1], a.log_scale_min);
+        xt = hp[0] + expf(ls) * a.temperature * __ldg(u);
+      } else {
+        float best = -INFINITY;
+        for (int k = lane; k < K; k += 32) best = fmaxf(best, hp[k] - logf(-logf(__ldg(u + k))));
+        best = warp_max(best);
+        int count = 0;
+        for (int k0 = 0; k0 < K; k0 += 32) {
+          const int k = k0 + lane;
+          const bool pick = k < K && hp[k] - logf(-logf(__ldg(u + k))) >= best;
+          count += __popc(__ballot_sync(FULL, pick));
+        }
+        const float wgt = 1.f / (float)count;
+        float mean = 0.f, lsum = 0.f;
+        for (int k = lane; k < K; k += 32)
+          if (hp[k] - logf(-logf(__ldg(u + k))) >= best) {
+            mean += hp[K + k] * wgt;
+            lsum += fmaxf(hp[2 * K + k], a.log_scale_min) * wgt;
+          }
+        mean = warp_sum(mean);
+        const float ls = warp_sum(lsum);
+        const float ul = __ldg(u + K);
+        xt = mean + expf(ls) * a.temperature * (logf(ul) - log1pf(-ul));
+      }
+      xt = fminf(fmaxf(xt, -1.f), 1.f);
+      if (lane == 0) {
+        *x_prev = xt;
+        a.wav[(size_t)b * T + t] = xt;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename W, typename CT>
+int launch_generic(const GenArgs& a, cudaStream_t stream, int* geo) {
+  auto kernel = ar_generic_kernel<W, CT>;
+  const long long smem = 4 * gen_smem_floats(a.C, a.G, a.S, a.M, a.HD);
+  int dev = 0, optin = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (smem > optin) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (geo) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, GEN_THREADS, (size_t)smem);
+    if (err != cudaSuccess) return err;
+    geo[0] = GEN_THREADS;
+    geo[1] = (int)smem;
+    geo[2] = per_sm * n_sm;
+    return cudaSuccess;
+  }
+  kernel<<<a.B, GEN_THREADS, (size_t)smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+int run_generic(const GenArgs& a, int weights_bf16, int cond_bf16, cudaStream_t st, int* geo) {
+  if (a.B < 1 || a.T < 1 || a.L < 1 || a.C < 1 || a.S < 1 || a.M < 1 || a.G < 2 || a.G % 2 ||
+      (a.gaussian ? a.HD != 2 : (a.K < 1 || a.HD != 3 * a.K)))
+    return cudaErrorInvalidValue;
+  if (weights_bf16)
+    return cond_bf16 ? launch_generic<bf16, bf16>(a, st, geo)
+                     : launch_generic<bf16, float>(a, st, geo);
+  return cond_bf16 ? launch_generic<float, bf16>(a, st, geo)
+                   : launch_generic<float, float>(a, st, geo);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1640,6 +1933,54 @@ int pwn_ar_sample_geometry(int L, int c, int g, int s, int m, int hd, int k, int
     out[4] = geo.clusters;
   }
   return err;
+}
+
+// The general-width body on `stream`: the same math as pwn_ar_sample over
+// the weights in `stack_teacher_weights`' layout (no rank packing), any
+// widths and layer count; dil is (2, L) int32 on the card (the dilations,
+// then the queue offsets), sum_d the queue's slots.  Returns a cudaError_t.
+int pwn_ar_sample_generic(const void* cond, const void* noise, const void* front_k,
+                          const void* front_b, const void* w_in, const void* b_g,
+                          const void* w_out, const void* b_rs, const void* head1_k,
+                          const void* head1_b, const void* head2_k, const void* head2_b,
+                          const void* dil, void* queue, void* wav, int B, int T, int L, int c,
+                          int g, int s, int m, int hd, int k, int gaussian, int sum_d,
+                          float log_scale_min, float temperature, int weights_bf16,
+                          int cond_bf16, void* stream) {
+  GenArgs a;
+  a.cond = cond;
+  a.noise = static_cast<const float*>(noise);
+  a.front_k = front_k;
+  a.front_b = static_cast<const float*>(front_b);
+  a.w_in = w_in;
+  a.b_g = static_cast<const float*>(b_g);
+  a.w_out = w_out;
+  a.b_rs = static_cast<const float*>(b_rs);
+  a.head1_k = head1_k;
+  a.head1_b = static_cast<const float*>(head1_b);
+  a.head2_k = head2_k;
+  a.head2_b = static_cast<const float*>(head2_b);
+  a.dil = static_cast<const int*>(dil);
+  a.queue = static_cast<float*>(queue);
+  a.wav = static_cast<float*>(wav);
+  a.B = B; a.T = T; a.L = L; a.C = c; a.G = g; a.S = s; a.M = m; a.HD = hd;
+  a.K = gaussian ? 0 : k; a.NZ = gaussian ? 1 : k + 1;
+  a.sum_d = sum_d; a.gaussian = gaussian;
+  a.log_scale_min = log_scale_min;
+  a.temperature = temperature;
+  return run_generic(a, weights_bf16, cond_bf16, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The general body's launch for these widths and types, into out[3]:
+// threads a block (one block a batch row), dynamic shared memory in bytes,
+// and how many of its blocks the card holds at once (a larger batch runs in
+// waves); returns a cudaError_t.
+int pwn_ar_sample_generic_geometry(int c, int g, int s, int m, int hd, int k, int gaussian,
+                                   int weights_bf16, int cond_bf16, int* out) {
+  GenArgs a = {};
+  a.B = 1; a.T = 1; a.L = 1; a.C = c; a.G = g; a.S = s; a.M = m; a.HD = hd;
+  a.K = gaussian ? 0 : k; a.gaussian = gaussian;
+  return run_generic(a, weights_bf16, cond_bf16, nullptr, out);
 }
 
 }  // extern "C"

@@ -164,9 +164,16 @@ class WaveNetStack(nn.Module):
     the gated layers run as one call of the mode's stack function over the
     stacked layout of `stacked()`; in "layer" they run one by one through
     `FusedGatedResidual` over the per-layer layout of `layer_weights()`.
-    The mode is fixed when the model is built, and kept at every width, as
-    the reference's `mega_ok` keeps every preset's stack on its whole-stack
-    kernels:
+    The mode is fixed when the model is built, and kept at every width.
+    The reference's `mega_ok` keeps every preset's stack on its whole-stack
+    kernels, but at the wide teacher's widths (256, 512, 256, 80) its
+    `mega_fits_vmem` fails (28.4 MB at 24 layers in bf16, against a 12 MB
+    VMEM budget) and it runs per layer, summing the skip in the compute
+    dtype; the port keeps "infer", "train" and "dx" there on purpose (the
+    budget is a TPU fact, and the skip sum stays fp32:
+    `tests/test_torch_wide.py::
+    test_wide_stack_keeps_its_mode_against_the_per_layer_form` states the
+    gap):
     - "infer": `flow_stack` picks kernel 1 or kernel 5's accumulate loop on
       the card;
     - "train" and "dx": kernels 2 and 3;

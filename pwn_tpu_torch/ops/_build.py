@@ -155,6 +155,23 @@ def load_library() -> ctypes.CDLL:
                                           # clusters
     ]
     lib.pwn_ar_sample_geometry.restype = i
+    lib.pwn_ar_sample_generic.argtypes = [
+        p, p, p, p, p, p, p, p,        # cond, noise, front_k, front_b, w_in,
+                                       # b_g, w_out, b_rs
+        p, p, p, p, p, p, p,           # head1_k, head1_b, head2_k, head2_b,
+                                       # dilations (card), queue, wav
+        i, i, i, i, i, i, i, i, i, i,  # B, T, L, C, G, S, M, head_dim, K,
+        i,                             # gaussian, sum(d)
+        ctypes.c_float, ctypes.c_float,  # log_scale_min, temperature
+        i, i, p,                       # weights_bf16, cond_bf16, stream
+    ]
+    lib.pwn_ar_sample_generic.restype = i
+    lib.pwn_ar_sample_generic_geometry.argtypes = [
+        i, i, i, i, i, i, i, i, i,     # C, G, S, M, head_dim, K, gaussian,
+                                       # weights_bf16, cond_bf16
+        ctypes.POINTER(ctypes.c_int),  # out: threads, smem, blocks at once
+    ]
+    lib.pwn_ar_sample_generic_geometry.restype = i
     lib.pwn_gated_layer_bf16.argtypes = [
         p, p, p, p, p, p, p, p,        # x, cond, w_in, b_g, w_out, b_out, res,
                                        # skip

@@ -19,27 +19,34 @@ the reference's:
 with cond (B, T, M) in the compute dtype, and returns wav (B, T) fp32.
 Compute is fp32 over the stored weights, and the queues are fp32.
 
-A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
-(`csrc/ar_sampler.cu`) or raises.  The kernel runs the batch rows on
-clusters of `ar_ranks` blocks, each of which owns its share of every
-layer's gate columns; `pack_ar_ranks` lays the weights out for it.  At
-teacher_lj's and the tiny teacher's widths a cluster of 8 takes one row
-and a rank's layer slice streams whole through a shared-memory ring; at
-the wide teacher's (`AR_WIDE_DIMS`) a cluster of 16 takes two rows, each
-weight read serving both, and the slice streams in chunks of 4,096
-weights (`layout="chunks"`; the source's note).  `ar_geometry` reports
-what a launch looks like.
+A CPU tensor goes to the plain version; a CUDA tensor goes to one of the
+kernel's three bodies (`csrc/ar_sampler.cu`) or raises; `ar_body` picks
+it from the widths, the layer count and the mixtures alone.  At the widths
+the kernel is built for (`AR_KERNEL_DIMS`, at most `AR_MAX_LAYERS` layers
+and `AR_MAX_MIXTURES` mixtures) the batch rows run on clusters of
+`ar_ranks` blocks, each of which owns its share of every layer's gate
+columns; `pack_ar_ranks` lays the weights out for them.  At teacher_lj's
+and the tiny teacher's widths ("slices") a cluster of 8 takes one row and
+a rank's layer slice streams whole through a shared-memory ring; at the
+wide teacher's (`AR_WIDE_DIMS`, "chunks") a cluster of 16 takes two rows,
+each weight read serving both, and the slice streams in chunks of 4,096
+weights (the source's note).  Every other teacher the reference's sampler
+takes (any width with an even G, any mixture count, any depth, within
+`generic_ar_limits`) runs the general body ("generic"): one block a row,
+the weights in this module's layout read from L2 every step.
+`ar_geometry` reports what a launch looks like.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from pwn_tpu_torch.ops.flow_stack import _device_call
+from pwn_tpu_torch.ops.flow_stack import SMEM_PER_BLOCK, _device_call
 from pwn_tpu_torch.ops.gaussian import sample_from_normals
 from pwn_tpu_torch.ops.mol import mol_sample_from_uniforms
 
@@ -48,7 +55,9 @@ from pwn_tpu_torch.ops.mol import mol_sample_from_uniforms
 # 256 residual, 512 gate and 256 skip channels)
 AR_WIDE_DIMS = (256, 512, 256, 80)
 AR_KERNEL_DIMS = ((128, 256, 128, 80), (64, 128, 64, 40), AR_WIDE_DIMS)
-AR_MAX_LAYERS = 64
+AR_MAX_LAYERS = 64  # the built bodies' caps (MAX_L, MAX_HD = 3 x 10)
+AR_MAX_MIXTURES = 10
+AR_BODIES = ("slices", "chunks", "generic")
 AR_RANKS = 8  # blocks per cluster: the kernel's split of every layer
 AR_WIDE_RANKS = 16  # the same at AR_WIDE_DIMS
 AR_CHUNK_ELEMS = 4096  # weights a stage of the wide kernel's ring
@@ -56,6 +65,80 @@ AR_CHUNK_ELEMS = 4096  # weights a stage of the wide kernel's ring
 
 _WEIGHTS = ("front_k", "w_in", "w_out", "head1_k", "head2_k")
 _BIASES = ("front_b", "b_g", "b_rs", "head1_b", "head2_b")
+
+
+# the floats of the general body's partials at least: GEN_THREADS x
+# GEN_VEC_MAX in the source (`ar_generic_kernel`)
+_GENERIC_PART_FLOATS = 512 * 8
+
+
+def head_width(n_mixtures: int, head: str) -> int:
+    """The head's output width: 3K for "mol", 2 for "gaussian"."""
+    return 2 if head == "gaussian" else 3 * n_mixtures
+
+
+def generic_ar_smem_bytes(C: int, G: int, S: int, M: int, HD: int) -> int:
+    """The general body's shared memory, all of it dynamic
+    (`gen_smem_floats` in the source): the fed-back sample, [x | tap |
+    cond(t)], z, skip, relu(skip), the head's hidden and output, and the
+    products' partials, all fp32.  The weights and the
+    queues stay in global memory, so the layer count and K set no bound
+    beyond HD's floats."""
+    part = max(G, C + S, HD, _GENERIC_PART_FLOATS)
+    return 4 * (1 + (2 * C + M) + G // 2 + 3 * S + HD + part)
+
+
+def generic_ar_limits(C: int, G: int, S: int, M: int, HD: int) -> str | None:
+    """Why the general body does not take these widths, or None where it
+    does: C, S, M, HD >= 1, an even G >= 2, and a block's shared memory
+    (`generic_ar_smem_bytes`) within SMEM_PER_BLOCK.  Any number of layers
+    and of mixtures within that."""
+    if min(C, S, M, HD) < 1 or G < 2 or G % 2:
+        return (f"the general AR body takes C, S, M, head width >= 1 and an "
+                f"even G >= 2, got (C, G, S, M, HD) = {(C, G, S, M, HD)}")
+    smem = generic_ar_smem_bytes(C, G, S, M, HD)
+    if smem > SMEM_PER_BLOCK:
+        return (f"the general AR body needs {smem} bytes of shared memory at "
+                f"(C, G, S, M, HD) = {(C, G, S, M, HD)}; a block has "
+                f"{SMEM_PER_BLOCK} (generic_ar_limits)")
+    return None
+
+
+def ar_body(C: int, G: int, S: int, M: int, L: int, K: int,
+            head: str = "mol") -> str:
+    """Which body of kernel 4 a call reaches: "slices" at teacher_lj's and
+    the tiny teacher's widths and "chunks" at the wide teacher's, each with
+    at most AR_MAX_LAYERS layers and (MoL) AR_MAX_MIXTURES mixtures;
+    "generic" for every other teacher within `generic_ar_limits`; else
+    ValueError naming that limit.  The widths, L and K alone decide, so
+    the answer is the same on the CPU and on the card."""
+    built = L <= AR_MAX_LAYERS and (head == "gaussian"
+                                    or 1 <= K <= AR_MAX_MIXTURES)
+    if built and (C, G, S, M) in AR_KERNEL_DIMS:
+        return "chunks" if (C, G, S, M) == AR_WIDE_DIMS else "slices"
+    why = generic_ar_limits(C, G, S, M, head_width(K, head))
+    if why:
+        raise ValueError(f"no AR body takes L={L}, K={K} at (C, G, S, M) = "
+                         f"{(C, G, S, M)}: the built bodies take "
+                         f"{list(AR_KERNEL_DIMS)} with at most "
+                         f"{AR_MAX_LAYERS} layers and {AR_MAX_MIXTURES} "
+                         f"mixtures, and {why}")
+    return "generic"
+
+
+def resolve_ar_body(C: int, G: int, S: int, M: int, L: int, K: int,
+                    head: str, body: str | None = None) -> str:
+    """The body a call runs: `body` if given ("generic" anywhere within
+    `generic_ar_limits`, a built body only where `ar_body` picks it), else
+    `ar_body`'s pick; ValueError for any other."""
+    if body not in (None, *AR_BODIES):
+        raise ValueError(f"body {body!r}; one of {AR_BODIES}")
+    picked = ar_body(C, G, S, M, L, K, head)
+    if body not in (None, "generic", picked):
+        raise ValueError(f"the {body!r} body is not built for L={L}, K={K} "
+                         f"at (C, G, S, M) = {(C, G, S, M)}; ar_body picks "
+                         f"{picked!r}")
+    return body or picked
 
 
 def ar_ranks(C: int, G: int, S: int, M: int) -> int:
@@ -230,8 +313,10 @@ def ar_sample_reference(cond: torch.Tensor, noise: torch.Tensor,
 
 
 def check_ar_args(cond, noise, weights: dict, dilations: Sequence[int],
-                  n_mixtures: int, head: str) -> None:
-    """Raise ValueError on anything the kernel does not take."""
+                  n_mixtures: int, head: str, body: str | None = None) -> str:
+    """Raise ValueError on anything the kernel does not take; return the
+    body the call runs (`resolve_ar_body`).  The width, layer and mixture
+    caps of the built bodies apply only to them."""
     if cond.dim() != 3:
         raise ValueError("cond must be (B, T, M)")
     B, T, M = cond.shape
@@ -242,18 +327,14 @@ def check_ar_args(cond, noise, weights: dict, dilations: Sequence[int],
     L, K_in, G = weights["w_in"].shape
     C = weights["front_k"].shape[-1]
     S = weights["head1_k"].shape[0]
-    if (C, G, S, M) not in AR_KERNEL_DIMS:
-        raise ValueError(f"the AR kernel is built for (C, G, S, M) in "
-                         f"{AR_KERNEL_DIMS}, got {(C, G, S, M)}")
     if head == "gaussian":
-        hd, nz = 2, 1
+        nz = 1
     elif head == "mol":
-        hd, nz = 3 * n_mixtures, n_mixtures + 1
-        if not 1 <= n_mixtures <= 10:
-            raise ValueError(f"the AR kernel takes 1..10 mixtures, got "
-                             f"{n_mixtures}")
+        nz = n_mixtures + 1
     else:
         raise ValueError(f"head {head!r}; one of 'mol', 'gaussian'")
+    hd = head_width(n_mixtures, head)
+    body = resolve_ar_body(C, G, S, M, L, n_mixtures, head, body)
     shapes = {"front_k": (1, C), "front_b": (1, C),
               "w_in": (L, 2 * C + M, G), "b_g": (L, G),
               "w_out": (L, G // 2, C + S), "b_rs": (L, C + S),
@@ -272,9 +353,8 @@ def check_ar_args(cond, noise, weights: dict, dilations: Sequence[int],
     for name in ("noise", *_BIASES):
         if tensors[name].dtype != torch.float32:
             raise ValueError(f"{name} must be float32")
-    if len(dilations) != L or min(dilations) < 1 or L > AR_MAX_LAYERS:
-        raise ValueError(f"need {L} dilations >= 1 (at most {AR_MAX_LAYERS} "
-                         f"layers), got {tuple(dilations)}")
+    if len(dilations) != L or min(dilations) < 1:
+        raise ValueError(f"need {L} dilations >= 1, got {tuple(dilations)}")
     if B < 1 or T < 1:
         raise ValueError(f"unsupported B={B}, T={T}")
     for name, t in tensors.items():
@@ -283,25 +363,68 @@ def check_ar_args(cond, noise, weights: dict, dilations: Sequence[int],
                              f"{t.device} (cond on {cond.device})")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    return body
 
 
 def ar_sample(cond: torch.Tensor, noise: torch.Tensor, weights: dict, *,
               dilations: Sequence[int], n_mixtures: int, head: str = "mol",
-              log_scale_min: float = -9.0,
-              temperature: float = 1.0) -> torch.Tensor:
+              log_scale_min: float = -9.0, temperature: float = 1.0,
+              body: str | None = None) -> torch.Tensor:
     """The fused AR loop (counterpart of `ar_sample_pallas`); see the module
-    docstring.  Returns wav (B, T) fp32.  `ar_sample.launches` counts the
-    kernel launches (one per call)."""
+    docstring.  Returns wav (B, T) fp32.  `body` runs a given body of the
+    kernel ("generic" takes the built widths too; default `ar_body`'s
+    pick); a CPU tensor takes the plain version whatever it says.
+    `ar_sample.launches` counts the kernel's launches (one per call),
+    `ar_sample.launches_by` them by body."""
     if cond.device.type == "cpu":
         return ar_sample_reference(
             cond, noise, weights, dilations=dilations, n_mixtures=n_mixtures,
             head=head, log_scale_min=log_scale_min, temperature=temperature)
-    check_ar_args(cond, noise, weights, dilations, n_mixtures, head)
-    args, held = ar_launch_args(cond, noise, weights, dilations, n_mixtures,
-                                head, log_scale_min, temperature)
-    _device_call("pwn_ar_sample", cond.device, *args)
+    body = check_ar_args(cond, noise, weights, dilations, n_mixtures, head,
+                         body)
+    if body == "generic":
+        args, held = ar_generic_launch_args(cond, noise, weights, dilations,
+                                            n_mixtures, head, log_scale_min,
+                                            temperature)
+        _device_call("pwn_ar_sample_generic", cond.device, *args)
+    else:
+        args, held = ar_launch_args(cond, noise, weights, dilations,
+                                    n_mixtures, head, log_scale_min,
+                                    temperature)
+        _device_call("pwn_ar_sample", cond.device, *args)
     ar_sample.launches += 1
+    ar_sample.launches_by[body] += 1
     return held[0]
+
+
+def ar_generic_launch_args(cond, noise, weights: dict,
+                           dilations: Sequence[int], n_mixtures: int,
+                           head: str, log_scale_min: float,
+                           temperature: float):
+    """The arguments of the library's `pwn_ar_sample_generic` but the
+    stream, for arguments `check_ar_args` passed, and the tensors they
+    point into that the caller must hold until the launch: (wav (B, T),
+    the (2, L) int32 dilations and queue offsets on the card, the zeroed
+    queues).  The weights go in `stack_teacher_weights`' layout."""
+    B, T, M = cond.shape
+    L, _, G = weights["w_in"].shape
+    C = weights["front_k"].shape[-1]
+    S = weights["head1_k"].shape[0]
+    dil = torch.tensor([*dilations, *queue_offsets(dilations)],
+                       dtype=torch.int32).to(cond.device)
+    queue = torch.zeros((B, sum(dilations), C), dtype=torch.float32,
+                        device=cond.device)
+    wav = torch.empty((B, T), dtype=torch.float32, device=cond.device)
+    args = (cond.data_ptr(), noise.data_ptr(),
+            *(weights[n].data_ptr() for n in (
+                "front_k", "front_b", "w_in", "b_g", "w_out", "b_rs",
+                "head1_k", "head1_b", "head2_k", "head2_b")),
+            dil.data_ptr(), queue.data_ptr(), wav.data_ptr(),
+            B, T, L, C, G, S, M, head_width(n_mixtures, head), n_mixtures,
+            int(head == "gaussian"), sum(dilations), float(log_scale_min),
+            float(temperature), int(weights["w_in"].dtype == torch.bfloat16),
+            int(cond.dtype == torch.bfloat16))
+    return args, (wav, dil, queue)
 
 
 def ar_launch_args(cond, noise, weights: dict, dilations: Sequence[int],
@@ -345,27 +468,42 @@ def ar_launch_args(cond, noise, weights: dict, dilations: Sequence[int],
 
 
 def ar_geometry(weights: dict, *, n_mixtures: int, head: str,
-                cond_dtype: torch.dtype) -> dict:
+                cond_dtype: torch.dtype, body: str | None = None) -> dict:
     """What the kernel's launch looks like on the current card for these
-    weights: `rows` batch rows and `ranks` blocks a cluster, `stages` of its
-    weight ring, `smem` bytes of dynamic shared memory a block, and
-    `clusters`, how many of its clusters the card holds at once (a larger
-    batch runs in waves)."""
+    weights, in `body` (`resolve_ar_body`; named under "body"): `rows`
+    batch rows and `ranks` blocks a cluster, `stages` of its weight ring,
+    `smem` bytes of dynamic shared memory a block, and `clusters`, how
+    many of its clusters the card holds at once (a larger batch runs in
+    waves).  The general body has no cluster and no ring: one block of
+    `threads` threads a row (rows 1, ranks 1, stages 0), and `blocks`, how
+    many of them the card holds at once, in place of `clusters`."""
     from pwn_tpu_torch.ops import _build
 
     L, K, G = weights["w_in"].shape
     C = weights["front_k"].shape[-1]
     S = weights["head1_k"].shape[0]
-    out = (ctypes.c_int * 5)()
+    M, HD = K - 2 * C, weights["head2_k"].shape[-1]
+    body = resolve_ar_body(C, G, S, M, L, n_mixtures, head, body)
     lib = _build.load_library()
-    err = lib.pwn_ar_sample_geometry(
-        L, C, G, S, K - 2 * C, weights["head2_k"].shape[-1], n_mixtures,
-        int(head == "gaussian"), int(weights["w_in"].dtype == torch.bfloat16),
-        int(cond_dtype == torch.bfloat16), ar_ranks(C, G, S, K - 2 * C), out)
+    types = (int(weights["w_in"].dtype == torch.bfloat16),
+             int(cond_dtype == torch.bfloat16))
+    if body == "generic":
+        out = (ctypes.c_int * 3)()
+        err = lib.pwn_ar_sample_generic_geometry(
+            C, G, S, M, HD, n_mixtures, int(head == "gaussian"), *types, out)
+        geo = {"rows": 1, "ranks": 1, "stages": 0, "smem": out[1],
+               "blocks": out[2], "threads": out[0]}
+    else:
+        out = (ctypes.c_int * 5)()
+        err = lib.pwn_ar_sample_geometry(
+            L, C, G, S, M, HD, n_mixtures, int(head == "gaussian"), *types,
+            ar_ranks(C, G, S, M), out)
+        geo = dict(zip(("rows", "ranks", "stages", "smem", "clusters"), out))
     if err:
-        raise RuntimeError("pwn_ar_sample_geometry failed: "
+        raise RuntimeError("the AR geometry query failed: "
                            + lib.pwn_cuda_error_string(err).decode())
-    return dict(zip(("rows", "ranks", "stages", "smem", "clusters"), out))
+    return {"body": body, **geo}
 
 
 ar_sample.launches = 0
+ar_sample.launches_by = Counter()

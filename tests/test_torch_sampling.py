@@ -524,10 +524,27 @@ def test_kernel_matches_plain_with_fp32_weights(cuda):
 
 @pytest.mark.gpu
 def test_kernel_rejects_other_widths(cuda):
+    """A width no built body takes runs the general body (C = 32 here,
+    within the gates of the plain version); only a width past
+    `generic_ar_limits` is refused, with ValueError, before any launch."""
     cfg = override(TINY, "teacher.residual_channels", 32)
     model = _port_teacher(cfg).to(cuda)
-    cond = torch.zeros((1, 8, cfg.dsp.n_mels), device=cuda)
-    noise = sampling.draw_noise(cfg, torch.Generator(device=cuda), 8, 1)
-    with pytest.raises(ValueError, match="built for"):
-        ar_sample(cond, noise, stack_teacher_weights(model.stack,
-                                                     torch.float32), **_kw(cfg))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    cond = torch.randn((1, 200, cfg.dsp.n_mels), generator=gen,
+                       device=cuda) * 0.5
+    noise = sampling.draw_noise(cfg, gen, 200, 1)
+    weights = stack_teacher_weights(model.stack, torch.float32)
+    n = ar_sampler.ar_sample.launches_by["generic"]
+    _assert_kernel_matches_plain(cfg, cond, noise, weights)
+    assert ar_sampler.ar_sample.launches_by["generic"] == n + 1
+    G = 60_000  # z, g's partials and the rows past a block's shared memory
+    assert ar_sampler.generic_ar_limits(32, G, 64, 40, 30)
+    big = {k: torch.zeros(v.shape[:-1] + (G,) if k in ("w_in", "b_g")
+                          else (v.shape[0], G // 2, v.shape[2])
+                          if k == "w_out" else v.shape,
+                          dtype=v.dtype, device=cuda)
+           for k, v in weights.items()}
+    before = ar_sample.launches
+    with pytest.raises(ValueError, match="general AR body"):
+        ar_sample(cond, noise, big, **_kw(cfg))
+    assert ar_sample.launches == before

@@ -16,7 +16,7 @@ dilations (1, 1024, 2048) in every mode, which builds "layer" as the
 reference falls back to its XLA per-layer form; and the routes that send
 these widths to the kernels (`kernel_body`: bf16 to the wgmma bodies'
 column-split instantiation, fp32 to the general bodies within
-`generic_limits`; `AR_KERNEL_DIMS`).
+`generic_limits`; `AR_KERNEL_DIMS` and `ar_body`).
 
 The CUDA cases are marked `gpu` and skip without a card; JAX is imported
 inside the tests that need it:
@@ -34,9 +34,9 @@ from pwn_tpu_torch.models.modules import (STACK_MODES, WaveNetStack,
 from pwn_tpu_torch.models.student import StudentIAF
 from pwn_tpu_torch.models.teacher import TeacherWaveNet
 from pwn_tpu_torch.ops import flow_stack as fs
-from pwn_tpu_torch.ops.ar_sampler import (AR_KERNEL_DIMS, ar_geometry,
-                                          ar_sample, ar_sample_reference,
-                                          check_ar_args,
+from pwn_tpu_torch.ops.ar_sampler import (AR_KERNEL_DIMS, ar_body,
+                                          ar_geometry, ar_sample,
+                                          ar_sample_reference, check_ar_args,
                                           stack_teacher_weights)
 from pwn_tpu_torch.ops.gated_layer import TIME_TILE, gated_layer, \
     gated_layer_reference
@@ -165,21 +165,24 @@ def test_wide_stack_packs_only_for_the_general_bodies(dtype):
 
 def test_ar_kernel_takes_the_wide_widths():
     """The AR kernel is built at the wide widths: its argument check
-    passes them and stops only at the device (CPU tensors here)."""
+    passes them and stops only at the device (CPU tensors here).  Widths
+    next to them that no built body takes, (128, 512, 128, 80), route to
+    the general body; only past `generic_ar_limits` is a width refused."""
     assert WIDE in AR_KERNEL_DIMS
     cfg = wide_config(1, 2)
     port = TeacherWaveNet(cfg)
     weights = stack_teacher_weights(port.stack, BF16)
     tc = cfg.teacher
+    assert ar_body(*WIDE, tc.n_layers, tc.n_mixtures) == "chunks"
     cond = torch.zeros(1, 4, 80, dtype=BF16)
     noise = torch.full((4, 1, tc.n_mixtures + 1), 0.5)
     with pytest.raises(ValueError, match="CUDA device"):
         check_ar_args(cond, noise, weights, tc.dilations, tc.n_mixtures,
                       "mol")
-    bad = dict(weights, head1_k=weights["head1_k"][:128, :128],
-               front_k=weights["front_k"][:, :128])
-    with pytest.raises(ValueError, match="built for"):
-        check_ar_args(cond, noise, bad, tc.dilations, tc.n_mixtures, "mol")
+    assert ar_body(128, 512, 128, 80, tc.n_layers, tc.n_mixtures) == \
+        "generic"
+    with pytest.raises(ValueError, match="general AR body"):
+        ar_body(256, 80_000, 256, 80, tc.n_layers, tc.n_mixtures)
 
 
 @pytest.mark.parametrize("flag", ["auto", "mega", "mega_train", "mega_dx",
@@ -452,6 +455,67 @@ def test_far_dilations_match_jax_in_every_mode(mode):
         ref = np.asarray(ref)
         assert float(np.linalg.norm(g.numpy() - ref)) <= \
             2e-3 * float(np.linalg.norm(ref)), n
+
+
+# The wide teacher's stack mode is not the reference's, deliberately: the
+# reference takes its whole-stack kernels only where `mega_fits_vmem` holds
+# (a 12 MB VMEM budget, a TPU fact the port does not carry), which fails at
+# these widths (28.4 MB at 24 layers in bf16), so on the TPU it runs the
+# per-layer form (`fused_gated_residual` a layer, the skip summed in the
+# compute dtype).  The port keeps "infer" there (the skip summed in fp32).
+# bf16: max|diff| within 0.02 of max|want| (0.0068, 0.0070 and 0.0080 over
+# three seeds at 3 layers, B=1, T=128: the per-layer form's bf16 skip sum
+# and its rounded layer outputs); fp32: the summation order alone, 1e-4.
+F6_TOL = {"float32": 1e-4, "bfloat16": 0.02}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_stack_keeps_its_mode_against_the_per_layer_form(dtype):
+    """F6: the wide teacher resolves to "infer" (and "train" in the
+    training loop) where the reference, past `mega_fits_vmem` at 24
+    layers, runs per layer.  Its forward (fp32 skip sum) against the JAX
+    stack with fused=True (the Pallas per-layer kernel, interpret mode) at
+    3 layers, B=1, T=128: fp32 to fp32 rounding, bf16 at the stated gap
+    (F6_TOL)."""
+    import jax
+    import jax.numpy as jnp
+
+    from pwn_tpu.models.modules import WaveNetStack as JaxStack
+    from pwn_tpu.ops.pallas.flow_stack import mega_fits_vmem
+
+    full = wide_config(3, 8, "bfloat16")
+    assert full.teacher.n_layers == 24
+    assert not mega_fits_vmem(24, *WIDE, 2)
+    assert TeacherWaveNet(full).stack.mode == "infer"
+    assert TeacherWaveNet(full, stack_mode=resolve_stack_mode(
+        full.teacher.fused_layers, "train")).stack.mode == "train"
+    dil = (1, 2, 4)
+    C, G, S, M = WIDE
+    dt = {"float32": F32, "bfloat16": BF16}[dtype]
+    port = WaveNetStack(dil, C, G, S, 30, M, dtype=dt)
+    assert port.mode == "infer"
+    gen = torch.Generator().manual_seed(0)
+    port.reset_parameters(gen)
+    with torch.no_grad():
+        for p in port.parameters():  # a fresh init has zero biases
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    jstack = JaxStack(dilations=dil, residual_channels=C, gate_channels=G,
+                      skip_channels=S, out_dim=30, dtype=jnp.dtype(dtype),
+                      fused=True)
+    rng = np.random.default_rng(11)
+    x = rng.uniform(-0.8, 0.8, (1, 128, 1)).astype(np.float32)
+    cond = rng.uniform(0, 1, (1, 128, M)).astype(np.float32)
+    want = np.asarray(jax.jit(jstack.apply)(
+        {"params": convert.params_to_flax(port.state_dict())},
+        jnp.asarray(x), jnp.asarray(cond)))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x), torch.from_numpy(cond)).numpy()
+    tol = F6_TOL[dtype]
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    else:
+        gap = np.abs(got - want).max() / np.abs(want).max()
+        assert 0 < gap <= tol, gap
 
 
 def test_far_dilations_match_jax_in_bf16():
