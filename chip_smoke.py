@@ -238,7 +238,7 @@ from pwn_tpu_torch.ops import _build
 from pwn_tpu_torch.models.teacher import TeacherWaveNet, init_teacher
 from pwn_tpu_torch.ops import flow_stack as fs
 from pwn_tpu_torch.ops.conv import shift_right
-from pwn_tpu_torch.ops.ar_sampler import (AR_RANKS, ar_geometry,
+from pwn_tpu_torch.ops.ar_sampler import (AR_GEN_RANKS, AR_RANKS, ar_geometry,
                                           ar_sample, ar_sample_reference,
                                           pack_ar_ranks, stack_teacher_weights)
 from pwn_tpu_torch.ops.flow_stack import (flow_stack, flow_stack_reference,
@@ -2765,13 +2765,14 @@ def phase_wide(device, smi: str, root: str) -> dict:
     return {"launches": launches, "times": times, **errs}
 
 
-# Phase 8h: kernel 4's general-width body (`ar_generic_kernel`, one block a
-# batch row, the weights read from L2 every step), which takes every teacher
-# the built bodies do not: (a) at the preset widths against the plain
-# version and the built body on the same inputs, (b) timed in turns with the
-# built body at the reference's AR workload, (c) through the CLI at a width
-# no instantiation is built for (96 is no multiple of 64) at teacher_lj's
-# full depth.  The gates are phase 5's, TOL_AR and TOL_AR_EARLY.
+# Phase 8h: kernel 4's general-width body (`ar_generic_kernel`, one batch row
+# a cluster of 8 blocks at run-time widths, each rank's tiles of the weights
+# streamed by bulk copy), which takes every teacher the built bodies do not:
+# (a) at the preset widths against the plain version and the built body on
+# the same inputs, (b) timed in turns with the built body at the
+# reference's AR workload, (c) through the CLI at a width no instantiation
+# is built for (96 is no multiple of 64) at teacher_lj's full depth.  The
+# gates are phase 5's, TOL_AR and TOL_AR_EARLY.
 GEN_AR_OVERRIDES = ["teacher.residual_channels=96",
                     "teacher.gate_channels=192", "teacher.skip_channels=96"]
 GEN_AR = cli._load_config("teacher_lj", GEN_AR_OVERRIDES)
@@ -2779,6 +2780,28 @@ GEN_AR_DEEP = cli._load_config("teacher_lj", [
     *GEN_AR_OVERRIDES, "teacher.n_mixtures=16", "teacher.n_blocks=9"])
 AR_DEEP_T = 128  # 72 layers of the plain version a step cost 3x teacher_lj's
 AR_DEEP_HEAD2 = 0.1
+# 45 z values over the 8 ranks: the packing pads them to 48.  Its random-init
+# loop is chaotic at 8 x 512 (the plain version against itself with b_g
+# moved by 1e-6 parts by 1.30 on the CPU; with the front 1x1 scaled by
+# WIDE_AR_FRONT by 1.7e-5), so its front is scaled as the wide teacher's
+GEN_AR_PADDED = cli._load_config("teacher_lj", [
+    "teacher.residual_channels=40", "teacher.gate_channels=90",
+    "teacher.skip_channels=40"])
+# 600 layers at the CLI's widths: their taps (230 KB) do not fit a block, so
+# the tap products read the queue slots.  A deep random-init loop is
+# chaotic (the plain version parts from itself by O(1) within 64 steps when
+# W_in moves by 1e-6 at 300 layers), so W_out is scaled by AR_SLOTS_OUT
+# (there the same move gives 6e-7) and the head's last 1x1 by AR_DEEP_HEAD2
+GEN_AR_SLOTS = cli._load_config("tiny_teacher", [
+    *GEN_AR_OVERRIDES, "teacher.n_blocks=120"])
+AR_SLOTS_T, AR_SLOTS_OUT = 64, 0.2
+# past the cluster body's shared memory (its exchange buffer, 2 x 8 x C
+# floats, is 217 KB at C = 3,400): the one-block body's widths
+GEN_AR_BLOCK = cli._load_config("tiny_teacher", [
+    "teacher.residual_channels=3400", "teacher.gate_channels=2",
+    "teacher.skip_channels=1", "teacher.n_blocks=1",
+    "teacher.layers_per_block=2", "teacher.output=gaussian",
+    "student.base=gaussian"])
 
 
 def _gen_ar_counts() -> dict:
@@ -2805,29 +2828,43 @@ def _generic_ar_rows(device) -> dict:
     (bf16 and fp32 weights), clarinet_gaussian, tiny_teacher, and the wide
     teacher in both weight types with the front 1x1 scaled by
     WIDE_AR_FRONT (its random-init loop is chaotic).  Off the built widths
-    the default route must pick it: the CLI's (96, 192, 96, 80), where no
-    product splits evenly over the block (`gen_parts`: 21 k-parts over 24
-    column vectors of W_in), and the same widths with 16 mixtures and 72
-    layers over AR_DEEP_T steps, the head's last 1x1 scaled by
-    AR_DEEP_HEAD2 (72 random layers put most draws on the clip otherwise).
-    Returns each case's worst row against the plain version."""
-    cases = [  # (what, config, weights dtype, front scale, head2 scale, T)
-        ("teacher_lj", TEACHER, None, None, None, AR_CHECK_T),
-        ("teacher_lj fp32 weights", TEACHER, "float32", None, None,
-         AR_CHECK_T),
+    the default route must pick it: the CLI's (96, 192, 96, 80); (40, 90,
+    40, 80), whose 45 z values the packing pads to 48 over the 8 ranks
+    (its front 1x1 scaled by WIDE_AR_FRONT, as GEN_AR_PADDED says why);
+    the CLI's widths with 16 mixtures and 72 layers over AR_DEEP_T steps,
+    the head's last 1x1 scaled by AR_DEEP_HEAD2 (72 random layers put most
+    draws on the clip otherwise); 600 layers, whose taps the plan does not
+    hold (W_out scaled by AR_SLOTS_OUT), 2 x AR_SLOTS_T; and the one-block
+    body at widths past the cluster's shared memory (3,400 residual
+    channels), 2 x 16.  Logs each launch's geometry (rows, ranks, stages,
+    shared memory, clusters that fit, and the plan: a whole layer a copy
+    or tiles, the taps and the head's weights held).  Returns each case's
+    worst row against the plain version."""
+    cases = [  # (what, config, weights dtype, front, head2, W_out, B, T)
+        ("teacher_lj", TEACHER, None, None, None, None, AR_BATCH, AR_CHECK_T),
+        ("teacher_lj fp32 weights", TEACHER, "float32", None, None, None,
+         AR_BATCH, AR_CHECK_T),
         ("clarinet_gaussian", get_config("clarinet_gaussian"), None, None,
-         None, AR_CHECK_T),
-        ("tiny_teacher", TINY, None, None, None, AR_CHECK_T),
-        ("wide teacher", WIDE, None, WIDE_AR_FRONT, None, AR_CHECK_T),
-        ("wide teacher fp32 weights", WIDE, "float32", WIDE_AR_FRONT, None,
+         None, None, AR_BATCH, AR_CHECK_T),
+        ("tiny_teacher", TINY, None, None, None, None, AR_BATCH, AR_CHECK_T),
+        ("wide teacher", WIDE, None, WIDE_AR_FRONT, None, None, AR_BATCH,
          AR_CHECK_T),
-        ("(96, 192, 96, 80)", GEN_AR, None, None, None, AR_CHECK_T),
+        ("wide teacher fp32 weights", WIDE, "float32", WIDE_AR_FRONT, None,
+         None, AR_BATCH, AR_CHECK_T),
+        ("(96, 192, 96, 80)", GEN_AR, None, None, None, None, AR_BATCH,
+         AR_CHECK_T),
+        ("(40, 90, 40, 80), 45 z values padded to 48", GEN_AR_PADDED, None,
+         WIDE_AR_FRONT, None, None, AR_BATCH, AR_CHECK_T),
         ("(96, 192, 96, 80), 16 mixtures, 72 layers", GEN_AR_DEEP, None,
-         None, AR_DEEP_HEAD2, AR_DEEP_T),
+         None, AR_DEEP_HEAD2, None, AR_BATCH, AR_DEEP_T),
+        ("(96, 192, 96, 40), 600 layers, taps from the queue", GEN_AR_SLOTS,
+         None, None, AR_DEEP_HEAD2, AR_SLOTS_OUT, 2, AR_SLOTS_T),
+        ("one-block body, (3400, 2, 1, 40)", GEN_AR_BLOCK, "float32", None,
+         None, None, 2, 16),
     ]
     errs = {}
     gen = torch.Generator(device=device).manual_seed(810)
-    for what, cfg, wdt, front, head2, T in cases:
+    for what, cfg, wdt, front, head2, w_out, B, T in cases:
         model = (_ar_teacher(cfg, device) if front is None else
                  _wide_ar_teacher(cfg, device, False, front))
         if head2 is not None:
@@ -2835,14 +2872,19 @@ def _generic_ar_rows(device) -> dict:
                 model.stack.head2.kernel.mul_(head2)
         weights = stack_teacher_weights(
             model.stack, DTYPES[wdt or cfg.teacher.compute_dtype])
-        cond, noise = _ar_inputs(cfg, AR_BATCH, T, gen)
+        if w_out is not None:
+            weights["w_out"] = (weights["w_out"] * w_out).contiguous()
+        cond, noise = _ar_inputs(cfg, B, T, gen)
         kw = _ar_kw(cfg)
-        built = ar_geometry(weights, n_mixtures=kw["n_mixtures"],
-                            head=kw["head"], cond_dtype=cond.dtype)["body"]
+        picked = ar_geometry(weights, n_mixtures=kw["n_mixtures"],
+                             head=kw["head"], cond_dtype=cond.dtype)["body"]
         # the built widths ask for the general body; the others take the
-        # default route, which must reach it
-        body = "generic" if built != "generic" else None
-        n = ar_sample.launches_by["generic"]
+        # default route, which must reach it (or the one-block body)
+        body = "generic" if picked in ("slices", "chunks") else None
+        ran = body or picked
+        _check(ran == ("block" if "one-block" in what else "generic"),
+               f"general AR body {what}: the route picked {picked!r}")
+        n = ar_sample.launches_by[ran]
         with torch.inference_mode():
             out = ar_sample(cond, noise, weights, body=body, **kw)
             ref = ar_sample_reference(cond, noise, weights, **kw)
@@ -2850,8 +2892,8 @@ def _generic_ar_rows(device) -> dict:
             if body:
                 others["built body"] = ar_sample(cond, noise, weights, **kw)
         torch.cuda.synchronize()
-        _check(ar_sample.launches_by["generic"] == n + 1,
-               f"general AR body {what}: the general body did not run")
+        _check(ar_sample.launches_by[ran] == n + 1,
+               f"general AR body {what}: the {ran} body did not run")
         _check(out.shape == ref.shape and torch.isfinite(out).all(),
                f"general AR body {what}: shape or non-finite")
         rows = {}
@@ -2860,16 +2902,26 @@ def _generic_ar_rows(device) -> dict:
             rows[name] = (diff.amax(1).cpu().numpy(),
                           diff[:, :AR_EARLY].amax(1).cpu().numpy())
         geo = ar_geometry(weights, n_mixtures=kw["n_mixtures"],
-                          head=kw["head"], cond_dtype=cond.dtype,
-                          body="generic")
+                          head=kw["head"], cond_dtype=cond.dtype, body=ran)
+        plan = geo.get("plan")
+        shape = (f"one block of {geo['threads']} threads a row, "
+                 f"{geo['smem']} B of shared memory, {geo['blocks']} blocks "
+                 f"fit the card at once" if ran == "block" else
+                 f"rows {geo['rows']} x ranks {geo['ranks']} a cluster, "
+                 f"{geo['stages']} ring stages of "
+                 + (f"a whole layer ({plan['ue']} weights)" if plan["whole"]
+                    else f"{plan['units']} tiles a layer ({plan['ue']} "
+                         f"weights a stage)")
+                 + f", taps {'held' if plan['taps'] else 'from the queue'}, "
+                 f"head weights {'held' if plan['head'] else 'from L2'}, "
+                 f"{geo['smem']} B of shared memory, {geo['clusters']} "
+                 f"clusters fit the card at once")
         inside = float((ref.abs() < 1).float().mean())
         _log(f"[generic ar] {what} ({cfg.teacher.output}, K="
              f"{kw['n_mixtures']}, {cfg.teacher.n_layers} layers, weights "
-             f"{weights['w_in'].dtype}) B={AR_BATCH} T={T}, "
-             + (f"body='generic' (the built body: {built})" if body else
-                "the default route") + f": one block of {geo['threads']} "
-             f"threads a row, {geo['smem']} B of shared memory, "
-             f"{geo['blocks']} blocks fit the card at once; "
+             f"{weights['w_in'].dtype}) B={B} T={T}, "
+             + (f"body='generic' (the built body: {picked})" if body else
+                f"the default route ({picked})") + f": {shape}; "
              + "; ".join(
                  f"max abs diff per row vs {n} "
                  f"{np.array2string(e, precision=8)} (tol {TOL_AR}), over "
@@ -2918,17 +2970,18 @@ def _generic_ar_times(device, smi: str) -> dict:
         flop, nbytes = _ar_flop_bytes(cfg, weights, cond, noise)
         bound = _bound(flop, nbytes, PEAK_FP32)
         g_ms, b_ms = float(np.mean(ms["general"])), float(np.mean(ms["built"]))
-        per_row = _nbytes(*(weights[n] for n in ("w_in", "w_out", "head1_k",
-                                                 "head2_k")))
+        per_row = _nbytes(*(weights[n] for n in ("w_in", "w_out")))
+        per_sm = per_row // AR_GEN_RANKS  # a rank's share of the gate layers
         _log(f"[times] {smi}: kernel 4 general body, {what} B={AR_BATCH} "
              f"T={AR_T}: "
              + " / ".join(f"{x:.3f}" for x in ms["general"])
              + f" ms ({g_ms * 1e3 / AR_T:.2f} us per step), the built body "
              + " / ".join(f"{x:.3f}" for x in ms["built"])
              + f" ms ({b_ms * 1e3 / AR_T:.2f} us per step); bound "
-             f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}); each block "
-             f"reads {per_row:,} B of weights a step, "
-             f"{per_row * AR_T / (g_ms / 1e3) / 1e9:.1f} GB/s into its SM")
+             f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}); each of a "
+             f"row's {AR_GEN_RANKS} SMs streams {per_sm:,} B of gate-layer "
+             f"weights a step, {per_sm * AR_T / (g_ms / 1e3) / 1e9:.1f} GB/s "
+             f"into it")
         out[what] = {"ms": g_ms, "built_ms": b_ms, **bound}
     out["cli"] = _generic_ar_cli_times(device, smi, gen)
     return out

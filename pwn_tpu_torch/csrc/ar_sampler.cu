@@ -1,8 +1,8 @@
 // Whole-loop teacher autoregressive sampler for Hopper (sm_90a): Fast
 // WaveNet with per-layer conv queues, all T steps in one launch, each batch
 // row on one cluster of N = 8 thread blocks (at the wide teacher's widths,
-// two rows a cluster of 16; at every other width one block a row: the last
-// two items of the design below).
+// two rows a cluster of 16; at every other width a cluster of 8 over a
+// runtime-width loop: the last two items of the design below).
 //
 // Replaces: pwn_tpu/ops/pallas/ar_sampler.py::_kernel (reached through
 // ar_sample_pallas <- models/sampling.py::fast_sample_pallas <-
@@ -166,32 +166,65 @@
 //   and 112.5 in the same call for one row an 8-block cluster reading its
 //   slices from L2; the phase split is in PERF.md section 5.
 // * The general-width body, `ar_generic_kernel`, takes what the three
-//   instantiations above do not: any (C, G, S, M) with G even (C = 96 or
-//   48, M = 40 at teacher_lj's widths), any head width HD (3K for MoL, any
-//   K; 2 for the Gaussian head) and any number of layers, the dilations and
-//   queue offsets in a (2, L) int32 array on the card.  It is the plain
-//   version's loop in one launch, right before fast:
-//   - One block of 512 threads a batch row; rows never meet, so which rows
-//     share an SM or a wave changes no row's bits.
-//   - The weights stay in `stack_teacher_weights`' layout (no rank packing)
-//     and are read every step from global memory through L2: a product
-//     x @ W of (k, n) takes thread t's column vector t % (n / V) (V weights
-//     in one 16-byte load where a row of W is whole vectors, else one) over
-//     rows kp, kp + P, ... (kp = t / (n / V), at most 32 parts), so the
-//     threads of a warp read consecutive 16-byte vectors of one row; the P
-//     partials of a column are summed in part order.
-//   - x, the tap, cond(t), z, skip and the head's values in fp32 shared
-//     memory, with the partials and the fed-back sample, all dynamic: (1 +
-//     2C + M + G/2 + 3S + HD + max(G, C + S, HD, 4,096)) floats
-//     (`generic_ar_limits` in ops/ar_sampler.py); the fp32 queues (B,
-//     sum(d), C) in global memory, thread i owning element i of every
-//     slot; __syncthreads between the phases (4 a layer).
-//   - The numerics above: fp32 FMAs, IEEE tanhf/expf/logf/log1pf; the draw
-//     in warp 0 over K in strides of 32.
-//   What bounds it: a block reads a row's every weight each step, 5.70 MB
-//   in bf16 at teacher_lj's widths and 20.8 MB at the wide teacher's, from
-//   L2 into one SM, against 29,696 B an SM a layer for the ring kernel.
-//
+//   instantiations above do not: any (C, G, S, M) with G even, any head
+//   width HD (3K for MoL, any K; 2 for the Gaussian head) and any number of
+//   layers, the widths at run time.  It is the ring kernel's design over a
+//   runtime-width loop:
+//   - One batch row a cluster of N = 8 blocks (the portable size).  Rank j
+//     owns z values [j gn, (j+1) gn) (gn = ceil(G/2 / N)): their tanh and
+//     sigmoid columns of W_in and their rows of W_out.  Where N does not
+//     divide G/2 the packing pads with zero columns, biases and W_out rows,
+//     so a padded z is tanh(0) sigmoid(0) = 0 and adds nothing.  A step's
+//     weights come into 8 SMs: 17,664 B an SM a layer at (96, 192, 96, 80)
+//     in bf16 (424 KB a step at 24 layers), not 3.42 MB into one.
+//   - The stream.  `ops/ar_sampler.py::generic_ar_plan` cuts a rank's layer
+//     into tiles in the order they are consumed (`gen_tiles`): per pass of
+//     16 z values, the tap rows and the cond rows of W_in, then per pass its
+//     x rows (k-blocks of rows; a tile column-major, each column's rows
+//     rounded up to whole 16-byte vectors with zeros), then W_out (row
+//     blocks of 256 columns).  Where a whole layer fits a stage twice (up to
+//     4 stages) it moves in one 1-D bulk copy; else each tile is a unit of
+//     its own, up to 8 KB, 2 to 8 stages.  A producer warp (lane 0) issues
+//     the units into the ring on full/empty mbarriers, as the wide kernel's,
+//     so the next layers land while this one computes.
+//   - The gate: warp w owns z values w + 8i of a pass (i < 2), both columns
+//     of each; a column's whole 2C+M dot product stays in the warp (lane v
+//     takes 16-byte weight vector v of each column and the 8 or 4 inputs of
+//     its rows from x, the tap or cond, each zero-padded to 8 floats; then a
+//     transposed shuffle butterfly for all of a warp's columns): no partial
+//     sums across warps before the gated unit.  The tap-and-cond product
+//     (its sums and the biases kept in shared memory) runs while the
+//     exchange of the layer before lands; the x product follows it.  Two z
+//     values a warp a pass ran faster than four or one (H100, CLI widths:
+//     75.3 us a step against 78.1 and 95.5).  tools/torch_ar_sampler_phases.py
+//     splits a step and times copies with one piece removed.
+//   - The exchange: thread q's out partial of a residual column goes to every
+//     rank by st.async (4 columns a lane, gathered by shuffles), counted on
+//     that rank's mbarrier for the layer's parity, one block barrier after;
+//     every rank sums the N partials in rank order, so all ranks hold the
+//     same x, skip, head output and sample, bit for bit.  The skip partials
+//     stay in the rank until the last layer, where they go out in place of
+//     the residual.  The head (its weights in shared memory where they fit,
+//     else read from L2) and the draw run in every rank; rank 0 writes wav.
+//   - The queues: fp32 (B, sum(d + 1), round8(C)) in global memory, d + 1
+//     slots a layer, so the slot a step reads is never the one it writes;
+//     rank j writes columns [j ceil(C/N), ...) of x.  Where L x C fits, the
+//     taps are held in shared memory and refilled for the next step by
+//     16-byte cp.async.cg (d > 1) or from x (d = 1); else the tap product
+//     reads the slot with ld.global.cg.  Both read after the step's cluster
+//     barrier, never through the non-coherent path (other SMs write the
+//     queue during the launch).
+//   - Numerics as above: fp32 FMAs, IEEE tanhf/expf/logf/log1pf; the draw in
+//     warp 0 over K in strides of 32.  Tensor cores are not used: a step is
+//     a product of one row's vector, and wgmma's 64-row tile would leave at
+//     least 63/64 of it idle.
+//   Its shared memory (`generic_ar_smem_bytes`) is mostly the exchange
+//   buffer, 2 x N x max(C, S) floats: past max(C, S) ~ 3,400 no plan fits
+//   a block (at C = 3,380, S = 1, M = 40 the buffer is 216,320 B of the
+//   232,448 and two 1 KB tiles fill the rest), and those widths run the
+//   one-block body, `ar_block_kernel` ("block"): one block of 512 threads a
+//   row, the weights read from L2 every step (the general body before this
+//   design: about 24 us a MB of weights a step plus 80 us).
 // With PWN_AR_SAMPLER_PHASES defined (tools/torch_ar_sampler_phases.py builds
 // it so), one thread of block 0 (thread 0; in the wide kernel lane 0 of warp
 // OWNER) adds the clock cycles of each phase of each step into
@@ -1594,15 +1627,17 @@ int run(const Args& a, const int* dilations, int c, int g, int s, int m, int hd,
 }
 
 // ---------------------------------------------------------------------------
-// The general-width body: any (C, G, S, M), head width HD and K, any number
-// of layers, one block a batch row (the design in the comment at the top of
-// this file, last item).
+// The one-block body: any (C, G, S, M), head width HD and K, any number of
+// layers, one block a batch row, the weights read from L2 every step.  It
+// runs only the widths whose exchange buffer the cluster body below cannot
+// hold (`ar_body` picks it on the widths alone: "block"; the design note at
+// the top of this file, last item).
 
-constexpr int GEN_THREADS = 512;  // 16 warps
-constexpr int GEN_MAX_PARTS = 32;  // k parts of a product, at most
-constexpr int GEN_VEC_MAX = 8;    // weights in one 16-byte load (bf16)
+constexpr int BLK_THREADS = 512;  // 16 warps
+constexpr int BLK_MAX_PARTS = 32;  // k parts of a product, at most
+constexpr int BLK_VEC_MAX = 8;    // weights in one 16-byte load (bf16)
 
-struct GenArgs {
+struct BlockArgs {
   const void* cond;      // (B, T, M) bf16 or fp32
   const float* noise;    // (T, B, NZ)
   const void* front_k;   // (1, C)
@@ -1624,26 +1659,26 @@ struct GenArgs {
 
 // Weights a thread loads at once from a row of n weights of `wbytes` bytes:
 // a 16-byte vector where the row is whole vectors, else one.
-__host__ __device__ inline int gen_vec(int n, int wbytes) {
+__host__ __device__ inline int blk_vec(int n, int wbytes) {
   return n % (16 / wbytes) == 0 ? 16 / wbytes : 1;
 }
 
 // The k parts of a product with n output columns, v a load: the threads
 // over the n / v column vectors, the rest of them over k.
-__host__ __device__ inline int gen_parts(int n, int v) {
+__host__ __device__ inline int blk_parts(int n, int v) {
   const int nv = n / v;
-  if (nv >= GEN_THREADS) return 1;
-  return GEN_THREADS / nv < GEN_MAX_PARTS ? GEN_THREADS / nv : GEN_MAX_PARTS;
+  if (nv >= BLK_THREADS) return 1;
+  return BLK_THREADS / nv < BLK_MAX_PARTS ? BLK_THREADS / nv : BLK_MAX_PARTS;
 }
 
 // Floats of shared memory: the fed-back sample, [x | tap | cond(t)], z,
 // skip, relu(skip), the head's hidden, its output, and the products'
-// partials (parts x columns, at most GEN_THREADS x GEN_VEC_MAX below
-// GEN_THREADS vectors, else the columns themselves).
-__host__ __device__ inline long long gen_smem_floats(int c, int g, int s, int m, int hd) {
+// partials (parts x columns, at most BLK_THREADS x BLK_VEC_MAX below
+// BLK_THREADS vectors, else the columns themselves).
+__host__ __device__ inline long long blk_smem_floats(int c, int g, int s, int m, int hd) {
   int n = g > c + s ? g : c + s;
   n = n > hd ? n : hd;
-  const int part = n > GEN_THREADS * GEN_VEC_MAX ? n : GEN_THREADS * GEN_VEC_MAX;
+  const int part = n > BLK_THREADS * BLK_VEC_MAX ? n : BLK_THREADS * BLK_VEC_MAX;
   return 1 + (long long)(2 * c + m) + g / 2 + 3LL * s + hd + part;
 }
 
@@ -1659,17 +1694,17 @@ __device__ __forceinline__ void load_w(const W* p, float (&f)[V]) {
 
 // The partials of y = x @ w (x: k_len floats in shared memory; w: (k_len,
 // n) row-major, read from global memory through L2) into part[kp * n + col]
-// for kp < gen_parts(n, V): thread t takes column vector t % (n / V) and
+// for kp < blk_parts(n, V): thread t takes column vector t % (n / V) and
 // rows kp, kp + P, ... (kp = t / (n / V)), or, with as many vectors as
-// threads, vectors t, t + GEN_THREADS, ... over every row.
+// threads, vectors t, t + BLK_THREADS, ... over every row.
 template <typename W, int V>
-__device__ __forceinline__ void gen_product_v(const float* x, int k_len, int n, const W* w,
+__device__ __forceinline__ void blk_product_v(const float* x, int k_len, int n, const W* w,
                                               float* part) {
-  const int nv = n / V, tid = threadIdx.x, P = gen_parts(n, V);
-  const bool wide = nv >= GEN_THREADS;
+  const int nv = n / V, tid = threadIdx.x, P = blk_parts(n, V);
+  const bool wide = nv >= BLK_THREADS;
   const int kp = wide ? 0 : tid / nv;
   if (kp >= P) return;
-  for (int cv = wide ? tid : tid % nv; cv < nv; cv += GEN_THREADS) {
+  for (int cv = wide ? tid : tid % nv; cv < nv; cv += BLK_THREADS) {
     float acc[V];
 #pragma unroll
     for (int e = 0; e < V; ++e) acc[e] = 0.f;
@@ -1688,26 +1723,26 @@ __device__ __forceinline__ void gen_product_v(const float* x, int k_len, int n, 
 }
 
 template <typename W>
-__device__ __forceinline__ int gen_product(const float* x, int k_len, int n, const W* w,
+__device__ __forceinline__ int blk_product(const float* x, int k_len, int n, const W* w,
                                            float* part) {
   constexpr int VW = 16 / sizeof(W);
-  if (gen_vec(n, sizeof(W)) == VW) {
-    gen_product_v<W, VW>(x, k_len, n, w, part);
-    return gen_parts(n, VW);
+  if (blk_vec(n, sizeof(W)) == VW) {
+    blk_product_v<W, VW>(x, k_len, n, w, part);
+    return blk_parts(n, VW);
   }
-  gen_product_v<W, 1>(x, k_len, n, w, part);
-  return gen_parts(n, 1);
+  blk_product_v<W, 1>(x, k_len, n, w, part);
+  return blk_parts(n, 1);
 }
 
 // Column j of a product's partials, summed in part order.
-__device__ __forceinline__ float gen_sum(const float* part, int n, int parts, int j) {
+__device__ __forceinline__ float blk_sum(const float* part, int n, int parts, int j) {
   float v = part[j];
   for (int p = 1; p < parts; ++p) v += part[p * n + j];
   return v;
 }
 
 template <typename W, typename CT>
-__global__ void __launch_bounds__(GEN_THREADS, 1) ar_generic_kernel(const GenArgs a) {
+__global__ void __launch_bounds__(BLK_THREADS, 1) ar_block_kernel(const BlockArgs a) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.x;
   const int C = a.C, G = a.G, S = a.S, M = a.M, HD = a.HD, K = a.K, L = a.L, T = a.T;
@@ -1719,9 +1754,9 @@ __global__ void __launch_bounds__(GEN_THREADS, 1) ar_generic_kernel(const GenArg
   float* queue = a.queue + (size_t)b * a.sum_d * C;
 
   // all of it dynamic, so a block takes the whole opt-in size
-  extern __shared__ __align__(16) float gsm[];
-  float* x_prev = gsm;     // the fed-back sample
-  float* cat = gsm + 1;    // [x | tap | cond(t)]
+  extern __shared__ __align__(16) float bsm[];
+  float* x_prev = bsm;     // the fed-back sample
+  float* cat = bsm + 1;    // [x | tap | cond(t)]
   float* z = cat + KIN;    // G/2
   float* skip = z + GH;    // S
   float* hs = skip + S;    // relu(skip), S
@@ -1734,34 +1769,34 @@ __global__ void __launch_bounds__(GEN_THREADS, 1) ar_generic_kernel(const GenArg
   for (int t = 0; t < T; ++t) {
     // the front 1x1 (no FMA, as the plain version), cond(t), a zero skip
     const float xp = *x_prev;
-    for (int i = tid; i < C; i += GEN_THREADS)
+    for (int i = tid; i < C; i += BLK_THREADS)
       cat[i] = __fadd_rn(__fmul_rn(xp, to_f32(front_k[i])), a.front_b[i]);
-    for (int m = tid; m < M; m += GEN_THREADS) cat[2 * C + m] = to_f32(cond[(size_t)t * M + m]);
-    for (int s = tid; s < S; s += GEN_THREADS) skip[s] = 0.f;
+    for (int m = tid; m < M; m += BLK_THREADS) cat[2 * C + m] = to_f32(cond[(size_t)t * M + m]);
+    for (int s = tid; s < S; s += BLK_THREADS) skip[s] = 0.f;
     for (int l = 0; l < L; ++l) {
       // the tap, read before its slot takes x (thread i owns element i of
       // every slot, so the queue needs no barrier of its own)
       const int slot = __ldg(a.dil + L + l) + t % __ldg(a.dil + l);
       float* q = queue + (size_t)slot * C;
-      for (int i = tid; i < C; i += GEN_THREADS) {
+      for (int i = tid; i < C; i += BLK_THREADS) {
         cat[C + i] = q[i];
         q[i] = cat[i];
       }
       __syncthreads();
       const float* bg = a.b_g + (size_t)l * G;
-      const int pg = gen_product<W>(cat, KIN, G, w_in + (size_t)l * KIN * G, part);
+      const int pg = blk_product<W>(cat, KIN, G, w_in + (size_t)l * KIN * G, part);
       __syncthreads();
-      for (int j = tid; j < GH; j += GEN_THREADS) {
-        const float ga = gen_sum(part, G, pg, j) + bg[j];
-        const float gb = gen_sum(part, G, pg, GH + j) + bg[GH + j];
+      for (int j = tid; j < GH; j += BLK_THREADS) {
+        const float ga = blk_sum(part, G, pg, j) + bg[j];
+        const float gb = blk_sum(part, G, pg, GH + j) + bg[GH + j];
         z[j] = tanhf(ga) * (1.f / (1.f + expf(-gb)));
       }
       __syncthreads();
       const float* brs = a.b_rs + (size_t)l * NO;
-      const int po = gen_product<W>(z, GH, NO, w_out + (size_t)l * GH * NO, part);
+      const int po = blk_product<W>(z, GH, NO, w_out + (size_t)l * GH * NO, part);
       __syncthreads();
-      for (int n = tid; n < NO; n += GEN_THREADS) {
-        const float o = gen_sum(part, NO, po, n) + brs[n];
+      for (int n = tid; n < NO; n += BLK_THREADS) {
+        const float o = blk_sum(part, NO, po, n) + brs[n];
         if (n < C)
           cat[n] = cat[n] + o;
         else
@@ -1771,16 +1806,16 @@ __global__ void __launch_bounds__(GEN_THREADS, 1) ar_generic_kernel(const GenArg
     }
 
     // the head: relu, 1x1, relu, 1x1
-    for (int s = tid; s < S; s += GEN_THREADS) hs[s] = fmaxf(skip[s], 0.f);
+    for (int s = tid; s < S; s += BLK_THREADS) hs[s] = fmaxf(skip[s], 0.f);
     __syncthreads();
-    const int p1 = gen_product<W>(hs, S, S, static_cast<const W*>(a.head1_k), part);
+    const int p1 = blk_product<W>(hs, S, S, static_cast<const W*>(a.head1_k), part);
     __syncthreads();
-    for (int n = tid; n < S; n += GEN_THREADS)
-      h1[n] = fmaxf(gen_sum(part, S, p1, n) + a.head1_b[n], 0.f);
+    for (int n = tid; n < S; n += BLK_THREADS)
+      h1[n] = fmaxf(blk_sum(part, S, p1, n) + a.head1_b[n], 0.f);
     __syncthreads();
-    const int p2 = gen_product<W>(h1, S, HD, static_cast<const W*>(a.head2_k), part);
+    const int p2 = blk_product<W>(h1, S, HD, static_cast<const W*>(a.head2_k), part);
     __syncthreads();
-    for (int n = tid; n < HD; n += GEN_THREADS) hp[n] = gen_sum(part, HD, p2, n) + a.head2_b[n];
+    for (int n = tid; n < HD; n += BLK_THREADS) hp[n] = blk_sum(part, HD, p2, n) + a.head2_b[n];
     __syncthreads();
 
     // the draw (warp 0), as the ring kernel's but over any K
@@ -1823,9 +1858,9 @@ __global__ void __launch_bounds__(GEN_THREADS, 1) ar_generic_kernel(const GenArg
 }
 
 template <typename W, typename CT>
-int launch_generic(const GenArgs& a, cudaStream_t stream, int* geo) {
-  auto kernel = ar_generic_kernel<W, CT>;
-  const long long smem = 4 * gen_smem_floats(a.C, a.G, a.S, a.M, a.HD);
+int launch_block(const BlockArgs& a, cudaStream_t stream, int* geo) {
+  auto kernel = ar_block_kernel<W, CT>;
+  const long long smem = 4 * blk_smem_floats(a.C, a.G, a.S, a.M, a.HD);
   int dev = 0, optin = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -1837,26 +1872,787 @@ int launch_generic(const GenArgs& a, cudaStream_t stream, int* geo) {
   if (err != cudaSuccess) return err;
   if (geo) {
     int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, GEN_THREADS, (size_t)smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLK_THREADS, (size_t)smem);
     if (err != cudaSuccess) return err;
-    geo[0] = GEN_THREADS;
+    geo[0] = BLK_THREADS;
     geo[1] = (int)smem;
     geo[2] = per_sm * n_sm;
     return cudaSuccess;
   }
-  kernel<<<a.B, GEN_THREADS, (size_t)smem, stream>>>(a);
+  kernel<<<a.B, BLK_THREADS, (size_t)smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-int run_generic(const GenArgs& a, int weights_bf16, int cond_bf16, cudaStream_t st, int* geo) {
+int run_block(const BlockArgs& a, int weights_bf16, int cond_bf16, cudaStream_t st, int* geo) {
   if (a.B < 1 || a.T < 1 || a.L < 1 || a.C < 1 || a.S < 1 || a.M < 1 || a.G < 2 || a.G % 2 ||
       (a.gaussian ? a.HD != 2 : (a.K < 1 || a.HD != 3 * a.K)))
     return cudaErrorInvalidValue;
   if (weights_bf16)
-    return cond_bf16 ? launch_generic<bf16, bf16>(a, st, geo)
-                     : launch_generic<bf16, float>(a, st, geo);
-  return cond_bf16 ? launch_generic<float, bf16>(a, st, geo)
-                   : launch_generic<float, float>(a, st, geo);
+    return cond_bf16 ? launch_block<bf16, bf16>(a, st, geo)
+                     : launch_block<bf16, float>(a, st, geo);
+  return cond_bf16 ? launch_block<float, bf16>(a, st, geo)
+                   : launch_block<float, float>(a, st, geo);
+}
+
+// ---------------------------------------------------------------------------
+// The general-width cluster body: any (C, G, S, M) with G even, any head width
+// and any depth, one batch row a cluster of GEN_RANKS blocks (the design in
+// the comment at the top of this file, the general-width item).
+
+constexpr int GEN_RANKS = 8;                // blocks a cluster: one batch row
+constexpr int GEN_WARPS = 8;                // consumer warps
+constexpr int GEN_CT = 32 * GEN_WARPS;      // consumer threads
+constexpr int GEN_THREADS = GEN_CT + 32;    // and one producer warp
+constexpr int GEN_ZW = 2;                   // z values a warp a pass
+constexpr int GEN_ZP = GEN_ZW * GEN_WARPS;  // z values a pass
+constexpr int GEN_OQ = GEN_CT;              // out columns a pass
+constexpr int GEN_MAX_STAGES = 8;
+constexpr int GEN_BAR_BYTES = 8 * (2 * GEN_MAX_STAGES + 2);  // full, empty, xbar[2]
+constexpr int GEN_PREF = 2;                 // cond values a thread fetches a step ahead
+static_assert(GEN_RANKS % 4 == 0 && GEN_BAR_BYTES % 16 == 0, "exchange lanes, alignment");
+static_assert(GEN_ZW == 1 || GEN_ZW == 2 || GEN_ZW == 4 || GEN_ZW == 8, "the sums' butterfly");
+
+// What `ops/ar_sampler.py::generic_ar_plan` chose for these widths, in its
+// order: z values a rank (gn, G/2 padded to GEN_RANKS), rows a k-block of
+// the tap and cond segments and of the x segment (whole 16-byte vectors of
+// weights), z rows a block of W_out, weights a unit of the stream (ue),
+// units a layer, whether a unit is a whole layer (else one tile), ring
+// stages, whether the taps and the head's weights are held in shared memory.
+struct GenPlan {
+  int gn, kb_tc, kb_x, rb, ue, units, whole, stages, taps, head;
+};
+
+GenPlan gen_plan(const int* p) {
+  return {p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9]};
+}
+
+struct GenArgs {
+  const void* cond;      // (B, T, M) bf16 or fp32
+  const float* noise;    // (T, B, NZ)
+  const void* front_k;   // (1, C)
+  const float* front_b;  // (1, C)
+  const void* w_rank;    // (N, L, units, ue): `pack_ar_generic`'s tiles
+  const float* b_rank;   // (N, L, 2 gn): the rank's tanh biases, then sigmoid
+  const float* b_rs;     // (L, C+S)
+  const void* head1_k;   // (S, S)
+  const float* head1_b;  // (1, S)
+  const void* head2_k;   // (S, HD)
+  const float* head2_b;  // (1, HD)
+  const int* dil;        // (2, L) on the card: the dilations, then the queue offsets
+  float* queue;          // (B, sum(d + 1), round8(C)), zero on entry
+  float* wav;            // (B, T)
+  float* wav_ranks;      // (N, B, T), written by the PWN_AR_SAMPLER_CHECK build only
+  int B, T, L, C, G, S, M, HD, K, NZ, sum_q, gaussian;
+  float log_scale_min, temperature;
+};
+
+__host__ __device__ inline int gen_round(int n, int m) { return (n + m - 1) / m * m; }
+
+// The tiles of a layer's run, in stream order: for each pass of GEN_ZP z
+// values, W_in's tap rows [C, 2C) and its cond rows [2C, 2C+M) in k-blocks
+// of kb_tc; the same for its x rows [0, C) in k-blocks of kb_x; then W_out,
+// for each pass of GEN_OQ columns, in blocks of rb z rows.  A gate tile
+// holds its pass's tanh and sigmoid columns, each of its rows rounded up to
+// whole 16-byte vectors (zero rows past the block).
+__host__ __device__ inline int gen_tiles(int C, int S, int M, const GenPlan& p) {
+  const int np = (p.gn + GEN_ZP - 1) / GEN_ZP, nq = (C + S + GEN_OQ - 1) / GEN_OQ;
+  return np * ((C + p.kb_tc - 1) / p.kb_tc + (M + p.kb_tc - 1) / p.kb_tc +
+               (C + p.kb_x - 1) / p.kb_x) +
+         nq * ((p.gn + p.rb - 1) / p.rb);
+}
+
+// Dynamic shared memory (all of it): the barriers, then fp32 the exchange
+// (2 parities x N ranks x CX), x (CQ), cond(t), the tap-and-cond sums (2
+// gn), z (2 parities), the skip partials and bias sums, relu(skip), the
+// head's hidden and output, the fed-back sample; then the taps (L x CQ)
+// where the plan holds them, each layer's dilation, queue offset and this
+// step's two slots (4 L ints), the head's weights where the plan holds
+// them, the ring.  x, a tap and cond are padded with zeros to whole 8-float
+// vectors.  `generic_ar_smem_bytes` mirrors it.
+struct GenLayout {
+  int CQ, CX, ZQ;
+  int XBUF, X, CS, GTC, Z, SKP, BSUM, HS, H1, HP, XPREV, NF;  // fp32 offsets
+  long long taps_b, dl_b, head_b, ring_b;
+  __host__ __device__ GenLayout(int C, int S, int M, int HD, int L, int wb, const GenPlan& p) {
+    CQ = gen_round(C, 8);
+    CX = gen_round(C > S ? C : S, 4);
+    ZQ = gen_round(p.gn, 4);
+    XBUF = 0;
+    X = XBUF + 2 * GEN_RANKS * CX;
+    CS = X + CQ;
+    GTC = CS + gen_round(M, 8);
+    Z = GTC + gen_round(2 * p.gn, 4);
+    SKP = Z + 2 * ZQ;
+    BSUM = SKP + gen_round(S, 4);
+    HS = BSUM + gen_round(S, 4);
+    H1 = HS + gen_round(S, 4);
+    HP = H1 + gen_round(S, 4);
+    XPREV = HP + gen_round(HD, 4);
+    NF = XPREV + 4;
+    taps_b = p.taps ? 4LL * L * CQ : 0;
+    dl_b = 16LL * L;
+    head_b = p.head ? ((long long)wb * S * (S + HD) + 15) / 16 * 16 : 0;
+    ring_b = (long long)p.stages * p.ue * wb;
+  }
+  __host__ __device__ long long bytes() const {
+    return GEN_BAR_BYTES + 4LL * NF + taps_b + dl_b + head_b + ring_b;
+  }
+};
+
+// Whether the kernel can walk plan `p` at these widths: k-blocks of whole
+// vectors, the tiles fit their units, a unit is a whole layer or one tile.
+bool gen_plan_ok(int C, int G, int S, int M, int wb, const GenPlan& p) {
+  const int NO = C + S, gn = (G / 2 + GEN_RANKS - 1) / GEN_RANKS, vw = 16 / wb;
+  if (p.gn != gn || p.kb_tc < 1 || p.kb_x < 1 || p.rb < 1 || p.ue < 1 || p.kb_tc % vw ||
+      p.kb_x % vw || (long long)p.ue * wb % 16 || p.stages < 2 || p.stages > GEN_MAX_STAGES)
+    return false;
+  if (p.whole)
+    return p.units == 1 && p.kb_tc >= C && p.kb_tc >= M && p.kb_x >= C && p.rb == gn &&
+           2LL * gn * (2 * gen_round(C, vw) + gen_round(M, vw)) + (long long)gn * NO <= p.ue;
+  const long long zmax = gn < GEN_ZP ? gn : GEN_ZP, omax = NO < GEN_OQ ? NO : GEN_OQ;
+  return p.units == gen_tiles(C, S, M, p) && 2 * zmax * p.kb_tc <= p.ue &&
+         2 * zmax * p.kb_x <= p.ue && p.rb * omax <= p.ue;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The consumers' side of the weight ring, which the producer warp fills in
+// stream order: the next tile, of its own unit (a stage) or at its place in
+// its layer's unit.  Every consumer warp walks the same tiles and releases
+// every unit (the empty barrier counts GEN_WARPS arrivals).
+template <typename W>
+struct GenRing {
+  const W* base;
+  uint64_t* full;
+  uint64_t* empty;
+  int ue, stages, whole, lane;
+  int rs = 0;          // the stage of the next unit,
+  uint32_t rph = 0;    // and the parity of its full barrier's phase
+  const W* lw = nullptr;  // a whole-layer unit: its stage,
+  int loff = 0;           // and the next tile's place in it
+  long long waited = 0;   // cycles spent waiting (the phase counters' build)
+  __device__ __forceinline__ const W* acquire() {
+#ifdef PWN_AR_SAMPLER_PHASES
+    const long long t0 = clock64();
+#endif
+    mbar_spin(smem_u32(&full[rs]), rph);
+#ifdef PWN_AR_SAMPLER_PHASES
+    waited += clock64() - t0;
+#endif
+    return base + (size_t)rs * ue;
+  }
+  __device__ __forceinline__ void release() {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&empty[rs]));
+    if (++rs == stages) {
+      rs = 0;
+      rph ^= 1;
+    }
+  }
+  __device__ __forceinline__ const W* tile(int elems) {
+    if (!whole) return acquire();
+    const W* p = lw + loff;
+    loff += elems;
+    return p;
+  }
+  __device__ __forceinline__ void tile_done() {
+    if (!whole) release();
+  }
+  __device__ __forceinline__ void layer_begin() {
+    if (whole) {
+      lw = acquire();
+      loff = 0;
+    }
+  }
+  __device__ __forceinline__ void layer_end() {
+    if (whole) release();
+  }
+};
+
+// One pass's gate product over one segment of W_in's rows (nk rows of
+// input `in`, in shared memory or, GL, a queue slot in global memory read
+// by ld.global.cg), k-blocks of kb rows: lane v takes 16-byte vector v of
+// each column, VW rows, with the VW inputs of those rows; two partial sums
+// a column (even and odd rows).  (One load path a copy: a run-time choice
+// between the two in the loop cost 4.4 us a step at the CLI's widths.)
+template <bool GL, typename W>
+__device__ __forceinline__ void gen_gate_seg(float (&acc)[GEN_ZW][2][2], GenRing<W>& ring,
+                                             const float* in, int nk, int kb, int zc, int warp,
+                                             int lane) {
+  constexpr int VW = 16 / (int)sizeof(W);
+  for (int k0 = 0; k0 < nk; k0 += kb) {
+    const int nv = (min(kb, nk - k0) + VW - 1) / VW, krp = nv * VW;
+    const W* tl = ring.tile(2 * zc * krp);
+    for (int v = lane; v < nv; v += 32) {
+      float f[VW];
+      const float4* ip = reinterpret_cast<const float4*>(in + k0 + v * VW);
+#pragma unroll
+      for (int q = 0; q < VW / 4; ++q) {
+        const float4 t = GL ? __ldcg(ip + q) : ip[q];
+        f[4 * q] = t.x;
+        f[4 * q + 1] = t.y;
+        f[4 * q + 2] = t.z;
+        f[4 * q + 3] = t.w;
+      }
+#pragma unroll
+      for (int i = 0; i < GEN_ZW; ++i) {
+        const int zi = warp + GEN_WARPS * i;
+        if (zi < zc) {  // warp-uniform
+          float wa[VW], wg[VW];
+          Vec<W>::to_f32(*reinterpret_cast<const uint4*>(tl + (2 * zi) * krp + v * VW), wa);
+          Vec<W>::to_f32(*reinterpret_cast<const uint4*>(tl + (2 * zi + 1) * krp + v * VW), wg);
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            acc[i][0][e & 1] = fmaf(f[e], wa[e], acc[i][0][e & 1]);
+            acc[i][1][e & 1] = fmaf(f[e], wg[e], acc[i][1][e & 1]);
+          }
+        }
+      }
+    }
+    ring.tile_done();
+  }
+}
+
+// A pass's column sums, all 2 GEN_ZW of a warp's (its z values' tanh and
+// sigmoid columns) in one transposed butterfly: halving steps leave lane q
+// with value q / GEN_SL summed over 32 / GEN_SL lanes, full steps over all
+// 32 (at GEN_ZW = 4: 10 shuffles, 6 deep, where eight shuffle sums take
+// 40).  Lane 2 GEN_SL i gets z value warp + GEN_WARPS i's tanh sum in ga
+// and its sigmoid sum in gb.
+constexpr int GEN_SL = 32 / (2 * GEN_ZW);  // lanes that end with the same value
+__device__ __forceinline__ void gen_gate_sums(const float (&acc)[GEN_ZW][2][2], int lane,
+                                              float& ga, float& gb) {
+  float v[2 * GEN_ZW];
+#pragma unroll
+  for (int k = 0; k < 2 * GEN_ZW; ++k) v[k] = acc[k >> 1][k & 1][0] + acc[k >> 1][k & 1][1];
+#pragma unroll
+  for (int w = GEN_ZW, o = 16; w >= 1; w >>= 1, o >>= 1) {
+    const bool up = lane & o;  // keep values [w, 2w) of the 2w, send [0, w)
+#pragma unroll
+    for (int k = 0; k < w; ++k) {
+      const float keep = up ? v[w + k] : v[k], send = up ? v[k] : v[w + k];
+      v[k] = keep + __shfl_xor_sync(FULL, send, o);
+    }
+  }
+#pragma unroll
+  for (int o = GEN_SL / 2; o >= 1; o >>= 1) v[0] += __shfl_xor_sync(FULL, v[0], o);
+  ga = v[0];
+  gb = __shfl_down_sync(FULL, v[0], GEN_SL);
+}
+
+// Layer l's gate product over its tap and cond rows for every pass (the
+// tap in shared memory, or its queue slot where `gl`), plus the biases
+// (bg: the rank's tanh biases, then sigmoid), into gtc.
+template <typename W>
+__device__ __forceinline__ void gen_gate_tc(GenRing<W>& ring, float* gtc, const float* tap,
+                                            bool gl, const float* cs, const float* bg, int C,
+                                            int M, int gn, int kb, int warp, int lane) {
+  for (int p0 = 0; p0 < gn; p0 += GEN_ZP) {
+    const int zc = min(GEN_ZP, gn - p0), zi = warp + GEN_WARPS * (lane / (2 * GEN_SL));
+    const int j = p0 + zi;
+    const bool mine = lane % (2 * GEN_SL) == 0 && zi < zc;
+    float bga = 0.f, bgb = 0.f;
+    if (mine) {
+      bga = __ldg(bg + j);
+      bgb = __ldg(bg + gn + j);
+    }
+    float acc[GEN_ZW][2][2] = {};
+    if (gl)
+      gen_gate_seg<true>(acc, ring, tap, C, kb, zc, warp, lane);
+    else
+      gen_gate_seg<false>(acc, ring, tap, C, kb, zc, warp, lane);
+    gen_gate_seg<false>(acc, ring, cs, M, kb, zc, warp, lane);
+    float ga, gb;
+    gen_gate_sums(acc, lane, ga, gb);
+    if (mine) {
+      gtc[2 * j] = bga + ga;
+      gtc[2 * j + 1] = bgb + gb;
+    }
+  }
+}
+
+// Layer l's gate product over its x rows for every pass, with gtc, and the
+// gated unit (IEEE tanhf, sigmoid as 1/(1+exp(-x))): z.
+template <typename W>
+__device__ __forceinline__ void gen_gate_x(GenRing<W>& ring, float* z, const float* gtc,
+                                           const float* x, int C, int gn, int kb, int warp,
+                                           int lane) {
+  for (int p0 = 0; p0 < gn; p0 += GEN_ZP) {
+    const int zc = min(GEN_ZP, gn - p0), zi = warp + GEN_WARPS * (lane / (2 * GEN_SL));
+    const int j = p0 + zi;
+    float acc[GEN_ZW][2][2] = {};
+    gen_gate_seg<false>(acc, ring, x, C, kb, zc, warp, lane);
+    float ga, gb;
+    gen_gate_sums(acc, lane, ga, gb);
+    if (lane % (2 * GEN_SL) == 0 && zi < zc) {
+      const float av = gtc[2 * j] + ga, bv = gtc[2 * j + 1] + gb;
+      z[j] = tanhf(av) * (1.f / (1.f + expf(-bv)));
+    }
+  }
+}
+
+// One pass of the out product: this thread's column (tid < ncq) over the
+// rank's z rows, blocks of rb rows (row-major tiles of ncq columns), four
+// partial sums.
+template <typename W>
+__device__ __forceinline__ float gen_out_pass(GenRing<W>& ring, const float* z, int gn, int rb,
+                                              int ncq, int tid) {
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  for (int r0 = 0; r0 < gn; r0 += rb) {
+    const int rr = min(rb, gn - r0);
+    const W* tl = ring.tile(rr * ncq) + tid;
+    if (tid < ncq) {
+      const float* zr = z + r0;
+      int r = 0;
+      for (; r + 4 <= rr; r += 4) {
+        a0 = fmaf(zr[r], to_f32(tl[r * ncq]), a0);
+        a1 = fmaf(zr[r + 1], to_f32(tl[(r + 1) * ncq]), a1);
+        a2 = fmaf(zr[r + 2], to_f32(tl[(r + 2) * ncq]), a2);
+        a3 = fmaf(zr[r + 3], to_f32(tl[(r + 3) * ncq]), a3);
+      }
+      for (; r < rr; ++r) a0 = fmaf(zr[r], to_f32(tl[r * ncq]), a0);
+    }
+    ring.tile_done();
+  }
+  return (a0 + a1) + (a2 + a3);
+}
+
+// The phase counters' marker of the cluster body: the time since the last
+// marker to phase k, but what the ring spent waiting for weights to phase 1.
+#ifdef PWN_AR_SAMPLER_PHASES
+#define GPHASE(k)                                                              \
+  do {                                                                         \
+    if (phase_on) {                                                            \
+      const long long now = clock64();                                         \
+      phase_acc[1] += static_cast<unsigned long long>(ring.waited);            \
+      phase_acc[k] += static_cast<unsigned long long>(now - phase_t - ring.waited); \
+      phase_t = now;                                                           \
+    }                                                                          \
+    ring.waited = 0;                                                           \
+  } while (0)
+#else
+#define GPHASE(k)
+#endif
+
+template <typename W, typename CT>
+__global__ void __launch_bounds__(GEN_THREADS, 1)
+ar_generic_kernel(const GenArgs a, const GenPlan pl) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int b = blockIdx.x / GEN_RANKS;
+  const int C = a.C, S = a.S, M = a.M, HD = a.HD, K = a.K, L = a.L, T = a.T;
+  const int NO = C + S, gn = pl.gn;
+  const GenLayout ly(C, S, M, HD, L, (int)sizeof(W), pl);
+  const int CQ = ly.CQ, CX = ly.CX;
+
+  extern __shared__ __align__(128) unsigned char gsm[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(gsm);
+  uint64_t* empty = full + GEN_MAX_STAGES;
+  uint64_t* xbar = empty + GEN_MAX_STAGES;  // the exchange's arrivals, by parity
+  float* fs = reinterpret_cast<float*>(gsm + GEN_BAR_BYTES);
+  float* xbuf = fs + ly.XBUF;
+  float* x = fs + ly.X;
+  float* cs = fs + ly.CS;
+  float* gtc = fs + ly.GTC;
+  float* zs = fs + ly.Z;
+  float* skp = fs + ly.SKP;
+  float* bsum = fs + ly.BSUM;
+  float* hs = fs + ly.HS;
+  float* h1 = fs + ly.H1;
+  float* hp = fs + ly.HP;
+  float* xprev = fs + ly.XPREV;
+  float* taps = fs + ly.NF;  // L x CQ where the plan holds them
+  unsigned char* past = reinterpret_cast<unsigned char*>(taps) + ly.taps_b;
+  int* dls = reinterpret_cast<int*>(past);  // d, offset, this step's slots: L each
+  W* hw = reinterpret_cast<W*>(past + ly.dl_b);  // head1 (S x S), head2 (S x HD)
+  const W* ring_base = reinterpret_cast<const W*>(past + ly.dl_b + ly.head_b);
+  const W* head1 = pl.head ? hw : static_cast<const W*>(a.head1_k);
+  const W* head2 = pl.head ? hw + (size_t)S * S : static_cast<const W*>(a.head2_k);
+  const size_t run = (size_t)pl.units * pl.ue;  // a layer's run of weights
+  const W* w_rank = static_cast<const W*>(a.w_rank) + (size_t)rank * L * run;
+  const float* b_rank = a.b_rank + (size_t)rank * L * 2 * gn;
+  const W* front_k = static_cast<const W*>(a.front_k);
+  const CT* cond = static_cast<const CT*>(a.cond) + (size_t)b * T * M;
+  float* queue = a.queue + (size_t)b * a.sum_q * CQ;
+
+  // -- once: the barriers, zeroed floats and taps, the head's weights, the
+  //    skip biases summed over the layers, cond(0)
+  const long long n_layers = (long long)T * L;  // layers over all steps
+  const uint32_t res_bytes = 16u * GEN_RANKS * ((C + 3) / 4);
+  const uint32_t skip_bytes = 16u * GEN_RANKS * ((S + 3) / 4);
+  if (tid == 0) {
+    for (int s = 0; s < pl.stages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), GEN_WARPS);
+    }
+    for (int p = 0; p < 2; ++p) {
+      mbar_init(smem_u32(&xbar[p]), 1);
+      // the bytes that land here at layer p: the skip partials at a step's
+      // last layer, else the residual partials
+      if (p < n_layers) mbar_expect_tx(smem_u32(&xbar[p]), p % L == L - 1 ? skip_bytes : res_bytes);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < ly.NF; i += GEN_THREADS) fs[i] = 0.f;
+  if (pl.taps)
+    for (int i = tid; i < L * CQ; i += GEN_THREADS) taps[i] = 0.f;
+  __syncthreads();
+  if (pl.head) {
+    const W* h1k = static_cast<const W*>(a.head1_k);
+    const W* h2k = static_cast<const W*>(a.head2_k);
+    for (int i = tid; i < S * S; i += GEN_THREADS) hw[i] = h1k[i];
+    for (int i = tid; i < S * HD; i += GEN_THREADS) hw[S * S + i] = h2k[i];
+  }
+  for (int s = tid; s < S; s += GEN_THREADS) {
+    float v = 0.f;
+    for (int l = 0; l < L; ++l) v += a.b_rs[(size_t)l * NO + C + s];
+    bsum[s] = v;
+  }
+  for (int m = tid; m < M; m += GEN_THREADS) cs[m] = to_f32(cond[m]);
+  for (int l = tid; l < 2 * L; l += GEN_THREADS) dls[l] = a.dil[l];
+  __syncthreads();
+  // every block of the cluster has started before any writes into another's
+  // shared memory
+  cluster_arrive();
+  cluster_wait();
+
+  if (warp == GEN_WARPS) {
+    // -- the producer warp: lane 0 streams every layer's units through the
+    //    ring, each into a stage its consumer warps have released; every lane
+    //    takes its part in the step's cluster barrier
+    int s = 0;
+    uint32_t ph = 0;
+    bool first = true;
+    const uint32_t ub = (uint32_t)(pl.ue * sizeof(W));
+    for (int t = 0; t < T; ++t) {
+      if (lane == 0)
+        for (int l = 0; l < L; ++l)
+          for (int u = 0; u < pl.units; ++u) {
+            if (!first) mbar_wait(smem_u32(&empty[s]), ph);
+            mbar_expect_tx(smem_u32(&full[s]), ub);
+            bulk_load(smem_u32(ring_base + (size_t)s * pl.ue),
+                      w_rank + (size_t)l * run + (size_t)u * pl.ue, ub, smem_u32(&full[s]));
+            if (++s == pl.stages) {
+              s = 0;
+              if (!first) ph ^= 1;
+              first = false;
+            }
+          }
+      __syncwarp();
+      if (t > 0) cluster_wait();
+      cluster_arrive();
+    }
+    cluster_wait();
+    return;
+  }
+
+  // -- the consumers
+  GenRing<W> ring{ring_base, full, empty, pl.ue, pl.stages, pl.whole, lane};
+#ifdef PWN_AR_SAMPLER_PHASES
+  const bool phase_on = blockIdx.x == 0 && tid == 0;
+  unsigned long long phase_acc[NPHASES + 1] = {};
+  long long phase_t = clock64();
+#endif
+  const int nq = (NO + GEN_OQ - 1) / GEN_OQ;
+  const int CQR = (C + GEN_RANKS - 1) / GEN_RANKS;  // queue columns a rank writes
+  const int q0 = rank * CQR, q1 = min(C, q0 + CQR);
+  int* slot_w = dls + 2 * L;  // this step's slot of each layer's x,
+  int* slot_r = dls + 3 * L;  // and the slot its tap is read from
+  // the exchange buffer and its barrier in ranks lane / 8 + 4i, where this
+  // lane's residual partials go
+  uint32_t xbuf_at[GEN_RANKS / 4], xbar_at[GEN_RANKS / 4];
+#pragma unroll
+  for (int i = 0; i < GEN_RANKS / 4; ++i) {
+    xbuf_at[i] = mapa(smem_u32(xbuf), (lane >> 3) + 4 * i);
+    xbar_at[i] = mapa(smem_u32(xbar), (lane >> 3) + 4 * i);
+  }
+  long long c = 0;          // layers so far, over all steps: the exchange's phases
+  int par = 0;              // its buffer and barrier
+  float u0 = 0.f;           // warp 0: noise value `lane` of the step
+  float cn[GEN_PREF] = {};  // cond(t + 1) values tid + GEN_CT i
+
+  // layer l's tap at step t: held in shared memory, or its queue slot
+  // (slot_r: written at step t - d; a layer's d + 1 slots keep it apart from
+  // the slot this step writes)
+  auto tap_of = [&](int l) -> const float* {
+    return pl.taps ? taps + (size_t)l * CQ : queue + (size_t)slot_r[l] * CQ;
+  };
+
+  for (int t = 0; t < T; ++t) {
+    // -- step start: the front 1x1 (no FMA, as the plain version), layer 0's
+    //    gate product over its tap and cond rows
+    if (!pl.taps && t > 0) cluster_wait();  // the queue's writes of the step before
+    {
+      const float xp = *xprev;
+      for (int n = tid; n < C; n += GEN_CT)
+        x[n] = __fadd_rn(__fmul_rn(xp, to_f32(front_k[n])), __ldg(a.front_b + n));
+      // the slots: x_l of step t into t % (d + 1); the tap read (held: for
+      // step t + 1, from (t + 2) % (d + 1); else for step t, (t + 1) % (d + 1))
+      for (int l = tid; l < L; l += GEN_CT) {
+        const int d1 = dls[l] + 1, o = dls[L + l];
+        slot_w[l] = o + t % d1;
+        slot_r[l] = o + (t + (pl.taps ? 2 : 1)) % d1;
+      }
+    }
+    named_sync(BAR_ALL, GEN_CT);
+    GPHASE(0);
+    ring.layer_begin();
+    gen_gate_tc(ring, gtc, tap_of(0), !pl.taps, cs, b_rank, C, M, gn, pl.kb_tc, warp, lane);
+    GPHASE(2);
+    named_sync(BAR_ALL, GEN_CT);
+
+    for (int l = 0; l < L; ++l, ++c) {
+      const bool last = l + 1 == L;
+      float* z = zs + par * ly.ZQ;
+      gen_gate_x(ring, z, gtc, x, C, gn, pl.kb_x, warp, lane);
+      GPHASE(4);
+      named_sync(BAR_ALL, GEN_CT);
+      // the queue's writes of the step before are visible from here on
+      if (l == 0 && t > 0 && pl.taps) cluster_wait();
+      {
+        // x_l into its slot (this rank's columns; with taps held, only where
+        // d > 1), and the held tap of step t+1: x_l itself where d = 1, else
+        // its slot, written at step t+1-d, copied by cp.async (done by the
+        // step's end)
+        const int d = dls[l];
+        float* wq = queue + (size_t)slot_w[l] * CQ;
+        const bool store = !pl.taps || d > 1;
+        for (int n = tid; n < C; n += GEN_CT) {
+          if (store && n >= q0 && n < q1) __stcg(wq + n, x[n]);
+          if (pl.taps && d == 1) taps[(size_t)l * CQ + n] = x[n];
+        }
+        if (pl.taps && d > 1) {
+          const float* rq = queue + (size_t)slot_r[l] * CQ;
+          for (int v = tid; v < CQ / 4; v += GEN_CT)
+            cp_async16(taps + (size_t)l * CQ + 4 * v, rq + 4 * v);
+          cp_async_commit();
+        }
+      }
+      // the out product: output n's partial over this rank's z rows; a skip
+      // output's adds to its skp entry (this thread's alone), a residual
+      // output's goes to every rank by st.async (not at the last layer), 4
+      // columns a lane, gathered by shuffles
+      for (int q = 0; q < nq; ++q) {
+        const int n0 = q * GEN_OQ, ncq = min(GEN_OQ, NO - n0), n = n0 + tid;
+        const float o = gen_out_pass(ring, z, gn, pl.rb, ncq, tid);
+        if (tid < ncq && n >= C) skp[n - C] = (l == 0 ? 0.f : skp[n - C]) + o;
+        if (!last && n0 + 32 * warp < C) {  // warp-uniform
+          const float val = n < C ? o : 0.f;
+          const int f = lane & 7, col = n0 + 32 * warp + 4 * f;
+          const float4 v = make_float4(__shfl_sync(FULL, val, 4 * f), __shfl_sync(FULL, val, 4 * f + 1),
+                                       __shfl_sync(FULL, val, 4 * f + 2),
+                                       __shfl_sync(FULL, val, 4 * f + 3));
+          if (col < C) {
+            const uint32_t off = 4u * ((par * GEN_RANKS + rank) * CX + col);
+#pragma unroll
+            for (int i = 0; i < GEN_RANKS / 4; ++i) st_async(xbuf_at[i] + off, v, xbar_at[i] + 8 * par);
+          }
+        }
+      }
+      ring.layer_end();
+      GPHASE(5);
+      if (last) {
+        // the skip partials, summed over the layers, to every rank
+        named_sync(BAR_ALL, GEN_CT);
+        const int SV = (S + 3) / 4;
+        for (int i = tid; i < SV * GEN_RANKS; i += GEN_CT) {
+          const int v = i % SV, r = i / SV;
+          st_async(mapa(smem_u32(xbuf + (par * GEN_RANKS + rank) * CX + 4 * v), r),
+                   *reinterpret_cast<const float4*>(skp + 4 * v), mapa(smem_u32(&xbar[par]), r));
+        }
+      }
+      if (l == 0) {
+        if (warp == 0 && lane < a.NZ) u0 = __ldg(a.noise + ((size_t)t * a.B + b) * a.NZ + lane);
+        if (t + 1 < T)
+#pragma unroll
+          for (int i = 0; i < GEN_PREF; ++i) {
+            const int m = tid + GEN_CT * i;
+            if (m < M) cn[i] = to_f32(cond[(size_t)(t + 1) * M + m]);
+          }
+      }
+      GPHASE(6);
+      // while the other ranks catch up: the next layer's tap and cond rows
+      if (!last) {
+        ring.layer_begin();
+        gen_gate_tc(ring, gtc, tap_of(l + 1), !pl.taps, cs, b_rank + (size_t)(l + 1) * 2 * gn, C,
+                    M, gn, pl.kb_tc, warp, lane);
+        GPHASE(2);
+      }
+      const float brs = !last && tid < C ? __ldg(a.b_rs + (size_t)l * NO + tid) : 0.f;
+      // every rank's partials have landed here: arm this parity's next use
+      mbar_spin_cluster(smem_u32(&xbar[par]), (uint32_t)((c >> 1) & 1));
+      if (tid == 0 && c + 2 < n_layers)
+        mbar_expect_tx(smem_u32(&xbar[par]), (c + 2) % L == L - 1 ? skip_bytes : res_bytes);
+      GPHASE(7);
+      // every rank sums the N partials in rank order: the same bits in all
+      const float* xb = xbuf + par * GEN_RANKS * CX;
+      par ^= 1;
+      for (int n = tid; n < (last ? S : C); n += GEN_CT) {
+        float s = 0.f;
+#pragma unroll
+        for (int r = 0; r < GEN_RANKS; ++r) s += xb[r * CX + n];
+        if (last)
+          hs[n] = fmaxf(bsum[n] + s, 0.f);
+        else
+          x[n] = x[n] + ((n == tid ? brs : __ldg(a.b_rs + (size_t)l * NO + n)) + s);
+      }
+      named_sync(BAR_ALL, GEN_CT);
+      GPHASE(3);
+    }
+
+    // -- head: relu (above), 1x1, relu, 1x1, in every rank
+    for (int n = tid; n < S; n += GEN_CT) {
+      float v0 = 0.f, v1 = 0.f, v2 = 0.f, v3 = 0.f;
+      int k = 0;
+      for (; k + 4 <= S; k += 4) {
+        v0 = fmaf(hs[k], to_f32(head1[(size_t)k * S + n]), v0);
+        v1 = fmaf(hs[k + 1], to_f32(head1[(size_t)(k + 1) * S + n]), v1);
+        v2 = fmaf(hs[k + 2], to_f32(head1[(size_t)(k + 2) * S + n]), v2);
+        v3 = fmaf(hs[k + 3], to_f32(head1[(size_t)(k + 3) * S + n]), v3);
+      }
+      for (; k < S; ++k) v0 = fmaf(hs[k], to_f32(head1[(size_t)k * S + n]), v0);
+      h1[n] = fmaxf(__ldg(a.head1_b + n) + ((v0 + v1) + (v2 + v3)), 0.f);
+    }
+    named_sync(BAR_ALL, GEN_CT);
+    for (int j = warp; j < HD; j += GEN_WARPS) {  // warp-uniform
+      float v = 0.f;
+      for (int k = lane; k < S; k += 32) v = fmaf(h1[k], to_f32(head2[(size_t)k * HD + j]), v);
+      v = warp_sum(v);
+      if (lane == 0) hp[j] = __ldg(a.head2_b + j) + v;
+    }
+    named_sync(BAR_ALL, GEN_CT);
+
+    // -- the sample (warp 0 of every rank), as the ring kernel's over any K
+    if (warp == 0) {
+      const float* u = a.noise + ((size_t)t * a.B + b) * a.NZ;
+      float xt;
+      if (a.gaussian) {
+        const float eps = __shfl_sync(FULL, u0, 0);
+        xt = hp[0] + expf(fmaxf(hp[1], a.log_scale_min)) * a.temperature * eps;
+      } else {
+        const float s0 = lane < K ? hp[lane] - logf(-logf(u0)) : -INFINITY;
+        float best = s0;
+        for (int k = lane + 32; k < K; k += 32) best = fmaxf(best, hp[k] - logf(-logf(__ldg(u + k))));
+        best = warp_max(best);
+        const bool pick0 = lane < K && s0 >= best;
+        int count = __popc(__ballot_sync(FULL, pick0));
+        for (int k0 = 32; k0 < K; k0 += 32) {
+          const int k = k0 + lane;
+          count += __popc(__ballot_sync(FULL, k < K && hp[k] - logf(-logf(__ldg(u + k))) >= best));
+        }
+        const float wgt = 1.f / (float)count;
+        float mean = 0.f, ls = 0.f;
+        if (pick0) {
+          mean = hp[K + lane] * wgt;
+          ls = fmaxf(hp[2 * K + lane], a.log_scale_min) * wgt;
+        }
+        for (int k = lane + 32; k < K; k += 32)
+          if (hp[k] - logf(-logf(__ldg(u + k))) >= best) {
+            mean += hp[K + k] * wgt;
+            ls += fmaxf(hp[2 * K + k], a.log_scale_min) * wgt;
+          }
+        mean = warp_sum(mean);
+        ls = warp_sum(ls);
+        const float ul = K < 32 ? __shfl_sync(FULL, u0, K) : __ldg(u + K);
+        xt = mean + expf(ls) * a.temperature * (logf(ul) - log1pf(-ul));
+      }
+      xt = fminf(fmaxf(xt, -1.f), 1.f);
+      if (lane == 0) {
+        *xprev = xt;
+        if (rank == 0) a.wav[(size_t)b * T + t] = xt;
+#ifdef PWN_AR_SAMPLER_CHECK
+        a.wav_ranks[((size_t)rank * a.B + b) * T + t] = xt;
+#endif
+      }
+    }
+    // cond(t+1) lands (the step's last read of cond was layer L-1's gate
+    // product); the held taps' copies are done
+    if (t + 1 < T) {
+#pragma unroll
+      for (int i = 0; i < GEN_PREF; ++i) {
+        const int m = tid + GEN_CT * i;
+        if (m < M) cs[m] = cn[i];
+      }
+      for (int m = tid + GEN_CT * GEN_PREF; m < M; m += GEN_CT)
+        cs[m] = to_f32(cond[(size_t)(t + 1) * M + m]);
+    }
+    if (pl.taps) cp_async_wait_all();
+    // this step's queue reads and writes are done (release)
+    cluster_arrive();
+    named_sync(BAR_ALL, GEN_CT);
+    GPHASE(8);
+#ifdef PWN_AR_SAMPLER_PHASES
+    if (phase_on) ++phase_acc[NPHASES];
+#endif
+  }
+  cluster_wait();
+#ifdef PWN_AR_SAMPLER_PHASES
+  if (phase_on)
+    for (int k = 0; k <= NPHASES; ++k) atomicAdd(&ar_phase_cycles[k], phase_acc[k]);
+#endif
+}
+
+template <typename W, typename CT>
+int launch_generic(const GenArgs& a, const GenPlan& p, cudaStream_t stream, int* geo) {
+  auto kernel = ar_generic_kernel<W, CT>;
+  if (!gen_plan_ok(a.C, a.G, a.S, a.M, (int)sizeof(W), p)) return cudaErrorInvalidValue;
+  const long long smem = GenLayout(a.C, a.S, a.M, a.HD, a.L, (int)sizeof(W), p).bytes();
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (smem > optin) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = GEN_RANKS;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.B * GEN_RANKS);
+  cfg.blockDim = dim3(GEN_THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int fit = 0;
+  err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (geo) {
+    geo[0] = 1;
+    geo[1] = GEN_RANKS;
+    geo[2] = p.stages;
+    geo[3] = (int)smem;
+    geo[4] = fit;
+    return cudaSuccess;
+  }
+  if (fit < 1) return cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kernel, a, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+int run_generic(const GenArgs& a, const GenPlan& p, int weights_bf16, int cond_bf16,
+                cudaStream_t st, int* geo) {
+  if (a.B < 1 || a.T < 1 || a.L < 1 || a.C < 1 || a.S < 1 || a.M < 1 || a.G < 2 || a.G % 2 ||
+      (a.gaussian ? a.HD != 2 : (a.K < 1 || a.HD != 3 * a.K)))
+    return cudaErrorInvalidValue;
+  if (weights_bf16)
+    return cond_bf16 ? launch_generic<bf16, bf16>(a, p, st, geo)
+                     : launch_generic<bf16, float>(a, p, st, geo);
+  return cond_bf16 ? launch_generic<float, bf16>(a, p, st, geo)
+                   : launch_generic<float, float>(a, p, st, geo);
 }
 
 }  // namespace
@@ -1935,19 +2731,19 @@ int pwn_ar_sample_geometry(int L, int c, int g, int s, int m, int hd, int k, int
   return err;
 }
 
-// The general-width body on `stream`: the same math as pwn_ar_sample over
-// the weights in `stack_teacher_weights`' layout (no rank packing), any
-// widths and layer count; dil is (2, L) int32 on the card (the dilations,
-// then the queue offsets), sum_d the queue's slots.  Returns a cudaError_t.
-int pwn_ar_sample_generic(const void* cond, const void* noise, const void* front_k,
-                          const void* front_b, const void* w_in, const void* b_g,
-                          const void* w_out, const void* b_rs, const void* head1_k,
-                          const void* head1_b, const void* head2_k, const void* head2_b,
-                          const void* dil, void* queue, void* wav, int B, int T, int L, int c,
-                          int g, int s, int m, int hd, int k, int gaussian, int sum_d,
-                          float log_scale_min, float temperature, int weights_bf16,
-                          int cond_bf16, void* stream) {
-  GenArgs a;
+// The one-block body on `stream`: the same math as pwn_ar_sample over the
+// weights in `stack_teacher_weights`' layout (no rank packing), any widths
+// and layer count; dil is (2, L) int32 on the card (the dilations, then the
+// queue offsets), sum_d the queue's slots.  Returns a cudaError_t.
+int pwn_ar_sample_block(const void* cond, const void* noise, const void* front_k,
+                        const void* front_b, const void* w_in, const void* b_g,
+                        const void* w_out, const void* b_rs, const void* head1_k,
+                        const void* head1_b, const void* head2_k, const void* head2_b,
+                        const void* dil, void* queue, void* wav, int B, int T, int L, int c,
+                        int g, int s, int m, int hd, int k, int gaussian, int sum_d,
+                        float log_scale_min, float temperature, int weights_bf16,
+                        int cond_bf16, void* stream) {
+  BlockArgs a;
   a.cond = cond;
   a.noise = static_cast<const float*>(noise);
   a.front_k = front_k;
@@ -1968,19 +2764,72 @@ int pwn_ar_sample_generic(const void* cond, const void* noise, const void* front
   a.sum_d = sum_d; a.gaussian = gaussian;
   a.log_scale_min = log_scale_min;
   a.temperature = temperature;
-  return run_generic(a, weights_bf16, cond_bf16, static_cast<cudaStream_t>(stream), nullptr);
+  return run_block(a, weights_bf16, cond_bf16, static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// The general body's launch for these widths and types, into out[3]:
+// The one-block body's launch for these widths and types, into out[3]:
 // threads a block (one block a batch row), dynamic shared memory in bytes,
 // and how many of its blocks the card holds at once (a larger batch runs in
 // waves); returns a cudaError_t.
-int pwn_ar_sample_generic_geometry(int c, int g, int s, int m, int hd, int k, int gaussian,
-                                   int weights_bf16, int cond_bf16, int* out) {
-  GenArgs a = {};
+int pwn_ar_sample_block_geometry(int c, int g, int s, int m, int hd, int k, int gaussian,
+                                 int weights_bf16, int cond_bf16, int* out) {
+  BlockArgs a = {};
   a.B = 1; a.T = 1; a.L = 1; a.C = c; a.G = g; a.S = s; a.M = m; a.HD = hd;
   a.K = gaussian ? 0 : k; a.gaussian = gaussian;
-  return run_generic(a, weights_bf16, cond_bf16, nullptr, out);
+  return run_block(a, weights_bf16, cond_bf16, nullptr, out);
+}
+
+// The general-width cluster body on `stream`: w_rank / b_rank are
+// `pack_ar_generic`'s layout for `plan` (GEN_PLAN_INTS ints from
+// ops/ar_sampler.py::generic_ar_plan, in GenPlan's order); dil is (2, L)
+// int32 on the card (the dilations, then the queue offsets, d + 1 slots a
+// layer), sum_q the queue's slots, each of round4(c) floats.  wav_ranks may
+// be null; only a PWN_AR_SAMPLER_CHECK build writes it.  Returns a
+// cudaError_t.
+int pwn_ar_sample_generic(const void* cond, const void* noise, const void* front_k,
+                          const void* front_b, const void* w_rank, const void* b_rank,
+                          const void* b_rs, const void* head1_k, const void* head1_b,
+                          const void* head2_k, const void* head2_b, const void* dil,
+                          void* queue, void* wav, void* wav_ranks, int B, int T, int L, int c,
+                          int g, int s, int m, int hd, int k, int gaussian, int sum_q,
+                          const int* plan, float log_scale_min, float temperature,
+                          int weights_bf16, int cond_bf16, void* stream) {
+  GenArgs a;
+  a.cond = cond;
+  a.noise = static_cast<const float*>(noise);
+  a.front_k = front_k;
+  a.front_b = static_cast<const float*>(front_b);
+  a.w_rank = w_rank;
+  a.b_rank = static_cast<const float*>(b_rank);
+  a.b_rs = static_cast<const float*>(b_rs);
+  a.head1_k = head1_k;
+  a.head1_b = static_cast<const float*>(head1_b);
+  a.head2_k = head2_k;
+  a.head2_b = static_cast<const float*>(head2_b);
+  a.dil = static_cast<const int*>(dil);
+  a.queue = static_cast<float*>(queue);
+  a.wav = static_cast<float*>(wav);
+  a.wav_ranks = static_cast<float*>(wav_ranks);
+  a.B = B; a.T = T; a.L = L; a.C = c; a.G = g; a.S = s; a.M = m; a.HD = hd;
+  a.K = gaussian ? 0 : k; a.NZ = gaussian ? 1 : k + 1;
+  a.sum_q = sum_q; a.gaussian = gaussian;
+  a.log_scale_min = log_scale_min;
+  a.temperature = temperature;
+  return run_generic(a, gen_plan(plan), weights_bf16, cond_bf16,
+                     static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The cluster body's launch for these widths, types and plan, into out[5]:
+// batch rows a cluster (1), blocks a cluster, ring stages, dynamic shared
+// memory in bytes, and how many clusters the card holds at once (a larger
+// batch runs in waves); returns a cudaError_t.
+int pwn_ar_sample_generic_geometry(int L, int c, int g, int s, int m, int hd, int k,
+                                   int gaussian, int weights_bf16, int cond_bf16,
+                                   const int* plan, int* out) {
+  GenArgs a = {};
+  a.B = 1; a.T = 1; a.L = L; a.C = c; a.G = g; a.S = s; a.M = m; a.HD = hd;
+  a.K = gaussian ? 0 : k; a.NZ = gaussian ? 1 : k + 1; a.gaussian = gaussian;
+  return run_generic(a, gen_plan(plan), weights_bf16, cond_bf16, nullptr, out);
 }
 
 }  // extern "C"

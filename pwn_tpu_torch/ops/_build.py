@@ -44,6 +44,31 @@ AR_SAMPLE_ARGTYPES = [   # pwn_ar_sample, also in the tools' own builds
     ctypes.c_float, ctypes.c_float,  # log_scale_min, temperature
     _I, _I, _I, _P,                 # weights_bf16, cond_bf16, n_ranks, stream
 ]
+AR_GENERIC_ARGTYPES = [  # pwn_ar_sample_generic (the cluster body)
+    _P, _P, _P, _P, _P, _P, _P,     # cond, noise, front_k, front_b, w_rank,
+                                    # b_rank, b_rs
+    _P, _P, _P, _P, _P, _P, _P, _P,  # head1_k, head1_b, head2_k, head2_b,
+                                     # dilations (card), queue, wav,
+                                     # wav_ranks
+    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # B, T, L, C, G, S, M,
+                                                 # head_dim, K, gaussian,
+                                                 # sum(d + 1)
+    ctypes.POINTER(ctypes.c_int),   # the plan's ints
+    ctypes.c_float, ctypes.c_float,  # log_scale_min, temperature
+    _I, _I, _P,                     # weights_bf16, cond_bf16, stream
+]
+AR_BLOCK_ARGTYPES = [  # pwn_ar_sample_block (the one-block body; an
+                       # earlier tree's pwn_ar_sample_generic)
+    _P, _P, _P, _P, _P, _P, _P, _P,  # cond, noise, front_k, front_b, w_in,
+                                     # b_g, w_out, b_rs
+    _P, _P, _P, _P, _P, _P, _P,     # head1_k, head1_b, head2_k, head2_b,
+                                    # dilations (card), queue, wav
+    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # B, T, L, C, G, S, M,
+                                                 # head_dim, K, gaussian,
+                                                 # sum(d)
+    ctypes.c_float, ctypes.c_float,  # log_scale_min, temperature
+    _I, _I, _P,                     # weights_bf16, cond_bf16, stream
+]
 
 
 def nvcc_path() -> str:
@@ -155,23 +180,24 @@ def load_library() -> ctypes.CDLL:
                                           # clusters
     ]
     lib.pwn_ar_sample_geometry.restype = i
-    lib.pwn_ar_sample_generic.argtypes = [
-        p, p, p, p, p, p, p, p,        # cond, noise, front_k, front_b, w_in,
-                                       # b_g, w_out, b_rs
-        p, p, p, p, p, p, p,           # head1_k, head1_b, head2_k, head2_b,
-                                       # dilations (card), queue, wav
-        i, i, i, i, i, i, i, i, i, i,  # B, T, L, C, G, S, M, head_dim, K,
-        i,                             # gaussian, sum(d)
-        ctypes.c_float, ctypes.c_float,  # log_scale_min, temperature
-        i, i, p,                       # weights_bf16, cond_bf16, stream
-    ]
+    lib.pwn_ar_sample_generic.argtypes = AR_GENERIC_ARGTYPES
     lib.pwn_ar_sample_generic.restype = i
     lib.pwn_ar_sample_generic_geometry.argtypes = [
+        i, i, i, i, i, i, i, i, i, i,  # L, C, G, S, M, head_dim, K,
+                                       # gaussian, weights_bf16, cond_bf16
+        ctypes.POINTER(ctypes.c_int),  # the plan's ints
+        ctypes.POINTER(ctypes.c_int),  # out: rows, ranks, stages, smem,
+                                       # clusters
+    ]
+    lib.pwn_ar_sample_generic_geometry.restype = i
+    lib.pwn_ar_sample_block.argtypes = AR_BLOCK_ARGTYPES
+    lib.pwn_ar_sample_block.restype = i
+    lib.pwn_ar_sample_block_geometry.argtypes = [
         i, i, i, i, i, i, i, i, i,     # C, G, S, M, head_dim, K, gaussian,
                                        # weights_bf16, cond_bf16
         ctypes.POINTER(ctypes.c_int),  # out: threads, smem, blocks at once
     ]
-    lib.pwn_ar_sample_generic_geometry.restype = i
+    lib.pwn_ar_sample_block_geometry.restype = i
     lib.pwn_gated_layer_bf16.argtypes = [
         p, p, p, p, p, p, p, p,        # x, cond, w_in, b_g, w_out, b_out, res,
                                        # skip

@@ -20,7 +20,7 @@ with cond (B, T, M) in the compute dtype, and returns wav (B, T) fp32.
 Compute is fp32 over the stored weights, and the queues are fp32.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to one of the
-kernel's three bodies (`csrc/ar_sampler.cu`) or raises; `ar_body` picks
+kernel's four bodies (`csrc/ar_sampler.cu`) or raises; `ar_body` picks
 it from the widths, the layer count and the mixtures alone.  At the widths
 the kernel is built for (`AR_KERNEL_DIMS`, at most `AR_MAX_LAYERS` layers
 and `AR_MAX_MIXTURES` mixtures) the batch rows run on clusters of
@@ -32,9 +32,14 @@ wide teacher's (`AR_WIDE_DIMS`, "chunks") a cluster of 16 takes two rows,
 each weight read serving both, and the slice streams in chunks of 4,096
 weights (the source's note).  Every other teacher the reference's sampler
 takes (any width with an even G, any mixture count, any depth, within
-`generic_ar_limits`) runs the general body ("generic"): one block a row,
-the weights in this module's layout read from L2 every step.
-`ar_geometry` reports what a launch looks like.
+`generic_ar_limits`) runs the general body ("generic"): one row a
+cluster of `AR_GEN_RANKS` blocks at run-time widths, rank j owning
+ceil(G/2 / 8) z values (zero-padded), its weights cut into tiles by
+`generic_ar_plan` and `pack_ar_generic` and streamed by bulk copy, a
+whole layer a copy where one fits a stage.  Its exchange buffer grows with
+max(C, S); past what a block holds (max(C, S) above ~3,500) the one-block
+body ("block") takes the row, the weights in this module's layout read
+from L2 every step.  `ar_geometry` reports what a launch looks like.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ AR_WIDE_DIMS = (256, 512, 256, 80)
 AR_KERNEL_DIMS = ((128, 256, 128, 80), (64, 128, 64, 40), AR_WIDE_DIMS)
 AR_MAX_LAYERS = 64  # the built bodies' caps (MAX_L, MAX_HD = 3 x 10)
 AR_MAX_MIXTURES = 10
-AR_BODIES = ("slices", "chunks", "generic")
+AR_BODIES = ("slices", "chunks", "generic", "block")
 AR_RANKS = 8  # blocks per cluster: the kernel's split of every layer
 AR_WIDE_RANKS = 16  # the same at AR_WIDE_DIMS
 AR_CHUNK_ELEMS = 4096  # weights a stage of the wide kernel's ring
@@ -67,9 +72,25 @@ _WEIGHTS = ("front_k", "w_in", "w_out", "head1_k", "head2_k")
 _BIASES = ("front_b", "b_g", "b_rs", "head1_b", "head2_b")
 
 
-# the floats of the general body's partials at least: GEN_THREADS x
-# GEN_VEC_MAX in the source (`ar_generic_kernel`)
-_GENERIC_PART_FLOATS = 512 * 8
+# the one-block body's partials at least: BLK_THREADS x BLK_VEC_MAX floats
+# in the source (`ar_block_kernel`)
+_BLOCK_PART_FLOATS = 512 * 8
+
+# The cluster body's constants (`ar_generic_kernel`): blocks a cluster, z
+# values a pass (GEN_ZW x GEN_WARPS = 2 x 8), out columns a pass, the barriers'
+# bytes, stages of a whole-layer ring, bytes and stages of a tile ring, the
+# least weights a tile.
+AR_GEN_RANKS = 8
+_GEN_ZP = 16
+_GEN_OQ = 256
+_GEN_BAR_BYTES = 144
+_GEN_WHOLE_STAGES = 4
+_GEN_TILE_BYTES = 8192
+_GEN_TILE_STAGES = 8
+_GEN_TILE_MIN = 1024  # bytes: 2 x 32 columns of one 16-byte vector
+# the plan's ints in the source's GenPlan order
+_GEN_PLAN_KEYS = ("gn", "kb_tc", "kb_x", "rb", "ue", "units", "whole",
+                  "stages", "taps", "head")
 
 
 def head_width(n_mixtures: int, head: str) -> int:
@@ -77,30 +98,135 @@ def head_width(n_mixtures: int, head: str) -> int:
     return 2 if head == "gaussian" else 3 * n_mixtures
 
 
-def generic_ar_smem_bytes(C: int, G: int, S: int, M: int, HD: int) -> int:
-    """The general body's shared memory, all of it dynamic
-    (`gen_smem_floats` in the source): the fed-back sample, [x | tap |
+def _round(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _gen_floats(C: int, G: int, S: int, M: int, HD: int) -> int:
+    """The cluster body's fixed fp32 (`GenLayout::NF`): the exchange (2
+    parities x 8 ranks x max(C, S)), x, cond(t) (each rounded to 8 floats),
+    the tap-and-cond sums, z (2 parities), the skip partials and bias sums,
+    relu(skip), the head's hidden and output, the fed-back sample (each
+    rounded to 4)."""
+    gn = -(-(G // 2) // AR_GEN_RANKS)
+    return (2 * AR_GEN_RANKS * _round(max(C, S), 4) + _round(C, 8)
+            + _round(M, 8) + _round(2 * gn, 4) + 2 * _round(gn, 4)
+            + 4 * _round(S, 4) + _round(HD, 4) + 4)
+
+
+def generic_tiles(C: int, S: int, M: int, plan: dict):
+    """A rank's layer run as the cluster body walks it, tile by tile, with
+    each tile's weights: ("tap" | "cond" | "x", first z value, z values,
+    first row, rows, weights) for the gate product's segments, per pass of
+    16 z values (W_in's tap rows [C, 2C) and cond rows [2C, 2C+M) in
+    k-blocks of kb_tc, then for each pass its x rows [0, C) in k-blocks of
+    kb_x; a tile holds its z values' tanh and sigmoid columns, column by
+    column, each of its rows rounded up to whole 16-byte vectors of `vw`
+    weights, zero past the block), then ("out", first column, columns,
+    first z row, z rows, weights) for W_out (passes of 256 columns, blocks
+    of rb rows, row-major)."""
+    gn, vw = plan["gn"], plan["vw"]
+    for segs, kb in (((("tap", C), ("cond", M)), plan["kb_tc"]),
+                     ((("x", C),), plan["kb_x"])):
+        for p0 in range(0, gn, _GEN_ZP):
+            zc = min(_GEN_ZP, gn - p0)
+            for seg, ks in segs:
+                for k0 in range(0, ks, kb):
+                    kr = min(kb, ks - k0)
+                    yield seg, p0, zc, k0, kr, 2 * zc * _round(kr, vw)
+    for n0 in range(0, C + S, _GEN_OQ):
+        for r0 in range(0, gn, plan["rb"]):
+            nc, rr = min(_GEN_OQ, C + S - n0), min(plan["rb"], gn - r0)
+            yield "out", n0, nc, r0, rr, nc * rr
+
+
+def generic_ar_plan(C: int, G: int, S: int, M: int, HD: int, L: int,
+                    weight_bytes: int) -> dict | None:
+    """How the cluster body runs these widths (`GenPlan` in the source), or
+    None where no plan fits a block's shared memory.  gn = ceil(G/2 / 8) z
+    values a rank, vw weights in 16 bytes.  The taps are held (L x
+    round8(C) floats) where they leave room for two 8 KB tiles (each
+    layer's dilation, queue offset and slots take 16 bytes); a layer's
+    run moves whole where two stages of it fit (up to 4: `whole`, one unit
+    a layer), else in tiles of at most 8 KB, one unit each (2 to 8 stages;
+    k-blocks of kb_tc / kb_x rows, whole vectors, W_out blocks of rb rows);
+    the head's weights are held where they fit what is left.  `smem` is
+    the launch's dynamic shared memory."""
+    wb = weight_bytes
+    vw = 16 // wb
+    gn = -(-(G // 2) // AR_GEN_RANKS)
+    NO = C + S
+    fixed = _GEN_BAR_BYTES + 4 * _gen_floats(C, G, S, M, HD)
+    if fixed + 2 * _GEN_TILE_MIN > SMEM_PER_BLOCK:
+        return None
+    fixed += 16 * L  # each layer's dilation, queue offset and two slots
+    if fixed + 2 * _GEN_TILE_MIN > SMEM_PER_BLOCK:
+        return None
+    taps_b = 4 * L * _round(C, 8)
+    taps = fixed + taps_b + 2 * _GEN_TILE_BYTES <= SMEM_PER_BLOCK
+    room = SMEM_PER_BLOCK - fixed - (taps_b if taps else 0)
+    layer = (2 * gn * (2 * _round(C, vw) + _round(M, vw)) + gn * NO)
+    plan = {"gn": gn, "vw": vw, "taps": int(taps)}
+    if 2 * _round(layer, vw) * wb <= room:
+        ue = _round(layer, vw)
+        plan.update(whole=1, ue=ue, units=1, kb_tc=_round(max(C, M), vw),
+                    kb_x=_round(C, vw), rb=gn,
+                    stages=min(_GEN_WHOLE_STAGES, room // (ue * wb)))
+    else:
+        ub = min(_GEN_TILE_BYTES, room // 2 // 16 * 16)
+        ue = ub // wb
+        kb = ue // (2 * min(_GEN_ZP, gn)) // vw * vw
+        plan.update(whole=0, ue=ue, kb_tc=min(_round(max(C, M), vw), kb),
+                    kb_x=min(_round(C, vw), kb),
+                    rb=min(gn, ue // min(_GEN_OQ, NO)),
+                    stages=min(_GEN_TILE_STAGES, room // ub))
+        plan["units"] = sum(1 for _ in generic_tiles(C, S, M, plan))
+    room -= plan["stages"] * ue * wb
+    head_b = -(-wb * S * (S + HD) // 16) * 16
+    plan["head"] = int(head_b <= room)
+    plan["smem"] = (fixed + taps_b * plan["taps"] + head_b * plan["head"]
+                    + plan["stages"] * ue * wb)
+    return plan
+
+
+def generic_ar_smem_bytes(C: int, G: int, S: int, M: int, HD: int, L: int,
+                          weight_bytes: int) -> int | None:
+    """The cluster body's dynamic shared memory at these widths, layers and
+    weight bytes (`GenLayout::bytes` in the source, for `generic_ar_plan`'s
+    plan), or None where no plan fits."""
+    plan = generic_ar_plan(C, G, S, M, HD, L, weight_bytes)
+    return plan and plan["smem"]
+
+
+def block_ar_smem_bytes(C: int, G: int, S: int, M: int, HD: int) -> int:
+    """The one-block body's shared memory, all of it dynamic
+    (`blk_smem_floats` in the source): the fed-back sample, [x | tap |
     cond(t)], z, skip, relu(skip), the head's hidden and output, and the
-    products' partials, all fp32.  The weights and the
-    queues stay in global memory, so the layer count and K set no bound
-    beyond HD's floats."""
-    part = max(G, C + S, HD, _GENERIC_PART_FLOATS)
+    products' partials, all fp32.  The weights and the queues stay in
+    global memory, so the layer count and K set no bound beyond HD's
+    floats."""
+    part = max(G, C + S, HD, _BLOCK_PART_FLOATS)
     return 4 * (1 + (2 * C + M) + G // 2 + 3 * S + HD + part)
 
 
 def generic_ar_limits(C: int, G: int, S: int, M: int, HD: int) -> str | None:
-    """Why the general body does not take these widths, or None where it
-    does: C, S, M, HD >= 1, an even G >= 2, and a block's shared memory
-    (`generic_ar_smem_bytes`) within SMEM_PER_BLOCK.  Any number of layers
-    and of mixtures within that."""
+    """Why no general body takes these widths, or None where one does: C,
+    S, M, HD >= 1, an even G >= 2, and a plan of the cluster body
+    (`generic_ar_plan`, fp32 weights, which need the most) or else the
+    one-block body's shared memory (`block_ar_smem_bytes`) within
+    SMEM_PER_BLOCK.  Any number of layers and of mixtures within that."""
     if min(C, S, M, HD) < 1 or G < 2 or G % 2:
         return (f"the general AR body takes C, S, M, head width >= 1 and an "
                 f"even G >= 2, got (C, G, S, M, HD) = {(C, G, S, M, HD)}")
-    smem = generic_ar_smem_bytes(C, G, S, M, HD)
+    if generic_ar_plan(C, G, S, M, HD, 1, 4) is not None:
+        return None
+    smem = block_ar_smem_bytes(C, G, S, M, HD)
     if smem > SMEM_PER_BLOCK:
         return (f"the general AR body needs {smem} bytes of shared memory at "
-                f"(C, G, S, M, HD) = {(C, G, S, M, HD)}; a block has "
-                f"{SMEM_PER_BLOCK} (generic_ar_limits)")
+                f"(C, G, S, M, HD) = {(C, G, S, M, HD)} in one block, and "
+                f"{_GEN_BAR_BYTES + 4 * _gen_floats(C, G, S, M, HD)} before "
+                f"its weight ring in a cluster; a block has {SMEM_PER_BLOCK} "
+                f"(generic_ar_limits)")
     return None
 
 
@@ -109,32 +235,38 @@ def ar_body(C: int, G: int, S: int, M: int, L: int, K: int,
     """Which body of kernel 4 a call reaches: "slices" at teacher_lj's and
     the tiny teacher's widths and "chunks" at the wide teacher's, each with
     at most AR_MAX_LAYERS layers and (MoL) AR_MAX_MIXTURES mixtures;
-    "generic" for every other teacher within `generic_ar_limits`; else
-    ValueError naming that limit.  The widths, L and K alone decide, so
-    the answer is the same on the CPU and on the card."""
+    "generic" for every other teacher with a plan of the cluster body
+    (`generic_ar_plan`), "block" for the rest within `generic_ar_limits`;
+    else ValueError naming that limit.  The widths, L and K alone decide,
+    so the answer is the same on the CPU and on the card."""
     built = L <= AR_MAX_LAYERS and (head == "gaussian"
                                     or 1 <= K <= AR_MAX_MIXTURES)
     if built and (C, G, S, M) in AR_KERNEL_DIMS:
         return "chunks" if (C, G, S, M) == AR_WIDE_DIMS else "slices"
-    why = generic_ar_limits(C, G, S, M, head_width(K, head))
+    hd = head_width(K, head)
+    why = generic_ar_limits(C, G, S, M, hd)
     if why:
         raise ValueError(f"no AR body takes L={L}, K={K} at (C, G, S, M) = "
                          f"{(C, G, S, M)}: the built bodies take "
                          f"{list(AR_KERNEL_DIMS)} with at most "
                          f"{AR_MAX_LAYERS} layers and {AR_MAX_MIXTURES} "
                          f"mixtures, and {why}")
-    return "generic"
+    return "generic" if generic_ar_plan(C, G, S, M, hd, L, 4) else "block"
 
 
 def resolve_ar_body(C: int, G: int, S: int, M: int, L: int, K: int,
                     head: str, body: str | None = None) -> str:
-    """The body a call runs: `body` if given ("generic" anywhere within
-    `generic_ar_limits`, a built body only where `ar_body` picks it), else
+    """The body a call runs: `body` if given ("generic" wherever the
+    cluster body has a plan, "block" wherever the one-block body's shared
+    memory fits, a built body only where `ar_body` picks it), else
     `ar_body`'s pick; ValueError for any other."""
     if body not in (None, *AR_BODIES):
         raise ValueError(f"body {body!r}; one of {AR_BODIES}")
     picked = ar_body(C, G, S, M, L, K, head)
-    if body not in (None, "generic", picked):
+    hd = head_width(K, head)
+    takes = {"generic": generic_ar_plan(C, G, S, M, hd, L, 4) is not None,
+             "block": block_ar_smem_bytes(C, G, S, M, hd) <= SMEM_PER_BLOCK}
+    if body is not None and not takes.get(body, body == picked):
         raise ValueError(f"the {body!r} body is not built for L={L}, K={K} "
                          f"at (C, G, S, M) = {(C, G, S, M)}; ar_body picks "
                          f"{picked!r}")
@@ -263,6 +395,49 @@ def chunk_geometry(C: int, G: int, S: int, M: int, n_ranks: int,
             "ZR": zr, "gate_chunks": tc + x, "out_chunks": gn // zr}
 
 
+def pack_ar_generic(weights: dict, plan: dict) -> dict:
+    """`stack_teacher_weights`' gate layers in the cluster body's layout for
+    `plan` (`generic_ar_plan`): rank j owns z values [j gn, (j+1) gn) of the
+    G/2 (zero columns, biases and W_out rows past G/2), its gate tiles' rows
+    padded with zeros to whole 16-byte vectors.  Returns `w`,
+    (AR_GEN_RANKS, L, units x ue) in the storage dtype: each rank's layer
+    run, its `generic_tiles` one after the other (one unit of ue weights,
+    zero-padded, where the plan moves a whole layer; else a unit each), and
+    `b_g`, (AR_GEN_RANKS, L, 2 gn) fp32: its tanh biases, then sigmoid.
+    Plain torch, on the weights' device."""
+    w_in, w_out, b_g = weights["w_in"], weights["w_out"], weights["b_g"]
+    L, K, G = w_in.shape
+    C = weights["front_k"].shape[-1]
+    S = w_out.shape[-1] - C
+    N, gn, ue = AR_GEN_RANKS, plan["gn"], plan["ue"]
+    pad = N * gn - G // 2
+    # w_in[l, k, h GH + j gn + i] -> [j, l, i, h, k]
+    win = torch.nn.functional.pad(w_in.reshape(L, K, 2, G // 2), (0, pad))
+    win = win.reshape(L, K, 2, N, gn).permute(3, 0, 4, 2, 1)
+    # w_out[l, j gn + i, n] -> [j, l, i, n]
+    wout = torch.nn.functional.pad(w_out, (0, 0, 0, pad))
+    wout = wout.reshape(L, N, gn, C + S).transpose(0, 1)
+    bg = torch.nn.functional.pad(b_g.reshape(L, 2, G // 2), (0, pad))
+    bg = bg.reshape(L, 2, N, gn).permute(2, 0, 1, 3).reshape(N, L, 2 * gn)
+    first = {"x": 0, "tap": C, "cond": 2 * C}  # each segment's first row
+    tiles = []
+    for seg, a0, na, b0, nb, n in generic_tiles(C, S, K - 2 * C, plan):
+        if seg == "out":
+            t = wout[:, :, b0:b0 + nb, a0:a0 + na]
+        else:
+            r0 = first[seg] + b0
+            t = win[:, :, a0:a0 + na, :, r0:r0 + nb]
+            t = torch.nn.functional.pad(t, (0, n // (2 * na) - nb))
+        t = t.reshape(N, L, -1)
+        if not plan["whole"]:
+            t = torch.nn.functional.pad(t, (0, ue - t.shape[-1]))
+        tiles.append(t)
+    w = torch.cat(tiles, dim=2)
+    if plan["whole"]:
+        w = torch.nn.functional.pad(w, (0, ue - w.shape[-1]))
+    return {"w": w.contiguous(), "b_g": bg.contiguous()}
+
+
 def queue_offsets(dilations: Sequence[int]) -> list:
     """First queue slot of each layer in the packed (sum(d), ...) queue."""
     return np.cumsum([0, *dilations])[:-1].tolist()
@@ -387,6 +562,11 @@ def ar_sample(cond: torch.Tensor, noise: torch.Tensor, weights: dict, *,
                                             n_mixtures, head, log_scale_min,
                                             temperature)
         _device_call("pwn_ar_sample_generic", cond.device, *args)
+    elif body == "block":
+        args, held = ar_block_launch_args(cond, noise, weights, dilations,
+                                          n_mixtures, head, log_scale_min,
+                                          temperature)
+        _device_call("pwn_ar_sample_block", cond.device, *args)
     else:
         args, held = ar_launch_args(cond, noise, weights, dilations,
                                     n_mixtures, head, log_scale_min,
@@ -400,8 +580,51 @@ def ar_sample(cond: torch.Tensor, noise: torch.Tensor, weights: dict, *,
 def ar_generic_launch_args(cond, noise, weights: dict,
                            dilations: Sequence[int], n_mixtures: int,
                            head: str, log_scale_min: float,
-                           temperature: float):
+                           temperature: float,
+                           wav_ranks: torch.Tensor | None = None):
     """The arguments of the library's `pwn_ar_sample_generic` but the
+    stream, for arguments `check_ar_args` passed, and the tensors they
+    point into that the caller must hold until the launch: (wav (B, T),
+    the packed weights (`pack_ar_generic` for `generic_ar_plan`'s plan at
+    these weights' type), the (2, L) int32 dilations and queue offsets on
+    the card (d + 1 slots a layer), the zeroed queues (rows of round8(C)
+    floats), the plan's ints).
+    `wav_ranks` (AR_GEN_RANKS, B, T) is written by a PWN_AR_SAMPLER_CHECK
+    build only."""
+    B, T, M = cond.shape
+    L, _, G = weights["w_in"].shape
+    C = weights["front_k"].shape[-1]
+    S = weights["head1_k"].shape[0]
+    hd = head_width(n_mixtures, head)
+    plan = generic_ar_plan(C, G, S, M, hd, L, weights["w_in"].element_size())
+    packed = pack_ar_generic(weights, plan)
+    slots = [d + 1 for d in dilations]
+    dil = torch.tensor([*dilations, *queue_offsets(slots)],
+                       dtype=torch.int32).to(cond.device)
+    queue = torch.zeros((B, sum(slots), _round(C, 8)), dtype=torch.float32,
+                        device=cond.device)
+    wav = torch.empty((B, T), dtype=torch.float32, device=cond.device)
+    ints = (ctypes.c_int * len(_GEN_PLAN_KEYS))(
+        *(plan[k] for k in _GEN_PLAN_KEYS))
+    args = (cond.data_ptr(), noise.data_ptr(),
+            weights["front_k"].data_ptr(), weights["front_b"].data_ptr(),
+            packed["w"].data_ptr(), packed["b_g"].data_ptr(),
+            *(weights[n].data_ptr() for n in (
+                "b_rs", "head1_k", "head1_b", "head2_k", "head2_b")),
+            dil.data_ptr(), queue.data_ptr(), wav.data_ptr(),
+            None if wav_ranks is None else wav_ranks.data_ptr(),
+            B, T, L, C, G, S, M, hd, n_mixtures, int(head == "gaussian"),
+            sum(slots), ints, float(log_scale_min), float(temperature),
+            int(weights["w_in"].dtype == torch.bfloat16),
+            int(cond.dtype == torch.bfloat16))
+    return args, (wav, packed, dil, queue, ints)
+
+
+def ar_block_launch_args(cond, noise, weights: dict,
+                         dilations: Sequence[int], n_mixtures: int,
+                         head: str, log_scale_min: float,
+                         temperature: float):
+    """The arguments of the library's `pwn_ar_sample_block` but the
     stream, for arguments `check_ar_args` passed, and the tensors they
     point into that the caller must hold until the launch: (wav (B, T),
     the (2, L) int32 dilations and queue offsets on the card, the zeroed
@@ -474,9 +697,13 @@ def ar_geometry(weights: dict, *, n_mixtures: int, head: str,
     batch rows and `ranks` blocks a cluster, `stages` of its weight ring,
     `smem` bytes of dynamic shared memory a block, and `clusters`, how
     many of its clusters the card holds at once (a larger batch runs in
-    waves).  The general body has no cluster and no ring: one block of
-    `threads` threads a row (rows 1, ranks 1, stages 0), and `blocks`, how
-    many of them the card holds at once, in place of `clusters`."""
+    waves).  The general body ("generic") is one row a cluster of
+    AR_GEN_RANKS; it adds "plan", `generic_ar_plan`'s plan at these
+    weights' type (whether a layer moves whole, the taps and the head
+    held).  The one-block body ("block") has no cluster and no ring: one
+    block of `threads` threads a row (rows 1, ranks 1, stages 0), and
+    `blocks`, how many of them the card holds at once, in place of
+    `clusters`."""
     from pwn_tpu_torch.ops import _build
 
     L, K, G = weights["w_in"].shape
@@ -487,22 +714,33 @@ def ar_geometry(weights: dict, *, n_mixtures: int, head: str,
     lib = _build.load_library()
     types = (int(weights["w_in"].dtype == torch.bfloat16),
              int(cond_dtype == torch.bfloat16))
-    if body == "generic":
+    extra = {}
+    if body == "block":
         out = (ctypes.c_int * 3)()
-        err = lib.pwn_ar_sample_generic_geometry(
+        err = lib.pwn_ar_sample_block_geometry(
             C, G, S, M, HD, n_mixtures, int(head == "gaussian"), *types, out)
         geo = {"rows": 1, "ranks": 1, "stages": 0, "smem": out[1],
                "blocks": out[2], "threads": out[0]}
     else:
         out = (ctypes.c_int * 5)()
-        err = lib.pwn_ar_sample_geometry(
-            L, C, G, S, M, HD, n_mixtures, int(head == "gaussian"), *types,
-            ar_ranks(C, G, S, M), out)
+        if body == "generic":
+            plan = generic_ar_plan(C, G, S, M, HD, L,
+                                   weights["w_in"].element_size())
+            ints = (ctypes.c_int * len(_GEN_PLAN_KEYS))(
+                *(plan[k] for k in _GEN_PLAN_KEYS))
+            err = lib.pwn_ar_sample_generic_geometry(
+                L, C, G, S, M, HD, n_mixtures, int(head == "gaussian"),
+                *types, ints, out)
+            extra = {"plan": plan}
+        else:
+            err = lib.pwn_ar_sample_geometry(
+                L, C, G, S, M, HD, n_mixtures, int(head == "gaussian"),
+                *types, ar_ranks(C, G, S, M), out)
         geo = dict(zip(("rows", "ranks", "stages", "smem", "clusters"), out))
     if err:
         raise RuntimeError("the AR geometry query failed: "
                            + lib.pwn_cuda_error_string(err).decode())
-    return {"body": body, **geo}
+    return {"body": body, **geo, **extra}
 
 
 ar_sample.launches = 0

@@ -32,20 +32,29 @@ from pwn_tpu_torch.models import sampling
 from pwn_tpu_torch.models.modules import DTYPES
 from pwn_tpu_torch.models.teacher import TeacherWaveNet, init_teacher
 from pwn_tpu_torch.ops.flow_stack import SMEM_PER_BLOCK
-from pwn_tpu_torch.ops.ar_sampler import (AR_KERNEL_DIMS, AR_MAX_LAYERS,
-                                          AR_MAX_MIXTURES, AR_WIDE_DIMS,
-                                          ar_body, ar_geometry, ar_sample,
-                                          ar_sample_reference, check_ar_args,
-                                          generic_ar_limits,
-                                          generic_ar_smem_bytes, head_width,
-                                          stack_teacher_weights)
+from pwn_tpu_torch.ops.ar_sampler import (AR_GEN_RANKS, AR_KERNEL_DIMS,
+                                          AR_MAX_LAYERS, AR_MAX_MIXTURES,
+                                          AR_WIDE_DIMS, ar_body, ar_geometry,
+                                          ar_sample, ar_sample_reference,
+                                          block_ar_smem_bytes, check_ar_args,
+                                          generic_ar_limits, generic_ar_plan,
+                                          generic_ar_smem_bytes, generic_tiles,
+                                          head_width, pack_ar_generic,
+                                          queue_offsets, stack_teacher_weights)
+from pwn_tpu_torch.ops.gaussian import sample_from_normals
+from pwn_tpu_torch.ops.mol import mol_sample_from_uniforms
 from pwn_tpu_torch.utils.audio_io import read_wav
 from torch_parity import jax_config
 
 TINY = get_config("tiny_teacher")
-# (C, G, S, M) whose general-body shared memory, with the Gaussian head
-# (HD = 2), is exactly SMEM_PER_BLOCK: 1 + 2C + M + 1 + 3 + 2 + (C + 1)
+# (C, G, S, M) whose one-block shared memory, with the Gaussian head
+# (HD = 2), is exactly SMEM_PER_BLOCK: 1 + 2C + M + 1 + 3 + 2 + (C + 1); no
+# plan of the cluster body fits there (its exchange buffer alone, 2 x 8 x
+# C floats, is 1.2 MB), so the one-block body ("block") takes it
 AT_SMEM_LIMIT = (19_000, 2, 1, SMEM_PER_BLOCK // 4 - 8 - 3 * 19_000)
+# the CLI's unbuilt width, and one whose 45 z values do not split over the
+# 8 ranks (padded to 48)
+CLI_DIMS, PADDED_DIMS = (96, 192, 96, 80), (40, 90, 40, 80)
 PIN = 25.0
 HEAD2_SCALE = 0.1
 TOL = 1e-4  # two fp32 backends (tests/test_ar_pallas.py)
@@ -65,6 +74,7 @@ OFF_GRID = {
     "C=48 gaussian": (_widths(48, 96, 48), "gaussian"),
     "C=96": (_widths(96, 192, 96), "mol"),
     "C=96 gaussian": (_widths(96, 192, 96), "gaussian"),
+    "C=40, 45 z values over 8 ranks": (_widths(40, 90, 40), "mol"),
     "teacher_lj widths, M=40": (_widths(128, 256, 128), "mol"),
     "K=16": ({"teacher.n_mixtures": 16}, "mol"),
     "70 layers": ({"teacher.n_blocks": 14}, "mol"),
@@ -128,18 +138,21 @@ def _one_torch_thread():
     ((96, 192, 96, 80), 24, 10, "mol", "generic"),
     ((48, 96, 48, 40), 10, 10, "gaussian", "generic"),
     ((5, 34, 3, 7), 3, 1, "mol", "generic"),
+    ((128, 60_000, 128, 80), 24, 10, "mol", "generic"),
+    (AT_SMEM_LIMIT, 2, 0, "gaussian", "block"),
 ])
 def test_ar_body_routes_by_widths_layers_and_mixtures(dims, L, K, head, want):
     """The built widths keep their bodies within AR_MAX_LAYERS layers and
     AR_MAX_MIXTURES mixtures (any for the Gaussian head); every other
-    teacher goes to the general body."""
+    teacher goes to the general cluster body, or, where no plan of it fits
+    a block (max(C, S) past ~3,400), to the one-block body."""
     assert ar_body(*dims, L, K, head) == want
 
 
 @pytest.mark.parametrize("dims,K,head", [
     ((128, 256, 128, 80), 0, "mol"),       # no mixture
     ((128, 255, 128, 80), 10, "mol"),      # odd G
-    ((128, 60_000, 128, 80), 10, "mol"),   # past the shared memory
+    ((128, 600_000, 128, 80), 10, "mol"),  # past the shared memory
     ((128, 256, 128, 80), 20_000, "mol"),  # a head past it
 ])
 def test_past_generic_ar_limits_raises(dims, K, head):
@@ -151,21 +164,233 @@ def test_past_generic_ar_limits_raises(dims, K, head):
 
 
 def test_generic_ar_smem_counts_the_floats():
-    """At teacher_lj's widths with K = 10 the block holds the fed-back
-    sample, [x | tap | cond] 336, z 128, skip and the head's two S-vectors
-    384, the output 30 and 4,096 floats of partials; the wide teacher's
-    partials are bounded by the same 4,096 floats (G = 512).  All of it is
-    dynamic, so widths of exactly SMEM_PER_BLOCK bytes pass the limit."""
-    assert generic_ar_smem_bytes(128, 256, 128, 80, 30) == 4 * (
+    """The cluster body at the CLI's (96, 192, 96, 80), 24 layers, K = 10,
+    bf16: the barriers 144 B; fp32 the exchange 2 x 8 x 96, x 96, cond 80,
+    the tap-and-cond sums 2 x 12, z 2 x 12, skip partials, bias sums,
+    relu(skip) and hidden 4 x 96, the head's output 32 (30 rounded to 4),
+    the fed-back sample 4; the taps 24 x 96 floats, the head's weights 96 x
+    126 bf16, each layer's dilation, offset and slots 4 ints, 4 stages of
+    a whole layer (8,832 weights).  The one-block
+    body holds the fed-back sample, [x | tap | cond] 336, z 128, skip and
+    the head's two S-vectors 384, the output 30 and 4,096 floats of
+    partials at teacher_lj's widths; all of it dynamic, so widths of
+    exactly SMEM_PER_BLOCK bytes pass the limit there."""
+    plan = generic_ar_plan(*CLI_DIMS, 30, 24, 2)
+    assert (plan["gn"], plan["whole"], plan["ue"], plan["stages"],
+            plan["taps"], plan["head"]) == (12, 1, 8832, 4, 1, 1)
+    assert generic_ar_smem_bytes(*CLI_DIMS, 30, 24, 2) == (
+        144 + 4 * (2 * 8 * 96 + 96 + 80 + 24 + 2 * 12 + 4 * 96 + 32 + 4)
+        + 4 * 24 * 96 + 16 * 24 + 2 * 96 * 126 + 4 * 8832 * 2) == 113_312
+    assert block_ar_smem_bytes(128, 256, 128, 80, 30) == 4 * (
         1 + 336 + 128 + 384 + 30 + 4096)
-    assert generic_ar_smem_bytes(256, 512, 256, 80, 30) == 4 * (
+    assert block_ar_smem_bytes(256, 512, 256, 80, 30) == 4 * (
         1 + 592 + 256 + 768 + 30 + 4096)
-    assert generic_ar_smem_bytes(8192, 2, 1, 1, 2) == 4 * (
+    assert block_ar_smem_bytes(8192, 2, 1, 1, 2) == 4 * (
         1 + 16_385 + 1 + 3 + 2 + 8193)
-    assert generic_ar_smem_bytes(*AT_SMEM_LIMIT, 2) == SMEM_PER_BLOCK
+    assert block_ar_smem_bytes(*AT_SMEM_LIMIT, 2) == SMEM_PER_BLOCK
+    assert generic_ar_plan(*AT_SMEM_LIMIT, 2, 2, 4) is None
     assert generic_ar_limits(*AT_SMEM_LIMIT, 2) is None
     C, G, S, M = AT_SMEM_LIMIT
     assert generic_ar_limits(C, G, S, M + 1, 2) is not None
+
+
+@pytest.mark.parametrize("dims,L,wb,whole", [
+    (CLI_DIMS, 24, 2, 1), (PADDED_DIMS, 24, 2, 1), ((5, 34, 3, 7), 3, 4, 1),
+    (AR_WIDE_DIMS, 24, 4, 0), ((128, 256, 128, 80), 600, 2, 1),
+])
+def test_generic_plan_fits_a_block(dims, L, wb, whole):
+    """Every plan's shared memory is within SMEM_PER_BLOCK with a ring of 2
+    to 8 stages; a layer moves whole where two stages of it fit (the wide
+    teacher's 54,272 fp32 weights a rank do not: 8 KB tiles); 600 layers'
+    taps (307 KB) are not held; the tiles fill their units."""
+    C, G, S, M = dims
+    plan = generic_ar_plan(C, G, S, M, 30, L, wb)
+    assert plan["smem"] <= SMEM_PER_BLOCK and 2 <= plan["stages"] <= 8
+    assert plan["whole"] == whole and plan["taps"] == (L * C * 4 < 200_000)
+    sizes = [n for *_, n in generic_tiles(C, S, M, plan)]
+    if whole:
+        assert sum(sizes) <= plan["ue"] and plan["units"] == 1
+    else:
+        assert max(sizes) <= plan["ue"] and plan["units"] == len(sizes)
+    assert plan["ue"] * wb % 16 == 0
+
+
+def _unpack(packed: dict, plan: dict, C: int, G: int, S: int, M: int, L: int):
+    """`pack_ar_generic`'s inverse: (w_in, w_out, b_g) in
+    `stack_teacher_weights`' layout, and whether every padded place (z
+    values past G/2, the units' tails) holds zero."""
+    N, gn, ue = AR_GEN_RANKS, plan["gn"], plan["ue"]
+    GH, K, NO = G // 2, 2 * C + M, C + S
+    w = packed["w"].reshape(N, L, plan["units"], ue)
+    win = torch.zeros(N, L, gn, 2, K, dtype=w.dtype)
+    wout = torch.zeros(N, L, gn, NO, dtype=w.dtype)
+    off, u, zero = 0, 0, True
+    for seg, a0, na, b0, nb, n in generic_tiles(C, S, M, plan):
+        flat = w[:, :, u].reshape(N, L, ue)
+        t = flat[..., off:off + n]
+        if seg == "out":
+            wout[:, :, b0:b0 + nb, a0:a0 + na] = t.reshape(N, L, nb, na)
+        else:
+            t = t.reshape(N, L, na, 2, n // (2 * na))
+            r0 = b0 + {"x": 0, "tap": C, "cond": 2 * C}[seg]
+            win[:, :, a0:a0 + na, :, r0:r0 + nb] = t[..., :nb]
+            zero &= bool((t[..., nb:] == 0).all())
+        if plan["whole"]:
+            off += n
+        else:
+            zero &= bool((flat[..., n:] == 0).all())
+            u += 1
+    if plan["whole"]:
+        zero &= bool((w[..., 0, off:] == 0).all())
+    win = win.permute(1, 4, 3, 0, 2).reshape(L, K, 2, N * gn)
+    wout = wout.transpose(0, 1).reshape(L, N * gn, NO)
+    bg = packed["b_g"].reshape(N, L, 2, gn).permute(1, 2, 0, 3)
+    bg = bg.reshape(L, 2, N * gn)
+    zero &= bool((win[..., GH:] == 0).all() and (wout[:, GH:] == 0).all()
+                 and (bg[..., GH:] == 0).all())
+    return (win[..., :GH].reshape(L, K, G), wout[:, :GH],
+            bg[..., :GH].reshape(L, G), zero)
+
+
+@pytest.mark.parametrize("dims,wdtype", [
+    (CLI_DIMS, torch.bfloat16), (PADDED_DIMS, torch.bfloat16),
+    (PADDED_DIMS, torch.float32), (AR_WIDE_DIMS, torch.float32)])
+def test_pack_ar_generic_round_trips(dims, wdtype):
+    """The cluster body's packing at the CLI's widths, at 45 z values over 8
+    ranks (padded to 48) and at the wide teacher's in fp32 (8 KB tiles):
+    each tile unpacked by `generic_tiles` gives back `stack_teacher_weights`'
+    w_in, w_out and b_g exactly, and every padded place is zero."""
+    C, G, S, M = dims
+    cfg = _config({**_widths(C, G, S), "teacher.n_blocks": 1,
+                   "teacher.layers_per_block": 3}, "mol")
+    cfg = override(cfg, "dsp.n_mels", M)
+    weights = stack_teacher_weights(
+        init_teacher(cfg, torch.Generator().manual_seed(5),
+                     device="cpu").stack, wdtype)
+    L = cfg.teacher.n_layers
+    plan = generic_ar_plan(C, G, S, M, 30, L, weights["w_in"].element_size())
+    packed = pack_ar_generic(weights, plan)
+    assert packed["w"].shape == (AR_GEN_RANKS, L, plan["units"] * plan["ue"])
+    assert plan["gn"] == -(-G // 2 // AR_GEN_RANKS)
+    win, wout, bg, zero = _unpack(packed, plan, C, G, S, M, L)
+    assert torch.equal(win, weights["w_in"]) and torch.equal(
+        wout, weights["w_out"]) and torch.equal(bg, weights["b_g"])
+    assert zero
+
+
+def _emulate_generic(cond, noise, weights, dilations, n_mixtures, head,
+                     log_scale_min, plan, taps_held):
+    """The cluster body's arithmetic in plain torch over its packed layout:
+    per rank, the gate columns from its tiles in the kernel's walk order
+    (the tap-and-cond sums, then the x sums, then the biases), its out
+    partials, summed over the ranks in rank order; the queues of d + 1
+    slots a layer, the tap read from slot (t + 1) % (d + 1) or, held,
+    refilled a step ahead from x (d = 1) or slot (t + 2) % (d + 1)."""
+    B, T, _ = cond.shape
+    w = {k: v.float() for k, v in weights.items()}
+    L, K, G = w["w_in"].shape
+    C, S = w["front_k"].shape[-1], w["head1_k"].shape[0]
+    M, NO, N = K - 2 * C, C + S, AR_GEN_RANKS
+    packed = pack_ar_generic(weights, plan)
+    run = packed["w"].float().reshape(N, L, plan["units"], plan["ue"])
+    bgr = packed["b_g"].reshape(N, L, 2, plan["gn"])
+    slots = [d + 1 for d in dilations]
+    offs = queue_offsets(slots)
+    queue = torch.zeros(sum(slots), B, C)
+    taps = torch.zeros(L, B, C)
+    x_prev = torch.zeros(B, 1)
+    wav = torch.empty(T, B)
+    for t in range(T):
+        x = x_prev * w["front_k"] + w["front_b"]
+        skip = torch.zeros(B, S)
+        for l, d in enumerate(dilations):
+            tap = taps[l] if taps_held else queue[offs[l] + (t + 1) % (d + 1)]
+            if not taps_held or d > 1:
+                queue[offs[l] + t % (d + 1)] = x
+            parts = []
+            for j in range(N):
+                sums = {"tc": torch.zeros(B, plan["gn"], 2),
+                        "x": torch.zeros(B, plan["gn"], 2)}
+                part = torch.zeros(B, NO)
+                z = None
+                off, u = 0, 0
+                for seg, a0, na, b0, nb, n in generic_tiles(C, S, M, plan):
+                    if seg == "out" and z is None:
+                        g = (bgr[j, l].T[None] + sums["tc"]) + sums["x"]
+                        z = torch.tanh(g[..., 0]) * torch.sigmoid(g[..., 1])
+                    tl = run[j, l, u, off:off + n]
+                    off, u = (off + n, u) if plan["whole"] else (0, u + 1)
+                    if seg == "out":
+                        part[:, a0:a0 + na] += z[:, b0:b0 + nb] @ tl.reshape(
+                            nb, na)
+                    else:
+                        src = {"tap": tap, "cond": cond[:, t].float(),
+                               "x": x}[seg]
+                        sums["x" if seg == "x" else "tc"][:, a0:a0 + na] += (
+                            torch.einsum("bk,zhk->bzh", src[:, b0:b0 + nb],
+                                         tl.reshape(na, 2, -1)[..., :nb]))
+                parts.append(part)
+            total = parts[0]
+            for part in parts[1:]:
+                total = total + part
+            if taps_held:
+                taps[l] = x if d == 1 else queue[offs[l] + (t + 2) % (d + 1)]
+            x = x + (w["b_rs"][l, :C] + total[:, :C])
+            skip = skip + (w["b_rs"][l, C:] + total[:, C:])
+        h = torch.relu(skip)
+        h = torch.relu(h @ w["head1_k"] + w["head1_b"])
+        p = h @ w["head2_k"] + w["head2_b"]
+        x_t = (sample_from_normals(p, noise[t, :, 0], log_scale_min, 1.0)
+               if head == "gaussian" else
+               mol_sample_from_uniforms(p, noise[t], log_scale_min, 1.0))
+        wav[t] = x_t
+        x_prev = x_t[:, None]
+    return wav.T
+
+
+@pytest.mark.parametrize("case", ["padded, held taps", "padded, slot taps",
+                                  "two passes, tiles", "gaussian, tiles"])
+def test_generic_walk_matches_the_plain_version(case):
+    """The cluster body's packing, tile walk, padded z values, per-rank
+    partials summed in rank order and queues of d + 1 slots (held taps and
+    taps read from their slots), emulated in plain torch, against
+    `ar_sample_reference` in fp32: (40, 90, 40) with 45 z values over 8
+    ranks in whole-layer units; (24, 640, 280) with 40 z values a rank
+    (passes of 16, 16 and 8) and 304 outputs (two passes of 256) in tiles of at most
+    512 weights (whose k-blocks and row blocks split every segment)."""
+    if case.startswith("padded"):
+        cfg = _config({**_widths(40, 90, 40), "teacher.n_blocks": 2,
+                       "teacher.layers_per_block": 3}, "mol")
+    else:
+        cfg = _config({**_widths(24, 640, 280), "teacher.n_blocks": 1,
+                       "teacher.layers_per_block": 3},
+                      "gaussian" if case.startswith("gaussian") else "mol")
+    tc = cfg.teacher
+    C, G, S, M = _dims(cfg)
+    hd = head_width(tc.n_mixtures, tc.output)
+    model = init_teacher(cfg, torch.Generator().manual_seed(7), device="cpu")
+    with torch.no_grad():
+        model.stack.head2.kernel.mul_(HEAD2_SCALE)
+        if tc.output == "mol":
+            model.stack.head2.bias[0] += PIN
+    weights = stack_teacher_weights(model.stack, torch.float32)
+    plan = generic_ar_plan(C, G, S, M, hd, tc.n_layers, 4)
+    if "tiles" in case:
+        gn = plan["gn"]
+        plan = {**plan, "whole": 0, "ue": 512, "kb_tc": 8, "kb_x": 8, "rb": 2}
+        plan["units"] = sum(1 for _ in generic_tiles(C, S, M, plan))
+        assert gn == 40 and C + S > 256
+    rng = np.random.default_rng(8)
+    B, T = 2, 16
+    cond = torch.from_numpy((rng.standard_normal((B, T, M)) * 0.5)
+                            .astype(np.float32))
+    noise = torch.from_numpy(_noise(cfg, rng, T, B))
+    kw = _kw(cfg)
+    want = ar_sample_reference(cond, noise, weights, **kw)
+    got = _emulate_generic(cond, noise, weights, tc.dilations,
+                           tc.n_mixtures, tc.output, tc.log_scale_min, plan,
+                           taps_held=case != "padded, slot taps")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=TOL)
 
 
 def test_check_ar_args_takes_any_width_and_names_the_body():
@@ -386,11 +611,14 @@ def test_generic_rows_are_isolated_on_card(cuda):
 
 
 @pytest.mark.gpu
-def test_generic_batch_above_the_sm_count_on_card(cuda):
-    """More rows than SMs run in waves; each row is the same bits as when
-    it runs alone (one block a row, nothing shared)."""
+def test_generic_batch_above_the_clusters_that_fit_on_card(cuda):
+    """More rows than the card's clusters run in waves; each row is the
+    same bits as when it runs alone (a cluster a row, nothing shared)."""
     cfg = _config(_widths(48, 96, 48), "mol")
-    B = torch.cuda.get_device_properties(cuda).multi_processor_count + 9
+    cond, noise, weights = _card_case(cfg, cuda, 1, 8)
+    geo = ar_geometry(weights, n_mixtures=cfg.teacher.n_mixtures, head="mol",
+                      cond_dtype=cond.dtype)
+    B = geo["clusters"] + 9
     cond, noise, weights = _card_case(cfg, cuda, B, 100)
     out = ar_sample(cond, noise, weights, **_kw(cfg))
     _assert_rows_close(out, ar_sample_reference(cond, noise, weights,
@@ -404,25 +632,28 @@ def test_generic_batch_above_the_sm_count_on_card(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.float32])
 def test_generic_geometry_on_card(cuda, wdtype):
-    """The library's shared memory is `generic_ar_smem_bytes`' mirror, one
-    block of 512 threads a row, and the card holds one block an SM at
-    least."""
+    """The library's shared memory is `generic_ar_smem_bytes`' mirror for
+    `generic_ar_plan`'s plan, one row a cluster of AR_GEN_RANKS blocks,
+    the plan's stages, and the card holds a cluster at least."""
     cfg = _config({**_widths(96, 192, 96), "teacher.n_mixtures": 16}, "mol")
     weights = stack_teacher_weights(TeacherWaveNet(cfg).stack, wdtype)
     geo = ar_geometry({k: v.to(cuda) for k, v in weights.items()},
                       n_mixtures=16, head="mol", cond_dtype=torch.bfloat16)
-    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert geo["body"] == "generic" and geo["threads"] == 512
-    assert geo["smem"] == generic_ar_smem_bytes(96, 192, 96, 40, 48)
-    assert geo["blocks"] >= n_sm and (geo["rows"], geo["ranks"]) == (1, 1)
-    assert "clusters" not in geo
+    L, wb = cfg.teacher.n_layers, weights["w_in"].element_size()
+    assert geo["body"] == "generic"
+    assert (geo["rows"], geo["ranks"]) == (1, AR_GEN_RANKS)
+    assert geo["smem"] == generic_ar_smem_bytes(96, 192, 96, 40, 48, L, wb)
+    assert geo["stages"] == generic_ar_plan(96, 192, 96, 40, 48, L,
+                                            wb)["stages"]
+    assert geo["clusters"] >= 1 and "blocks" not in geo
 
 
 @pytest.mark.gpu
 def test_generic_body_at_the_shared_memory_limit_on_card(cuda):
-    """Widths whose shared memory is exactly SMEM_PER_BLOCK (the card's
-    opt-in maximum) launch and match the plain version; one mel more
-    raises ValueError before any launch."""
+    """Widths whose one-block shared memory is exactly SMEM_PER_BLOCK (the
+    card's opt-in maximum), past every plan of the cluster body, run the
+    one-block body and match the plain version; one mel more raises
+    ValueError before any launch."""
     C, G, S, M = AT_SMEM_LIMIT
     cfg = _config({**_widths(C, G, S), "teacher.n_blocks": 1,
                    "teacher.layers_per_block": 2}, "gaussian")
@@ -430,10 +661,10 @@ def test_generic_body_at_the_shared_memory_limit_on_card(cuda):
     cond, noise, weights = _card_case(cfg, cuda, 1, 8, wdtype="float32")
     geo = ar_geometry(weights, n_mixtures=cfg.teacher.n_mixtures,
                       head="gaussian", cond_dtype=cond.dtype)
-    assert geo["body"] == "generic" and geo["smem"] == SMEM_PER_BLOCK
-    n = ar_sample.launches_by["generic"]
+    assert geo["body"] == "block" and geo["smem"] == SMEM_PER_BLOCK
+    n = ar_sample.launches_by["block"]
     out = ar_sample(cond, noise, weights, **_kw(cfg))
-    assert ar_sample.launches_by["generic"] == n + 1
+    assert ar_sample.launches_by["block"] == n + 1
     _assert_rows_close(out, ar_sample_reference(cond, noise, weights,
                                                 **_kw(cfg)))
     wider = {**weights, "w_in": torch.cat(
@@ -441,7 +672,65 @@ def test_generic_body_at_the_shared_memory_limit_on_card(cuda):
     cond = torch.cat([cond, cond[..., :1]], -1)
     with pytest.raises(ValueError, match="generic_ar_limits"):
         ar_sample(cond, noise, wider, **_kw(cfg))
-    assert ar_sample.launches_by["generic"] == n + 1
+    assert ar_sample.launches_by["block"] == n + 1
+
+
+def _cluster_edge():
+    """The widest C (G = 2, S = 1, M = 40, Gaussian head) with a plan of
+    the cluster body."""
+    lo, hi = 1, 20_000
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = ((mid, hi) if generic_ar_plan(mid, 2, 1, 40, 2, 2, 4)
+                  else (lo, mid))
+    return lo
+
+
+def test_the_cluster_body_ends_where_its_exchange_fills_a_block():
+    """Past the widest C with a cluster plan (3,380 residual channels at
+    G = 2, S = 1, M = 40: the exchange buffer 2 x 8 x 3,380 floats, 216,320
+    B of the block's 232,448) the route is the one-block body, picked on
+    the widths alone."""
+    C = _cluster_edge()
+    assert C == 3380
+    assert ar_body(C, 2, 1, 40, 2, 0, "gaussian") == "generic"
+    assert ar_body(C + 1, 2, 1, 40, 2, 0, "gaussian") == "block"
+
+
+@pytest.mark.gpu
+def test_generic_body_at_the_cluster_limit_on_card(cuda):
+    """At the widest C with a cluster plan the cluster body launches
+    within SMEM_PER_BLOCK and matches the plain version; one residual
+    channel more runs the one-block body."""
+    C = _cluster_edge()
+    for c, body in ((C, "generic"), (C + 1, "block")):
+        cfg = _config({**_widths(c, 2, 1), "teacher.n_blocks": 1,
+                       "teacher.layers_per_block": 2}, "gaussian")
+        cond, noise, weights = _card_case(cfg, cuda, 1, 8, wdtype="float32")
+        geo = ar_geometry(weights, n_mixtures=cfg.teacher.n_mixtures,
+                          head="gaussian", cond_dtype=cond.dtype)
+        assert geo["body"] == body and geo["smem"] <= SMEM_PER_BLOCK
+        n = ar_sample.launches_by[body]
+        out = ar_sample(cond, noise, weights, **_kw(cfg))
+        assert ar_sample.launches_by[body] == n + 1
+        _assert_rows_close(out, ar_sample_reference(cond, noise, weights,
+                                                    **_kw(cfg)))
+
+
+@pytest.mark.gpu
+def test_generic_taps_from_the_queue_on_card(cuda):
+    """600 layers at (96, 192, 96): their taps do not fit a block, so the
+    tap products read the queue slots (d + 1 a layer); W_out scaled by
+    0.2 and the head's last 1x1 by 0.1, as chip_smoke.py's case, keep the
+    deep random-init loop from chaos."""
+    cfg = _config({**_widths(96, 192, 96), "teacher.n_blocks": 120}, "mol")
+    cond, noise, weights = _card_case(cfg, cuda, 2, 64, head2=HEAD2_SCALE)
+    weights["w_out"] = (weights["w_out"] * 0.2).contiguous()
+    geo = ar_geometry(weights, n_mixtures=cfg.teacher.n_mixtures, head="mol",
+                      cond_dtype=cond.dtype)
+    assert geo["body"] == "generic" and not geo["plan"]["taps"]
+    _assert_rows_close(ar_sample(cond, noise, weights, **_kw(cfg)),
+                       ar_sample_reference(cond, noise, weights, **_kw(cfg)))
 
 
 @pytest.mark.gpu

@@ -537,7 +537,7 @@ def test_kernel_rejects_other_widths(cuda):
     n = ar_sampler.ar_sample.launches_by["generic"]
     _assert_kernel_matches_plain(cfg, cond, noise, weights)
     assert ar_sampler.ar_sample.launches_by["generic"] == n + 1
-    G = 60_000  # z, g's partials and the rows past a block's shared memory
+    G = 240_000  # z and the tap-and-cond sums past a block's shared memory
     assert ar_sampler.generic_ar_limits(32, G, 64, 40, 30)
     big = {k: torch.zeros(v.shape[:-1] + (G,) if k in ("w_in", "b_g")
                           else (v.shape[0], G // 2, v.shape[2])

@@ -182,7 +182,7 @@ def test_ar_kernel_takes_the_wide_widths():
     assert ar_body(128, 512, 128, 80, tc.n_layers, tc.n_mixtures) == \
         "generic"
     with pytest.raises(ValueError, match="general AR body"):
-        ar_body(256, 80_000, 256, 80, tc.n_layers, tc.n_mixtures)
+        ar_body(256, 800_000, 256, 80, tc.n_layers, tc.n_mixtures)
 
 
 @pytest.mark.parametrize("flag", ["auto", "mega", "mega_train", "mega_dx",
