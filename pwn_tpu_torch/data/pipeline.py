@@ -27,6 +27,9 @@ import numpy as np
 
 from pwn_tpu_torch.config import Config
 from pwn_tpu_torch.utils.audio_io import read_wav
+from pwn_tpu_torch.utils.profiling import span
+
+_DONE = object()   # the end of the prefetched iterator
 
 
 def default_cache_bytes() -> int:
@@ -311,7 +314,9 @@ def prefetch(
 ) -> Iterator[object]:
     """Background-thread prefetch: overlap host batch assembly and
     host->device transfer with the device step (replaces the reference's
-    ZMQ prefetch + FIFOQueue pair)."""
+    ZMQ prefetch + FIFOQueue pair).  Under a profiler the worker records
+    span `feed.produce` around each batch's assembly, transfer and queueing,
+    and the consumer `train.feed` around its wait for the next batch."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
 
@@ -328,12 +333,13 @@ def prefetch(
         return False
 
     def worker():
+        items = iter(iterator)
         try:
-            for item in iterator:
-                if stop.is_set():
-                    return
-                if not _put(put(item)):
-                    return
+            while not stop.is_set():
+                with span("feed.produce"):
+                    item = next(items, _DONE)
+                    if item is _DONE or not _put(put(item)):
+                        return
         except Exception as e:  # surface loader errors in the main thread
             _put(e)
 
@@ -341,7 +347,8 @@ def prefetch(
     th.start()
     try:
         while True:
-            item = q.get()
+            with span("train.feed"):
+                item = q.get()
             if isinstance(item, Exception):
                 raise item
             yield item

@@ -28,6 +28,7 @@ from pwn_tpu_torch.models.teacher import TeacherWaveNet
 from pwn_tpu_torch.parallel.sp import sp_mega_geometry
 from pwn_tpu_torch.utils import dsp
 from pwn_tpu_torch.utils.platform import require_cuda
+from pwn_tpu_torch.utils.profiling import count, span
 
 
 def mel_from_wav(cfg: Config, wav: np.ndarray, device=None) -> torch.Tensor:
@@ -160,6 +161,12 @@ def vocode_many(cfg: Config, model: StudentIAF, mels: Sequence,
 
     mels: (F_i, n_mels) or (1, F_i, n_mels) arrays.  Returns a list of
     (T_i,) float32 numpy waveforms, in order.
+
+    Under a profiler it records, per group, the spans `vocode.cond`,
+    `vocode.readback` and `vocode.deemphasis`, and counts
+    `vocode.samples_computed` (rows times bucket samples, pad rows
+    included) and `vocode.samples_useful` (the group's true lengths)
+    (`utils/profiling.py`).
     """
     device = _model_device(model)
     hop = cfg.dsp.hop_length
@@ -193,24 +200,31 @@ def vocode_many(cfg: Config, model: StudentIAF, mels: Sequence,
         for at in range(0, len(idxs), batch_size):
             group = idxs[at: at + batch_size]
             rows = group + [group[-1]] * (batch_size - len(group))
-            if all(items[i].shape[0] >= W for i in group):
-                cond = up(np.stack([
-                    np.pad(items[i], ((0, fb - items[i].shape[0]), (0, 0)))
-                    for i in rows]))
-                tails = up(np.stack([items[i][-W:] for i in rows]))
-                for row, i in enumerate(rows):
-                    T_i = items[i].shape[0] * hop
-                    cond[row, T_i - S: T_i] = tails[row, -S:]
-            else:
-                cond = torch.cat([
-                    F.pad(up(items[i][None]),
-                          (0, 0, 0, Tb - items[i].shape[0] * hop))
-                    for i in rows])
+            with span("vocode.cond"):
+                if all(items[i].shape[0] >= W for i in group):
+                    cond = up(np.stack([
+                        np.pad(items[i], ((0, fb - items[i].shape[0]), (0, 0)))
+                        for i in rows]))
+                    tails = up(np.stack([items[i][-W:] for i in rows]))
+                    for row, i in enumerate(rows):
+                        T_i = items[i].shape[0] * hop
+                        cond[row, T_i - S: T_i] = tails[row, -S:]
+                else:
+                    cond = torch.cat([
+                        F.pad(up(items[i][None]),
+                              (0, 0, 0, Tb - items[i].shape[0] * hop))
+                        for i in rows])
             zb = torch.stack([noise(i, Tb) for i in rows]) * temperature
-            wav = model.flows_from_z(zb, cond).cpu().numpy()
-            wav = _host_deemphasis(wav, cfg.dsp.preemphasis)
-            for row, i in enumerate(group):
-                out[i] = wav[row, : items[i].shape[0] * hop]
+            wav = model.flows_from_z(zb, cond)
+            with span("vocode.readback"):
+                wav = wav.cpu().numpy()
+            with span("vocode.deemphasis"):
+                wav = _host_deemphasis(wav, cfg.dsp.preemphasis)
+            lengths = [items[i].shape[0] * hop for i in group]
+            count("vocode.samples_computed", len(rows) * Tb)
+            count("vocode.samples_useful", sum(lengths))
+            for i, T_i, w in zip(group, lengths, wav):
+                out[i] = w[:T_i]
     return out
 
 

@@ -36,6 +36,7 @@ import torch.distributed as dist
 
 from pwn_tpu_torch.config import TrainConfig
 from pwn_tpu_torch.parallel.mesh import process_index
+from pwn_tpu_torch.utils.profiling import span
 
 EPS = 1e-8
 
@@ -210,3 +211,26 @@ def average_across_processes(
         out.append(flat[i:i + g.numel()].view_as(g).to(g.dtype))
         i += g.numel()
     return out, {k: flat[i + j] for j, k in enumerate(names)}
+
+
+def gradient_update(state: TrainState, loss: torch.Tensor,
+                    metrics: Dict[str, torch.Tensor], ema_decay: float,
+                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """The part every train step shares after its loss: the gradients of
+    `loss` by `state.trainable()` (span `train.backward`), averaged with
+    the detached metrics across processes (`train.reduce`), their global
+    norm as `grad_norm` (`train.norm`), the clipped Adam update
+    (`train.update`) and, where `ema_decay` > 0, the EMA (`train.ema`)."""
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, state.trainable())
+    with span("train.reduce"):
+        grads, metrics = average_across_processes(
+            list(grads), {k: v.detach() for k, v in metrics.items()})
+    with span("train.norm"):
+        metrics["grad_norm"] = global_norm(grads)
+    with span("train.update"):
+        state = state.apply_gradients(grads)
+    if ema_decay > 0:
+        with span("train.ema"):
+            state = update_ema(state, ema_decay)
+    return state, metrics

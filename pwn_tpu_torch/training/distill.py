@@ -40,12 +40,11 @@ from pwn_tpu_torch.models.modules import match_length
 from pwn_tpu_torch.models.student import StudentIAF, sample_base_noise
 from pwn_tpu_torch.models.teacher import TeacherWaveNet
 from pwn_tpu_torch.ops import gaussian, mol
-from pwn_tpu_torch.training.common import (TrainState,
-                                           average_across_processes,
-                                           global_norm, step_generator,
-                                           update_ema)
+from pwn_tpu_torch.training.common import (TrainState, gradient_update,
+                                           step_generator)
 from pwn_tpu_torch.training.teacher import prepare_batch
 from pwn_tpu_torch.utils import dsp
+from pwn_tpu_torch.utils.profiling import span
 
 
 def spectral_power_loss(x_s: torch.Tensor, x_ref: torch.Tensor,
@@ -201,20 +200,16 @@ def make_distill_train_step(student: StudentIAF, teacher: TeacherWaveNet,
 
     def train_step(state: TrainState, wav: torch.Tensor,
                    z: Optional[Sequence[torch.Tensor]] = None):
-        x_ref, mel = prepare_batch(wav, cfg)
-        gen = (None if z is not None
-               else step_generator(state.seed, state.step, wav.device))
-        loss, metrics = distillation_losses(student, teacher, x_ref, mel,
-                                            cfg, generator=gen, z=z,
-                                            step=state.step)
-        grads = torch.autograd.grad(loss, state.trainable())
-        grads, metrics = average_across_processes(
-            list(grads), {k: v.detach() for k, v in metrics.items()})
-        metrics["grad_norm"] = global_norm(grads)
-        state = state.apply_gradients(grads)
-        if cfg.train.ema_decay > 0:
-            state = update_ema(state, cfg.train.ema_decay)
-        return state, metrics
+        with span("train.step"):
+            with span("train.prepare"):
+                x_ref, mel = prepare_batch(wav, cfg)
+            with span("train.forward"):
+                gen = (None if z is not None else
+                       step_generator(state.seed, state.step, wav.device))
+                loss, metrics = distillation_losses(
+                    student, teacher, x_ref, mel, cfg, generator=gen, z=z,
+                    step=state.step)
+            return gradient_update(state, loss, metrics, cfg.train.ema_decay)
 
     return train_step
 

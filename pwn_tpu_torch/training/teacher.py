@@ -19,10 +19,9 @@ import torch
 
 from pwn_tpu_torch.config import Config
 from pwn_tpu_torch.models.teacher import TeacherWaveNet
-from pwn_tpu_torch.training.common import (TrainState,
-                                           average_across_processes,
-                                           global_norm, update_ema)
+from pwn_tpu_torch.training.common import TrainState, gradient_update
 from pwn_tpu_torch.utils import dsp
+from pwn_tpu_torch.utils.profiling import span
 
 
 def prepare_batch(wav: torch.Tensor,
@@ -44,16 +43,13 @@ def make_teacher_train_step(model: TeacherWaveNet, cfg: Config):
     there, `TrainState.apply_gradients`)."""
 
     def train_step(state: TrainState, wav: torch.Tensor):
-        x, mel = prepare_batch(wav, cfg)
-        loss = model.loss(x, mel)
-        grads = torch.autograd.grad(loss, state.trainable())
-        grads, metrics = average_across_processes(list(grads),
-                                                  {"loss": loss.detach()})
-        metrics["grad_norm"] = global_norm(grads)
-        state = state.apply_gradients(grads)
-        if cfg.train.ema_decay > 0:
-            state = update_ema(state, cfg.train.ema_decay)
-        return state, metrics
+        with span("train.step"):
+            with span("train.prepare"):
+                x, mel = prepare_batch(wav, cfg)
+            with span("train.forward"):
+                loss = model.loss(x, mel)
+            return gradient_update(state, loss, {"loss": loss},
+                                   cfg.train.ema_decay)
 
     return train_step
 

@@ -432,8 +432,8 @@ def test_data_engines_that_run_the_iterator(engine):
 
 def test_step_profiler_and_debug_flags(tmp_path, monkeypatch):
     """PWN_TPU_PROFILE_DIR: a Chrome trace of steps 10..15, written when
-    step 15 starts; unset, nothing.  PWN_TPU_DEBUG turns on autograd's
-    anomaly detection."""
+    step 15 starts, with the program's spans in it; unset, nothing.
+    PWN_TPU_DEBUG turns on autograd's anomaly detection."""
     from pwn_tpu_torch.utils import profiling
 
     monkeypatch.delenv(profiling.PROFILE_DIR_ENV, raising=False)
@@ -446,7 +446,7 @@ def test_step_profiler_and_debug_flags(tmp_path, monkeypatch):
     x = torch.ones(8)
     for step in range(16):
         prof.step(step)
-        with profiling.trace_annotation(f"step_{step}"):
+        with profiling.span(f"step_{step}"):
             x = x * 1.5
         assert not os.listdir(tmp_path) or step == 15
     prof.close()
