@@ -162,10 +162,22 @@ def vocode_many(cfg: Config, model: StudentIAF, mels: Sequence,
     mels: (F_i, n_mels) or (1, F_i, n_mels) arrays.  Returns a list of
     (T_i,) float32 numpy waveforms, in order.
 
+    The groups run as a two-deep pipeline: group n+1's conditioning and
+    flows are enqueued before group n is read back and deemphasized, so
+    the host filters one group while the card computes the next.  On a
+    card nothing in enqueueing a group waits on it: the uploads go
+    through pinned memory, and a group's readback copies into pinned
+    memory on a side stream once an event marks its flows done, then
+    waits on that copy alone.  A model on the CPU runs the same loop with
+    plain copies.
+
     Under a profiler it records, per group, the spans `vocode.cond`,
-    `vocode.readback` and `vocode.deemphasis`, and counts
-    `vocode.samples_computed` (rows times bucket samples, pad rows
-    included) and `vocode.samples_useful` (the group's true lengths)
+    `vocode.readback` and `vocode.deemphasis` (in the order cond(1),
+    cond(2), readback(1), deemphasis(1), cond(3), readback(2), ...), and
+    counts `vocode.samples_computed` (rows times bucket samples, pad rows
+    included), `vocode.samples_useful` (the group's true lengths),
+    `vocode.groups` and `vocode.groups_overlapped` (the groups read back
+    after the next group's flows were enqueued: all but a call's last)
     (`utils/profiling.py`).
     """
     device = _model_device(model)
@@ -181,50 +193,92 @@ def vocode_many(cfg: Config, model: StudentIAF, mels: Sequence,
         fb = -(-m.shape[0] // bucket_frames) * bucket_frames
         buckets.setdefault(fb, []).append(i)
 
+    coef = cfg.dsp.preemphasis
+    cuda = device.type == "cuda"
+    copier = torch.cuda.Stream(device) if cuda else None
+
+    def upload(a: np.ndarray) -> torch.Tensor:
+        t = torch.as_tensor(a)
+        return t.pin_memory().to(device, non_blocking=True) if cuda \
+            else t.to(device)
+
     def noise(i: int, Tb: int) -> torch.Tensor:
         if z is None:
             return sample_base_noise(cfg, item_generator(seed, i, device),
                                      (Tb,))
-        zi = torch.as_tensor(np.asarray(z[i], np.float32)[:Tb], device=device)
+        zi = upload(np.asarray(z[i], np.float32)[:Tb])
         if zi.shape[0] < items[i].shape[0] * hop:
             raise ValueError(f"z[{i}] is shorter than item {i}")
         return F.pad(zi, (0, Tb - zi.shape[0]))
 
     def up(mel: np.ndarray) -> torch.Tensor:
-        return model.upsample_cond(torch.as_tensor(mel, device=device))
+        return model.upsample_cond(upload(mel))
+
+    def launch(fb: int, group: list) -> tuple:
+        """Enqueue a group's conditioning, noise and flows: (group, the
+        flows' output, an event after them on a card)."""
+        Tb = fb * hop
+        rows = group + [group[-1]] * (batch_size - len(group))
+        with span("vocode.cond"):
+            if all(items[i].shape[0] >= W for i in group):
+                cond = up(np.stack([
+                    np.pad(items[i], ((0, fb - items[i].shape[0]), (0, 0)))
+                    for i in rows]))
+                tails = up(np.stack([items[i][-W:] for i in rows]))
+                for row, i in enumerate(rows):
+                    T_i = items[i].shape[0] * hop
+                    cond[row, T_i - S: T_i] = tails[row, -S:]
+            else:
+                cond = torch.cat([
+                    F.pad(up(items[i][None]),
+                          (0, 0, 0, Tb - items[i].shape[0] * hop))
+                    for i in rows])
+        zb = torch.stack([noise(i, Tb) for i in rows]) * temperature
+        wav = model.flows_from_z(zb, cond)
+        done = torch.cuda.current_stream(device).record_event() if cuda \
+            else None
+        return group, wav, done
+
+    def finish(group: list, wav: torch.Tensor, done, overlapped: bool):
+        """Read a launched group back, deemphasize it and keep its items'
+        waveforms.  `wav` is held until its copy has landed."""
+        with span("vocode.readback"):
+            if cuda:
+                with torch.cuda.stream(copier):
+                    copier.wait_event(done)
+                    host = torch.empty(wav.shape, dtype=wav.dtype,
+                                       pin_memory=True)
+                    host.copy_(wav, non_blocking=True)
+                    copied = copier.record_event()
+                copied.synchronize()
+            else:
+                host = wav
+            host = host.numpy()
+        with span("vocode.deemphasis"):
+            got = _host_deemphasis(host, coef)
+            if np.may_share_memory(got, host):
+                # no filter (coef 0): the outputs must own their samples
+                got = got.copy()
+        lengths = [items[i].shape[0] * hop for i in group]
+        count("vocode.samples_computed", batch_size * wav.shape[1])
+        count("vocode.samples_useful", sum(lengths))
+        count("vocode.groups")
+        if overlapped:
+            count("vocode.groups_overlapped")
+        for i, T_i, w in zip(group, lengths, got):
+            out[i] = w[:T_i]
 
     out: list = [None] * len(items)
+    pending = None
     for fb in sorted(buckets):
         idxs = buckets[fb]
-        Tb = fb * hop
         for at in range(0, len(idxs), batch_size):
-            group = idxs[at: at + batch_size]
-            rows = group + [group[-1]] * (batch_size - len(group))
-            with span("vocode.cond"):
-                if all(items[i].shape[0] >= W for i in group):
-                    cond = up(np.stack([
-                        np.pad(items[i], ((0, fb - items[i].shape[0]), (0, 0)))
-                        for i in rows]))
-                    tails = up(np.stack([items[i][-W:] for i in rows]))
-                    for row, i in enumerate(rows):
-                        T_i = items[i].shape[0] * hop
-                        cond[row, T_i - S: T_i] = tails[row, -S:]
-                else:
-                    cond = torch.cat([
-                        F.pad(up(items[i][None]),
-                              (0, 0, 0, Tb - items[i].shape[0] * hop))
-                        for i in rows])
-            zb = torch.stack([noise(i, Tb) for i in rows]) * temperature
-            wav = model.flows_from_z(zb, cond)
-            with span("vocode.readback"):
-                wav = wav.cpu().numpy()
-            with span("vocode.deemphasis"):
-                wav = _host_deemphasis(wav, cfg.dsp.preemphasis)
-            lengths = [items[i].shape[0] * hop for i in group]
-            count("vocode.samples_computed", len(rows) * Tb)
-            count("vocode.samples_useful", sum(lengths))
-            for i, T_i, w in zip(group, lengths, wav):
-                out[i] = w[:T_i]
+            launched = launch(fb, idxs[at: at + batch_size])
+            if pending is not None:
+                finish(*pending, overlapped=True)
+            pending = launched
+    if pending is not None:
+        finish(*pending, overlapped=False)
     return out
 
 

@@ -37,6 +37,7 @@ from torch_parity import SMALL_STUDENT
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from perfbench import core  # noqa: E402
 from perfbench import spans as join  # noqa: E402
 from perfbench.trace import Trace  # noqa: E402
 
@@ -173,9 +174,11 @@ def test_a_span_contains_its_ops_kineto_interval():
 
 
 def test_vocode_many_records_each_group_and_counts_its_samples():
-    """A ragged job over three buckets at batch 2: a group's `vocode.cond`,
-    `vocode.readback` and `vocode.deemphasis` in order, once a group, and
-    the counters equal to the bucket arithmetic."""
+    """A ragged job over three buckets at batch 2: `vocode.cond`,
+    `vocode.readback` and `vocode.deemphasis` once a group, in the
+    pipeline's order (group n+1's conditioning before group n's readback
+    and deemphasis), and the counters equal to the bucket arithmetic:
+    every group counted, all but the last read back overlapped."""
     cfg = _tiny()
     model = init_student(cfg, torch.Generator().manual_seed(0),
                          device="cpu").eval()
@@ -198,11 +201,32 @@ def test_vocode_many_records_each_group_and_counts_its_samples():
     assert rec.counts == {
         "vocode.samples_computed":
             sum(-(-n // batch) * batch * fb * hop for fb, n in sizes.items()),
-        "vocode.samples_useful": sum(frames) * hop}
-    assert _names(rec) == ["vocode.cond", "vocode.readback",
-                           "vocode.deemphasis"] * groups
+        "vocode.samples_useful": sum(frames) * hop,
+        "vocode.groups": 4, "vocode.groups_overlapped": 3}
+    assert _names(rec) == (
+        ["vocode.cond"]
+        + ["vocode.cond", "vocode.readback", "vocode.deemphasis"]
+        * (groups - 1)
+        + ["vocode.readback", "vocode.deemphasis"])
     for a, b in zip(rec.spans, rec.spans[1:]):
         assert a.end_ns <= b.start_ns
+
+
+@pytest.mark.parametrize("frames,batch,share", [
+    ([20], 2, 0.0), ([20, 21, 22], 2, 50.0), ([20, 21, 22, 23, 24], 1, 80.0)])
+def test_overlapped_groups_reads_the_pipelines_counters(frames, batch, share):
+    """`vocode.overlapped_groups` is the share of a call's groups read back
+    after the next group was enqueued: all but the last; nothing where the
+    program counted no group."""
+    cfg = _tiny()
+    model = init_student(cfg, torch.Generator().manual_seed(0),
+                         device="cpu").eval()
+    mels = [np.full((f, cfg.dsp.n_mels), 0.5, np.float32) for f in frames]
+    read = core.metric_reader("vocode.overlapped_groups")
+    assert read(None) is None
+    with _cpu_profiler():
+        vocode_many(cfg, model, mels, batch_size=batch, bucket_frames=32)
+    assert read(None) == share
 
 
 def _teacher_step(cfg):
